@@ -8,9 +8,10 @@ kernel, a CPU tensor runs the kernel's plain PyTorch version. The JAX package
 is the reference each module is tested against; this package never imports
 it or jax.
 
-Ported slice: CodeFuse-13B (GPT-NeoX, parallel residual) with weight-only
-int8 and an int8 KV cache, served through ``GptNeoXEngine.generate`` and the
-static path of ``api.handler.CodeFuseHandler.predict``.
+Ported slices: CodeFuse-13B (GPT-NeoX, parallel residual) with weight-only
+int8, or int4 weights (per-channel or group-wise scales), and an int8 KV
+cache, served through ``GptNeoXEngine.generate`` and the static path of
+``api.handler.CodeFuseHandler.predict``.
 """
 
 from .core.config import GptNeoXConfig, RuntimeConfig

@@ -36,14 +36,6 @@ constexpr int FD_THREADS = 128;
 constexpr int FD_BS = FD_THREADS;  // positions per chunk: one per thread
 constexpr int FD_PG = FD_THREADS / 32;  // position groups in the PV phase
 
-__device__ __forceinline__ void bf16x2_to_f32(uint32_t u, float* f) {
-  __nv_bfloat162 h;
-  memcpy(&h, &u, sizeof(h));
-  const float2 v = __bfloat1622float2(h);
-  f[0] = v.x;
-  f[1] = v.y;
-}
-
 // 16 consecutive cache values as floats (one 16-byte int8 load, or two bf16).
 template <bool QUANT>
 __device__ __forceinline__ void load16(const void* base, size_t off, float* f) {

@@ -10,6 +10,17 @@ namespace ftcf {
 // Activation codes; ops/linear.py ACT_CODES holds the same table.
 enum Act { ACT_NONE = 0, ACT_GELU = 1, ACT_GELU_TANH = 2, ACT_RELU = 3, ACT_SILU = 4 };
 
+// Weight formats: int8 [K, N]; int4 [K/2, N] (row pairs packed along K) with
+// fp32 per-channel scales; the same int4 payload with bf16 [K/G, N] group
+// scales.
+enum WFmt { W_I8 = 0, W_I4 = 1, W_I4G = 2 };
+
+// K rows held by one byte row of the weight.
+template <int FMT>
+struct KPack {
+  static constexpr int value = FMT == W_I8 ? 1 : 2;
+};
+
 __device__ __forceinline__ float apply_act(float y, int act) {
   switch (act) {
     case ACT_GELU:
@@ -37,6 +48,29 @@ __device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
     const uint32_t bits = __byte_perm(x, 0x4B000000u, 0x7540u | i);
     f[i] = __uint_as_float(bits) - 8388736.0f;
   }
+}
+
+// Eight signed int4 packed in a word, two a byte: the low nibble of byte i is
+// the even K row of column i, the high nibble the odd one. Out: lo[i] and
+// hi[i], i = 0..3, exact floats. Biasing by 8 (xor 0x8 per nibble) makes each
+// nibble unsigned, two mask/shift ops split the nibbles into bytes, and the
+// int8 trick above (byte permute into the mantissa of 2^23) with 2^23 + 8
+// subtracted gives the value back.
+__device__ __forceinline__ void i4x8_to_f32(uint32_t w, float* lo, float* hi) {
+  const uint32_t u = w ^ 0x88888888u;
+  const uint32_t l = u & 0x0F0F0F0Fu;
+  const uint32_t h = (u >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lo[i] = __uint_as_float(__byte_perm(l, 0x4B000000u, 0x7540u | i)) - 8388616.0f;
+    hi[i] = __uint_as_float(__byte_perm(h, 0x4B000000u, 0x7540u | i)) - 8388616.0f;
+  }
+}
+
+// Two bf16 in a word (the first in the low half) -> two floats.
+__device__ __forceinline__ void bf16x2_to_f32(uint32_t w, float* f) {
+  f[0] = __uint_as_float(w << 16);
+  f[1] = __uint_as_float(w & 0xFFFF0000u);
 }
 
 __device__ __forceinline__ float load_bias(const void* bias, int bias_bf16, int n) {

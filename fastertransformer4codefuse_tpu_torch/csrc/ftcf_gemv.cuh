@@ -1,22 +1,30 @@
-// Weight-streaming int8 GEMV machinery shared by K1's decode path
-// (quant_matmul.cu) and the fused decode kernels K2/K3 (quant_matmul_fused.cu).
+// Weight-streaming GEMV machinery shared by the decode paths of K1
+// (quant_matmul.cu), K6/K7/K8 (quant_matmul_w4.cu) and the fused decode
+// kernels K2/K3 (quant_matmul_fused.cu).
 //
 // out[m, n] = act(sum_seg (x_seg[m, :] @ W_seg[:, n]) * s_seg[n] + bias[n])
 //             + residual[m, n]
 //
-// At decode widths (M <= 32) the whole cost is streaming the int8 weight from
-// device memory once: K*N bytes at 3.35 TB/s on an H100 SXM, against M*K*N
-// multiply-adds. Design:
+// At decode widths (M <= 32) the whole cost is streaming the weight from
+// device memory once: K*N bytes for int8, K*N/2 for int4, at 3.35 TB/s on an
+// H100 SXM, against M*K*N multiply-adds. Design:
 //  - a block owns 128 output columns and one K range ("split") of one segment;
-//    each of its 256 threads loads 16 contiguous int8 weights along N per row
-//    (one 16-byte load; 8 threads cover a 128-byte line, a warp 4 rows) and
-//    keeps MT x 16 fp32 sums;
+//    each of its 256 threads loads 16 contiguous weight bytes along N per
+//    byte row (one 16-byte load; 8 threads cover a 128-byte line, a warp 4
+//    rows) and keeps MT x 16 fp32 sums. An int8 byte row is one K row; an
+//    int4 byte row holds two (the low nibbles the even row, the high nibbles
+//    the odd one), so each int4 load feeds two x values per row of sums and
+//    split boundaries fall on even K;
+//  - group-wise int4 (W_I4G) multiplies each dequantized weight by its
+//    group's bf16 scale before the FMA (one 32-byte scale load per weight
+//    load; a byte row pair never straddles a group since G is even), so the
+//    splits need not align with groups and the epilogue applies no scale;
 //  - the x rows of the block's K range sit in shared memory as fp32;
 //  - there are enough splits that the grid holds about four blocks per SM
 //    (the H100 needs ~2 MB in flight to cover memory latency); each split's
 //    sums go to an fp32 workspace, and a second small kernel adds the splits
 //    in a fixed order (deterministic, no atomics), applies per-segment
-//    scales, bias, activation and residual, and writes bf16;
+//    scales, bias, activation and residual, and writes bf16 or fp32;
 //  - a block keeps MT = min(M, 4) rows of sums (M = 3 pads to 4); more than
 //    4 rows take more blocks along grid z, which re-read the weight (decode
 //    batches of the slice are 1-4 rows).
@@ -33,29 +41,36 @@ constexpr int GEMV_COLS = 128;  // 8 column threads x 16 columns
 constexpr int GEMV_MT = 4;      // rows of x per block
 
 struct GemvSeg {
-  const __nv_bfloat16* x;  // [M, K] row-major
-  const int8_t* w;         // [K, N] row-major
-  const float* scale;      // [N]
+  const __nv_bfloat16* x;       // [M, K] row-major
+  const int8_t* w;              // [K, N] int8 or [K/2, N] packed int4, row-major
+  const float* scale;           // [N] per-channel (nullptr with group scales)
+  const __nv_bfloat16* gscale;  // [K/G, N] group scales (W_I4G only)
   int K;
+  int G;
   int splits;
 };
 
-template <int MT>
+template <int MT, int FMT>
 static __global__ void __launch_bounds__(GEMV_THREADS)
 gemv_partial_kernel(GemvSeg s1, GemvSeg s2, int M, int N, int chunk_stride,
                     float* __restrict__ ws) {
+  constexpr int PACK = KPack<FMT>::value;
   extern __shared__ float smem[];
   const int split = blockIdx.y;
   const bool second = split >= s1.splits;
   const __nv_bfloat16* __restrict__ x = second ? s2.x : s1.x;
   const int8_t* __restrict__ w = second ? s2.w : s1.w;
+  const __nv_bfloat16* __restrict__ gs = second ? s2.gscale : s1.gscale;
   const int K = second ? s2.K : s1.K;
+  const int G = second ? s2.G : s1.G;
   const int nsplit = second ? s2.splits : s1.splits;
   const int s = second ? split - s1.splits : split;
-  const int chunk = (K + nsplit - 1) / nsplit;
-  const int k0 = s * chunk;
-  const int k1 = min(K, k0 + chunk);
-  const int klen = max(k1 - k0, 0);
+  const int rows = K / PACK;                      // weight byte rows
+  const int chunk = (rows + nsplit - 1) / nsplit;  // byte rows per split
+  const int r0 = s * chunk;
+  const int r1 = min(rows, r0 + chunk);
+  const int k0 = r0 * PACK;
+  const int klen = max(r1 - r0, 0) * PACK;
   const int m0 = blockIdx.z * MT;
   const int tid = threadIdx.x;
 
@@ -79,22 +94,55 @@ gemv_partial_kernel(GemvSeg s1, GemvSeg s2, int M, int N, int chunk_stride,
     for (int j = 0; j < 16; ++j) acc[m][j] = 0.0f;
 
   if (n0 < N) {
-    const int8_t* wp = w + (size_t)(k0 + kl) * N + n0;
+    const int8_t* wp = w + (size_t)(r0 + kl) * N + n0;
     const size_t wstep = (size_t)32 * N;
 #pragma unroll 4
-    for (int k = k0 + kl; k < k1; k += 32, wp += wstep) {
+    for (int r = r0 + kl; r < r1; r += 32, wp += wstep) {
       const uint4 q = __ldg(reinterpret_cast<const uint4*>(wp));
-      float f[16];
-      i8x4_to_f32(q.x, f);
-      i8x4_to_f32(q.y, f + 4);
-      i8x4_to_f32(q.z, f + 8);
-      i8x4_to_f32(q.w, f + 12);
-      const float* xs = smem + (k - k0);
+      const float* xs = smem + (r - r0) * PACK;
+      if constexpr (FMT == W_I8) {
+        float f[16];
+        i8x4_to_f32(q.x, f);
+        i8x4_to_f32(q.y, f + 4);
+        i8x4_to_f32(q.z, f + 8);
+        i8x4_to_f32(q.w, f + 12);
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float xv = xs[m * chunk_stride];
+        for (int m = 0; m < MT; ++m) {
+          const float xv = xs[m * chunk_stride];
 #pragma unroll
-        for (int j = 0; j < 16; ++j) acc[m][j] = fmaf(xv, f[j], acc[m][j]);
+          for (int j = 0; j < 16; ++j) acc[m][j] = fmaf(xv, f[j], acc[m][j]);
+        }
+      } else {
+        float lo[16], hi[16];  // K rows 2r and 2r + 1
+        i4x8_to_f32(q.x, lo, hi);
+        i4x8_to_f32(q.y, lo + 4, hi + 4);
+        i4x8_to_f32(q.z, lo + 8, hi + 8);
+        i4x8_to_f32(q.w, lo + 12, hi + 12);
+        if constexpr (FMT == W_I4G) {
+          const uint4* sp =
+              reinterpret_cast<const uint4*>(gs + (size_t)(2 * r / G) * N + n0);
+          const uint4 sa = __ldg(sp), sb = __ldg(sp + 1);
+          float sc[16];
+          bf16x2_to_f32(sa.x, sc);
+          bf16x2_to_f32(sa.y, sc + 2);
+          bf16x2_to_f32(sa.z, sc + 4);
+          bf16x2_to_f32(sa.w, sc + 6);
+          bf16x2_to_f32(sb.x, sc + 8);
+          bf16x2_to_f32(sb.y, sc + 10);
+          bf16x2_to_f32(sb.z, sc + 12);
+          bf16x2_to_f32(sb.w, sc + 14);
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            lo[j] *= sc[j];
+            hi[j] *= sc[j];
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float xa = xs[m * chunk_stride], xb = xs[m * chunk_stride + 1];
+#pragma unroll
+          for (int j = 0; j < 16; ++j) acc[m][j] = fmaf(xb, hi[j], fmaf(xa, lo[j], acc[m][j]));
+        }
       }
     }
   }
@@ -128,58 +176,70 @@ gemv_partial_kernel(GemvSeg s1, GemvSeg s2, int M, int N, int chunk_stride,
   }
 }
 
+// Sums the splits in a fixed order, then scale (none for group scales), bias,
+// activation and residual; y is bf16, or fp32 with out_f32.
 static __global__ void gemv_epilogue_kernel(const float* __restrict__ ws, int splits1,
                                             int splits2, int M, int N,
                                             const float* __restrict__ scale1,
                                             const float* __restrict__ scale2, const void* bias,
                                             int bias_bf16, int act,
-                                            const __nv_bfloat16* __restrict__ residual,
-                                            __nv_bfloat16* __restrict__ y) {
+                                            const __nv_bfloat16* __restrict__ residual, void* y,
+                                            int out_f32) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)M * N) return;
   const int n = (int)(i % N);
   const size_t plane = (size_t)M * N;
   float a1 = 0.0f;
   for (int s = 0; s < splits1; ++s) a1 += ws[s * plane + i];
-  float v = a1 * scale1[n];
+  float v = scale1 != nullptr ? a1 * scale1[n] : a1;
   if (splits2 > 0) {
     float a2 = 0.0f;
     for (int s = splits1; s < splits1 + splits2; ++s) a2 += ws[s * plane + i];
-    v += a2 * scale2[n];
+    v += scale2 != nullptr ? a2 * scale2[n] : a2;
   }
   v = apply_act(v + load_bias(bias, bias_bf16, n), act);
   if (residual != nullptr) v += __bfloat162float(residual[i]);
-  y[i] = __float2bfloat16(v);
+  if (out_f32)
+    static_cast<float*>(y)[i] = v;
+  else
+    static_cast<__nv_bfloat16*>(y)[i] = __float2bfloat16(v);
 }
 
-// Rows of K that one split of a segment covers.
-static inline int gemv_chunk(const GemvSeg& s) { return s.splits ? (s.K + s.splits - 1) / s.splits : 0; }
+// x elements that one split of a segment covers (a whole number of byte rows).
+template <int FMT>
+static inline int gemv_chunk(const GemvSeg& s) {
+  constexpr int PACK = KPack<FMT>::value;
+  return s.splits ? PACK * ((s.K / PACK + s.splits - 1) / s.splits) : 0;
+}
 
-template <int MT>
+template <int MT, int FMT>
 static void launch_partial(GemvSeg s1, GemvSeg s2, int M, int N, int chunk, float* ws,
                            cudaStream_t stream) {
   const size_t smem = std::max((size_t)MT * chunk, (size_t)8 * MT * GEMV_COLS) * sizeof(float);
   const dim3 grid((N + GEMV_COLS - 1) / GEMV_COLS, s1.splits + s2.splits, (M + MT - 1) / MT);
-  gemv_partial_kernel<MT><<<grid, GEMV_THREADS, smem, stream>>>(s1, s2, M, N, chunk, ws);
+  gemv_partial_kernel<MT, FMT><<<grid, GEMV_THREADS, smem, stream>>>(s1, s2, M, N, chunk, ws);
 }
 
+// Both segments share one weight format FMT.
+template <int FMT>
 static cudaError_t launch_gemv(GemvSeg s1, GemvSeg s2, int M, int N, const void* bias,
-                               int bias_bf16, int act, const __nv_bfloat16* residual,
-                               __nv_bfloat16* y, float* ws, cudaStream_t stream) {
-  const int chunk = std::max(gemv_chunk(s1), gemv_chunk(s2));
+                               int bias_bf16, int act, const __nv_bfloat16* residual, void* y,
+                               int out_f32, float* ws, cudaStream_t stream) {
+  const int chunk = std::max(gemv_chunk<FMT>(s1), gemv_chunk<FMT>(s2));
   if ((size_t)GEMV_MT * chunk * sizeof(float) > 48 * 1024) return cudaErrorInvalidValue;
   // as many accumulator rows as x has, up to MT: no multiply-adds on padding
   if (M == 1)
-    launch_partial<1>(s1, s2, M, N, chunk, ws, stream);
+    launch_partial<1, FMT>(s1, s2, M, N, chunk, ws, stream);
   else if (M == 2)
-    launch_partial<2>(s1, s2, M, N, chunk, ws, stream);
+    launch_partial<2, FMT>(s1, s2, M, N, chunk, ws, stream);
   else
-    launch_partial<GEMV_MT>(s1, s2, M, N, chunk, ws, stream);
+    launch_partial<GEMV_MT, FMT>(s1, s2, M, N, chunk, ws, stream);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t total = (size_t)M * N;
   gemv_epilogue_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      ws, s1.splits, s2.splits, M, N, s1.scale, s2.scale, bias, bias_bf16, act, residual, y);
+      ws, s1.splits, s2.splits, M, N, s1.scale, s2.scale, bias, bias_bf16, act, residual, y,
+      out_f32);
   return cudaGetLastError();
 }
 

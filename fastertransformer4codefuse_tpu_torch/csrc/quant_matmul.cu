@@ -10,121 +10,10 @@
 // Two regimes on the H100:
 //  - decode widths (M <= 32) are bound by the K*N weight bytes: the
 //    weight-streaming GEMV of ftcf_gemv.cuh;
-//  - prefill widths are bound by the tensor cores: a tiled GEMM whose int8
-//    tile is converted to bf16 while it is stored to shared memory (exact,
-//    |q| <= 127 fits bf16's mantissa), then nvcuda::wmma bf16 16x16x16 with
-//    fp32 accumulation. One 128x128 tile per block, 8 warps of 32x64, BK = 32,
-//    the next tile's global loads issued before the current tile's MMAs.
-//    wgmma, TMA and a multi-stage pipeline are later work.
-#include <mma.h>
-
+//  - prefill widths are bound by the tensor cores: the wmma bf16 GEMM of
+//    ftcf_gemm.cuh, which converts the int8 tile to bf16 while staging it.
+#include "ftcf_gemm.cuh"
 #include "ftcf_gemv.cuh"
-
-namespace ftcf {
-
-constexpr int GB_M = 128, GB_N = 128, GB_K = 32;
-constexpr int GA_LD = GB_K + 8;   // bf16 elements; padded against bank conflicts
-constexpr int GB_LD = GB_N + 8;
-constexpr int GC_LD = 16 + 4;     // fp32 staging of one 16x16 fragment per warp
-
-__global__ void __launch_bounds__(256)
-qmm_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                const float* __restrict__ scale, const void* bias, int bias_bf16, int act,
-                __nv_bfloat16* __restrict__ y, int M, int N, int K) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 As[GB_M][GA_LD];
-  __shared__ __align__(32) __nv_bfloat16 Bs[GB_K][GB_LD];
-  __shared__ __align__(32) float Cs[8][16][GC_LD];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bm = blockIdx.y * GB_M, bn = blockIdx.x * GB_N;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  // A tile: 128 rows x 32 bf16 = 512 16-byte chunks, two per thread.
-  // B tile: 32 rows x 128 int8 = 256 16-byte chunks, one per thread.
-  uint4 a_reg[2], b_reg;
-  auto load_tiles = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * 256, r = idx >> 2, c = (idx & 3) * 8;
-      const int gm = bm + r, gk = k0 + c;
-      a_reg[i] = (gm < M && gk < K)
-                     ? *reinterpret_cast<const uint4*>(x + (size_t)gm * K + gk)
-                     : make_uint4(0, 0, 0, 0);
-    }
-    const int r = tid >> 3, c = (tid & 7) * 16;
-    const int gk = k0 + r, gn = bn + c;
-    b_reg = (gk < K && gn < N) ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)gk * N + gn))
-                               : make_uint4(0, 0, 0, 0);
-  };
-  auto store_tiles = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * 256, r = idx >> 2, c = (idx & 3) * 8;
-      *reinterpret_cast<uint4*>(&As[r][c]) = a_reg[i];
-    }
-    const int r = tid >> 3, c = (tid & 7) * 16;
-    float f[16];
-    i8x4_to_f32(b_reg.x, f);
-    i8x4_to_f32(b_reg.y, f + 4);
-    i8x4_to_f32(b_reg.z, f + 8);
-    i8x4_to_f32(b_reg.w, f + 12);
-    union {
-      __nv_bfloat162 h[8];
-      uint4 u[2];
-    } cvt;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) cvt.h[t] = __floats2bfloat162_rn(f[2 * t], f[2 * t + 1]);
-    *reinterpret_cast<uint4*>(&Bs[r][c]) = cvt.u[0];
-    *reinterpret_cast<uint4*>(&Bs[r][c + 8]) = cvt.u[1];
-  };
-
-  load_tiles(0);
-  for (int k0 = 0; k0 < K; k0 += GB_K) {
-    store_tiles();
-    __syncthreads();
-    if (k0 + GB_K < K) load_tiles(k0 + GB_K);
-#pragma unroll
-    for (int kk = 0; kk < GB_K; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(a[i], &As[wm + i * 16][kk], GA_LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::load_matrix_sync(b[j], &Bs[kk][wn + j * 16], GB_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(&Cs[warp][0][0], acc[i][j], GC_LD, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e >> 4, c = e & 15;
-        const int gm = bm + wm + i * 16 + r, gn = bn + wn + j * 16 + c;
-        if (gm < M && gn < N) {
-          const float v = Cs[warp][r][c] * scale[gn] + load_bias(bias, bias_bf16, gn);
-          y[(size_t)gm * N + gn] = __float2bfloat16(apply_act(v, act));
-        }
-      }
-      __syncwarp();
-    }
-}
-
-}  // namespace ftcf
 
 extern "C" {
 
@@ -133,21 +22,17 @@ int ftcf_quant_matmul_gemv(const void* x, const void* w, const float* scale, int
                            int splits, const void* bias, int bias_bf16, int act, void* y,
                            float* ws, void* stream) {
   ftcf::GemvSeg s1{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), scale,
-                   K, splits};
-  ftcf::GemvSeg s2{nullptr, nullptr, nullptr, 0, 0};
-  return (int)ftcf::launch_gemv(s1, s2, M, N, bias, bias_bf16, act, nullptr,
-                                static_cast<__nv_bfloat16*>(y), ws,
-                                static_cast<cudaStream_t>(stream));
+                   nullptr, K, 0, splits};
+  ftcf::GemvSeg s2{nullptr, nullptr, nullptr, nullptr, 0, 0, 0};
+  return (int)ftcf::launch_gemv<ftcf::W_I8>(s1, s2, M, N, bias, bias_bf16, act, nullptr, y, 0,
+                                            ws, static_cast<cudaStream_t>(stream));
 }
 
 // Prefill regime.
 int ftcf_quant_matmul_gemm(const void* x, const void* w, const float* scale, int M, int K, int N,
                            const void* bias, int bias_bf16, int act, void* y, void* stream) {
-  const dim3 grid((N + ftcf::GB_N - 1) / ftcf::GB_N, (M + ftcf::GB_M - 1) / ftcf::GB_M);
-  ftcf::qmm_gemm_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), scale, bias,
-      bias_bf16, act, static_cast<__nv_bfloat16*>(y), M, N, K);
-  return (int)cudaGetLastError();
+  return (int)ftcf::launch_gemm<ftcf::W_I8>(x, w, scale, nullptr, 0, M, K, N, bias, bias_bf16,
+                                            act, y, 0, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,0 +1,57 @@
+// K6, K7 and K8: W4A16 weight-only matmuls, y = act(x @ dequant(P) + b);
+// x bf16 [M, K], P int8 [K/2, N] holding signed int4 row pairs along K (row
+// 2i in the low nibble of byte row i, row 2i+1 in the high nibble), fp32
+// accumulation.
+//
+// Replaces fastertransformer4codefuse_tpu/ops/quant_matmul_w4.py:
+//  - K6 quant_matmul_w4_pallas_stacked: fp32 per-channel scales [N] applied
+//    in the epilogue, bias and activation after them, bf16 out;
+//  - K7 quant_matmul_w4_group_stacked: bf16 group scales [K/G, N] inside the
+//    contraction (an epilogue multiply would be wrong across groups), bias
+//    and activation in the epilogue, bf16 out;
+//  - K8 quant_matmul_w4_pallas, as the JAX package uses it for the int4 LM
+//    head [H/2, V_pad]: K6 with fp32 out and no bias.
+// On the TPU the packed tile is DMA'd to VMEM and unpacked by an int8 -> int4
+// bitcast before the MXU. On the H100 the decode widths (M <= 32) are bound by
+// the K*N/2 weight bytes: the weight-streaming GEMV of ftcf_gemv.cuh with an
+// int4 payload (each 16-byte load feeds 16 columns x 2 K rows; group scales
+// fold into the weight before the FMA). Prefill widths are bound by the
+// tensor cores: the wmma GEMM of ftcf_gemm.cuh, which unpacks the nibbles
+// while staging the weight tile as bf16 (group scales folded into the bf16
+// weight).
+#include "ftcf_gemm.cuh"
+#include "ftcf_gemv.cuh"
+
+extern "C" {
+
+// Decode regime. gscale == nullptr: per-channel scales in `scale` (K6, K8);
+// else group scales [K/G, N] and scale == nullptr (K7). ws holds splits * M *
+// N floats (allocated by the caller).
+int ftcf_quant_matmul_w4_gemv(const void* x, const void* w, const float* scale,
+                              const void* gscale, int G, int M, int K, int N, int splits,
+                              const void* bias, int bias_bf16, int act, void* y, int out_f32,
+                              float* ws, void* stream) {
+  ftcf::GemvSeg s1{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), scale,
+                   static_cast<const __nv_bfloat16*>(gscale), K, G, splits};
+  ftcf::GemvSeg s2{nullptr, nullptr, nullptr, nullptr, 0, 0, 0};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gscale != nullptr)
+    return (int)ftcf::launch_gemv<ftcf::W_I4G>(s1, s2, M, N, bias, bias_bf16, act, nullptr, y,
+                                               out_f32, ws, st);
+  return (int)ftcf::launch_gemv<ftcf::W_I4>(s1, s2, M, N, bias, bias_bf16, act, nullptr, y,
+                                            out_f32, ws, st);
+}
+
+// Prefill regime; the same operands.
+int ftcf_quant_matmul_w4_gemm(const void* x, const void* w, const float* scale,
+                              const void* gscale, int G, int M, int K, int N, const void* bias,
+                              int bias_bf16, int act, void* y, int out_f32, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gscale != nullptr)
+    return (int)ftcf::launch_gemm<ftcf::W_I4G>(x, w, nullptr, gscale, G, M, K, N, bias,
+                                               bias_bf16, act, y, out_f32, st);
+  return (int)ftcf::launch_gemm<ftcf::W_I4>(x, w, scale, nullptr, 0, M, K, N, bias, bias_bf16,
+                                            act, y, out_f32, st);
+}
+
+}  // extern "C"

@@ -9,10 +9,13 @@ views (``params.layer_slice``), which hands the kernels each layer's slice of
 the stacked weights and cache without a copy.
 
 Decode routing (the JAX ``_fused_upd_ok`` / ``_fused_pd_ok`` minus their TPU
-terms): a parallel-residual layer with per-channel int8 proj/up/down weights
-and biases runs its post-attention block through K2 when the activation is
-tanh-gelu, relu or silu, through K1 (up) + K3 (proj + down) otherwise; any
-other layer runs K1 GEMMs.
+terms): a parallel-residual layer whose proj/down (and, for K2, up) weights
+are per-channel quantized with one bit width (int8 or int4) and which has
+the biases runs its post-attention block through K2 when the activation is
+tanh-gelu, relu or silu, through the up GEMM + K3 (proj + down) otherwise.
+Any other layer, group-wise int4 included (the JAX gate measures G > 0 out of
+the fused kernels), runs unfused GEMMs: K1 (int8), K6 (int4) or K7 (int4
+group-wise).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from ..core.config import GptNeoXConfig
 from ..engine import kv_cache as kvc
 from ..ops.attention import make_prefill_mask, prefill_attention
 from ..ops.layernorm import layernorm, rmsnorm
-from ..ops.linear import linear
+from ..ops.linear import linear, quantized_matmul_transposed_head
 from ..ops.quant_matmul_fused import fused_proj_down, fused_up_proj_down
 from ..ops.rotary import apply_rotary, make_rotary_tables
 from .params import Params, QuantizedTensor, check_supported, layer_slice
@@ -44,16 +47,19 @@ def _addb(x, b):
     return x if b is None else x + b.to(x.dtype)
 
 
-def _int8_per_channel(w) -> bool:
-    return isinstance(w, QuantizedTensor) and w.bits == 8 and not w.group_size
+def _per_channel(ws) -> bool:
+    """Quantized kernels of one bit width, all with per-channel scales (G == 0)."""
+    return (
+        all(isinstance(w, QuantizedTensor) and not w.group_size for w in ws)
+        and len({w.bits for w in ws}) == 1
+    )
 
 
 def _fused_pd_ok(config: GptNeoXConfig, lp: Dict[str, Any]) -> bool:
     """proj + down + parallel residual + bias can run as K3."""
     return (
         config.use_gptj_residual
-        and _int8_per_channel(lp["proj_w"])
-        and _int8_per_channel(lp["down_w"])
+        and _per_channel([lp["proj_w"], lp["down_w"]])
         and "down_b" in lp
     )
 
@@ -64,7 +70,7 @@ def _fused_upd_ok(config: GptNeoXConfig, lp: Dict[str, Any]) -> bool:
     return (
         _fused_pd_ok(config, lp)
         and config.activation in FUSED_UPD_ACTS
-        and _int8_per_channel(lp["up_w"])
+        and _per_channel([lp["up_w"], lp["proj_w"]])
         and "up_b" in lp
     )
 
@@ -133,7 +139,7 @@ def block_decode(config, lp, x, cache, layer, cos, sin, positions):
         up, proj, down = lp["up_w"], lp["proj_w"], lp["down_w"]
         out = fused_up_proj_down(
             ln2, attn2d, x2d, up.q, proj.q, down.q, up.scale, proj.scale, down.scale,
-            lp["up_b"], lp["down_b"], act=config.activation,
+            lp["up_b"], lp["down_b"], act=config.activation, bits=proj.bits,
         )
         return out[:, None, :], cache
 
@@ -142,7 +148,7 @@ def block_decode(config, lp, x, cache, layer, cos, sin, positions):
         h = linear(ln2, lp["up_w"], lp.get("up_b"), act=config.activation)
         proj, down = lp["proj_w"], lp["down_w"]
         out = fused_proj_down(
-            attn2d, h, proj.q, down.q, proj.scale, down.scale, lp["down_b"], x2d
+            attn2d, h, proj.q, down.q, proj.scale, down.scale, lp["down_b"], x2d, bits=proj.bits
         )
         return out[:, None, :], cache
 
@@ -208,18 +214,21 @@ def final_norm(config: GptNeoXConfig, params: Params, hidden):
 
 
 def lm_logits(config: GptNeoXConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """fp32 logits against the [V, H] head (int8 with per-row scales, or
-    dense), padded vocab ids sliced off. A plain fp32 matmul, as the JAX
-    package leaves the int8 head to XLA."""
+    """fp32 logits, padded vocab ids sliced off. The transposed int4 head
+    [H/2, V_pad] (k_axis 0) goes to K8; the int8 [V, H] head with per-row
+    scales, or a dense head, is a plain fp32 matmul, as the JAX package
+    leaves it to XLA."""
     h = final_norm(config, params, hidden)
-    h2 = h.reshape(-1, h.shape[-1]).float()
+    h2 = h.reshape(-1, h.shape[-1])
     w = params["lm_head"]
-    if isinstance(w, QuantizedTensor):
-        if w.k_axis % w.q.ndim != 1 or w.bits != 8:
-            raise NotImplementedError("the int4 LM head is ROADMAP kernel K8")
-        logits = (h2 @ w.q.t().float()) * w.scale.float()[None, :]
+    if isinstance(w, QuantizedTensor) and w.k_axis % w.q.ndim == 0:
+        logits = quantized_matmul_transposed_head(h2, w)
+    elif isinstance(w, QuantizedTensor):
+        if w.bits != 8 or w.group_size:
+            raise NotImplementedError("a [V, H] head is served as per-row int8 only")
+        logits = (h2.float() @ w.q.t().float()) * w.scale.float()[None, :]
     else:
-        logits = h2 @ w.t().float()
+        logits = h2.float() @ w.t().float()
     logits = logits[:, : config.vocab_size]
     return logits.reshape(h.shape[:-1] + (config.vocab_size,))
 

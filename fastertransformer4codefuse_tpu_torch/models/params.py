@@ -13,7 +13,9 @@ a copy.
                                                   under the parallel residual)
 
 With ``int8_mode=1`` the four big kernels are ``QuantizedTensor``s: an int8
-payload in the logical shape and fp32 per-output-channel scales.
+payload in the logical shape with fp32 per-output-channel scales, or
+(``weight_bits=4``) an int4 payload packed two nibbles per byte along K with
+fp32 per-channel or bf16 group-wise (``group_size``) scales.
 """
 from __future__ import annotations
 
@@ -27,15 +29,28 @@ from ..core.config import GptNeoXConfig
 from ..core.dtypes import torch_dtype
 
 
+def unpack_int4(q: torch.Tensor, k_axis: int = -2) -> torch.Tensor:
+    """Packed int4 (two nibbles a byte along ``k_axis``, low nibble first) ->
+    int8 values with ``k_axis`` doubled, the nibbles sign-extended."""
+    k_ax = k_axis % q.ndim
+    lo = (q << 4) >> 4  # arithmetic shifts on int8: sign-extend
+    hi = q >> 4
+    shape = list(q.shape)
+    shape[k_ax] *= 2
+    return torch.stack([lo, hi], dim=k_ax + 1).reshape(shape)
+
+
 @dataclasses.dataclass
 class QuantizedTensor:
-    """Weight-only-quantized kernel: int8 payload + per-output-channel scales.
+    """Weight-only-quantized kernel: an int8 container plus scales.
 
-    ``q`` keeps the logical kernel shape with dtype int8; ``scale`` has
-    ``q``'s shape without the contraction axis ``k_axis`` (end-relative), and
-    the dequantized value is ``q * scale.unsqueeze(k_axis)``. Same fields and
-    layout as the JAX class; only ``bits=8`` with ``group_size=0`` is served
-    by this port (int4 and group scales are ROADMAP queue 1 item 11).
+    ``bits=8``: ``q`` keeps the logical kernel shape. ``bits=4``: ``q``
+    packs two signed nibbles per byte along the contraction axis ``k_axis``
+    (end-relative), interleaved: logical row 2i sits in the LOW nibble of
+    byte row i and row 2i+1 in its HIGH nibble. ``scale`` is fp32 with
+    ``q``'s logical shape minus ``k_axis`` (per output channel), or, with
+    ``group_size`` G > 0, has ``k_axis`` cut to K/G groups (bf16 for int4).
+    Same fields, layout and ``dequantize`` as the JAX class.
     """
 
     q: torch.Tensor
@@ -43,6 +58,26 @@ class QuantizedTensor:
     k_axis: int = -2
     group_size: int = 0
     bits: int = 8
+
+    @property
+    def shape(self):
+        """Logical (unquantized) kernel shape."""
+        shape = list(self.q.shape)
+        if self.bits == 4:
+            shape[self.k_axis % len(shape)] *= 2
+        return tuple(shape)
+
+    def unpack(self) -> torch.Tensor:
+        """int8 values in the logical shape (sign-extended nibbles for bits=4)."""
+        return self.q if self.bits == 8 else unpack_int4(self.q, self.k_axis)
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        k_ax = self.k_axis % self.q.ndim
+        if self.group_size:
+            scale = self.scale.float().repeat_interleave(self.group_size, dim=k_ax)
+        else:
+            scale = self.scale.float().unsqueeze(k_ax)
+        return (self.unpack().float() * scale).to(dtype)
 
     def __getitem__(self, idx):
         """Index the leading (layer) axis of payload and scale together."""
@@ -55,6 +90,10 @@ class QuantizedTensor:
 
 
 Params = Dict[str, Any]
+
+# The int4 LM head's vocab axis is padded to a multiple of this (JAX
+# ckpt/quantize.py quantize_lm_head_int4): 100831 -> 102400 for CodeFuse-13B.
+LM_HEAD_INT4_TILE = 2560
 
 
 def check_supported(config: GptNeoXConfig) -> None:
@@ -73,16 +112,25 @@ def init_params(
     int8_mode: int = 0,
     quantize_embeddings: bool = False,
     device=None,
+    weight_bits: int = 8,
+    group_size: int = 0,
 ) -> Params:
     """Random parameters, built directly on ``device`` from one
     ``torch.Generator`` seeded with ``seed`` (tests and the 13B smoke run).
 
     With ``int8_mode=1`` the four big per-layer kernels are random int8 with
-    scales in [0.5, 1.5) * std / 127, as in the JAX package;
-    ``quantize_embeddings`` also makes the embedding table and LM head int8
-    with per-row scales. The numbers differ from the JAX package's (another
-    generator): parity tests share weights through ``from_jax_params``.
+    scales in [0.5, 1.5) * std / 127, as in the JAX package; with
+    ``weight_bits=4`` random packed nibbles with scales in [0.5, 1.5) * std
+    / 7, per output channel (fp32) or, with ``group_size`` G, per (K-group,
+    channel) in bf16. ``quantize_embeddings`` also makes the embedding table
+    int8 with per-row scales, and the LM head int8 [V, H] with per-row scales
+    or, at ``weight_bits=4``, the transposed packed int4 head [H/2, V_pad]
+    (``k_axis=-2``, V padded to a multiple of 2560, per-column fp32 scales).
+    The numbers differ from the JAX package's (another generator): parity
+    tests share weights through ``from_jax_params``.
     """
+    if weight_bits not in (8, 4):
+        raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
     check_supported(config)
     dtype = torch_dtype(dtype)
     device = torch.device(device or "cpu")
@@ -105,12 +153,22 @@ def init_params(
         return out.uniform_(0.5, 1.5, generator=gen) * (std / qmax)
 
     def maybe_quant(shape):
-        if int8_mode >= 1:
-            return QuantizedTensor(
-                q=rand_i8(shape), scale=uniform_scale(shape[:-2] + shape[-1:], 127.0),
-                k_axis=-2,
-            )
-        return dense(shape)
+        """A stacked [L, K, N] kernel, quantized along K (k_axis=-2)."""
+        if int8_mode < 1:
+            return dense(shape)
+        qmax = 127.0 if weight_bits == 8 else 7.0
+        L_, K, N = shape
+        if group_size and K % group_size:
+            raise ValueError(f"group_size {group_size} does not divide K={K}")
+        q = rand_i8((L_, K // 2, N) if weight_bits == 4 else shape)
+        if group_size:
+            scale = uniform_scale((L_, K // group_size, N), qmax)
+            if weight_bits == 4:
+                scale = scale.to(torch.bfloat16)
+        else:
+            scale = uniform_scale((L_, N), qmax)
+        return QuantizedTensor(q=q, scale=scale, k_axis=-2, bits=weight_bits,
+                               group_size=group_size)
 
     def zeros(shape):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -144,11 +202,19 @@ def init_params(
             )
         return dense(shape)
 
+    def lm_head_weight():
+        if quantize_embeddings and weight_bits == 4:
+            # transposed packed head [H/2, V_pad] (ckpt.quantize.quantize_lm_head_int4)
+            Vp = -(-V // LM_HEAD_INT4_TILE) * LM_HEAD_INT4_TILE
+            return QuantizedTensor(q=rand_i8((H // 2, Vp)), scale=uniform_scale((Vp,), 7.0),
+                                   k_axis=-2, bits=4)
+        return maybe_quant_rowwise((V, H))  # [V, H]: contracted on H
+
     out = {
         "embed": maybe_quant_rowwise((V, H)),
         "layers": layers,
         "final_ln_w": ones((H,)),
-        "lm_head": maybe_quant_rowwise((V, H)),  # [V, H]: contracted on H
+        "lm_head": lm_head_weight(),
     }
     if config.norm != "rmsnorm":
         out["final_ln_b"] = zeros((H,))

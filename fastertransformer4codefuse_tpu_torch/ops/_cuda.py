@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per ``.cu`` file, all started together, then linked into one
 shared library with a plain C interface, loaded with ``ctypes``. The library
 name carries a hash of the sources and flags, so a changed source rebuilds
 and a checkout with nothing built builds itself. The build directory is
@@ -23,10 +24,8 @@ import torch
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--threads", "0",
-]
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -36,7 +35,9 @@ F = ctypes.c_float
 _SIGNATURES = {
     "ftcf_quant_matmul_gemv": [P, P, P, I, I, I, I, P, I, I, P, P, P],
     "ftcf_quant_matmul_gemm": [P, P, P, I, I, I, P, I, I, P, P],
-    "ftcf_fused_proj_down": [P, P, P, I, I, P, P, P, I, I, I, I, P, I, P, P, P, P],
+    "ftcf_quant_matmul_w4_gemv": [P, P, P, P, I, I, I, I, I, P, I, I, P, I, P, P],
+    "ftcf_quant_matmul_w4_gemm": [P, P, P, P, I, I, I, I, P, I, I, P, I, P],
+    "ftcf_fused_proj_down": [I, P, P, P, I, I, P, P, P, I, I, I, I, P, I, P, P, P, P],
     "ftcf_flash_decode": [P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
 }
 
@@ -69,21 +70,37 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless the library for their hash exists."""
+    """Compile the sources unless the library for their hash exists: one
+    ``nvcc -c`` per source in parallel, then one link."""
     global build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    tag = f"{out.stem}.{os.getpid()}"
     cu, _ = _sources()
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{tag}.{c.stem}.o" for c in cu]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", str(o), str(c)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c, o in zip(cu, objs)
+    ]
+    logs = [f"== {c.name}\n{p.communicate()[0]}" for c, p in zip(cu, procs)]
+    failed = [c.name for c, p in zip(cu, procs) if p.returncode != 0]
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    if not failed:
+        link = subprocess.run([nvcc, *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        failed = ["link"] if link.returncode != 0 else []
+    build_log = "\n".join(logs)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
     os.replace(tmp, out)
-    (out.with_suffix(".log")).write_text(build_log)
+    out.with_suffix(".log").write_text(build_log)
     return out
 
 

@@ -43,30 +43,47 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def gemv_splits(K: int, N: int, device: torch.device, share: float = 1.0) -> int:
+def gemv_splits(K: int, N: int, device: torch.device, share: float = 1.0, bits: int = 8) -> int:
     """K ranges per 128-column tile for the weight-streaming GEMV: about four
     blocks per SM over the whole grid (``share`` is this segment's part of
-    it), at most 1024 rows per range (the shared-memory x staging), at least
-    32 rows (one per k lane)."""
+    it), at most 1024 K rows per range (the shared-memory x staging), at
+    least 32 weight byte rows (one per k lane). An int4 byte row holds two K
+    rows, so ranges are counted in byte rows."""
+    rows = K // 2 if bits == 4 else K
+    max_rows = 512 if bits == 4 else 1024
     tiles = -(-N // 128)
-    splits = max(-(-K // 1024), math.ceil(4 * _sm_count(device.index or 0) * share / tiles))
-    return max(1, min(splits, -(-K // 32)))
+    splits = max(-(-rows // max_rows), math.ceil(4 * _sm_count(device.index or 0) * share / tiles))
+    return max(1, min(splits, -(-rows // 32)))
 
 
-def check_operands(x, w, scale, bias, name):
-    """Raise on what the kernels do not take (shared with the fused K2/K3)."""
+def check_operands(x, w, scale, bias, name, bits=8, group_size=0):
+    """Raise on what the kernels do not take (shared with K2/K3 and K6-K8):
+    x a contiguous bf16 [M, K]; w a contiguous int8 [K, N], or for ``bits=4``
+    the packed [K/2, N]; scale a contiguous fp32 [N], or with ``group_size``
+    G a contiguous bf16 [K/G, N]; bias a contiguous bf16/fp32 [N]."""
     req = _cuda.require
     dev = x.device
     req(x.dtype == torch.bfloat16, f"{name}: x must be bf16, got {x.dtype}")
     req(x.ndim == 2 and x.is_contiguous(), f"{name}: x must be a contiguous [M, K]")
+    req(bits in (8, 4), f"{name}: bits must be 8 or 4, got {bits}")
     req(w.dtype == torch.int8 and w.ndim == 2 and w.is_contiguous(),
-        f"{name}: w must be a contiguous int8 [K, N]")
-    K, N = w.shape
-    req(x.shape[1] == K, f"{name}: x {tuple(x.shape)} vs w {tuple(w.shape)}")
+        f"{name}: w must be a contiguous int8 [{'K/2' if bits == 4 else 'K'}, N]")
+    K = x.shape[1]
+    N = w.shape[1]
+    req(w.shape[0] * (2 if bits == 4 else 1) == K,
+        f"{name}: x {tuple(x.shape)} vs {bits}-bit w {tuple(w.shape)}")
     req(K % 8 == 0 and N % 16 == 0, f"{name}: needs K % 8 == 0 and N % 16 == 0")
     req(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, f"{name}: x, w not 16-byte aligned")
-    req(scale.dtype == torch.float32 and scale.shape == (N,) and scale.is_contiguous(),
-        f"{name}: scale must be a contiguous fp32 [N]")
+    if group_size:
+        req(bits == 4, f"{name}: group scales are taken with int4 weights only")
+        req(group_size % 2 == 0 and K % group_size == 0,
+            f"{name}: group size {group_size} must be even and divide K={K}")
+        req(scale.dtype == torch.bfloat16 and scale.shape == (K // group_size, N)
+            and scale.is_contiguous() and scale.data_ptr() % 16 == 0,
+            f"{name}: group scale must be a contiguous, 16-byte aligned bf16 [K/G, N]")
+    else:
+        req(scale.dtype == torch.float32 and scale.shape == (N,) and scale.is_contiguous(),
+            f"{name}: scale must be a contiguous fp32 [N]")
     if bias is not None:
         req(bias.dtype in (torch.bfloat16, torch.float32) and bias.shape == (N,)
             and bias.is_contiguous(), f"{name}: bias must be a contiguous bf16/fp32 [N]")
@@ -75,8 +92,8 @@ def check_operands(x, w, scale, bias, name):
 
 
 def launch_gemv(x, w, scale, bias, act, out):
-    """One weight-streaming GEMV launch (partials + epilogue) into ``out``.
-    No launch count: the public wrappers count their own launches."""
+    """One int8 weight-streaming GEMV launch (partials + epilogue) into
+    ``out``. No launch count: the public wrappers count their own launches."""
     M, K = x.shape
     N = w.shape[1]
     splits = gemv_splits(K, N, x.device)

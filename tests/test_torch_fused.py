@@ -77,3 +77,39 @@ def test_plain_k3_matches_pallas_interpret():
     got = fused_proj_down(x1, x2, t(p1[0]), t(p2[0]), t(s1[0]), t(s2[0]), t(b[0, 0]), res)
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     assert _rel_err(got, ref) < 5e-3
+
+
+def test_plain_k2_k3_int4_match_jax_xla_composition():
+    """Per-channel int4 (bits=4, G=0) K2 and K3 against the JAX package's
+    unfused XLA path for the same block (its int4 Pallas kernels do not run
+    on the CPU: see tests/test_fused_kernels.py): up with bias and tanh-gelu,
+    the hidden rounded to bf16, proj and down, bias and residual. Same bf16
+    inputs and tolerances as above."""
+    from fastertransformer4codefuse_tpu.models.params import QuantizedTensor as JaxQT
+    from fastertransformer4codefuse_tpu.ops.linear import linear as jax_linear
+
+    rng = np.random.default_rng(3)
+    M, H, F = 3, 256, 512
+    (jx_up, x_up), (jx_proj, x_proj), (jres, res) = (
+        _bf16_pair(rng.standard_normal((M, H)).astype(np.float32)) for _ in range(3)
+    )
+    p_up, p_proj, p_down = (rng.integers(-128, 128, (k // 2, n)).astype(np.int8)
+                            for k, n in ((H, F), (H, H), (F, H)))
+    s_up, s_proj, s_down = ((rng.random(n) * 0.06 + 0.01).astype(np.float32) for n in (F, H, H))
+    b_up, b_down = (rng.standard_normal(n).astype(np.float32) for n in (F, H))
+
+    def jq(p, s):
+        return JaxQT(q=jnp.asarray(p), scale=jnp.asarray(s), k_axis=-2, bits=4)
+
+    f32 = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
+    h = jax_linear(f32(jx_up), jq(p_up, s_up), jnp.asarray(b_up), act="gelu-tanh")
+    h = h.astype(jnp.bfloat16)
+    pd = (jax_linear(f32(jx_proj), jq(p_proj, s_proj))
+          + jax_linear(f32(h), jq(p_down, s_down)) + b_down + f32(jres))
+    t = torch.from_numpy
+    k3 = fused_proj_down(x_proj, torch.from_numpy(np.asarray(h, np.float32)).bfloat16(),
+                         t(p_proj), t(p_down), t(s_proj), t(s_down), t(b_down), res, bits=4)
+    assert k3.dtype == torch.bfloat16 and _rel_err(k3, pd) < 5e-3
+    k2 = fused_up_proj_down(x_up, x_proj, res, t(p_up), t(p_proj), t(p_down), t(s_up),
+                            t(s_proj), t(s_down), t(b_up), t(b_down), act="gelu-tanh", bits=4)
+    assert k2.shape == (M, H) and _rel_err(k2, pd) < 2e-2

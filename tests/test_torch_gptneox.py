@@ -46,10 +46,11 @@ torch.set_num_threads(2)
 MODES = [(True, "gelu-tanh"), (True, "gelu"), (False, "gelu")]
 
 
-def _models(gptj, act, vocab=128):
+def _models(gptj, act, vocab=128, **quant):
+    """JAX-made weights (``quant``: weight_bits, group_size) in both packages."""
     jcfg = JaxConfig.tiny(vocab_size=vocab, use_gptj_residual=gptj, activation=act)
     jp = jax_init_params(jcfg, jax.random.PRNGKey(0), dtype="fp32", int8_mode=1,
-                         quantize_embeddings=True)
+                         quantize_embeddings=True, **quant)
     rng = np.random.default_rng(1)
     layers = dict(jp["layers"])
     for k, v in layers.items():  # non-trivial norms and biases
@@ -135,8 +136,8 @@ def test_prefill_and_decode_logits_match_jax(gptj, act):
         assert _rel(tm.lm_logits(cfg, tp, h), jl) < 1e-4, t
 
 
-def _engines(gptj, act, vocab=128, end_id=1):
-    jcfg, jp, cfg, tp = _models(gptj, act, vocab)
+def _engines(gptj, act, vocab=128, end_id=1, **quant):
+    jcfg, jp, cfg, tp = _models(gptj, act, vocab, **quant)
     jcfg = dataclasses.replace(jcfg, end_id=end_id)
     cfg = dataclasses.replace(cfg, end_id=end_id)
     kw = dict(dtype="fp32", int8_mode=1, kv_cache_dtype="int8", seq_bucket=8)

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K4 against their plain versions on the card, at small
-and ragged shapes (chip_smoke.py covers the CodeFuse-13B shapes). Marked
+"""The CUDA kernels K1-K4 and K6-K8 against their plain versions on the card,
+at small and ragged shapes (chip_smoke.py covers the CodeFuse-13B shapes). Marked
 ``cuda``: skipped where there is no GPU. On a GPU machine without jax:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -20,6 +20,14 @@ from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_fused import (
     fused_proj_down_plain,
     fused_up_proj_down,
     fused_up_proj_down_plain,
+)
+from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_w4 import (
+    quant_matmul_w4,
+    quant_matmul_w4_group,
+    quant_matmul_w4_group_plain,
+    quant_matmul_w4_head,
+    quant_matmul_w4_head_plain,
+    quant_matmul_w4_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -124,3 +132,100 @@ def test_k4_reads_stop_at_position(gen):
     k[..., 101:, :] = 1e4
     v[..., 101:, :] = float("nan")
     assert torch.equal(clean, flash_decode_stacked(q, k, None, v, None, 0, pos, 0.088))
+
+
+def _gscale(gen, groups, n):
+    return (torch.rand(groups, n, device="cuda", generator=gen) * 0.03 + 0.005).bfloat16()
+
+
+W4_SHAPES = [(256, 384), (136, 144), (1024, 48), (2000, 160)]  # K % split, N % 128, odd
+
+
+@pytest.mark.parametrize("M", [1, 3, 5, 32, 33, 130])
+@pytest.mark.parametrize("K,N", W4_SHAPES)
+@pytest.mark.parametrize("act,bias_dtype", [(None, None), ("gelu", torch.float32),
+                                            ("gelu-tanh", torch.bfloat16), ("silu", None)])
+def test_k6_matches_plain(gen, M, K, N, act, bias_dtype):
+    x, p, s = _bf(gen, M, K), _i8(gen, K // 2, N), _scale(gen, N) * 16
+    b = None if bias_dtype is None else (torch.randn(N, device="cuda", generator=gen) * 0.1).to(bias_dtype)
+    before = quant_matmul_w4.launches
+    got = quant_matmul_w4(x, p, s, b, act)
+    assert quant_matmul_w4.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert _rel(got, quant_matmul_w4_plain(x, p, s, b, act)) < 1e-2
+
+
+@pytest.mark.parametrize("M", [1, 3, 5, 32, 33, 130])
+@pytest.mark.parametrize("K,N,G", [(256, 384, 128), (256, 144, 32), (2048, 160, 128),
+                                   (1152, 48, 128)])
+@pytest.mark.parametrize("act", [None, "gelu-tanh", "relu"])
+def test_k7_matches_plain(gen, M, K, N, G, act):
+    x, p, s = _bf(gen, M, K), _i8(gen, K // 2, N), _gscale(gen, K // G, N)
+    b = _bf(gen, N, std=0.1)
+    before = quant_matmul_w4_group.launches
+    got = quant_matmul_w4_group(x, p, s, G, b, act)
+    assert quant_matmul_w4_group.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert _rel(got, quant_matmul_w4_group_plain(x, p, s, G, b, act)) < 1e-2
+
+
+@pytest.mark.parametrize("M", [1, 4, 7, 40])
+def test_k8_matches_plain(gen, M):
+    H, V = 512, 5120 + 16
+    x, p, s = _bf(gen, M, H), _i8(gen, H // 2, V), _scale(gen, V) * 16
+    before = quant_matmul_w4_head.launches
+    got = quant_matmul_w4_head(x, p, s)
+    assert quant_matmul_w4_head.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (M, V)
+    # fp32 output: only the summation order differs
+    assert _rel(got, quant_matmul_w4_head_plain(x, p, s)) < 1e-4
+
+
+def test_k6_k8_nibble_order(gen):
+    """Even K rows +1, odd K rows -1 in every column: x = e_0 reads +1, e_1
+    reads -1; a swapped nibble order gives the opposite signs."""
+    K, N = 64, 32
+    p = torch.full((K // 2, N), (-1 << 4) | 1, dtype=torch.int8, device="cuda")
+    s = torch.ones(N, device="cuda")
+    x = torch.zeros(2, K, device="cuda", dtype=torch.bfloat16)
+    x[0, 0] = 1
+    x[1, 1] = 1
+    for got in (quant_matmul_w4(x, p, s), quant_matmul_w4_head(x, p, s),
+                quant_matmul_w4_group(x, p, s.bfloat16().expand(2, N).contiguous(), 32)):
+        torch.cuda.synchronize()
+        assert torch.equal(got.float().cpu(), torch.tensor([[1.0] * N, [-1.0] * N]))
+
+
+@pytest.mark.parametrize("M", [1, 4, 9])
+def test_k2_k3_int4_match_plain(gen, M):
+    H, F = 256, 1024
+    x_up, x_proj, res, h = _bf(gen, M, H), _bf(gen, M, H), _bf(gen, M, H), _bf(gen, M, F, std=0.5)
+    w_up, w_proj, w_down = _i8(gen, H // 2, F), _i8(gen, H // 2, H), _i8(gen, F // 2, H)
+    s_up, s_proj, s_down = (_scale(gen, n) * 16 for n in (F, H, H))
+    b_up, b_down = _bf(gen, F, std=0.1), _bf(gen, H, std=0.1)
+    args3 = (x_proj, h, w_proj, w_down, s_proj, s_down, b_down, res)
+    assert _rel(fused_proj_down(*args3, bits=4), fused_proj_down_plain(*args3, bits=4)) < 1e-2
+    for act in ("gelu-tanh", "relu", "silu"):
+        args = (x_up, x_proj, res, w_up, w_proj, w_down, s_up, s_proj, s_down, b_up, b_down, act)
+        assert _rel(fused_up_proj_down(*args, bits=4), fused_up_proj_down_plain(*args, bits=4)) < 2e-2
+
+
+def test_w4_kernels_raise_on_what_they_do_not_take(gen):
+    x, p, s = _bf(gen, 2, 64), _i8(gen, 32, 32), _scale(gen, 32)
+    g = _gscale(gen, 2, 32)
+    bad = [
+        lambda: quant_matmul_w4(x.float(), p, s),  # fp32 activations
+        lambda: quant_matmul_w4(x, _i8(gen, 64, 32), s),  # unpacked [K, N] weight
+        lambda: quant_matmul_w4(x, _i8(gen, 32, 40), _scale(gen, 40)),  # N % 16
+        lambda: quant_matmul_w4(x, p, g),  # group scales to the per-channel kernel
+        lambda: quant_matmul_w4_group(x, p, s, 32),  # fp32 [N] scales to the group kernel
+        lambda: quant_matmul_w4_group(x, p, g.float(), 32),  # fp32 group scales
+        lambda: quant_matmul_w4_group(x, p, _gscale(gen, 3, 32), 24),  # G does not divide K
+        lambda: quant_matmul_w4_group(x, p, _gscale(gen, 64, 32), 1),  # odd G
+        lambda: quant_matmul_w4_head(x, p, s.bfloat16()),  # bf16 head scales
+        lambda: fused_proj_down(x, x, p, p, s, s, s, _bf(gen, 2, 32), bits=8),  # bits mismatch
+    ]
+    for i, fn in enumerate(bad):
+        with pytest.raises(ValueError):
+            fn()
+            pytest.fail(f"case {i} did not raise")

@@ -1,0 +1,129 @@
+"""K6, K7 and K8's plain versions (fastertransformer4codefuse_tpu_torch/ops/
+quant_matmul_w4.py) and the port's int4 ``linear`` dispatch against the JAX
+package's int4 XLA path: ``linear`` / ``quantized_matmul_xla`` (dequantize,
+then dot, then bias and activation) and ``quantized_matmul_transposed_head``.
+Inputs from one numpy generator go to both packages; fp32; max |diff| / max
+|ref| below 1e-5 (the two differ only in fp32 summation order).
+
+The JAX W4 Pallas kernels are not run here: their ``pltpu.bitcast(int4)``
+nibble order in interpret mode is backend-defined (see
+tests/test_fused_kernels.py), so the JAX package's own CPU tests hold its XLA
+path, not the kernels, and so do these."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from fastertransformer4codefuse_tpu.models.params import QuantizedTensor as JaxQT
+from fastertransformer4codefuse_tpu.ops.linear import linear as jax_linear
+from fastertransformer4codefuse_tpu.ops.linear import (
+    quantized_matmul_transposed_head as jax_head,
+)
+from fastertransformer4codefuse_tpu_torch.models.params import QuantizedTensor
+from fastertransformer4codefuse_tpu_torch.ops.linear import linear, quantized_matmul_transposed_head
+from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_w4 import (
+    quant_matmul_w4,
+    quant_matmul_w4_group,
+    quant_matmul_w4_head,
+)
+
+torch.set_num_threads(2)
+
+ACTS = [None, "gelu", "gelu-tanh", "relu", "silu"]
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def _operands(rng, M, K, N, G=0):
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    packed = rng.integers(-128, 128, (K // 2, N)).astype(np.int8)
+    # scales keep outputs O(1), as in a real layer
+    if G:
+        s = (rng.random((K // G, N)) * 0.06 + 0.01).astype(np.float32)
+        s = jnp.asarray(s, jnp.bfloat16)  # stored bf16, as the quantizer makes them
+        ts = torch.from_numpy(np.array(s).view(np.int16)).view(torch.bfloat16)
+    else:
+        s = (rng.random(N) * 0.06 + 0.01).astype(np.float32)
+        ts = torch.from_numpy(s)
+    b = (rng.standard_normal(N) * 0.1).astype(np.float32)
+    return x, packed, s, ts, b
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("M", [1, 3, 40])
+def test_plain_k6_matches_jax_int4_linear(M, act):
+    rng = np.random.default_rng(M)
+    x, p, s, ts, b = _operands(rng, M, 256, 384)
+    ref = jax_linear(jnp.asarray(x), JaxQT(q=jnp.asarray(p), scale=jnp.asarray(s), k_axis=-2,
+                                            bits=4), jnp.asarray(b), act=act)
+    T = torch.from_numpy
+    assert _rel(quant_matmul_w4(T(x), T(p), ts, T(b), act), ref) < 1e-5
+    qt = QuantizedTensor(q=T(p), scale=ts, k_axis=-2, bits=4)
+    assert _rel(linear(T(x), qt, T(b), act=act), ref) < 1e-5
+
+
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("M,G", [(1, 32), (3, 128), (40, 32)])
+def test_plain_k7_matches_jax_group_int4_linear(M, G, act):
+    rng = np.random.default_rng(100 + M)
+    x, p, s, ts, b = _operands(rng, M, 256, 384, G)
+    jqt = JaxQT(q=jnp.asarray(p), scale=s, k_axis=-2, bits=4, group_size=G)
+    ref = jax_linear(jnp.asarray(x), jqt, jnp.asarray(b), act=act)
+    T = torch.from_numpy
+    assert _rel(quant_matmul_w4_group(T(x), T(p), ts, G, T(b), act), ref) < 1e-5
+    qt = QuantizedTensor(q=T(p), scale=ts, k_axis=-2, bits=4, group_size=G)
+    assert _rel(linear(T(x), qt, T(b), act=act), ref) < 1e-5
+    # the group scales sit inside the contraction: the plain weight is JAX's
+    np.testing.assert_array_equal(qt.dequantize().numpy(), np.asarray(jqt.dequantize(jnp.float32)))
+
+
+@pytest.mark.parametrize("M", [1, 4, 9])
+def test_plain_k8_matches_jax_transposed_head(M):
+    rng = np.random.default_rng(200 + M)
+    x, p, s, ts, _ = _operands(rng, M, 128, 2560)
+    ref = jax_head(jnp.asarray(x), JaxQT(q=jnp.asarray(p), scale=jnp.asarray(s), k_axis=-2,
+                                          bits=4))
+    T = torch.from_numpy
+    got = quant_matmul_w4_head(T(x), T(p), ts)
+    assert got.dtype == torch.float32 and got.shape == (M, 2560)
+    assert _rel(got, ref) < 1e-5
+    qt = QuantizedTensor(q=T(p), scale=ts, k_axis=-2, bits=4)
+    assert _rel(quantized_matmul_transposed_head(T(x), qt), ref) < 1e-5
+
+
+def test_plain_k6_identity_is_exact_dequant():
+    """Identity activations: the output is the dequantized weight, exactly,
+    and equals the JAX QuantizedTensor's dequantize."""
+    rng = np.random.default_rng(0)
+    K, N = 64, 48
+    p = rng.integers(-128, 128, (K // 2, N)).astype(np.int8)
+    s = (rng.random(N) * 0.05 + 0.001).astype(np.float32)
+    got = quant_matmul_w4(torch.eye(K), torch.from_numpy(p), torch.from_numpy(s))
+    ref = JaxQT(q=jnp.asarray(p), scale=jnp.asarray(s), k_axis=-2, bits=4).dequantize()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_unserved_int4_forms_raise():
+    rng = np.random.default_rng(1)
+    _, p, _, ts, _ = _operands(rng, 1, 64, 32, G=16)
+    head = QuantizedTensor(q=torch.from_numpy(p), scale=ts, k_axis=-2, bits=4, group_size=16)
+    with pytest.raises(NotImplementedError, match="queue 2"):
+        quantized_matmul_transposed_head(torch.zeros(1, 64), head)
+
+
+def test_cpu_tensors_take_the_plain_versions_without_a_launch():
+    rng = np.random.default_rng(1)
+    T = torch.from_numpy
+    x, p, _, ts, b = _operands(rng, 2, 64, 32)
+    _, _, _, gs, _ = _operands(rng, 2, 64, 32, G=16)
+    before = (quant_matmul_w4.launches, quant_matmul_w4_group.launches,
+              quant_matmul_w4_head.launches)
+    quant_matmul_w4(T(x), T(p), ts, T(b), "relu")
+    quant_matmul_w4_group(T(x), T(p), gs, 16, T(b))
+    quant_matmul_w4_head(T(x), T(p), ts)
+    assert (quant_matmul_w4.launches, quant_matmul_w4_group.launches,
+            quant_matmul_w4_head.launches) == before
