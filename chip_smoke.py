@@ -6,22 +6,32 @@
 Phases (any failure exits non-zero):
   1. device, torch and CUDA versions, card name and power limit; build the
      CUDA kernels from ``fastertransformer4codefuse_tpu_torch/csrc``;
-  2. each kernel (K1-K4, K6-K8, and K2/K3 on int4 weights) against its plain
+  2. each kernel (K1-K4, K6-K10, and K2/K3 on int4 weights) against its plain
      PyTorch version at CodeFuse-13B shapes: max error against the stated
-     tolerance, median kernel and plain times (CUDA events, device time);
+     tolerance, median kernel and plain times (CUDA events, device time), the
+     card's bound for the same work, and where one PyTorch call computes the
+     same attention, its time (``scaled_dot_product_attention`` on a dense
+     bf16 K/V of the same length; the port never calls it);
   3. 2-layer models of CodeFuse-13B width (int8; int4 per-channel; int4 with
-     group size 128) built on the CPU and copied to the card: prefill and
-     teacher-forced decode logits on the card (kernels) against the CPU
-     (plain versions);
+     group size 128; int8 on a paged KV pool through chunked prefill) built on
+     the CPU and copied to the card: prefill and teacher-forced decode logits
+     on the card (kernels) against the CPU (plain versions);
   4. CodeFuse-13B (40 layers, full width, int8 KV cache, random weights)
      built on the card, once with int8 weights and then with int4 weights,
      per-channel and group-wise (G = 128), and driven through
-     ``GptNeoXEngine.generate`` and ``CodeFuseHandler.predict``; for each,
-     the kernel launch counters are zeroed just before and checked just after
-     against the counts its route must give.
-The line before the last holds the kernels' JSON record; the last line is the
-device record. Without a CUDA device, or without the package beside it, the
-script exits non-zero and prints no result.
+     ``GptNeoXEngine.generate`` and ``CodeFuseHandler.predict``;
+  5. on the int8 model of phase 4, pooled serving: a ``BatchingServer`` on a
+     paged pool (8 slots, 2048 positions, 65 pages of 256) takes a mix of 10
+     greedy and sampled requests from threads, twice, and one greedy request
+     alone; then a pooled ``CodeFuseHandler``, one with two length classes
+     behind the HTTP front end on localhost, a lazy paged pool that must
+     preempt, and a dense pool (K4). Tick dispatch runs under
+     ``torch.cuda.set_sync_debug_mode("error")``.
+For each path of phases 4 and 5 the kernel launch counters are zeroed just
+before it is driven and checked just after against the counts its route must
+give. The line before the last holds the kernels' JSON record; the last line
+is the device record. Without a CUDA device, or without the package beside
+it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -31,11 +41,19 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+# One H100 SXM (NVIDIA's data sheet): HBM rate and dense bf16 tensor rate, at
+# the 700 W power limit. A kernel's bound is the larger of its bytes over the
+# first and its operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+CARD = ""  # nvidia-smi's "name, power limit", logged beside each phase-5 measurement
 
 
 def log(*a):
@@ -80,6 +98,16 @@ def device_time_ms(torch, fn, reps=5, calls=10):
     return statistics.median(out)
 
 
+def bound(nbytes, flops):
+    """(bound_ms, bound_by) for ``nbytes`` moved and ``flops`` done."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
 def rel_err(torch, got, ref):
     """(max |got - ref|, that over max |ref|), in fp32."""
     d = (got.float() - ref.float()).abs().max().item()
@@ -87,8 +115,11 @@ def rel_err(torch, got, ref):
 
 
 def phase_kernels(torch, records):
+    import torch.nn.functional as F
+
     from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
-        flash_decode_stacked, flash_decode_stacked_plain,
+        flash_chunk_paged, flash_chunk_paged_plain, flash_decode_paged, flash_decode_paged_plain,
+        flash_decode_stacked, flash_decode_stacked_plain, gather_pages,
     )
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import (
         quant_matmul, quant_matmul_plain,
@@ -103,7 +134,7 @@ def phase_kernels(torch, records):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
-    H, F = 5120, 20480
+    H, F_ = 5120, 20480
 
     def i8(*shape):
         return torch.empty(shape, dtype=torch.int8, device=dev).random_(-128, 128, generator=gen)
@@ -116,7 +147,9 @@ def phase_kernels(torch, records):
 
     ok = True
 
-    def report(name, case, fn_k, fn_p, tol, ms_key):
+    def report(name, case, fn_k, fn_p, tol, ms_key, work=None, fn_lib=None, lib_label=""):
+        """Check one case; for the record's case (``ms_key``) also time it.
+        ``work`` = (bytes read, operations): the output's bytes are added."""
         nonlocal ok
         got, ref = fn_k(), fn_p()
         torch.cuda.synchronize()
@@ -126,18 +159,26 @@ def phase_kernels(torch, records):
         ok &= passed
         t_k = device_time_ms(torch, fn_k)
         t_p = device_time_ms(torch, fn_p)
-        log(f"  {name:18s} {case:34s} max_abs {absd:.3e} rel {rel:.2e} (tol {tol:g}) "
-            f"{'ok' if passed else 'MISS'}  kernel {t_k:.4f} ms  plain {t_p:.4f} ms")
+        line = (f"  {name:18s} {case:34s} max_abs {absd:.3e} rel {rel:.2e} (tol {tol:g}) "
+                f"{'ok' if passed else 'MISS'}  kernel {t_k:.4f} ms  plain {t_p:.4f} ms")
         r = records[name]
         r["max_abs_err"] = max(r["max_abs_err"], absd)
         if case == ms_key:
             r["ms"], r["plain_ms"] = t_k, t_p
+            b_ms, b_by = bound(work[0] + nbytes(got), work[1])
+            r["bound_ms"], r["bound_by"] = b_ms, b_by
+            line += f"  bound {b_ms:.4f} ms ({b_by})"
+            if fn_lib is not None:
+                r["library_ms"] = device_time_ms(torch, fn_lib)
+                r["library"] = lib_label
+                line += f"  library {r['library_ms']:.4f} ms ({lib_label})"
+        log(line)
 
     log("phase 2: kernels against their plain versions (CodeFuse-13B shapes)")
     # K1: bf16 output rounding (2^-8 relative) + fp32 summation order
     tol_mm = 1e-2
-    shapes = [("qkv", H, 3 * H, True, None), ("up", H, F, True, "gelu-tanh"),
-              ("down", F, H, False, None)]
+    shapes = [("qkv", H, 3 * H, True, None), ("up", H, F_, True, "gelu-tanh"),
+              ("down", F_, H, False, None)]
     for tag, K, N, has_bias, act in shapes:
         w, s = i8(K, N), scale(N)
         b = bf(N, std=0.02) if has_bias else None
@@ -145,23 +186,28 @@ def phase_kernels(torch, records):
             x = bf(M, K)
             report("quant_matmul", f"{tag} {K}->{N} M={M}",
                    lambda: quant_matmul(x, w, s, b, act),
-                   lambda: quant_matmul_plain(x, w, s, b, act), tol_mm, "qkv 5120->15360 M=1")
-    w_up, w_proj, w_down = i8(H, F), i8(H, H), i8(F, H)
-    s_up, s_proj, s_down = scale(F), scale(H), scale(H)
-    b_up, b_down = bf(F, std=0.02), bf(H, std=0.02)
+                   lambda: quant_matmul_plain(x, w, s, b, act), tol_mm, "qkv 5120->15360 M=1",
+                   work=(nbytes(x, w, s, b), 2 * M * K * N))
+    w_up, w_proj, w_down = i8(H, F_), i8(H, H), i8(F_, H)
+    s_up, s_proj, s_down = scale(F_), scale(H), scale(H)
+    b_up, b_down = bf(F_, std=0.02), bf(H, std=0.02)
     for M in (1, 4):
-        x_up, x_proj, res, h = bf(M, H), bf(M, H), bf(M, H), bf(M, F, std=0.5)
+        x_up, x_proj, res, h = bf(M, H), bf(M, H), bf(M, H), bf(M, F_, std=0.5)
         report("fused_proj_down", f"proj+down M={M}",
                lambda: fused_proj_down(x_proj, h, w_proj, w_down, s_proj, s_down, b_down, res),
                lambda: fused_proj_down_plain(x_proj, h, w_proj, w_down, s_proj, s_down,
-                                             b_down, res), tol_mm, "proj+down M=1")
+                                             b_down, res), tol_mm, "proj+down M=1",
+               work=(nbytes(x_proj, h, w_proj, w_down, s_proj, s_down, b_down, res),
+                     2 * M * (H * H + F_ * H)))
         # the bf16 hidden may round differently in the two versions: 2e-2
         report("fused_up_proj_down", f"up+proj+down M={M}",
                lambda: fused_up_proj_down(x_up, x_proj, res, w_up, w_proj, w_down, s_up, s_proj,
                                           s_down, b_up, b_down, "gelu-tanh"),
                lambda: fused_up_proj_down_plain(x_up, x_proj, res, w_up, w_proj, w_down, s_up,
                                                 s_proj, s_down, b_up, b_down, "gelu-tanh"),
-               2e-2, "up+proj+down M=1")
+               2e-2, "up+proj+down M=1",
+               work=(nbytes(x_up, x_proj, res, w_up, w_proj, w_down, s_up, s_proj, s_down, b_up,
+                            b_down), 2 * M * (H * F_ + H * H + F_ * H)))
     # K6/K7: bf16 output rounding + fp32 summation order
     def scale4(n):
         return torch.empty(n, device=dev).uniform_(0.5, 1.5, generator=gen) * (0.02 / 7)
@@ -177,11 +223,11 @@ def phase_kernels(torch, records):
             report("quant_matmul_w4", f"{tag} {K}->{N} M={M}",
                    lambda: quant_matmul_w4(x, p4, s4, b, act),
                    lambda: quant_matmul_w4_plain(x, p4, s4, b, act), tol_mm,
-                   "qkv 5120->15360 M=1")
+                   "qkv 5120->15360 M=1", work=(nbytes(x, p4, s4, b), 2 * M * K * N))
             report("quant_matmul_w4_group", f"{tag} {K}->{N} g{G} M={M}",
                    lambda: quant_matmul_w4_group(x, p4, gs, G, b, act),
                    lambda: quant_matmul_w4_group_plain(x, p4, gs, G, b, act), tol_mm,
-                   "qkv 5120->15360 g128 M=1")
+                   "qkv 5120->15360 g128 M=1", work=(nbytes(x, p4, gs, b), 2 * M * K * N))
     # K8: fp32 logits; only the summation order differs
     Vp = 102400
     p_head, s_head = i8(H // 2, Vp), scale4(Vp)
@@ -190,13 +236,13 @@ def phase_kernels(torch, records):
         report("quant_matmul_w4_head", f"head {H}->{Vp} M={M}",
                lambda: quant_matmul_w4_head(x, p_head, s_head),
                lambda: quant_matmul_w4_head_plain(x, p_head, s_head), 1e-4,
-               f"head {H}->{Vp} M=1")
+               f"head {H}->{Vp} M=1", work=(nbytes(x, p_head, s_head), 2 * M * H * Vp))
     del p_head
     # K2/K3 on per-channel int4 weights (their records keep the int8 times)
-    w_up, w_proj, w_down = i8(H // 2, F), i8(H // 2, H), i8(F // 2, H)
-    s_up, s_proj, s_down = scale4(F), scale4(H), scale4(H)
+    w_up, w_proj, w_down = i8(H // 2, F_), i8(H // 2, H), i8(F_ // 2, H)
+    s_up, s_proj, s_down = scale4(F_), scale4(H), scale4(H)
     for M in (1, 4):
-        x_up, x_proj, res, h = bf(M, H), bf(M, H), bf(M, H), bf(M, F, std=0.5)
+        x_up, x_proj, res, h = bf(M, H), bf(M, H), bf(M, H), bf(M, F_, std=0.5)
         report("fused_proj_down", f"int4 proj+down M={M}",
                lambda: fused_proj_down(x_proj, h, w_proj, w_down, s_proj, s_down, b_down, res,
                                        bits=4),
@@ -209,23 +255,91 @@ def phase_kernels(torch, records):
                                                 s_proj, s_down, b_up, b_down, "gelu-tanh",
                                                 bits=4),
                2e-2, "up+proj+down M=1")
-    # K4: p rounded to bf16 before PV in both; online vs full softmax order
+    del w_up, w_proj, w_down
+
+    # Attention kernels: p (times v_s) rounded to bf16 before PV in both
+    # versions; online vs full softmax order. The yardstick is one
+    # scaled_dot_product_attention call on a dense bf16 K/V of the same
+    # length (the int8 cache dequantized beforehand), masked per row.
+    def dense_bf16(k, ks):
+        return (k.float() * ks.float()[..., None]).to(torch.bfloat16) if ks is not None else k
+
+    def sdpa(qh, kd, vd, mask, sm):
+        return lambda: F.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask, scale=sm)
+
+    # K4: dense cache, B = 4, S = 1152, ragged positions
     B, nH, dh, S, L = 4, 40, 128, 1152, 2
     pos = torch.tensor([10, S - 1, 500, 777], dtype=torch.int32, device=dev)
+    n_keys = int((pos + 1).sum())
     q = bf(B, nH, dh)
     k8, v8 = i8(L, B, nH, S, dh), i8(L, B, nH, S, dh)
     ks = (torch.rand((L, B, nH, S), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
     vs = (torch.rand((L, B, nH, S), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
     kb, vb = bf(L, B, nH, S, dh), bf(L, B, nH, S, dh)
     sm = 1.0 / dh ** 0.5
+    mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
     report("flash_decode", "int8 cache B=4 S=1152",
            lambda: flash_decode_stacked(q, k8, ks, v8, vs, 1, pos, sm),
            lambda: flash_decode_stacked_plain(q, k8, ks, v8, vs, 1, pos, sm), 2e-2,
-           "int8 cache B=4 S=1152")
+           "int8 cache B=4 S=1152",
+           work=(nbytes(q, pos) + n_keys * nH * (2 * dh + 4), 4 * n_keys * nH * dh),
+           fn_lib=sdpa(q[:, :, None], dense_bf16(k8[1], ks[1]), dense_bf16(v8[1], vs[1]), mask,
+                       sm),
+           lib_label="sdpa, dense bf16 K/V of the same length")
     report("flash_decode", "bf16 cache B=4 S=1152",
            lambda: flash_decode_stacked(q, kb, None, vb, None, 1, pos, sm),
            lambda: flash_decode_stacked_plain(q, kb, None, vb, None, 1, pos, sm), 2e-2,
            "int8 cache B=4 S=1152")
+    del k8, v8, kb, vb
+
+    # K9 / K10: CodeFuse-13B pages: 40 KV heads, dh 128, pages of 256, 8
+    # slots of logical length 2048 (8 pages each, 65 pages with the garbage
+    # page), permuted block tables
+    B, nKV, ps, n_pg, L = 8, 40, 256, 8, 2
+    S, P = ps * n_pg, 8 * n_pg + 1
+    pt = (torch.randperm(P - 1, device=dev, generator=gen) + 1).reshape(B, n_pg).to(torch.int32)
+    pk8, pv8 = i8(L, P, nKV, ps, dh), i8(L, P, nKV, ps, dh)
+    pks = (torch.rand((L, P, nKV, ps), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+    pvs = (torch.rand((L, P, nKV, ps), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+    pkb, pvb = bf(L, P, nKV, ps, dh), bf(L, P, nKV, ps, dh)
+
+    def dense_pages(pages, scales):  # the layer-1 pages as a dense bf16 [B, nKV, S, dh]
+        return dense_bf16(gather_pages(pages[1], pt),
+                          None if scales is None else gather_pages(scales[1], pt))
+
+    pos = torch.tensor(np.linspace(100, 2000, B).astype(np.int32), device=dev)
+    n_keys = int((pos + 1).sum())
+    q = bf(B, nKV, dh)
+    mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
+    for tag, (a, sa, b_, sb) in (("int8", (pk8, pks, pv8, pvs)), ("bf16", (pkb, None, pvb, None))):
+        per_key = 2 * dh * a.element_size() + (4 if sa is not None else 0)
+        report("flash_decode_paged", f"{tag} pages B=8 pos 100-2000",
+               lambda: flash_decode_paged(q, a, sa, b_, sb, 1, pos, pt, sm),
+               lambda: flash_decode_paged_plain(q, a, sa, b_, sb, 1, pos, pt, sm), 2e-2,
+               "int8 pages B=8 pos 100-2000",
+               work=(nbytes(q, pos) + B * n_pg * 4 + n_keys * nKV * per_key,
+                     4 * n_keys * nKV * dh),
+               fn_lib=sdpa(q[:, :, None], dense_pages(a, sa), dense_pages(b_, sb), mask, sm),
+               lib_label="sdpa, dense bf16 K/V of the same length")
+    C = 128
+    starts = torch.tensor([0, 128, 384, 640, 896, 1152, 1536, 1920], dtype=torch.int32,
+                          device=dev)
+    qc = bf(B, C, nKV, dh)
+    posc = starts[:, None].long() + torch.arange(C, device=dev)[None, :]  # [B, C]
+    mask_c = (torch.arange(S, device=dev)[None, None, :] <= posc[:, :, None])[:, None]
+    n_pairs = int((posc + 1).sum())  # (query, key) pairs the causal bounds admit
+    n_read = int((starts + C).sum())  # keys each (row, head) reads
+    for tag, (a, sa, b_, sb) in (("int8", (pk8, pks, pv8, pvs)), ("bf16", (pkb, None, pvb, None))):
+        per_key = 2 * dh * a.element_size() + (4 if sa is not None else 0)
+        report("flash_chunk_paged", f"{tag} pages B=8 C=128",
+               lambda: flash_chunk_paged(qc, a, sa, b_, sb, 1, starts, pt, sm),
+               lambda: flash_chunk_paged_plain(qc, a, sa, b_, sb, 1, starts, pt, sm), 2e-2,
+               "int8 pages B=8 C=128",
+               work=(nbytes(qc, starts) + B * n_pg * 4 + n_read * nKV * per_key,
+                     4 * n_pairs * nKV * dh),
+               fn_lib=sdpa(qc.transpose(1, 2), dense_pages(a, sa), dense_pages(b_, sb), mask_c,
+                           sm),
+               lib_label="sdpa, dense bf16 K/V of the same length")
     return ok
 
 
@@ -239,7 +353,7 @@ def phase_reference(torch, pkg, **quant):
 
     cfg = pkg.GptNeoXConfig(**{**pkg.GptNeoXConfig.codefuse_13b().__dict__, "layer_num": 2})
     p_cpu = pkg.init_params(cfg, seed=7, dtype="bf16", int8_mode=1, quantize_embeddings=True,
-                            **quant)
+                            device="cpu", **quant)
     p_gpu = params_to(p_cpu, "cuda")
     rng = np.random.default_rng(7)
     B, S, steps = 2, 64, 3
@@ -266,6 +380,52 @@ def phase_reference(torch, pkg, **quant):
     return rels
 
 
+def phase_reference_paged(torch, pkg):
+    """The 2-layer int8 model of CodeFuse-13B width on a paged int8 pool:
+    chunked prefill of ragged prompts through ``prefill_chunk`` (K10 on the
+    card), then 3 teacher-forced ``decode_step``s (K9), card against CPU.
+    Returns max |dlogits| / max |logits| after the prefill and each step."""
+    from fastertransformer4codefuse_tpu_torch.engine import paged_kv
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+    from fastertransformer4codefuse_tpu_torch.models.params import params_to
+
+    cfg = pkg.GptNeoXConfig(**{**pkg.GptNeoXConfig.codefuse_13b().__dict__, "layer_num": 2})
+    p_cpu = pkg.init_params(cfg, seed=7, dtype="bf16", int8_mode=1, quantize_embeddings=True,
+                            device="cpu")
+    p_gpu = params_to(p_cpu, "cuda")
+    rng = np.random.default_rng(8)
+    B, C, ps, n_pg, steps = 2, 32, 64, 2, 3
+    ids = rng.integers(0, cfg.vocab_size, (B, 2 * C)).astype(np.int64)
+    lens = np.array([2 * C, 2 * C - 17], np.int32)
+    pt = np.array([[3, 1], [4, 2]], np.int32)  # permuted pages; page 0 is the garbage page
+    logits = {}
+    for name, p, dev in (("card", p_gpu, "cuda"), ("cpu", p_cpu, "cpu")):
+        cache = paged_kv.init_paged_cache(cfg, B, ps * n_pg, 5, ps, torch.int8, dev)
+        cache["pt"] = torch.from_numpy(pt).to(dev)
+        last = [None] * B
+        for c0 in range(0, 2 * C, C):
+            tok = torch.from_numpy(ids[:, c0:c0 + C]).to(dev)
+            pos = torch.full((B,), c0, dtype=torch.int32, device=dev)
+            active = torch.from_numpy(lens > c0).to(dev)
+            hidden, cache = model.prefill_chunk(cfg, p, tok, pos, cache, active)
+            for b in range(B):
+                if c0 <= lens[b] - 1 < c0 + C:
+                    last[b] = hidden[b, lens[b] - 1 - c0]
+        out = [model.lm_logits(cfg, p, torch.stack(last))]
+        for st in range(steps):
+            tok = torch.from_numpy(ids[:, st]).to(dev)  # teacher-forced tokens
+            positions = torch.from_numpy(lens + st).to(dev)
+            h, cache = model.decode_step(cfg, p, tok, positions, cache)
+            out.append(model.lm_logits(cfg, p, h))
+        logits[name] = [o.float().cpu() for o in out]
+    rels = []
+    for i, (a, b) in enumerate(zip(logits["card"], logits["cpu"])):
+        if not bool(torch.isfinite(a).all()) or a.shape != (B, cfg.vocab_size):
+            raise RuntimeError(f"paged reference step {i}: bad logits {a.shape}")
+        rels.append(rel_err(torch, a, b)[1])
+    return rels
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     import torch
@@ -278,7 +438,9 @@ def main() -> int:
     except ImportError as e:
         return fail(f"the port's package is not beside this script: {e}")
     from fastertransformer4codefuse_tpu_torch.ops import _cuda
-    from fastertransformer4codefuse_tpu_torch.ops.flash_decode import flash_decode_stacked
+    from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
+        flash_chunk_paged, flash_decode_paged, flash_decode_stacked,
+    )
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import quant_matmul
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_fused import (
         fused_proj_down, fused_up_proj_down,
@@ -294,6 +456,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    global CARD
+    CARD = smi
     log("phase 1: device")
     log(f"  device {kind} x{torch.cuda.device_count()}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -303,7 +467,7 @@ def main() -> int:
     _cuda.lib()
     log(f"  kernels built in {time.time() - t0:.1f} s -> {os.path.relpath(lib_path, REPO)}")
     for line in _cuda.build_log.splitlines():
-        if "registers" in line or ("spill" in line and "0 bytes spill stores" not in line):
+        if "spill" in line and "0 bytes spill stores" not in line:
             log("   ", line.strip())
 
     src = "fastertransformer4codefuse_tpu_torch/csrc/"
@@ -322,10 +486,15 @@ def main() -> int:
                                   tpu + "quant_matmul_w4.py:315"),
         "quant_matmul_w4_head": (quant_matmul_w4_head, src + "quant_matmul_w4.cu",
                                  tpu + "quant_matmul_w4.py:82"),
+        "flash_decode_paged": (flash_decode_paged, src + "flash_decode.cu",
+                               tpu + "flash_decode.py:370"),
+        "flash_chunk_paged": (flash_chunk_paged, src + "flash_chunk.cu",
+                              tpu + "flash_decode.py:480"),
     }
     records = {
         n: {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": 0,
-            "max_abs_err": 0.0, "ms": None, "plain_ms": None}
+            "max_abs_err": 0.0, "ms": None, "plain_ms": None, "bound_ms": None,
+            "bound_by": None, "library_ms": None}
         for n, (_, s, r) in kernels.items()
     }
     if not phase_kernels(torch, records):
@@ -339,11 +508,18 @@ def main() -> int:
             f"decode steps: {', '.join(f'{r:.2e}' for r in rels)} (tol {tol_ref:g})")
         if max(rels) >= tol_ref:
             return fail(f"{label}: card and CPU logits disagree")
+    rels = phase_reference_paged(torch, pkg)
+    log(f"  int8 on a paged int8 pool (chunked prefill of ragged prompts, K10; decode, K9): "
+        f"{', '.join(f'{r:.2e}' for r in rels)} (tol {tol_ref:g})")
+    if max(rels) >= tol_ref:
+        return fail("paged int8: card and CPU logits disagree")
 
     launched = {n: 0 for n in kernels}
     for label, quant in CONFIGS:
         log(f"phase 4: CodeFuse-13B {label} (40 layers, int8 KV) on the card")
-        err = phase_serve(torch, pkg, quant, kernels, launched)
+        # phase 5 serves pools on the int8 model phase 4 builds
+        err = phase_serve(torch, pkg, quant, kernels, launched,
+                          then=phase_pool if label == "int8" else None)
         if err:
             return fail(f"{label}: {err}")
     for n in records:
@@ -384,10 +560,11 @@ def expected_launches(L, prefills, forwards, weight_bits, group_size):
     return out
 
 
-def phase_serve(torch, pkg, quant, kernels, launched):
+def phase_serve(torch, pkg, quant, kernels, launched, then=None):
     """Serve CodeFuse-13B with ``quant`` weights through engine and handler;
     returns an error message, or None. Adds this run's launches to
-    ``launched``."""
+    ``launched``. ``then(torch, engine, kernels, launched)`` runs next on the
+    same engine."""
     import gc
 
     from fastertransformer4codefuse_tpu_torch.api.handler import CodeFuseHandler
@@ -518,7 +695,394 @@ def phase_serve(torch, pkg, quant, kernels, launched):
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  peak device memory {peak:.2f} GiB; decode {step_ms:.2f} ms/step at B=1, "
         f"{step4_ms:.2f} ms/step at B=4; prefill {t_pre * 1e3:.1f} ms (1000 tokens)")
+    if then is not None:
+        return then(torch, engine, kernels, launched)
     return None  # the model is freed with this frame, before the next one is built
+
+
+# Phase 5's mix: prompt lengths, output lengths; even requests greedy, odd
+# ones sampled with their own seeds
+POOL_PROMPTS = (1800, 130, 900, 1500, 400, 1100, 700, 250, 1650, 520)
+POOL_OUTS = (128, 32, 64, 96, 48, 128, 32, 80, 64, 40)
+SAMPLED = dict(top_k=40, top_p=0.9, temperature=0.8, repetition_penalty=1.1)
+POOL = dict(max_slots=8, max_seq_len=2048, prompt_bucket=128, pipeline_ticks=True)
+PAGES = dict(num_pages=65, page_size=256)  # 8 slots x 2048 positions + the garbage page
+
+
+def pool_launches(L, b):
+    """Launches each kernel wrapper must count for the ticks the int8
+    CodeFuse pool ``b`` ran: a decode tick runs QKV as K1 and the
+    post-attention block as K2 (which calls K3), a chunk tick four K1 GEMMs;
+    attention is K9 / K10 on pages, K4 and plain chunk attention on dense
+    slabs; the int8 LM head is a plain matmul."""
+    d, c = b.decode_ticks, b.chunk_ticks
+    out = {"quant_matmul": L * (d + 4 * c), "fused_up_proj_down": L * d,
+           "fused_proj_down": L * d}
+    if b.paged is not None:
+        out.update(flash_decode_paged=L * d, flash_chunk_paged=L * c)
+    else:
+        out["flash_decode"] = L * d
+    return out
+
+
+def check_counts(kernels, launched, pools, L, label):
+    """Compare the counters (zeroed just before ``label`` was driven) with
+    the counts the ticks of ``pools`` (batchers) must give; add them to
+    ``launched``."""
+    counts = {n: fn.launches for n, (fn, _, _) in kernels.items()}
+    expect = {n: 0 for n in kernels}
+    for b in pools:
+        for n, c in pool_launches(L, b).items():
+            expect[n] += c
+    ticks = ", ".join(f"{b.decode_ticks} decode ticks ({b.chunk_ticks} with a chunk)"
+                      for b in pools)
+    log(f"  {label}: {ticks}; launches {({n: c for n, c in counts.items() if c})}, expected "
+        f"{({n: c for n, c in expect.items() if c})}")
+    if counts != expect:
+        return f"{label}: kernel launch counts do not match the ticks run"
+    for n, c in counts.items():
+        launched[n] += c
+    return None
+
+
+def zero_counts(kernels):
+    for fn, _, _ in kernels.values():
+        fn.launches = 0
+
+
+def instrument(torch, b, ticks):
+    """Dispatch ``b``'s ticks under set_sync_debug_mode("error"), so a
+    synchronisation inside a tick's dispatch raises (the driver dies and
+    every waiter reports it), and log each step's wall time and whether it
+    ran a chunk."""
+    dispatch, step = b._dispatch_tick, b.step
+
+    def guarded():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def timed():
+        c0, t0 = b.chunk_ticks, time.perf_counter()
+        out = step()
+        ticks.append((time.perf_counter() - t0, b.chunk_ticks > c0))
+        return out
+
+    b._dispatch_tick, b.step = guarded, timed
+
+
+def drive_mix(srv, reqs, late=0, gap=1.0):
+    """Submit each request from its own thread: all but the last ``late`` at
+    once, those ``gap`` s apart while the others decode. Returns the finished
+    requests and the wall time from the first submission to the last
+    completion."""
+    uids = [None] * len(reqs)
+    n0 = len(reqs) - late
+
+    def submit(i, delay):
+        time.sleep(delay)
+        p, o, kw = reqs[i]
+        uids[i] = srv.submit(p, o, **kw)
+
+    threads = [threading.Thread(target=submit, args=(i, 0 if i < n0 else gap * (i - n0 + 1)))
+               for i in range(len(reqs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if None in uids:
+        raise RuntimeError("a request was not accepted")
+    results = [srv.wait(u, timeout=900) for u in uids]
+    return results, time.perf_counter() - t0
+
+
+def bad_length(results, reqs, end_id, V):
+    """None if every request kept its prompt and generated its output_len
+    tokens (fewer only when it ended on end_id), all in the vocabulary."""
+    for i, (r, (p, o, _)) in enumerate(zip(results, reqs)):
+        gen = r.output_ids[len(p):]
+        if r.output_ids[:len(p)] != p:
+            return f"request {i} lost its prompt"
+        if not (len(gen) == o or (1 <= len(gen) < o and gen[-1] == end_id)):
+            return f"request {i}: {len(gen)} tokens for output_len {o}"
+        if any(t < 0 or t >= V for t in gen):
+            return f"request {i}: token ids out of range"
+    return None
+
+
+def tick_profile(torch, engine, ContinuousBatcher, n_chunk=3, n_decode=10):
+    """Where a tick's time goes: a paged pool (the phase's layout) driven on
+    this thread with 8 requests of 1000-token prompts. The first
+    ``n_chunk`` ticks (every slot chunk-prefilling) and, once all 8 decode,
+    ``n_decode`` decode ticks run under torch.profiler (kernel activity
+    only); the same number of each runs unprofiled for the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    V = engine.config.vocab_size
+    rng = np.random.default_rng(9)
+    b = ContinuousBatcher(engine, paged=PAGES, **POOL)
+    for _ in range(8):
+        b.submit(rng.integers(0, V, 1000).tolist(), 64, top_k=1, min_length=64)
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            b.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    def profiled(n):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                b.step()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = getattr(e, "self_cuda_time_total", 0.0)
+            if t > 0:
+                rows.append((e.key, t / 1e3 / n, e.count / n))
+        rows.sort(key=lambda r: -r[1])
+        return sum(r[1] for r in rows), rows
+
+    out = {}
+    c_dev, c_rows = profiled(n_chunk)
+    c_wall = timed(n_chunk)
+    if b.chunk_ticks != 2 * n_chunk:
+        raise RuntimeError("tick profile: the chunk ticks did not run as planned")
+    while any(r._chunks_left for r in b.running.values()):
+        b.step()
+    timed(2)  # every slot decodes from here
+    d_wall = timed(n_decode)
+    d_dev, d_rows = profiled(n_decode)
+    out["chunk"] = (c_wall, c_dev, c_rows)
+    out["decode"] = (d_wall, d_dev, d_rows)
+    return out
+
+
+def phase_http(torch, engine, kernels, launched, tok):
+    """Length-classed pools (``CodeFuseHandler(pool=[classA, classB])``: a
+    paged class of 512 positions and a dense class of 2048) behind the HTTP
+    front end on localhost: /healthz, and a short and a long request posted
+    at once, each routed to its class."""
+    import http.client
+
+    from fastertransformer4codefuse_tpu_torch.api.handler import CodeFuseHandler
+    from fastertransformer4codefuse_tpu_torch.api.http_server import make_server
+    from fastertransformer4codefuse_tpu_torch.api.trie import VocabTrie
+
+    multi = CodeFuseHandler(
+        engine=engine, tokenizer=tok, trie=VocabTrie(tok.get_vocab()), warmup=False,
+        pool=[dict(POOL, max_slots=2, max_seq_len=512, paged=dict(num_pages=5, page_size=256)),
+              dict(POOL, max_slots=2)])
+    srv = make_server(multi, "127.0.0.1", 0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    port = srv.server_address[1]
+
+    def call(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            conn.request(method, path, body=None if body is None else json.dumps(body).encode(),
+                         headers={"Content-Type": "application/json"})
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+        finally:
+            conn.close()
+
+    try:
+        if call("GET", "/healthz") != (200, "ok"):
+            return "http: /healthz did not answer"
+        line = "def quick_sort(arr):\n    "
+        reqs = {"short": (line * 4, 32), "long": (line * 40, 64)}  # 100 / 1000 tokens
+        got = {}
+
+        def post(name):
+            text, n = reqs[name]
+            got[name] = call("POST", "/predict", {
+                "prompts": [{"prompt": text, "top_k": 1, "min_length": n}], "out_seq_length": n})
+
+        threads = [threading.Thread(target=post, args=(n,)) for n in reqs]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        for name, (_, n) in reqs.items():
+            status, body = got.get(name, (None, None))
+            if status != 200 or body["res"]["length"] != [[n]]:
+                return f"http {name} request: {status} {body}"
+        pools = [s.batcher for s in multi.server.servers]
+        if not all(b.decode_ticks for b in pools):
+            return "http: a length class served no request"
+        torch.cuda.synchronize()
+        err = check_counts(kernels, launched, pools, engine.config.layer_num,
+                           "pooled handler, 2 length classes (paged 512, dense 2048), over HTTP")
+        if err:
+            return err
+        log("  HTTP on localhost: /healthz, a 100-token and a 1000-token request posted at once, "
+            "each served by its length class")
+        return None
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        multi.close()
+
+
+def phase_pool(torch, engine, kernels, launched):
+    """Phase 5: pooled serving on the int8 CodeFuse-13B ``engine``; returns an
+    error message, or None."""
+    import gc
+
+    from fastertransformer4codefuse_tpu_torch.api.handler import CodeFuseHandler
+    from fastertransformer4codefuse_tpu_torch.api.trie import VocabTrie
+    from fastertransformer4codefuse_tpu_torch.engine.batcher import ContinuousBatcher
+    from fastertransformer4codefuse_tpu_torch.engine.server import BatchingServer
+
+    cfg = engine.config
+    L, V, end_id = cfg.layer_num, cfg.vocab_size, cfg.end_id
+    rng = np.random.default_rng(5)
+    reqs = [(rng.integers(0, V, n).tolist(), o,
+             dict(top_k=1) if i % 2 == 0 else dict(SAMPLED, random_seed=100 + i))
+            for i, (n, o) in enumerate(zip(POOL_PROMPTS, POOL_OUTS))]
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+
+    log("phase 5: pooled serving of CodeFuse-13B int8 (8 slots, 2048 positions, paged: "
+        "65 pages of 256, int8 KV)")
+    fresh()
+    srv = BatchingServer(engine, return_log_probs=True, paged=PAGES, **POOL)
+    b = srv.batcher
+    pages_gib = sum(nbytes(t) for t in b._state["cache"].values()) / 2**30
+    ticks = []
+    instrument(torch, b, ticks)
+    try:
+        runs = []
+        for rep in range(2):
+            d0, c0, n0 = b.decode_ticks, b.chunk_ticks, len(ticks)
+            res, wall = drive_mix(srv, reqs, late=4)
+            err = bad_length(res, reqs, end_id, V)
+            if err:
+                return f"pool mix {rep + 1}: {err}"
+            gen = sum(len(r.output_ids) - len(p) for r, (p, _, _) in zip(res, reqs))
+            with_c = [t * 1e3 for t, c in ticks[n0:] if c] or [float("nan")]
+            no_c = [t * 1e3 for t, c in ticks[n0:] if not c] or [float("nan")]
+            log(f"  mix {rep + 1}: 10 requests (prompts {min(POOL_PROMPTS)}-{max(POOL_PROMPTS)}, "
+                f"outputs {min(POOL_OUTS)}-{max(POOL_OUTS)}, 5 greedy, 5 sampled, 4 arriving "
+                f"1-4 s in): {gen} tokens in {wall:.2f} s = {gen / wall:.1f} tokens/s; "
+                f"{b.decode_ticks - d0} ticks, {b.chunk_ticks - c0} with a chunk: "
+                f"{statistics.median(with_c):.1f} ms median per tick with a chunk, "
+                f"{statistics.median(no_c):.1f} ms without ({CARD})")
+            runs.append([r.output_ids for r in res])
+        if runs[0] != runs[1]:
+            return "the pool mix run twice gave different tokens"
+        alone = srv.generate(reqs[0][0], reqs[0][1], **reqs[0][2])
+        if alone.output_ids != runs[0][0]:
+            return "a greedy request alone differs from itself inside the mix"
+        log("  mix x2: identical tokens; greedy request 0 alone == inside the mix; tick "
+            "dispatch never synchronised (set_sync_debug_mode error)")
+        torch.cuda.synchronize()
+        err = check_counts(kernels, launched, [b], L, "paged pool, mix x2 + alone")
+        if err:
+            return err
+        log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({pages_gib:.2f} GiB of pages) ({CARD})")
+    finally:
+        srv.close()
+    del srv, b
+
+    fresh()
+    prof = tick_profile(torch, engine, ContinuousBatcher)
+    for kind, (wall, dev, rows) in prof.items():
+        log(f"  {kind} tick (8 slots at ~1000 positions; profiled): wall {wall:.1f} ms, device "
+            f"kernels {dev:.1f} ms, busy {100 * dev / wall:.1f}% ({CARD}); per tick:")
+        for name, ms, n in rows[:8]:
+            log(f"    {ms:8.3f} ms {n:7.1f}x  {name[:90]}")
+
+    fresh()
+    tok = ByteTokenizer()
+    streamed = []
+    handler = CodeFuseHandler(engine=engine, tokenizer=tok, trie=VocabTrie(tok.get_vocab()),
+                              warmup=False, on_stream_text=lambda b_, j, s: streamed.append(s),
+                              pool=dict(POOL, paged=PAGES))
+    try:
+        req = {"prompts": [{"prompt": "def quick_sort(arr):\n    " * 20, "top_k": 1,
+                            "random_seed": 5}], "out_seq_length": 32}
+        responses = []
+        for stream in (False, True):
+            code, msg, res = handler.predict(dict(req, stream=stream), f"pool-{int(stream)}")
+            if code != 0:
+                return f"pooled handler request failed: {msg}"
+            responses.append(json.loads(res["res"]))
+        for key in ("generated_code", "length", "cum_log_prob"):
+            if responses[0][key] != responses[1][key]:
+                return f"pooled handler: streamed response differs in {key}"
+        if "".join(streamed) != responses[0]["generated_code"][0][0]:
+            return "pooled handler: streamed text differs from the response"
+        torch.cuda.synchronize()
+        err = check_counts(kernels, launched, [handler.server.batcher], L,
+                           "pooled CodeFuseHandler, streamed and not")
+        if err:
+            return err
+    finally:
+        handler.close()
+    del handler
+
+    fresh()
+    err = phase_http(torch, engine, kernels, launched, tok)
+    if err:
+        return err
+
+    fresh()
+    srv = BatchingServer(engine, paged=dict(PAGES, num_pages=17, lazy=True), **POOL)
+    b = srv.batcher
+    lazy_reqs = [(rng.integers(0, V, 500).tolist(), 96,
+                  dict(top_k=1) if i % 2 == 0 else dict(SAMPLED, random_seed=200 + i))
+                 for i in range(8)]
+    try:
+        res, wall = drive_mix(srv, lazy_reqs)
+        err = bad_length(res, lazy_reqs, end_id, V)
+        if err:
+            return f"lazy pool: {err}"
+        if b.preemptions < 1:
+            return "the lazy pool never preempted"
+        if b.allocator.free_pages != 16:
+            return f"the lazy pool leaked pages: {b.allocator.free_pages} of 16 free"
+        gen = sum(len(r.output_ids) - 500 for r in res)
+        log(f"  lazy pool, 17 pages: 8 requests of 500 + 96 tokens, {b.preemptions} "
+            f"preemptions, all finished: {gen} tokens in {wall:.2f} s")
+        torch.cuda.synchronize()
+        err = check_counts(kernels, launched, [b], L, "lazy paged pool")
+        if err:
+            return err
+    finally:
+        srv.close()
+    del srv, b
+
+    fresh()
+    srv = BatchingServer(engine, **dict(POOL, max_slots=4))
+    b = srv.batcher
+    dense_reqs = reqs[1:5]
+    try:
+        res, wall = drive_mix(srv, dense_reqs)
+        err = bad_length(res, dense_reqs, end_id, V)
+        if err:
+            return f"dense pool: {err}"
+        gen = sum(len(r.output_ids) - len(p) for r, (p, _, _) in zip(res, dense_reqs))
+        log(f"  dense pool, 4 slots x 2048: 4 requests, {gen} tokens in {wall:.2f} s; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.synchronize()
+        return check_counts(kernels, launched, [b], L, "dense pool (K4)")
+    finally:
+        srv.close()
 
 
 if __name__ == "__main__":

@@ -10,8 +10,11 @@ it or jax.
 
 Ported slices: CodeFuse-13B (GPT-NeoX, parallel residual) with weight-only
 int8, or int4 weights (per-channel or group-wise scales), and an int8 KV
-cache, served through ``GptNeoXEngine.generate`` and the static path of
-``api.handler.CodeFuseHandler.predict``.
+cache, served through ``GptNeoXEngine.generate``,
+``api.handler.CodeFuseHandler.predict`` (static path, or a continuous-batching
+pool with ``pool=``), ``engine.server.BatchingServer`` on dense or paged KV,
+and ``api.http_server``. Constructors build on the CUDA card unless given
+``device="cpu"``.
 """
 
 from .core.config import GptNeoXConfig, RuntimeConfig

@@ -4,8 +4,16 @@ of the static path of api/handler.py).
 Same request schema, per-prompt defaults (top_k=50, top_p=0, temperature=1,
 repetition_penalty=1), streaming through per-(batch, beam) incremental
 detokenizers, and response schema {latency, random_seed, generated_code,
-length, cum_log_prob}. The continuous-batching pool (``pool=``) and
-speculative requests are ROADMAP queue 1 items 13 and 15.
+length, cum_log_prob}.
+
+With ``pool=dict(...)`` (or a list of them: length classes) the handler
+routes requests through a continuous-batching slot pool
+(``engine/server.py``): concurrent ``predict`` calls from different threads
+interleave mid-flight. Sampling semantics, streaming, stop/bad words, trie
+constraints and the response schema are the static path's; requests the pool
+cannot route (too long, top_k outside the pool's cap, word lists wider than
+its buffers, beam search) take the static path. Speculative requests are
+ROADMAP queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -13,11 +21,13 @@ import json
 import logging
 import random
 import threading
+import time
 import traceback
 from typing import Callable, List, Optional
 
-from .detok import TokenStreamDecoder
+from .detok import TokenStreamDecoder, trim_garbage
 from .generate import generate, init_engine_and_tokenizer
+from .trie import optional_last_token_ids
 
 logger = logging.getLogger(__name__)
 
@@ -58,6 +68,9 @@ def get_data_package(request_dict: dict, default_random_seed: int) -> dict:
         "min_length": gather("min_length", 0),
         "random_seed": gather("random_seed", default_random_seed),
         "output_log_probs": bool(request_dict.get("output_log_probs", False)),
+        # request-level admission priority for the pooled path (lower admits
+        # first; the static path has no queue)
+        "priority": int(request_dict.get("priority", 0)),
     }
 
 
@@ -77,23 +90,159 @@ class CodeFuseHandler:
     ):
         """Pass a prebuilt engine/tokenizer/trie, or ckpt/tokenizer paths
         (not ported yet). ``on_stream_text(batch_idx, beam_idx, text)`` taps
-        streamed chunks; by default batch 0 prints to stdout."""
-        if pool is not None:
-            raise NotImplementedError("pooled serving is ROADMAP queue 1 item 13")
+        streamed chunks; by default batch 0 prints to stdout.
+
+        ``pool``: kwargs of ``engine.server.BatchingServer`` (e.g.
+        ``dict(max_slots=8, max_seq_len=2048, paged=dict(num_pages=65,
+        page_size=256))``), or a list of them for length-classed pools
+        (``MultiPoolServer``)."""
         if engine is None:
             engine, tokenizer, trie = init_engine_and_tokenizer(ckpt_path, tokenizer_path)
         self.engine = engine
         self.tokenizer = tokenizer
         self.trie = trie
         self.on_stream_text = on_stream_text
-        # one engine, not reentrant: concurrent predict() calls serialize
+        self.server = None
+        if pool is not None:
+            from ..engine.server import BatchingServer, MultiPoolServer
+
+            def with_defaults(kw):
+                kw = dict(kw)
+                # the response always carries cum_log_prob: the pool tracks
+                # per-token log-probs
+                kw.setdefault("return_log_probs", True)
+                # serving default: read a tick's results after the next
+                # tick is dispatched (streaming lags one tick)
+                kw.setdefault("pipeline_ticks", True)
+                # trie extension lists can span hundreds of vocab entries
+                kw.setdefault("optional_last_width", 512)
+                kw.setdefault("stop_words_width", 64)
+                kw.setdefault("bad_words_width", 64)
+                return kw
+
+            if isinstance(pool, (list, tuple)):
+                self.server = MultiPoolServer(engine, [with_defaults(kw) for kw in pool])
+            else:
+                self.server = BatchingServer(engine, **with_defaults(pool))
+        # one engine, not reentrant: concurrent static-path calls serialize
         self._static_lock = threading.Lock()
         if warmup:
             generate(self.engine, self.tokenizer, ["demo"], 2, 1)
+            if self.server is not None:
+                # warm every pool class: routing by length would only reach
+                # the smallest with a short request
+                for srv in getattr(self.server, "servers", [self.server]):
+                    srv.generate(self.tokenizer.encode("demo"), 2)
+
+    def close(self):
+        """Stop the pool's driver threads (a pooled handler only)."""
+        if self.server is not None:
+            self.server.close()
 
     def _default_stream_sink(self, batch_idx: int, beam_idx: int, text: str):
         if batch_idx == 0 and beam_idx == 0:
             print(text, end="", flush=True)
+
+    # ------------------------------------------------------------- pooled ----
+    def _pool_routable(self, dp: dict, prompts: List[List[int]]) -> bool:
+        """Whether every prompt of this request can ride the slot pool: a
+        sampling request (beam_width 1) of non-empty prompts, each fitting
+        the pool class it routes to, with top_k within that class's cap and
+        word lists and trie expansions within its buffers."""
+        if dp["beam_width"] != 1:
+            return False
+
+        def wl_len(lists, i):
+            if lists is None or not lists[i]:
+                return 0
+            return sum(len(self.tokenizer.encode(w)) for w in lists[i])
+
+        for b, ids in enumerate(prompts):
+            if len(ids) == 0:
+                return False
+            pool = self.server.routable_pool(len(ids) + dp["output_len"], 1)
+            if pool is None:
+                return False
+            if not 1 <= (dp["top_k"] or [50])[b] <= pool.sampling_cap:
+                return False  # top_k 0 (pure top-p) needs the full sort
+            if wl_len(dp.get("stop_words_list"), b) > pool.stop_words_width:
+                return False
+            if wl_len(dp.get("bad_words_list"), b) > pool.bad_words_width:
+                return False
+            lt = dp.get("last_token_list")
+            if lt is not None and lt[b] and self.trie is not None:
+                olt = optional_last_token_ids(self.trie, lt[b], self.engine.config.end_id)
+                if len(olt) > pool.optional_last_width:
+                    return False
+        return True
+
+    def _predict_pooled(self, dp: dict, use_callback: bool, prompts: List[List[int]]):
+        """Route one request's prompts through the pool; same sampling
+        semantics and processor order as the static path, same response
+        schema."""
+        tok = self.tokenizer
+        end_id = self.engine.config.end_id
+        sink = self.on_stream_text or self._default_stream_sink
+
+        def pick(key, default, b):
+            v = dp.get(key)
+            return default if v is None else v[b]
+
+        def word_ids(lists, b):
+            if lists is None or not lists[b]:
+                return None
+            return [list(tok.encode(w)) for w in lists[b]]
+
+        start = time.time()
+        uids = []
+        for b, ids in enumerate(prompts):
+            olt = None
+            lt = dp.get("last_token_list")
+            if lt is not None and lt[b]:
+                if self.trie is None:
+                    raise ValueError("trie is None, can't select last token")
+                olt = optional_last_token_ids(self.trie, lt[b], end_id)
+            uids.append(self.server.submit(
+                ids, dp["output_len"],
+                temperature=float(pick("temperature", 1.0, b)),
+                repetition_penalty=float(pick("repetition_penalty", 1.0, b)),
+                min_length=int(pick("min_length", 0, b)),
+                priority=dp.get("priority", 0),
+                stop_words=word_ids(dp.get("stop_words_list"), b),
+                bad_words=word_ids(dp.get("bad_words_list"), b),
+                optional_last_tokens=olt,
+                top_k=int(pick("top_k", 50, b)),
+                top_p=float(pick("top_p", 0.0, b)),
+                presence_penalty=float(pick("presence_penalty", 0.0, b)),
+                random_seed=int(pick("random_seed", 0, b)),
+                on_text=(lambda s, b=b: sink(b, 0, s)) if use_callback else None,
+                tokenizer=tok if use_callback else None,
+            ))
+        results = [self.server.wait(u) for u in uids]
+        latency = time.time() - start
+
+        generated_code, lengths, cum_lps, step_lps = [], [], [], []
+        for b, r in enumerate(results):
+            gen = []
+            for t in r.output_ids[len(prompts[b]):]:
+                if t == end_id:
+                    break
+                gen.append(int(t))
+            generated_code.append([trim_garbage(tok.decode(gen))])
+            lengths.append([len(gen)])
+            cum_lps.append([r.cum_log_prob])
+            lp = list(r.step_log_probs or [])
+            step_lps.append([lp + [0.0] * (dp["output_len"] - len(lp))])
+        response = {
+            "latency": latency,
+            "random_seed": dp["random_seed"],
+            "generated_code": generated_code,
+            "length": lengths,
+            "cum_log_prob": cum_lps,
+        }
+        if dp["output_log_probs"]:
+            response["output_log_probs"] = step_lps
+        return response
 
     def predict(self, request_dict: dict, trace_id: str):
         logger.info("%s request: %s", trace_id, json.dumps(request_dict, ensure_ascii=False))
@@ -106,6 +255,16 @@ class CodeFuseHandler:
             batch_size = len(data_package["texts"])
             beam_width = data_package["beam_width"]
             random_seed = data_package["random_seed"]
+
+            if self.server is not None:
+                prompts = [list(self.tokenizer.encode(t)) for t in data_package["texts"]]
+                if self._pool_routable(data_package, prompts):
+                    response = self._predict_pooled(data_package, use_callback, prompts)
+                    response_str = json.dumps(response, ensure_ascii=False)
+                    logger.info("%s response (pooled): %s", trace_id, response_str)
+                    return (0, "ok", {"res": response_str})
+                logger.info("%s not pool-routable; using the static path", trace_id)
+            data_package.pop("priority")  # pooled-path-only knob
 
             callback = None
             decoders: List[List[TokenStreamDecoder]] = []

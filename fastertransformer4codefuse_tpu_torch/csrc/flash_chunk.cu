@@ -1,0 +1,392 @@
+// K10: chunked-prefill attention over the paged KV pool. Row b brings C
+// consecutive queries starting at logical position pos[b]; query c with
+// head j of KV group h attends keys 0 .. pos[b] + c.
+//
+// Replaces fastertransformer4codefuse_tpu/ops/flash_decode.py
+// flash_chunk_paged (_kernel in chunk mode): the C queries and the gq query
+// heads of a KV head ride one row axis, r = c * gq + j, bounded at
+// pos + r / gq; scores = (q . k) * k_s * sm_scale, masked per row; online
+// softmax in fp32; (p * v_s) rounded to bf16 before the PV product (int8 ->
+// bf16 is exact; bf16 pages round p alone); the denominator sums the
+// unrounded fp32 p. A row whose bound lies before a key tile gets p = 0 there
+// (the JAX kernel's re-mask hazard), and keys past the tile's last bound are
+// never read (zeros in shared memory, so stale page bytes never reach PV).
+//
+// Bound: at CodeFuse-13B with C = 128 queries over ~1000 keys a row is
+// ~2.7 GFLOP a layer against ~10.5 MB of int8 K/V, near the card's
+// 295 FLOP/byte balance, so the products run on the tensor cores:
+// mma.sync m16n8k16 bf16 with fp32 accumulation (its fragment layouts are
+// fixed by the PTX ISA, so the online-softmax rescale of each accumulator row
+// happens in registers and P feeds the PV product from registers).
+//
+// Design: one block of 8 warps per (128-row query tile, KV head, row); each
+// warp owns 16 query rows, and the C = 128 queries of a KV head share one
+// block, so each K/V byte is read and converted once per (row, KV head). The
+// block loops over 64-key tiles up to the tile's last bound. Each thread
+// resolves its keys' cached vectors through the block table (the block loads
+// its own page ids, no host round trip) and loads K, V and their scales with
+// 16-byte loads into registers; at dh 128 the next tile's loads are issued
+// before the current tile's products, so they stay in flight under them. A
+// tile is stored in shared memory as bf16 [key][dh] for K and V; each warp
+// computes S = Q K^T (16 x 64), updates its rows' running max and
+// denominator, and accumulates P V into 16 x dh fp32 registers, the V
+// fragments read with ldmatrix.trans. PERF.md holds the measured effect of
+// each of these choices. The tile loop is templated on where a key lives
+// (the KV policy) and takes per-row bounds, so the causal prefill kernel K5
+// can reuse it with a dense K/V and a length mask. wgmma, TMA and a deeper
+// ring are later work.
+#include <math.h>
+
+#include "ftcf_common.cuh"
+
+namespace ftcf {
+
+constexpr int FC_WARPS = 8;
+constexpr int FC_THREADS = FC_WARPS * 32;
+constexpr int FC_BM = FC_WARPS * 16;  // query rows per block, 16 per warp
+constexpr int FC_BN = 64;             // keys per tile
+
+// Key s of (row b, KV head h) in the layer's [P, nKV, ps, dh] page slab,
+// through the block table pt [B, n_pg].
+struct PagedKV {
+  const int* pt;
+  int n_pg, ps;
+  __device__ int seq_len() const { return n_pg * ps; }
+  __device__ uint32_t vec(int b, int h, int nKV, int s) const {
+    const int page = pt[(size_t)b * n_pg + min(s / ps, n_pg - 1)];
+    return ((uint32_t)page * nKV + h) * ps + s % ps;
+  }
+};
+
+// D += A (16x16, row) * B (16x8, col), bf16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two floats -> two bf16 in a word, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Four 8x8 b16 matrices from shared memory, transposed: lanes 8j .. 8j + 7
+// give the row addresses of matrix j, and r[j] holds, for lane l, elements
+// (row 2 (l % 4), column l / 4) and (row 2 (l % 4) + 1, column l / 4) of
+// matrix j: the B fragment of m16n8k16 from a row-major [k][n] tile.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+template <int DH>
+struct ChunkSmem {
+  static constexpr int LD = DH + 8;  // bf16 row pitch of Q, K and V (pad: no bank conflicts)
+  static constexpr size_t bytes = (size_t)(FC_BM + 2 * FC_BN) * LD * 2 + FC_BN * 8;
+};
+
+template <int DH, bool QUANT, class KV>
+__global__ void __launch_bounds__(FC_THREADS)
+flash_chunk_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ kc,
+                   const __nv_bfloat16* __restrict__ ks, const void* __restrict__ vc,
+                   const __nv_bfloat16* __restrict__ vs, const int* __restrict__ pos,
+                   __nv_bfloat16* __restrict__ out, int C, int nKV, int gq, KV kv,
+                   float sm_scale) {
+  constexpr int LD = ChunkSmem<DH>::LD;
+  constexpr int W = QUANT ? 16 : 8;                 // cache values per 16-byte load
+  constexpr int KCH = DH / W;                       // 16-byte loads per cached vector
+  constexpr int NLD = FC_BN * KCH / FC_THREADS;     // of K (and of V) per thread per tile
+  constexpr int NT = FC_BN / 8;                     // 8-key MMA tiles of a key tile
+  constexpr int DT = DH / 8;                        // 8-dim MMA tiles of the output
+  // the next tile's loads are issued before the current tile's products
+  // where the registers allow it (dh 128)
+  constexpr bool PREFETCH = DH == 128;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [FC_BM][LD]
+  __nv_bfloat16* Ks = Qs + FC_BM * LD;                           // [FC_BN][LD]
+  __nv_bfloat16* Vs = Ks + FC_BN * LD;                           // [FC_BN][LD]
+  float* ks_s = reinterpret_cast<float*>(Vs + FC_BN * LD);       // [FC_BN]
+  float* vs_s = ks_s + FC_BN;                                    // [FC_BN]
+
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, t4 = lane & 3;
+  const int R = C * gq, nH = nKV * gq;
+  const int r0 = tile * FC_BM;
+  const int p0 = pos[b];
+  // the last key any row of this tile may see (inclusive)
+  const int key_end = min(p0 + (min(R, r0 + FC_BM) - 1) / gq, kv.seq_len() - 1);
+
+  for (int i = tid; i < FC_BM * (DH / 8); i += FC_THREADS) {
+    const int r = i / (DH / 8), c8 = (i - r * (DH / 8)) * 8, rr = r0 + r;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (rr < R) {
+      const int c = rr / gq, j = rr - c * gq;
+      val = *reinterpret_cast<const uint4*>(q + ((size_t)(b * C + c) * nH + h * gq + j) * DH + c8);
+    }
+    *reinterpret_cast<uint4*>(Qs + r * LD + c8) = val;
+  }
+
+  // a tile's K, V (16-byte loads; consecutive threads, consecutive bytes of
+  // a key) and scales, resolved through the block table
+  auto load_one = [&](int i, int k0, uint4& uk, uint4& uv) {
+    const int idx = tid + i * FC_THREADS, key = idx / KCH, c = idx - key * KCH;
+    uk = uv = make_uint4(0, 0, 0, 0);
+    if (k0 + key <= key_end) {
+      const size_t off = (size_t)kv.vec(b, h, nKV, k0 + key) * DH + c * W;
+      if constexpr (QUANT) {
+        uk = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(kc) + off);
+        uv = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(vc) + off);
+      } else {
+        uk = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(kc) + off);
+        uv = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(vc) + off);
+      }
+    }
+  };
+  // ... stored as bf16 [key][dh] (int8 -> bf16 is exact)
+  auto store_one = [&](int i, const uint4& uk, const uint4& uv) {
+    const int idx = tid + i * FC_THREADS, key = idx / KCH, c = idx - key * KCH;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const uint4 u = m ? uv : uk;
+      uint4* dst = reinterpret_cast<uint4*>((m ? Vs : Ks) + key * LD + c * W);
+      if constexpr (QUANT) {
+        float f[16];
+        i8x4_to_f32(u.x, f);
+        i8x4_to_f32(u.y, f + 4);
+        i8x4_to_f32(u.z, f + 8);
+        i8x4_to_f32(u.w, f + 12);
+        dst[0] = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                            pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+        dst[1] = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]),
+                            pack_bf16(f[12], f[13]), pack_bf16(f[14], f[15]));
+      } else {
+        dst[0] = u;
+      }
+    }
+  };
+  float ksr = 0.0f, vsr = 0.0f;
+  auto load_scales = [&](int k0) {
+    if (QUANT && tid < FC_BN) {
+      ksr = vsr = 0.0f;
+      if (k0 + tid <= key_end) {
+        const uint32_t vv = kv.vec(b, h, nKV, k0 + tid);
+        ksr = __bfloat162float(ks[vv]);
+        vsr = __bfloat162float(vs[vv]);
+      }
+    }
+  };
+  auto store_scales = [&]() {
+    if (QUANT && tid < FC_BN) {
+      ks_s[tid] = ksr;
+      vs_s[tid] = vsr;
+    }
+  };
+  constexpr int NPF = PREFETCH ? NLD : 1;
+  uint4 kr[NPF], vr[NPF];  // the next tile, in flight
+  auto load_tile = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < (PREFETCH ? NLD : 0); ++i) load_one(i, k0, kr[i], vr[i]);
+    load_scales(k0);
+  };
+  // stage tile k0 in shared memory: from the registers the previous
+  // iteration filled, or (no prefetch) load by load, so that only one
+  // load's registers are live beside the accumulators
+  auto stage_tile = [&](int k0) {
+    if constexpr (PREFETCH) {
+#pragma unroll
+      for (int i = 0; i < NPF; ++i) store_one(i, kr[i], vr[i]);
+    } else {
+#pragma unroll 2
+      for (int i = 0; i < NLD; ++i) {
+        uint4 uk, uv;
+        load_one(i, k0, uk, uv);
+        store_one(i, uk, uv);
+      }
+      load_scales(k0);
+    }
+    store_scales();
+  };
+
+  // this thread's two rows of the warp's 16: grp and grp + 8
+  const int rr0 = r0 + warp * 16 + grp, rr1 = rr0 + 8;
+  const int bound0 = rr0 < R ? min(p0 + rr0 / gq, key_end) : -1;
+  const int bound1 = rr1 < R ? min(p0 + rr1 / gq, key_end) : -1;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  float o[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
+
+  if constexpr (PREFETCH) load_tile(0);
+  for (int k0 = 0; k0 <= key_end; k0 += FC_BN) {
+    __syncthreads();  // the previous tile's readers are done (and Q is stored)
+    stage_tile(k0);
+    __syncthreads();
+    if constexpr (PREFETCH) {
+      if (k0 + FC_BN <= key_end) load_tile(k0 + FC_BN);
+    }
+
+    // S = Q K^T for the warp's 16 rows and the tile's 64 keys
+    float sc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 16) {
+      const __nv_bfloat16* qa = Qs + (warp * 16 + grp) * LD + kk + t4 * 2;
+      uint32_t a[4];
+      a[0] = *reinterpret_cast<const uint32_t*>(qa);
+      a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD);
+      a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
+      a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD + 8);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const __nv_bfloat16* kb = Ks + (nt * 8 + grp) * LD + kk + t4 * 2;
+        uint32_t bb[2];
+        bb[0] = *reinterpret_cast<const uint32_t*>(kb);
+        bb[1] = *reinterpret_cast<const uint32_t*>(kb + 8);
+        mma_16816(sc[nt], a, bb);
+      }
+    }
+
+    // scale, mask per row, running max over the 4 threads of a row
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = nt * 8 + t4 * 2 + e, s = k0 + col;
+        const float kscale = QUANT ? ks_s[col] : 1.0f;
+        sc[nt][e] = s <= bound0 ? sc[nt][e] * kscale * sm_scale : -INFINITY;
+        sc[nt][2 + e] = s <= bound1 ? sc[nt][2 + e] * kscale * sm_scale : -INFINITY;
+        mx0 = fmaxf(mx0, sc[nt][e]);
+        mx1 = fmaxf(mx1, sc[nt][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    // a row with no visible key yet keeps alpha 1 and p 0
+    const float al0 = mn0 == -INFINITY ? 1.0f : expf(m0 - mn0);
+    const float al1 = mn1 == -INFINITY ? 1.0f : expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // P (times the value scales, rounded to bf16) as the A fragments of P V:
+    // S tiles 2kt and 2kt + 1 are keys 16kt .. 16kt + 15
+    uint32_t pa[FC_BN / 16][4];
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float p[4], w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mrow = e < 2 ? mn0 : mn1;
+        p[e] = sc[nt][e] == -INFINITY ? 0.0f : expf(sc[nt][e] - mrow);
+        w[e] = QUANT ? p[e] * vs_s[nt * 8 + t4 * 2 + (e & 1)] : p[e];
+      }
+      ps0 += p[0] + p[1];
+      ps1 += p[2] + p[3];
+      pa[nt / 2][(nt & 1) * 2 + 0] = pack_bf16(w[0], w[1]);
+      pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(w[2], w[3]);
+    }
+    l0 = al0 * l0 + ps0;  // this thread's share; the 4 shares add up at the end
+    l1 = al1 * l1 + ps1;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      o[dt][0] *= al0;
+      o[dt][1] *= al0;
+      o[dt][2] *= al1;
+      o[dt][3] *= al1;
+    }
+    // O += P V: B fragments of two 8-dim tiles per transposed 4-matrix load
+    const int mkey = (lane >> 3 & 1) * 8 + (lane & 7), mdim = (lane >> 4) * 8;
+#pragma unroll
+    for (int kt = 0; kt < FC_BN / 16; ++kt) {
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, Vs + (kt * 16 + mkey) * LD + dp * 16 + mdim);
+        mma_16816(o[2 * dp], pa[kt], r);
+        mma_16816(o[2 * dp + 1], pa[kt], r + 2);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int o2 = 1; o2 < 4; o2 <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
+  }
+  const float inv0 = 1.0f / fmaxf(l0, 1e-20f), inv1 = 1.0f / fmaxf(l1, 1e-20f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int rr = half ? rr1 : rr0;
+    if (rr >= R) continue;
+    const float inv = half ? inv1 : inv0;
+    const int c = rr / gq, j = rr - c * gq;
+    __nv_bfloat16* dst = out + ((size_t)(b * C + c) * nH + h * gq + j) * DH + t4 * 2;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(dst + dt * 8) =
+          pack_bf16(o[dt][half * 2] * inv, o[dt][half * 2 + 1] * inv);
+  }
+}
+
+template <int DH, bool QUANT>
+static cudaError_t launch_fc(const void* q, const void* k, const void* ks, const void* v,
+                             const void* vs, const int* pos, PagedKV kv, void* out, int B, int C,
+                             int nKV, int gq, float sm_scale, cudaStream_t stream) {
+  auto kern = flash_chunk_kernel<DH, QUANT, PagedKV>;
+  const size_t smem = ChunkSmem<DH>::bytes;
+  static bool attr_set = false;  // benign race: every setter writes the same value
+  if (!attr_set) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    attr_set = true;
+  }
+  const dim3 grid((C * gq + FC_BM - 1) / FC_BM, nKV, B);
+  kern<<<grid, FC_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), k, static_cast<const __nv_bfloat16*>(ks), v,
+      static_cast<const __nv_bfloat16*>(vs), pos, static_cast<__nv_bfloat16*>(out), C, nKV, gq,
+      kv, sm_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace ftcf
+
+extern "C" {
+
+// K10. q [B, C, nKV * gq, dh] bf16; k/v the layer's [P, nKV, ps, dh] page
+// slabs (int8 with ks/vs [P, nKV, ps] bf16 scales when quant, else bf16 and
+// ks/vs unused); pos [B] int32 chunk starts; pt [B, n_pg] int32 block table;
+// out like q. dh is 128 or 256.
+int ftcf_flash_chunk_paged(const void* q, const void* k, const void* ks, const void* v,
+                           const void* vs, const int* pos, const int* pt, void* out, int B, int C,
+                           int nKV, int gq, int n_pg, int ps, int dh, int quant, float sm_scale,
+                           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ftcf::PagedKV kv{pt, n_pg, ps};
+  if (gq < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  if (dh == 128)
+    return (int)(quant ? ftcf::launch_fc<128, true>(q, k, ks, v, vs, pos, kv, out, B, C, nKV, gq,
+                                                    sm_scale, st)
+                       : ftcf::launch_fc<128, false>(q, k, ks, v, vs, pos, kv, out, B, C, nKV,
+                                                     gq, sm_scale, st));
+  if (dh == 256)
+    return (int)(quant ? ftcf::launch_fc<256, true>(q, k, ks, v, vs, pos, kv, out, B, C, nKV, gq,
+                                                    sm_scale, st)
+                       : ftcf::launch_fc<256, false>(q, k, ks, v, vs, pos, kv, out, B, C, nKV,
+                                                     gq, sm_scale, st));
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -1,20 +1,34 @@
-// K4: decode attention, one query token per row against the dense KV cache.
+// K4 and K9: decode attention, one query token per row, over the dense KV
+// cache (K4) or the paged pool through a block table (K9). One kernel body,
+// templated on how a position is addressed, as the JAX package's _kernel is
+// shared by both.
 //
 // Replaces fastertransformer4codefuse_tpu/ops/flash_decode.py
-// flash_decode_stacked (_kernel): online softmax over sequence chunks, the
-// causal bound col <= positions[b] inclusive, reads stop at positions[b],
-// and g = nH / nKV query rows per KV head (GQA). The int8 cache carries one
-// bf16 scale per cached vector: scores = (q . k8) * k_s * sm_scale, and the
-// value scale folds into the probability, (p * v_s) rounded to bf16, before
-// the PV product; int8 -> float is exact. A bf16 cache has no scales and
-// rounds p to bf16 alone. The denominator sums the unrounded fp32 p.
+// flash_decode_stacked (K4) and flash_decode_paged (K9) (_kernel): online
+// softmax over sequence chunks, the causal bound col <= positions[b]
+// inclusive, reads stop at positions[b], and g = nH / nKV query rows per KV
+// head (GQA). The int8 cache carries one bf16 scale per cached vector:
+// scores = (q . k8) * k_s * sm_scale, and the value scale folds into the
+// probability, (p * v_s) rounded to bf16, before the PV product; int8 ->
+// float is exact. A bf16 cache has no scales and rounds p to bf16 alone. The
+// denominator sums the unrounded fp32 p.
+//
+// Addressing: K4 reads position s of (row b, KV head h) at cached vector
+// (b * nKV + h) * S + s of the layer's [B, nKV, S, dh] slab. K9 reads it at
+// (pt[b, s / ps] * nKV + h) * ps + s % ps of the layer's [P, nKV, ps, dh]
+// page slab: at the start of each 128-position chunk every thread resolves
+// its position's vector through the block table (the block loads its own
+// page ids; no host round trip) into shared memory, where both phases read
+// it. Any page size is taken.
 //
 // Bound: the cache bytes up to positions[b] (2 * pos * dh bytes per KV head
-// for int8), read once per (row, KV head). With few blocks in flight (B * nKV)
-// the kernel is bound by memory latency, so each phase keeps many independent
-// loads in flight. Design: one block of 128 threads per (row, KV head),
-// looping over 128-position chunks up to positions[b], with the running max
-// and denominator per query row in shared memory.
+// for int8), read once per (row, KV head): at CodeFuse-13B, 8 slots at ~1000
+// positions with int8 pages, ~84 MB a layer, ~25 us at 3.35 TB/s. With few
+// blocks in flight (B * nKV) the kernel is bound by memory latency, so each
+// phase keeps many independent loads in flight. Design: one block of 128
+// threads per (row, KV head), looping over 128-position chunks up to
+// positions[b], with the running max and denominator per query row in
+// shared memory.
 //  - scores: one thread per cached position; it reads the position's whole
 //    key vector with 16-byte loads and dots it with every query row (q sits
 //    in shared memory; all threads read the same q word, a broadcast);
@@ -86,24 +100,44 @@ __device__ __forceinline__ void load_small(const void* base, size_t off, float* 
   }
 }
 
-template <int DH, int MAXG, bool QUANT>
+// Where position s of (row b, KV head h) is cached: K4's dense slab.
+struct DenseAddr {
+  int S;
+  __device__ int seq_len() const { return S; }
+  __device__ uint32_t vec(int b, int h, int nKV, int s) const {
+    return ((uint32_t)b * nKV + h) * S + s;
+  }
+};
+
+// K9's page slab, through the block table pt [B, n_pg].
+struct PagedAddr {
+  const int* pt;
+  int n_pg, ps;
+  __device__ int seq_len() const { return n_pg * ps; }
+  __device__ uint32_t vec(int b, int h, int nKV, int s) const {
+    const int page = pt[(size_t)b * n_pg + min(s / ps, n_pg - 1)];
+    return ((uint32_t)page * nKV + h) * ps + s % ps;
+  }
+};
+
+template <int DH, int MAXG, bool QUANT, class Addr>
 __global__ void __launch_bounds__(FD_THREADS)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ kc,
                     const __nv_bfloat16* __restrict__ ks, const void* __restrict__ vc,
                     const __nv_bfloat16* __restrict__ vs, const int* __restrict__ positions,
-                    __nv_bfloat16* __restrict__ out, int nKV, int g, int S, float sm_scale) {
+                    __nv_bfloat16* __restrict__ out, int nKV, int g, Addr addr, float sm_scale) {
   constexpr int VPT = DH / 32;  // output dims per thread in the PV phase
   constexpr int NW = FD_THREADS / 32;
   __shared__ float q_s[MAXG][DH];
   __shared__ float p_s[MAXG][FD_BS];
   __shared__ float red[FD_PG][MAXG][DH];
   __shared__ float m_s[MAXG], l_s[MAXG], alpha_s[MAXG];
+  __shared__ uint32_t vec_s[FD_BS];  // the chunk's cached-vector indices
 
   const int b = blockIdx.x / nKV, h = blockIdx.x - b * nKV;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int dg = lane, pg = warp;  // PV: dims dg * VPT.., positions pg, pg + 4, ...
-  const int n_valid = min(positions[b] + 1, S);
-  const size_t row0 = ((size_t)b * nKV + h) * S;   // cached vector (b, h, 0)
+  const int n_valid = min(positions[b] + 1, addr.seq_len());
   const size_t qrow0 = ((size_t)b * nKV + h) * g;  // query head h * g + r of row b
 
   for (int i = tid; i < g * DH; i += FD_THREADS) {
@@ -124,7 +158,8 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
   for (int c0 = 0; c0 < n_valid; c0 += FD_BS) {
     const int cn = min(FD_BS, n_valid - c0);
     if (tid < cn) {
-      const size_t row = row0 + c0 + tid;
+      const size_t row = addr.vec(b, h, nKV, c0 + tid);
+      vec_s[tid] = (uint32_t)row;
       float dot[MAXG];
 #pragma unroll
       for (int r = 0; r < MAXG; ++r) dot[r] = 0.0f;
@@ -158,7 +193,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
       for (int s = lane; s < cn; s += 32) {
         const float p = expf(p_s[r][s] - m_new);
         sum += p;
-        const float pw = QUANT ? p * __bfloat162float(vs[row0 + c0 + s]) : p;
+        const float pw = QUANT ? p * __bfloat162float(vs[vec_s[s]]) : p;
         p_s[r][s] = round_bf16(pw);
       }
 #pragma unroll
@@ -183,7 +218,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
 #pragma unroll 8
     for (int s = pg; s < cn; s += FD_PG) {
       float vf[VPT];
-      load_small<VPT, QUANT>(vc, (row0 + c0 + s) * DH + dg * VPT, vf);
+      load_small<VPT, QUANT>(vc, (size_t)vec_s[s] * DH + dg * VPT, vf);
 #pragma unroll
       for (int r = 0; r < MAXG; ++r) {
         if (r < g) {
@@ -211,47 +246,67 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
   }
 }
 
-template <int DH, int MAXG>
+template <int DH, int MAXG, class Addr>
 static cudaError_t launch_fd(const void* q, const void* k, const void* ks, const void* v,
                              const void* vs, const int* positions, void* out, int B, int nKV,
-                             int g, int S, int quant, float sm_scale, cudaStream_t stream) {
+                             int g, Addr addr, int quant, float sm_scale, cudaStream_t stream) {
   const dim3 grid(B * nKV);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* ksp = static_cast<const __nv_bfloat16*>(ks);
   const auto* vsp = static_cast<const __nv_bfloat16*>(vs);
   auto* op = static_cast<__nv_bfloat16*>(out);
   if (quant)
-    flash_decode_kernel<DH, MAXG, true><<<grid, FD_THREADS, 0, stream>>>(
-        qp, k, ksp, v, vsp, positions, op, nKV, g, S, sm_scale);
+    flash_decode_kernel<DH, MAXG, true, Addr><<<grid, FD_THREADS, 0, stream>>>(
+        qp, k, ksp, v, vsp, positions, op, nKV, g, addr, sm_scale);
   else
-    flash_decode_kernel<DH, MAXG, false><<<grid, FD_THREADS, 0, stream>>>(
-        qp, k, ksp, v, vsp, positions, op, nKV, g, S, sm_scale);
+    flash_decode_kernel<DH, MAXG, false, Addr><<<grid, FD_THREADS, 0, stream>>>(
+        qp, k, ksp, v, vsp, positions, op, nKV, g, addr, sm_scale);
   return cudaGetLastError();
+}
+
+// dh in {128, 256}, g <= 8 (one query row, or up to 8 under GQA).
+template <class Addr>
+static int dispatch_fd(const void* q, const void* k, const void* ks, const void* v,
+                       const void* vs, const int* positions, void* out, int B, int nKV, int g,
+                       Addr addr, int dh, int quant, float sm_scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (g < 1 || g > 8) return (int)cudaErrorInvalidValue;
+  if (dh == 128)
+    return (int)(g == 1 ? launch_fd<128, 1>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
+                                            quant, sm_scale, st)
+                        : launch_fd<128, 8>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
+                                            quant, sm_scale, st));
+  if (dh == 256)
+    return (int)(g == 1 ? launch_fd<256, 1>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
+                                            quant, sm_scale, st)
+                        : launch_fd<256, 8>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
+                                            quant, sm_scale, st));
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace ftcf
 
 extern "C" {
 
-// q [B, nKV * g, dh] bf16; k/v the layer's [B, nKV, S, dh] slabs (int8 with
-// ks/vs [B, nKV, S] bf16 scales when quant, else bf16 and ks/vs unused);
-// positions [B] int32; out [B, nKV * g, dh] bf16. dh is 128 or 256, g <= 8.
+// K4. q [B, nKV * g, dh] bf16; k/v the layer's [B, nKV, S, dh] slabs (int8
+// with ks/vs [B, nKV, S] bf16 scales when quant, else bf16 and ks/vs
+// unused); positions [B] int32; out [B, nKV * g, dh] bf16.
 int ftcf_flash_decode(const void* q, const void* k, const void* ks, const void* v, const void* vs,
                       const int* positions, void* out, int B, int nKV, int g, int S, int dh,
                       int quant, float sm_scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (g < 1 || g > 8) return (int)cudaErrorInvalidValue;
-  if (dh == 128)
-    return (int)(g == 1 ? ftcf::launch_fd<128, 1>(q, k, ks, v, vs, positions, out, B, nKV, g, S,
-                                                   quant, sm_scale, st)
-                        : ftcf::launch_fd<128, 8>(q, k, ks, v, vs, positions, out, B, nKV, g, S,
-                                                   quant, sm_scale, st));
-  if (dh == 256)
-    return (int)(g == 1 ? ftcf::launch_fd<256, 1>(q, k, ks, v, vs, positions, out, B, nKV, g, S,
-                                                   quant, sm_scale, st)
-                        : ftcf::launch_fd<256, 8>(q, k, ks, v, vs, positions, out, B, nKV, g, S,
-                                                   quant, sm_scale, st));
-  return (int)cudaErrorInvalidValue;
+  return ftcf::dispatch_fd(q, k, ks, v, vs, positions, out, B, nKV, g, ftcf::DenseAddr{S}, dh,
+                           quant, sm_scale, stream);
+}
+
+// K9. As K4, with k/v the layer's [P, nKV, ps, dh] page slabs (ks/vs
+// [P, nKV, ps]) and pt [B, n_pg] int32 the block table: logical position s
+// of row b is page pt[b, s / ps], offset s % ps.
+int ftcf_flash_decode_paged(const void* q, const void* k, const void* ks, const void* v,
+                            const void* vs, const int* positions, const int* pt, void* out, int B,
+                            int nKV, int g, int n_pg, int ps, int dh, int quant, float sm_scale,
+                            void* stream) {
+  return ftcf::dispatch_fd(q, k, ks, v, vs, positions, out, B, nKV, g,
+                           ftcf::PagedAddr{pt, n_pg, ps}, dh, quant, sm_scale, stream);
 }
 
 }  // extern "C"

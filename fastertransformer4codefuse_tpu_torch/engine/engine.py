@@ -22,6 +22,7 @@ import torch
 from ..core.config import GptNeoXConfig, RuntimeConfig
 from ..core.dtypes import torch_dtype
 from . import kv_cache
+from .paged_kv import PACKED_KINDS
 from ..models import gptneox as model
 from ..models.params import Params
 from ..ops.rotary import make_rotary_tables
@@ -115,7 +116,10 @@ class GptNeoXEngine:
         raise NotImplementedError("prompt learning is ROADMAP queue 1 item 8")
 
     def _cache_dtype(self):
-        return torch_dtype(self.runtime.kv_cache_dtype or self.runtime.dtype)
+        """The KV cache's torch dtype; the packed int4 kinds pass through as
+        strings, which the cache constructors refuse (ROADMAP queue 1 item 11)."""
+        name = self.runtime.kv_cache_dtype or self.runtime.dtype
+        return name if name in PACKED_KINDS else torch_dtype(name)
 
     # ------------------------------------------------------------------ step --
     def _sample_and_advance(self, st: _Statics, inputs, s: DecodeState) -> None:

@@ -1,13 +1,15 @@
-"""KV cache: dense preallocated slabs, bf16/fp32 or int8 (port of
-engine/kv_cache.py).
+"""KV cache: dense preallocated slabs, bf16/fp32 or int8, and the paged pool's
+dispatch (port of engine/kv_cache.py).
 
-The cache is a dict of stacked slabs, ``k``/``v`` ``[L, B, nKV, S, dh]`` and,
-for int8, ``k_s``/``v_s`` ``[L, B, nKV, S]`` bf16 with one symmetric scale per
-cached vector. Unlike the JAX package's functional updates, writes here are
-in place; each write function also returns the cache for the same call shape.
+The dense cache is a dict of stacked slabs, ``k``/``v`` ``[L, B, nKV, S, dh]``
+and, for int8, ``k_s``/``v_s`` ``[L, B, nKV, S]`` bf16 with one symmetric
+scale per cached vector. A paged cache (``engine/paged_kv.py``, a dict with a
+block table ``pt``) takes the same write and attend calls, which dispatch to
+its page writes and to K9/K10. Unlike the JAX package's functional updates,
+writes here are in place, so a pool never copies a slab; each write function
+also returns the cache for the same call shape.
 
-Packed int4 and paged caches are ROADMAP queue 1 items 11 and 14; beam
-search is item 12.
+Packed int4 caches are ROADMAP queue 1 item 11; beam search is item 12.
 """
 from __future__ import annotations
 
@@ -16,7 +18,10 @@ from typing import Dict, Tuple
 import torch
 
 from ..core.config import GptNeoXConfig
-from ..ops.flash_decode import flash_decode_stacked
+from ..core.device import resolve_device
+from ..ops.attention import MASK_VALUE
+from ..ops.flash_decode import flash_chunk_paged, flash_decode_paged, flash_decode_stacked
+from . import paged_kv
 
 Cache = Dict[str, torch.Tensor]
 
@@ -24,10 +29,12 @@ Cache = Dict[str, torch.Tensor]
 def init_cache(
     config: GptNeoXConfig, batch: int, max_seq_len: int, dtype=torch.bfloat16, device=None
 ) -> Cache:
+    """Zeroed slabs on ``device`` (the CUDA card when None)."""
     if isinstance(dtype, str):
         raise NotImplementedError(
             f"KV cache {dtype!r}: packed int4 caches are ROADMAP queue 1 item 11"
         )
+    device = resolve_device(device)
     shape = (config.layer_num, batch, config.kv_heads, max_seq_len, config.size_per_head)
     if dtype == torch.int8:
         return {
@@ -47,6 +54,10 @@ def quantized(cache: Cache) -> bool:
 
 
 def seq_len_of(cache: Cache) -> int:
+    """Slots per row: the dense slab length, or the paged pool's logical
+    length (pages per slot times the page size)."""
+    if paged_kv.is_paged(cache):
+        return paged_kv.logical_seq_len(cache)
     return cache["k"].shape[-2]
 
 
@@ -75,19 +86,116 @@ def write_prefill(cache: Cache, layer: int, k: torch.Tensor, v: torch.Tensor) ->
     return cache
 
 
+def _put_rows(cache: Cache, layer: int, name: str, t: torch.Tensor, rows, cols, keep=None):
+    """cache[name][layer][rows, :, cols] = t, quantized per vector for an int8
+    cache; where ``keep`` (broadcast like t's leading axes) is True the old
+    bytes are written back instead."""
+    pairs = [(name, t)]
+    if quantized(cache):
+        q, s = _quantize_vec(t)
+        pairs = [(name, q), (name + "_s", s)]
+    for n, val in pairs:
+        slab = cache[n][layer]
+        val = val.to(slab.dtype)
+        if keep is not None:
+            old = slab[rows, :, cols]
+            val = torch.where(keep.reshape(keep.shape + (1,) * (val.ndim - keep.ndim)), old, val)
+        slab[rows, :, cols] = val
+
+
 def write_decode(
-    cache: Cache, layer: int, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor
+    cache: Cache, layer: int, k: torch.Tensor, v: torch.Tensor, positions: torch.Tensor,
+    skip=None, skip_mode: str = "preserve",
 ) -> Cache:
-    """Write one token per row (k, v: [B, 1, nKV, dh]) at slot positions[b]."""
-    rows = torch.arange(k.shape[0], device=k.device)
-    for name, t in (("k", k[:, 0]), ("v", v[:, 0])):
-        if quantized(cache):
-            q, s = _quantize_vec(t)
-            cache[name][layer][rows, :, positions] = q
-            cache[name + "_s"][layer][rows, :, positions] = s
-        else:
-            cache[name][layer][rows, :, positions] = t.to(cache[name].dtype)
+    """Write one token per row (k, v: [B, 1, nKV, dh]) at slot positions[b].
+
+    ``skip`` [B] bool marks rows whose write must not disturb readable cache
+    state: ``skip_mode="preserve"`` writes their old bytes back;
+    ``"sacrifice_last"`` (the continuous batcher) sends them to slot S-1,
+    which every owning row rewrites before it becomes attention-valid. A
+    paged cache sends skipped rows to its garbage page (skip_mode is moot)."""
+    if paged_kv.is_paged(cache):
+        return paged_kv.write_decode_paged(cache, layer, k, v, positions, skip)
+    if skip_mode not in ("preserve", "sacrifice_last"):
+        raise ValueError(f"unknown skip_mode {skip_mode!r}")
+    pos = positions.long()
+    keep = None
+    if skip is not None and skip_mode == "sacrifice_last":
+        pos = torch.where(skip, torch.full_like(pos, seq_len_of(cache) - 1), pos)
+    elif skip is not None:
+        keep = skip
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    _put_rows(cache, layer, "k", k[:, 0], rows, pos, keep)
+    _put_rows(cache, layer, "v", v[:, 0], rows, pos, keep)
     return cache
+
+
+def write_chunk(
+    cache: Cache, layer: int, k: torch.Tensor, v: torch.Tensor, pos: torch.Tensor,
+    active: torch.Tensor,
+) -> Cache:
+    """Write a C-token chunk per row (k, v: [B, C, nKV, dh]) at per-row slot
+    offsets ``pos`` [B]; rows with ``active`` False keep their bytes (they may
+    be mid-generation while other slots chunk-prefill). A paged cache
+    dispatches to its page writes."""
+    if paged_kv.is_paged(cache):
+        return paged_kv.write_chunk_paged(cache, layer, k, v, pos, active)
+    B, C = k.shape[0], k.shape[1]
+    rows = torch.arange(B, device=pos.device)[:, None]
+    cols = pos.long()[:, None] + torch.arange(C, device=pos.device)[None, :]  # [B, C]
+    keep = (~active)[:, None].expand(B, C)
+    _put_rows(cache, layer, "k", k, rows, cols, keep)
+    _put_rows(cache, layer, "v", v, rows, cols, keep)
+    return cache
+
+
+def attend_chunk(
+    cache: Cache,
+    layer: int,
+    q: torch.Tensor,  # [B, C, nH, dh]
+    valid: torch.Tensor,  # [B, C, S] bool, keys visible to each query
+    sm_scale: float,
+    positions=None,  # [B] int32 chunk starts: a paged cache then runs K10
+) -> torch.Tensor:
+    """C-query attention over layer ``layer``: [B, C, nH, dh]. A paged cache
+    with ``positions`` goes to K10; otherwise the plain math below (the JAX
+    package computes it in XLA), with the g query heads of a KV head folded
+    into the query axis as the JAX code folds them."""
+    B, C, nH, dh = q.shape
+    if paged_kv.is_paged(cache):
+        if positions is not None:
+            return flash_chunk_paged(
+                q.contiguous(), cache["pk"], cache.get("pk_s"), cache["pv"], cache.get("pv_s"),
+                layer, positions, cache["pt"], sm_scale,
+            )
+        cache_l = paged_kv.gather_layer_dense(cache, layer)
+    else:
+        cache_l = {n: t[layer] for n, t in cache.items()}
+    nKV = cache_l["k"].shape[1]
+    if nH != nKV:
+        g = nH // nKV
+        qc = q.reshape(B, C, nKV, g, dh).transpose(2, 3).reshape(B, C * g, nKV, dh)
+        out = _attend_dense(cache_l, qc, valid.repeat_interleave(g, dim=1), sm_scale)
+        return out.reshape(B, C, g, nKV, dh).transpose(2, 3).reshape(B, C, nH, dh)
+    return _attend_dense(cache_l, q, valid, sm_scale)
+
+
+def _attend_dense(cache_l: Cache, q, valid, sm_scale):
+    """MHA over one layer's dense view: fp32 scores times the key scales and
+    sm_scale, masked softmax, (probabilities times the value scales) rounded
+    to q's dtype for an int8 cache or to the cache's dtype otherwise, fp32 PV."""
+    scores = torch.einsum("bchd,bhsd->bchs", q.float(), cache_l["k"].float())
+    if "k_s" in cache_l:
+        scores = scores * cache_l["k_s"].float()[:, None]
+    scores = scores * sm_scale
+    scores = scores.masked_fill(~valid[:, :, None, :], MASK_VALUE)
+    probs = torch.softmax(scores, dim=-1)
+    if "v_s" in cache_l:
+        pv = (probs * cache_l["v_s"].float()[:, None]).to(q.dtype)
+    else:
+        pv = probs.to(cache_l["v"].dtype)
+    out = torch.einsum("bchs,bhsd->bchd", pv.float(), cache_l["v"].float())
+    return out.to(q.dtype)
 
 
 def attend_decode(
@@ -97,9 +205,15 @@ def attend_decode(
     sm_scale: float,
     positions: torch.Tensor,  # [B] int32
 ) -> torch.Tensor:
-    """Single-token attention over layer ``layer`` of the cache through K4
-    (the kernel on CUDA, its plain version on the CPU). The scales commute
-    out of both contractions: scores = (q . k8) * k_s, out = (p * v_s) @ v8."""
+    """Single-token attention over layer ``layer`` of the cache: K4 for a
+    dense cache, K9 for a paged one (the kernel on CUDA, its plain version on
+    the CPU). The scales commute out of both contractions: scores =
+    (q . k8) * k_s, out = (p * v_s) @ v8."""
+    if paged_kv.is_paged(cache):
+        return flash_decode_paged(
+            q, cache["pk"], cache.get("pk_s"), cache["pv"], cache.get("pv_s"),
+            layer, positions, cache["pt"], sm_scale,
+        )
     return flash_decode_stacked(
         q, cache["k"], cache.get("k_s"), cache["v"], cache.get("v_s"),
         layer, positions, sm_scale,

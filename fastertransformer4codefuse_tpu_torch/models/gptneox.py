@@ -8,6 +8,10 @@ Both residual schemes of the JAX package:
 views (``params.layer_slice``), which hands the kernels each layer's slice of
 the stacked weights and cache without a copy.
 
+``prefill_chunk`` runs one prompt chunk per row over an already-filled
+cache (the continuous batcher's chunk tick); ``decode_step``'s ``kv_skip``
+rows write where no row reads (the pool's idle slots).
+
 Decode routing (the JAX ``_fused_upd_ok`` / ``_fused_pd_ok`` minus their TPU
 terms): a parallel-residual layer whose proj/down (and, for K2, up) weights
 are per-channel quantized with one bit width (int8 or int4) and which has
@@ -122,14 +126,17 @@ def block_prefill(config, lp, x, cache, layer, cos, sin, mask):
     return _residual(config, lp, x, attn_out), cache
 
 
-def block_decode(config, lp, x, cache, layer, cos, sin, positions):
+def block_decode(config, lp, x, cache, layer, cos, sin, positions, kv_skip=None,
+                 kv_skip_mode="preserve"):
     """x [B, 1, H], the newest token per row; cos/sin [B, 1, rot/2];
-    positions [B] int32, the slot of each row's new token."""
+    positions [B] int32, the slot of each row's new token; ``kv_skip`` [B]
+    bool rows whose cache write must not disturb readable state
+    (``kv_cache.write_decode``)."""
     B, _, H = x.shape
     sm_scale = 1.0 / (config.size_per_head ** 0.5)
     ln1 = _norm(config, x, lp["ln1_w"], lp.get("ln1_b"))
     q, k, v = _qkv(config, lp, ln1, cos, sin)
-    kvc.write_decode(cache, layer, k, v, positions)
+    kvc.write_decode(cache, layer, k, v, positions, skip=kv_skip, skip_mode=kv_skip_mode)
     attn = kvc.attend_decode(cache, layer, q[:, 0].contiguous(), sm_scale, positions)
     attn2d = attn.reshape(B, H)
     x2d = x[:, 0]
@@ -153,6 +160,23 @@ def block_decode(config, lp, x, cache, layer, cos, sin, positions):
         return out[:, None, :], cache
 
     attn_out = linear(attn.reshape(B, 1, H), lp["proj_w"])
+    return _residual(config, lp, x, attn_out), cache
+
+
+def block_prefill_chunk(config, lp, x, cache, layer, cos, sin, pos, valid, active):
+    """Chunked prefill block. x [B, C, H], C consecutive prompt tokens per
+    row; cos/sin [B, C, rot/2]; pos [B] int32 chunk start slots; valid
+    [B, C, S] keys visible to each query (the dense cache's mask); active [B]
+    rows really prefilling (the others keep their cache bytes). The chunk
+    attends over the already-filled cache: K10 on a paged cache. Its four
+    GEMMs run at M = B * C."""
+    B, C, H = x.shape
+    sm_scale = 1.0 / (config.size_per_head ** 0.5)
+    ln1 = _norm(config, x, lp["ln1_w"], lp.get("ln1_b"))
+    q, k, v = _qkv(config, lp, ln1, cos, sin)
+    kvc.write_chunk(cache, layer, k, v, pos, active)
+    attn = kvc.attend_chunk(cache, layer, q, valid, sm_scale, positions=pos)
+    attn_out = linear(attn.reshape(B, C, H), lp["proj_w"])
     return _residual(config, lp, x, attn_out), cache
 
 
@@ -192,8 +216,12 @@ def decode_step(
     positions: torch.Tensor,  # [B] int32 slot / rotary position of each new token
     cache: KVCache,
     rotary_tables=None,
+    kv_skip=None,
+    kv_skip_mode: str = "preserve",
 ) -> Tuple[torch.Tensor, KVCache]:
-    """One incremental decode step: (hidden [B, H], cache)."""
+    """One incremental decode step: (hidden [B, H], cache). ``kv_skip`` rows
+    write their (discarded) token where readable state stays intact
+    (``kv_cache.write_decode``)."""
     check_supported(config)
     cache_len = kvc.seq_len_of(cache)
     x = _embed_lookup(params, tokens)[:, None, :]
@@ -205,8 +233,40 @@ def decode_step(
     cos, sin = cos_t[positions][:, None, :], sin_t[positions][:, None, :]
     layers = params["layers"]
     for l in range(config.layer_num):
-        x, cache = block_decode(config, layer_slice(layers, l), x, cache, l, cos, sin, positions)
+        x, cache = block_decode(config, layer_slice(layers, l), x, cache, l, cos, sin, positions,
+                                kv_skip, kv_skip_mode)
     return x[:, 0], cache
+
+
+def prefill_chunk(
+    config: GptNeoXConfig,
+    params: Params,
+    tokens_chunk: torch.Tensor,  # [B, C] this tick's chunk per row
+    pos: torch.Tensor,  # [B] int32 chunk start (pos + C <= the cache's slots)
+    cache: KVCache,
+    active: torch.Tensor,  # [B] bool rows mid-prefill
+    rotary_tables=None,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One chunked-prefill step over the layer stack: fills cache positions
+    [pos, pos + C) of active rows and keeps the other rows' bytes. Returns
+    (hidden [B, C, H], cache)."""
+    check_supported(config)
+    B, C = tokens_chunk.shape
+    S = kvc.seq_len_of(cache)
+    dev = tokens_chunk.device
+    x = _embed_lookup(params, tokens_chunk)
+    if rotary_tables is None:
+        rotary_tables = make_rotary_tables(S, config.rotary_embedding_dim, config.rotary_base, dev)
+    cos_t, sin_t = rotary_tables
+    posc = torch.clamp(pos.long()[:, None] + torch.arange(C, device=dev)[None, :], 0, S - 1)
+    cos, sin = cos_t[posc], sin_t[posc]  # [B, C, rot/2]
+    # query at position pos + c sees keys at positions <= pos + c
+    valid = torch.arange(S, device=dev)[None, None, :] <= posc[:, :, None]  # [B, C, S]
+    layers = params["layers"]
+    for l in range(config.layer_num):
+        x, cache = block_prefill_chunk(config, layer_slice(layers, l), x, cache, l, cos, sin,
+                                       pos, valid, active)
+    return x, cache
 
 
 def final_norm(config: GptNeoXConfig, params: Params, hidden):

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.config import GptNeoXConfig
+from ..core.device import resolve_device
 from ..core.dtypes import torch_dtype
 
 
@@ -115,8 +116,9 @@ def init_params(
     weight_bits: int = 8,
     group_size: int = 0,
 ) -> Params:
-    """Random parameters, built directly on ``device`` from one
-    ``torch.Generator`` seeded with ``seed`` (tests and the 13B smoke run).
+    """Random parameters, built directly on ``device`` (the CUDA card when
+    None; raises without one) from one ``torch.Generator`` seeded with
+    ``seed`` (tests and the 13B smoke run).
 
     With ``int8_mode=1`` the four big per-layer kernels are random int8 with
     scales in [0.5, 1.5) * std / 127, as in the JAX package; with
@@ -133,7 +135,7 @@ def init_params(
         raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
     check_supported(config)
     dtype = torch_dtype(dtype)
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     L, H, I, V = (
         config.layer_num, config.hidden_size, config.inter_size, config.vocab_size
@@ -233,12 +235,13 @@ def _to_torch(a, device) -> torch.Tensor:
 
 def from_jax_params(tree, device=None) -> Params:
     """Turn the JAX package's parameter pytree (array leaves convertible with
-    ``np.asarray``) into this port's dict, value for value.
+    ``np.asarray``) into this port's dict, value for value, on ``device``
+    (the CUDA card when None; raises without one).
 
     Quantized leaves are recognised by their ``q/scale/k_axis/bits/group_size``
     attributes, so the JAX class is never imported.
     """
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
 
     def conv(v):
         if isinstance(v, dict):

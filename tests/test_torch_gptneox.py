@@ -60,7 +60,7 @@ def _models(gptj, act, vocab=128, **quant):
             layers[k] = jnp.asarray(1 + rng.standard_normal(v.shape) * 0.1, jnp.float32)
     jp = dict(jp, layers=layers)
     cfg = GptNeoXConfig(**dataclasses.asdict(jcfg))
-    return jcfg, jp, cfg, from_jax_params(jp)
+    return jcfg, jp, cfg, from_jax_params(jp, device="cpu")
 
 
 def _rel(a, b):
@@ -124,7 +124,7 @@ def test_prefill_and_decode_logits_match_jax(gptj, act):
 
     jc = jm.init_kv_cache(jcfg, B, Smax, jnp.int8)
     jl, jc = jprefill(jp, jnp.asarray(ids), jnp.asarray(lens), jc)
-    tc = kvc.init_cache(cfg, B, Smax, torch.int8)
+    tc = kvc.init_cache(cfg, B, Smax, torch.int8, "cpu")
     h, tc = tm.prefill(cfg, tp, torch.from_numpy(ids), torch.from_numpy(lens), tc)
     tl = tm.lm_logits(cfg, tp, tm.last_token_hidden(h, torch.from_numpy(lens)))
     assert tl.dtype == torch.float32 and tl.shape == (B, jcfg.vocab_size)
@@ -265,5 +265,7 @@ def test_handler_reports_unported_requests():
         {"prompts": [{"prompt": "a"}], "out_seq_length": 2, "speculative": True}, "t"
     )
     assert code == 1 and "NotImplementedError" in msg and res == {"res": ""}
-    with pytest.raises(NotImplementedError):
-        CodeFuseHandler(engine=th.engine, tokenizer=th.tokenizer, warmup=False, pool={})
+    # pools are served now; beam-search pools are not (ROADMAP queue 1 item 12)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        CodeFuseHandler(engine=th.engine, tokenizer=th.tokenizer, warmup=False,
+                        pool=dict(beam_width=2))

@@ -76,7 +76,7 @@ def test_int4_prefill_and_decode_logits_match_jax(G, routes):
 
     jc = jm.init_kv_cache(jcfg, B, Smax, jnp.int8)
     jl, jc = jprefill(jp, jnp.asarray(ids), jnp.asarray(lens), jc)
-    tc = kvc.init_cache(cfg, B, Smax, torch.int8)
+    tc = kvc.init_cache(cfg, B, Smax, torch.int8, "cpu")
     h, tc = tm.prefill(cfg, tp, torch.from_numpy(ids), torch.from_numpy(lens), tc)
     tl = tm.lm_logits(cfg, tp, tm.last_token_hidden(h, torch.from_numpy(lens)))
     assert tl.dtype == torch.float32 and tl.shape == (B, jcfg.vocab_size)
@@ -107,7 +107,7 @@ def test_int4_k3_route_with_exact_gelu(routes):
     jc = jm.init_kv_cache(jcfg, B, S + 1, jnp.int8)
     _, jc = jm.prefill(jcfg, jp, jnp.asarray(ids), jnp.asarray(lens), jc)
     jh, _ = jm.decode_step(jcfg, jp, jnp.asarray(ids[:, 0]), jnp.asarray(lens), jc)
-    tc = kvc.init_cache(cfg, B, S + 1, torch.int8)
+    tc = kvc.init_cache(cfg, B, S + 1, torch.int8, "cpu")
     _, tc = tm.prefill(cfg, tp, torch.from_numpy(ids), torch.from_numpy(lens), tc)
     routes.clear()
     th, _ = tm.decode_step(cfg, tp, torch.from_numpy(ids[:, 0]), torch.from_numpy(lens), tc)

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 and K6-K8 against their plain versions on the card,
+"""The CUDA kernels K1-K4 and K6-K10 against their plain versions on the card,
 at small and ragged shapes (chip_smoke.py covers the CodeFuse-13B shapes). Marked
 ``cuda``: skipped where there is no GPU. On a GPU machine without jax:
 
@@ -6,11 +6,15 @@ at small and ragged shapes (chip_smoke.py covers the CodeFuse-13B shapes). Marke
 
 Tolerance: max |kernel - plain| / max |plain| below 1e-2 for the GEMMs (bf16
 output rounding plus fp32 summation order) and 2e-2 where a bf16
-intermediate (K2's hidden, K4's probabilities) may round differently."""
+intermediate (K2's hidden, K4/K9/K10's probabilities) may round differently."""
 import pytest
 import torch
 
 from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
+    flash_chunk_paged,
+    flash_chunk_paged_plain,
+    flash_decode_paged,
+    flash_decode_paged_plain,
     flash_decode_stacked,
     flash_decode_stacked_plain,
 )
@@ -224,6 +228,131 @@ def test_w4_kernels_raise_on_what_they_do_not_take(gen):
         lambda: quant_matmul_w4_group(x, p, _gscale(gen, 64, 32), 1),  # odd G
         lambda: quant_matmul_w4_head(x, p, s.bfloat16()),  # bf16 head scales
         lambda: fused_proj_down(x, x, p, p, s, s, s, _bf(gen, 2, 32), bits=8),  # bits mismatch
+    ]
+    for i, fn in enumerate(bad):
+        with pytest.raises(ValueError):
+            fn()
+            pytest.fail(f"case {i} did not raise")
+
+
+def _pages(gen, L, P, nKV, ps, dh, quant):
+    """A random page pool: int8 pages with bf16 scales, or bf16 pages."""
+    shape = (L, P, nKV, ps, dh)
+    if quant:
+        ks = (torch.rand(shape[:-1], device="cuda", generator=gen) * 0.02).bfloat16()
+        vs = (torch.rand(shape[:-1], device="cuda", generator=gen) * 0.02).bfloat16()
+        return _i8(gen, *shape), ks, _i8(gen, *shape), vs
+    return _bf(gen, *shape), None, _bf(gen, *shape), None
+
+
+def _table(gen, B, n_pg, P, garbage_rows=()):
+    """Permuted page ids 1..P-1; the listed rows point at the garbage page 0."""
+    ids = torch.randperm(P - 1, device="cuda", generator=gen)[: B * n_pg] + 1
+    pt = ids.reshape(B, n_pg).to(torch.int32)
+    for b in garbage_rows:
+        pt[b] = 0
+    return pt.contiguous()
+
+
+@pytest.mark.parametrize(
+    "B,nH,nKV,dh,ps,n_pg,quant",
+    [(4, 8, 8, 128, 256, 3, True), (3, 8, 4, 128, 64, 8, True), (2, 16, 2, 128, 16, 20, False),
+     (2, 4, 4, 256, 128, 2, True), (3, 4, 4, 256, 256, 2, False)],
+)
+def test_k9_matches_plain(gen, B, nH, nKV, dh, ps, n_pg, quant):
+    L, S = 2, ps * n_pg
+    P = B * n_pg + 3
+    pk, pks, pv, pvs = _pages(gen, L, P, nKV, ps, dh, quant)
+    pt = _table(gen, B, n_pg, P, garbage_rows=(B - 1,))
+    q = _bf(gen, B, nH, dh)
+    pos = torch.tensor([S - 1, ps + 1, 0, 100][:B], dtype=torch.int32, device="cuda")
+    pos[B - 1] = min(ps + 5, S - 1)  # the garbage-page row reads page 0 throughout
+    sm = dh ** -0.5
+    before = flash_decode_paged.launches
+    got = flash_decode_paged(q, pk, pks, pv, pvs, 1, pos, pt, sm)
+    assert flash_decode_paged.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _rel(got, flash_decode_paged_plain(q, pk, pks, pv, pvs, 1, pos, pt, sm)) < 2e-2
+
+
+def test_k9_equals_k4_on_the_same_bytes(gen):
+    """Pages laid out as the dense slab (identity table): K9 reads what K4 reads."""
+    B, nKV, dh, ps, n_pg = 2, 4, 128, 64, 4
+    S = ps * n_pg
+    k, v = _i8(gen, 1, B, nKV, S, dh), _i8(gen, 1, B, nKV, S, dh)
+    ks = (torch.rand(1, B, nKV, S, device="cuda", generator=gen) * 0.02).bfloat16()
+    vs = (torch.rand(1, B, nKV, S, device="cuda", generator=gen) * 0.02).bfloat16()
+
+    def to_pages(t):  # [1, B, nKV, S, ...] -> [1, B * n_pg, nKV, ps, ...]
+        t = t.reshape((1, B, nKV, n_pg, ps) + tuple(t.shape[4:])).transpose(2, 3)
+        return t.reshape((1, B * n_pg, nKV, ps) + tuple(t.shape[5:])).contiguous()
+
+    pt = torch.arange(B * n_pg, device="cuda", dtype=torch.int32).reshape(B, n_pg)
+    q = _bf(gen, B, nKV, dh)
+    pos = torch.tensor([S - 1, 77], dtype=torch.int32, device="cuda")
+    a = flash_decode_stacked(q, k, ks, v, vs, 0, pos, 0.09)
+    b = flash_decode_paged(q, to_pages(k), to_pages(ks), to_pages(v), to_pages(vs), 0, pos, pt, 0.09)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("C", [8, 128])
+@pytest.mark.parametrize(
+    "B,nH,nKV,dh,ps,n_pg,quant",
+    [(3, 8, 8, 128, 256, 3, True), (2, 8, 4, 128, 128, 4, False), (2, 4, 2, 128, 256, 2, True),
+     (2, 4, 4, 256, 256, 2, True), (2, 2, 2, 256, 128, 3, False)],
+)
+def test_k10_matches_plain(gen, C, B, nH, nKV, dh, ps, n_pg, quant):
+    L, S = 2, ps * n_pg
+    P = B * n_pg + 2
+    pk, pks, pv, pvs = _pages(gen, L, P, nKV, ps, dh, quant)
+    pt = _table(gen, B, n_pg, P, garbage_rows=(B - 1,) if B > 2 else ())
+    q = _bf(gen, B, C, nH, dh)
+    starts = [0, S - C, ps - C // 2][:B]  # the third straddles a page boundary
+    pos = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    sm = dh ** -0.5
+    before = flash_chunk_paged.launches
+    got = flash_chunk_paged(q, pk, pks, pv, pvs, 1, pos, pt, sm)
+    assert flash_chunk_paged.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _rel(got, flash_chunk_paged_plain(q, pk, pks, pv, pvs, 1, pos, pt, sm)) < 2e-2
+
+
+def test_k10_reads_stop_at_the_chunk(gen):
+    """Keys past the chunk's last query are never read: poisoning them
+    changes nothing."""
+    B, nKV, dh, ps, C = 2, 2, 128, 128, 8
+    pk, _, pv, _ = _pages(gen, 1, 5, nKV, ps, dh, False)
+    pt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device="cuda")
+    q = _bf(gen, B, C, nKV, dh)
+    pos = torch.tensor([16, 100], dtype=torch.int32, device="cuda")
+    clean = flash_chunk_paged(q, pk, None, pv, None, 0, pos, pt, 0.09)
+    for b, s in enumerate(pos.tolist()):
+        pk[0, pt[b, 0], :, s + C:] = 1e4
+        pv[0, pt[b, 0], :, s + C:] = float("nan")
+        pk[0, pt[b, 1]] = 1e4
+        pv[0, pt[b, 1]] = float("nan")
+    again = flash_chunk_paged(q, pk, None, pv, None, 0, pos, pt, 0.09)
+    torch.cuda.synchronize()
+    assert torch.equal(clean, again)
+
+
+def test_paged_kernels_raise_on_what_they_do_not_take(gen):
+    pk, pks, pv, pvs = _pages(gen, 1, 4, 2, 64, 128, True)
+    pt = torch.ones(1, 2, dtype=torch.int32, device="cuda")
+    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+    q, qc = _bf(gen, 1, 2, 128), _bf(gen, 1, 8, 2, 128)
+    bad = [
+        lambda: flash_decode_paged(q.float(), pk, pks, pv, pvs, 0, pos, pt, 0.1),  # fp32 q
+        lambda: flash_decode_paged(q, pk, pks, pv, None, 0, pos, pt, 0.1),  # one scale slab
+        lambda: flash_decode_paged(q, pk, pks, pv, pvs, 0, pos, pt.long(), 0.1),  # int64 table
+        lambda: flash_decode_paged(q, pk, pks, pv, pvs, 1, pos, pt, 0.1),  # layer out of range
+        lambda: flash_decode_paged(_bf(gen, 1, 2, 64), pk[..., :64].contiguous(), pks,
+                                   pv[..., :64].contiguous(), pvs, 0, pos, pt, 0.1),  # dh 64
+        lambda: flash_chunk_paged(qc.transpose(1, 2), pk, pks, pv, pvs, 0, pos, pt, 0.1),
+        lambda: flash_chunk_paged(qc, pk, pks, pv, pvs, 0, pos.long(), pt, 0.1),  # int64 pos
+        lambda: flash_chunk_paged(qc, pk.float(), pks, pv.float(), pvs, 0, pos, pt, 0.1),
+        lambda: flash_chunk_paged(qc, pk, pks, pv, pvs, 0, pos.cpu(), pt, 0.1),  # devices
     ]
     for i, fn in enumerate(bad):
         with pytest.raises(ValueError):

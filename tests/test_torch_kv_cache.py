@@ -45,7 +45,7 @@ def test_int8_writes_match_jax_bit_for_bit(dtype):
         return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
 
     jc = jax_kvc.init_cache(jcfg, B, Smax, jnp.int8)
-    tc = kvc.init_cache(cfg, B, Smax, torch.int8)
+    tc = kvc.init_cache(cfg, B, Smax, torch.int8, "cpu")
     (jk, tk), (jv, tv) = pair((B, S, 4, 16), 3.0), pair((B, S, 4, 16))
     # round-half-to-even ties: amax 127 makes the scale exactly 1
     tie = np.array([127.0, 63.5, -62.5, 0.5, -1.5, 2.5] + [0.0] * 10, np.float32)
@@ -73,7 +73,7 @@ def test_bf16_cache_writes_match_jax():
               rotary_embedding_dim=4, start_id=0, end_id=1)
     B, S = 2, 4
     jc = jax_kvc.init_cache(JaxConfig(**kw), B, 8, jnp.bfloat16)
-    tc = kvc.init_cache(GptNeoXConfig(**kw), B, 8, torch.bfloat16)
+    tc = kvc.init_cache(GptNeoXConfig(**kw), B, 8, torch.bfloat16, "cpu")
     k, v = (rng.standard_normal((B, S, 2, 8)).astype(np.float32) for _ in range(2))
     jc = jax_kvc.write_prefill(jc, jnp.int32(0), jnp.asarray(k), jnp.asarray(v))
     kvc.write_prefill(tc, 0, torch.from_numpy(k), torch.from_numpy(v))
@@ -81,4 +81,26 @@ def test_bf16_cache_writes_match_jax():
     pos = np.array([4, 6], np.int32)
     jc = jax_kvc.write_decode(jc, jnp.int32(0), jnp.asarray(k1), jnp.asarray(v1), jnp.asarray(pos))
     kvc.write_decode(tc, 0, torch.from_numpy(k1), torch.from_numpy(v1), torch.from_numpy(pos))
+    _assert_same_cache(jc, tc)
+
+
+@pytest.mark.parametrize("mode", ["preserve", "sacrifice_last"])
+def test_write_decode_skip_modes_match_jax(mode):
+    """Skipped rows keep their bytes (preserve) or write slot S-1
+    (sacrifice_last, the pool's mode): codes and scales bit for bit."""
+    rng = np.random.default_rng(4)
+    kw = dict(head_num=4, size_per_head=16, layer_num=2, vocab_size=64,
+              rotary_embedding_dim=4, start_id=0, end_id=1)
+    B, S = 3, 8
+    jc = jax_kvc.init_cache(JaxConfig(**kw), B, S, jnp.int8)
+    tc = kvc.init_cache(GptNeoXConfig(**kw), B, S, torch.int8, "cpu")
+    skip = np.array([False, True, False])
+    for step in range(3):
+        k, v = (rng.standard_normal((B, 1, 4, 16)).astype(np.float32) for _ in range(2))
+        pos = np.array([step, step + 2, step + 4], np.int32)
+        sk = skip if step == 2 else None  # written once, then skipped over
+        jc = jax_kvc.write_decode(jc, 1, jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+                                  skip=None if sk is None else jnp.asarray(sk), skip_mode=mode)
+        kvc.write_decode(tc, 1, torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(pos),
+                         skip=None if sk is None else torch.from_numpy(sk), skip_mode=mode)
     _assert_same_cache(jc, tc)

@@ -79,7 +79,7 @@ def test_quantize_params_is_bit_identical_to_jax(bits, G):
     jcfg = JaxConfig.tiny(vocab_size=100)
     jp = jax_init_params(jcfg, jax.random.PRNGKey(3), dtype="fp32")
     jqp = jq.quantize_params(jp, include_embeddings=True, weight_bits=bits, group_size=G)
-    tqp = tq.quantize_params(from_jax_params(jp), include_embeddings=True, weight_bits=bits,
+    tqp = tq.quantize_params(from_jax_params(jp, device="cpu"), include_embeddings=True, weight_bits=bits,
                              group_size=G)
     for k in ("qkv_w", "proj_w", "up_w", "down_w"):
         _same(jqp["layers"][k], tqp["layers"][k])
@@ -104,9 +104,9 @@ def test_from_jax_params_keeps_int4_layouts():
     for G in (0, 16):
         jp = jax_init_params(jcfg, jax.random.PRNGKey(0), dtype="fp32", int8_mode=1,
                              weight_bits=4, group_size=G, quantize_embeddings=True)
-        tp = from_jax_params(jp)
+        tp = from_jax_params(jp, device="cpu")
         own = init_params(cfg, seed=0, dtype="fp32", int8_mode=1, weight_bits=4, group_size=G,
-                          quantize_embeddings=True)
+                          quantize_embeddings=True, device="cpu")
         for name in ("qkv_w", "proj_w", "up_w", "down_w"):
             j, t, o = jp["layers"][name], tp["layers"][name], own["layers"][name]
             _same(j, t)
