@@ -6,27 +6,33 @@
 Phases (any failure exits non-zero):
   1. device, torch and CUDA versions, card name and power limit; build the
      CUDA kernels from ``fastertransformer4codefuse_tpu_torch/csrc``;
-  2. each kernel (K1-K4, K6-K10, and K2/K3 on int4 weights) against its plain
-     PyTorch version at CodeFuse-13B shapes: max error against the stated
-     tolerance, median kernel and plain times (CUDA events, device time), the
-     card's bound for the same work, and where one PyTorch call computes the
-     same attention, its time (``scaled_dot_product_attention`` on a dense
-     bf16 K/V of the same length; the port never calls it);
+  2. each kernel (K1-K10, K2/K3 on int4 weights, and the packed int4 reads
+     of K4/K9/K10) against its plain PyTorch version at CodeFuse-13B shapes:
+     max error against the stated tolerance, median kernel and plain times
+     (CUDA events, device time), the card's bound for the same work, and
+     where one PyTorch call computes the same attention, its time
+     (``scaled_dot_product_attention`` on a dense bf16 K/V of the same
+     length, causal for K5; the port never calls it);
   3. 2-layer models of CodeFuse-13B width (int8; int4 per-channel; int4 with
-     group size 128; int8 on a paged KV pool through chunked prefill) built on
-     the CPU and copied to the card: prefill and teacher-forced decode logits
-     on the card (kernels) against the CPU (plain versions);
+     group size 128; int8 on an int4 dense cache; int8 on int8 and int4 KV
+     pools through chunked prefill) built on the CPU and copied to the card:
+     prefill and teacher-forced decode logits on the card (kernels) against
+     the CPU (plain versions);
   4. CodeFuse-13B (40 layers, full width, int8 KV cache, random weights)
      built on the card, once with int8 weights and then with int4 weights,
      per-channel and group-wise (G = 128), and driven through
-     ``GptNeoXEngine.generate`` and ``CodeFuseHandler.predict``;
+     ``GptNeoXEngine.generate`` and ``CodeFuseHandler.predict``; on the int8
+     weights, a 3000-token prompt on an "int4" cache (greedy x2 + streamed;
+     its prefill profiled with K5 and with the plain attention forced in)
+     and prompts of 2048 and 1300 tokens on an "int8k_int4v" cache;
   5. on the int8 model of phase 4, pooled serving: a ``BatchingServer`` on a
      paged pool (8 slots, 2048 positions, 65 pages of 256) takes a mix of 10
      greedy and sampled requests from threads, twice, and one greedy request
-     alone; then a pooled ``CodeFuseHandler``, one with two length classes
-     behind the HTTP front end on localhost, a lazy paged pool that must
-     preempt, and a dense pool (K4). Tick dispatch runs under
-     ``torch.cuda.set_sync_debug_mode("error")``.
+     alone; the same mix twice on int4 pages; the host and device split of
+     chunk and decode ticks on int8 and on int4 pages; then a pooled
+     ``CodeFuseHandler``, one with two length classes behind the HTTP front
+     end on localhost, a lazy paged pool that must preempt, and a dense pool
+     (K4). Tick dispatch runs under ``torch.cuda.set_sync_debug_mode("error")``.
 For each path of phases 4 and 5 the kernel launch counters are zeroed just
 before it is driven and checked just after against the counts its route must
 give. The line before the last holds the kernels' JSON record; the last line
@@ -35,7 +41,6 @@ it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import statistics
@@ -114,12 +119,27 @@ def rel_err(torch, got, ref):
     return d, d / max(ref.float().abs().max().item(), 1e-30)
 
 
+def row_rel_err(torch, got, ref):
+    """(max |got - ref|, the largest over output rows of max |got - ref| /
+    max |ref| within the row), in fp32. A row is one query and head of an
+    attention output (the last axis, dh): each row is held to its own
+    magnitude, so rows that average many keys (small values) count as much
+    as rows that attend one."""
+    d = (got.float() - ref.float()).abs()
+    per_row = d.amax(-1) / ref.float().abs().amax(-1).clamp_min(1e-30)
+    return d.max().item(), per_row.max().item()
+
+
 def phase_kernels(torch, records):
     import torch.nn.functional as F
 
+    from fastertransformer4codefuse_tpu_torch.ops.attention import (
+        prefill_attention_flash, prefill_attention_flash_plain,
+    )
     from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
         flash_chunk_paged, flash_chunk_paged_plain, flash_decode_paged, flash_decode_paged_plain,
-        flash_decode_stacked, flash_decode_stacked_plain, gather_pages,
+        flash_decode_stacked, flash_decode_stacked_plain, gather_pages, is_packed,
+        unpack_seq_pairs,
     )
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import (
         quant_matmul, quant_matmul_plain,
@@ -147,13 +167,15 @@ def phase_kernels(torch, records):
 
     ok = True
 
-    def report(name, case, fn_k, fn_p, tol, ms_key, work=None, fn_lib=None, lib_label=""):
+    def report(name, case, fn_k, fn_p, tol, ms_key, work=None, fn_lib=None, lib_label="",
+               err=rel_err):
         """Check one case; for the record's case (``ms_key``) also time it.
-        ``work`` = (bytes read, operations): the output's bytes are added."""
+        ``work`` = (bytes read, operations): the output's bytes are added.
+        ``err`` gives (max abs error, the relative error held to ``tol``)."""
         nonlocal ok
         got, ref = fn_k(), fn_p()
         torch.cuda.synchronize()
-        absd, rel = rel_err(torch, got, ref)
+        absd, rel = err(torch, got, ref)
         finite = bool(torch.isfinite(got.float()).all())
         passed = finite and rel < tol
         ok &= passed
@@ -258,9 +280,13 @@ def phase_kernels(torch, records):
     del w_up, w_proj, w_down
 
     # Attention kernels: p (times v_s) rounded to bf16 before PV in both
-    # versions; online vs full softmax order. The yardstick is one
-    # scaled_dot_product_attention call on a dense bf16 K/V of the same
+    # versions; online vs full softmax order. Each (query, head) row of the
+    # output is held to its own magnitude (``row_rel_err``). The yardstick is
+    # one scaled_dot_product_attention call on a dense bf16 K/V of the same
     # length (the int8 cache dequantized beforehand), masked per row.
+    def report_attn(*a, **kw):
+        report(*a, err=row_rel_err, **kw)
+
     def dense_bf16(k, ks):
         return (k.float() * ks.float()[..., None]).to(torch.bfloat16) if ks is not None else k
 
@@ -278,7 +304,7 @@ def phase_kernels(torch, records):
     kb, vb = bf(L, B, nH, S, dh), bf(L, B, nH, S, dh)
     sm = 1.0 / dh ** 0.5
     mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
-    report("flash_decode", "int8 cache B=4 S=1152",
+    report_attn("flash_decode", "int8 cache B=4 S=1152",
            lambda: flash_decode_stacked(q, k8, ks, v8, vs, 1, pos, sm),
            lambda: flash_decode_stacked_plain(q, k8, ks, v8, vs, 1, pos, sm), 2e-2,
            "int8 cache B=4 S=1152",
@@ -286,11 +312,25 @@ def phase_kernels(torch, records):
            fn_lib=sdpa(q[:, :, None], dense_bf16(k8[1], ks[1]), dense_bf16(v8[1], vs[1]), mask,
                        sm),
            lib_label="sdpa, dense bf16 K/V of the same length")
-    report("flash_decode", "bf16 cache B=4 S=1152",
+    report_attn("flash_decode", "bf16 cache B=4 S=1152",
            lambda: flash_decode_stacked(q, kb, None, vb, None, 1, pos, sm),
            lambda: flash_decode_stacked_plain(q, kb, None, vb, None, 1, pos, sm), 2e-2,
            "int8 cache B=4 S=1152")
-    del k8, v8, kb, vb
+    # packed int4: "int4" (K and V) and "int8k_int4v" (V only) over the same
+    # positions; the bound counts the packed bytes up to each row's position
+    k4, v4 = i8(L, B, nH, S // 2, dh), i8(L, B, nH, S // 2, dh)
+    for tag, kk in (("int4", k4), ("int8k_int4v", k8)):
+        kbytes = dh // 2 if kk is k4 else dh
+        report_attn("flash_decode_int4", f"{tag} cache B=4 S=1152",
+               lambda: flash_decode_stacked(q, kk, ks, v4, vs, 1, pos, sm),
+               lambda: flash_decode_stacked_plain(q, kk, ks, v4, vs, 1, pos, sm), 2e-2,
+               "int4 cache B=4 S=1152",
+               work=(nbytes(q, pos) + n_keys * nH * (kbytes + dh // 2 + 4),
+                     4 * n_keys * nH * dh),
+               fn_lib=sdpa(q[:, :, None], dense_bf16(unpack_seq_pairs(k4[1]), ks[1]),
+                           dense_bf16(unpack_seq_pairs(v4[1]), vs[1]), mask, sm),
+               lib_label="sdpa, dense bf16 K/V of the same length")
+    del k8, v8, kb, vb, k4, v4
 
     # K9 / K10: CodeFuse-13B pages: 40 KV heads, dh 128, pages of 256, 8
     # slots of logical length 2048 (8 pages each, 65 pages with the garbage
@@ -304,7 +344,7 @@ def phase_kernels(torch, records):
     pkb, pvb = bf(L, P, nKV, ps, dh), bf(L, P, nKV, ps, dh)
 
     def dense_pages(pages, scales):  # the layer-1 pages as a dense bf16 [B, nKV, S, dh]
-        return dense_bf16(gather_pages(pages[1], pt),
+        return dense_bf16(gather_pages(pages[1], pt, is_packed(pages, scales)),
                           None if scales is None else gather_pages(scales[1], pt))
 
     pos = torch.tensor(np.linspace(100, 2000, B).astype(np.int32), device=dev)
@@ -313,10 +353,22 @@ def phase_kernels(torch, records):
     mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
     for tag, (a, sa, b_, sb) in (("int8", (pk8, pks, pv8, pvs)), ("bf16", (pkb, None, pvb, None))):
         per_key = 2 * dh * a.element_size() + (4 if sa is not None else 0)
-        report("flash_decode_paged", f"{tag} pages B=8 pos 100-2000",
+        report_attn("flash_decode_paged", f"{tag} pages B=8 pos 100-2000",
                lambda: flash_decode_paged(q, a, sa, b_, sb, 1, pos, pt, sm),
                lambda: flash_decode_paged_plain(q, a, sa, b_, sb, 1, pos, pt, sm), 2e-2,
                "int8 pages B=8 pos 100-2000",
+               work=(nbytes(q, pos) + B * n_pg * 4 + n_keys * nKV * per_key,
+                     4 * n_keys * nKV * dh),
+               fn_lib=sdpa(q[:, :, None], dense_pages(a, sa), dense_pages(b_, sb), mask, sm),
+               lib_label="sdpa, dense bf16 K/V of the same length")
+    pk4, pv4 = i8(L, P, nKV, ps // 2, dh), i8(L, P, nKV, ps // 2, dh)
+    packed_pages = (("int4", (pk4, pks, pv4, pvs)), ("int8k_int4v", (pk8, pks, pv4, pvs)))
+    for tag, (a, sa, b_, sb) in packed_pages:
+        per_key = (dh // 2 if a is pk4 else dh) + dh // 2 + 4
+        report_attn("flash_decode_paged_int4", f"{tag} pages B=8 pos 100-2000",
+               lambda: flash_decode_paged(q, a, sa, b_, sb, 1, pos, pt, sm),
+               lambda: flash_decode_paged_plain(q, a, sa, b_, sb, 1, pos, pt, sm), 2e-2,
+               "int4 pages B=8 pos 100-2000",
                work=(nbytes(q, pos) + B * n_pg * 4 + n_keys * nKV * per_key,
                      4 * n_keys * nKV * dh),
                fn_lib=sdpa(q[:, :, None], dense_pages(a, sa), dense_pages(b_, sb), mask, sm),
@@ -331,7 +383,7 @@ def phase_kernels(torch, records):
     n_read = int((starts + C).sum())  # keys each (row, head) reads
     for tag, (a, sa, b_, sb) in (("int8", (pk8, pks, pv8, pvs)), ("bf16", (pkb, None, pvb, None))):
         per_key = 2 * dh * a.element_size() + (4 if sa is not None else 0)
-        report("flash_chunk_paged", f"{tag} pages B=8 C=128",
+        report_attn("flash_chunk_paged", f"{tag} pages B=8 C=128",
                lambda: flash_chunk_paged(qc, a, sa, b_, sb, 1, starts, pt, sm),
                lambda: flash_chunk_paged_plain(qc, a, sa, b_, sb, 1, starts, pt, sm), 2e-2,
                "int8 pages B=8 C=128",
@@ -340,13 +392,46 @@ def phase_kernels(torch, records):
                fn_lib=sdpa(qc.transpose(1, 2), dense_pages(a, sa), dense_pages(b_, sb), mask_c,
                            sm),
                lib_label="sdpa, dense bf16 K/V of the same length")
+    for tag, (a, sa, b_, sb) in packed_pages:
+        per_key = (dh // 2 if a is pk4 else dh) + dh // 2 + 4
+        report_attn("flash_chunk_paged_int4", f"{tag} pages B=8 C=128",
+               lambda: flash_chunk_paged(qc, a, sa, b_, sb, 1, starts, pt, sm),
+               lambda: flash_chunk_paged_plain(qc, a, sa, b_, sb, 1, starts, pt, sm), 2e-2,
+               "int4 pages B=8 C=128",
+               work=(nbytes(qc, starts) + B * n_pg * 4 + n_read * nKV * per_key,
+                     4 * n_pairs * nKV * dh),
+               fn_lib=sdpa(qc.transpose(1, 2), dense_pages(a, sa), dense_pages(b_, sb), mask_c,
+                           sm),
+               lib_label="sdpa, dense bf16 K/V of the same length")
+    del pk8, pv8, pkb, pvb, pk4, pv4
+
+    # K5: causal prefill over the prompt's own bf16 K/V, 40 heads, dh 128.
+    # The work counts the (query, key) pairs the causal and length bounds
+    # admit; the yardstick is one causal scaled_dot_product_attention call
+    # on equal lengths (a ragged batch has no is_causal form).
+    nH = 40
+    for B, S, lens in ((1, 4096, [4096]), (2, 2048, [2048, 1300])):
+        q, k, v = bf(B, S, nH, dh), bf(B, S, nH, dh), bf(B, S, nH, dh)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        n_pairs = sum(n * (n + 1) // 2 + (S - n) * n for n in lens)
+        report_attn("prefill_attention_flash", f"B={B} S={S} lengths {lens}",
+               lambda: prefill_attention_flash(q, k, v, ln, sm),
+               lambda: prefill_attention_flash_plain(q, k, v, ln, sm), 2e-2,
+               "B=1 S=4096 lengths [4096]",
+               work=(nbytes(q, k, v, ln), 4 * n_pairs * nH * dh),
+               fn_lib=lambda: F.scaled_dot_product_attention(
+                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                   scale=sm),
+               lib_label="sdpa is_causal, equal lengths")
+        del q, k, v
     return ok
 
 
-def phase_reference(torch, pkg, **quant):
+def phase_reference(torch, pkg, kv=None, **quant):
     """2 layers at CodeFuse-13B width: card (kernels) vs CPU (plain).
-    ``quant``: init_params' weight_bits and group_size. Returns max |dlogits|
-    / max |logits| after the prefill and after each decode step."""
+    ``quant``: init_params' weight_bits and group_size; ``kv`` the dense
+    cache's kind (int8 when None). Returns max |dlogits| / max |logits| after
+    the prefill and after each decode step."""
     from fastertransformer4codefuse_tpu_torch.engine import kv_cache
     from fastertransformer4codefuse_tpu_torch.models import gptneox as model
     from fastertransformer4codefuse_tpu_torch.models.params import params_to
@@ -361,7 +446,7 @@ def phase_reference(torch, pkg, **quant):
     lens = np.array([S, S - 17], np.int32)
     logits = {}
     for name, p, dev in (("card", p_gpu, "cuda"), ("cpu", p_cpu, "cpu")):
-        cache = kv_cache.init_cache(cfg, B, S + steps + 1, torch.int8, dev)
+        cache = kv_cache.init_cache(cfg, B, S + steps + 1, kv or torch.int8, dev)
         t_ids = torch.from_numpy(ids).to(dev)
         t_lens = torch.from_numpy(lens).to(dev)
         hidden, cache = model.prefill(cfg, p, t_ids, t_lens, cache)
@@ -380,8 +465,8 @@ def phase_reference(torch, pkg, **quant):
     return rels
 
 
-def phase_reference_paged(torch, pkg):
-    """The 2-layer int8 model of CodeFuse-13B width on a paged int8 pool:
+def phase_reference_paged(torch, pkg, kv):
+    """The 2-layer int8 model of CodeFuse-13B width on a paged ``kv`` pool:
     chunked prefill of ragged prompts through ``prefill_chunk`` (K10 on the
     card), then 3 teacher-forced ``decode_step``s (K9), card against CPU.
     Returns max |dlogits| / max |logits| after the prefill and each step."""
@@ -400,7 +485,7 @@ def phase_reference_paged(torch, pkg):
     pt = np.array([[3, 1], [4, 2]], np.int32)  # permuted pages; page 0 is the garbage page
     logits = {}
     for name, p, dev in (("card", p_gpu, "cuda"), ("cpu", p_cpu, "cpu")):
-        cache = paged_kv.init_paged_cache(cfg, B, ps * n_pg, 5, ps, torch.int8, dev)
+        cache = paged_kv.init_paged_cache(cfg, B, ps * n_pg, 5, ps, kv, dev)
         cache["pt"] = torch.from_numpy(pt).to(dev)
         last = [None] * B
         for c0 in range(0, 2 * C, C):
@@ -427,7 +512,6 @@ def phase_reference_paged(torch, pkg):
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -438,6 +522,7 @@ def main() -> int:
     except ImportError as e:
         return fail(f"the port's package is not beside this script: {e}")
     from fastertransformer4codefuse_tpu_torch.ops import _cuda
+    from fastertransformer4codefuse_tpu_torch.ops.attention import prefill_attention_flash
     from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
         flash_chunk_paged, flash_decode_paged, flash_decode_stacked,
     )
@@ -472,30 +557,42 @@ def main() -> int:
 
     src = "fastertransformer4codefuse_tpu_torch/csrc/"
     tpu = "fastertransformer4codefuse_tpu/ops/"
+    # name -> (wrapper, its counter, source, the TPU kernel it replaces). A
+    # packed-int4 form counts its launches apart (``launches_packed``) and
+    # within the wrapper's ``launches``.
     kernels = {
-        "quant_matmul": (quant_matmul, src + "quant_matmul.cu", tpu + "quant_matmul.py:139"),
-        "fused_up_proj_down": (fused_up_proj_down, src + "quant_matmul_fused.cu",
+        "quant_matmul": (quant_matmul, "launches", src + "quant_matmul.cu",
+                         tpu + "quant_matmul.py:139"),
+        "fused_up_proj_down": (fused_up_proj_down, "launches", src + "quant_matmul_fused.cu",
                                tpu + "quant_matmul_fused.py:434"),
-        "fused_proj_down": (fused_proj_down, src + "quant_matmul_fused.cu",
+        "fused_proj_down": (fused_proj_down, "launches", src + "quant_matmul_fused.cu",
                             tpu + "quant_matmul_fused.py:280"),
-        "flash_decode": (flash_decode_stacked, src + "flash_decode.cu",
+        "flash_decode": (flash_decode_stacked, "launches", src + "flash_decode.cu",
                          tpu + "flash_decode.py:593"),
-        "quant_matmul_w4": (quant_matmul_w4, src + "quant_matmul_w4.cu",
+        "quant_matmul_w4": (quant_matmul_w4, "launches", src + "quant_matmul_w4.cu",
                             tpu + "quant_matmul_w4.py:204"),
-        "quant_matmul_w4_group": (quant_matmul_w4_group, src + "quant_matmul_w4.cu",
+        "quant_matmul_w4_group": (quant_matmul_w4_group, "launches", src + "quant_matmul_w4.cu",
                                   tpu + "quant_matmul_w4.py:315"),
-        "quant_matmul_w4_head": (quant_matmul_w4_head, src + "quant_matmul_w4.cu",
+        "quant_matmul_w4_head": (quant_matmul_w4_head, "launches", src + "quant_matmul_w4.cu",
                                  tpu + "quant_matmul_w4.py:82"),
-        "flash_decode_paged": (flash_decode_paged, src + "flash_decode.cu",
+        "flash_decode_paged": (flash_decode_paged, "launches", src + "flash_decode.cu",
                                tpu + "flash_decode.py:370"),
-        "flash_chunk_paged": (flash_chunk_paged, src + "flash_chunk.cu",
+        "flash_chunk_paged": (flash_chunk_paged, "launches", src + "flash_chunk.cu",
                               tpu + "flash_decode.py:480"),
+        "prefill_attention_flash": (prefill_attention_flash, "launches", src + "flash_chunk.cu",
+                                    tpu + "attention.py:39"),
+        "flash_decode_int4": (flash_decode_stacked, "launches_packed", src + "flash_decode.cu",
+                              tpu + "flash_decode.py:593"),
+        "flash_decode_paged_int4": (flash_decode_paged, "launches_packed",
+                                    src + "flash_decode.cu", tpu + "flash_decode.py:370"),
+        "flash_chunk_paged_int4": (flash_chunk_paged, "launches_packed", src + "flash_chunk.cu",
+                                   tpu + "flash_decode.py:480"),
     }
     records = {
         n: {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": 0,
             "max_abs_err": 0.0, "ms": None, "plain_ms": None, "bound_ms": None,
             "bound_by": None, "library_ms": None}
-        for n, (_, s, r) in kernels.items()
+        for n, (_, _, s, r) in kernels.items()
     }
     if not phase_kernels(torch, records):
         return fail("a kernel disagrees with its plain version")
@@ -504,22 +601,29 @@ def main() -> int:
     tol_ref = 5e-2
     for label, quant in CONFIGS:
         rels = phase_reference(torch, pkg, **quant)
-        log(f"  {label}: max |dlogits| / max |logits| after prefill and 3 teacher-forced "
+        log(f"  {label}: max |dlogits| / max |logits| after prefill (K5) and 3 teacher-forced "
             f"decode steps: {', '.join(f'{r:.2e}' for r in rels)} (tol {tol_ref:g})")
         if max(rels) >= tol_ref:
             return fail(f"{label}: card and CPU logits disagree")
-    rels = phase_reference_paged(torch, pkg)
-    log(f"  int8 on a paged int8 pool (chunked prefill of ragged prompts, K10; decode, K9): "
-        f"{', '.join(f'{r:.2e}' for r in rels)} (tol {tol_ref:g})")
+    rels = phase_reference(torch, pkg, kv="int4")
+    log(f"  int8 on an int4 dense cache (packed K4): {', '.join(f'{r:.2e}' for r in rels)} "
+        f"(tol {tol_ref:g})")
     if max(rels) >= tol_ref:
-        return fail("paged int8: card and CPU logits disagree")
+        return fail("int4 dense cache: card and CPU logits disagree")
+    for kv in (torch.int8, "int4"):
+        rels = phase_reference_paged(torch, pkg, kv)
+        log(f"  int8 on a paged {kv} pool (chunked prefill of ragged prompts, K10; decode, "
+            f"K9): {', '.join(f'{r:.2e}' for r in rels)} (tol {tol_ref:g})")
+        if max(rels) >= tol_ref:
+            return fail(f"paged {kv}: card and CPU logits disagree")
 
     launched = {n: 0 for n in kernels}
     for label, quant in CONFIGS:
         log(f"phase 4: CodeFuse-13B {label} (40 layers, int8 KV) on the card")
-        # phase 5 serves pools on the int8 model phase 4 builds
+        # the long-prompt runs on packed caches and phase 5's pools use the
+        # int8 model phase 4 builds
         err = phase_serve(torch, pkg, quant, kernels, launched,
-                          then=phase_pool if label == "int8" else None)
+                          then=phase_int8_model if label == "int8" else None)
         if err:
             return fail(f"{label}: {err}")
     for n in records:
@@ -541,15 +645,18 @@ CONFIGS = [
 ]
 
 
-def expected_launches(L, prefills, forwards, weight_bits, group_size):
+def expected_launches(L, prefills, forwards, weight_bits, group_size, packed_kv=False):
     """Launches each kernel wrapper must count for a run of ``prefills``
     prefills and ``forwards`` decode forwards of an L-layer CodeFuse model
     (parallel residual, tanh-gelu, biases): prefill runs QKV, proj, up and
-    down as GEMMs; decode runs QKV as a GEMM and the post-attention block as
+    down as GEMMs and attention as K5; decode runs QKV as a GEMM, attention
+    as K4 (its packed form on an int4 cache) and the post-attention block as
     K2 (which calls K3) for per-channel weights, or all four GEMMs as K7 for
     group-wise int4; every prefill and forward ends in one LM head call."""
     gemm = {8: "quant_matmul", 4: "quant_matmul_w4"}[weight_bits]
-    out = {"flash_decode": L * forwards}
+    out = {"flash_decode": L * forwards, "prefill_attention_flash": L * prefills}
+    if packed_kv:
+        out["flash_decode_int4"] = L * forwards
     if group_size:
         out["quant_matmul_w4_group"] = L * 4 * (prefills + forwards)
     else:
@@ -591,8 +698,7 @@ def phase_serve(torch, pkg, quant, kernels, launched, then=None):
     handler = CodeFuseHandler(engine=engine, tokenizer=tok, trie=VocabTrie(tok.get_vocab()),
                               warmup=False, on_stream_text=lambda b, j, s: streamed_text.append(s))
 
-    for fn, _, _ in kernels.values():
-        fn.launches = 0
+    zero_counts(kernels)
     forwards = 0
     prefills = 0
 
@@ -682,22 +788,144 @@ def phase_serve(torch, pkg, quant, kernels, launched, then=None):
     log(f"  handler: greedy, streamed (== greedy) and a 2-prompt sampled request answered; "
         f"lengths {[responses[0]['length'], r3['length']]}")
 
-    torch.cuda.synchronize()
-    counts = {n: fn.launches for n, (fn, _, _) in kernels.items()}
-    expect = {n: 0 for n in kernels}
-    expect.update(expected_launches(cfg.layer_num, prefills, forwards, **quant))
-    log(f"  {prefills} prefills, {forwards} decode forwards; launches {counts}, "
-        f"expected {expect}")
-    if counts != expect:
-        return "kernel launch counts do not match the forwards run"
-    for n, c in counts.items():
-        launched[n] += c
+    err = check_static_counts(torch, kernels, launched, cfg.layer_num, prefills, forwards, quant)
+    if err:
+        return err
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  peak device memory {peak:.2f} GiB; decode {step_ms:.2f} ms/step at B=1, "
         f"{step4_ms:.2f} ms/step at B=4; prefill {t_pre * 1e3:.1f} ms (1000 tokens)")
     if then is not None:
         return then(torch, engine, kernels, launched)
     return None  # the model is freed with this frame, before the next one is built
+
+
+def with_kv(engine, kind):
+    """An engine over the same weights with another KV cache kind."""
+    import dataclasses
+
+    return type(engine)(engine.config, engine.params,
+                        dataclasses.replace(engine.runtime, kv_cache_dtype=kind))
+
+
+def prefill_profile(torch, engine, prompt, label):
+    """Wall time (best of two) of one prefill (``generate`` with output_len
+    1) and the device time by kernel of a third under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.generate([prompt], 1, top_k=1)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.generate([prompt], 1, top_k=1)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        if t > 0:
+            rows.append((e.key, t / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    dev = sum(r[1] for r in rows)
+    log(f"  prefill of {len(prompt)} tokens, {label}: wall {min(walls):.1f} ms (best of 2), "
+        f"device kernels {dev:.1f} ms ({CARD}); by kernel:")
+    for name, ms, n in rows[:6]:
+        log(f"    {ms:9.3f} ms {n:5d}x  {name[:90]}")
+    return min(walls), dev
+
+
+def phase_long(torch, engine, kernels, launched):
+    """Long prompts on packed int4 KV caches, on the int8 CodeFuse-13B
+    ``engine``'s weights: "int4" with a ~3000-token prompt (B = 1, 64 greedy
+    tokens twice and once streamed), its prefill with K5 and once with the
+    plain prefill attention forced in, then "int8k_int4v" with prompts of
+    2048 and 1300 tokens (32 sampled tokens, twice). Returns an error
+    message, or None."""
+    from fastertransformer4codefuse_tpu_torch.models import gptneox
+    from fastertransformer4codefuse_tpu_torch.ops.attention import prefill_attention_flash_plain
+
+    cfg = engine.config
+    L, V = cfg.layer_num, cfg.vocab_size
+    quant = dict(weight_bits=8, group_size=0)
+    rng = np.random.default_rng(11)
+    eng = with_kv(engine, "int4")
+    log("phase 4: CodeFuse-13B int8, long prompts on packed int4 KV caches")
+    prompt = rng.integers(0, V, 3000).tolist()
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    forwards = prefills = 0
+
+    def run(e, *a, **kw):
+        nonlocal forwards, prefills
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = e.generate(*a, **kw)
+        torch.cuda.synchronize()
+        forwards += e.decode_forwards
+        prefills += 1
+        return out, time.perf_counter() - t, e.decode_forwards
+
+    _, t_pre, _ = run(eng, [prompt], 1, top_k=1)
+    g1, t1, f1 = run(eng, [prompt], 64, top_k=1, return_cum_log_probs=True)
+    g2, _, _ = run(eng, [prompt], 64, top_k=1, return_cum_log_probs=True)
+    streamed = []
+    g3, _, _ = run(eng, [prompt], 64, top_k=1,
+                   callback=lambda m: streamed.append(m["last_tokens"][0][0]))
+    gen = g1.output_ids[0, 0, 3000:g1.sequence_lengths[0, 0]]
+    if not (np.array_equal(g1.output_ids, g2.output_ids)
+            and np.array_equal(g1.output_ids, g3.output_ids)):
+        return "int4 KV: greedy runs of one long prompt differ"
+    if streamed != gen[:len(streamed)].tolist() or (gen < 0).any() or (gen >= V).any():
+        return "int4 KV: streamed tokens differ or ids out of range"
+    if not np.isfinite(g1.cum_log_probs).all():
+        return "int4 KV: non-finite logits"
+    log(f"  int4 KV, B=1 3000-token prompt (3072 wide), 64 greedy tokens x2 + streamed: "
+        f"identical, {f1} decode forwards, prefill {t_pre * 1e3:.1f} ms, decode "
+        f"{(t1 - t_pre) / max(f1, 1) * 1e3:.2f} ms/step, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({CARD})")
+    err = check_static_counts(torch, kernels, launched, L, prefills, forwards, quant,
+                              packed_kv=True)
+    if err:
+        return f"int4 KV: {err}"
+
+    # the first prefill breakdown: K5, then the plain prefill attention
+    # forced in at the model's call site (K5 is not launched there)
+    prefill_profile(torch, eng, prompt, "attention by K5")
+    orig = gptneox.prefill_attention
+    gptneox.prefill_attention = (
+        lambda q, k, v, mask, sm, lens=None: prefill_attention_flash_plain(q, k, v, lens, sm))
+    try:
+        prefill_profile(torch, eng, prompt, "plain prefill attention (fp32 scores)")
+    finally:
+        gptneox.prefill_attention = orig
+
+    eng = with_kv(engine, "int8k_int4v")
+    prompts = [rng.integers(0, V, n).tolist() for n in (2048, 1300)]
+    kw = dict(top_k=40, top_p=0.9, temperature=0.8, repetition_penalty=1.1,
+              random_seed=[5, 6], return_cum_log_probs=True)
+    zero_counts(kernels)
+    forwards = prefills = 0
+    s1, ts, fs = run(eng, prompts, 32, **kw)
+    s2, _, _ = run(eng, prompts, 32, **kw)
+    if not np.array_equal(s1.output_ids, s2.output_ids):
+        return "int8k_int4v KV: sampling with per-row seeds is not reproducible"
+    for b, n in enumerate((2048, 1300)):
+        gen = s1.output_ids[b, 0, n:s1.sequence_lengths[b, 0]]
+        if (gen < 0).any() or (gen >= V).any() or not np.isfinite(s1.cum_log_probs).all():
+            return f"int8k_int4v KV: bad output in row {b}"
+    log(f"  int8k_int4v KV, B=2 prompts of 2048 and 1300 tokens, 32 sampled tokens x2: "
+        f"reproducible, {fs} decode forwards, {ts:.2f} s a run ({CARD})")
+    return check_static_counts(torch, kernels, launched, L, prefills, forwards, quant,
+                               packed_kv=True)
+
+
+def phase_int8_model(torch, engine, kernels, launched):
+    return (phase_long(torch, engine, kernels, launched)
+            or phase_pool(torch, engine, kernels, launched))
 
 
 # Phase 5's mix: prompt lengths, output lengths; even requests greedy, odd
@@ -709,17 +937,40 @@ POOL = dict(max_slots=8, max_seq_len=2048, prompt_bucket=128, pipeline_ticks=Tru
 PAGES = dict(num_pages=65, page_size=256)  # 8 slots x 2048 positions + the garbage page
 
 
+def check_static_counts(torch, kernels, launched, L, prefills, forwards, quant, packed_kv=False):
+    """Compare the counters (zeroed just before the run) with what
+    ``prefills`` prefills and ``forwards`` decode forwards must give; add
+    them to ``launched``."""
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    expect = {n: 0 for n in kernels}
+    expect.update(expected_launches(L, prefills, forwards, packed_kv=packed_kv, **quant))
+    log(f"  {prefills} prefills, {forwards} decode forwards; launches "
+        f"{({n: c for n, c in counts.items() if c})}, expected "
+        f"{({n: c for n, c in expect.items() if c})}")
+    if counts != expect:
+        return "kernel launch counts do not match the forwards run"
+    for n, c in counts.items():
+        launched[n] += c
+    return None
+
+
 def pool_launches(L, b):
     """Launches each kernel wrapper must count for the ticks the int8
     CodeFuse pool ``b`` ran: a decode tick runs QKV as K1 and the
     post-attention block as K2 (which calls K3), a chunk tick four K1 GEMMs;
-    attention is K9 / K10 on pages, K4 and plain chunk attention on dense
-    slabs; the int8 LM head is a plain matmul."""
+    attention is K9 / K10 on pages (their packed forms on int4 pages), K4
+    and plain chunk attention on dense slabs; the int8 LM head is a plain
+    matmul."""
+    from fastertransformer4codefuse_tpu_torch.engine import paged_kv
+
     d, c = b.decode_ticks, b.chunk_ticks
     out = {"quant_matmul": L * (d + 4 * c), "fused_up_proj_down": L * d,
            "fused_proj_down": L * d}
     if b.paged is not None:
         out.update(flash_decode_paged=L * d, flash_chunk_paged=L * c)
+        if paged_kv.packed4(b._state["cache"], "pv"):
+            out.update(flash_decode_paged_int4=L * d, flash_chunk_paged_int4=L * c)
     else:
         out["flash_decode"] = L * d
     return out
@@ -729,7 +980,7 @@ def check_counts(kernels, launched, pools, L, label):
     """Compare the counters (zeroed just before ``label`` was driven) with
     the counts the ticks of ``pools`` (batchers) must give; add them to
     ``launched``."""
-    counts = {n: fn.launches for n, (fn, _, _) in kernels.items()}
+    counts = read_counts(kernels)
     expect = {n: 0 for n in kernels}
     for b in pools:
         for n, c in pool_launches(L, b).items():
@@ -746,8 +997,12 @@ def check_counts(kernels, launched, pools, L, label):
 
 
 def zero_counts(kernels):
-    for fn, _, _ in kernels.values():
-        fn.launches = 0
+    for fn, attr, _, _ in kernels.values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(kernels):
+    return {n: getattr(fn, attr) for n, (fn, attr, _, _) in kernels.items()}
 
 
 def instrument(torch, b, ticks):
@@ -933,6 +1188,58 @@ def phase_http(torch, engine, kernels, launched, tok):
         multi.close()
 
 
+def pool_mix(torch, engine, reqs, kernels, launched, label, alone=False):
+    """Phase 5's mix of ``reqs`` on a paged ``BatchingServer`` (PAGES, POOL)
+    over ``engine``, run twice from threads; the tokens must repeat, and with
+    ``alone`` greedy request 0 run alone must equal itself in the mix.
+    Checks the launch counts; returns an error message, or None."""
+    from fastertransformer4codefuse_tpu_torch.engine.server import BatchingServer
+
+    cfg = engine.config
+    srv = BatchingServer(engine, return_log_probs=True, paged=PAGES, **POOL)
+    b = srv.batcher
+    pages_gib = sum(nbytes(t) for t in b._state["cache"].values()) / 2**30
+    ticks = []
+    instrument(torch, b, ticks)
+    try:
+        runs = []
+        for rep in range(2):
+            d0, c0, n0 = b.decode_ticks, b.chunk_ticks, len(ticks)
+            res, wall = drive_mix(srv, reqs, late=4)
+            err = bad_length(res, reqs, cfg.end_id, cfg.vocab_size)
+            if err:
+                return f"{label} pool mix {rep + 1}: {err}"
+            gen = sum(len(r.output_ids) - len(p) for r, (p, _, _) in zip(res, reqs))
+            with_c = [t * 1e3 for t, c in ticks[n0:] if c] or [float("nan")]
+            no_c = [t * 1e3 for t, c in ticks[n0:] if not c] or [float("nan")]
+            log(f"  {label} mix {rep + 1}: 10 requests (prompts {min(POOL_PROMPTS)}-"
+                f"{max(POOL_PROMPTS)}, outputs {min(POOL_OUTS)}-{max(POOL_OUTS)}, 5 greedy, 5 "
+                f"sampled, 4 arriving 1-4 s in): {gen} tokens in {wall:.2f} s = "
+                f"{gen / wall:.1f} tokens/s; {b.decode_ticks - d0} ticks, {b.chunk_ticks - c0} "
+                f"with a chunk: {statistics.median(with_c):.1f} ms median per tick with a "
+                f"chunk, {statistics.median(no_c):.1f} ms without ({CARD})")
+            runs.append([r.output_ids for r in res])
+        if runs[0] != runs[1]:
+            return f"{label}: the pool mix run twice gave different tokens"
+        if alone:
+            one = srv.generate(reqs[0][0], reqs[0][1], **reqs[0][2])
+            if one.output_ids != runs[0][0]:
+                return f"{label}: a greedy request alone differs from itself inside the mix"
+        log(f"  {label} mix x2: identical tokens"
+            + ("; greedy request 0 alone == inside the mix" if alone else "")
+            + "; tick dispatch never synchronised (set_sync_debug_mode error)")
+        torch.cuda.synchronize()
+        err = check_counts(kernels, launched, [b], cfg.layer_num,
+                           f"paged pool on {label}, mix x2" + (" + alone" if alone else ""))
+        if err:
+            return err
+        log(f"  {label}: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB ({pages_gib:.2f} GiB of pages) ({CARD})")
+        return None
+    finally:
+        srv.close()
+
+
 def phase_pool(torch, engine, kernels, launched):
     """Phase 5: pooled serving on the int8 CodeFuse-13B ``engine``; returns an
     error message, or None."""
@@ -957,55 +1264,27 @@ def phase_pool(torch, engine, kernels, launched):
         zero_counts(kernels)
 
     log("phase 5: pooled serving of CodeFuse-13B int8 (8 slots, 2048 positions, paged: "
-        "65 pages of 256, int8 KV)")
+        "65 pages of 256; int8 KV, then int4 KV)")
     fresh()
-    srv = BatchingServer(engine, return_log_probs=True, paged=PAGES, **POOL)
-    b = srv.batcher
-    pages_gib = sum(nbytes(t) for t in b._state["cache"].values()) / 2**30
-    ticks = []
-    instrument(torch, b, ticks)
-    try:
-        runs = []
-        for rep in range(2):
-            d0, c0, n0 = b.decode_ticks, b.chunk_ticks, len(ticks)
-            res, wall = drive_mix(srv, reqs, late=4)
-            err = bad_length(res, reqs, end_id, V)
-            if err:
-                return f"pool mix {rep + 1}: {err}"
-            gen = sum(len(r.output_ids) - len(p) for r, (p, _, _) in zip(res, reqs))
-            with_c = [t * 1e3 for t, c in ticks[n0:] if c] or [float("nan")]
-            no_c = [t * 1e3 for t, c in ticks[n0:] if not c] or [float("nan")]
-            log(f"  mix {rep + 1}: 10 requests (prompts {min(POOL_PROMPTS)}-{max(POOL_PROMPTS)}, "
-                f"outputs {min(POOL_OUTS)}-{max(POOL_OUTS)}, 5 greedy, 5 sampled, 4 arriving "
-                f"1-4 s in): {gen} tokens in {wall:.2f} s = {gen / wall:.1f} tokens/s; "
-                f"{b.decode_ticks - d0} ticks, {b.chunk_ticks - c0} with a chunk: "
-                f"{statistics.median(with_c):.1f} ms median per tick with a chunk, "
-                f"{statistics.median(no_c):.1f} ms without ({CARD})")
-            runs.append([r.output_ids for r in res])
-        if runs[0] != runs[1]:
-            return "the pool mix run twice gave different tokens"
-        alone = srv.generate(reqs[0][0], reqs[0][1], **reqs[0][2])
-        if alone.output_ids != runs[0][0]:
-            return "a greedy request alone differs from itself inside the mix"
-        log("  mix x2: identical tokens; greedy request 0 alone == inside the mix; tick "
-            "dispatch never synchronised (set_sync_debug_mode error)")
-        torch.cuda.synchronize()
-        err = check_counts(kernels, launched, [b], L, "paged pool, mix x2 + alone")
-        if err:
-            return err
-        log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-            f"({pages_gib:.2f} GiB of pages) ({CARD})")
-    finally:
-        srv.close()
-    del srv, b
+    err = pool_mix(torch, engine, reqs, kernels, launched, "int8 pages", alone=True)
+    if err:
+        return err
+    fresh()
+    err = pool_mix(torch, with_kv(engine, "int4"), reqs, kernels, launched, "int4 pages")
+    if err:
+        return err
 
-    fresh()
-    prof = tick_profile(torch, engine, ContinuousBatcher)
-    for kind, (wall, dev, rows) in prof.items():
-        log(f"  {kind} tick (8 slots at ~1000 positions; profiled): wall {wall:.1f} ms, device "
-            f"kernels {dev:.1f} ms, busy {100 * dev / wall:.1f}% ({CARD}); per tick:")
-        for name, ms, n in rows[:8]:
-            log(f"    {ms:8.3f} ms {n:7.1f}x  {name[:90]}")
+    # the host and device split of the ticks on int8 and on int4 pages: the
+    # int4 pair-byte writes add small ops to every layer of a tick
+    for label, eng in (("int8 pages", engine), ("int4 pages", with_kv(engine, "int4"))):
+        fresh()
+        prof = tick_profile(torch, eng, ContinuousBatcher)
+        for kind, (wall, dev, rows) in prof.items():
+            log(f"  {label}, {kind} tick (8 slots at ~1000 positions; profiled): wall "
+                f"{wall:.1f} ms, device kernels {dev:.1f} ms, busy {100 * dev / wall:.1f}%, "
+                f"{sum(r[2] for r in rows):.0f} device ops (kernels, copies) ({CARD}); per tick:")
+            for name, ms, n in rows[:8]:
+                log(f"    {ms:8.3f} ms {n:7.1f}x  {name[:90]}")
 
     fresh()
     tok = ByteTokenizer()

@@ -203,7 +203,8 @@ class RuntimeConfig:
         alias of bf16, as in the JAX package).
       int8_mode: 0 = dense, 1 = weight-only int8 with per-output-channel scales.
       kv_cache_dtype: KV cache dtype ("int8" adds one bf16 scale per cached
-        vector); None = ``dtype``.
+        vector; "int4" packs K and V two positions a byte with the same
+        scales, "int8k_int4v" packs only V); None = ``dtype``.
       seq_bucket: the padded prefill width is rounded up to a multiple of this.
       tensor_para_size / data_para_size / pipeline_para_size: parallel layout;
         only 1 is ported.

@@ -1,40 +1,55 @@
+// K10 and K5: many-query flash attention, one tile loop for both.
+//
 // K10: chunked-prefill attention over the paged KV pool. Row b brings C
 // consecutive queries starting at logical position pos[b]; query c with
-// head j of KV group h attends keys 0 .. pos[b] + c.
+// head j of KV group h attends keys 0 .. pos[b] + c. Replaces
+// fastertransformer4codefuse_tpu/ops/flash_decode.py flash_chunk_paged
+// (_kernel in chunk mode).
 //
-// Replaces fastertransformer4codefuse_tpu/ops/flash_decode.py
-// flash_chunk_paged (_kernel in chunk mode): the C queries and the gq query
-// heads of a KV head ride one row axis, r = c * gq + j, bounded at
-// pos + r / gq; scores = (q . k) * k_s * sm_scale, masked per row; online
-// softmax in fp32; (p * v_s) rounded to bf16 before the PV product (int8 ->
-// bf16 is exact; bf16 pages round p alone); the denominator sums the
-// unrounded fp32 p. A row whose bound lies before a key tile gets p = 0 there
-// (the JAX kernel's re-mask hazard), and keys past the tile's last bound are
-// never read (zeros in shared memory, so stale page bytes never reach PV).
+// K5: causal prefill attention over the prompt's own K/V [B, S, nKV, dh]
+// bf16, before any cache: C = S queries from position 0, query i of row b
+// bounded at min(i, lens[b] - 1), so padded rows attend the valid prefix
+// (the plain masked prefill computes exactly that on every row; the TPU
+// kernel's pads attend only pads, and no caller reads them). Replaces
+// fastertransformer4codefuse_tpu/ops/attention.py prefill_attention_flash
+// (the library Pallas flash_attention with causal segment ids).
+//
+// Math: the C queries and the gq query heads of a KV head ride one row axis,
+// r = c * gq + j, bounded at start + r / gq; scores = (q . k) * k_s *
+// sm_scale, masked per row; online softmax in fp32; (p * v_s) rounded to
+// bf16 before the PV product (int8 and int4 -> bf16 are exact; bf16 K/V
+// round p alone); the denominator sums the unrounded fp32 p. A row whose
+// bound lies before a key tile gets p = 0 there (the JAX kernel's re-mask
+// hazard), and keys past the tile's last bound are never read (zeros in
+// shared memory, so stale page bytes never reach PV). Pages are bf16, int8
+// or packed int4 (K and V templated apart: "int8k_int4v" mixes them); a
+// packed pair row holds positions 2i (low nibble) and 2i + 1, read at the
+// unpacked index's u / 2 with the scale at u.
 //
 // Bound: at CodeFuse-13B with C = 128 queries over ~1000 keys a row is
 // ~2.7 GFLOP a layer against ~10.5 MB of int8 K/V, near the card's
-// 295 FLOP/byte balance, so the products run on the tensor cores:
+// 295 FLOP/byte balance; K5 at S = 4096 is ~172 GFLOP a layer against
+// ~170 MB, far above it. So the products run on the tensor cores:
 // mma.sync m16n8k16 bf16 with fp32 accumulation (its fragment layouts are
 // fixed by the PTX ISA, so the online-softmax rescale of each accumulator row
 // happens in registers and P feeds the PV product from registers).
 //
 // Design: one block of 8 warps per (128-row query tile, KV head, row); each
-// warp owns 16 query rows, and the C = 128 queries of a KV head share one
-// block, so each K/V byte is read and converted once per (row, KV head). The
-// block loops over 64-key tiles up to the tile's last bound. Each thread
-// resolves its keys' cached vectors through the block table (the block loads
-// its own page ids, no host round trip) and loads K, V and their scales with
-// 16-byte loads into registers; at dh 128 the next tile's loads are issued
-// before the current tile's products, so they stay in flight under them. A
-// tile is stored in shared memory as bf16 [key][dh] for K and V; each warp
-// computes S = Q K^T (16 x 64), updates its rows' running max and
+// warp owns 16 query rows, and the 128 rows of a KV head share one block,
+// so each K/V byte is read and converted once per (query tile, KV head). The
+// block loops over 64-key tiles up to the tile's last bound (K5's causal
+// loop is triangular: the last query tile reads all S keys, the first 128).
+// Each thread resolves its keys' vectors through the KV policy (K10: the
+// block table, the block loading its own page ids, no host round trip; K5:
+// the dense [B, S, nKV] index) and loads K, V and their scales with 16-byte
+// loads into registers; at dh 128 the next tile's loads are issued before
+// the current tile's products, so they stay in flight under them, and each
+// warp keeps its Q fragments in registers. A tile is stored in shared memory
+// as bf16 [key][dh] for K and V; each warp computes S = Q K^T (16 x 64), the
+// K fragments read with ldmatrix, updates its rows' running max and
 // denominator, and accumulates P V into 16 x dh fp32 registers, the V
 // fragments read with ldmatrix.trans. PERF.md holds the measured effect of
-// each of these choices. The tile loop is templated on where a key lives
-// (the KV policy) and takes per-row bounds, so the causal prefill kernel K5
-// can reuse it with a dense K/V and a length mask. wgmma, TMA and a deeper
-// ring are later work.
+// each of these choices. wgmma, TMA and a deeper ring are later work.
 #include <math.h>
 
 #include "ftcf_common.cuh"
@@ -46,15 +61,34 @@ constexpr int FC_THREADS = FC_WARPS * 32;
 constexpr int FC_BM = FC_WARPS * 16;  // query rows per block, 16 per warp
 constexpr int FC_BN = 64;             // keys per tile
 
-// Key s of (row b, KV head h) in the layer's [P, nKV, ps, dh] page slab,
-// through the block table pt [B, n_pg].
+// KV policies: where row b's queries start (start), how many of its keys
+// exist (keys), and where key s of (row b, KV head h) is cached (vec, the
+// unpacked vector index).
+//
+// K10: the layer's [P, nKV, ps, dh] page slab through the block table
+// pt [B, n_pg]; row b's C queries start at pos[b].
 struct PagedKV {
+  const int* pos;
   const int* pt;
   int n_pg, ps;
-  __device__ int seq_len() const { return n_pg * ps; }
+  __device__ int start(int b) const { return pos[b]; }
+  __device__ int keys(int) const { return n_pg * ps; }
   __device__ uint32_t vec(int b, int h, int nKV, int s) const {
     const int page = pt[(size_t)b * n_pg + min(s / ps, n_pg - 1)];
     return ((uint32_t)page * nKV + h) * ps + s % ps;
+  }
+};
+
+// K5: the prefill's own K/V [B, S, nKV, dh]; query i of row b sees keys
+// 0 .. min(i, lens[b] - 1), so rows at or past the length attend the valid
+// prefix (the plain masked prefill's rows, every one of them).
+struct DenseKV {
+  const int* lens;
+  int S;
+  __device__ int start(int) const { return 0; }
+  __device__ int keys(int b) const { return min(lens[b], S); }
+  __device__ uint32_t vec(int b, int h, int nKV, int s) const {
+    return ((uint32_t)b * S + s) * nKV + h;
   }
 };
 
@@ -71,6 +105,17 @@ __device__ __forceinline__ void mma_16816(float* d, const uint32_t* a, const uin
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Four 8x8 b16 matrices from shared memory: lanes 8j .. 8j + 7 give the row
+// addresses of matrix j, and r[j] holds, for lane l, elements (row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1) of matrix j: from a row-major
+// [n][k] tile, the B fragment of m16n8k16 (its column-major [k][n] operand).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
 }
 
 // Four 8x8 b16 matrices from shared memory, transposed: lanes 8j .. 8j + 7
@@ -90,22 +135,50 @@ struct ChunkSmem {
   static constexpr size_t bytes = (size_t)(FC_BM + 2 * FC_BN) * LD * 2 + FC_BN * 8;
 };
 
-template <int DH, bool QUANT, class KV>
+// 16 cached values of one key, from one 16-byte load, stored as bf16 (int8
+// and int4 -> bf16 are exact). A packed int4 load holds dims of two keys,
+// the even one in the low nibbles: ``odd`` picks the key.
+template <int FMT>
+__device__ __forceinline__ void stage16(const uint4& u, bool odd, __nv_bfloat16* dst) {
+  if constexpr (FMT == KV_BF16) {
+    *reinterpret_cast<uint4*>(dst) = u;
+  } else {
+    float f[16];
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (FMT == KV_I8)
+        i8x4_to_f32(w[i], f + 4 * i);
+      else
+        i4x4_nibble_to_f32(w[i], odd, f + 4 * i);
+    }
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    d[0] = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
+                      pack_bf16(f[6], f[7]));
+    d[1] = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]), pack_bf16(f[12], f[13]),
+                      pack_bf16(f[14], f[15]));
+  }
+}
+
+template <int DH, int KF, int VF, class KV>
 __global__ void __launch_bounds__(FC_THREADS)
 flash_chunk_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ kc,
                    const __nv_bfloat16* __restrict__ ks, const void* __restrict__ vc,
-                   const __nv_bfloat16* __restrict__ vs, const int* __restrict__ pos,
-                   __nv_bfloat16* __restrict__ out, int C, int nKV, int gq, KV kv,
-                   float sm_scale) {
+                   const __nv_bfloat16* __restrict__ vs, __nv_bfloat16* __restrict__ out, int C,
+                   int nKV, int gq, KV kv, float sm_scale) {
+  constexpr bool QUANT = KF != KV_BF16;  // int8 or int4 payloads carry scales
+  static_assert((KF == KV_BF16) == (VF == KV_BF16), "bf16 K goes with bf16 V");
   constexpr int LD = ChunkSmem<DH>::LD;
   constexpr int W = QUANT ? 16 : 8;                 // cache values per 16-byte load
   constexpr int KCH = DH / W;                       // 16-byte loads per cached vector
   constexpr int NLD = FC_BN * KCH / FC_THREADS;     // of K (and of V) per thread per tile
   constexpr int NT = FC_BN / 8;                     // 8-key MMA tiles of a key tile
   constexpr int DT = DH / 8;                        // 8-dim MMA tiles of the output
-  // the next tile's loads are issued before the current tile's products
-  // where the registers allow it (dh 128)
+  // the next tile's loads are issued before the current tile's products,
+  // and the warp's Q fragments stay in registers, where the registers allow
+  // it (dh 128)
   constexpr bool PREFETCH = DH == 128;
+  constexpr bool QREG = DH == 128;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [FC_BM][LD]
   __nv_bfloat16* Ks = Qs + FC_BM * LD;                           // [FC_BN][LD]
@@ -118,9 +191,9 @@ flash_chunk_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__
   const int grp = lane >> 2, t4 = lane & 3;
   const int R = C * gq, nH = nKV * gq;
   const int r0 = tile * FC_BM;
-  const int p0 = pos[b];
+  const int p0 = kv.start(b);
   // the last key any row of this tile may see (inclusive)
-  const int key_end = min(p0 + (min(R, r0 + FC_BM) - 1) / gq, kv.seq_len() - 1);
+  const int key_end = min(p0 + (min(R, r0 + FC_BM) - 1) / gq, kv.keys(b) - 1);
 
   for (int i = tid; i < FC_BM * (DH / 8); i += FC_THREADS) {
     const int r = i / (DH / 8), c8 = (i - r * (DH / 8)) * 8, rr = r0 + r;
@@ -138,37 +211,24 @@ flash_chunk_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__
     const int idx = tid + i * FC_THREADS, key = idx / KCH, c = idx - key * KCH;
     uk = uv = make_uint4(0, 0, 0, 0);
     if (k0 + key <= key_end) {
-      const size_t off = (size_t)kv.vec(b, h, nKV, k0 + key) * DH + c * W;
+      const uint32_t u = kv.vec(b, h, nKV, k0 + key);
+      const size_t ko = kv_vec_off<KF>(u, DH) + c * W, vo = kv_vec_off<VF>(u, DH) + c * W;
       if constexpr (QUANT) {
-        uk = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(kc) + off);
-        uv = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(vc) + off);
+        uk = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(kc) + ko);
+        uv = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(vc) + vo);
       } else {
-        uk = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(kc) + off);
-        uv = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(vc) + off);
+        uk = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(kc) + ko);
+        uv = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(vc) + vo);
       }
     }
   };
-  // ... stored as bf16 [key][dh] (int8 -> bf16 is exact)
+  // ... stored as bf16 [key][dh]. A key's vector index has the parity of
+  // its position (even page size), and tiles start at even positions, so
+  // key % 2 picks the nibble of a packed pair row.
   auto store_one = [&](int i, const uint4& uk, const uint4& uv) {
     const int idx = tid + i * FC_THREADS, key = idx / KCH, c = idx - key * KCH;
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const uint4 u = m ? uv : uk;
-      uint4* dst = reinterpret_cast<uint4*>((m ? Vs : Ks) + key * LD + c * W);
-      if constexpr (QUANT) {
-        float f[16];
-        i8x4_to_f32(u.x, f);
-        i8x4_to_f32(u.y, f + 4);
-        i8x4_to_f32(u.z, f + 8);
-        i8x4_to_f32(u.w, f + 12);
-        dst[0] = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
-                            pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
-        dst[1] = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]),
-                            pack_bf16(f[12], f[13]), pack_bf16(f[14], f[15]));
-      } else {
-        dst[0] = u;
-      }
-    }
+    stage16<KF>(uk, key & 1, Ks + key * LD + c * W);
+    stage16<VF>(uv, key & 1, Vs + key * LD + c * W);
   };
   float ksr = 0.0f, vsr = 0.0f;
   auto load_scales = [&](int k0) {
@@ -222,6 +282,24 @@ flash_chunk_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
 
+  // A fragment of the warp's Q rows for dims kk .. kk + 15
+  auto load_qa = [&](int kk, uint32_t* a) {
+    const __nv_bfloat16* qa = Qs + (warp * 16 + grp) * LD + kk + t4 * 2;
+    a[0] = *reinterpret_cast<const uint32_t*>(qa);
+    a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD);
+    a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
+    a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD + 8);
+  };
+  uint32_t qf[QREG ? DH / 16 : 1][4];
+  if constexpr (QREG) {
+    __syncthreads();  // Q is stored
+#pragma unroll
+    for (int kk = 0; kk < DH; kk += 16) load_qa(kk, qf[kk / 16]);
+  }
+  // ldmatrix row address of this lane for the K fragments: matrix j = lane / 8
+  // covers keys 8 (j / 2) .. + 7 of a 16-key pair and dims 8 (j % 2) .. + 7
+  const int krow = (lane >> 4) * 8 + (lane & 7), kcol = (lane >> 3 & 1) * 8;
+
   if constexpr (PREFETCH) load_tile(0);
   for (int k0 = 0; k0 <= key_end; k0 += FC_BN) {
     __syncthreads();  // the previous tile's readers are done (and Q is stored)
@@ -237,19 +315,19 @@ flash_chunk_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__
     for (int nt = 0; nt < NT; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < DH; kk += 16) {
-      const __nv_bfloat16* qa = Qs + (warp * 16 + grp) * LD + kk + t4 * 2;
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(qa);
-      a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD);
-      a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD + 8);
+      uint32_t a_ld[4];
+      const uint32_t* a = a_ld;
+      if constexpr (QREG)
+        a = qf[kk / 16];
+      else
+        load_qa(kk, a_ld);
+      // B fragments of two 8-key tiles per 4-matrix load
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* kb = Ks + (nt * 8 + grp) * LD + kk + t4 * 2;
-        uint32_t bb[2];
-        bb[0] = *reinterpret_cast<const uint32_t*>(kb);
-        bb[1] = *reinterpret_cast<const uint32_t*>(kb + 8);
-        mma_16816(sc[nt], a, bb);
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4(r, Ks + (np * 16 + krow) * LD + kk + kcol);
+        mma_16816(sc[2 * np], a, r);
+        mma_16816(sc[2 * np + 1], a, r + 2);
       }
     }
 
@@ -340,13 +418,14 @@ flash_chunk_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__
   }
 }
 
-template <int DH, bool QUANT>
+template <int DH, int KF, int VF, class KV>
 static cudaError_t launch_fc(const void* q, const void* k, const void* ks, const void* v,
-                             const void* vs, const int* pos, PagedKV kv, void* out, int B, int C,
-                             int nKV, int gq, float sm_scale, cudaStream_t stream) {
-  auto kern = flash_chunk_kernel<DH, QUANT, PagedKV>;
+                             const void* vs, KV kv, void* out, int B, int C, int nKV, int gq,
+                             float sm_scale, cudaStream_t stream) {
+  auto kern = flash_chunk_kernel<DH, KF, VF, KV>;
   const size_t smem = ChunkSmem<DH>::bytes;
-  static bool attr_set = false;  // benign race: every setter writes the same value
+  // one flag per template instance; benign race: every setter writes the same value
+  static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -356,9 +435,25 @@ static cudaError_t launch_fc(const void* q, const void* k, const void* ks, const
   const dim3 grid((C * gq + FC_BM - 1) / FC_BM, nKV, B);
   kern<<<grid, FC_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), k, static_cast<const __nv_bfloat16*>(ks), v,
-      static_cast<const __nv_bfloat16*>(vs), pos, static_cast<__nv_bfloat16*>(out), C, nKV, gq,
-      kv, sm_scale);
+      static_cast<const __nv_bfloat16*>(vs), static_cast<__nv_bfloat16*>(out), C, nKV, gq, kv,
+      sm_scale);
   return cudaGetLastError();
+}
+
+// The (K, V) page formats served: bf16/bf16, int8/int8, int4/int4, int8/int4.
+template <int DH>
+static cudaError_t launch_fc_fmt(const void* q, const void* k, const void* ks, const void* v,
+                                 const void* vs, PagedKV kv, void* out, int B, int C, int nKV,
+                                 int gq, int kfmt, int vfmt, float sm_scale, cudaStream_t st) {
+  if (kfmt == KV_BF16 && vfmt == KV_BF16)
+    return launch_fc<DH, KV_BF16, KV_BF16>(q, k, ks, v, vs, kv, out, B, C, nKV, gq, sm_scale, st);
+  if (kfmt == KV_I8 && vfmt == KV_I8)
+    return launch_fc<DH, KV_I8, KV_I8>(q, k, ks, v, vs, kv, out, B, C, nKV, gq, sm_scale, st);
+  if (kfmt == KV_I4 && vfmt == KV_I4)
+    return launch_fc<DH, KV_I4, KV_I4>(q, k, ks, v, vs, kv, out, B, C, nKV, gq, sm_scale, st);
+  if (kfmt == KV_I8 && vfmt == KV_I4)
+    return launch_fc<DH, KV_I8, KV_I4>(q, k, ks, v, vs, kv, out, B, C, nKV, gq, sm_scale, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace ftcf
@@ -366,26 +461,40 @@ static cudaError_t launch_fc(const void* q, const void* k, const void* ks, const
 extern "C" {
 
 // K10. q [B, C, nKV * gq, dh] bf16; k/v the layer's [P, nKV, ps, dh] page
-// slabs (int8 with ks/vs [P, nKV, ps] bf16 scales when quant, else bf16 and
-// ks/vs unused); pos [B] int32 chunk starts; pt [B, n_pg] int32 block table;
-// out like q. dh is 128 or 256.
+// slabs in the formats kfmt / vfmt (KVFmt: bf16; int8; packed int4
+// [P, nKV, ps/2, dh] with ps even), the quantized ones with ks/vs
+// [P, nKV, ps] bf16 scales; pos [B] int32 chunk starts; pt [B, n_pg] int32
+// block table; out like q. dh is 128 or 256.
 int ftcf_flash_chunk_paged(const void* q, const void* k, const void* ks, const void* v,
                            const void* vs, const int* pos, const int* pt, void* out, int B, int C,
-                           int nKV, int gq, int n_pg, int ps, int dh, int quant, float sm_scale,
-                           void* stream) {
+                           int nKV, int gq, int n_pg, int ps, int dh, int kfmt, int vfmt,
+                           float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const ftcf::PagedKV kv{pt, n_pg, ps};
+  const ftcf::PagedKV kv{pos, pt, n_pg, ps};
   if (gq < 1 || C < 1) return (int)cudaErrorInvalidValue;
   if (dh == 128)
-    return (int)(quant ? ftcf::launch_fc<128, true>(q, k, ks, v, vs, pos, kv, out, B, C, nKV, gq,
-                                                    sm_scale, st)
-                       : ftcf::launch_fc<128, false>(q, k, ks, v, vs, pos, kv, out, B, C, nKV,
-                                                     gq, sm_scale, st));
+    return (int)ftcf::launch_fc_fmt<128>(q, k, ks, v, vs, kv, out, B, C, nKV, gq, kfmt, vfmt,
+                                         sm_scale, st);
   if (dh == 256)
-    return (int)(quant ? ftcf::launch_fc<256, true>(q, k, ks, v, vs, pos, kv, out, B, C, nKV, gq,
-                                                    sm_scale, st)
-                       : ftcf::launch_fc<256, false>(q, k, ks, v, vs, pos, kv, out, B, C, nKV,
-                                                     gq, sm_scale, st));
+    return (int)ftcf::launch_fc_fmt<256>(q, k, ks, v, vs, kv, out, B, C, nKV, gq, kfmt, vfmt,
+                                         sm_scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5. Causal prefill attention: q [B, S, nKV * gq, dh], k/v [B, S, nKV, dh]
+// bf16; lens [B] int32 prompt lengths; out like q. Query i of row b attends
+// keys 0 .. min(i, lens[b] - 1). dh is 128 or 256.
+int ftcf_prefill_flash(const void* q, const void* k, const void* v, const int* lens, void* out,
+                       int B, int S, int nKV, int gq, int dh, float sm_scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ftcf::DenseKV kv{lens, S};
+  if (gq < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  if (dh == 128)
+    return (int)ftcf::launch_fc<128, ftcf::KV_BF16, ftcf::KV_BF16>(
+        q, k, nullptr, v, nullptr, kv, out, B, S, nKV, gq, sm_scale, st);
+  if (dh == 256)
+    return (int)ftcf::launch_fc<256, ftcf::KV_BF16, ftcf::KV_BF16>(
+        q, k, nullptr, v, nullptr, kv, out, B, S, nKV, gq, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,6 +13,15 @@
 // float is exact. A bf16 cache has no scales and rounds p to bf16 alone. The
 // denominator sums the unrounded fp32 p.
 //
+// Formats: the kernel is templated on the K and V formats apart (KVFmt):
+// bf16, int8, or packed int4 (the "int4" and "int8k_int4v" caches), where
+// positions 2i and 2i + 1 share pair row i (2i in the low nibble) and the
+// scales stay per unpacked position. The addressing below gives the
+// unpacked vector index u; the scale is read at u, the payload at pair row
+// u / 2, nibble u % 2 (kv_vec_off), which needs an even S or page size. Each
+// thread loads its own position's pair row and keeps its nibble; its
+// neighbour's load of the same bytes comes from L1. int4 -> float is exact.
+//
 // Addressing: K4 reads position s of (row b, KV head h) at cached vector
 // (b * nKV + h) * S + s of the layer's [B, nKV, S, dh] slab. K9 reads it at
 // (pt[b, s / ps] * nKV + h) * ps + s % ps of the layer's [P, nKV, ps, dh]
@@ -22,8 +31,9 @@
 // it. Any page size is taken.
 //
 // Bound: the cache bytes up to positions[b] (2 * pos * dh bytes per KV head
-// for int8), read once per (row, KV head): at CodeFuse-13B, 8 slots at ~1000
-// positions with int8 pages, ~84 MB a layer, ~25 us at 3.35 TB/s. With few
+// for int8, half that packed), read once per (row, KV head): at CodeFuse-13B,
+// 8 slots at ~1000 positions with int8 pages, ~84 MB a layer, ~25 us at
+// 3.35 TB/s. With few
 // blocks in flight (B * nKV) the kernel is bound by memory latency, so each
 // phase keeps many independent loads in flight. Design: one block of 128
 // threads per (row, KV head), looping over 128-position chunks up to
@@ -50,16 +60,11 @@ constexpr int FD_THREADS = 128;
 constexpr int FD_BS = FD_THREADS;  // positions per chunk: one per thread
 constexpr int FD_PG = FD_THREADS / 32;  // position groups in the PV phase
 
-// 16 consecutive cache values as floats (one 16-byte int8 load, or two bf16).
-template <bool QUANT>
-__device__ __forceinline__ void load16(const void* base, size_t off, float* f) {
-  if constexpr (QUANT) {
-    const uint4 u = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(base) + off);
-    i8x4_to_f32(u.x, f);
-    i8x4_to_f32(u.y, f + 4);
-    i8x4_to_f32(u.z, f + 8);
-    i8x4_to_f32(u.w, f + 12);
-  } else {
+// 16 consecutive cache values as floats: one 16-byte int8 or packed-int4
+// load (``odd`` picks the nibble of a packed pair row), or two bf16 loads.
+template <int FMT>
+__device__ __forceinline__ void load16(const void* base, size_t off, bool odd, float* f) {
+  if constexpr (FMT == KV_BF16) {
     const uint4* p = reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(base) + off);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -69,22 +74,23 @@ __device__ __forceinline__ void load16(const void* base, size_t off, float* f) {
       bf16x2_to_f32(u.z, f + 8 * h + 4);
       bf16x2_to_f32(u.w, f + 8 * h + 6);
     }
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(base) + off);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (FMT == KV_I8)
+        i8x4_to_f32(w[i], f + 4 * i);
+      else
+        i4x4_nibble_to_f32(w[i], odd, f + 4 * i);
+    }
   }
 }
 
 // N = 4 or 8 consecutive cache values as floats.
-template <int N, bool QUANT>
-__device__ __forceinline__ void load_small(const void* base, size_t off, float* f) {
-  if constexpr (QUANT) {
-    const int8_t* p = static_cast<const int8_t*>(base) + off;
-    if constexpr (N == 4) {
-      i8x4_to_f32(*reinterpret_cast<const uint32_t*>(p), f);
-    } else {
-      const uint2 u = *reinterpret_cast<const uint2*>(p);
-      i8x4_to_f32(u.x, f);
-      i8x4_to_f32(u.y, f + 4);
-    }
-  } else {
+template <int N, int FMT>
+__device__ __forceinline__ void load_small(const void* base, size_t off, bool odd, float* f) {
+  if constexpr (FMT == KV_BF16) {
     const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(base) + off;
     if constexpr (N == 4) {
       const uint2 u = *reinterpret_cast<const uint2*>(p);
@@ -96,6 +102,23 @@ __device__ __forceinline__ void load_small(const void* base, size_t off, float* 
       bf16x2_to_f32(u.y, f + 2);
       bf16x2_to_f32(u.z, f + 4);
       bf16x2_to_f32(u.w, f + 6);
+    }
+  } else {
+    const int8_t* p = static_cast<const int8_t*>(base) + off;
+    uint32_t w[2];
+    if constexpr (N == 4) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      w[0] = u.x;
+      w[1] = u.y;
+    }
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      if constexpr (FMT == KV_I8)
+        i8x4_to_f32(w[i], f + 4 * i);
+      else
+        i4x4_nibble_to_f32(w[i], odd, f + 4 * i);
     }
   }
 }
@@ -120,7 +143,7 @@ struct PagedAddr {
   }
 };
 
-template <int DH, int MAXG, bool QUANT, class Addr>
+template <int DH, int MAXG, int KF, int VF, class Addr>
 __global__ void __launch_bounds__(FD_THREADS)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ kc,
                     const __nv_bfloat16* __restrict__ ks, const void* __restrict__ vc,
@@ -128,6 +151,8 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
                     __nv_bfloat16* __restrict__ out, int nKV, int g, Addr addr, float sm_scale) {
   constexpr int VPT = DH / 32;  // output dims per thread in the PV phase
   constexpr int NW = FD_THREADS / 32;
+  constexpr bool QUANT = KF != KV_BF16;  // int8 or int4 payloads carry scales
+  static_assert((KF == KV_BF16) == (VF == KV_BF16), "bf16 K goes with bf16 V");
   __shared__ float q_s[MAXG][DH];
   __shared__ float p_s[MAXG][FD_BS];
   __shared__ float red[FD_PG][MAXG][DH];
@@ -158,15 +183,16 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
   for (int c0 = 0; c0 < n_valid; c0 += FD_BS) {
     const int cn = min(FD_BS, n_valid - c0);
     if (tid < cn) {
-      const size_t row = addr.vec(b, h, nKV, c0 + tid);
-      vec_s[tid] = (uint32_t)row;
+      const uint32_t row = addr.vec(b, h, nKV, c0 + tid);
+      vec_s[tid] = row;
+      const size_t koff = kv_vec_off<KF>(row, DH);
       float dot[MAXG];
 #pragma unroll
       for (int r = 0; r < MAXG; ++r) dot[r] = 0.0f;
 #pragma unroll
       for (int d0 = 0; d0 < DH; d0 += 16) {
         float kf[16];
-        load16<QUANT>(kc, row * DH + d0, kf);
+        load16<KF>(kc, koff + d0, row & 1, kf);
 #pragma unroll
         for (int r = 0; r < MAXG; ++r) {
           if (r < g) {
@@ -218,7 +244,8 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
 #pragma unroll 8
     for (int s = pg; s < cn; s += FD_PG) {
       float vf[VPT];
-      load_small<VPT, QUANT>(vc, (size_t)vec_s[s] * DH + dg * VPT, vf);
+      const uint32_t vv = vec_s[s];
+      load_small<VPT, VF>(vc, kv_vec_off<VF>(vv, DH) + dg * VPT, vv & 1, vf);
 #pragma unroll
       for (int r = 0; r < MAXG; ++r) {
         if (r < g) {
@@ -246,41 +273,56 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict_
   }
 }
 
-template <int DH, int MAXG, class Addr>
+template <int DH, int MAXG, int KF, int VF, class Addr>
 static cudaError_t launch_fd(const void* q, const void* k, const void* ks, const void* v,
                              const void* vs, const int* positions, void* out, int B, int nKV,
-                             int g, Addr addr, int quant, float sm_scale, cudaStream_t stream) {
-  const dim3 grid(B * nKV);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* ksp = static_cast<const __nv_bfloat16*>(ks);
-  const auto* vsp = static_cast<const __nv_bfloat16*>(vs);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  if (quant)
-    flash_decode_kernel<DH, MAXG, true, Addr><<<grid, FD_THREADS, 0, stream>>>(
-        qp, k, ksp, v, vsp, positions, op, nKV, g, addr, sm_scale);
-  else
-    flash_decode_kernel<DH, MAXG, false, Addr><<<grid, FD_THREADS, 0, stream>>>(
-        qp, k, ksp, v, vsp, positions, op, nKV, g, addr, sm_scale);
+                             int g, Addr addr, float sm_scale, cudaStream_t stream) {
+  flash_decode_kernel<DH, MAXG, KF, VF, Addr><<<B * nKV, FD_THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), k, static_cast<const __nv_bfloat16*>(ks), v,
+      static_cast<const __nv_bfloat16*>(vs), positions, static_cast<__nv_bfloat16*>(out), nKV,
+      g, addr, sm_scale);
   return cudaGetLastError();
+}
+
+// The (K, V) formats served: bf16/bf16, int8/int8, int4/int4 and int8/int4
+// (the "int8k_int4v" cache).
+template <int DH, int MAXG, class Addr>
+static cudaError_t launch_fd_fmt(const void* q, const void* k, const void* ks, const void* v,
+                                 const void* vs, const int* positions, void* out, int B, int nKV,
+                                 int g, Addr addr, int kfmt, int vfmt, float sm_scale,
+                                 cudaStream_t st) {
+  if (kfmt == KV_BF16 && vfmt == KV_BF16)
+    return launch_fd<DH, MAXG, KV_BF16, KV_BF16>(q, k, ks, v, vs, positions, out, B, nKV, g,
+                                                 addr, sm_scale, st);
+  if (kfmt == KV_I8 && vfmt == KV_I8)
+    return launch_fd<DH, MAXG, KV_I8, KV_I8>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
+                                             sm_scale, st);
+  if (kfmt == KV_I4 && vfmt == KV_I4)
+    return launch_fd<DH, MAXG, KV_I4, KV_I4>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
+                                             sm_scale, st);
+  if (kfmt == KV_I8 && vfmt == KV_I4)
+    return launch_fd<DH, MAXG, KV_I8, KV_I4>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
+                                             sm_scale, st);
+  return cudaErrorInvalidValue;
 }
 
 // dh in {128, 256}, g <= 8 (one query row, or up to 8 under GQA).
 template <class Addr>
 static int dispatch_fd(const void* q, const void* k, const void* ks, const void* v,
                        const void* vs, const int* positions, void* out, int B, int nKV, int g,
-                       Addr addr, int dh, int quant, float sm_scale, void* stream) {
+                       Addr addr, int dh, int kfmt, int vfmt, float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (g < 1 || g > 8) return (int)cudaErrorInvalidValue;
   if (dh == 128)
-    return (int)(g == 1 ? launch_fd<128, 1>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
-                                            quant, sm_scale, st)
-                        : launch_fd<128, 8>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
-                                            quant, sm_scale, st));
+    return (int)(g == 1 ? launch_fd_fmt<128, 1>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
+                                                kfmt, vfmt, sm_scale, st)
+                        : launch_fd_fmt<128, 8>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
+                                                kfmt, vfmt, sm_scale, st));
   if (dh == 256)
-    return (int)(g == 1 ? launch_fd<256, 1>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
-                                            quant, sm_scale, st)
-                        : launch_fd<256, 8>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
-                                            quant, sm_scale, st));
+    return (int)(g == 1 ? launch_fd_fmt<256, 1>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
+                                                kfmt, vfmt, sm_scale, st)
+                        : launch_fd_fmt<256, 8>(q, k, ks, v, vs, positions, out, B, nKV, g, addr,
+                                                kfmt, vfmt, sm_scale, st));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -288,25 +330,26 @@ static int dispatch_fd(const void* q, const void* k, const void* ks, const void*
 
 extern "C" {
 
-// K4. q [B, nKV * g, dh] bf16; k/v the layer's [B, nKV, S, dh] slabs (int8
-// with ks/vs [B, nKV, S] bf16 scales when quant, else bf16 and ks/vs
-// unused); positions [B] int32; out [B, nKV * g, dh] bf16.
+// K4. q [B, nKV * g, dh] bf16; k/v the layer's [B, nKV, S, dh] slabs in the
+// formats kfmt / vfmt (KVFmt): bf16; int8; or packed int4 [B, nKV, S/2, dh]
+// (S even). Quantized formats carry ks/vs [B, nKV, S] bf16 scales (unused for
+// bf16). positions [B] int32; out [B, nKV * g, dh] bf16.
 int ftcf_flash_decode(const void* q, const void* k, const void* ks, const void* v, const void* vs,
                       const int* positions, void* out, int B, int nKV, int g, int S, int dh,
-                      int quant, float sm_scale, void* stream) {
+                      int kfmt, int vfmt, float sm_scale, void* stream) {
   return ftcf::dispatch_fd(q, k, ks, v, vs, positions, out, B, nKV, g, ftcf::DenseAddr{S}, dh,
-                           quant, sm_scale, stream);
+                           kfmt, vfmt, sm_scale, stream);
 }
 
-// K9. As K4, with k/v the layer's [P, nKV, ps, dh] page slabs (ks/vs
-// [P, nKV, ps]) and pt [B, n_pg] int32 the block table: logical position s
-// of row b is page pt[b, s / ps], offset s % ps.
+// K9. As K4, with k/v the layer's [P, nKV, ps, dh] page slabs ([P, nKV, ps/2,
+// dh] packed, ps even; ks/vs [P, nKV, ps]) and pt [B, n_pg] int32 the block
+// table: logical position s of row b is page pt[b, s / ps], offset s % ps.
 int ftcf_flash_decode_paged(const void* q, const void* k, const void* ks, const void* v,
                             const void* vs, const int* positions, const int* pt, void* out, int B,
-                            int nKV, int g, int n_pg, int ps, int dh, int quant, float sm_scale,
-                            void* stream) {
+                            int nKV, int g, int n_pg, int ps, int dh, int kfmt, int vfmt,
+                            float sm_scale, void* stream) {
   return ftcf::dispatch_fd(q, k, ks, v, vs, positions, out, B, nKV, g,
-                           ftcf::PagedAddr{pt, n_pg, ps}, dh, quant, sm_scale, stream);
+                           ftcf::PagedAddr{pt, n_pg, ps}, dh, kfmt, vfmt, sm_scale, stream);
 }
 
 }  // extern "C"

@@ -67,6 +67,32 @@ __device__ __forceinline__ void i4x8_to_f32(uint32_t w, float* lo, float* hi) {
   }
 }
 
+// KV cache payload formats: bf16; int8 (bf16 scale per cached vector);
+// packed int4 (the same scales; sequence positions 2i and 2i + 1 share pair
+// row i, position 2i in the low nibble of each byte). ops/flash_decode.py
+// holds the same values (KV_BF16, KV_I8, KV_I4).
+enum KVFmt { KV_BF16 = 0, KV_I8 = 1, KV_I4 = 2 };
+
+// Element offset of cached vector u's payload in a slab of dh-wide rows.
+// Packed int4 keeps vector u in pair row u / 2: with an even slab length
+// (or page size) per (row, head), ((b nKV + h) S + s) / 2 is
+// (b nKV + h) S / 2 + s / 2, so the unpacked index addresses the pair row.
+template <int FMT>
+__device__ __forceinline__ size_t kv_vec_off(uint32_t u, int dh) {
+  return (size_t)(FMT == KV_I4 ? u >> 1 : u) * dh;
+}
+
+// Four packed int4 bytes -> the four values of one nibble (the high ones
+// when ``odd``), sign-extended, as exact floats: the nibble goes to the
+// byte's low half, xor 8 biases it to unsigned, and the int8 trick above
+// (2^23 + 8 subtracted) gives the value back.
+__device__ __forceinline__ void i4x4_nibble_to_f32(uint32_t w, bool odd, float* f) {
+  const uint32_t x = ((odd ? w >> 4 : w) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u | i)) - 8388616.0f;
+}
+
 // Two bf16 in a word (the first in the low half) -> two floats.
 __device__ __forceinline__ void bf16x2_to_f32(uint32_t w, float* f) {
   f[0] = __uint_as_float(w << 16);

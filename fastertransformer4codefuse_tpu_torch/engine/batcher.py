@@ -17,7 +17,10 @@ Per tick, on the engine's device:
 KV modes: dense slabs ``[L, slots, nKV, max_seq_len, dh]``, or (``paged=``)
 one shared page pool behind block tables (``engine/paged_kv.py``), with
 admission-time page reservation or (``lazy=True``) just-in-time pages and
-preempt-and-recompute under pressure, aged by priority.
+preempt-and-recompute under pressure, aged by priority. An engine with a
+packed int4 KV cache (``"int4"``, ``"int8k_int4v"``) serves on pages only,
+with an even prompt bucket and page size: chunk starts then fall on pair
+bytes, while per-row chunk offsets in a dense slab would straddle them.
 
 The device state is mutated in place (no copy of the cache or the token
 buffer per tick). Dispatching a tick never synchronises with the device;
@@ -159,6 +162,14 @@ class ContinuousBatcher:
         self.pipeline_ticks = pipeline_ticks
         self.paged = dict(paged) if paged else None
         self.lazy = False
+        if engine.packed_kv():
+            if self.paged is None:
+                raise ValueError(
+                    "a dense pool needs an unpacked KV cache (int8/bf16): per-row chunk offsets "
+                    "straddle int4 position-pair bytes; serve packed int4 KV on pages (paged=)"
+                )
+            if prompt_bucket % 2:  # the page size, a multiple of it, is then even too
+                raise ValueError("packed int4 pages need an even prompt_bucket and page_size")
         if self.paged is not None:
             self.page_size = int(self.paged.get("page_size", 256))
             if self.page_size % prompt_bucket or max_seq_len % self.page_size:

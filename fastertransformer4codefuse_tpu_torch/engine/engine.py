@@ -116,10 +116,14 @@ class GptNeoXEngine:
         raise NotImplementedError("prompt learning is ROADMAP queue 1 item 8")
 
     def _cache_dtype(self):
-        """The KV cache's torch dtype; the packed int4 kinds pass through as
-        strings, which the cache constructors refuse (ROADMAP queue 1 item 11)."""
+        """The KV cache's torch dtype, or the packed int4 kind ("int4",
+        "int8k_int4v") as the string the cache constructors take."""
         name = self.runtime.kv_cache_dtype or self.runtime.dtype
         return name if name in PACKED_KINDS else torch_dtype(name)
+
+    def packed_kv(self) -> bool:
+        """The KV cache pairs sequence positions in int4 bytes."""
+        return self._cache_dtype() in PACKED_KINDS
 
     # ------------------------------------------------------------------ step --
     def _sample_and_advance(self, st: _Statics, inputs, s: DecodeState) -> None:
@@ -260,6 +264,14 @@ class GptNeoXEngine:
         bucket = max(self.runtime.seq_bucket, 1)
         input_width = max(min(-(-max_in // bucket) * bucket, max_in + bucket), max_in)
         total_len = input_width + int(output_len)
+        if self.packed_kv():
+            # packed caches pair sequence positions per byte: even widths only
+            if input_width % 2:
+                raise ValueError(
+                    f"int4 KV needs an even prefill width, got {input_width}: use an even "
+                    "seq_bucket"
+                )
+            total_len += total_len % 2
 
         tokens = np.full((B, total_len), cfg.end_id, np.int32)
         for i, ids in enumerate(input_ids):

@@ -1,27 +1,38 @@
-"""KV cache: dense preallocated slabs, bf16/fp32 or int8, and the paged pool's
-dispatch (port of engine/kv_cache.py).
+"""KV cache: dense preallocated slabs, bf16/fp32, int8 or nibble-packed int4,
+and the paged pool's dispatch (port of engine/kv_cache.py).
 
 The dense cache is a dict of stacked slabs, ``k``/``v`` ``[L, B, nKV, S, dh]``
 and, for int8, ``k_s``/``v_s`` ``[L, B, nKV, S]`` bf16 with one symmetric
-scale per cached vector. A paged cache (``engine/paged_kv.py``, a dict with a
-block table ``pt``) takes the same write and attend calls, which dispatch to
-its page writes and to K9/K10. Unlike the JAX package's functional updates,
-writes here are in place, so a pool never copies a slab; each write function
-also returns the cache for the same call shape.
-
-Packed int4 caches are ROADMAP queue 1 item 11; beam search is item 12.
+scale per cached vector. ``"int4"`` packs K and V (keys ``k4``/``v4``,
+``[L, B, nKV, S/2, dh]`` int8: sequence positions 2i and 2i + 1 share byte
+row i, 2i in the low nibble) and ``"int8k_int4v"`` packs only V (``k`` int8,
+``v4``); scales stay per unpacked position, so S must be even. A paged cache
+(``engine/paged_kv.py``, a dict with a block table ``pt``) takes the same
+write and attend calls, which dispatch to its page writes and to K9/K10.
+Unlike the JAX package's functional updates, writes here are in place, so a
+pool never copies a slab; each write function also returns the cache for the
+same call shape.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
 from ..core.config import GptNeoXConfig
 from ..core.device import resolve_device
 from ..ops.attention import MASK_VALUE
-from ..ops.flash_decode import flash_chunk_paged, flash_decode_paged, flash_decode_stacked
+from ..ops.flash_decode import (
+    flash_chunk_paged,
+    flash_decode_paged,
+    flash_decode_stacked,
+    pack_seq_pairs as _pack_seq_pairs,
+    quantize_vec as _quantize_vec,
+    unpack_seq_pairs as _unpack_seq_pairs,
+    write_pair_byte,
+)
 from . import paged_kv
+from .paged_kv import PACKED_KINDS, packed4, slab
 
 Cache = Dict[str, torch.Tensor]
 
@@ -29,13 +40,29 @@ Cache = Dict[str, torch.Tensor]
 def init_cache(
     config: GptNeoXConfig, batch: int, max_seq_len: int, dtype=torch.bfloat16, device=None
 ) -> Cache:
-    """Zeroed slabs on ``device`` (the CUDA card when None)."""
-    if isinstance(dtype, str):
-        raise NotImplementedError(
-            f"KV cache {dtype!r}: packed int4 caches are ROADMAP queue 1 item 11"
-        )
+    """Zeroed slabs on ``device`` (the CUDA card when None). ``dtype``: a torch
+    dtype, or ``"int4"`` (K and V packed) / ``"int8k_int4v"`` (K int8, V
+    packed)."""
     device = resolve_device(device)
     shape = (config.layer_num, batch, config.kv_heads, max_seq_len, config.size_per_head)
+    if isinstance(dtype, str):
+        if dtype not in PACKED_KINDS:
+            raise ValueError(f"unknown KV cache kind {dtype!r}: a torch dtype, 'int4' or "
+                             "'int8k_int4v'")
+        if max_seq_len % 2:
+            raise ValueError(f"int4 KV packs sequence-position pairs: max_seq_len {max_seq_len} "
+                             "must be even")
+        pshape = shape[:3] + (max_seq_len // 2, shape[4])
+        c = {
+            "k_s": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+            "v_s": torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+            "v4": torch.zeros(pshape, dtype=torch.int8, device=device),
+        }
+        if dtype == "int4":
+            c["k4"] = torch.zeros(pshape, dtype=torch.int8, device=device)
+        else:
+            c["k"] = torch.zeros(shape, dtype=torch.int8, device=device)
+        return c
     if dtype == torch.int8:
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -54,30 +81,29 @@ def quantized(cache: Cache) -> bool:
 
 
 def seq_len_of(cache: Cache) -> int:
-    """Slots per row: the dense slab length, or the paged pool's logical
+    """Slots per row: the dense length (from the scale slab when there is
+    one: a packed slab holds half as many rows), or the paged pool's logical
     length (pages per slot times the page size)."""
     if paged_kv.is_paged(cache):
         return paged_kv.logical_seq_len(cache)
+    if quantized(cache):
+        return cache["k_s"].shape[-1]
     return cache["k"].shape[-2]
 
 
-def _quantize_vec(x: torch.Tensor, qmax: float = 127.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-vector symmetric int8 over the last (dh) axis: the codes come from
-    the fp32 scale, which is then stored as bf16; ``round`` is half to even.
-    Bit for bit the JAX package's codes."""
-    xf = x.float()
-    amax = xf.abs().amax(dim=-1)
-    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
-    q = torch.round(xf / scale[..., None]).to(torch.int8)
-    return q, scale.to(torch.bfloat16)
-
-
 def write_prefill(cache: Cache, layer: int, k: torch.Tensor, v: torch.Tensor) -> Cache:
-    """Write positions [0, S) of layer ``layer`` (k, v: [B, S, nKV, dh])."""
+    """Write positions [0, S) of layer ``layer`` (k, v: [B, S, nKV, dh]); a
+    packed slab takes int4 codes (qmax 7) in position pairs, S even."""
     S = k.shape[1]
     for name, t in (("k", k), ("v", v)):
         t = t.transpose(1, 2)  # [B, nKV, S, dh]
-        if quantized(cache):
+        if packed4(cache, name):
+            if S % 2:
+                raise ValueError(f"int4 KV prefill width must be even, got {S}")
+            q, s = _quantize_vec(t, 7.0)
+            cache[name + "4"][layer, :, :, : S // 2] = _pack_seq_pairs(q)
+            cache[name + "_s"][layer, :, :, :S] = s
+        elif quantized(cache):
             q, s = _quantize_vec(t)
             cache[name][layer, :, :, :S] = q
             cache[name + "_s"][layer, :, :, :S] = s
@@ -113,7 +139,8 @@ def write_decode(
     state: ``skip_mode="preserve"`` writes their old bytes back;
     ``"sacrifice_last"`` (the continuous batcher) sends them to slot S-1,
     which every owning row rewrites before it becomes attention-valid. A
-    paged cache sends skipped rows to its garbage page (skip_mode is moot)."""
+    paged cache sends skipped rows to its garbage page (skip_mode is moot).
+    Packed slabs read-modify-write the position-pair byte."""
     if paged_kv.is_paged(cache):
         return paged_kv.write_decode_paged(cache, layer, k, v, positions, skip)
     if skip_mode not in ("preserve", "sacrifice_last"):
@@ -125,8 +152,12 @@ def write_decode(
     elif skip is not None:
         keep = skip
     rows = torch.arange(pos.shape[0], device=pos.device)
-    _put_rows(cache, layer, "k", k[:, 0], rows, pos, keep)
-    _put_rows(cache, layer, "v", v[:, 0], rows, pos, keep)
+    for name, t in (("k", k[:, 0]), ("v", v[:, 0])):
+        if packed4(cache, name):
+            write_pair_byte(cache[name + "4"][layer], cache[name + "_s"][layer], rows, pos, t,
+                            keep)
+        else:
+            _put_rows(cache, layer, name, t, rows, pos, keep)
     return cache
 
 
@@ -140,6 +171,11 @@ def write_chunk(
     dispatches to its page writes."""
     if paged_kv.is_paged(cache):
         return paged_kv.write_chunk_paged(cache, layer, k, v, pos, active)
+    if packed4(cache, "k") or packed4(cache, "v"):
+        raise ValueError(
+            "chunk writes need an unpacked dense KV cache (int8/bf16): per-row chunk offsets "
+            "may straddle int4 position-pair bytes (a paged pool takes packed pages)"
+        )
     B, C = k.shape[0], k.shape[1]
     rows = torch.arange(B, device=pos.device)[:, None]
     cols = pos.long()[:, None] + torch.arange(C, device=pos.device)[None, :]  # [B, C]
@@ -165,12 +201,13 @@ def attend_chunk(
     if paged_kv.is_paged(cache):
         if positions is not None:
             return flash_chunk_paged(
-                q.contiguous(), cache["pk"], cache.get("pk_s"), cache["pv"], cache.get("pv_s"),
-                layer, positions, cache["pt"], sm_scale,
+                q.contiguous(), slab(cache, "pk"), cache.get("pk_s"),
+                slab(cache, "pv"), cache.get("pv_s"), layer, positions, cache["pt"],
+                sm_scale,
             )
         cache_l = paged_kv.gather_layer_dense(cache, layer)
     else:
-        cache_l = {n: t[layer] for n, t in cache.items()}
+        cache_l = _layer_dense(cache, layer)
     nKV = cache_l["k"].shape[1]
     if nH != nKV:
         g = nH // nKV
@@ -178,6 +215,17 @@ def attend_chunk(
         out = _attend_dense(cache_l, qc, valid.repeat_interleave(g, dim=1), sm_scale)
         return out.reshape(B, C, g, nKV, dh).transpose(2, 3).reshape(B, C, nH, dh)
     return _attend_dense(cache_l, q, valid, sm_scale)
+
+
+def _layer_dense(cache: Cache, layer: int) -> Cache:
+    """Layer ``layer`` of a dense cache, packed slabs unpacked to int8."""
+    out = {}
+    for n, t in cache.items():
+        if n in ("k4", "v4"):
+            out[n[0]] = _unpack_seq_pairs(t[layer])
+        else:
+            out[n] = t[layer]
+    return out
 
 
 def _attend_dense(cache_l: Cache, q, valid, sm_scale):
@@ -211,10 +259,10 @@ def attend_decode(
     (q . k8) * k_s, out = (p * v_s) @ v8."""
     if paged_kv.is_paged(cache):
         return flash_decode_paged(
-            q, cache["pk"], cache.get("pk_s"), cache["pv"], cache.get("pv_s"),
-            layer, positions, cache["pt"], sm_scale,
+            q, slab(cache, "pk"), cache.get("pk_s"), slab(cache, "pv"),
+            cache.get("pv_s"), layer, positions, cache["pt"], sm_scale,
         )
     return flash_decode_stacked(
-        q, cache["k"], cache.get("k_s"), cache["v"], cache.get("v_s"),
+        q, slab(cache, "k"), cache.get("k_s"), slab(cache, "v"), cache.get("v_s"),
         layer, positions, sm_scale,
     )

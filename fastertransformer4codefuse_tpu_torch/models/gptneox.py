@@ -29,7 +29,7 @@ import torch
 
 from ..core.config import GptNeoXConfig
 from ..engine import kv_cache as kvc
-from ..ops.attention import make_prefill_mask, prefill_attention
+from ..ops.attention import prefill_attention
 from ..ops.layernorm import layernorm, rmsnorm
 from ..ops.linear import linear, quantized_matmul_transposed_head
 from ..ops.quant_matmul_fused import fused_proj_down, fused_up_proj_down
@@ -114,14 +114,16 @@ def _residual(config, lp, x, attn_out):
     return _addb(h + _ffn(config, lp, ln2), lp.get("down_b"))
 
 
-def block_prefill(config, lp, x, cache, layer, cos, sin, mask):
-    """x [B, S, H]; cos/sin [S, rot/2]; mask [B, S, S]. Fills cache [0, S)."""
+def block_prefill(config, lp, x, cache, layer, cos, sin, input_lengths):
+    """x [B, S, H]; cos/sin [S, rot/2]; input_lengths [B] int32. Fills cache
+    [0, S). Attention is K5 on CUDA (no [B, S, S] mask is built there), the
+    plain causal, length-masked math on the CPU."""
     B, S, H = x.shape
     sm_scale = 1.0 / (config.size_per_head ** 0.5)
     ln1 = _norm(config, x, lp["ln1_w"], lp.get("ln1_b"))
     q, k, v = _qkv(config, lp, ln1, cos, sin)
     kvc.write_prefill(cache, layer, k, v)
-    attn = prefill_attention(q, k, v, mask, sm_scale)
+    attn = prefill_attention(q, k, v, None, sm_scale, input_lengths)
     attn_out = linear(attn.reshape(B, S, H), lp["proj_w"])
     return _residual(config, lp, x, attn_out), cache
 
@@ -202,10 +204,10 @@ def prefill(
     dev = input_ids.device
     x = _embed_lookup(params, input_ids)
     cos, sin = make_rotary_tables(S, config.rotary_embedding_dim, config.rotary_base, dev)
-    mask = make_prefill_mask(input_lengths, S)
     layers = params["layers"]
     for l in range(config.layer_num):
-        x, cache = block_prefill(config, layer_slice(layers, l), x, cache, l, cos, sin, mask)
+        x, cache = block_prefill(config, layer_slice(layers, l), x, cache, l, cos, sin,
+                                 input_lengths)
     return x, cache
 
 

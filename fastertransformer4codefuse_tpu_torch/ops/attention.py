@@ -1,12 +1,17 @@
 """Prefill attention and masks (port of ops/attention.py).
 
-``prefill_attention`` is plain PyTorch with fp32 scores: below S = 2048 this
-is exactly what the JAX package runs (its library flash kernel takes over
-only at S >= 2048). A hand-written Hopper prefill kernel is ROADMAP kernel K5.
+``prefill_attention`` dispatches as the JAX one does, minus its TPU gate: a
+CUDA tensor with the prompt lengths goes to K5 ``prefill_attention_flash``
+(CUDA in ``csrc/flash_chunk.cu``, on K10's tile loop) at every S, MHA and
+GQA alike; the JAX package's ``S >= 2048`` switch (``_flash_ok``) was a v5e
+measurement and is not carried over. The CPU runs the plain masked form with
+fp32 scores, which is what the JAX package runs below S = 2048.
 """
 from __future__ import annotations
 
 import torch
+
+from . import _cuda
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -15,9 +20,16 @@ def prefill_attention(
     q: torch.Tensor,  # [B, S, nH, dh]
     k: torch.Tensor,  # [B, S, nKV, dh]
     v: torch.Tensor,  # [B, S, nKV, dh]
-    mask: torch.Tensor,  # [B, S, S] bool, True = may attend
+    mask,  # [B, S, S] bool, True = may attend; None: made from input_lengths
     sm_scale: float,
+    input_lengths=None,  # [B] int32: CUDA tensors then run K5
 ) -> torch.Tensor:
+    """Causal prefill attention. A CUDA tensor with ``input_lengths`` runs K5
+    (which builds no mask); otherwise the plain masked math."""
+    if q.is_cuda and input_lengths is not None:
+        return prefill_attention_flash(q, k, v, input_lengths, sm_scale)
+    if mask is None:
+        mask = make_prefill_mask(input_lengths, q.shape[1])
     B, S, nH, dh = q.shape
     nKV = k.shape[2]
     if nKV != nH:
@@ -34,6 +46,51 @@ def prefill_attention(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def prefill_attention_flash_plain(q, k, v, input_lengths, sm_scale):
+    """K5's plain version: the masked prefill (causal, keys below the row's
+    length) with fp32 scores and probabilities rounded to v's dtype. Rows at
+    or past a row's length attend its valid prefix, as the kernel's do."""
+    return prefill_attention(q, k, v, make_prefill_mask(input_lengths, q.shape[1]), sm_scale)
+
+
+def prefill_attention_flash(
+    q: torch.Tensor,  # [B, S, nH, dh] bf16
+    k: torch.Tensor,  # [B, S, nKV, dh] bf16
+    v: torch.Tensor,
+    input_lengths: torch.Tensor,  # [B] int32
+    sm_scale: float,
+) -> torch.Tensor:
+    """K5: causal flash attention over the prompt, query i of row b bounded
+    at min(i, input_lengths[b] - 1). A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises (dh 128 or 256, bf16)."""
+    if not q.is_cuda:
+        return prefill_attention_flash_plain(q, k, v, input_lengths, sm_scale)
+    req = _cuda.require
+    req(q.ndim == 4 and k.ndim == 4 and k.shape == v.shape, "prefill_flash: q/k/v [B, S, n, dh]")
+    B, S, nH, dh = q.shape
+    nKV = k.shape[2]
+    req(k.shape[:2] == (B, S) and k.shape[3] == dh, "prefill_flash: k/v shape vs q")
+    req(dh in (128, 256), f"prefill_flash: dh must be 128 or 256, got {dh}")
+    req(nH % nKV == 0, "prefill_flash: nH must be a multiple of nKV")
+    req(all(t.dtype == torch.bfloat16 for t in (q, k, v)), "prefill_flash: q/k/v must be bf16")
+    req(input_lengths.dtype == torch.int32 and input_lengths.shape == (B,)
+        and input_lengths.is_contiguous(), "prefill_flash: input_lengths must be int32 [B]")
+    for t in (k, v, input_lengths):
+        req(t.device == q.device, "prefill_flash: operands on different devices")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    err = _cuda.lib().ftcf_prefill_flash(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), input_lengths.data_ptr(), out.data_ptr(),
+        B, S, nKV, nH // nKV, dh, float(sm_scale), _cuda.stream_of(q),
+    )
+    _cuda.check(err, "prefill_flash")
+    prefill_attention_flash.launches += 1
+    return out
+
+
+prefill_attention_flash.launches = 0
 
 
 def make_prefill_mask(input_lengths: torch.Tensor, seq_len: int) -> torch.Tensor:

@@ -14,6 +14,13 @@ ops/flash_decode.py).
   queries per row starting at ``pos[b]`` over the paged pool; query c
   attends keys ``0 .. pos[b] + c``.
 
+All three read packed int4 slabs too (the ``"int4"`` and ``"int8k_int4v"``
+caches): sequence positions 2i and 2i + 1 share pair row i, position 2i in
+the low nibble, so a packed slab has half the positions of its scale slab,
+which stays per unpacked position. Packing is told from the shapes, for K and
+V apart, as the JAX package tells it; ``launches_packed`` counts the launches
+that read a packed slab.
+
 Each ``*_plain`` function is the plain version: the CPU path and the
 kernel's oracle. A CPU tensor takes it; a CUDA tensor launches the kernel or
 raises.
@@ -25,13 +32,113 @@ import torch
 from . import _cuda
 from .attention import MASK_VALUE, make_decode_valid
 
+# KV payload formats; csrc/ftcf_common.cuh KVFmt holds the same table
+KV_BF16, KV_I8, KV_I4 = 0, 1, 2
+# (K, V) format pairs the kernels take: the bf16, int8, "int4" and
+# "int8k_int4v" caches
+KV_FORMATS = ((KV_BF16, KV_BF16), (KV_I8, KV_I8), (KV_I4, KV_I4), (KV_I8, KV_I4))
+
+
+def pack_seq_pairs(q: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """int4-valued int8 codes packed two a byte along ``dim`` (the sequence
+    axis): byte i = (q[2i+1] << 4) | (q[2i] & 0xF)."""
+    d, n = dim % q.ndim, q.shape[dim]
+    if n % 2:
+        raise ValueError(f"int4 KV packs position pairs: odd length {n}")
+    pairs = q.to(torch.int32).unflatten(d, (n // 2, 2))
+    return ((pairs.select(d + 1, 1) << 4) | (pairs.select(d + 1, 0) & 0xF)).to(torch.int8)
+
+
+def unpack_seq_pairs(p: torch.Tensor, dim: int = -2) -> torch.Tensor:
+    """Inverse of ``pack_seq_pairs``: [.., n/2, ..] int8 -> [.., n, ..] int8
+    with sign-extended nibbles."""
+    w = p.to(torch.int32)
+    lo = ((w & 0xF) ^ 8) - 8
+    hi = w >> 4  # arithmetic shift of the sign-extended byte
+    d = dim % p.ndim
+    return torch.stack([lo, hi], dim=d + 1).flatten(d, d + 1).to(torch.int8)
+
+
+def quantize_vec(x: torch.Tensor, qmax: float = 127.0):
+    """(codes, scales) of the KV the kernels read: per-vector symmetric int8
+    over the last (dh) axis, int4-valued for ``qmax`` 7. The codes come from
+    the fp32 scale, which is then stored as bf16; ``round`` is half to even.
+    Bit for bit the JAX package's codes."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    q = torch.round(xf / scale[..., None]).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def write_pair_byte(packed, scales, idx, pos, t, keep=None) -> None:
+    """Write one token per row (t [B, nKV, dh]) as int4 into the packed view
+    ``packed`` [X, nKV, n/2, dh] and its ``scales`` [X, nKV, n]: row b goes
+    to ``idx[b]`` (a cache row or a page) at position ``pos[b]``. A
+    read-modify-write of the position-pair byte: an even position writes the
+    whole byte (its odd neighbour is written later), an odd one its high
+    nibble over the kept low one. ``keep`` rows write their old bytes back."""
+    q, s = quantize_vec(t, 7.0)
+    old = packed[idx, :, pos // 2]  # [B, nKV, dh]
+    o, qi = old.to(torch.int32), q.to(torch.int32)
+    odd = (pos % 2 == 1).reshape(-1, 1, 1)
+    new = torch.where(odd, (o & 0x0F) | (qi << 4), qi & 0x0F).to(torch.int8)
+    if keep is not None:
+        new = torch.where(keep.reshape(-1, 1, 1), old, new)
+        s = torch.where(keep.reshape(-1, 1), scales[idx, :, pos], s)
+    packed[idx, :, pos // 2] = new
+    scales[idx, :, pos] = s
+
+
+def is_packed(slab: torch.Tensor, scales, axis: int = 3) -> bool:
+    """A payload slab is packed int4 when it holds half the positions of its
+    scale slab (``axis``: the position axis of both)."""
+    return scales is not None and 2 * slab.shape[axis] == scales.shape[axis]
+
+
+def _kv_formats(name, k, ks, v, vs):
+    """(K format, V format) of a ``[L, X, nKV, n, dh]`` K/V slab pair, raising
+    on anything the kernels do not take: bf16 without scales; int8 with bf16
+    ``[L, X, nKV, n]`` scales, each payload unpacked (n positions) or packed
+    int4 (n / 2 pair rows, n even)."""
+    req = _cuda.require
+    req(k.ndim == 5 and v.ndim == 5 and k.shape[:3] == v.shape[:3] and k.shape[4] == v.shape[4],
+        f"{name}: k/v slabs [L, X, nKV, n(/2), dh]")
+    req(k.is_contiguous() and v.is_contiguous(), f"{name}: cache must be contiguous")
+    req((ks is None) == (vs is None), f"{name}: both or neither scale slab")
+    if ks is None:
+        req(k.dtype == torch.bfloat16 and v.dtype == torch.bfloat16 and k.shape == v.shape,
+            f"{name}: a cache without scales must be bf16")
+        return KV_BF16, KV_BF16
+    n = ks.shape[-1] if ks.ndim == 4 else -1
+    req(ks.dtype == torch.bfloat16 and vs.dtype == torch.bfloat16 and ks.shape == vs.shape
+        and ks.shape == k.shape[:3] + (n,) and ks.is_contiguous() and vs.is_contiguous(),
+        f"{name}: scales must be contiguous bf16 [L, X, nKV, n]")
+    fmts = []
+    for t in (k, v):
+        req(t.dtype == torch.int8, f"{name}: a cache with scales must be int8 (or packed int4)")
+        req(t.shape[3] == n or (n % 2 == 0 and 2 * t.shape[3] == n),
+            f"{name}: payload of {t.shape[3]} rows for {n} positions (packed int4 needs an "
+            f"even length and n / 2 pair rows)")
+        fmts.append(KV_I4 if t.shape[3] != n else KV_I8)
+    req(tuple(fmts) in KV_FORMATS, f"{name}: a packed K needs a packed V")
+    return tuple(fmts)
+
+
+def _count(fn, kfmt, vfmt) -> None:
+    fn.launches += 1
+    if KV_I4 in (kfmt, vfmt):
+        fn.launches_packed += 1
+
 
 def flash_decode_stacked_plain(q, k_all, ks_all, v_all, vs_all, layer, positions, sm_scale):
     """Full-softmax form of the kernel's math (the JAX attend_decode): fp32
     scores times the key scales, (probabilities times the value scales)
     rounded to q's dtype, fp32 PV."""
     B, nH, dh = q.shape
-    k, v = k_all[layer], v_all[layer]  # [B, nKV, S, dh]
+    k, v = k_all[layer], v_all[layer]  # [B, nKV, S(/2), dh]
+    k = unpack_seq_pairs(k) if is_packed(k_all, ks_all) else k
+    v = unpack_seq_pairs(v) if is_packed(v_all, vs_all) else v
     nKV, S = k.shape[1], k.shape[2]
     g = nH // nKV
     qg = q.reshape(B, nKV, g, dh).float()
@@ -53,7 +160,7 @@ def flash_decode_stacked_plain(q, k_all, ks_all, v_all, vs_all, layer, positions
 
 def flash_decode_stacked(
     q: torch.Tensor,  # [B, nH, dh] bf16
-    k_all: torch.Tensor,  # [L, B, nKV, S, dh] int8 or bf16
+    k_all: torch.Tensor,  # [L, B, nKV, S, dh] int8 or bf16, [L, B, nKV, S/2, dh] packed int4
     ks_all,  # [L, B, nKV, S] bf16 scales, or None for a bf16 cache
     v_all: torch.Tensor,
     vs_all,
@@ -71,20 +178,12 @@ def flash_decode_stacked(
     B, nH, dh = q.shape
     quant = ks_all is not None
     req(q.dtype == torch.bfloat16 and q.is_contiguous(), "flash_decode: q must be contiguous bf16")
-    req(k_all.ndim == 5 and k_all.shape == v_all.shape, "flash_decode: k/v slabs [L, B, nKV, S, dh]")
-    L, B2, nKV, S, dh2 = k_all.shape
+    kfmt, vfmt = _kv_formats("flash_decode", k_all, ks_all, v_all, vs_all)
+    L, B2, nKV, _, dh2 = k_all.shape
+    S = ks_all.shape[3] if quant else k_all.shape[3]
     req((B2, dh2) == (B, dh) and 0 <= int(layer) < L, "flash_decode: cache shape vs q / layer")
     req(dh in (128, 256), f"flash_decode: dh must be 128 or 256, got {dh}")
     req(nH % nKV == 0 and nH // nKV <= 8, "flash_decode: nH must be nKV * g with g <= 8")
-    req((vs_all is not None) == quant, "flash_decode: both or neither scale slab")
-    want = torch.int8 if quant else torch.bfloat16
-    req(k_all.dtype == want and v_all.dtype == want, f"flash_decode: cache must be {want}")
-    req(k_all.is_contiguous() and v_all.is_contiguous(), "flash_decode: cache must be contiguous")
-    if quant:
-        req(ks_all.dtype == torch.bfloat16 and vs_all.dtype == torch.bfloat16
-            and ks_all.shape == (L, B, nKV, S) and vs_all.shape == (L, B, nKV, S)
-            and ks_all.is_contiguous() and vs_all.is_contiguous(),
-            "flash_decode: scales must be contiguous bf16 [L, B, nKV, S]")
     req(positions.dtype == torch.int32 and positions.shape == (B,)
         and positions.is_contiguous(), "flash_decode: positions must be int32 [B]")
     for t in (k_all, v_all, ks_all, vs_all, positions):
@@ -95,63 +194,62 @@ def flash_decode_stacked(
         q.data_ptr(), k_all[layer].data_ptr(),
         ks_all[layer].data_ptr() if quant else None,
         v_all[layer].data_ptr(), vs_all[layer].data_ptr() if quant else None,
-        positions.data_ptr(), out.data_ptr(), B, nKV, nH // nKV, S, dh, int(quant),
+        positions.data_ptr(), out.data_ptr(), B, nKV, nH // nKV, S, dh, kfmt, vfmt,
         float(sm_scale), _cuda.stream_of(q),
     )
     _cuda.check(err, "flash_decode")
-    flash_decode_stacked.launches += 1
+    _count(flash_decode_stacked, kfmt, vfmt)
     return out
 
 
 flash_decode_stacked.launches = 0
+flash_decode_stacked.launches_packed = 0
 
 
-def gather_pages(slab_l: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+def gather_pages(slab_l: torch.Tensor, page_table: torch.Tensor, packed: bool = False
+                 ) -> torch.Tensor:
     """A layer's page slab ``[P, nKV, ps(, dh)]`` read through ``page_table``
-    ``[B, n_pg]`` as the dense ``[B, nKV, n_pg * ps(, dh)]`` view."""
+    ``[B, n_pg]`` as the dense ``[B, nKV, n_pg * ps(, dh)]`` view; ``packed``
+    pages (``[P, nKV, ps/2, dh]`` pair rows, ps even) come out unpacked."""
     B, n_pg = page_table.shape
     g = slab_l[page_table.reshape(-1).long()]  # [B * n_pg, nKV, ps(, dh)]
     g = g.reshape((B, n_pg) + tuple(slab_l.shape[1:])).transpose(1, 2)
-    return g.reshape((B, slab_l.shape[1], n_pg * slab_l.shape[2]) + tuple(slab_l.shape[3:]))
+    g = g.reshape((B, slab_l.shape[1], n_pg * slab_l.shape[2]) + tuple(slab_l.shape[3:]))
+    return unpack_seq_pairs(g, 2) if packed else g
 
 
 def flash_decode_paged_plain(q, pk, pks, pv, pvs, layer, positions, page_table, sm_scale):
     """K4's plain math over the pages gathered into a dense view."""
-    def dense(slab):
-        return None if slab is None else gather_pages(slab[layer], page_table)[None]
+    def dense(slab, scales=None):
+        if slab is None:
+            return None
+        return gather_pages(slab[layer], page_table, is_packed(slab, scales))[None]
 
     return flash_decode_stacked_plain(
-        q, dense(pk), dense(pks), dense(pv), dense(pvs), 0, positions, sm_scale
+        q, dense(pk, pks), dense(pks), dense(pv, pvs), dense(pvs), 0, positions, sm_scale
     )
 
 
 def _check_pages(name, q_dtype, pk, pks, pv, pvs, page_table, rows, dh, nH):
-    """Shape, type, contiguity and device checks shared by K9 and K10."""
+    """Shape, type, contiguity and device checks shared by K9 and K10;
+    returns (L, nKV, page size, K format, V format). Any even page size is
+    taken for packed pages, any page size otherwise."""
     req = _cuda.require
-    quant = pks is not None
     req(q_dtype == torch.bfloat16, f"{name}: q must be bf16")
-    req(pk.ndim == 5 and pk.shape == pv.shape, f"{name}: pages [L, P, nKV, ps, dh]")
-    L, P, nKV, ps, dh2 = pk.shape
+    kfmt, vfmt = _kv_formats(name, pk, pks, pv, pvs)
+    L, P, nKV, _, dh2 = pk.shape
+    ps = pks.shape[3] if pks is not None else pk.shape[3]
     req(dh2 == dh and dh in (128, 256), f"{name}: dh must be 128 or 256 and match q")
     req(nH % nKV == 0, f"{name}: nH must be a multiple of nKV")
-    req((pvs is not None) == quant, f"{name}: both or neither scale slab")
-    want = torch.int8 if quant else torch.bfloat16
-    req(pk.dtype == want and pv.dtype == want, f"{name}: pages must be {want}")
-    req(pk.is_contiguous() and pv.is_contiguous(), f"{name}: pages must be contiguous")
-    if quant:
-        req(pks.dtype == torch.bfloat16 and pvs.dtype == torch.bfloat16
-            and pks.shape == (L, P, nKV, ps) and pvs.shape == (L, P, nKV, ps)
-            and pks.is_contiguous() and pvs.is_contiguous(),
-            f"{name}: scales must be contiguous bf16 [L, P, nKV, ps]")
     req(page_table.dtype == torch.int32 and page_table.ndim == 2
         and page_table.shape[0] == rows and page_table.is_contiguous(),
         f"{name}: page table must be contiguous int32 [B, n_pg]")
-    return L, nKV, ps, quant
+    return L, nKV, ps, kfmt, vfmt
 
 
 def flash_decode_paged(
     q: torch.Tensor,  # [B, nH, dh] bf16
-    pk: torch.Tensor,  # [L, P, nKV, ps, dh] int8 or bf16 page pool
+    pk: torch.Tensor,  # [L, P, nKV, ps, dh] int8 or bf16, [L, P, nKV, ps/2, dh] packed int4
     pks,  # [L, P, nKV, ps] bf16 scales, or None for bf16 pages
     pv: torch.Tensor,
     pvs,
@@ -168,8 +266,9 @@ def flash_decode_paged(
     req = _cuda.require
     B, nH, dh = q.shape
     req(q.is_contiguous(), "flash_decode_paged: q must be contiguous")
-    L, nKV, ps, quant = _check_pages("flash_decode_paged", q.dtype, pk, pks, pv, pvs,
-                                     page_table, B, dh, nH)
+    L, nKV, ps, kfmt, vfmt = _check_pages("flash_decode_paged", q.dtype, pk, pks, pv, pvs,
+                                           page_table, B, dh, nH)
+    quant = pks is not None
     req(nH // nKV <= 8, "flash_decode_paged: g = nH / nKV must be <= 8")
     req(0 <= int(layer) < L, "flash_decode_paged: layer out of range")
     req(positions.dtype == torch.int32 and positions.shape == (B,)
@@ -182,14 +281,15 @@ def flash_decode_paged(
         q.data_ptr(), pk[layer].data_ptr(), pks[layer].data_ptr() if quant else None,
         pv[layer].data_ptr(), pvs[layer].data_ptr() if quant else None,
         positions.data_ptr(), page_table.data_ptr(), out.data_ptr(), B, nKV, nH // nKV,
-        page_table.shape[1], ps, dh, int(quant), float(sm_scale), _cuda.stream_of(q),
+        page_table.shape[1], ps, dh, kfmt, vfmt, float(sm_scale), _cuda.stream_of(q),
     )
     _cuda.check(err, "flash_decode_paged")
-    flash_decode_paged.launches += 1
+    _count(flash_decode_paged, kfmt, vfmt)
     return out
 
 
 flash_decode_paged.launches = 0
+flash_decode_paged.launches_packed = 0
 
 
 def flash_chunk_paged_plain(q, pk, pks, pv, pvs, layer, pos, page_table, sm_scale):
@@ -199,8 +299,8 @@ def flash_chunk_paged_plain(q, pk, pks, pv, pvs, layer, pos, page_table, sm_scal
     dtype, fp32 PV; the C queries and the gq heads of a KV head share its
     keys."""
     B, C, nH, dh = q.shape
-    k = gather_pages(pk[layer], page_table)  # [B, nKV, S, dh]
-    v = gather_pages(pv[layer], page_table)
+    k = gather_pages(pk[layer], page_table, is_packed(pk, pks))  # [B, nKV, S, dh]
+    v = gather_pages(pv[layer], page_table, is_packed(pv, pvs))
     nKV, S = k.shape[1], k.shape[2]
     gq = nH // nKV
     qg = q.reshape(B, C, nKV, gq, dh).float()
@@ -224,7 +324,7 @@ def flash_chunk_paged_plain(q, pk, pks, pv, pvs, layer, pos, page_table, sm_scal
 
 def flash_chunk_paged(
     q: torch.Tensor,  # [B, C, nH, dh] bf16, C consecutive query positions per row
-    pk: torch.Tensor,  # [L, P, nKV, ps, dh] int8 or bf16
+    pk: torch.Tensor,  # [L, P, nKV, ps(/2), dh] int8, packed int4 or bf16
     pks,
     pv: torch.Tensor,
     pvs,
@@ -240,8 +340,9 @@ def flash_chunk_paged(
     req = _cuda.require
     req(q.ndim == 4 and q.is_contiguous(), "flash_chunk_paged: q must be contiguous [B, C, nH, dh]")
     B, C, nH, dh = q.shape
-    L, nKV, ps, quant = _check_pages("flash_chunk_paged", q.dtype, pk, pks, pv, pvs,
-                                     page_table, B, dh, nH)
+    L, nKV, ps, kfmt, vfmt = _check_pages("flash_chunk_paged", q.dtype, pk, pks, pv, pvs,
+                                           page_table, B, dh, nH)
+    quant = pks is not None
     req(0 <= int(layer) < L, "flash_chunk_paged: layer out of range")
     req(pos.dtype == torch.int32 and pos.shape == (B,) and pos.is_contiguous(),
         "flash_chunk_paged: pos must be int32 [B]")
@@ -253,11 +354,12 @@ def flash_chunk_paged(
         q.data_ptr(), pk[layer].data_ptr(), pks[layer].data_ptr() if quant else None,
         pv[layer].data_ptr(), pvs[layer].data_ptr() if quant else None,
         pos.data_ptr(), page_table.data_ptr(), out.data_ptr(), B, C, nKV, nH // nKV,
-        page_table.shape[1], ps, dh, int(quant), float(sm_scale), _cuda.stream_of(q),
+        page_table.shape[1], ps, dh, kfmt, vfmt, float(sm_scale), _cuda.stream_of(q),
     )
     _cuda.check(err, "flash_chunk_paged")
-    flash_chunk_paged.launches += 1
+    _count(flash_chunk_paged, kfmt, vfmt)
     return out
 
 
 flash_chunk_paged.launches = 0
+flash_chunk_paged.launches_packed = 0

@@ -1,15 +1,21 @@
-"""The CUDA kernels K1-K4 and K6-K10 against their plain versions on the card,
-at small and ragged shapes (chip_smoke.py covers the CodeFuse-13B shapes). Marked
+"""The CUDA kernels K1-K10 against their plain versions on the card, at small
+and ragged shapes, K4/K9/K10 also on packed int4 caches (chip_smoke.py covers
+the CodeFuse-13B shapes). Marked
 ``cuda``: skipped where there is no GPU. On a GPU machine without jax:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 Tolerance: max |kernel - plain| / max |plain| below 1e-2 for the GEMMs (bf16
 output rounding plus fp32 summation order) and 2e-2 where a bf16
-intermediate (K2's hidden, K4/K9/K10's probabilities) may round differently."""
+intermediate (K2's hidden, K4/K5/K9/K10's probabilities) may round
+differently."""
 import pytest
 import torch
 
+from fastertransformer4codefuse_tpu_torch.ops.attention import (
+    prefill_attention_flash,
+    prefill_attention_flash_plain,
+)
 from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
     flash_chunk_paged,
     flash_chunk_paged_plain,
@@ -358,3 +364,122 @@ def test_paged_kernels_raise_on_what_they_do_not_take(gen):
         with pytest.raises(ValueError):
             fn()
             pytest.fail(f"case {i} did not raise")
+
+
+@pytest.mark.parametrize(
+    "B,S,nH,nKV,dh,lens",
+    [(2, 300, 8, 8, 128, [300, 123]), (2, 200, 8, 2, 128, [200, 1]),
+     (1, 130, 4, 4, 256, [130]), (3, 129, 8, 2, 256, [5, 129, 64]), (1, 64, 2, 2, 128, [64])],
+)
+def test_k5_matches_plain(gen, B, S, nH, nKV, dh, lens):
+    """Ragged lengths, S not a multiple of 128, MHA and GQA: every row,
+    padded ones included, equals the plain masked prefill."""
+    q, k, v = _bf(gen, B, S, nH, dh), _bf(gen, B, S, nKV, dh), _bf(gen, B, S, nKV, dh)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    sm = dh ** -0.5
+    before = prefill_attention_flash.launches
+    got = prefill_attention_flash(q, k, v, ln, sm)
+    assert prefill_attention_flash.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _rel(got, prefill_attention_flash_plain(q, k, v, ln, sm)) < 2e-2
+
+
+def test_k5_reads_stop_at_the_length(gen):
+    """Keys at or past a row's length are never read: poisoning them changes
+    nothing."""
+    B, S, nH, dh = 2, 200, 4, 128
+    q, k, v = _bf(gen, B, S, nH, dh), _bf(gen, B, S, nH, dh), _bf(gen, B, S, nH, dh)
+    ln = torch.tensor([150, 70], dtype=torch.int32, device="cuda")
+    clean = prefill_attention_flash(q, k, v, ln, 0.09)
+    for b, n in enumerate(ln.tolist()):
+        k[b, n:] = 1e4
+        v[b, n:] = float("nan")
+    again = prefill_attention_flash(q, k, v, ln, 0.09)
+    torch.cuda.synchronize()
+    assert torch.equal(clean, again)
+
+
+def _packed(gen, shape, kind):
+    """Random K/V payloads of a packed cache ``kind`` over ``shape`` =
+    (L, X, nKV, n, dh), with bf16 scales: (k, ks, v, vs)."""
+    pshape = shape[:3] + (shape[3] // 2, shape[4])
+    ks = (torch.rand(shape[:-1], device="cuda", generator=gen) * 0.2).bfloat16()
+    vs = (torch.rand(shape[:-1], device="cuda", generator=gen) * 0.2).bfloat16()
+    k = _i8(gen, *(pshape if kind == "int4" else shape))
+    return k, ks, _i8(gen, *pshape), vs
+
+
+@pytest.mark.parametrize("kind", ["int4", "int8k_int4v"])
+@pytest.mark.parametrize("B,nH,nKV,dh,S", [(4, 8, 8, 128, 300), (2, 8, 4, 128, 200),
+                                           (2, 4, 4, 256, 70)])
+def test_k4_packed_matches_plain(gen, kind, B, nH, nKV, dh, S):
+    L = 2
+    k, ks, v, vs = _packed(gen, (L, B, nKV, S, dh), kind)
+    q = _bf(gen, B, nH, dh)
+    pos = torch.tensor([0, S - 1, 63, 64][:B], dtype=torch.int32, device="cuda")
+    sm = dh ** -0.5
+    before, before_p = flash_decode_stacked.launches, flash_decode_stacked.launches_packed
+    got = flash_decode_stacked(q, k, ks, v, vs, 1, pos, sm)
+    assert flash_decode_stacked.launches == before + 1
+    assert flash_decode_stacked.launches_packed == before_p + 1
+    assert _rel(got, flash_decode_stacked_plain(q, k, ks, v, vs, 1, pos, sm)) < 2e-2
+
+
+@pytest.mark.parametrize("kind", ["int4", "int8k_int4v"])
+@pytest.mark.parametrize("B,nH,nKV,dh,ps,n_pg", [(4, 8, 8, 128, 256, 3), (3, 8, 4, 128, 16, 20),
+                                                 (2, 4, 4, 256, 2, 40)])
+def test_k9_packed_matches_plain(gen, kind, B, nH, nKV, dh, ps, n_pg):
+    """Packed pages of any even size, down to 2."""
+    L, S = 2, ps * n_pg
+    P = B * n_pg + 3
+    pk, pks, pv, pvs = _packed(gen, (L, P, nKV, ps, dh), kind)
+    pt = _table(gen, B, n_pg, P, garbage_rows=(B - 1,))
+    q = _bf(gen, B, nH, dh)
+    pos = torch.tensor([S - 1, ps + 1, 0, 100][:B], dtype=torch.int32, device="cuda")
+    sm = dh ** -0.5
+    before_p = flash_decode_paged.launches_packed
+    got = flash_decode_paged(q, pk, pks, pv, pvs, 1, pos, pt, sm)
+    assert flash_decode_paged.launches_packed == before_p + 1
+    assert _rel(got, flash_decode_paged_plain(q, pk, pks, pv, pvs, 1, pos, pt, sm)) < 2e-2
+
+
+@pytest.mark.parametrize("kind", ["int4", "int8k_int4v"])
+@pytest.mark.parametrize("C", [8, 128])
+@pytest.mark.parametrize("B,nH,nKV,dh,ps,n_pg", [(3, 8, 8, 128, 256, 3), (2, 4, 2, 128, 128, 4),
+                                                 (2, 4, 4, 256, 256, 2)])
+def test_k10_packed_matches_plain(gen, kind, C, B, nH, nKV, dh, ps, n_pg):
+    L, S = 2, ps * n_pg
+    P = B * n_pg + 2
+    pk, pks, pv, pvs = _packed(gen, (L, P, nKV, ps, dh), kind)
+    pt = _table(gen, B, n_pg, P)
+    q = _bf(gen, B, C, nH, dh)
+    starts = [0, S - C, ps - C // 2][:B]  # the third straddles a page boundary
+    pos = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    sm = dh ** -0.5
+    before_p = flash_chunk_paged.launches_packed
+    got = flash_chunk_paged(q, pk, pks, pv, pvs, 1, pos, pt, sm)
+    assert flash_chunk_paged.launches_packed == before_p + 1
+    assert _rel(got, flash_chunk_paged_plain(q, pk, pks, pv, pvs, 1, pos, pt, sm)) < 2e-2
+
+
+def test_packed_nibble_order(gen):
+    """Every V byte holds +1 at the even position (low nibble) and -1 at the
+    odd one; K is zero, so position 0 alone reads +1 and positions 0-1 read
+    their mean, 0. A swapped order reads -1."""
+    nKV, dh, ps = 2, 128, 8
+    ones = torch.ones(1, 2, nKV, ps, dtype=torch.bfloat16, device="cuda")
+    v4 = torch.full((1, 2, nKV, ps // 2, dh), (-1 << 4) | 1, dtype=torch.int8, device="cuda")
+    k4 = torch.zeros_like(v4)
+    pt = torch.ones(2, 1, dtype=torch.int32, device="cuda")
+    pos = torch.tensor([0, 1], dtype=torch.int32, device="cuda")
+    want = torch.tensor([1.0, 0.0]).reshape(2, 1, 1)
+    q = _bf(gen, 2, nKV, dh)
+    for got in (flash_decode_stacked(q, k4, ones, v4, ones, 0, pos, 0.1),
+                flash_decode_paged(q, k4, ones, v4, ones, 0, pos, pt, 0.1)):
+        torch.cuda.synchronize()
+        assert torch.equal(got.float().cpu(), want.expand(2, nKV, dh))
+    qc = _bf(gen, 2, 2, nKV, dh)
+    got = flash_chunk_paged(qc, k4, ones, v4, ones, 0, torch.zeros(2, dtype=torch.int32,
+                                                                   device="cuda"), pt, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(got.float().cpu(), want.reshape(1, 2, 1, 1).expand(2, 2, nKV, dh))

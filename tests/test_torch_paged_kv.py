@@ -282,8 +282,14 @@ def test_paged_cache_layouts_and_unported_kinds():
     assert c["pt"].shape == (B, NPG) and c["pt"].dtype == torch.int32
     assert paged.is_paged(c) and paged.quantized(c) and paged.page_size(c) == PS
     assert paged.num_pages(c) == 5 and kvc.seq_len_of(c) == S
-    for kind in ("int4", "int8k_int4v"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-            paged.init_paged_cache(CFG, B, S, 5, PS, kind, "cpu")
+    # the packed kinds: payloads of ps/2 pair rows, page size and page count
+    # read from the scale slab and whichever K slab exists
+    for kind, kname in (("int4", "pk4"), ("int8k_int4v", "pk")):
+        c = paged.init_paged_cache(CFG, B, S, 5, PS, kind, "cpu")
+        assert c["pv4"].shape == (L, 5, nKV, PS // 2, dh) and c["pv4"].dtype == torch.int8
+        assert c[kname].shape[3] == (PS // 2 if kname == "pk4" else PS)
+        assert paged.page_size(c) == PS and paged.num_pages(c) == 5 and kvc.seq_len_of(c) == S
+        with pytest.raises(ValueError, match="even"):
+            paged.init_paged_cache(CFG, B, 7 * 4, 5, 7, kind, "cpu")
     with pytest.raises(ValueError):
         paged.init_paged_cache(CFG, B, S, 5, PS, "int8", "cpu")

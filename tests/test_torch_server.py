@@ -134,9 +134,10 @@ def test_multi_pool_server_routes_by_length(engine):
 
 
 def test_unported_pool_kinds_raise_naming_their_item(engine):
-    """Beam, speculative and prompt-learning pools and packed int4 pages are
-    not served yet: each raises NotImplementedError naming its ROADMAP item
-    and none builds another pool instead."""
+    """Beam, speculative and prompt-learning pools are not served yet: each
+    raises NotImplementedError naming its ROADMAP item and none builds another
+    pool instead. Packed int4 KV is served on pages only: a dense pool
+    refuses it (pair bytes), as do odd buckets or page sizes."""
     cases = [
         (lambda: BatchingServer(engine, beam_width=2, max_slots=2, max_seq_len=16,
                                 prompt_bucket=8), "item 12"),
@@ -145,15 +146,20 @@ def test_unported_pool_kinds_raise_naming_their_item(engine):
         (lambda: ContinuousBatcher(engine, max_slots=2, max_seq_len=16, prompt_bucket=8,
                                    prompt_table={0: (np.zeros((2, 2, 4, 4, 8)), 4)}), "item 8"),
     ]
-    for kind in ("int4", "int8k_int4v"):
-        eng4 = GptNeoXEngine(CFG, engine.params, RuntimeConfig(dtype="fp32", int8_mode=1,
-                                                               kv_cache_dtype=kind))
-        for paged in (None, dict(num_pages=4, page_size=8)):
-            cases.append((lambda e=eng4, pg=paged: ContinuousBatcher(
-                e, max_slots=2, max_seq_len=16, prompt_bucket=8, paged=pg), "item 11"))
     for build, item in cases:
         with pytest.raises(NotImplementedError, match=item):
             build()
+    for kind in ("int4", "int8k_int4v"):
+        eng4 = GptNeoXEngine(CFG, engine.params, RuntimeConfig(dtype="fp32", int8_mode=1,
+                                                               kv_cache_dtype=kind))
+        with pytest.raises(ValueError, match="pair bytes"):
+            ContinuousBatcher(eng4, max_slots=2, max_seq_len=16, prompt_bucket=8)
+        with pytest.raises(ValueError, match="even"):
+            ContinuousBatcher(eng4, max_slots=2, max_seq_len=15, prompt_bucket=5,
+                              paged=dict(num_pages=4, page_size=5))
+        b = ContinuousBatcher(eng4, max_slots=2, max_seq_len=16, prompt_bucket=8,
+                              paged=dict(num_pages=4, page_size=8))
+        assert paged_kv.packed4(b._state["cache"], "pv")
     with pytest.raises(NotImplementedError, match="item 12"):
         CodeFuseHandler(engine=engine, tokenizer=CharTokenizer(), warmup=False,
                         pool=dict(beam_width=2, max_slots=2, max_seq_len=16, prompt_bucket=8))
