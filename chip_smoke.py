@@ -6,33 +6,41 @@
 Phases (any failure exits non-zero):
   1. device, torch and CUDA versions, card name and power limit; build the
      CUDA kernels from ``fastertransformer4codefuse_tpu_torch/csrc``;
-  2. each kernel (K1-K10, K2/K3 on int4 weights, and the packed int4 reads
-     of K4/K9/K10) against its plain PyTorch version at CodeFuse-13B shapes:
-     max error against the stated tolerance, median kernel and plain times
-     (CUDA events, device time), the card's bound for the same work, and
-     where one PyTorch call computes the same attention, its time
+  2. each kernel (K1-K11, K2/K3 on int4 weights, and the packed int4 reads
+     of K4/K9/K10/K11) against its plain PyTorch version at CodeFuse-13B
+     shapes: max error against the stated tolerance, median kernel and
+     plain times (CUDA events, device time), the card's bound for the same
+     work, and where one PyTorch call computes the same function, its time
      (``scaled_dot_product_attention`` on a dense bf16 K/V of the same
-     length, causal for K5; the port never calls it);
+     length, causal for K5, the resolved cache for K11;
+     ``torch._weight_int8pack_mm`` / ``torch._weight_int4pack_mm`` for the
+     weight-only GEMMs where they run on the card; the port calls none of
+     them); K11 also bit for bit against K4 over a gathered copy;
   3. 2-layer models of CodeFuse-13B width (int8; int4 per-channel; int4 with
      group size 128; int8 on an int4 dense cache; int8 on int8 and int4 KV
-     pools through chunked prefill) built on the CPU and copied to the card:
-     prefill and teacher-forced decode logits on the card (kernels) against
-     the CPU (plain versions);
+     pools through chunked prefill; int8 beam decode through a beam history)
+     built on the CPU and copied to the card: prefill and teacher-forced
+     decode logits on the card (kernels) against the CPU (plain versions);
   4. CodeFuse-13B (40 layers, full width, int8 KV cache, random weights)
      built on the card, once with int8 weights and then with int4 weights,
      per-channel and group-wise (G = 128), and driven through
      ``GptNeoXEngine.generate`` and ``CodeFuseHandler.predict``; on the int8
      weights, a 3000-token prompt on an "int4" cache (greedy x2 + streamed;
-     its prefill profiled with K5 and with the plain attention forced in)
-     and prompts of 2048 and 1300 tokens on an "int8k_int4v" cache;
+     its prefill profiled with K5 and with the plain attention forced in),
+     prompts of 2048 and 1300 tokens on an "int8k_int4v" cache, and beam
+     search (2 prompts x 4 beams, x2 + streamed, every hypothesis rescored
+     teacher-forced);
   5. on the int8 model of phase 4, pooled serving: a ``BatchingServer`` on a
      paged pool (8 slots, 2048 positions, 65 pages of 256) takes a mix of 10
      greedy and sampled requests from threads, twice, and one greedy request
      alone; the same mix twice on int4 pages; the host and device split of
      chunk and decode ticks on int8 and on int4 pages; then a pooled
      ``CodeFuseHandler``, one with two length classes behind the HTTP front
-     end on localhost, a lazy paged pool that must preempt, and a dense pool
-     (K4). Tick dispatch runs under ``torch.cuda.set_sync_debug_mode("error")``.
+     end on localhost, a lazy paged pool that must preempt, a dense pool
+     (K4), a dense beam pool (2 slots x 4 beams, K11; each request's beams
+     in the mix equal its beams alone) and a handler with a sampling and a
+     beam class. Tick dispatch runs under
+     ``torch.cuda.set_sync_debug_mode("error")``.
 For each path of phases 4 and 5 the kernel launch counters are zeroed just
 before it is driven and checked just after against the counts its route must
 give. The line before the last holds the kernels' JSON record; the last line
@@ -61,7 +69,13 @@ BF16_FLOPS = 989e12
 CARD = ""  # nvidia-smi's "name, power limit", logged beside each phase-5 measurement
 
 
+T0 = time.time()
+
+
 def log(*a):
+    """Print a line; a phase's first line also gets the seconds since start."""
+    if a and str(a[0]).startswith("phase "):
+        a = (*a, f"[{time.time() - T0:.0f} s in]")
     print(*a, flush=True)
 
 
@@ -137,9 +151,10 @@ def phase_kernels(torch, records):
         prefill_attention_flash, prefill_attention_flash_plain,
     )
     from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
-        flash_chunk_paged, flash_chunk_paged_plain, flash_decode_paged, flash_decode_paged_plain,
-        flash_decode_stacked, flash_decode_stacked_plain, gather_pages, is_packed,
-        unpack_seq_pairs,
+        flash_chunk_paged, flash_chunk_paged_plain, flash_decode_beam_plain,
+        flash_decode_beam_stacked, flash_decode_paged, flash_decode_paged_plain,
+        flash_decode_stacked, flash_decode_stacked_plain, gather_beam_rows, gather_pages,
+        is_packed, pack_seq_pairs, unpack_seq_pairs,
     )
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import (
         quant_matmul, quant_matmul_plain,
@@ -192,9 +207,39 @@ def phase_kernels(torch, records):
             line += f"  bound {b_ms:.4f} ms ({b_by})"
             if fn_lib is not None:
                 r["library_ms"] = device_time_ms(torch, fn_lib)
-                r["library"] = lib_label
                 line += f"  library {r['library_ms']:.4f} ms ({lib_label})"
+            elif lib_label:
+                line += f"  library: {lib_label}"
+            if lib_label:
+                r["library"] = lib_label
         log(line)
+
+    def library_mm(bits, M, K, N, G=0):
+        """(fn, label): one PyTorch call computing a weight-only GEMM of these
+        shapes (int8 per-channel: torch._weight_int8pack_mm; int4 per-channel
+        or by groups: torch._weight_int4pack_mm, a per-channel scale being
+        equal groups of 256), or (None, why not) where none runs on the card.
+        Random weights: it is timed, never compared."""
+        x = bf(M, K)
+        name = "torch._weight_int8pack_mm" if bits == 8 else "torch._weight_int4pack_mm"
+        try:
+            if bits == 8:
+                w, s = i8(N, K), scale(N).to(torch.bfloat16)
+                fn = lambda: torch._weight_int8pack_mm(x, w, s)  # noqa: E731
+            else:
+                g = G or 256
+                u8 = torch.randint(0, 256, (N, K // 2), dtype=torch.uint8, device=dev,
+                                   generator=gen)
+                w = torch._convert_weight_to_int4pack(u8, 8)
+                sz = torch.ones(K // g, N, 2, dtype=torch.bfloat16, device=dev)
+                fn = lambda: torch._weight_int4pack_mm(x, w, g, sz)  # noqa: E731
+                name += f" (groups of {g})"
+            fn()
+            torch.cuda.synchronize()
+            return fn, name
+        except (RuntimeError, NotImplementedError, AttributeError, TypeError) as e:
+            why = (str(e).strip().splitlines() or [type(e).__name__])[0][:100]
+            return None, f"none on CUDA, torch {torch.__version__} (checked: {name}: {why})"
 
     log("phase 2: kernels against their plain versions (CodeFuse-13B shapes)")
     # K1: bf16 output rounding (2^-8 relative) + fp32 summation order
@@ -206,10 +251,11 @@ def phase_kernels(torch, records):
         b = bf(N, std=0.02) if has_bias else None
         for M in (1, 4, 512):
             x = bf(M, K)
+            lib = library_mm(8, M, K, N) if (tag, M) == ("qkv", 1) else (None, "")
             report("quant_matmul", f"{tag} {K}->{N} M={M}",
                    lambda: quant_matmul(x, w, s, b, act),
                    lambda: quant_matmul_plain(x, w, s, b, act), tol_mm, "qkv 5120->15360 M=1",
-                   work=(nbytes(x, w, s, b), 2 * M * K * N))
+                   work=(nbytes(x, w, s, b), 2 * M * K * N), fn_lib=lib[0], lib_label=lib[1])
     w_up, w_proj, w_down = i8(H, F_), i8(H, H), i8(F_, H)
     s_up, s_proj, s_down = scale(F_), scale(H), scale(H)
     b_up, b_down = bf(F_, std=0.02), bf(H, std=0.02)
@@ -242,23 +288,30 @@ def phase_kernels(torch, records):
         b = bf(N, std=0.02) if has_bias else None
         for M in (1, 4, 512):
             x = bf(M, K)
+            first = (tag, M) == ("qkv", 1)
+            lib = library_mm(4, M, K, N) if first else (None, "")
             report("quant_matmul_w4", f"{tag} {K}->{N} M={M}",
                    lambda: quant_matmul_w4(x, p4, s4, b, act),
                    lambda: quant_matmul_w4_plain(x, p4, s4, b, act), tol_mm,
-                   "qkv 5120->15360 M=1", work=(nbytes(x, p4, s4, b), 2 * M * K * N))
+                   "qkv 5120->15360 M=1", work=(nbytes(x, p4, s4, b), 2 * M * K * N),
+                   fn_lib=lib[0], lib_label=lib[1])
+            lib = library_mm(4, M, K, N, G) if first else (None, "")
             report("quant_matmul_w4_group", f"{tag} {K}->{N} g{G} M={M}",
                    lambda: quant_matmul_w4_group(x, p4, gs, G, b, act),
                    lambda: quant_matmul_w4_group_plain(x, p4, gs, G, b, act), tol_mm,
-                   "qkv 5120->15360 g128 M=1", work=(nbytes(x, p4, gs, b), 2 * M * K * N))
+                   "qkv 5120->15360 g128 M=1", work=(nbytes(x, p4, gs, b), 2 * M * K * N),
+                   fn_lib=lib[0], lib_label=lib[1])
     # K8: fp32 logits; only the summation order differs
     Vp = 102400
     p_head, s_head = i8(H // 2, Vp), scale4(Vp)
     for M in (1, 4):
         x = bf(M, H)
+        lib = library_mm(4, M, H, Vp) if M == 1 else (None, "")
         report("quant_matmul_w4_head", f"head {H}->{Vp} M={M}",
                lambda: quant_matmul_w4_head(x, p_head, s_head),
                lambda: quant_matmul_w4_head_plain(x, p_head, s_head), 1e-4,
-               f"head {H}->{Vp} M=1", work=(nbytes(x, p_head, s_head), 2 * M * H * Vp))
+               f"head {H}->{Vp} M=1", work=(nbytes(x, p_head, s_head), 2 * M * H * Vp),
+               fn_lib=lib[0], lib_label=lib[1])
     del p_head
     # K2/K3 on per-channel int4 weights (their records keep the int8 times)
     w_up, w_proj, w_down = i8(H // 2, F_), i8(H // 2, H), i8(F_ // 2, H)
@@ -330,6 +383,54 @@ def phase_kernels(torch, records):
                fn_lib=sdpa(q[:, :, None], dense_bf16(unpack_seq_pairs(k4[1]), ks[1]),
                            dense_bf16(unpack_seq_pairs(v4[1]), vs[1]), mask, sm),
                lib_label="sdpa, dense bf16 K/V of the same length")
+    del k8, v8, kb, vb, k4, v4
+
+    # K11: beam decode over the dense cache through the indirection, B = 2
+    # batches of bw = 4 beams, random indirection, ragged positions; also
+    # bit for bit against K4 over the physically gathered copy (one body,
+    # the same values read in the same order)
+    B, bw, S = 2, 4, 1152
+    BB = B * bw
+    pos = torch.tensor([1151, 700, 1000, 64, 900, 333, 1100, 512], dtype=torch.int32, device=dev)
+    indir = torch.randint(0, bw, (BB, S), generator=gen, device=dev, dtype=torch.int32)
+    n_keys = int((pos + 1).sum())
+    q = bf(BB, nH, dh)
+    mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
+    k8, v8 = i8(L, BB, nH, S, dh), i8(L, BB, nH, S, dh)
+    ks = (torch.rand((L, BB, nH, S), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+    vs = (torch.rand((L, BB, nH, S), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+    kb, vb = bf(L, BB, nH, S, dh), bf(L, BB, nH, S, dh)
+    k4, v4 = i8(L, BB, nH, S // 2, dh), i8(L, BB, nH, S // 2, dh)
+
+    def resolved(slab, scales=None):  # layer 1 through indir, unpacked: [BB, nKV, S(, dh)]
+        if slab is None:
+            return None
+        packed = scales is not None and is_packed(slab, scales)
+        return gather_beam_rows(unpack_seq_pairs(slab[1]) if packed else slab[1], indir, bw)
+
+    beam_cases = (("int8", (k8, ks, v8, vs), 2 * dh + 4), ("bf16", (kb, None, vb, None), 4 * dh),
+                  ("int4", (k4, ks, v4, vs), dh + 4))
+    for tag, (a, sa, b_, sb), per_key in beam_cases:
+        rk, rks, rv, rvs = resolved(a, sa), resolved(sa), resolved(b_, sb), resolved(sb)
+        report_attn("flash_decode_beam", f"{tag} cache B=2 bw=4 S=1152",
+               lambda: flash_decode_beam_stacked(q, a, sa, b_, sb, 1, pos, indir, bw, sm),
+               lambda: flash_decode_beam_plain(q, a, sa, b_, sb, 1, pos, indir, bw, sm), 2e-2,
+               "int8 cache B=2 bw=4 S=1152",
+               work=(nbytes(q, pos) + 4 * n_keys + n_keys * nH * per_key, 4 * n_keys * nH * dh),
+               fn_lib=sdpa(q[:, :, None], dense_bf16(rk, rks), dense_bf16(rv, rvs), mask, sm),
+               lib_label="sdpa, dense bf16 K/V of the resolved cache")
+        # the gathered copy as a one-layer cache, packed again where it was
+        def copy(t, pack=False):
+            return None if t is None else (pack_seq_pairs(t) if pack else t)[None].contiguous()
+
+        got = flash_decode_beam_stacked(q, a, sa, b_, sb, 1, pos, indir, bw, sm)
+        k4_out = flash_decode_stacked(q, copy(rk, tag == "int4"), copy(rks),
+                                      copy(rv, tag == "int4"), copy(rvs), 0, pos, sm)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, k4_out))
+        ok &= same
+        log(f"  flash_decode_beam  {tag} cache: K11 == K4 over the gathered copy bit for bit: "
+            f"{same} (max |diff| {(got.float() - k4_out.float()).abs().max().item():.3e})")
     del k8, v8, kb, vb, k4, v4
 
     # K9 / K10: CodeFuse-13B pages: 40 KV heads, dh 128, pages of 256, 8
@@ -427,19 +528,27 @@ def phase_kernels(torch, records):
     return ok
 
 
-def phase_reference(torch, pkg, kv=None, **quant):
-    """2 layers at CodeFuse-13B width: card (kernels) vs CPU (plain).
-    ``quant``: init_params' weight_bits and group_size; ``kv`` the dense
-    cache's kind (int8 when None). Returns max |dlogits| / max |logits| after
-    the prefill and after each decode step."""
-    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
-    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+def reference_model(torch, pkg, **quant):
+    """(config, CPU params, card params) of the 2-layer model of CodeFuse-13B
+    width (seed 7) with ``quant`` weights (init_params' weight_bits and
+    group_size), built on the CPU and copied to the card."""
     from fastertransformer4codefuse_tpu_torch.models.params import params_to
 
     cfg = pkg.GptNeoXConfig(**{**pkg.GptNeoXConfig.codefuse_13b().__dict__, "layer_num": 2})
     p_cpu = pkg.init_params(cfg, seed=7, dtype="bf16", int8_mode=1, quantize_embeddings=True,
                             device="cpu", **quant)
-    p_gpu = params_to(p_cpu, "cuda")
+    return cfg, p_cpu, params_to(p_cpu, "cuda")
+
+
+def phase_reference(torch, ref, kv=None):
+    """The 2-layer reference model ``ref`` (``reference_model``): card
+    (kernels) vs CPU (plain); ``kv`` the dense cache's kind (int8 when
+    None). Returns max |dlogits| / max |logits| after the prefill and after
+    each decode step."""
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+
+    cfg, p_cpu, p_gpu = ref
     rng = np.random.default_rng(7)
     B, S, steps = 2, 64, 3
     ids = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64)
@@ -465,19 +574,15 @@ def phase_reference(torch, pkg, kv=None, **quant):
     return rels
 
 
-def phase_reference_paged(torch, pkg, kv):
-    """The 2-layer int8 model of CodeFuse-13B width on a paged ``kv`` pool:
+def phase_reference_paged(torch, ref, kv):
+    """The 2-layer int8 reference model ``ref`` on a paged ``kv`` pool:
     chunked prefill of ragged prompts through ``prefill_chunk`` (K10 on the
     card), then 3 teacher-forced ``decode_step``s (K9), card against CPU.
     Returns max |dlogits| / max |logits| after the prefill and each step."""
     from fastertransformer4codefuse_tpu_torch.engine import paged_kv
     from fastertransformer4codefuse_tpu_torch.models import gptneox as model
-    from fastertransformer4codefuse_tpu_torch.models.params import params_to
 
-    cfg = pkg.GptNeoXConfig(**{**pkg.GptNeoXConfig.codefuse_13b().__dict__, "layer_num": 2})
-    p_cpu = pkg.init_params(cfg, seed=7, dtype="bf16", int8_mode=1, quantize_embeddings=True,
-                            device="cpu")
-    p_gpu = params_to(p_cpu, "cuda")
+    cfg, p_cpu, p_gpu = ref
     rng = np.random.default_rng(8)
     B, C, ps, n_pg, steps = 2, 32, 64, 2, 3
     ids = rng.integers(0, cfg.vocab_size, (B, 2 * C)).astype(np.int64)
@@ -511,6 +616,50 @@ def phase_reference_paged(torch, pkg, kv):
     return rels
 
 
+def phase_reference_beam(torch, ref):
+    """The 2-layer int8 reference model ``ref`` on B = 2 prompts tiled
+    over bw = 4 beams: one prefill of the 8 rows (K5 on the card), then 3
+    teacher-forced beam decode steps (K11 on the card) over a real beam
+    history: each step every row takes a random parent in its group,
+    inherits its indirection and writes its own token into its own row, so
+    each row's ancestors wrote the slots it reads. Card against CPU; returns
+    max |dlogits| / max |logits| after the prefill and each step."""
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+
+    cfg, p_cpu, p_gpu = ref
+    rng = np.random.default_rng(9)
+    B, bw, S, steps = 2, 4, 64, 3
+    BB, T = B * bw, S + steps + 1
+    ids = np.repeat(rng.integers(0, cfg.vocab_size, (B, S)), bw, axis=0)  # beam-minor tiling
+    lens = np.repeat(np.array([S, S - 17], np.int32), bw)
+    tokens = rng.integers(0, cfg.vocab_size, (steps, BB))
+    own = np.arange(BB) % bw
+    indirs, ind = [], np.repeat(own[:, None], T, axis=1).astype(np.int32)
+    for st in range(steps):
+        ind = ind[np.arange(BB) // bw * bw + rng.integers(0, bw, BB)]  # each row's parent
+        ind[np.arange(BB), lens + st] = own
+        indirs.append(ind.copy())
+    logits = {}
+    for name, p, dev in (("card", p_gpu, "cuda"), ("cpu", p_cpu, "cpu")):
+        cache = kv_cache.init_cache(cfg, BB, T, torch.int8, dev)
+        t_lens = torch.from_numpy(lens).to(dev)
+        hidden, cache = model.prefill(cfg, p, torch.from_numpy(ids).to(dev), t_lens, cache)
+        out = [model.lm_logits(cfg, p, model.last_token_hidden(hidden, t_lens))]
+        for st in range(steps):
+            beam = (bw, torch.from_numpy(indirs[st]).to(dev))
+            h, cache = model.decode_step(cfg, p, torch.from_numpy(tokens[st]).to(dev),
+                                         (t_lens + st).to(torch.int32), cache, beam=beam)
+            out.append(model.lm_logits(cfg, p, h))
+        logits[name] = [o.float().cpu() for o in out]
+    rels = []
+    for i, (a, b) in enumerate(zip(logits["card"], logits["cpu"])):
+        if not bool(torch.isfinite(a).all()) or a.shape != (BB, cfg.vocab_size):
+            raise RuntimeError(f"beam reference step {i}: bad logits {a.shape}")
+        rels.append(rel_err(torch, a, b)[1])
+    return rels
+
+
 def main() -> int:
     import torch
 
@@ -524,7 +673,7 @@ def main() -> int:
     from fastertransformer4codefuse_tpu_torch.ops import _cuda
     from fastertransformer4codefuse_tpu_torch.ops.attention import prefill_attention_flash
     from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
-        flash_chunk_paged, flash_decode_paged, flash_decode_stacked,
+        flash_chunk_paged, flash_decode_beam_stacked, flash_decode_paged, flash_decode_stacked,
     )
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import quant_matmul
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_fused import (
@@ -551,6 +700,9 @@ def main() -> int:
     lib_path = _cuda.build()
     _cuda.lib()
     log(f"  kernels built in {time.time() - t0:.1f} s -> {os.path.relpath(lib_path, REPO)}")
+    log("  compile time per source: " + ", ".join(
+        line[3:] for line in _cuda.build_log.splitlines()
+        if line.startswith("== ") and "(" in line))
     for line in _cuda.build_log.splitlines():
         if "spill" in line and "0 bytes spill stores" not in line:
             log("   ", line.strip())
@@ -575,7 +727,7 @@ def main() -> int:
                                   tpu + "quant_matmul_w4.py:315"),
         "quant_matmul_w4_head": (quant_matmul_w4_head, "launches", src + "quant_matmul_w4.cu",
                                  tpu + "quant_matmul_w4.py:82"),
-        "flash_decode_paged": (flash_decode_paged, "launches", src + "flash_decode.cu",
+        "flash_decode_paged": (flash_decode_paged, "launches", src + "flash_decode_paged.cu",
                                tpu + "flash_decode.py:370"),
         "flash_chunk_paged": (flash_chunk_paged, "launches", src + "flash_chunk.cu",
                               tpu + "flash_decode.py:480"),
@@ -584,9 +736,11 @@ def main() -> int:
         "flash_decode_int4": (flash_decode_stacked, "launches_packed", src + "flash_decode.cu",
                               tpu + "flash_decode.py:593"),
         "flash_decode_paged_int4": (flash_decode_paged, "launches_packed",
-                                    src + "flash_decode.cu", tpu + "flash_decode.py:370"),
+                                    src + "flash_decode_paged.cu", tpu + "flash_decode.py:370"),
         "flash_chunk_paged_int4": (flash_chunk_paged, "launches_packed", src + "flash_chunk.cu",
                                    tpu + "flash_decode.py:480"),
+        "flash_decode_beam": (flash_decode_beam_stacked, "launches",
+                              src + "flash_decode_beam.cu", tpu + "flash_decode.py:261"),
     }
     records = {
         n: {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": 0,
@@ -599,23 +753,33 @@ def main() -> int:
 
     log("phase 3: 2-layer CodeFuse-13B-width models, card (kernels) vs CPU (plain)")
     tol_ref = 5e-2
+    int8_ref = None  # built once, shared by the int8 cases below
     for label, quant in CONFIGS:
-        rels = phase_reference(torch, pkg, **quant)
+        ref = reference_model(torch, pkg, **quant)
+        int8_ref = ref if label == "int8" else int8_ref
+        rels = phase_reference(torch, ref)
         log(f"  {label}: max |dlogits| / max |logits| after prefill (K5) and 3 teacher-forced "
             f"decode steps: {', '.join(f'{r:.2e}' for r in rels)} (tol {tol_ref:g})")
         if max(rels) >= tol_ref:
             return fail(f"{label}: card and CPU logits disagree")
-    rels = phase_reference(torch, pkg, kv="int4")
+    rels = phase_reference(torch, int8_ref, kv="int4")
     log(f"  int8 on an int4 dense cache (packed K4): {', '.join(f'{r:.2e}' for r in rels)} "
         f"(tol {tol_ref:g})")
     if max(rels) >= tol_ref:
         return fail("int4 dense cache: card and CPU logits disagree")
     for kv in (torch.int8, "int4"):
-        rels = phase_reference_paged(torch, pkg, kv)
+        rels = phase_reference_paged(torch, int8_ref, kv)
         log(f"  int8 on a paged {kv} pool (chunked prefill of ragged prompts, K10; decode, "
             f"K9): {', '.join(f'{r:.2e}' for r in rels)} (tol {tol_ref:g})")
         if max(rels) >= tol_ref:
             return fail(f"paged {kv}: card and CPU logits disagree")
+    rels = phase_reference_beam(torch, int8_ref)
+    log(f"  int8, 2 prompts tiled over 4 beams (prefill of 8 rows, K5; 3 teacher-forced beam "
+        f"steps through a random beam history, K11): {', '.join(f'{r:.2e}' for r in rels)} "
+        f"(tol {tol_ref:g})")
+    if max(rels) >= tol_ref:
+        return fail("beam decode: card and CPU logits disagree")
+    del ref, int8_ref
 
     launched = {n: 0 for n in kernels}
     for label, quant in CONFIGS:
@@ -645,16 +809,19 @@ CONFIGS = [
 ]
 
 
-def expected_launches(L, prefills, forwards, weight_bits, group_size, packed_kv=False):
+def expected_launches(L, prefills, forwards, weight_bits, group_size, packed_kv=False,
+                      beam=False):
     """Launches each kernel wrapper must count for a run of ``prefills``
     prefills and ``forwards`` decode forwards of an L-layer CodeFuse model
     (parallel residual, tanh-gelu, biases): prefill runs QKV, proj, up and
     down as GEMMs and attention as K5; decode runs QKV as a GEMM, attention
-    as K4 (its packed form on an int4 cache) and the post-attention block as
-    K2 (which calls K3) for per-channel weights, or all four GEMMs as K7 for
-    group-wise int4; every prefill and forward ends in one LM head call."""
+    as K4 (its packed form on an int4 cache; K11 for ``beam`` search) and
+    the post-attention block as K2 (which calls K3) for per-channel weights,
+    or all four GEMMs as K7 for group-wise int4; every prefill and forward
+    ends in one LM head call."""
     gemm = {8: "quant_matmul", 4: "quant_matmul_w4"}[weight_bits]
-    out = {"flash_decode": L * forwards, "prefill_attention_flash": L * prefills}
+    attn = "flash_decode_beam" if beam else "flash_decode"
+    out = {attn: L * forwards, "prefill_attention_flash": L * prefills}
     if packed_kv:
         out["flash_decode_int4"] = L * forwards
     if group_size:
@@ -923,8 +1090,117 @@ def phase_long(torch, engine, kernels, launched):
                                packed_kv=True)
 
 
+def phase_beam(torch, engine, kernels, launched):
+    """Beam search on the int8 CodeFuse-13B ``engine`` (int8 KV): prompts of
+    1000 and 600 tokens, beam_width 4, 64 tokens, len_penalty 0.6 on the
+    first; twice (identical) and once streamed (identical, 4 beams a prompt
+    in every message); beams sorted best-first; every hypothesis rescored
+    teacher-forced on the card through a B = 1 prefill against its per-step
+    log-probs; the same beams on a bf16 cache and greedy decoding (K4)
+    rescored alike, to tell the int8 KV codes' share of the gap from K11's.
+    Returns an error message, or None."""
+    cfg = engine.config
+    L, V = cfg.layer_num, cfg.vocab_size
+    quant = dict(weight_bits=8, group_size=0)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, V, n).tolist() for n in (1000, 600)]
+    bw, out_len, lp = 4, 64, np.array([0.6, 0.0], np.float32)
+    kw = dict(beam_width=bw, len_penalty=lp.tolist(), output_log_probs=True)
+    log("phase 4: CodeFuse-13B int8, beam search (K11): prompts of 1000 and 600 tokens, "
+        "beam_width 4, 64 tokens")
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    forwards = prefills = 0
+
+    def run(*a, **k):
+        nonlocal forwards, prefills
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = engine.generate(*a, **k)
+        torch.cuda.synchronize()
+        forwards += engine.decode_forwards
+        prefills += 1
+        return out, time.perf_counter() - t, engine.decode_forwards
+
+    _, t_pre, _ = run(prompts, 1, **kw)
+    b1, t1, f1 = run(prompts, out_len, **kw)
+    b2, _, _ = run(prompts, out_len, **kw)
+    msgs = []
+    b3, _, _ = run(prompts, out_len, callback=msgs.append, **kw)
+    if not all(np.array_equal(x, y) for x, y in zip(b1, b2)):
+        return "beam search: two runs differ"
+    if not (np.array_equal(b1.output_ids, b3.output_ids)
+            and np.array_equal(b1.sequence_lengths, b3.sequence_lengths)):
+        return "beam search: the streamed run differs"
+    if not msgs or any(len(m["last_tokens"]) != 2 or any(len(t) != bw for t in m["last_tokens"])
+                       for m in msgs):
+        return "beam search: a streamed message does not carry 4 beams per prompt"
+    for b, p in enumerate(prompts):
+        gen = b1.output_ids[b, :, len(p):]
+        if b1.output_ids[b, :, :len(p)].tolist() != [p] * bw or (gen < 0).any() or (gen >= V).any():
+            return f"beam search: bad ids for prompt {b}"
+        score = b1.cum_log_probs[b] / ((5.0 + b1.sequence_lengths[b] - len(p)) / 6.0) ** lp[b]
+        if not np.isfinite(score).all() or (np.diff(score) > 1e-6 * np.abs(score).max()).any():
+            return f"beam search: beams of prompt {b} are not best-first: {score}"
+    step_ms = (t1 - t_pre) / max(f1, 1) * 1e3
+    log(f"  B=2 x 4 beams, 64 tokens x2 + streamed ({len(msgs)} messages of 2 x 4 tokens): "
+        f"identical, best-first; {f1} decode forwards, prefill of 8 rows {t_pre * 1e3:.1f} ms, "
+        f"decode {step_ms:.2f} ms/step ({CARD})")
+
+    # teacher-forced rescoring of every hypothesis: one B = 1 prefill each
+    d, n = rescore(torch, engine, b1, prompts)
+    prefills += n
+    log(f"  teacher-forced rescoring of the 8 hypotheses ({d.size} tokens, B = 1 prefill): "
+        f"|dlogprob| mean {d.mean():.2e}, max {d.max():.2e} nats per token (limit 0.05 mean); "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({CARD})")
+    if not np.isfinite(d).all() or d.mean() > 0.05:
+        return "beam search: the hypotheses' log-probs disagree with their rescoring"
+    # the same beams on a bf16 cache: what the int8 KV codes add to the gap
+    eng16 = with_kv(engine, "bf16")
+    b16 = eng16.generate(prompts, out_len, **kw)
+    d16, n = rescore(torch, eng16, b16, prompts)
+    forwards += eng16.decode_forwards
+    prefills += 1 + n
+    log(f"  the same on a bf16 KV cache: |dlogprob| mean {d16.mean():.2e}, max {d16.max():.2e} "
+        f"nats per token")
+    err = check_static_counts(torch, kernels, launched, L, prefills, forwards, quant, beam=True)
+    if err:
+        return err
+    # and greedy decoding (K4) on the int8 cache, prompt 0 alone, rescored alike
+    zero_counts(kernels)
+    g = engine.generate(prompts[:1], out_len, top_k=1, output_log_probs=True)
+    dg, n = rescore(torch, engine, g, prompts[:1])
+    log(f"  greedy on the int8 cache (K4), prompt 0, rescored alike: |dlogprob| mean "
+        f"{dg.mean():.2e}, max {dg.max():.2e} nats per token")
+    return check_static_counts(torch, kernels, launched, L, 1 + n, engine.decode_forwards, quant)
+
+
+def rescore(torch, engine, out, prompts):
+    """(|log-prob under a teacher-forced B = 1 prefill - the run's per-step
+    log-prob| for every generated token of every returned sequence of
+    ``out``, a GenerationOutput with ``output_log_probs``; the number of
+    prefills run)."""
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+
+    cfg, deltas = engine.config, []
+    for b, p in enumerate(prompts):
+        for j in range(out.output_ids.shape[1]):
+            n = int(out.sequence_lengths[b, j])
+            seq = torch.tensor(out.output_ids[b, j, :n][None], device="cuda")
+            cache = kv_cache.init_cache(cfg, 1, n, torch.int8, "cuda")
+            hidden, _ = model.prefill(cfg, engine.params, seq,
+                                      torch.tensor([n], dtype=torch.int32, device="cuda"), cache)
+            logp = torch.log_softmax(model.lm_logits(cfg, engine.params,
+                                                     hidden[0, len(p) - 1: n - 1]), dim=-1)
+            want = logp.gather(1, seq[0, len(p): n, None].long())[:, 0].cpu().numpy()
+            deltas.append(np.abs(want - out.output_log_probs[b, j, : n - len(p)]))
+    return np.concatenate(deltas), len(deltas)
+
+
 def phase_int8_model(torch, engine, kernels, launched):
     return (phase_long(torch, engine, kernels, launched)
+            or phase_beam(torch, engine, kernels, launched)
             or phase_pool(torch, engine, kernels, launched))
 
 
@@ -937,14 +1213,16 @@ POOL = dict(max_slots=8, max_seq_len=2048, prompt_bucket=128, pipeline_ticks=Tru
 PAGES = dict(num_pages=65, page_size=256)  # 8 slots x 2048 positions + the garbage page
 
 
-def check_static_counts(torch, kernels, launched, L, prefills, forwards, quant, packed_kv=False):
+def check_static_counts(torch, kernels, launched, L, prefills, forwards, quant, packed_kv=False,
+                        beam=False):
     """Compare the counters (zeroed just before the run) with what
     ``prefills`` prefills and ``forwards`` decode forwards must give; add
     them to ``launched``."""
     torch.cuda.synchronize()
     counts = read_counts(kernels)
     expect = {n: 0 for n in kernels}
-    expect.update(expected_launches(L, prefills, forwards, packed_kv=packed_kv, **quant))
+    expect.update(expected_launches(L, prefills, forwards, packed_kv=packed_kv, beam=beam,
+                                    **quant))
     log(f"  {prefills} prefills, {forwards} decode forwards; launches "
         f"{({n: c for n, c in counts.items() if c})}, expected "
         f"{({n: c for n, c in expect.items() if c})}")
@@ -960,8 +1238,8 @@ def pool_launches(L, b):
     CodeFuse pool ``b`` ran: a decode tick runs QKV as K1 and the
     post-attention block as K2 (which calls K3), a chunk tick four K1 GEMMs;
     attention is K9 / K10 on pages (their packed forms on int4 pages), K4
-    and plain chunk attention on dense slabs; the int8 LM head is a plain
-    matmul."""
+    (K11 in a beam pool) and plain chunk attention on dense slabs; the int8
+    LM head is a plain matmul."""
     from fastertransformer4codefuse_tpu_torch.engine import paged_kv
 
     d, c = b.decode_ticks, b.chunk_ticks
@@ -971,6 +1249,8 @@ def pool_launches(L, b):
         out.update(flash_decode_paged=L * d, flash_chunk_paged=L * c)
         if paged_kv.packed4(b._state["cache"], "pv"):
             out.update(flash_decode_paged_int4=L * d, flash_chunk_paged_int4=L * c)
+    elif getattr(b, "beam_width", 1) > 1:
+        out["flash_decode_beam"] = L * d
     else:
         out["flash_decode"] = L * d
     return out
@@ -1279,6 +1559,8 @@ def phase_pool(torch, engine, kernels, launched):
     for label, eng in (("int8 pages", engine), ("int4 pages", with_kv(engine, "int4"))):
         fresh()
         prof = tick_profile(torch, eng, ContinuousBatcher)
+        if label == "int8 pages":
+            sampling_tick_ms = prof["decode"][0]
         for kind, (wall, dev, rows) in prof.items():
             log(f"  {label}, {kind} tick (8 slots at ~1000 positions; profiled): wall "
                 f"{wall:.1f} ms, device kernels {dev:.1f} ms, busy {100 * dev / wall:.1f}%, "
@@ -1359,9 +1641,114 @@ def phase_pool(torch, engine, kernels, launched):
         log(f"  dense pool, 4 slots x 2048: 4 requests, {gen} tokens in {wall:.2f} s; peak "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         torch.cuda.synchronize()
-        return check_counts(kernels, launched, [b], L, "dense pool (K4)")
+        err = check_counts(kernels, launched, [b], L, "dense pool (K4)")
+        if err:
+            return err
     finally:
         srv.close()
+    del srv, b
+
+    fresh()
+    err = beam_pool(torch, engine, kernels, launched, sampling_tick_ms)
+    if err:
+        return err
+    fresh()
+    return beam_handler(torch, engine, kernels, launched, tok)
+
+
+# Phase 5's beam requests: prompt lengths, output lengths, length penalties;
+# the last two arrive while the first two decode
+BEAM_PROMPTS = (900, 130, 600, 350)
+BEAM_OUTS = (64, 32, 48, 40)
+BEAM_LP = (0.6, 0.0, 1.0, 0.0)
+
+
+def beam_pool(torch, engine, kernels, launched, sampling_tick_ms):
+    """A dense beam pool (``BatchingServer(beam_width=4)``, 2 slots x 4 rows
+    x 2048 positions) takes phase 5's 4 beam requests from threads, two of
+    them mid-flight; each request's beams must equal its beams alone. Tick
+    dispatch runs under set_sync_debug_mode("error"). Returns an error
+    message, or None."""
+    from fastertransformer4codefuse_tpu_torch.engine.server import BatchingServer
+
+    cfg = engine.config
+    L, V, end_id = cfg.layer_num, cfg.vocab_size, cfg.end_id
+    rng = np.random.default_rng(17)
+    reqs = [(rng.integers(0, V, n).tolist(), o, dict(len_penalty=lp, min_length=o // 2))
+            for n, o, lp in zip(BEAM_PROMPTS, BEAM_OUTS, BEAM_LP)]
+    srv = BatchingServer(engine, beam_width=4, max_slots=2, max_seq_len=2048, prompt_bucket=128,
+                         pipeline_ticks=True)
+    b = srv.batcher
+    kv_gib = sum(nbytes(t) for t in b._state["cache"].values()) / 2**30
+    ticks = []
+    instrument(torch, b, ticks)
+    try:
+        res, wall = drive_mix(srv, reqs, late=2)
+        for i, (r, (p, o, _)) in enumerate(zip(res, reqs)):
+            if len(r.beam_output_ids) != 4 or r.output_ids != r.beam_output_ids[0]:
+                return f"beam pool: request {i} did not return 4 beams"
+            for beam in r.beam_output_ids:
+                gen = beam[len(p):]
+                if beam[:len(p)] != p or not (len(gen) == o or (o // 2 < len(gen) < o
+                                                               and gen[-1] == end_id)):
+                    return f"beam pool: request {i} has a beam of {len(gen)} tokens for {o}"
+                if any(t < 0 or t >= V for t in gen):
+                    return f"beam pool: request {i}: token ids out of range"
+        gen = sum(len(beam) - len(p) for r, (p, _, _) in zip(res, reqs)
+                  for beam in r.beam_output_ids)
+        no_c = [t * 1e3 for t, c in ticks if not c] or [float("nan")]
+        with_c = [t * 1e3 for t, c in ticks if c] or [float("nan")]
+        log(f"  beam pool, 2 slots x 4 beams x 2048 (dense, {kv_gib:.2f} GiB of int8 KV): 4 "
+            f"requests "
+            f"(prompts {min(BEAM_PROMPTS)}-{max(BEAM_PROMPTS)}, outputs {min(BEAM_OUTS)}-"
+            f"{max(BEAM_OUTS)}, 2 arriving 1-2 s in): {gen} beam tokens in {wall:.2f} s; "
+            f"{b.decode_ticks} ticks, {b.chunk_ticks} with a chunk: "
+            f"{statistics.median(no_c):.1f} ms "
+            f"median per decode tick (8 rows; the sampling pool's decode tick at 8 rows "
+            f"{sampling_tick_ms:.1f} ms), {statistics.median(with_c):.1f} ms with a chunk ({CARD})")
+        for i, (p, o, kw) in enumerate(reqs):
+            one = srv.generate(p, o, **kw)
+            if one.beam_output_ids != res[i].beam_output_ids:
+                return f"beam pool: request {i} alone differs from itself inside the mix"
+        log("  beam pool: every request's beams alone == inside the mix; tick dispatch never "
+            f"synchronised (set_sync_debug_mode error); peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.synchronize()
+        return check_counts(kernels, launched, [b], L, "dense beam pool (K11), mix + alone")
+    finally:
+        srv.close()
+
+
+def beam_handler(torch, engine, kernels, launched, tok):
+    """A pooled handler with a sampling class (paged, 512 positions) and a
+    width-4 beam class (dense, 2048) routes a beam request to the beam
+    class, by that class's tick counter. Returns an error message, or None."""
+    from fastertransformer4codefuse_tpu_torch.api.handler import CodeFuseHandler
+    from fastertransformer4codefuse_tpu_torch.api.trie import VocabTrie
+
+    h = CodeFuseHandler(
+        engine=engine, tokenizer=tok, trie=VocabTrie(tok.get_vocab()), warmup=False,
+        pool=[dict(POOL, max_slots=2, max_seq_len=512, paged=dict(num_pages=5, page_size=256)),
+              dict(max_slots=1, max_seq_len=2048, prompt_bucket=128, beam_width=4)])
+    try:
+        samp, beam = (s.batcher for s in h.server.servers)
+        req = {"prompts": [{"prompt": "def quick_sort(arr):\n    " * 10, "len_penalty": 0.6}],
+               "out_seq_length": 32, "beam_width": 4}
+        code, msg, res = h.predict(req, "beam-pooled")
+        if code != 0:
+            return f"pooled beam request failed: {msg}"
+        r = json.loads(res["res"])
+        if len(r["generated_code"][0]) != 4 or beam.decode_ticks == 0 or samp.decode_ticks != 0:
+            return (f"pooled beam request: {len(r['generated_code'][0])} beams, beam class "
+                    f"{beam.decode_ticks} ticks, sampling class {samp.decode_ticks}")
+        log(f"  two-class handler (sampling 512 paged, beam width 4 dense): the beam request "
+            f"rode the beam class ({beam.decode_ticks} ticks; the sampling class ran none), "
+            f"lengths {r['length'][0]}")
+        torch.cuda.synchronize()
+        return check_counts(kernels, launched, [samp, beam], engine.config.layer_num,
+                            "pooled handler, sampling + beam classes")
+    finally:
+        h.close()
 
 
 if __name__ == "__main__":

@@ -12,8 +12,11 @@ routes requests through a continuous-batching slot pool
 interleave mid-flight. Sampling semantics, streaming, stop/bad words, trie
 constraints and the response schema are the static path's; requests the pool
 cannot route (too long, top_k outside the pool's cap, word lists wider than
-its buffers, beam search) take the static path. Speculative requests are
-ROADMAP queue 1 item 15.
+its buffers) take the static path. A beam request (``beam_width > 1``)
+rides a beam pool class of its width when the handler has one, except
+streamed beams and beams with ``output_log_probs``: the static path streams
+every beam's newest token and tracks per-step log-probs along each
+hypothesis. Speculative requests are ROADMAP queue 1 item 15.
 """
 from __future__ import annotations
 
@@ -144,12 +147,14 @@ class CodeFuseHandler:
             print(text, end="", flush=True)
 
     # ------------------------------------------------------------- pooled ----
-    def _pool_routable(self, dp: dict, prompts: List[List[int]]) -> bool:
+    def _pool_routable(self, dp: dict, prompts: List[List[int]], stream: bool = False) -> bool:
         """Whether every prompt of this request can ride the slot pool: a
-        sampling request (beam_width 1) of non-empty prompts, each fitting
-        the pool class it routes to, with top_k within that class's cap and
-        word lists and trie expansions within its buffers."""
-        if dp["beam_width"] != 1:
+        request of non-empty prompts, each fitting the pool class of its beam
+        width it routes to, with (sampling) top_k within that class's cap and
+        word lists and trie expansions within its buffers. Streamed beams and
+        beams with per-step log-probs take the static path."""
+        bw = dp["beam_width"]
+        if bw != 1 and (stream or dp["output_log_probs"]):
             return False
 
         def wl_len(lists, i):
@@ -160,10 +165,10 @@ class CodeFuseHandler:
         for b, ids in enumerate(prompts):
             if len(ids) == 0:
                 return False
-            pool = self.server.routable_pool(len(ids) + dp["output_len"], 1)
+            pool = self.server.routable_pool(len(ids) + dp["output_len"], bw)
             if pool is None:
                 return False
-            if not 1 <= (dp["top_k"] or [50])[b] <= pool.sampling_cap:
+            if bw == 1 and not 1 <= (dp["top_k"] or [50])[b] <= pool.sampling_cap:
                 return False  # top_k 0 (pure top-p) needs the full sort
             if wl_len(dp.get("stop_words_list"), b) > pool.stop_words_width:
                 return False
@@ -193,6 +198,7 @@ class CodeFuseHandler:
                 return None
             return [list(tok.encode(w)) for w in lists[b]]
 
+        bw = dp["beam_width"]
         start = time.time()
         uids = []
         for b, ids in enumerate(prompts):
@@ -202,8 +208,7 @@ class CodeFuseHandler:
                 if self.trie is None:
                     raise ValueError("trie is None, can't select last token")
                 olt = optional_last_token_ids(self.trie, lt[b], end_id)
-            uids.append(self.server.submit(
-                ids, dp["output_len"],
+            kw = dict(
                 temperature=float(pick("temperature", 1.0, b)),
                 repetition_penalty=float(pick("repetition_penalty", 1.0, b)),
                 min_length=int(pick("min_length", 0, b)),
@@ -211,23 +216,45 @@ class CodeFuseHandler:
                 stop_words=word_ids(dp.get("stop_words_list"), b),
                 bad_words=word_ids(dp.get("bad_words_list"), b),
                 optional_last_tokens=olt,
-                top_k=int(pick("top_k", 50, b)),
-                top_p=float(pick("top_p", 0.0, b)),
-                presence_penalty=float(pick("presence_penalty", 0.0, b)),
-                random_seed=int(pick("random_seed", 0, b)),
-                on_text=(lambda s, b=b: sink(b, 0, s)) if use_callback else None,
-                tokenizer=tok if use_callback else None,
-            ))
+            )
+            if bw == 1:
+                kw.update(
+                    top_k=int(pick("top_k", 50, b)),
+                    top_p=float(pick("top_p", 0.0, b)),
+                    presence_penalty=float(pick("presence_penalty", 0.0, b)),
+                    random_seed=int(pick("random_seed", 0, b)),
+                    on_text=(lambda s, b=b: sink(b, 0, s)) if use_callback else None,
+                    tokenizer=tok if use_callback else None,
+                )
+            else:
+                # a beam pool class of this width; beams ignore top_k, top_p,
+                # the presence penalty and the seed
+                kw.update(
+                    beam_width=bw,
+                    beam_search_diversity_rate=float(pick("beam_search_diversity_rate", 0.0, b)),
+                    len_penalty=float(pick("len_penalty", 0.0, b)),
+                )
+            uids.append(self.server.submit(ids, dp["output_len"], **kw))
         results = [self.server.wait(u) for u in uids]
         latency = time.time() - start
 
-        generated_code, lengths, cum_lps, step_lps = [], [], [], []
-        for b, r in enumerate(results):
+        def decode_gen(ids, in_len):
             gen = []
-            for t in r.output_ids[len(prompts[b]):]:
+            for t in ids[in_len:]:
                 if t == end_id:
                     break
                 gen.append(int(t))
+            return gen
+
+        generated_code, lengths, cum_lps, step_lps = [], [], [], []
+        for b, r in enumerate(results):
+            if bw != 1:
+                gens = [decode_gen(ids, len(prompts[b])) for ids in r.beam_output_ids]
+                generated_code.append([trim_garbage(tok.decode(g)) for g in gens])
+                lengths.append([len(g) for g in gens])
+                cum_lps.append(list(r.beam_cum_log_probs))
+                continue
+            gen = decode_gen(r.output_ids, len(prompts[b]))
             generated_code.append([trim_garbage(tok.decode(gen))])
             lengths.append([len(gen)])
             cum_lps.append([r.cum_log_prob])
@@ -258,7 +285,7 @@ class CodeFuseHandler:
 
             if self.server is not None:
                 prompts = [list(self.tokenizer.encode(t)) for t in data_package["texts"]]
-                if self._pool_routable(data_package, prompts):
+                if self._pool_routable(data_package, prompts, stream=use_callback):
                     response = self._predict_pooled(data_package, use_callback, prompts)
                     response_str = json.dumps(response, ensure_ascii=False)
                     logger.info("%s response (pooled): %s", trace_id, response_str)

@@ -106,6 +106,12 @@ class Request:
     preemptions: int = 0
     # prompt-learning task id: no pool of the port serves one (item 8)
     prompt_task_id: Optional[int] = None
+    # beam pools (engine/beam_pool.BeamPool) only: the request's beam knobs
+    # and, on completion, every beam best-first (output_ids is beam 0)
+    beam_search_diversity_rate: float = 0.0
+    len_penalty: float = 0.0
+    beam_output_ids: Optional[List[List[int]]] = None
+    beam_cum_log_probs: Optional[List[float]] = None
     _decoder: Optional[object] = None
     _chunks_left: int = 0
     _pages: Optional[List[int]] = None  # paged pools: this request's page ids
@@ -125,7 +131,12 @@ class ContinuousBatcher:
     """Slot-pool scheduler over a GptNeoXEngine's model functions.
 
     ``decode_ticks`` and ``chunk_ticks`` count the decode and chunk steps
-    dispatched so far; ``preemptions`` the lazy pool's evictions."""
+    dispatched so far; ``preemptions`` the lazy pool's evictions. The device
+    state holds ``rows = max_slots * _row_mult`` rows: one per slot here,
+    ``beam_width`` per slot in a beam pool (``engine/beam_pool.py``);
+    admission, ``running`` and retirement go by slot."""
+
+    _row_mult = 1
 
     def __init__(
         self,
@@ -152,6 +163,7 @@ class ContinuousBatcher:
         self.cfg = engine.config
         self.device = engine.device
         self.max_slots = max_slots
+        self.rows = max_slots * self._row_mult
         self.max_seq_len = max_seq_len
         self.prompt_bucket = prompt_bucket
         self.stop_words_width = stop_words_width
@@ -197,12 +209,12 @@ class ContinuousBatcher:
             max_seq_len, cfg.rotary_embedding_dim, cfg.rotary_base, self.device
         )
         self._zero_noise = torch.zeros(
-            (max_slots, min(sampling_cap, cfg.vocab_size)), dtype=torch.float32, device=self.device
+            (self.rows, min(sampling_cap, cfg.vocab_size)), dtype=torch.float32, device=self.device
         )
 
     # ------------------------------------------------------------ state ----
     def _init_state(self):
-        cfg, S, B, dev = self.cfg, self.max_seq_len, self.max_slots, self.device
+        cfg, S, B, dev = self.cfg, self.max_seq_len, self.rows, self.device
         dt = self.engine._cache_dtype()
         if self.paged is not None:
             cache = init_paged_cache(cfg, B, S, int(self.paged["num_pages"]), self.page_size,

@@ -27,6 +27,7 @@ from ..models import gptneox as model
 from ..models.params import Params
 from ..ops.rotary import make_rotary_tables
 from ..sampling import processors as proc
+from ..sampling.beam import beam_search_generate
 from ..sampling.sample import (
     gumbel_noise,
     sample_greedy,
@@ -47,6 +48,9 @@ class DecodeState:
     generators: Optional[list]  # one torch.Generator per row (sampled requests)
     step_log_probs: Optional[torch.Tensor]  # [B, output_len] fp32
     gen_step: int = 0
+    # beam search: [B, T] int32, the beam (in [0, bw)) of its group whose
+    # cache row holds each position of the row's hypothesis
+    beam_indir: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,15 +192,27 @@ class GptNeoXEngine:
         s.gen_step += 1
         s.newest = tok
 
-    def _forward_newest(self, s: DecodeState, rotary_tables) -> None:
+    def _forward_newest(self, s: DecodeState, rotary_tables, beam_width: int = 1) -> None:
         """Decode-forward each row's newest token: the logits of the next
-        sample."""
+        sample.
+
+        With ``beam_width > 1`` the cache stays fixed and attention resolves
+        ``s.beam_indir`` (K11). Finished rows write at slot S - 1
+        (``sacrifice_last``): after a reorder the hypothesis in row r is no
+        longer the lineage that wrote row r's slab, so a write at its frozen
+        position would clobber bytes that other beams still read through the
+        indirection; every row that reaches S - 1 writes it itself before it
+        attends over it."""
         B, T = s.tokens.shape
         buf_idx = (s.seq_lens - 1).clamp(0, T - 1)
         newest = s.tokens[torch.arange(B, device=self.device), buf_idx.long()]
+        kw = {}
+        if beam_width > 1:
+            kw = dict(beam=(beam_width, s.beam_indir), kv_skip=s.finished,
+                      kv_skip_mode="sacrifice_last")
         hidden, s.cache = model.decode_step(
             self.config, self.params, newest, buf_idx.to(torch.int32), s.cache,
-            rotary_tables=rotary_tables,
+            rotary_tables=rotary_tables, **kw,
         )
         s.logits = model.lm_logits(self.config, self.params, hidden)
         self.decode_forwards += 1
@@ -364,9 +380,14 @@ class GptNeoXEngine:
         tokens stream as ``{"last_tokens": [[tok]] * B, "idxs": [[gen_idx]] * B}``
         (gen_idx: 0-based index in the generated region; a finished row
         repeats end_id with its last index) -- the reference's callback
-        message format."""
+        message format. ``beam_width > 1`` runs beam search
+        (``sampling/beam.py``): outputs per beam, best first."""
         if beam_width != 1:
-            raise NotImplementedError("beam search is ROADMAP queue 1 item 12")
+            return GenerationOutput(*beam_search_generate(
+                self, input_ids, output_len, beam_width, callback=callback,
+                beam_search_diversity_rate=beam_search_diversity_rate, len_penalty=len_penalty,
+                **sampling_kwargs,
+            ))
         st, inputs = self._prepare(input_ids, output_len, **sampling_kwargs)
         self.decode_forwards = 0
         s = self._prefill_state(st, inputs)

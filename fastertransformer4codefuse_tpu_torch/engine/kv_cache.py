@@ -24,6 +24,7 @@ from ..core.device import resolve_device
 from ..ops.attention import MASK_VALUE
 from ..ops.flash_decode import (
     flash_chunk_paged,
+    flash_decode_beam_stacked,
     flash_decode_paged,
     flash_decode_stacked,
     pack_seq_pairs as _pack_seq_pairs,
@@ -252,15 +253,25 @@ def attend_decode(
     q: torch.Tensor,  # [B, nH, dh]
     sm_scale: float,
     positions: torch.Tensor,  # [B] int32
+    beam=None,  # (bw, indir [B, S] int32): beam rows read through the cache indirection
 ) -> torch.Tensor:
     """Single-token attention over layer ``layer`` of the cache: K4 for a
-    dense cache, K9 for a paged one (the kernel on CUDA, its plain version on
-    the CPU). The scales commute out of both contractions: scores =
-    (q . k8) * k_s, out = (p * v_s) @ v8."""
+    dense cache, K11 for a dense cache with ``beam``, K9 for a paged one (the
+    kernel on CUDA, its plain version on the CPU). The scales commute out of
+    both contractions: scores = (q . k8) * k_s, out = (p * v_s) @ v8. Beam
+    indirection addresses row-contiguous slabs: a paged cache refuses it."""
     if paged_kv.is_paged(cache):
+        if beam is not None:
+            raise ValueError("paged pools do not support beam search")
         return flash_decode_paged(
             q, slab(cache, "pk"), cache.get("pk_s"), slab(cache, "pv"),
             cache.get("pv_s"), layer, positions, cache["pt"], sm_scale,
+        )
+    if beam is not None:
+        bw, indir = beam
+        return flash_decode_beam_stacked(
+            q, slab(cache, "k"), cache.get("k_s"), slab(cache, "v"), cache.get("v_s"),
+            layer, positions, indir, bw, sm_scale,
         )
     return flash_decode_stacked(
         q, slab(cache, "k"), cache.get("k_s"), slab(cache, "v"), cache.get("v_s"),

@@ -12,9 +12,9 @@ mutex-guarded mailbox and wait on per-request events. Streaming callbacks
 fire on the driver thread, so keep them cheap. A driver that dies reports
 its exception to every waiter.
 
-Beam pools (``beam_width > 1``) and speculative pools are ROADMAP queue 1
-items 12 and 15: asking for either raises instead of building a sampling
-pool.
+``beam_width > 1`` builds a beam pool (``engine/beam_pool.py``) on dense
+slabs. Speculative pools are ROADMAP queue 1 item 15: asking for one raises
+instead of building a sampling pool.
 """
 from __future__ import annotations
 
@@ -22,17 +22,28 @@ import threading
 from typing import Callable, Dict, List, Optional, Sequence
 
 from .batcher import ContinuousBatcher, Request
+from .beam_pool import BeamPool
 
 
 class BatchingServer:
     """Thread-safe request mailbox + driver thread around ContinuousBatcher."""
 
     def __init__(self, engine, **pool_kwargs):
-        if int(pool_kwargs.pop("beam_width", 1) or 1) > 1:
-            raise NotImplementedError("beam-search pools are ROADMAP queue 1 item 12")
+        bw = int(pool_kwargs.pop("beam_width", 1) or 1)
         if pool_kwargs.pop("speculative", False):
             raise NotImplementedError("speculative pools are ROADMAP queue 1 item 15")
-        self.batcher = ContinuousBatcher(engine, **pool_kwargs)
+        if bw > 1:
+            if pool_kwargs.pop("paged", None):
+                # a dense pool instead would multiply the requested page
+                # budget by beam_width
+                raise ValueError("beam pools are dense (beam indirection addresses row-contiguous "
+                                 "slabs); drop paged= or use beam_width=1")
+            # beams ignore top-k / top-p, and their scores are returned anyway
+            pool_kwargs.pop("sampling_cap", None)
+            pool_kwargs.pop("return_log_probs", None)
+            self.batcher = BeamPool(engine, beam_width=bw, **pool_kwargs)
+        else:
+            self.batcher = ContinuousBatcher(engine, **pool_kwargs)
         self._lock = threading.Lock()
         self._mailbox: List[Request] = []
         self._events: Dict[int, threading.Event] = {}
@@ -96,7 +107,9 @@ class BatchingServer:
     def routable_pool(self, need: int, beam_width: int = 1):
         """The batcher a (length, beam_width) request would land in, or None."""
         b = self.batcher
-        return b if beam_width == 1 and need <= b.max_seq_len else None
+        if getattr(b, "beam_width", 1) != beam_width:
+            return None
+        return b if need <= b.max_seq_len else None
 
     def close(self):
         self._shutdown = True
@@ -133,10 +146,11 @@ class BatchingServer:
 
 class MultiPoolServer:
     """Length-classed slot pools over one engine (shared weights): each
-    request routes to the smallest pool class it fits, each class with its
-    own driver thread. ``pools``: a list of BatchingServer kwargs, e.g.
-    ``[dict(max_slots=16, max_seq_len=256), dict(max_slots=4,
-    max_seq_len=2048)]``. API-compatible with BatchingServer."""
+    request routes to the smallest pool class of its beam width that it
+    fits, each class with its own driver thread. ``pools``: a list of
+    BatchingServer kwargs, e.g. ``[dict(max_slots=16, max_seq_len=256),
+    dict(max_slots=4, max_seq_len=2048)]``. API-compatible with
+    BatchingServer."""
 
     def __init__(self, engine, pools):
         if not pools:

@@ -129,17 +129,18 @@ def block_prefill(config, lp, x, cache, layer, cos, sin, input_lengths):
 
 
 def block_decode(config, lp, x, cache, layer, cos, sin, positions, kv_skip=None,
-                 kv_skip_mode="preserve"):
+                 kv_skip_mode="preserve", beam=None):
     """x [B, 1, H], the newest token per row; cos/sin [B, 1, rot/2];
     positions [B] int32, the slot of each row's new token; ``kv_skip`` [B]
     bool rows whose cache write must not disturb readable state
-    (``kv_cache.write_decode``)."""
+    (``kv_cache.write_decode``); ``beam`` (bw, indir) reads the cache
+    through the beam indirection (K11)."""
     B, _, H = x.shape
     sm_scale = 1.0 / (config.size_per_head ** 0.5)
     ln1 = _norm(config, x, lp["ln1_w"], lp.get("ln1_b"))
     q, k, v = _qkv(config, lp, ln1, cos, sin)
     kvc.write_decode(cache, layer, k, v, positions, skip=kv_skip, skip_mode=kv_skip_mode)
-    attn = kvc.attend_decode(cache, layer, q[:, 0].contiguous(), sm_scale, positions)
+    attn = kvc.attend_decode(cache, layer, q[:, 0].contiguous(), sm_scale, positions, beam=beam)
     attn2d = attn.reshape(B, H)
     x2d = x[:, 0]
 
@@ -220,10 +221,13 @@ def decode_step(
     rotary_tables=None,
     kv_skip=None,
     kv_skip_mode: str = "preserve",
+    beam=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One incremental decode step: (hidden [B, H], cache). ``kv_skip`` rows
     write their (discarded) token where readable state stays intact
-    (``kv_cache.write_decode``)."""
+    (``kv_cache.write_decode``). ``beam`` = (bw, indir [B, S] int32): the
+    rows are beam-minor hypotheses whose attention resolves the cache
+    indirection (the beam search's fixed cache)."""
     check_supported(config)
     cache_len = kvc.seq_len_of(cache)
     x = _embed_lookup(params, tokens)[:, None, :]
@@ -236,7 +240,7 @@ def decode_step(
     layers = params["layers"]
     for l in range(config.layer_num):
         x, cache = block_decode(config, layer_slice(layers, l), x, cache, l, cos, sin, positions,
-                                kv_skip, kv_skip_mode)
+                                kv_skip, kv_skip_mode, beam)
     return x[:, 0], cache
 
 

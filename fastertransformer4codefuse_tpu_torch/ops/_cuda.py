@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -40,6 +41,7 @@ _SIGNATURES = {
     "ftcf_fused_proj_down": [I, P, P, P, I, I, P, P, P, I, I, I, I, P, I, P, P, P, P],
     "ftcf_flash_decode": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
     "ftcf_flash_decode_paged": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+    "ftcf_flash_decode_beam": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
     "ftcf_flash_chunk_paged": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
     "ftcf_prefill_flash": [P, P, P, P, P, I, I, I, I, I, F, P],
 }
@@ -74,7 +76,8 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless the library for their hash exists: one
-    ``nvcc -c`` per source in parallel, then one link."""
+    ``nvcc -c`` per source in parallel, then one link. ``build_log`` gives
+    each source's compile time and ptxas report."""
     global build_log
     out = library_path()
     if out.exists():
@@ -84,12 +87,22 @@ def build() -> Path:
     cu, _ = _sources()
     nvcc = _nvcc()
     objs = [BUILD_DIR / f"{tag}.{c.stem}.o" for c in cu]
-    procs = [
-        subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", str(o), str(c)],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for c, o in zip(cu, objs)
-    ]
-    logs = [f"== {c.name}\n{p.communicate()[0]}" for c, p in zip(cu, procs)]
+    logs_f = [o.with_suffix(".out") for o in objs]
+    t0 = time.perf_counter()
+    procs = []
+    for c, o, log_f in zip(cu, objs, logs_f):
+        with open(log_f, "w") as f:
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", str(o), str(c)],
+                stdout=f, stderr=subprocess.STDOUT))
+    secs = {}  # each source's compile time: the longest bounds the build
+    while len(secs) < len(procs):
+        for i, p in enumerate(procs):
+            if i not in secs and p.poll() is not None:
+                secs[i] = time.perf_counter() - t0
+        time.sleep(0.05)
+    logs = [f"== {c.name} ({secs[i]:.1f} s)\n{log_f.read_text()}"
+            for i, (c, log_f) in enumerate(zip(cu, logs_f))]
     failed = [c.name for c, p in zip(cu, procs) if p.returncode != 0]
     tmp = BUILD_DIR / f"{tag}.tmp"
     if not failed:
@@ -98,7 +111,7 @@ def build() -> Path:
         logs.append(f"== link\n{link.stdout}{link.stderr}")
         failed = ["link"] if link.returncode != 0 else []
     build_log = "\n".join(logs)
-    for o in objs:
+    for o in objs + logs_f:
         o.unlink(missing_ok=True)
     if failed:
         raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")

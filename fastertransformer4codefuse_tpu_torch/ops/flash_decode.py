@@ -1,7 +1,8 @@
 """Decode and chunk attention kernels over the KV cache (port of
 ops/flash_decode.py).
 
-- K4 ``flash_decode_stacked`` (CUDA in ``csrc/flash_decode.cu``): one query
+- K4 ``flash_decode_stacked`` (CUDA in ``csrc/flash_decode.cuh``, entry in
+  ``csrc/flash_decode.cu``; K9 and K11 have their own entry files): one query
   token per row attends the dense cache slots ``[0, positions[b]]`` of its
   row; GQA takes g = nH / nKV query heads per KV head. The cache is the
   stacked ``[L, B, nKV, S, dh]`` slab (int8 with ``[L, B, nKV, S]`` bf16
@@ -13,8 +14,11 @@ ops/flash_decode.py).
 - K10 ``flash_chunk_paged`` (``csrc/flash_chunk.cu``): C consecutive
   queries per row starting at ``pos[b]`` over the paged pool; query c
   attends keys ``0 .. pos[b] + c``.
+- K11 ``flash_decode_beam_stacked`` (K4's body, positions addressed through
+  the beam indirection): beam-minor rows (row b * bw + j) over the dense
+  slab, position s of row b read from row ``b - b % bw + indir[b, s]``.
 
-All three read packed int4 slabs too (the ``"int4"`` and ``"int8k_int4v"``
+All four read packed int4 slabs too (the ``"int4"`` and ``"int8k_int4v"``
 caches): sequence positions 2i and 2i + 1 share pair row i, position 2i in
 the low nibble, so a packed slab has half the positions of its scale slab,
 which stays per unpacked position. Packing is told from the shapes, for K and
@@ -204,6 +208,94 @@ def flash_decode_stacked(
 
 flash_decode_stacked.launches = 0
 flash_decode_stacked.launches_packed = 0
+
+
+def gather_beam_rows(slab_l: torch.Tensor, indir: torch.Tensor, bw: int) -> torch.Tensor:
+    """A layer's unpacked slab ``[BB, nKV, S(, dh)]`` read through the beam
+    indirection ``indir`` ``[BB, S]``: position s of row b comes from row
+    ``b - b % bw + indir[b, s]`` (its beam group's physical row)."""
+    BB, S = indir.shape
+    base = torch.arange(BB, device=indir.device) // bw * bw
+    src = base[:, None] + indir.long()  # [BB, S]
+    by_pos = slab_l.transpose(1, 2)  # [BB, S, nKV(, dh)]
+    return by_pos[src, torch.arange(S, device=indir.device)[None, :]].transpose(1, 2)
+
+
+def flash_decode_beam_plain(q, k_all, ks_all, v_all, vs_all, layer, positions, indir, bw,
+                            sm_scale):
+    """K11's math as the physical gather: every slab of the layer (packed ones
+    unpacked) resolved through ``indir`` into the dense view each row reads,
+    then K4's plain version over it."""
+    def resolved(slab, scales=None):
+        if slab is None:
+            return None
+        t = slab[layer]
+        if scales is not None and is_packed(slab, scales):
+            t = unpack_seq_pairs(t)
+        return gather_beam_rows(t, indir, bw)[None]
+
+    return flash_decode_stacked_plain(
+        q, resolved(k_all, ks_all), resolved(ks_all), resolved(v_all, vs_all), resolved(vs_all),
+        0, positions, sm_scale,
+    )
+
+
+def flash_decode_beam_stacked(
+    q: torch.Tensor,  # [BB, nH, dh] bf16, beam-minor rows (row b * bw + j)
+    k_all: torch.Tensor,  # [L, BB, nKV, S, dh] int8 or bf16, [L, BB, nKV, S/2, dh] packed int4
+    ks_all,  # [L, BB, nKV, S] bf16 scales, or None for a bf16 cache
+    v_all: torch.Tensor,
+    vs_all,
+    layer: int,
+    positions: torch.Tensor,  # [BB] int32, newest-token slot per row (inclusive bound)
+    indir: torch.Tensor,  # [BB, S] int32 in [0, bw): the cache indirection
+    bw: int,
+    sm_scale: float,
+) -> torch.Tensor:
+    """K11: decode attention where position s of row b reads the cached
+    vector of row ``b - b % bw + indir[b, s]`` (the reference's cache
+    indirection). Every K4 format and GQA up to g = 8. The indirection is
+    trusted, as in the JAX package: its values are never checked on the card.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    if not q.is_cuda:
+        return flash_decode_beam_plain(q, k_all, ks_all, v_all, vs_all, layer, positions, indir,
+                                       bw, sm_scale)
+    req = _cuda.require
+    BB, nH, dh = q.shape
+    quant = ks_all is not None
+    req(q.dtype == torch.bfloat16 and q.is_contiguous(),
+        "flash_decode_beam: q must be contiguous bf16")
+    kfmt, vfmt = _kv_formats("flash_decode_beam", k_all, ks_all, v_all, vs_all)
+    L, B2, nKV, _, dh2 = k_all.shape
+    S = ks_all.shape[3] if quant else k_all.shape[3]
+    req((B2, dh2) == (BB, dh) and 0 <= int(layer) < L,
+        "flash_decode_beam: cache shape vs q / layer")
+    req(dh in (128, 256), f"flash_decode_beam: dh must be 128 or 256, got {dh}")
+    req(nH % nKV == 0 and nH // nKV <= 8, "flash_decode_beam: nH must be nKV * g with g <= 8")
+    req(int(bw) >= 1 and BB % int(bw) == 0, "flash_decode_beam: rows must be groups of bw beams")
+    req(positions.dtype == torch.int32 and positions.shape == (BB,)
+        and positions.is_contiguous(), "flash_decode_beam: positions must be int32 [BB]")
+    req(indir.dtype == torch.int32 and indir.shape == (BB, S) and indir.is_contiguous(),
+        "flash_decode_beam: indir must be contiguous int32 [BB, S]")
+    for t in (k_all, v_all, ks_all, vs_all, positions, indir):
+        req(t is None or t.device == q.device, "flash_decode_beam: operands on different devices")
+    layer = int(layer)
+    out = torch.empty_like(q)
+    err = _cuda.lib().ftcf_flash_decode_beam(
+        q.data_ptr(), k_all[layer].data_ptr(),
+        ks_all[layer].data_ptr() if quant else None,
+        v_all[layer].data_ptr(), vs_all[layer].data_ptr() if quant else None,
+        positions.data_ptr(), indir.data_ptr(), out.data_ptr(), BB, nKV, nH // nKV, S, int(bw),
+        dh, kfmt, vfmt, float(sm_scale), _cuda.stream_of(q),
+    )
+    _cuda.check(err, "flash_decode_beam")
+    _count(flash_decode_beam_stacked, kfmt, vfmt)
+    return out
+
+
+flash_decode_beam_stacked.launches = 0
+flash_decode_beam_stacked.launches_packed = 0
 
 
 def gather_pages(slab_l: torch.Tensor, page_table: torch.Tensor, packed: bool = False

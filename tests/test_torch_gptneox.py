@@ -260,12 +260,26 @@ def test_handler_static_path_matches_jax():
 
 
 def test_handler_reports_unported_requests():
-    _, th, _ = _handlers()
+    import json
+
+    jh, th, _ = _handlers()
     code, msg, res = th.predict(
         {"prompts": [{"prompt": "a"}], "out_seq_length": 2, "speculative": True}, "t"
     )
     assert code == 1 and "NotImplementedError" in msg and res == {"res": ""}
-    # pools are served now; beam-search pools are not (ROADMAP queue 1 item 12)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        CodeFuseHandler(engine=th.engine, tokenizer=th.tokenizer, warmup=False,
-                        pool=dict(beam_width=2))
+    # a handler with a beam pool builds and serves beams, as the JAX one does
+    pool = dict(beam_width=2, max_slots=2, max_seq_len=64, prompt_bucket=8)
+    req = {"prompts": [{"prompt": "def fib(n):", "len_penalty": 0.6}], "out_seq_length": 6,
+           "beam_width": 2}
+    tp = CodeFuseHandler(engine=th.engine, tokenizer=th.tokenizer, warmup=False, pool=pool)
+    jp = JaxHandler(engine=jh.engine, tokenizer=jh.tokenizer, warmup=False, pool=pool)
+    try:
+        (tcode, tmsg, tres), (jcode, jmsg, jres) = tp.predict(req, "t"), jp.predict(req, "j")
+        assert tcode == 0 and jcode == 0, (tmsg, jmsg)
+        tr, jr = json.loads(tres["res"]), json.loads(jres["res"])
+        assert tp.server.batcher.decode_ticks > 0
+        assert tr["generated_code"] == jr["generated_code"] and tr["length"] == jr["length"]
+        np.testing.assert_allclose(tr["cum_log_prob"], jr["cum_log_prob"], rtol=1e-4, atol=1e-4)
+    finally:
+        tp.close()
+        jp.server.close()

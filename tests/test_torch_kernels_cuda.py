@@ -1,6 +1,7 @@
-"""The CUDA kernels K1-K10 against their plain versions on the card, at small
-and ragged shapes, K4/K9/K10 also on packed int4 caches (chip_smoke.py covers
-the CodeFuse-13B shapes). Marked
+"""The CUDA kernels K1-K11 against their plain versions on the card, at small
+and ragged shapes, K4/K9/K10/K11 also on packed int4 caches (chip_smoke.py
+covers the CodeFuse-13B shapes); K11 also bit for bit against K4 over a
+physically gathered copy of its cache. Marked
 ``cuda``: skipped where there is no GPU. On a GPU machine without jax:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -19,10 +20,16 @@ from fastertransformer4codefuse_tpu_torch.ops.attention import (
 from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
     flash_chunk_paged,
     flash_chunk_paged_plain,
+    flash_decode_beam_plain,
+    flash_decode_beam_stacked,
     flash_decode_paged,
     flash_decode_paged_plain,
     flash_decode_stacked,
     flash_decode_stacked_plain,
+    gather_beam_rows,
+    is_packed,
+    pack_seq_pairs,
+    unpack_seq_pairs,
 )
 from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
 from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_fused import (
@@ -483,3 +490,81 @@ def test_packed_nibble_order(gen):
                                                                    device="cuda"), pt, 0.1)
     torch.cuda.synchronize()
     assert torch.equal(got.float().cpu(), want.reshape(1, 2, 1, 1).expand(2, 2, nKV, dh))
+
+
+def _beam_cache(gen, kind, shape):
+    """(k, ks, v, vs) of a ``kind`` cache over ``shape`` = (L, BB, nKV, S, dh)."""
+    if kind == "bf16":
+        return _bf(gen, *shape), None, _bf(gen, *shape), None
+    if kind == "int8":
+        ks = (torch.rand(shape[:-1], device="cuda", generator=gen) * 0.02).bfloat16()
+        vs = (torch.rand(shape[:-1], device="cuda", generator=gen) * 0.02).bfloat16()
+        return _i8(gen, *shape), ks, _i8(gen, *shape), vs
+    return _packed(gen, shape, kind)
+
+
+def _gathered(slab, scales, layer, indir, bw):
+    """Layer ``layer`` of a K/V slab (``scales`` given) or of a scale slab
+    (None), resolved through the beam indirection into a dense [1, BB, ...]
+    copy, packed again where it was packed."""
+    t = slab[layer]
+    packed = scales is not None and is_packed(slab, scales)
+    g = gather_beam_rows(unpack_seq_pairs(t) if packed else t, indir, bw)
+    return (pack_seq_pairs(g) if packed else g)[None].contiguous()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "int8k_int4v"])
+@pytest.mark.parametrize("B,bw,nH,nKV,dh,S", [(2, 4, 8, 8, 128, 300), (1, 3, 8, 2, 128, 130),
+                                              (2, 2, 4, 4, 256, 64)])
+def test_k11_matches_plain_and_k4_over_a_gathered_copy(gen, kind, B, bw, nH, nKV, dh, S):
+    """MHA and GQA, every cache format: K11 against its plain version, and
+    bit for bit against K4 over the physically resolved cache (one body, the
+    same values read in the same order)."""
+    L, BB = 2, B * bw
+    k, ks, v, vs = _beam_cache(gen, kind, (L, BB, nKV, S, dh))
+    q = _bf(gen, BB, nH, dh)
+    pos = torch.randint(0, S, (BB,), generator=gen, device="cuda", dtype=torch.int32)
+    pos[0] = S - 1
+    indir = torch.randint(0, bw, (BB, S), generator=gen, device="cuda", dtype=torch.int32)
+    sm = dh ** -0.5
+    before, before_p = flash_decode_beam_stacked.launches, flash_decode_beam_stacked.launches_packed
+    got = flash_decode_beam_stacked(q, k, ks, v, vs, 1, pos, indir, bw, sm)
+    assert flash_decode_beam_stacked.launches == before + 1
+    assert flash_decode_beam_stacked.launches_packed == before_p + (kind in ("int4", "int8k_int4v"))
+    assert _rel(got, flash_decode_beam_plain(q, k, ks, v, vs, 1, pos, indir, bw, sm)) < 2e-2
+    gk, gv = _gathered(k, ks, 1, indir, bw), _gathered(v, vs, 1, indir, bw)
+    gks = None if ks is None else _gathered(ks, None, 1, indir, bw)
+    gvs = None if vs is None else _gathered(vs, None, 1, indir, bw)
+    want = flash_decode_stacked(q, gk, gks, gv, gvs, 0, pos, sm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_k11_reads_stop_at_position(gen):
+    """Slots past a row's position may hold anything (NaN): K11 never reads
+    them, whichever row the indirection names there."""
+    bw, nH, dh, S = 2, 4, 128, 256
+    k, v, q = _bf(gen, 1, bw, nH, S, dh), _bf(gen, 1, bw, nH, S, dh), _bf(gen, bw, nH, dh)
+    pos = torch.tensor([100, 60], dtype=torch.int32, device="cuda")
+    indir = torch.randint(0, bw, (bw, S), generator=gen, device="cuda", dtype=torch.int32)
+    clean = flash_decode_beam_stacked(q, k, None, v, None, 0, pos, indir, bw, 0.088)
+    k[..., 101:, :] = 1e4
+    v[..., 101:, :] = float("nan")
+    again = flash_decode_beam_stacked(q, k, None, v, None, 0, pos, indir, bw, 0.088)
+    torch.cuda.synchronize()
+    assert torch.equal(clean, again)
+
+
+def test_k11_raises_on_what_it_does_not_take(gen):
+    bw, nH, dh, S = 2, 4, 128, 64
+    k, v, q = _bf(gen, 1, 4, nH, S, dh), _bf(gen, 1, 4, nH, S, dh), _bf(gen, 4, nH, dh)
+    pos = torch.zeros(4, dtype=torch.int32, device="cuda")
+    indir = torch.zeros(4, S, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError):
+        flash_decode_beam_stacked(q, k, None, v, None, 0, pos, indir.long(), bw, 0.1)
+    with pytest.raises(ValueError):
+        flash_decode_beam_stacked(q, k, None, v, None, 0, pos, indir, 3, 0.1)  # 4 rows, bw 3
+    with pytest.raises(ValueError):
+        flash_decode_beam_stacked(q, k, None, v, None, 0, pos, indir[:, :32], bw, 0.1)
+    with pytest.raises(ValueError):
+        flash_decode_beam_stacked(q.float(), k, None, v, None, 0, pos, indir, bw, 0.1)

@@ -29,6 +29,7 @@ from fastertransformer4codefuse_tpu_torch.core.device import resolve_device
 from fastertransformer4codefuse_tpu_torch.engine import kv_cache as kvc
 from fastertransformer4codefuse_tpu_torch.engine import paged_kv
 from fastertransformer4codefuse_tpu_torch.engine.batcher import ContinuousBatcher
+from fastertransformer4codefuse_tpu_torch.engine.beam_pool import BeamPool
 from fastertransformer4codefuse_tpu_torch.engine.server import BatchingServer, MultiPoolServer
 from test_api import CharTokenizer
 
@@ -134,13 +135,21 @@ def test_multi_pool_server_routes_by_length(engine):
 
 
 def test_unported_pool_kinds_raise_naming_their_item(engine):
-    """Beam, speculative and prompt-learning pools are not served yet: each
-    raises NotImplementedError naming its ROADMAP item and none builds another
-    pool instead. Packed int4 KV is served on pages only: a dense pool
-    refuses it (pair bytes), as do odd buckets or page sizes."""
+    """Speculative and prompt-learning pools are not served yet: each raises
+    NotImplementedError naming its ROADMAP item and none builds another pool
+    instead. ``beam_width > 1`` builds a beam pool, on dense slabs only (a
+    paged beam pool raises ValueError). Packed int4 KV is served on pages
+    only: a dense pool refuses it (pair bytes), as do odd buckets or page
+    sizes."""
+    srv = BatchingServer(engine, beam_width=2, max_slots=2, max_seq_len=16, prompt_bucket=8)
+    try:
+        assert isinstance(srv.batcher, BeamPool) and srv.batcher.beam_width == 2
+    finally:
+        srv.close()
+    with pytest.raises(ValueError, match="beam pools are dense"):
+        BatchingServer(engine, beam_width=2, max_slots=2, max_seq_len=16, prompt_bucket=8,
+                       paged=dict(num_pages=4, page_size=8))
     cases = [
-        (lambda: BatchingServer(engine, beam_width=2, max_slots=2, max_seq_len=16,
-                                prompt_bucket=8), "item 12"),
         (lambda: BatchingServer(engine, speculative=True, max_slots=2, max_seq_len=16,
                                 prompt_bucket=8), "item 15"),
         (lambda: ContinuousBatcher(engine, max_slots=2, max_seq_len=16, prompt_bucket=8,
@@ -160,9 +169,12 @@ def test_unported_pool_kinds_raise_naming_their_item(engine):
         b = ContinuousBatcher(eng4, max_slots=2, max_seq_len=16, prompt_bucket=8,
                               paged=dict(num_pages=4, page_size=8))
         assert paged_kv.packed4(b._state["cache"], "pv")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        CodeFuseHandler(engine=engine, tokenizer=CharTokenizer(), warmup=False,
+    h = CodeFuseHandler(engine=engine, tokenizer=CharTokenizer(), warmup=False,
                         pool=dict(beam_width=2, max_slots=2, max_seq_len=16, prompt_bucket=8))
+    try:
+        assert isinstance(h.server.batcher, BeamPool)
+    finally:
+        h.close()
 
 
 def _handlers(engine, **pool_kw):
@@ -237,7 +249,8 @@ def test_handler_paged_pool_serves_threads_like_the_static_path(engine):
 
 def test_handler_multi_pool_classes_and_fallback(engine):
     """pool=[classA, classB] routes by length; requests no class can serve
-    (too long, pure top-p, beam search) take the static path."""
+    (too long, pure top-p, beam search without a beam class) take the static
+    path."""
     static, pooled = _handlers(engine)
     tok = pooled.tokenizer
     multi = CodeFuseHandler(engine=engine, tokenizer=tok, trie=pooled.trie, warmup=True,
@@ -260,11 +273,19 @@ def test_handler_multi_pool_classes_and_fallback(engine):
                    "out_seq_length": 4}
         code, err, _ = pooled.predict(nucleus, "fb2")
         assert code == 0, err
-        # beam search is not ported: the static path reports it
-        code, err, res = pooled.predict(
-            {"prompts": [{"prompt": "hello", "top_k": 1}], "out_seq_length": 4,
-             "beam_width": 2}, "fb3")
-        assert code == 1 and "queue 1 item 12" in err and res == {"res": ""}
+        # no beam class: a beam request takes the static path
+        beam_req = {"prompts": [{"prompt": "hello", "top_k": 1}], "out_seq_length": 4,
+                    "beam_width": 2}
+        assert not pooled._pool_routable(
+            {"beam_width": 2, "output_len": 4, "top_k": [1], "output_log_probs": False},
+            [tok.encode("hello")])
+        code, err, res = pooled.predict(beam_req, "fb3")
+        cs, es, rs = static.predict(beam_req, "s3")
+        assert code == 0 and cs == 0, (err, es)
+        got, want = json.loads(res["res"]), json.loads(rs["res"])
+        assert len(got["generated_code"][0]) == 2
+        for key in ("generated_code", "length", "cum_log_prob"):
+            assert got[key] == want[key], key
     finally:
         pooled.close()
         multi.close()
