@@ -13,12 +13,17 @@ int8, or int4 weights (per-channel or group-wise scales), and an int8 KV
 cache, served through ``GptNeoXEngine.generate``,
 ``api.handler.CodeFuseHandler.predict`` (static path, or a continuous-batching
 pool with ``pool=``), ``engine.server.BatchingServer`` on dense or paged KV,
-and ``api.http_server``. Constructors build on the CUDA card unless given
-``device="cpu"``.
+and ``api.http_server``. Encoders: BERT (float or int8 weights, K1) and
+Longformer (local attention through K12, the banded sliding-window kernel),
+served through ``engine.encoder_server.EncoderBatchingServer``. Constructors
+build on the CUDA card unless given ``device="cpu"``.
 """
 
 from .core.config import GptNeoXConfig, RuntimeConfig
+from .engine.encoder_server import EncoderBatchingServer
 from .engine.engine import GenerationOutput, GptNeoXEngine
+from .models.bert import BertConfig, BertEngine
+from .models.longformer import LongformerConfig, LongformerEngine
 from .models.params import QuantizedTensor, from_jax_params, init_params
 
 __version__ = "0.1.0"
@@ -31,4 +36,9 @@ __all__ = [
     "QuantizedTensor",
     "init_params",
     "from_jax_params",
+    "BertConfig",
+    "BertEngine",
+    "LongformerConfig",
+    "LongformerEngine",
+    "EncoderBatchingServer",
 ]

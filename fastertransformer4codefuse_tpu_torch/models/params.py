@@ -256,12 +256,15 @@ def from_jax_params(tree, device=None) -> Params:
     return conv(tree)
 
 
-def params_to(params: Params, device) -> Params:
-    """A copy of ``params`` on ``device``."""
+def params_to(params: Params, device, dtype=None) -> Params:
+    """A copy of ``params`` on ``device``; with ``dtype``, the floating
+    tensors other than a QuantizedTensor's payload and scales in that dtype."""
     if isinstance(params, dict):
-        return {k: params_to(v, device) for k, v in params.items()}
+        return {k: params_to(v, device, dtype) for k, v in params.items()}
     if isinstance(params, QuantizedTensor):
         return dataclasses.replace(params, q=params.q.to(device), scale=params.scale.to(device))
+    if dtype is not None and params.is_floating_point():
+        return params.to(device=device, dtype=torch_dtype(dtype))
     return params.to(device)
 
 

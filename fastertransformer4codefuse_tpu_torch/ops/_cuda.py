@@ -44,6 +44,7 @@ _SIGNATURES = {
     "ftcf_flash_decode_beam": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
     "ftcf_flash_chunk_paged": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
     "ftcf_prefill_flash": [P, P, P, P, P, I, I, I, I, I, F, P],
+    "ftcf_sliding_window": [P, P, P, P, P, I, I, I, I, I, I, P],
 }
 
 _lock = threading.Lock()

@@ -1,14 +1,14 @@
-"""The CUDA kernels K1-K11 against their plain versions on the card, at small
+"""The CUDA kernels K1-K12 against their plain versions on the card, at small
 and ragged shapes, K4/K9/K10/K11 also on packed int4 caches (chip_smoke.py
-covers the CodeFuse-13B shapes); K11 also bit for bit against K4 over a
-physically gathered copy of its cache. Marked
+covers the CodeFuse-13B and Longformer-base shapes); K11 also bit for bit
+against K4 over a physically gathered copy of its cache. Marked
 ``cuda``: skipped where there is no GPU. On a GPU machine without jax:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 Tolerance: max |kernel - plain| / max |plain| below 1e-2 for the GEMMs (bf16
 output rounding plus fp32 summation order) and 2e-2 where a bf16
-intermediate (K2's hidden, K4/K5/K9/K10's probabilities) may round
+intermediate (K2's hidden, K4/K5/K9-K12's probabilities) may round
 differently."""
 import pytest
 import torch
@@ -45,6 +45,10 @@ from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_w4 import (
     quant_matmul_w4_head,
     quant_matmul_w4_head_plain,
     quant_matmul_w4_plain,
+)
+from fastertransformer4codefuse_tpu_torch.ops.sliding_window import (
+    sliding_window_attention,
+    sliding_window_attention_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -568,3 +572,70 @@ def test_k11_raises_on_what_it_does_not_take(gen):
         flash_decode_beam_stacked(q, k, None, v, None, 0, pos, indir[:, :32], bw, 0.1)
     with pytest.raises(ValueError):
         flash_decode_beam_stacked(q.float(), k, None, v, None, 0, pos, indir, bw, 0.1)
+
+
+def _masked(lens, S):
+    return torch.arange(S, device="cuda")[None, :] >= torch.tensor(lens, device="cuda")[:, None]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize(
+    "B,S,nH,dh,w,lens",
+    [(2, 300, 4, 64, 50, [300, 123]), (2, 300, 4, 128, 50, [300, 123]),
+     (3, 129, 2, 64, 0, [129, 1, 64]), (1, 1000, 2, 64, 256, [1000]),
+     (2, 77, 3, 128, 200, [77, 40]), (2, 640, 2, 64, 100, [640, 130])],
+)
+def test_k12_matches_plain(gen, causal, B, S, nH, dh, w, lens):
+    """Ragged lengths, S and w not multiples of the tiles, w = 0 and w wider
+    than S, dh 64 and 128: every row, padded ones (0) included, equals the
+    plain banded attention."""
+    q, k, v = _bf(gen, B, S, nH, dh, std=0.5), _bf(gen, B, S, nH, dh), _bf(gen, B, S, nH, dh)
+    m = _masked(lens, S)
+    before = (sliding_window_attention.launches, sliding_window_attention.launches_causal)
+    got = sliding_window_attention(q, k, v, w, m, causal=causal)
+    assert (sliding_window_attention.launches,
+            sliding_window_attention.launches_causal) == (before[0] + 1, before[1] + int(causal))
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _rel(got, sliding_window_attention_plain(q, k, v, w, m, causal=causal)) < 2e-2
+    for b, n in enumerate(lens):
+        assert not got[b, n:].any()
+
+
+def test_k12_reads_stay_in_the_band(gen):
+    """Keys outside every row's band, and keys at or past the length, are
+    never read: poisoning them changes nothing."""
+    B, S, nH, dh, w = 1, 1024, 2, 64, 100
+    q, k, v = _bf(gen, B, S, nH, dh), _bf(gen, B, S, nH, dh), _bf(gen, B, S, nH, dh)
+    m = _masked([700], S)
+    clean = sliding_window_attention(q, k, v, w, m)[:, :300].clone()
+    k[:, 512:] = 1e4  # past the band of the query tiles below 384 (keys <= 483)
+    v[:, 512:] = float("nan")
+    again = sliding_window_attention(q, k, v, w, m)[:, :300]
+    torch.cuda.synchronize()
+    assert torch.equal(clean, again)
+    k, v = _bf(gen, B, S, nH, dh), _bf(gen, B, S, nH, dh)  # fresh, then past the length
+    clean = sliding_window_attention(q, k, v, w, m)
+    k[:, 700:] = 1e4
+    v[:, 700:] = float("nan")
+    again = sliding_window_attention(q, k, v, w, m)
+    torch.cuda.synchronize()
+    assert torch.equal(clean, again)
+
+
+def test_k12_raises_on_what_it_does_not_take(gen):
+    q = _bf(gen, 2, 64, 2, 64)
+    m = _masked([64, 30], 64)
+    bad = [
+        lambda: sliding_window_attention(q.float(), q, q, 8, m),
+        lambda: sliding_window_attention(_bf(gen, 2, 64, 2, 32), _bf(gen, 2, 64, 2, 32),
+                                         _bf(gen, 2, 64, 2, 32), 8, m),
+        lambda: sliding_window_attention(q, q[:, :32], q, 8, m),
+        lambda: sliding_window_attention(q, q, q, -1, m),
+        lambda: sliding_window_attention(q, q, q, 8, m.int()),
+        lambda: sliding_window_attention(q, q, q, 8, m[:, :32]),
+        lambda: sliding_window_attention(q, q, q, 8, m.cpu()),
+    ]
+    for i, fn in enumerate(bad):
+        with pytest.raises(ValueError):
+            fn()
+            pytest.fail(f"case {i} did not raise")
