@@ -6,9 +6,11 @@
 Phases (any failure exits non-zero):
   1. device, torch and CUDA versions, card name and power limit; build the
      CUDA kernels from ``fastertransformer4codefuse_tpu_torch/csrc``;
-  2. each kernel (K1-K12, K2/K3 on int4 weights, and the packed int4 reads
-     of K4/K9/K10/K11) against its plain PyTorch version at CodeFuse-13B
-     shapes, K12 at Longformer-base shapes (S = 4096, w_half 256, both band
+  2. each kernel (K1-K13; K2/K3 on int4 weights and with group scales,
+     int4 and int8, G = 128; K13's GEMV form, int8, int4 and int4 g128, at
+     M = 1 and 4, its GEMM form at M = 512, 1024 and 3072, beside the pair of
+     unfused GEMMs it replaces; and the packed int4 reads of K4/K9/K10/K11)
+     against its plain PyTorch version at CodeFuse-13B shapes, K12 at Longformer-base shapes (S = 4096, w_half 256, both band
      modes): max error against the stated tolerance, median kernel and
      plain times (CUDA events, device time), the card's bound for the same
      work, and where one PyTorch call computes the same function, its time
@@ -18,18 +20,21 @@ Phases (any failure exits non-zero):
      ``torch._weight_int8pack_mm`` / ``torch._weight_int4pack_mm`` for the
      weight-only GEMMs where they run on the card; the port calls none of
      them); K11 also bit for bit against K4 over a gathered copy;
-  3. 2-layer models of CodeFuse-13B width (int8; int4 per-channel; int4 with
-     group size 128; int8 on an int4 dense cache; int8 on int8 and int4 KV
-     pools through chunked prefill; int8 beam decode through a beam history)
-     built on the CPU and copied to the card: prefill and teacher-forced
-     decode logits on the card (kernels) against the CPU (plain versions);
+  3. 2-layer models of CodeFuse-13B width (int8 and int4 g128, each with
+     ``fused_decode`` True (K13 + K3) and False (unfused GEMMs), the two
+     routes' card logits also against each other; int4 per-channel; int8 on
+     an int4 dense cache; int8 on int8 and int4 KV pools through chunked
+     prefill; int8 beam decode through a beam history) built on the CPU and
+     copied to the card: prefill and teacher-forced decode logits on the
+     card (kernels) against the CPU (plain versions);
      and 2-layer Longformer-base (K12; with a global token, the dense path)
      and int8 BERT-base (K1) from random weights under HF's names: hidden
      states and pooled outputs, card (bf16) against CPU (fp32);
   4. CodeFuse-13B (40 layers, full width, int8 KV cache, random weights)
      built on the card, once with int8 weights and then with int4 weights,
      per-channel and group-wise (G = 128), and driven through
-     ``GptNeoXEngine.generate`` and ``CodeFuseHandler.predict``; on the int8
+     ``GptNeoXEngine.generate`` and ``CodeFuseHandler.predict``, then a
+     ``fused_decode`` A/B (decode ms/step of each route, in turns); on the int8
      weights, a 3000-token prompt on an "int4" cache (greedy x2 + streamed;
      its prefill profiled with K5 and with the plain attention forced in),
      prompts of 2048 and 1300 tokens on an "int8k_int4v" cache, and beam
@@ -52,8 +57,15 @@ Phases (any failure exits non-zero):
      BERT-base (12 layers) takes 16 requests of 32-512 tokens; each request
      equals its solo encode; encodes/s and tokens/s of each mix x4 in three
      timed windows, ms per batch, peak memory, where Longformer's
-     batched-vs-solo gap comes from, and a profiled encode of each model.
-For each path of phases 4, 5 and 6 the kernel launch counters are zeroed just
+     batched-vs-solo gap comes from, and a profiled encode of each model;
+  7. checkpoint -> CLI at CodeFuse-13B widths with 2 layers: random weights
+     under HF's GPT-NeoX names written by ``ckpt.convert.convert_hf_to_bin``
+     (fp16), int8 and int4 g128 payloads by ``ckpt.quantize.quant_and_save``;
+     the loaded parameters equal the reference bit for bit, ``api.cli.main``
+     over a JSONL file and with ``--serve --paged_pages`` on stdin prints
+     what handlers on an engine over the reference parameters give; load
+     time, read rate and reader logged; the directory removed.
+For each path of phases 4 to 7 the kernel launch counters are zeroed just
 before it is driven and checked just after against the counts its route must
 give. The line before the last holds the kernels' JSON record; the last line
 is the device record. Without a CUDA device, or without the package beside
@@ -172,7 +184,8 @@ def phase_kernels(torch, records):
         quant_matmul, quant_matmul_plain,
     )
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_fused import (
-        fused_proj_down, fused_proj_down_plain, fused_up_proj_down, fused_up_proj_down_plain,
+        fused_proj_down, fused_proj_down_plain, fused_qkv_up, fused_qkv_up_plain,
+        fused_up_proj_down, fused_up_proj_down_plain,
     )
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_w4 import (
         quant_matmul_w4, quant_matmul_w4_group, quant_matmul_w4_group_plain,
@@ -198,13 +211,18 @@ def phase_kernels(torch, records):
     ok = True
 
     def report(name, case, fn_k, fn_p, tol, ms_key, work=None, fn_lib=None, lib_label="",
-               err=rel_err):
-        """Check one case; for the record's case (``ms_key``) also time it.
-        ``work`` = (bytes read, operations): the output's bytes are added.
-        ``err`` gives (max abs error, the relative error held to ``tol``)."""
+               err=rel_err, fn_pair=None, pair_label=""):
+        """Check one case and time it; the record's case (``ms_key``) fills the
+        record. ``work`` = (bytes read, operations): the output's bytes are
+        added and the bound logged. ``err`` gives (max abs error, the
+        relative error held to ``tol``). A kernel with two outputs returns a
+        tuple, held as their concatenation. ``fn_pair``: the unfused kernels
+        this one replaces, timed beside it."""
         nonlocal ok
         got, ref = fn_k(), fn_p()
         torch.cuda.synchronize()
+        if isinstance(got, tuple):
+            got, ref = torch.cat(got, 1), torch.cat(ref, 1)
         absd, rel = err(torch, got, ref)
         finite = bool(torch.isfinite(got.float()).all())
         passed = finite and rel < tol
@@ -215,11 +233,17 @@ def phase_kernels(torch, records):
                 f"{'ok' if passed else 'MISS'}  kernel {t_k:.4f} ms  plain {t_p:.4f} ms")
         r = records[name]
         r["max_abs_err"] = max(r["max_abs_err"], absd)
+        if work is not None:
+            b_ms, b_by = bound(work[0] + nbytes(got), work[1])
+            line += f"  bound {b_ms:.4f} ms ({b_by})"
+        if fn_pair is not None:
+            t_pair = device_time_ms(torch, fn_pair)
+            line += f"  replaces {pair_label}: {t_pair:.4f} ms"
         if case == ms_key:
             r["ms"], r["plain_ms"] = t_k, t_p
-            b_ms, b_by = bound(work[0] + nbytes(got), work[1])
             r["bound_ms"], r["bound_by"] = b_ms, b_by
-            line += f"  bound {b_ms:.4f} ms ({b_by})"
+            if fn_pair is not None:
+                r["replaced_pair_ms"] = t_pair
             if fn_lib is not None:
                 r["library_ms"] = device_time_ms(torch, fn_lib)
                 line += f"  library {r['library_ms']:.4f} ms ({lib_label})"
@@ -347,6 +371,74 @@ def phase_kernels(torch, records):
                                                 bits=4),
                2e-2, "up+proj+down M=1")
     del w_up, w_proj, w_down
+
+    # K2/K3 with group scales (G = 128): int4 with bf16 scales (the g128
+    # checkpoint's decode) and int8 with fp32 scales (the JAX package's
+    # group-wise cases); K3 int4 beside the K7 pair it replaces
+    def gscale(k, n, qmax, dtype):
+        return (torch.empty(k // G, n, device=dev).uniform_(0.5, 1.5, generator=gen)
+                * (0.02 / qmax)).to(dtype)
+
+    for bits, qmax, sdt in ((4, 7, torch.bfloat16), (8, 127, torch.float32)):
+        pk = (lambda k: k // 2) if bits == 4 else (lambda k: k)
+        w_up, w_proj, w_down = i8(pk(H), F_), i8(pk(H), H), i8(pk(F_), H)
+        g_up, g_proj, g_down = (gscale(H, F_, qmax, sdt), gscale(H, H, qmax, sdt),
+                                gscale(F_, H, qmax, sdt))
+        tag = f"int{bits} g{G}"
+        for M in (1, 4):
+            x_up, x_proj, res, h = bf(M, H), bf(M, H), bf(M, H), bf(M, F_, std=0.5)
+            args3 = (x_proj, h, w_proj, w_down, g_proj, g_down, b_down, res, bits, G)
+            pair = None
+            if bits == 4:
+                pair = lambda: (quant_matmul_w4_group(x_proj, w_proj, g_proj, G),  # noqa: E731
+                                quant_matmul_w4_group(h, w_down, g_down, G))
+            report("fused_proj_down", f"{tag} proj+down M={M}",
+                   lambda: fused_proj_down(*args3), lambda: fused_proj_down_plain(*args3),
+                   tol_mm, "proj+down M=1",
+                   work=(nbytes(x_proj, h, w_proj, w_down, g_proj, g_down, b_down, res),
+                         2 * M * (H * H + F_ * H)), fn_pair=pair, pair_label="K7 proj + K7 down")
+            args2 = (x_up, x_proj, res, w_up, w_proj, w_down, g_up, g_proj, g_down, b_up, b_down,
+                     "gelu-tanh", bits, G)
+            report("fused_up_proj_down", f"{tag} up+proj+down M={M}",
+                   lambda: fused_up_proj_down(*args2), lambda: fused_up_proj_down_plain(*args2),
+                   2e-2, "up+proj+down M=1",
+                   work=(nbytes(x_up, x_proj, res, w_up, w_proj, w_down, g_up, g_proj, g_down,
+                                b_up, b_down), 2 * M * (H * F_ + H * H + F_ * H)))
+        del w_up, w_proj, w_down
+
+    # K13: QKV (from ln1) and up with its activation (from ln2) over joined
+    # output columns: int8, int4, int4 g128; the GEMV form at M = 1 and 4,
+    # the GEMM form at M = 512, 1024 and 3072 (int4 per-channel at 512), each
+    # beside the pair of unfused GEMMs it replaces (K1 QKV + K1 up; K6 + K6;
+    # K7 + K7) timed the same way
+    b_q, b_u = bf(3 * H, std=0.02), bf(F_, std=0.02)
+    for bits, G13, lab in ((8, 0, "int8"), (4, 0, "int4"), (4, G, "int4 g128")):
+        if bits == 8:
+            wq, sq, wu, su = i8(H, 3 * H), scale(3 * H), i8(H, F_), scale(F_)
+            single = lambda x, w, s, b, act=None: quant_matmul(x, w, s, b, act)  # noqa: E731
+            pair_label = "K1 QKV + K1 up"
+        elif not G13:
+            wq, sq, wu, su = i8(H // 2, 3 * H), scale4(3 * H), i8(H // 2, F_), scale4(F_)
+            single = lambda x, w, s, b, act=None: quant_matmul_w4(x, w, s, b, act)  # noqa: E731
+            pair_label = "K6 QKV + K6 up"
+        else:
+            wq, wu = i8(H // 2, 3 * H), i8(H // 2, F_)
+            sq, su = gscale(H, 3 * H, 7, torch.bfloat16), gscale(H, F_, 7, torch.bfloat16)
+            single = (lambda x, w, s, b, act=None:  # noqa: E731
+                      quant_matmul_w4_group(x, w, s, G, b, act))
+            pair_label = "K7 QKV + K7 up"
+        Ms = (1, 4, 512) if lab == "int4" else (1, 4, 512, 1024, 3072)
+        for M in Ms:
+            x1, x2 = bf(M, H), bf(M, H)
+            args = (x1, x2, wq, wu, sq, su, b_q, b_u, None, "gelu-tanh", bits, G13)
+            report("fused_qkv_up", f"{lab} {H}->{3 * H}|{F_} M={M}",
+                   lambda: fused_qkv_up(*args), lambda: fused_qkv_up_plain(*args), tol_mm,
+                   f"int8 {H}->{3 * H}|{F_} M=1",
+                   work=(nbytes(x1, x2, wq, sq, wu, su, b_q, b_u), 2 * M * H * (3 * H + F_)),
+                   fn_pair=lambda: (single(x1, wq, sq, b_q), single(x2, wu, su, b_u, "gelu-tanh")),
+                   pair_label=pair_label, lib_label="none: no one PyTorch call computes it")
+            del x1, x2
+        del wq, wu
 
     # Attention kernels: p (times v_s) rounded to bf16 before PV in both
     # versions; online vs full softmax order. Each (query, head) row of the
@@ -599,11 +691,12 @@ def reference_model(torch, pkg, **quant):
     return cfg, p_cpu, params_to(p_cpu, "cuda")
 
 
-def phase_reference(torch, ref, kv=None):
+def phase_reference(torch, ref, kv=None, fused=True, card_logits=None):
     """The 2-layer reference model ``ref`` (``reference_model``): card
     (kernels) vs CPU (plain); ``kv`` the dense cache's kind (int8 when
-    None). Returns max |dlogits| / max |logits| after the prefill and after
-    each decode step."""
+    None); ``fused`` the route (K13 + K3, or the unfused GEMMs). Returns max
+    |dlogits| / max |logits| after the prefill and after each decode step;
+    ``card_logits`` (a list) receives the card's logits of each step."""
     from fastertransformer4codefuse_tpu_torch.engine import kv_cache
     from fastertransformer4codefuse_tpu_torch.models import gptneox as model
 
@@ -617,14 +710,16 @@ def phase_reference(torch, ref, kv=None):
         cache = kv_cache.init_cache(cfg, B, S + steps + 1, kv or torch.int8, dev)
         t_ids = torch.from_numpy(ids).to(dev)
         t_lens = torch.from_numpy(lens).to(dev)
-        hidden, cache = model.prefill(cfg, p, t_ids, t_lens, cache)
+        hidden, cache = model.prefill(cfg, p, t_ids, t_lens, cache, fused=fused)
         out = [model.lm_logits(cfg, p, model.last_token_hidden(hidden, t_lens))]
         for st in range(steps):
             tok = torch.from_numpy(ids[:, st]).to(dev)  # teacher-forced tokens
             positions = (t_lens + st).to(torch.int32)
-            h, cache = model.decode_step(cfg, p, tok, positions, cache)
+            h, cache = model.decode_step(cfg, p, tok, positions, cache, fused=fused)
             out.append(model.lm_logits(cfg, p, h))
         logits[name] = [o.float().cpu() for o in out]
+    if card_logits is not None:
+        card_logits.extend(logits["card"])
     rels = []
     for i, (a, b) in enumerate(zip(logits["card"], logits["cpu"])):
         if not bool(torch.isfinite(a).all()) or a.shape != (B, cfg.vocab_size):
@@ -1189,7 +1284,7 @@ def main() -> int:
     )
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import quant_matmul
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_fused import (
-        fused_proj_down, fused_up_proj_down,
+        fused_proj_down, fused_qkv_up, fused_up_proj_down,
     )
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_w4 import (
         quant_matmul_w4, quant_matmul_w4_group, quant_matmul_w4_head,
@@ -1232,6 +1327,8 @@ def main() -> int:
                                tpu + "quant_matmul_fused.py:434"),
         "fused_proj_down": (fused_proj_down, "launches", src + "quant_matmul_fused.cu",
                             tpu + "quant_matmul_fused.py:280"),
+        "fused_qkv_up": (fused_qkv_up, "launches", src + "quant_matmul_fused.cu",
+                         tpu + "quant_matmul_fused.py:132"),
         "flash_decode": (flash_decode_stacked, "launches", src + "flash_decode.cu",
                          tpu + "flash_decode.py:593"),
         "quant_matmul_w4": (quant_matmul_w4, "launches", src + "quant_matmul_w4.cu",
@@ -1273,11 +1370,24 @@ def main() -> int:
     for label, quant in CONFIGS:
         ref = reference_model(torch, pkg, **quant)
         int8_ref = ref if label == "int8" else int8_ref
-        rels = phase_reference(torch, ref)
-        log(f"  {label}: max |dlogits| / max |logits| after prefill (K5) and 3 teacher-forced "
-            f"decode steps: {', '.join(f'{r:.2e}' for r in rels)} (tol {tol_ref:g})")
-        if max(rels) >= tol_ref:
-            return fail(f"{label}: card and CPU logits disagree")
+        card = {}
+        for fused in (True, False) if label in ("int8", "int4 g128") else (True,):
+            card[fused] = []
+            rels = phase_reference(torch, ref, fused=fused, card_logits=card[fused])
+            route = "K13 + K3" if fused else "fused_decode=False: unfused GEMMs"
+            log(f"  {label} ({route}): max |dlogits| / max |logits| after prefill (K5) and 3 "
+                f"teacher-forced decode steps: {', '.join(f'{r:.2e}' for r in rels)} "
+                f"(tol {tol_ref:g})")
+            if max(rels) >= tol_ref:
+                return fail(f"{label}: card and CPU logits disagree")
+        if False in card:
+            # the two routes on the card: the same weights, other roundings
+            # (bf16 proj and down outputs added apart, and the merged kernels)
+            gaps = [rel_err(torch, a, b)[1] for a, b in zip(card[True], card[False])]
+            log(f"  {label}: card logits, K13 + K3 route vs unfused, after prefill and each "
+                f"step: {', '.join(f'{g:.2e}' for g in gaps)} (tol {tol_ref:g})")
+            if max(gaps) >= tol_ref:
+                return fail(f"{label}: the fused and unfused routes disagree on the card")
     rels = phase_reference(torch, int8_ref, kv="int4")
     log(f"  int8 on an int4 dense cache (packed K4): {', '.join(f'{r:.2e}' for r in rels)} "
         f"(tol {tol_ref:g})")
@@ -1314,10 +1424,15 @@ def main() -> int:
     err = phase_encoders(torch, kernels, launched)
     if err:
         return fail(err)
+    err = phase_cli(torch, pkg, kernels, launched)
+    if err:
+        return fail(f"checkpoint -> CLI: {err}")
     for n in records:
         records[n]["launches"] = launched[n]
-    if not all(launched.values()):
-        return fail(f"a kernel was never launched by the main path: {launched}")
+    # K2 is off the served routes: K13 + K3 replace it (phase 2 holds it)
+    records["fused_up_proj_down"]["on_main_path"] = False
+    if not all(c for n, c in launched.items() if n != "fused_up_proj_down"):
+        return fail(f"a kernel of the main path was never launched by it: {launched}")
     print(smi, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1333,28 +1448,45 @@ CONFIGS = [
 ]
 
 
+def gemm_of(weight_bits, group_size):
+    """The unfused GEMM wrapper of a weight format: K1, K6 or K7."""
+    if group_size:
+        return "quant_matmul_w4_group"
+    return {8: "quant_matmul", 4: "quant_matmul_w4"}[weight_bits]
+
+
 def expected_launches(L, prefills, forwards, weight_bits, group_size, packed_kv=False,
-                      beam=False):
+                      beam=False, fused=True, head=None):
     """Launches each kernel wrapper must count for a run of ``prefills``
     prefills and ``forwards`` decode forwards of an L-layer CodeFuse model
-    (parallel residual, tanh-gelu, biases): prefill runs QKV, proj, up and
-    down as GEMMs and attention as K5; decode runs QKV as a GEMM, attention
-    as K4 (its packed form on an int4 cache; K11 for ``beam`` search) and
-    the post-attention block as K2 (which calls K3) for per-channel weights,
-    or all four GEMMs as K7 for group-wise int4; every prefill and forward
-    ends in one LM head call."""
-    gemm = {8: "quant_matmul", 4: "quant_matmul_w4"}[weight_bits]
+    (parallel residual, biases, the four big kernels quantized alike).
+    ``fused`` (RuntimeConfig.fused_decode): a prefill runs QKV and up as K13's
+    GEMM form and proj and down as GEMMs, a decode forward K13's GEMV and K3;
+    unfused, all four are GEMMs (K1, K6 or K7) in both. Attention is K5 in
+    prefill, K4 in decode (its packed form on an int4 cache; K11 for
+    ``beam`` search). Every prefill and forward ends in one LM head call:
+    K8 when ``head`` (default: the int4 weights' quantized head)."""
+    gemm = gemm_of(weight_bits, group_size)
     attn = "flash_decode_beam" if beam else "flash_decode"
     out = {attn: L * forwards, "prefill_attention_flash": L * prefills}
     if packed_kv:
         out["flash_decode_int4"] = L * forwards
-    if group_size:
-        out["quant_matmul_w4_group"] = L * 4 * (prefills + forwards)
+    if fused:
+        out["fused_qkv_up"] = L * (prefills + forwards)
+        out[gemm] = L * 2 * prefills
+        out["fused_proj_down"] = L * forwards
     else:
-        out[gemm] = L * (4 * prefills + forwards)
-        out["fused_up_proj_down"] = out["fused_proj_down"] = L * forwards
-    if weight_bits == 4:
+        out[gemm] = L * 4 * (prefills + forwards)
+    if (weight_bits == 4) if head is None else head:
         out["quant_matmul_w4_head"] = prefills + forwards
+    return out
+
+
+def add_counts(*counts):
+    out = {}
+    for c in counts:
+        for n, v in c.items():
+            out[n] = out.get(n, 0) + v
     return out
 
 
@@ -1482,12 +1614,54 @@ def phase_serve(torch, pkg, quant, kernels, launched, then=None):
     err = check_static_counts(torch, kernels, launched, cfg.layer_num, prefills, forwards, quant)
     if err:
         return err
+    err = fused_ab(torch, engine, prompt, kernels, launched, quant)
+    if err:
+        return err
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"  peak device memory {peak:.2f} GiB; decode {step_ms:.2f} ms/step at B=1, "
         f"{step4_ms:.2f} ms/step at B=4; prefill {t_pre * 1e3:.1f} ms (1000 tokens)")
     if then is not None:
         return then(torch, engine, kernels, launched)
     return None  # the model is freed with this frame, before the next one is built
+
+
+def fused_ab(torch, engine, prompt, kernels, launched, quant, out_len=33):
+    """The ``fused_decode`` A/B on one engine's weights: the 1000-token
+    prompt, a 1-token and an ``out_len``-token greedy run for each route,
+    in turns (fused, unfused, unfused, fused); decode ms/step is the
+    difference over the decode forwards. Logs both routes' ms/step and how
+    many greedy tokens agree; checks the counts. Returns an error message,
+    or None."""
+    import dataclasses
+
+    cfg = engine.config
+    unfused = type(engine)(cfg, engine.params,
+                           dataclasses.replace(engine.runtime, fused_decode=False))
+    zero_counts(kernels)
+    ms = {True: [], False: []}
+    toks = {}
+    expect, forwards = [], 0
+    for fused in (True, False, False, True):
+        e = engine if fused else unfused
+        walls = []
+        for n in (1, out_len):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = e.generate([prompt], n, top_k=1)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            forwards += e.decode_forwards
+            expect.append(expected_launches(cfg.layer_num, 1, e.decode_forwards, fused=fused,
+                                            **quant))
+        ms[fused].append((walls[1] - walls[0]) / max(e.decode_forwards, 1) * 1e3)
+        toks[fused] = out.output_ids[0, 0, len(prompt):out.sequence_lengths[0, 0]]
+    same = int(np.sum(toks[True][:len(toks[False])] == toks[False][:len(toks[True])]))
+    log(f"  fused_decode A/B (turns: fused, unfused, unfused, fused; {out_len - 1} decode "
+        f"forwards each): K13 + K3 {', '.join(f'{m:.2f}' for m in ms[True])} ms/step, "
+        f"unfused GEMMs {', '.join(f'{m:.2f}' for m in ms[False])} ms/step; greedy tokens "
+        f"equal {same} of {len(toks[True])} ({CARD})")
+    return check_static_counts(torch, kernels, launched, cfg.layer_num, len(expect), forwards,
+                               quant, expect_runs=add_counts(*expect))
 
 
 def with_kv(engine, kind):
@@ -1738,14 +1912,16 @@ PAGES = dict(num_pages=65, page_size=256)  # 8 slots x 2048 positions + the garb
 
 
 def check_static_counts(torch, kernels, launched, L, prefills, forwards, quant, packed_kv=False,
-                        beam=False):
+                        beam=False, expect_runs=None):
     """Compare the counters (zeroed just before the run) with what
-    ``prefills`` prefills and ``forwards`` decode forwards must give; add
-    them to ``launched``."""
+    ``prefills`` prefills and ``forwards`` decode forwards must give (or,
+    ``expect_runs``, the sum of those counts given); add them to
+    ``launched``."""
     torch.cuda.synchronize()
     counts = read_counts(kernels)
     expect = {n: 0 for n in kernels}
-    expect.update(expected_launches(L, prefills, forwards, packed_kv=packed_kv, beam=beam,
+    expect.update(expect_runs if expect_runs is not None else
+                  expected_launches(L, prefills, forwards, packed_kv=packed_kv, beam=beam,
                                     **quant))
     log(f"  {prefills} prefills, {forwards} decode forwards; launches "
         f"{({n: c for n, c in counts.items() if c})}, expected "
@@ -1757,18 +1933,17 @@ def check_static_counts(torch, kernels, launched, L, prefills, forwards, quant, 
     return None
 
 
-def pool_launches(L, b):
-    """Launches each kernel wrapper must count for the ticks the int8
-    CodeFuse pool ``b`` ran: a decode tick runs QKV as K1 and the
-    post-attention block as K2 (which calls K3), a chunk tick four K1 GEMMs;
-    attention is K9 / K10 on pages (their packed forms on int4 pages), K4
-    (K11 in a beam pool) and plain chunk attention on dense slabs; the int8
-    LM head is a plain matmul."""
+def pool_launches(L, b, gemm="quant_matmul"):
+    """Launches each kernel wrapper must count for the ticks the CodeFuse
+    pool ``b`` ran (int8 weights, or ``gemm``'s format): a decode tick runs
+    QKV and up as K13 and the proj + down block as K3, a chunk tick K13 and
+    the proj and down GEMMs; attention is K9 / K10 on pages (their packed
+    forms on int4 pages), K4 (K11 in a beam pool) and plain chunk attention
+    on dense slabs; a dense LM head is a plain matmul."""
     from fastertransformer4codefuse_tpu_torch.engine import paged_kv
 
     d, c = b.decode_ticks, b.chunk_ticks
-    out = {"quant_matmul": L * (d + 4 * c), "fused_up_proj_down": L * d,
-           "fused_proj_down": L * d}
+    out = {gemm: L * 2 * c, "fused_qkv_up": L * (d + c), "fused_proj_down": L * d}
     if b.paged is not None:
         out.update(flash_decode_paged=L * d, flash_chunk_paged=L * c)
         if paged_kv.packed4(b._state["cache"], "pv"):
@@ -1780,15 +1955,14 @@ def pool_launches(L, b):
     return out
 
 
-def check_counts(kernels, launched, pools, L, label):
+def check_counts(kernels, launched, pools, L, label, extra=None, gemm="quant_matmul"):
     """Compare the counters (zeroed just before ``label`` was driven) with
-    the counts the ticks of ``pools`` (batchers) must give; add them to
-    ``launched``."""
+    the counts the ticks of ``pools`` (batchers) must give, plus ``extra``
+    (static-path launches of the same run); add them to ``launched``."""
     counts = read_counts(kernels)
     expect = {n: 0 for n in kernels}
-    for b in pools:
-        for n, c in pool_launches(L, b).items():
-            expect[n] += c
+    for n, c in add_counts(extra or {}, *(pool_launches(L, b, gemm) for b in pools)).items():
+        expect[n] += c
     ticks = ", ".join(f"{b.decode_ticks} decode ticks ({b.chunk_ticks} with a chunk)"
                       for b in pools)
     log(f"  {label}: {ticks}; launches {({n: c for n, c in counts.items() if c})}, expected "
@@ -2273,6 +2447,328 @@ def beam_handler(torch, engine, kernels, launched, tok):
                             "pooled handler, sampling + beam classes")
     finally:
         h.close()
+
+
+# Phase 7: a CodeFuse-13B-width checkpoint with 2 layers, through the CLI.
+# Prompt lengths (bytes) of the 4 greedy requests, and their output length
+CLI_PROMPTS = (20, 150, 333, 600)
+CLI_OUT = 32
+# the --serve pool: 4 slots of 1024 positions on pages of 128 (+ the garbage page)
+CLI_POOL = dict(max_slots=4, max_seq_len=1024, prompt_bucket=128)
+CLI_PAGES = dict(num_pages=33, page_size=128)
+# (label, CLI flags, the weights' quantization, the KV cache kind)
+CLI_RUNS = [
+    ("int8", ["--int8_mode", "1"], dict(weight_bits=8, group_size=0), None),
+    ("int4 g128, int8 KV", ["--int8_mode", "1", "--weight_bits", "4", "--group_size", "128",
+                            "--kv_cache_dtype", "int8"], dict(weight_bits=4, group_size=128),
+     "int8"),
+]
+
+
+class IdTokenizer(ByteTokenizer):
+    """Bytes in; every id spelled out on the way back (``<id>``), so a
+    printed response shows each generated token."""
+
+    def decode(self, ids):
+        return "".join(f"<{int(i)}>" for i in ids)
+
+
+def neox_stand_in(torch, cfg, seed, dev="cuda"):
+    """What ``convert_hf_to_bin`` reads of an HF GPTNeoXForCausalLM: a
+    ``.config`` with HF's field names and a ``.state_dict()`` of random fp16
+    weights at ``cfg``'s widths, made on ``dev`` from ``seed`` and held on
+    the CPU. The attention output bias is zero, so the checkpoint's summed
+    bias (written in fp16) is the down bias exactly."""
+    import types
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    H, F, V = cfg.hidden_size, cfg.inter_size, cfg.vocab_size
+
+    def rnd(*shape, std=0.02, mean=0.0):
+        t = torch.empty(shape, device=dev).normal_(mean, std, generator=gen)
+        return t.half().cpu()
+
+    sd = {"gpt_neox.embed_in.weight": rnd(V, H), "embed_out.weight": rnd(V, H),
+          "gpt_neox.final_layer_norm.weight": rnd(H, std=0.1, mean=1.0),
+          "gpt_neox.final_layer_norm.bias": rnd(H)}
+    for i in range(cfg.layer_num):
+        p = f"gpt_neox.layers.{i}."
+        for ln in ("input_layernorm", "post_attention_layernorm"):
+            sd[p + ln + ".weight"], sd[p + ln + ".bias"] = rnd(H, std=0.1, mean=1.0), rnd(H)
+        sd[p + "attention.query_key_value.weight"] = rnd(3 * H, H)
+        sd[p + "attention.query_key_value.bias"] = rnd(3 * H)
+        sd[p + "attention.dense.weight"] = rnd(H, H)
+        sd[p + "attention.dense.bias"] = torch.zeros(H, dtype=torch.float16)
+        sd[p + "mlp.dense_h_to_4h.weight"], sd[p + "mlp.dense_h_to_4h.bias"] = rnd(F, H), rnd(F)
+        sd[p + "mlp.dense_4h_to_h.weight"], sd[p + "mlp.dense_4h_to_h.bias"] = rnd(H, F), rnd(H)
+    hf_cfg = types.SimpleNamespace(
+        num_attention_heads=cfg.head_num, hidden_size=H, intermediate_size=F,
+        num_hidden_layers=cfg.layer_num, rotary_pct=cfg.rotary_embedding_dim / cfg.size_per_head,
+        vocab_size=V, bos_token_id=cfg.start_id, eos_token_id=cfg.end_id,
+        use_parallel_residual=cfg.use_gptj_residual, layer_norm_eps=cfg.layernorm_eps,
+        rotary_emb_base=cfg.rotary_base, hidden_act="gelu")
+    return types.SimpleNamespace(config=hf_cfg, state_dict=lambda: sd)
+
+
+def cli_reference(torch, cfg, sd, quant, dev="cuda"):
+    """The parameters the loader must give for ``sd`` written as fp16 and
+    ``quant``'s payloads: float leaves in bf16; the four big kernels
+    quantized from their fp16 values (``quantize_array``, as
+    ``quant_and_save`` does), each scale rounded through fp16 (the disk's
+    dtype) back to its own dtype."""
+    import dataclasses
+
+    from fastertransformer4codefuse_tpu_torch.ckpt.convert import params_from_hf_state_dict
+    from fastertransformer4codefuse_tpu_torch.ckpt.quantize import quantize_array
+
+    ref = params_from_hf_state_dict(cfg, sd, dtype="bf16", device=dev)
+    layers = dict(ref["layers"])
+    for key, name in (("qkv_w", "attention.query_key_value.weight"),
+                      ("proj_w", "attention.dense.weight"),
+                      ("up_w", "mlp.dense_h_to_4h.weight"),
+                      ("down_w", "mlp.dense_4h_to_h.weight")):
+        # HF's [out, in] -> the engine's [in, out] (QKV in HF's column order)
+        w = torch.stack([sd[f"gpt_neox.layers.{i}.{name}"].to(dev).float().t()
+                         for i in range(cfg.layer_num)])
+        qt = quantize_array(w, k_axis=-2, bits=quant["weight_bits"],
+                            group_size=quant["group_size"])
+        layers[key] = dataclasses.replace(
+            qt, scale=qt.scale.to(torch.float16).to(qt.scale.dtype))
+        del w
+    return dict(ref, layers=layers)
+
+
+def params_diff(torch, a, b, path="params"):
+    """None if two parameter dicts are equal leaf for leaf, bit for bit,
+    dtypes included; else the path of the first leaf that differs."""
+    from fastertransformer4codefuse_tpu_torch.models.params import QuantizedTensor
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return f"{path} keys"
+        return next((d for k in a if (d := params_diff(torch, a[k], b[k], f"{path}.{k}"))),
+                    None)
+    if isinstance(a, QuantizedTensor):
+        if (not isinstance(b, QuantizedTensor)
+                or (a.bits, a.group_size, a.k_axis) != (b.bits, b.group_size, b.k_axis)):
+            return f"{path} format"
+        return params_diff(torch, a.q, b.q, path + ".q") or params_diff(torch, a.scale, b.scale,
+                                                                        path + ".scale")
+    if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+        n = int((a != b).sum()) if a.shape == b.shape else -1
+        return f"{path} ({a.dtype} {tuple(a.shape)} vs {b.dtype} {tuple(b.shape)}, {n} differ)"
+    return None
+
+
+def response_blocks(out):
+    """Printed responses (``api.cli.print_response``) keyed by request index,
+    the latency line dropped."""
+    blocks = {}
+    for block in out.split("#" * 50 + "\n")[1:]:
+        lines = [ln for ln in block.splitlines() if not ln.startswith("- latency")]
+        blocks[int(lines[0].split()[-1])] = lines
+    return blocks
+
+
+def phase_cli(torch, pkg, kernels, launched, cfg=None, dev="cuda"):
+    """Phase 7, checkpoint -> CLI at CodeFuse-13B widths with 2 layers:
+    random weights under HF GPT-NeoX names written by ``convert_hf_to_bin``
+    (fp16), ``config.ini`` from ``GptNeoXConfig.codefuse_13b()``, int8 and
+    int4 g128 payloads from ``quant_and_save``; for each served form (a) the
+    loaded parameters equal ``cli_reference`` bit for bit; (b) ``api.cli.main``
+    over a JSONL file of 4 greedy requests prints what a ``CodeFuseHandler``
+    on an engine over the reference parameters gives; (c) ``--serve
+    --paged_pages`` with the requests on stdin prints what a pooled handler
+    over the reference parameters gives (the same route; the static run's
+    answers are compared and logged); (d) exact launch counts of every run.
+    The directory is removed at the end. ``cfg`` and ``dev`` serve a
+    rehearsal at a tiny width on the CPU. Returns an error message, or None."""
+    import contextlib
+    import dataclasses
+    import gc
+    import io
+    import shutil
+
+    from fastertransformer4codefuse_tpu_torch.api import cli, generate
+    from fastertransformer4codefuse_tpu_torch.api import handler as handler_mod
+    from fastertransformer4codefuse_tpu_torch.api.trie import VocabTrie
+    from fastertransformer4codefuse_tpu_torch.ckpt import loader
+    from fastertransformer4codefuse_tpu_torch.ckpt.convert import convert_hf_to_bin
+    from fastertransformer4codefuse_tpu_torch.ckpt.quantize import quant_and_save
+
+    cfg = dataclasses.replace(cfg or pkg.GptNeoXConfig.codefuse_13b(), layer_num=2,
+                              weight_data_type="fp16")
+    L = cfg.layer_num
+    path = os.path.join(REPO, "build", "phase7_ckpt")
+    log("phase 7: checkpoint -> CLI, CodeFuse-13B widths, 2 layers (H 5120, 40 x 128 heads, "
+        "FFN 20480, vocab 100831), fp16 on disk")
+    tok = IdTokenizer()
+    text = "def quick_sort(arr):\n    if not arr:\n        return arr\n" * 20  # no "<"
+    reqs = [{"prompts": [{"prompt": text[:n], "top_k": 1, "random_seed": i}],
+             "out_seq_length": CLI_OUT} for i, n in enumerate(CLI_PROMPTS)]
+    runs = []  # decode forwards of each GptNeoXEngine.generate call
+    engine_generate = pkg.GptNeoXEngine.generate
+    handlers = []
+
+    def counted_generate(self, *a, **kw):
+        out = engine_generate(self, *a, **kw)
+        runs.append(self.decode_forwards)
+        return out
+
+    class Recorded(handler_mod.CodeFuseHandler):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            handlers.append(self)
+
+    saved = (generate.load_tokenizer, handler_mod.CodeFuseHandler)
+    generate.load_tokenizer = lambda p: tok
+    handler_mod.CodeFuseHandler = Recorded
+    pkg.GptNeoXEngine.generate = counted_generate
+    try:
+        shutil.rmtree(path, ignore_errors=True)
+        t0 = time.time()
+        model = neox_stand_in(torch, cfg, seed=17, dev=dev)
+        t1 = time.time()
+        convert_hf_to_bin(model, path, weight_data_type="fp16")
+        cfg.to_ini(path)
+        t2 = time.time()
+        quant_and_save(path)
+        quant_and_save(path, weight_bits=4, group_size=128)
+        t3 = time.time()
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        log(f"  random weights {t1 - t0:.1f} s; convert_hf_to_bin {t2 - t1:.1f} s; "
+            f"quant_and_save int8 + int4 g128 {t3 - t2:.1f} s; directory {size / 1e9:.2f} GB")
+        jsonl = os.path.join(path, "requests.jsonl")
+        with open(jsonl, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in reqs)
+
+        for label, flags, quant, kv in CLI_RUNS:
+            gemm = gemm_of(**quant)
+
+            def static_expect():
+                return add_counts(*(expected_launches(L, 1, fw, fused=True, head=False, **quant)
+                                    for fw in runs))
+
+            # (a) the loaded parameters
+            gc.collect()
+            torch.cuda.empty_cache()
+            ref = cli_reference(torch, cfg, model.state_dict(), quant, dev)
+            t0 = time.time()
+            lcfg, loaded = loader.load_bin_checkpoint(path, dtype="bf16", int8_mode=1,
+                                                      device=dev, **quant)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            t_load = time.time() - t0
+            rd = dict(loader.last_read)
+            if lcfg != cfg:
+                return f"{label}: the loaded config.ini differs: {lcfg} vs {cfg}"
+            diff = params_diff(torch, loaded, ref)
+            if diff:
+                return f"{label} (a): the loaded parameters differ from the reference: {diff}"
+            del loaded
+            log(f"  {label} (a): loaded == quantize_array of the fp16 weights (scales through "
+                f"fp16), bit for bit; load {t_load:.2f} s, of it reading {rd['bytes'] / 1e9:.2f} "
+                f"GB in {rd['seconds']:.2f} s = {rd['bytes'] / 1e9 / rd['seconds']:.2f} GB/s "
+                f"({rd['files']} files, {rd['reader']} reader)")
+            engine = pkg.GptNeoXEngine(cfg, ref, pkg.RuntimeConfig(
+                dtype="bf16", int8_mode=1, kv_cache_dtype=kv))
+            trie = VocabTrie(tok.get_vocab())
+
+            # (b) the JSONL loop against a handler on the reference engine
+            zero_counts(kernels)
+            runs.clear()
+            buf = io.StringIO()
+            t0 = time.time()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["--ckpt_path", path, "--tokenizer_path", "bytes", "--input_file",
+                          jsonl, "--device", dev, *flags])
+            t_cli = time.time() - t0
+            err = check_static_counts(torch, kernels, launched, L, len(runs), sum(runs),
+                                      quant, expect_runs=static_expect())
+            if err:
+                return f"{label} (d), the CLI's JSONL loop: {err}"
+            got = response_blocks(buf.getvalue())
+            zero_counts(kernels)
+            runs.clear()
+            h = handler_mod.CodeFuseHandler(engine=engine, tokenizer=tok, trie=trie, warmup=False)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                for i, r in enumerate(reqs):
+                    code, msg, res = h.predict(r, f"ref-{i}")
+                    if code != 0:
+                        return f"{label}: the reference handler failed: {msg}"
+                    cli.print_response(i, r, json.loads(res["res"]))
+            err = check_static_counts(torch, kernels, launched, L, len(runs), sum(runs),
+                                      quant, expect_runs=static_expect())
+            if err:
+                return f"{label} (d), the reference handler: {err}"
+            want = response_blocks(buf.getvalue())
+            if got != want or len(got) != len(reqs):
+                return f"{label} (b): the CLI printed other responses than the handler"
+            n_tok = [sum(ln.count("<") for ln in got[i]) for i in range(len(reqs))]
+            log(f"  {label} (b): api.cli.main, {len(reqs)} greedy requests (prompts "
+                f"{min(CLI_PROMPTS)}-{max(CLI_PROMPTS)} bytes, {CLI_OUT} tokens): printed "
+                f"== the handler on the reference engine; tokens {n_tok}; {t_cli:.1f} s with "
+                f"the load and the warm-up")
+
+            # (c) --serve --paged_pages, the requests on stdin
+            zero_counts(kernels)
+            runs.clear()
+            handlers.clear()
+            lines = "".join(json.dumps(r) + "\n" for r in reqs)
+            stdin, sys.stdin = sys.stdin, io.StringIO(lines)
+            buf = io.StringIO()
+            t0 = time.time()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    cli.main(["--ckpt_path", path, "--tokenizer_path", "bytes", "--device", dev,
+                              *flags, "--serve",
+                              "--pool_slots", str(CLI_POOL["max_slots"]), "--pool_seq_len",
+                              str(CLI_POOL["max_seq_len"]), "--prompt_bucket",
+                              str(CLI_POOL["prompt_bucket"]), "--paged_pages",
+                              str(CLI_PAGES["num_pages"]), "--page_size",
+                              str(CLI_PAGES["page_size"])])
+            finally:
+                sys.stdin = stdin
+            t_serve = time.time() - t0
+            b = handlers[-1].server.batcher
+            err = check_counts(kernels, launched, [b], L, f"{label}, the CLI's --serve pool",
+                               extra=static_expect(), gemm=gemm)
+            if err:
+                return f"{label} (d): {err}"
+            served = response_blocks(buf.getvalue())
+            zero_counts(kernels)
+            runs.clear()
+            hp = handler_mod.CodeFuseHandler(engine=engine, tokenizer=tok, trie=trie,
+                                             warmup=False, pool=dict(CLI_POOL, paged=CLI_PAGES))
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    for i, r in enumerate(reqs):
+                        code, msg, res = hp.predict(r, f"pool-{i}")
+                        if code != 0:
+                            return f"{label}: the reference pooled handler failed: {msg}"
+                        cli.print_response(i, r, json.loads(res["res"]))
+            finally:
+                hp.close()
+            err = check_counts(kernels, launched, [hp.server.batcher], L,
+                               f"{label}, the reference pooled handler", gemm=gemm)
+            if err:
+                return f"{label} (d): {err}"
+            if served != response_blocks(buf.getvalue()) or len(served) != len(reqs):
+                return f"{label} (c): --serve printed other responses than the pooled handler"
+            as_static = [i for i in range(len(reqs)) if served[i] == got[i]]
+            log(f"  {label} (c): --serve --paged_pages {CLI_PAGES['num_pages']} (page "
+                f"{CLI_PAGES['page_size']}), requests on stdin: == the pooled handler on the "
+                f"reference engine; requests answered as the static run did: {as_static} "
+                f"(chunked prefill attends by K10, the static prefill by K5); {t_serve:.1f} s "
+                f"with the load and the warm-up ({CARD})")
+            del engine, h, hp, ref
+        return None
+    finally:
+        generate.load_tokenizer, handler_mod.CodeFuseHandler = saved
+        pkg.GptNeoXEngine.generate = engine_generate
+        shutil.rmtree(path, ignore_errors=True)
 
 
 if __name__ == "__main__":

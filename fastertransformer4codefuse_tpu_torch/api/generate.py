@@ -7,22 +7,80 @@ trie, run the engine, strip padding and trailing garbage, and return
 """
 from __future__ import annotations
 
+import dataclasses
+import logging
 import time
 from typing import Callable, List, Optional
 
 import numpy as np
 
+from ..core.config import RuntimeConfig
 from ..engine.engine import GptNeoXEngine
 from .detok import trim_garbage
 from .trie import VocabTrie, optional_last_token_ids
 from .wordlist import to_word_list_format
 
+logger = logging.getLogger(__name__)
 
-def init_engine_and_tokenizer(*args, **kwargs):
-    """Checkpoint + tokenizer loading waits for the checkpoint readers
-    (ROADMAP queue 1 item 9); build the engine from ``init_params`` and pass
-    it to ``CodeFuseHandler(engine=..., tokenizer=...)`` meanwhile."""
-    raise NotImplementedError("checkpoint loading (ckpt/) is ROADMAP queue 1 item 9")
+
+def load_tokenizer(tokenizer_path: str):
+    """The HF tokenizer at ``tokenizer_path`` (``transformers`` is imported
+    here, on first use; tests and `chip_smoke.py` replace this function)."""
+    from transformers import AutoTokenizer
+
+    return AutoTokenizer.from_pretrained(tokenizer_path)
+
+
+def init_engine_and_tokenizer(
+    ckpt_path: str,
+    tokenizer_path: str,
+    tensor_parallel: int = 1,
+    int8_mode: int = 0,
+    dtype: str = "bf16",
+    trie_needed: bool = False,
+    end_id: Optional[int] = None,
+    runtime: Optional[RuntimeConfig] = None,
+    weight_bits: int = 8,
+    group_size: int = 0,
+    kv_cache_dtype: Optional[str] = None,
+    q_layout: str = "plain",
+    quantize_embeddings: Optional[bool] = None,
+    device=None,
+):
+    """Load ``config.ini``, the weights and the tokenizer, and build the engine
+    on ``device`` (the card when None); with ``trie_needed`` also the vocab
+    trie (the native one where its library is built). ``weight_bits=4``
+    serves a ``.q4.bin`` / ``.s4[gN].bin`` checkpoint (or quantizes a float
+    one on load), ``group_size`` picks group-wise int4 scales,
+    ``kv_cache_dtype`` the KV cache, and ``quantize_embeddings`` quantizes
+    the embedding table and LM head too (``int8_mode=2`` is its alias).
+    Returns (engine, tokenizer) or (engine, tokenizer, trie)."""
+    from ..ckpt.loader import load_bin_checkpoint
+
+    if tensor_parallel > 1:
+        raise NotImplementedError("tensor-parallel serving is ROADMAP queue 1 item 19")
+    config, params = load_bin_checkpoint(
+        ckpt_path, dtype=dtype, int8_mode=int8_mode, weight_bits=weight_bits,
+        group_size=group_size, q_layout=q_layout, quantize_embeddings=quantize_embeddings,
+        device=device,
+    )
+    if end_id is not None:
+        config = dataclasses.replace(config, end_id=end_id)
+    tokenizer = load_tokenizer(tokenizer_path)
+    runtime = runtime or RuntimeConfig(dtype=dtype, int8_mode=int8_mode,
+                                       kv_cache_dtype=kv_cache_dtype)
+    engine = GptNeoXEngine(config, params, runtime)
+    if trie_needed:
+        from .. import native
+
+        vocab = tokenizer.get_vocab()
+        if native.available():
+            trie = native.NativeTrie(vocab)
+        else:
+            logger.info("native library unavailable: the Python vocab trie serves")
+            trie = VocabTrie(vocab)
+        return engine, tokenizer, trie
+    return engine, tokenizer
 
 
 def generate(

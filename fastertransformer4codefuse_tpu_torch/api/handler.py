@@ -84,23 +84,40 @@ class CodeFuseHandler:
         self,
         ckpt_path: str = None,
         tokenizer_path: str = None,
+        int8_mode: int = 0,
+        tensor_parallel: int = 1,
+        dtype: str = "bf16",
+        end_id: Optional[int] = None,
         on_stream_text: Optional[Callable[[int, int, str], None]] = None,
         engine=None,
         tokenizer=None,
         trie=None,
         warmup: bool = True,
+        weight_bits: int = 8,
+        group_size: int = 0,
+        kv_cache_dtype: Optional[str] = None,
+        quantize_embeddings: Optional[bool] = None,
         pool: Optional[dict] = None,
+        device=None,
     ):
-        """Pass a prebuilt engine/tokenizer/trie, or ckpt/tokenizer paths
-        (not ported yet). ``on_stream_text(batch_idx, beam_idx, text)`` taps
-        streamed chunks; by default batch 0 prints to stdout.
+        """Pass ckpt/tokenizer paths (with the loading knobs of
+        ``api.generate.init_engine_and_tokenizer``; the model is built on
+        ``device``, the card when None) or a prebuilt engine/tokenizer/trie.
+        ``on_stream_text(batch_idx, beam_idx, text)`` taps streamed chunks;
+        by default batch 0 prints to stdout.
 
         ``pool``: kwargs of ``engine.server.BatchingServer`` (e.g.
         ``dict(max_slots=8, max_seq_len=2048, paged=dict(num_pages=65,
         page_size=256))``), or a list of them for length-classed pools
         (``MultiPoolServer``)."""
         if engine is None:
-            engine, tokenizer, trie = init_engine_and_tokenizer(ckpt_path, tokenizer_path)
+            engine, tokenizer, trie = init_engine_and_tokenizer(
+                ckpt_path, tokenizer_path, tensor_parallel=tensor_parallel,
+                int8_mode=int8_mode, dtype=dtype, trie_needed=True, end_id=end_id,
+                weight_bits=weight_bits, group_size=group_size,
+                kv_cache_dtype=kv_cache_dtype, quantize_embeddings=quantize_embeddings,
+                device=device,
+            )
         self.engine = engine
         self.tokenizer = tokenizer
         self.trie = trie

@@ -7,14 +7,22 @@ in the high one (``models.params.QuantizedTensor``). The stored (q, scale)
 pairs are bit-identical to the JAX package's. Group-wise int4 scales are bf16
 (the JAX default; its ``FTCF_GSCALE_BF16=0`` switch to fp32 is not ported).
 
-The checkpoint loader, converters and the ``.bin`` writer are ROADMAP queue 1
-item 9.
+``quant_and_save`` is the offline tool: it writes quantized payload and
+scale files beside a reference-format checkpoint's float kernels (the
+analog of the reference's quant_and_save.py), in plain row-major layout,
+which ``ckpt.loader`` reads back.
 """
 from __future__ import annotations
+
+import glob
+import os
+import re
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
+from ..core.config import GptNeoXConfig
 from ..models.params import LM_HEAD_INT4_TILE, Params, QuantizedTensor
 
 
@@ -42,8 +50,10 @@ def quantize_array(w, k_axis: int = -2, bits: int = 8, group_size: int = 0) -> Q
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     w32 = _fp32(w)
     k_ax = k_axis % w32.ndim
-    qmax = 127.0 if bits == 8 else 7.0
-    one = torch.ones((), dtype=torch.float32)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, one ulp off the true quotient the JAX quantizer takes
+    qmax = torch.tensor(127.0 if bits == 8 else 7.0, device=w32.device)
+    one = torch.ones((), dtype=torch.float32, device=w32.device)
     if group_size:
         K = w32.shape[k_ax]
         if K % group_size:
@@ -110,3 +120,60 @@ def quantize_lm_head_int4(w, tile: int = LM_HEAD_INT4_TILE) -> QuantizedTensor:
     Vp = -(-V // tile) * tile
     wt = torch.nn.functional.pad(w32.t(), (0, Vp - V))  # [H, V_pad]
     return quantize_array(wt, k_axis=-2, bits=4)
+
+
+def quantization_error(w, k_axis: int = -2) -> float:
+    """Max abs reconstruction error of the int8 per-channel quantization."""
+    qt = quantize_array(w, k_axis)
+    return float((qt.dequantize() - _fp32(w)).abs().max())
+
+
+QUANT_WEIGHT_NAMES = (
+    "attention.query_key_value.weight",
+    "attention.dense.weight",
+    "mlp.dense_h_to_4h.weight",
+    "mlp.dense_4h_to_h.weight",
+)
+
+
+def quant_and_save(
+    ckpt_path: str,
+    config: Optional[GptNeoXConfig] = None,
+    weight_names: Iterable[str] = QUANT_WEIGHT_NAMES,
+    weight_bits: int = 8,
+    group_size: int = 0,
+) -> None:
+    """For every per-layer, per-rank float kernel file
+    ``model.layers.{i}.<name>.<rank>.bin`` write the quantized payload and
+    scales next to it: ``.q.bin`` / ``.s.bin`` for int8, ``.q4.bin`` /
+    ``.s4.bin`` for nibble-packed int4, ``.s4gN.bin`` with group size N.
+    Scales are written in the checkpoint's ``weight_data_type``, as the JAX
+    tool writes them. Only the float rank files are read, so int8 and int4
+    payloads of one directory can be written in either order (the JAX tool
+    would take an earlier ``.q4.bin`` for a float kernel)."""
+    if config is None:
+        config = GptNeoXConfig.from_ini(ckpt_path)
+    wdt = np.float16 if config.weight_data_type == "fp16" else np.float32
+    H = config.hidden_size
+    for i in range(config.layer_num):
+        for name in weight_names:
+            paths = glob.glob(os.path.join(ckpt_path, f"model.layers.{i}.{name}.*.bin"))
+            for path in sorted(p for p in paths if re.search(r"\.\d+\.bin$", p)):
+                flat = np.fromfile(path, dtype=wdt)
+                # every kernel here is [K, rest...], quantized along K
+                k_dim = {
+                    "attention.query_key_value.weight": H,
+                    "attention.dense.weight": flat.size // H,
+                    "mlp.dense_h_to_4h.weight": H,
+                    "mlp.dense_4h_to_h.weight": flat.size // H,
+                }[name]
+                qt = quantize_array(flat.reshape(k_dim, -1), k_axis=-2, bits=weight_bits,
+                                    group_size=group_size)
+                scale = qt.scale.float().numpy().astype(wdt)
+                if weight_bits == 8:
+                    qt.q.numpy().tofile(path[:-4] + ".q.bin")
+                    scale.tofile(path[:-4] + ".s.bin")
+                else:
+                    suffix = f"g{group_size}" if group_size else ""
+                    qt.q.numpy().tofile(path[:-4] + ".q4.bin")
+                    scale.tofile(path[:-4] + f".s4{suffix}.bin")

@@ -3,8 +3,9 @@
 Stdlib copy of ``fastertransformer4codefuse_tpu/core/config.py``: the same
 ``GptNeoXConfig`` fields, presets and byte-compatible ``config.ini`` round
 trip. ``RuntimeConfig`` keeps the serving knobs and drops the TPU-only ones
-(Pallas, flash gates, fused-decode switches): on CUDA every kernel of the
-slice is always on, and dispatch follows the tensor's device.
+(Pallas and flash gates): on CUDA every kernel of the slice is always on, and
+dispatch follows the tensor's device. ``fused_decode`` chooses between the
+fused decode route (K13 + K3) and the unfused GEMMs.
 """
 from __future__ import annotations
 
@@ -209,6 +210,10 @@ class RuntimeConfig:
       tensor_para_size / data_para_size / pipeline_para_size: parallel layout;
         only 1 is ported.
       debug_level: "DEBUG" asks for the NaN/Inf sweep, which is not ported.
+      fused_decode: a parallel-residual layer with its four big kernels
+        quantized alike runs QKV and up as one K13 launch (decode, prefill
+        and chunk ticks) and, in decode, proj + down + bias + residual as K3;
+        False runs the unfused GEMMs (K1/K6/K7).
 
     Logits are always fp32, as in the reference.
     """
@@ -221,3 +226,4 @@ class RuntimeConfig:
     data_para_size: int = 1
     pipeline_para_size: int = 1
     debug_level: str = ""
+    fused_decode: bool = True

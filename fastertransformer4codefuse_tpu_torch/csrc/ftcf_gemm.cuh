@@ -1,6 +1,7 @@
-// Prefill-width (M > 32) weight-only GEMM shared by K1 (quant_matmul.cu) and
-// K6/K7/K8 (quant_matmul_w4.cu): y = act(x @ dequant(W) * s + b), x bf16
-// [M, K], fp32 accumulation, y bf16 or fp32.
+// Prefill-width (M > 32) weight-only GEMM shared by K1 (quant_matmul.cu),
+// K6/K7/K8 (quant_matmul_w4.cu) and K13's prefill form (quant_matmul_fused.cu):
+// y = act(x @ dequant(W) * s + b), x bf16 [M, K], fp32 accumulation, y bf16
+// or fp32; K13 joins two such outputs over N in one launch.
 //
 // Bound by the tensor cores at these widths: a tiled GEMM whose weight tile
 // is converted to bf16 while it is stored to shared memory, then
@@ -29,19 +30,43 @@ constexpr int GA_LD = GB_K + 8;   // bf16 elements; padded against bank conflict
 constexpr int GB_LD = GB_N + 8;
 constexpr int GC_LD = 16 + 4;     // fp32 staging of one 16x16 fragment per warp
 
+// One output segment of the GEMM: its activations, weight, scales, bias,
+// activation and output. K13's prefill form joins two over N (the qkv and
+// up columns); K1/K6/K7/K8 run one.
+struct GemmSeg {
+  const __nv_bfloat16* x;       // [M, K]
+  const int8_t* w;              // [K, N] int8 or [K/2, N] packed int4
+  const float* scale;           // [N] per-channel, or nullptr with group scales
+  const __nv_bfloat16* gscale;  // [K/G, N] bf16 group scales (W_I4G)
+  const void* bias;
+  int bias_bf16;
+  int act;
+  void* y;                      // [M, N]
+  int N;
+};
+
+// Grid x runs over s1's column tiles, then s2's (none when s2.N is 0).
 template <int FMT>
 static __global__ void __launch_bounds__(256)
-qmm_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-                const float* __restrict__ scale, const __nv_bfloat16* __restrict__ gscale,
-                int G, const void* bias, int bias_bf16, int act, void* y, int out_f32, int M,
-                int N, int K) {
+qmm_gemm_kernel(GemmSeg s1, GemmSeg s2, int G, int out_f32, int M, int K) {
   using namespace nvcuda;
   __shared__ __align__(32) __nv_bfloat16 As[GB_M][GA_LD];
   __shared__ __align__(32) __nv_bfloat16 Bs[GB_K][GB_LD];
   __shared__ __align__(32) float Cs[8][16][GC_LD];
 
+  const int t1 = (s1.N + GB_N - 1) / GB_N;
+  const bool second = (int)blockIdx.x >= t1;
+  const GemmSeg sg = second ? s2 : s1;
+  const __nv_bfloat16* __restrict__ x = sg.x;
+  const int8_t* __restrict__ w = sg.w;
+  const float* __restrict__ scale = sg.scale;
+  const __nv_bfloat16* __restrict__ gscale = sg.gscale;
+  const void* bias = sg.bias;
+  const int bias_bf16 = sg.bias_bf16, act = sg.act, N = sg.N;
+  void* y = sg.y;
+
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int bm = blockIdx.y * GB_M, bn = blockIdx.x * GB_N;
+  const int bm = blockIdx.y * GB_M, bn = (second ? (int)blockIdx.x - t1 : (int)blockIdx.x) * GB_N;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
@@ -171,15 +196,22 @@ qmm_gemm_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
 }
 
 template <int FMT>
+static cudaError_t launch_gemm_ncat(GemmSeg s1, GemmSeg s2, int G, int out_f32, int M, int K,
+                                   cudaStream_t stream) {
+  const dim3 grid((s1.N + GB_N - 1) / GB_N + (s2.N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M);
+  qmm_gemm_kernel<FMT><<<grid, 256, 0, stream>>>(s1, s2, G, out_f32, M, K);
+  return cudaGetLastError();
+}
+
+template <int FMT>
 static cudaError_t launch_gemm(const void* x, const void* w, const float* scale,
                                const void* gscale, int G, int M, int K, int N, const void* bias,
                                int bias_bf16, int act, void* y, int out_f32,
                                cudaStream_t stream) {
-  const dim3 grid((N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M);
-  qmm_gemm_kernel<FMT><<<grid, 256, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), scale,
-      static_cast<const __nv_bfloat16*>(gscale), G, bias, bias_bf16, act, y, out_f32, M, N, K);
-  return cudaGetLastError();
+  const GemmSeg s1{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), scale,
+                   static_cast<const __nv_bfloat16*>(gscale), bias, bias_bf16, act, y, N};
+  const GemmSeg s2{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, nullptr, 0};
+  return launch_gemm_ncat<FMT>(s1, s2, G, out_f32, M, K, stream);
 }
 
 }  // namespace ftcf

@@ -1,9 +1,13 @@
 // Weight-streaming GEMV machinery shared by the decode paths of K1
 // (quant_matmul.cu), K6/K7/K8 (quant_matmul_w4.cu) and the fused decode
-// kernels K2/K3 (quant_matmul_fused.cu).
+// kernels K2/K3/K13 (quant_matmul_fused.cu).
 //
-// out[m, n] = act(sum_seg (x_seg[m, :] @ W_seg[:, n]) * s_seg[n] + bias[n])
-//             + residual[m, n]
+// Two ways to join two weight segments in one launch:
+//  - over K (K3): out[m, n] = act(sum_seg (x_seg[m, :] @ W_seg[:, n]) * s_seg[n]
+//    + bias[n]) + residual[m, n], one output;
+//  - over N (K13): out1 = act1(x1 @ W1 * s1 + b1), out2 = act2(x2 @ W2 * s2 +
+//    b2), two outputs; a column tile belongs to one segment, which gives it
+//    its x, weight, scales, bias, activation and output buffer.
 //
 // At decode widths (M <= 32) the whole cost is streaming the weight from
 // device memory once: K*N bytes for int8, K*N/2 for int4, at 3.35 TB/s on an
@@ -15,10 +19,11 @@
 //    int4 byte row holds two (the low nibbles the even row, the high nibbles
 //    the odd one), so each int4 load feeds two x values per row of sums and
 //    split boundaries fall on even K;
-//  - group-wise int4 (W_I4G) multiplies each dequantized weight by its
-//    group's bf16 scale before the FMA (one 32-byte scale load per weight
-//    load; a byte row pair never straddles a group since G is even), so the
-//    splits need not align with groups and the epilogue applies no scale;
+//  - group-wise weights (W_I4G: bf16 scales; W_I8G: fp32 scales) multiply each
+//    dequantized weight by its group's scale before the FMA (one scale load
+//    per weight load; an int4 byte row pair never straddles a group since G is
+//    even), so the splits need not align with groups and the epilogue applies
+//    no scale;
 //  - the x rows of the block's K range sit in shared memory as fp32;
 //  - there are enough splits that the grid holds about four blocks per SM
 //    (the H100 needs ~2 MB in flight to cover memory latency); each split's
@@ -41,32 +46,29 @@ constexpr int GEMV_COLS = 128;  // 8 column threads x 16 columns
 constexpr int GEMV_MT = 4;      // rows of x per block
 
 struct GemvSeg {
-  const __nv_bfloat16* x;       // [M, K] row-major
-  const int8_t* w;              // [K, N] int8 or [K/2, N] packed int4, row-major
-  const float* scale;           // [N] per-channel (nullptr with group scales)
-  const __nv_bfloat16* gscale;  // [K/G, N] group scales (W_I4G only)
+  const __nv_bfloat16* x;  // [M, K] row-major
+  const int8_t* w;         // [K, N] int8 or [K/2, N] packed int4, row-major
+  const float* scale;      // [N] per-channel (nullptr with group scales)
+  const void* gscale;      // [K/G, N] group scales: bf16 (W_I4G) or fp32 (W_I8G)
   int K;
   int G;
   int splits;
 };
 
+// One block's partial sums: split ``s`` of segment ``sg``, column tile
+// ``tile`` of an N-wide output; the sums go to ``ws_split`` [M, N] (this
+// split's plane of the workspace).
 template <int MT, int FMT>
-static __global__ void __launch_bounds__(GEMV_THREADS)
-gemv_partial_kernel(GemvSeg s1, GemvSeg s2, int M, int N, int chunk_stride,
-                    float* __restrict__ ws) {
+__device__ __forceinline__ void gemv_block(const GemvSeg& sg, int s, int M, int N, int tile,
+                                           int chunk_stride, float* __restrict__ ws_split) {
   constexpr int PACK = KPack<FMT>::value;
   extern __shared__ float smem[];
-  const int split = blockIdx.y;
-  const bool second = split >= s1.splits;
-  const __nv_bfloat16* __restrict__ x = second ? s2.x : s1.x;
-  const int8_t* __restrict__ w = second ? s2.w : s1.w;
-  const __nv_bfloat16* __restrict__ gs = second ? s2.gscale : s1.gscale;
-  const int K = second ? s2.K : s1.K;
-  const int G = second ? s2.G : s1.G;
-  const int nsplit = second ? s2.splits : s1.splits;
-  const int s = second ? split - s1.splits : split;
-  const int rows = K / PACK;                      // weight byte rows
-  const int chunk = (rows + nsplit - 1) / nsplit;  // byte rows per split
+  const __nv_bfloat16* __restrict__ x = sg.x;
+  const int8_t* __restrict__ w = sg.w;
+  const int K = sg.K;
+  const int G = sg.G;
+  const int rows = K / PACK;                         // weight byte rows
+  const int chunk = (rows + sg.splits - 1) / sg.splits;  // byte rows per split
   const int r0 = s * chunk;
   const int r1 = min(rows, r0 + chunk);
   const int k0 = r0 * PACK;
@@ -85,7 +87,7 @@ gemv_partial_kernel(GemvSeg s1, GemvSeg s2, int M, int N, int chunk_stride,
   const int lane = tid & 31, warp = tid >> 5;
   const int nt = lane & 7;                  // column thread
   const int kl = warp * 4 + (lane >> 3);    // k lane, 0..31
-  const int n0 = blockIdx.x * GEMV_COLS + nt * 16;
+  const int n0 = tile * GEMV_COLS + nt * 16;
 
   float acc[MT][16];
 #pragma unroll
@@ -100,12 +102,24 @@ gemv_partial_kernel(GemvSeg s1, GemvSeg s2, int M, int N, int chunk_stride,
     for (int r = r0 + kl; r < r1; r += 32, wp += wstep) {
       const uint4 q = __ldg(reinterpret_cast<const uint4*>(wp));
       const float* xs = smem + (r - r0) * PACK;
-      if constexpr (FMT == W_I8) {
+      if constexpr (FMT == W_I8 || FMT == W_I8G) {
         float f[16];
         i8x4_to_f32(q.x, f);
         i8x4_to_f32(q.y, f + 4);
         i8x4_to_f32(q.z, f + 8);
         i8x4_to_f32(q.w, f + 12);
+        if constexpr (FMT == W_I8G) {
+          const float4* sp = reinterpret_cast<const float4*>(
+              static_cast<const float*>(sg.gscale) + (size_t)(r / G) * N + n0);
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const float4 sc = __ldg(sp + t);
+            f[4 * t] *= sc.x;
+            f[4 * t + 1] *= sc.y;
+            f[4 * t + 2] *= sc.z;
+            f[4 * t + 3] *= sc.w;
+          }
+        }
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           const float xv = xs[m * chunk_stride];
@@ -119,8 +133,8 @@ gemv_partial_kernel(GemvSeg s1, GemvSeg s2, int M, int N, int chunk_stride,
         i4x8_to_f32(q.z, lo + 8, hi + 8);
         i4x8_to_f32(q.w, lo + 12, hi + 12);
         if constexpr (FMT == W_I4G) {
-          const uint4* sp =
-              reinterpret_cast<const uint4*>(gs + (size_t)(2 * r / G) * N + n0);
+          const uint4* sp = reinterpret_cast<const uint4*>(
+              static_cast<const __nv_bfloat16*>(sg.gscale) + (size_t)(2 * r / G) * N + n0);
           const uint4 sa = __ldg(sp), sb = __ldg(sp + 1);
           float sc[16];
           bf16x2_to_f32(sa.x, sc);
@@ -171,9 +185,39 @@ gemv_partial_kernel(GemvSeg s1, GemvSeg s2, int M, int N, int chunk_stride,
     float v = 0.0f;
 #pragma unroll
     for (int wi = 0; wi < GEMV_THREADS / 32; ++wi) v += red[(wi * MT + m) * GEMV_COLS + c];
-    const int n = blockIdx.x * GEMV_COLS + c;
-    if (m0 + m < M && n < N) ws[((size_t)split * M + m0 + m) * N + n] = v;
+    const int n = tile * GEMV_COLS + c;
+    if (m0 + m < M && n < N) ws_split[(size_t)(m0 + m) * N + n] = v;
   }
+}
+
+// Segments joined over K: grid y runs over s1's splits, then s2's.
+template <int MT, int FMT>
+static __global__ void __launch_bounds__(GEMV_THREADS)
+gemv_partial_kernel(GemvSeg s1, GemvSeg s2, int M, int N, int chunk_stride,
+                    float* __restrict__ ws) {
+  const int split = blockIdx.y;
+  const bool second = split >= s1.splits;
+  const GemvSeg sg = second ? s2 : s1;
+  gemv_block<MT, FMT>(sg, second ? split - s1.splits : split, M, N, blockIdx.x, chunk_stride,
+                      ws + (size_t)split * M * N);
+}
+
+// Segments joined over N: grid x runs over s1's column tiles (N1 columns),
+// then s2's (N2); grid y over the splits of the wider-split segment (a block
+// past its own segment's splits exits). Each segment's splits fill its own
+// workspace, ws1 [s1.splits, M, N1] and ws2 [s2.splits, M, N2].
+template <int MT, int FMT>
+static __global__ void __launch_bounds__(GEMV_THREADS)
+gemv_ncat_partial_kernel(GemvSeg s1, GemvSeg s2, int N1, int N2, int M, int chunk_stride,
+                         float* __restrict__ ws1, float* __restrict__ ws2) {
+  const int t1 = (N1 + GEMV_COLS - 1) / GEMV_COLS;
+  const bool second = (int)blockIdx.x >= t1;
+  const GemvSeg sg = second ? s2 : s1;
+  const int split = blockIdx.y;
+  if (split >= sg.splits) return;  // uniform over the block
+  const int N = second ? N2 : N1;
+  gemv_block<MT, FMT>(sg, split, M, N, second ? blockIdx.x - t1 : blockIdx.x, chunk_stride,
+                      (second ? ws2 : ws1) + (size_t)split * M * N);
 }
 
 // Sums the splits in a fixed order, then scale (none for group scales), bias,
@@ -191,11 +235,13 @@ static __global__ void gemv_epilogue_kernel(const float* __restrict__ ws, int sp
   const size_t plane = (size_t)M * N;
   float a1 = 0.0f;
   for (int s = 0; s < splits1; ++s) a1 += ws[s * plane + i];
-  float v = scale1 != nullptr ? a1 * scale1[n] : a1;
+  // __fmul_rn: no multiply-add contraction with the bias, so a segment of the
+  // N-joined epilogue below rounds exactly as this one does
+  float v = scale1 != nullptr ? __fmul_rn(a1, scale1[n]) : a1;
   if (splits2 > 0) {
     float a2 = 0.0f;
     for (int s = splits1; s < splits1 + splits2; ++s) a2 += ws[s * plane + i];
-    v += scale2 != nullptr ? a2 * scale2[n] : a2;
+    v += scale2 != nullptr ? __fmul_rn(a2, scale2[n]) : a2;
   }
   v = apply_act(v + load_bias(bias, bias_bf16, n), act);
   if (residual != nullptr) v += __bfloat162float(residual[i]);
@@ -205,6 +251,35 @@ static __global__ void gemv_epilogue_kernel(const float* __restrict__ ws, int sp
     static_cast<__nv_bfloat16*>(y)[i] = __float2bfloat16(v);
 }
 
+// The epilogue of one N-joined segment: an output element's value, as
+// gemv_epilogue_kernel computes it for one segment and no residual.
+struct GemvOut {
+  float* ws;           // [splits, M, N]
+  int splits;
+  int N;
+  const float* scale;  // [N] or nullptr
+  const void* bias;
+  int bias_bf16;
+  int act;
+  __nv_bfloat16* y;    // [M, N]
+};
+
+static __global__ void gemv_ncat_epilogue_kernel(GemvOut o1, GemvOut o2, int M) {
+  const size_t i0 = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t n1 = (size_t)M * o1.N;
+  if (i0 >= n1 + (size_t)M * o2.N) return;
+  const bool second = i0 >= n1;
+  const GemvOut o = second ? o2 : o1;
+  const size_t i = second ? i0 - n1 : i0;
+  const int n = (int)(i % o.N);
+  const size_t plane = (size_t)M * o.N;
+  float a = 0.0f;
+  for (int s = 0; s < o.splits; ++s) a += o.ws[s * plane + i];
+  float v = o.scale != nullptr ? __fmul_rn(a, o.scale[n]) : a;
+  v = apply_act(v + load_bias(o.bias, o.bias_bf16, n), o.act);
+  o.y[i] = __float2bfloat16(v);
+}
+
 // x elements that one split of a segment covers (a whole number of byte rows).
 template <int FMT>
 static inline int gemv_chunk(const GemvSeg& s) {
@@ -212,12 +287,17 @@ static inline int gemv_chunk(const GemvSeg& s) {
   return s.splits ? PACK * ((s.K / PACK + s.splits - 1) / s.splits) : 0;
 }
 
+template <int MT>
+static inline size_t gemv_smem(int chunk) {
+  return std::max((size_t)MT * chunk, (size_t)8 * MT * GEMV_COLS) * sizeof(float);
+}
+
 template <int MT, int FMT>
 static void launch_partial(GemvSeg s1, GemvSeg s2, int M, int N, int chunk, float* ws,
                            cudaStream_t stream) {
-  const size_t smem = std::max((size_t)MT * chunk, (size_t)8 * MT * GEMV_COLS) * sizeof(float);
   const dim3 grid((N + GEMV_COLS - 1) / GEMV_COLS, s1.splits + s2.splits, (M + MT - 1) / MT);
-  gemv_partial_kernel<MT, FMT><<<grid, GEMV_THREADS, smem, stream>>>(s1, s2, M, N, chunk, ws);
+  gemv_partial_kernel<MT, FMT>
+      <<<grid, GEMV_THREADS, gemv_smem<MT>(chunk), stream>>>(s1, s2, M, N, chunk, ws);
 }
 
 // Both segments share one weight format FMT.
@@ -240,6 +320,36 @@ static cudaError_t launch_gemv(GemvSeg s1, GemvSeg s2, int M, int N, const void*
   gemv_epilogue_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
       ws, s1.splits, s2.splits, M, N, s1.scale, s2.scale, bias, bias_bf16, act, residual, y,
       out_f32);
+  return cudaGetLastError();
+}
+
+template <int MT, int FMT>
+static void launch_ncat_partial(GemvSeg s1, GemvSeg s2, int N1, int N2, int M, int chunk,
+                                float* ws1, float* ws2, cudaStream_t stream) {
+  const int tiles = (N1 + GEMV_COLS - 1) / GEMV_COLS + (N2 + GEMV_COLS - 1) / GEMV_COLS;
+  const dim3 grid(tiles, std::max(s1.splits, s2.splits), (M + MT - 1) / MT);
+  gemv_ncat_partial_kernel<MT, FMT><<<grid, GEMV_THREADS, gemv_smem<MT>(chunk), stream>>>(
+      s1, s2, N1, N2, M, chunk, ws1, ws2);
+}
+
+// Two segments joined over N into two bf16 outputs; o1.ws / o2.ws are the
+// segments' workspaces (splits x M x N floats each). An empty second segment
+// (N2 = 0, splits 0) makes this one plain GEMV of any format.
+template <int FMT>
+static cudaError_t launch_gemv_ncat(GemvSeg s1, GemvSeg s2, GemvOut o1, GemvOut o2, int M,
+                                    cudaStream_t stream) {
+  const int chunk = std::max(gemv_chunk<FMT>(s1), gemv_chunk<FMT>(s2));
+  if ((size_t)GEMV_MT * chunk * sizeof(float) > 48 * 1024) return cudaErrorInvalidValue;
+  if (M == 1)
+    launch_ncat_partial<1, FMT>(s1, s2, o1.N, o2.N, M, chunk, o1.ws, o2.ws, stream);
+  else if (M == 2)
+    launch_ncat_partial<2, FMT>(s1, s2, o1.N, o2.N, M, chunk, o1.ws, o2.ws, stream);
+  else
+    launch_ncat_partial<GEMV_MT, FMT>(s1, s2, o1.N, o2.N, M, chunk, o1.ws, o2.ws, stream);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t total = (size_t)M * (o1.N + o2.N);
+  gemv_ncat_epilogue_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(o1, o2, M);
   return cudaGetLastError();
 }
 

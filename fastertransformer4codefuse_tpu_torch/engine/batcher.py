@@ -495,7 +495,8 @@ class ContinuousBatcher:
         cols = buf_pos.long()[:, None] + torch.arange(C, device=self.device)[None, :]
         tok_chunk = st["tokens"].gather(1, cols)  # [B, C]
         model.prefill_chunk(self.cfg, self.engine.params, tok_chunk, buf_pos, st["cache"],
-                            prefilling, rotary_tables=self._rotary)
+                            prefilling, rotary_tables=self._rotary,
+                            fused=self.engine.runtime.fused_decode)
         st["prefill_pos"] += prefilling.to(torch.int32) * C
         self.chunk_ticks += 1
 
@@ -546,6 +547,7 @@ class ContinuousBatcher:
         hidden, _ = model.decode_step(
             self.cfg, self.engine.params, newest, positions, st["cache"],
             rotary_tables=self._rotary, kv_skip=~ready, kv_skip_mode="sacrifice_last",
+            fused=self.engine.runtime.fused_decode,
         )
         logits = self._process_logits(st, model.lm_logits(self.cfg, self.engine.params, hidden))
         res = sample_top_k_top_p_capped(

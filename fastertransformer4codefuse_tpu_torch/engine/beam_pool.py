@@ -158,6 +158,7 @@ class BeamPool(ContinuousBatcher):
             self.cfg, self.engine.params, newest, positions, st["cache"],
             rotary_tables=self._rotary, kv_skip=(~ready) | st["finished"],
             kv_skip_mode="sacrifice_last", beam=(bw, st["beam_indir"]),
+            fused=self.engine.runtime.fused_decode,
         )
         # the sampling pool's processors: a beam row's presence penalty stays 0
         logits = self._process_logits(st, model.lm_logits(self.cfg, self.engine.params, hidden))

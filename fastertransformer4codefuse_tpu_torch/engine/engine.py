@@ -212,7 +212,7 @@ class GptNeoXEngine:
                       kv_skip_mode="sacrifice_last")
         hidden, s.cache = model.decode_step(
             self.config, self.params, newest, buf_idx.to(torch.int32), s.cache,
-            rotary_tables=rotary_tables, **kw,
+            rotary_tables=rotary_tables, fused=self.runtime.fused_decode, **kw,
         )
         s.logits = model.lm_logits(self.config, self.params, hidden)
         self.decode_forwards += 1
@@ -224,7 +224,8 @@ class GptNeoXEngine:
         input_lengths = inputs["input_lengths"]
         cache = kv_cache.init_cache(cfg, B, st.total_len, self._cache_dtype(), self.device)
         hidden, cache = model.prefill(
-            cfg, self.params, tokens[:, : st.input_width], input_lengths, cache
+            cfg, self.params, tokens[:, : st.input_width], input_lengths, cache,
+            fused=self.runtime.fused_decode,
         )
         logits = model.lm_logits(cfg, self.params, model.last_token_hidden(hidden, input_lengths))
         generators = None

@@ -12,14 +12,18 @@ the stacked weights and cache without a copy.
 cache (the continuous batcher's chunk tick); ``decode_step``'s ``kv_skip``
 rows write where no row reads (the pool's idle slots).
 
-Decode routing (the JAX ``_fused_upd_ok`` / ``_fused_pd_ok`` minus their TPU
-terms): a parallel-residual layer whose proj/down (and, for K2, up) weights
-are per-channel quantized with one bit width (int8 or int4) and which has
-the biases runs its post-attention block through K2 when the activation is
-tanh-gelu, relu or silu, through the up GEMM + K3 (proj + down) otherwise.
-Any other layer, group-wise int4 included (the JAX gate measures G > 0 out of
-the fused kernels), runs unfused GEMMs: K1 (int8), K6 (int4) or K7 (int4
-group-wise).
+Routing (``fused=True``, ``RuntimeConfig.fused_decode``): a
+parallel-residual layer whose four big kernels are quantized alike (one bit
+width, one group size: int8, int4, or int4 with group scales) and which has
+the summed bias runs ln1 and ln2 on x, then K13 (QKV and the activated up
+projection in one launch: the GEMV at decode widths, the GEMM in prefill and
+chunk ticks), rotary, the cache write and attention; then, in decode, K3
+(proj + down + bias + residual), and in prefill the proj and down GEMMs.
+Every activation of the port is admitted (exact gelu too: the CUDA epilogue
+has erf). Any other layer, and every layer with ``fused=False``, runs
+unfused GEMMs: K1 (int8), K6 (int4) or K7 (int4 group-wise). The JAX package
+gates group-wise layers and the QKV + up merge out of its fused kernels by
+measurements on a TPU; the port does not copy those gates.
 """
 from __future__ import annotations
 
@@ -32,14 +36,11 @@ from ..engine import kv_cache as kvc
 from ..ops.attention import prefill_attention
 from ..ops.layernorm import layernorm, rmsnorm
 from ..ops.linear import linear, quantized_matmul_transposed_head
-from ..ops.quant_matmul_fused import fused_proj_down, fused_up_proj_down
+from ..ops.quant_matmul_fused import fused_proj_down, fused_qkv_up
 from ..ops.rotary import apply_rotary, make_rotary_tables
 from .params import Params, QuantizedTensor, check_supported, layer_slice
 
 KVCache = dict
-
-FUSED_UPD_ACTS = frozenset({"gelu-tanh", "relu", "silu"})
-
 
 def _norm(config: GptNeoXConfig, x, w, b):
     if config.norm == "rmsnorm":
@@ -51,39 +52,26 @@ def _addb(x, b):
     return x if b is None else x + b.to(x.dtype)
 
 
-def _per_channel(ws) -> bool:
-    """Quantized kernels of one bit width, all with per-channel scales (G == 0)."""
-    return (
-        all(isinstance(w, QuantizedTensor) and not w.group_size for w in ws)
-        and len({w.bits for w in ws}) == 1
-    )
+def _quantized_alike(ws) -> bool:
+    """Quantized kernels of one bit width and one group size."""
+    return (all(isinstance(w, QuantizedTensor) for w in ws)
+            and len({(w.bits, w.group_size) for w in ws}) == 1)
 
 
-def _fused_pd_ok(config: GptNeoXConfig, lp: Dict[str, Any]) -> bool:
-    """proj + down + parallel residual + bias can run as K3."""
+def _fused_ok(config: GptNeoXConfig, lp: Dict[str, Any]) -> bool:
+    """The layer can run as K13 (qkv + up) then K3 (proj + down + bias +
+    residual)."""
     return (
         config.use_gptj_residual
-        and _per_channel([lp["proj_w"], lp["down_w"]])
+        and _quantized_alike([lp[k] for k in ("qkv_w", "up_w", "proj_w", "down_w")])
         and "down_b" in lp
     )
 
 
-def _fused_upd_ok(config: GptNeoXConfig, lp: Dict[str, Any]) -> bool:
-    """The whole post-attention block (up + act, proj, down, residual,
-    biases) can run as K2."""
-    return (
-        _fused_pd_ok(config, lp)
-        and config.activation in FUSED_UPD_ACTS
-        and _per_channel([lp["up_w"], lp["proj_w"]])
-        and "up_b" in lp
-    )
-
-
-def _qkv(config: GptNeoXConfig, lp, x, cos, sin):
-    """ln1 output -> fused QKV -> heads -> rotary. x: [B, S, H]."""
-    B, S, _ = x.shape
+def _heads(config: GptNeoXConfig, qkv, cos, sin):
+    """Fused QKV output [B, S, cols] -> q, k, v heads with rotary applied."""
+    B, S, _ = qkv.shape
     nH, dh = config.head_num, config.size_per_head
-    qkv = linear(x, lp["qkv_w"], lp.get("qkv_b"))
     if config.qkv_layout == "concat":
         nKV = config.kv_heads
         q = qkv[..., : nH * dh].reshape(B, S, nH, dh)
@@ -98,6 +86,29 @@ def _qkv(config: GptNeoXConfig, lp, x, cos, sin):
     return q, k, v
 
 
+def _qkv(config: GptNeoXConfig, lp, x, cos, sin):
+    """ln1 output -> fused QKV -> heads -> rotary. x: [B, S, H]."""
+    return _heads(config, linear(x, lp["qkv_w"], lp.get("qkv_b")), cos, sin)
+
+
+def _attention_inputs(config: GptNeoXConfig, lp, x, cos, sin, fused):
+    """x [B, S, H] -> (q, k, v with rotary, h). On the fused route (``fused``
+    and ``_fused_ok``) K13 computes QKV from ln1(x) and the activated up
+    projection h [B*S, F] from ln2(x) in one launch; elsewhere h is None
+    and the FFN runs after attention."""
+    B, S, H = x.shape
+    ln1 = _norm(config, x, lp["ln1_w"], lp.get("ln1_b"))
+    if not (fused and _fused_ok(config, lp)):
+        return (*_qkv(config, lp, ln1, cos, sin), None)
+    ln2 = _norm(config, x, lp["ln2_w"], lp.get("ln2_b"))
+    qkv_w, up_w = lp["qkv_w"], lp["up_w"]
+    qkv, h = fused_qkv_up(ln1.reshape(B * S, H), ln2.reshape(B * S, H), qkv_w.q, up_w.q,
+                          qkv_w.scale, up_w.scale, lp.get("qkv_b"), lp.get("up_b"),
+                          act2=config.activation, bits=qkv_w.bits,
+                          group_size=qkv_w.group_size)
+    return (*_heads(config, qkv.reshape(B, S, -1), cos, sin), h)
+
+
 def _ffn(config: GptNeoXConfig, lp, x):
     """Up with bias and activation, then down; the down bias is added by the
     caller's residual."""
@@ -105,82 +116,70 @@ def _ffn(config: GptNeoXConfig, lp, x):
     return linear(h, lp["down_w"])
 
 
-def _residual(config, lp, x, attn_out):
+def _residual(config, lp, x, attn_out, h=None):
+    """The block output from its input x and the projected attention; ``h``:
+    the activated up projection the fused route already computed."""
     if config.use_gptj_residual:
-        ln2 = _norm(config, x, lp["ln2_w"], lp.get("ln2_b"))
-        return _addb(x + attn_out + _ffn(config, lp, ln2), lp.get("down_b"))
+        if h is None:
+            ffn = _ffn(config, lp, _norm(config, x, lp["ln2_w"], lp.get("ln2_b")))
+        else:
+            ffn = linear(h.reshape(x.shape[:-1] + h.shape[-1:]), lp["down_w"])
+        return _addb(x + attn_out + ffn, lp.get("down_b"))
     h = _addb(x + attn_out, lp.get("proj_b"))
     ln2 = _norm(config, h, lp["ln2_w"], lp.get("ln2_b"))
     return _addb(h + _ffn(config, lp, ln2), lp.get("down_b"))
 
 
-def block_prefill(config, lp, x, cache, layer, cos, sin, input_lengths):
+def block_prefill(config, lp, x, cache, layer, cos, sin, input_lengths, fused=True):
     """x [B, S, H]; cos/sin [S, rot/2]; input_lengths [B] int32. Fills cache
     [0, S). Attention is K5 on CUDA (no [B, S, S] mask is built there), the
-    plain causal, length-masked math on the CPU."""
+    plain causal, length-masked math on the CPU. ``fused``: QKV and up by
+    K13's GEMM form where the layer allows; proj and down stay GEMMs."""
     B, S, H = x.shape
     sm_scale = 1.0 / (config.size_per_head ** 0.5)
-    ln1 = _norm(config, x, lp["ln1_w"], lp.get("ln1_b"))
-    q, k, v = _qkv(config, lp, ln1, cos, sin)
+    q, k, v, h = _attention_inputs(config, lp, x, cos, sin, fused)
     kvc.write_prefill(cache, layer, k, v)
     attn = prefill_attention(q, k, v, None, sm_scale, input_lengths)
     attn_out = linear(attn.reshape(B, S, H), lp["proj_w"])
-    return _residual(config, lp, x, attn_out), cache
+    return _residual(config, lp, x, attn_out, h), cache
 
 
 def block_decode(config, lp, x, cache, layer, cos, sin, positions, kv_skip=None,
-                 kv_skip_mode="preserve", beam=None):
+                 kv_skip_mode="preserve", beam=None, fused=True):
     """x [B, 1, H], the newest token per row; cos/sin [B, 1, rot/2];
     positions [B] int32, the slot of each row's new token; ``kv_skip`` [B]
     bool rows whose cache write must not disturb readable state
     (``kv_cache.write_decode``); ``beam`` (bw, indir) reads the cache
-    through the beam indirection (K11)."""
+    through the beam indirection (K11); ``fused`` allows the K13 + K3
+    route."""
     B, _, H = x.shape
     sm_scale = 1.0 / (config.size_per_head ** 0.5)
-    ln1 = _norm(config, x, lp["ln1_w"], lp.get("ln1_b"))
-    q, k, v = _qkv(config, lp, ln1, cos, sin)
+    q, k, v, h = _attention_inputs(config, lp, x, cos, sin, fused)
     kvc.write_decode(cache, layer, k, v, positions, skip=kv_skip, skip_mode=kv_skip_mode)
     attn = kvc.attend_decode(cache, layer, q[:, 0].contiguous(), sm_scale, positions, beam=beam)
-    attn2d = attn.reshape(B, H)
-    x2d = x[:, 0]
-
-    if _fused_upd_ok(config, lp):
-        ln2 = _norm(config, x2d, lp["ln2_w"], lp.get("ln2_b"))
-        up, proj, down = lp["up_w"], lp["proj_w"], lp["down_w"]
-        out = fused_up_proj_down(
-            ln2, attn2d, x2d, up.q, proj.q, down.q, up.scale, proj.scale, down.scale,
-            lp["up_b"], lp["down_b"], act=config.activation, bits=proj.bits,
-        )
-        return out[:, None, :], cache
-
-    if _fused_pd_ok(config, lp):
-        ln2 = _norm(config, x2d, lp["ln2_w"], lp.get("ln2_b"))
-        h = linear(ln2, lp["up_w"], lp.get("up_b"), act=config.activation)
+    if h is not None:
         proj, down = lp["proj_w"], lp["down_w"]
-        out = fused_proj_down(
-            attn2d, h, proj.q, down.q, proj.scale, down.scale, lp["down_b"], x2d, bits=proj.bits
-        )
+        out = fused_proj_down(attn.reshape(B, H), h, proj.q, down.q, proj.scale, down.scale,
+                              lp["down_b"], x[:, 0], bits=proj.bits, group_size=proj.group_size)
         return out[:, None, :], cache
-
     attn_out = linear(attn.reshape(B, 1, H), lp["proj_w"])
     return _residual(config, lp, x, attn_out), cache
 
 
-def block_prefill_chunk(config, lp, x, cache, layer, cos, sin, pos, valid, active):
+def block_prefill_chunk(config, lp, x, cache, layer, cos, sin, pos, valid, active, fused=True):
     """Chunked prefill block. x [B, C, H], C consecutive prompt tokens per
     row; cos/sin [B, C, rot/2]; pos [B] int32 chunk start slots; valid
     [B, C, S] keys visible to each query (the dense cache's mask); active [B]
     rows really prefilling (the others keep their cache bytes). The chunk
-    attends over the already-filled cache: K10 on a paged cache. Its four
-    GEMMs run at M = B * C."""
+    attends over the already-filled cache: K10 on a paged cache. Its GEMMs
+    run at M = B * C (QKV and up as one K13 launch where ``fused``)."""
     B, C, H = x.shape
     sm_scale = 1.0 / (config.size_per_head ** 0.5)
-    ln1 = _norm(config, x, lp["ln1_w"], lp.get("ln1_b"))
-    q, k, v = _qkv(config, lp, ln1, cos, sin)
+    q, k, v, h = _attention_inputs(config, lp, x, cos, sin, fused)
     kvc.write_chunk(cache, layer, k, v, pos, active)
     attn = kvc.attend_chunk(cache, layer, q, valid, sm_scale, positions=pos)
     attn_out = linear(attn.reshape(B, C, H), lp["proj_w"])
-    return _residual(config, lp, x, attn_out), cache
+    return _residual(config, lp, x, attn_out, h), cache
 
 
 def _embed_lookup(params: Params, ids: torch.Tensor) -> torch.Tensor:
@@ -198,8 +197,10 @@ def prefill(
     input_ids: torch.Tensor,  # [B, S] right-padded
     input_lengths: torch.Tensor,  # [B]
     cache: KVCache,
+    fused: bool = True,
 ) -> Tuple[torch.Tensor, KVCache]:
-    """Full-prompt forward: (hidden [B, S, H], cache with [0, S) filled)."""
+    """Full-prompt forward: (hidden [B, S, H], cache with [0, S) filled).
+    ``fused``: QKV and up through K13 (``RuntimeConfig.fused_decode``)."""
     check_supported(config)
     B, S = input_ids.shape
     dev = input_ids.device
@@ -208,7 +209,7 @@ def prefill(
     layers = params["layers"]
     for l in range(config.layer_num):
         x, cache = block_prefill(config, layer_slice(layers, l), x, cache, l, cos, sin,
-                                 input_lengths)
+                                 input_lengths, fused)
     return x, cache
 
 
@@ -222,12 +223,14 @@ def decode_step(
     kv_skip=None,
     kv_skip_mode: str = "preserve",
     beam=None,
+    fused: bool = True,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One incremental decode step: (hidden [B, H], cache). ``kv_skip`` rows
     write their (discarded) token where readable state stays intact
     (``kv_cache.write_decode``). ``beam`` = (bw, indir [B, S] int32): the
     rows are beam-minor hypotheses whose attention resolves the cache
-    indirection (the beam search's fixed cache)."""
+    indirection (the beam search's fixed cache). ``fused`` allows the K13 +
+    K3 route (``RuntimeConfig.fused_decode``)."""
     check_supported(config)
     cache_len = kvc.seq_len_of(cache)
     x = _embed_lookup(params, tokens)[:, None, :]
@@ -240,7 +243,7 @@ def decode_step(
     layers = params["layers"]
     for l in range(config.layer_num):
         x, cache = block_decode(config, layer_slice(layers, l), x, cache, l, cos, sin, positions,
-                                kv_skip, kv_skip_mode, beam)
+                                kv_skip, kv_skip_mode, beam, fused)
     return x[:, 0], cache
 
 
@@ -252,10 +255,11 @@ def prefill_chunk(
     cache: KVCache,
     active: torch.Tensor,  # [B] bool rows mid-prefill
     rotary_tables=None,
+    fused: bool = True,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One chunked-prefill step over the layer stack: fills cache positions
     [pos, pos + C) of active rows and keeps the other rows' bytes. Returns
-    (hidden [B, C, H], cache)."""
+    (hidden [B, C, H], cache). ``fused``: QKV and up through K13."""
     check_supported(config)
     B, C = tokens_chunk.shape
     S = kvc.seq_len_of(cache)
@@ -271,7 +275,7 @@ def prefill_chunk(
     layers = params["layers"]
     for l in range(config.layer_num):
         x, cache = block_prefill_chunk(config, layer_slice(layers, l), x, cache, l, cos, sin,
-                                       pos, valid, active)
+                                       pos, valid, active, fused)
     return x, cache
 
 

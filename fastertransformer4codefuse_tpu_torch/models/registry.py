@@ -2,8 +2,8 @@
 config parser, a parameter converter and the model functions its engine
 drives.
 
-Registered here: ``gptneox`` (the CodeFuse path; its HF converters are
-ROADMAP queue 1 item 9), and the encoders ``bert`` and ``longformer``. The
+Registered here: ``gptneox`` (the CodeFuse path, with the HF converters of
+``ckpt/convert.py``), and the encoders ``bert`` and ``longformer``. The
 JAX package's other families are ROADMAP items 17 (decoders) and 18
 (encoders, encoder-decoders, vision and audio), and ``get`` refuses them.
 """
@@ -46,11 +46,8 @@ def families() -> Dict[str, ModelFamily]:
     return dict(_REGISTRY)
 
 
-def _hf_gptneox(*args, **kwargs):
-    raise NotImplementedError("the HF GPT-NeoX converter (ckpt/convert.py) is ROADMAP queue 1 item 9")
-
-
 def _register_builtin() -> None:
+    from ..ckpt import convert
     from ..core.config import GptNeoXConfig
     from . import bert, gptneox, longformer
 
@@ -63,8 +60,10 @@ def _register_builtin() -> None:
         ModelFamily(
             name="gptneox",
             config_from_ini=GptNeoXConfig.from_ini,
-            config_from_hf=_hf_gptneox,
-            params_from_hf=_hf_gptneox,
+            config_from_hf=convert.config_from_hf,
+            params_from_hf=lambda cfg, sd, dtype="fp32", device=None: (
+                convert.params_from_hf_state_dict(cfg, sd, dtype, device)
+            ),
             prefill=gptneox.prefill,
             decode_step=gptneox.decode_step,
             lm_logits=gptneox.lm_logits,

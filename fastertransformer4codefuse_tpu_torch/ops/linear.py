@@ -75,7 +75,7 @@ def quantized_matmul_transposed_head(x: torch.Tensor, w: QuantizedTensor) -> tor
     if w.bits != 4 or w.group_size:
         raise NotImplementedError(
             "only the per-channel int4 transposed head is served; the group-wise head "
-            "(JAX linear.py:267-275) is ROADMAP queue 2"
+            "(JAX linear.py:267-275) is ROADMAP queue 1 item 11"
         )
     return quant_matmul_w4_head(x.contiguous(), w.q, w.scale)
 

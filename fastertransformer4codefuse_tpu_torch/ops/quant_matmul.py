@@ -57,10 +57,11 @@ def gemv_splits(K: int, N: int, device: torch.device, share: float = 1.0, bits: 
 
 
 def check_operands(x, w, scale, bias, name, bits=8, group_size=0):
-    """Raise on what the kernels do not take (shared with K2/K3 and K6-K8):
+    """Raise on what the kernels do not take (shared with K2/K3/K13 and K6-K8):
     x a contiguous bf16 [M, K]; w a contiguous int8 [K, N], or for ``bits=4``
     the packed [K/2, N]; scale a contiguous fp32 [N], or with ``group_size``
-    G a contiguous bf16 [K/G, N]; bias a contiguous bf16/fp32 [N]."""
+    G a contiguous, 16-byte aligned [K/G, N], bf16 for int4 and fp32 for int8
+    (``ckpt.quantize.group_scale_dtype``); bias a contiguous bf16/fp32 [N]."""
     req = _cuda.require
     dev = x.device
     req(x.dtype == torch.bfloat16, f"{name}: x must be bf16, got {x.dtype}")
@@ -75,12 +76,13 @@ def check_operands(x, w, scale, bias, name, bits=8, group_size=0):
     req(K % 8 == 0 and N % 16 == 0, f"{name}: needs K % 8 == 0 and N % 16 == 0")
     req(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, f"{name}: x, w not 16-byte aligned")
     if group_size:
-        req(bits == 4, f"{name}: group scales are taken with int4 weights only")
+        sdt = torch.bfloat16 if bits == 4 else torch.float32
         req(group_size % 2 == 0 and K % group_size == 0,
             f"{name}: group size {group_size} must be even and divide K={K}")
-        req(scale.dtype == torch.bfloat16 and scale.shape == (K // group_size, N)
+        req(scale.dtype == sdt and scale.shape == (K // group_size, N)
             and scale.is_contiguous() and scale.data_ptr() % 16 == 0,
-            f"{name}: group scale must be a contiguous, 16-byte aligned bf16 [K/G, N]")
+            f"{name}: {bits}-bit group scale must be a contiguous, 16-byte aligned {sdt} "
+            f"[K/G, N]")
     else:
         req(scale.dtype == torch.float32 and scale.shape == (N,) and scale.is_contiguous(),
             f"{name}: scale must be a contiguous fp32 [N]")

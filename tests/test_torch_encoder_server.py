@@ -12,6 +12,7 @@ import threading
 import numpy as np
 import pytest
 import torch
+import transformers
 
 import jax.numpy as jnp
 
@@ -161,9 +162,15 @@ def test_registry_holds_the_ported_families_only():
     fam = registry.get("gptneox")
     assert fam.prefill is gptneox.prefill and fam.decode_step is gptneox.decode_step
     assert fam.lm_logits is gptneox.lm_logits and fam.encode is None
-    for conv in (fam.config_from_hf, fam.params_from_hf):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            conv(None)
+    from fastertransformer4codefuse_tpu_torch.ckpt import convert
+
+    assert fam.config_from_hf is convert.config_from_hf
+    hf_cfg = transformers.GPTNeoXConfig(vocab_size=64, hidden_size=32, num_hidden_layers=1,
+                                        num_attention_heads=4, intermediate_size=64)
+    hf = transformers.GPTNeoXForCausalLM(hf_cfg).eval()
+    tcfg = fam.config_from_hf(hf.config)
+    tp = fam.params_from_hf(tcfg, hf.state_dict(), device="cpu")
+    assert tp["layers"]["qkv_w"].shape == (1, 32, 96) and tp["embed"].device.type == "cpu"
     cfg = GptNeoXConfig.tiny(vocab_size=64)
     eng = fam.make_engine(cfg, init_params(cfg, device="cpu"))
     assert isinstance(eng, GptNeoXEngine)

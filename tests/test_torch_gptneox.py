@@ -42,7 +42,7 @@ from test_api import CharTokenizer
 
 torch.set_num_threads(2)
 
-# (parallel residual, activation): K2 decode block, K1 + K3, serial K1 GEMMs
+# (parallel residual, activation): K13 + K3 decode (tanh and exact gelu), serial K1 GEMMs
 MODES = [(True, "gelu-tanh"), (True, "gelu"), (False, "gelu")]
 
 

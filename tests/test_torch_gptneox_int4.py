@@ -6,8 +6,9 @@ cache, fp32. G = 0 is per-channel W4A16, G = 16 group-wise.
 
 Tolerances: logits within 1e-4 of max |logits| (fp32, summation order only);
 greedy tokens and handler texts identical. The routing is asserted on the
-plain path: per-channel int4 decode runs K2 (K3 inside it) and K6 for QKV;
-group-wise int4 runs four K7 GEMMs a layer; both heads run K8."""
+plain path: int4 decode, per-channel or group-wise, runs K13 (qkv + up) and
+K3 (proj + down) a layer; prefill runs K13 and the proj and down K6 (K7)
+GEMMs a layer; both heads run K8."""
 import json
 
 import numpy as np
@@ -49,7 +50,7 @@ def routes(monkeypatch):
 
     for name in ("quant_matmul_w4", "quant_matmul_w4_group", "quant_matmul_w4_head"):
         counted(quant_matmul_w4, name)
-    for name in ("fused_up_proj_down", "fused_proj_down"):
+    for name in ("fused_qkv_up", "fused_proj_down"):
         counted(tm, name)
     return counts
 
@@ -82,7 +83,8 @@ def test_int4_prefill_and_decode_logits_match_jax(G, routes):
     assert tl.dtype == torch.float32 and tl.shape == (B, jcfg.vocab_size)
     assert _rel(tl, jl) < 1e-4
     L = cfg.layer_num
-    prefill_calls = {"quant_matmul_w4_group" if G else "quant_matmul_w4": 4 * L,
+    # K13 runs QKV and up; proj and down are K6 (K7) GEMMs
+    prefill_calls = {"fused_qkv_up": L, "quant_matmul_w4_group" if G else "quant_matmul_w4": 2 * L,
                      "quant_matmul_w4_head": 1}
     assert routes == prefill_calls
     routes.clear()
@@ -91,15 +93,14 @@ def test_int4_prefill_and_decode_logits_match_jax(G, routes):
         jl, jc = jdecode(jp, jnp.asarray(feed[t]), jnp.asarray(pos), jc)
         h, tc = tm.decode_step(cfg, tp, torch.from_numpy(feed[t]), torch.from_numpy(pos), tc)
         assert _rel(tm.lm_logits(cfg, tp, h), jl) < 1e-4, t
-    if G:  # QKV, proj, up and down: four K7 calls a layer
-        assert routes == {"quant_matmul_w4_group": 4 * L * steps, "quant_matmul_w4_head": steps}
-    else:  # QKV through K6; K2 runs up, proj and down (its K3 is a direct call)
-        assert routes == {"quant_matmul_w4": L * steps, "fused_up_proj_down": L * steps,
-                          "quant_matmul_w4_head": steps}
+    # K13 runs qkv and up, K3 proj and down, per-channel and group-wise alike
+    assert routes == {"fused_qkv_up": L * steps, "fused_proj_down": L * steps,
+                      "quant_matmul_w4_head": steps}
 
 
 def test_int4_k3_route_with_exact_gelu(routes):
-    """Exact-erf gelu keeps per-channel int4 off K2: up through K6, then K3."""
+    """Exact-erf gelu takes the fused route too: K13 (its up epilogue has
+    erf), then K3."""
     jcfg, jp, cfg, tp = _models(True, "gelu", weight_bits=4)
     B, S = 2, 6
     ids = np.random.default_rng(9).integers(2, jcfg.vocab_size, (B, S)).astype(np.int32)
@@ -113,7 +114,7 @@ def test_int4_k3_route_with_exact_gelu(routes):
     th, _ = tm.decode_step(cfg, tp, torch.from_numpy(ids[:, 0]), torch.from_numpy(lens), tc)
     assert _rel(tm.lm_logits(cfg, tp, th), jm.lm_logits(jcfg, jp, jh)) < 1e-4
     L = cfg.layer_num
-    assert routes == {"quant_matmul_w4": 2 * L, "fused_proj_down": L, "quant_matmul_w4_head": 1}
+    assert routes == {"fused_qkv_up": L, "fused_proj_down": L, "quant_matmul_w4_head": 1}
 
 
 @pytest.mark.parametrize("G", GROUPS)

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K12 against their plain versions on the card, at small
-and ragged shapes, K4/K9/K10/K11 also on packed int4 caches (chip_smoke.py
+"""The CUDA kernels K1-K13 against their plain versions on the card, at small
+and ragged shapes (K2/K3 also with group scales, int8 and int4; K13's
+segments also bit for bit against K1/K6/K7 run alone), K4/K9/K10/K11 also on packed int4 caches (chip_smoke.py
 covers the CodeFuse-13B and Longformer-base shapes); K11 also bit for bit
 against K4 over a physically gathered copy of its cache. Marked
 ``cuda``: skipped where there is no GPU. On a GPU machine without jax:
@@ -35,6 +36,8 @@ from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import quant_matmul, 
 from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_fused import (
     fused_proj_down,
     fused_proj_down_plain,
+    fused_qkv_up,
+    fused_qkv_up_plain,
     fused_up_proj_down,
     fused_up_proj_down_plain,
 )
@@ -634,6 +637,103 @@ def test_k12_raises_on_what_it_does_not_take(gen):
         lambda: sliding_window_attention(q, q, q, 8, m.int()),
         lambda: sliding_window_attention(q, q, q, 8, m[:, :32]),
         lambda: sliding_window_attention(q, q, q, 8, m.cpu()),
+    ]
+    for i, fn in enumerate(bad):
+        with pytest.raises(ValueError):
+            fn()
+            pytest.fail(f"case {i} did not raise")
+
+
+def _fmt_weight(gen, K, N, bits, G):
+    """(payload, scales) of a random [K, N] weight: int8 or packed int4, fp32
+    per-channel or (G > 0) group scales, bf16 for int4 and fp32 for int8."""
+    p = _i8(gen, K // 2 if bits == 4 else K, N)
+    if not G:
+        return p, _scale(gen, N) * (16 if bits == 4 else 1)
+    s = torch.rand(K // G, N, device="cuda", generator=gen) * 0.004 + 0.0005
+    return p, (s * 16).bfloat16() if bits == 4 else s
+
+
+FUSED_FORMATS = [(8, 0), (4, 0), (4, 32), (8, 32)]
+
+
+# int8 weights with group scales run at decode widths only (M <= 32)
+K13_CASES = [(M, bits, G) for M in (1, 3, 5, 32, 33, 130) for bits, G in FUSED_FORMATS
+             if not (bits == 8 and G and M > 32)]
+
+
+@pytest.mark.parametrize("M,bits,G", K13_CASES)
+@pytest.mark.parametrize("act2", ["gelu-tanh", "gelu"])
+def test_k13_matches_plain(gen, M, bits, G, act2):
+    K, N1, N2 = 256, 144, 512  # N1 ends inside a 128-column tile
+    x1, x2 = _bf(gen, M, K), _bf(gen, M, K)
+    w1, s1 = _fmt_weight(gen, K, N1, bits, G)
+    w2, s2 = _fmt_weight(gen, K, N2, bits, G)
+    b1, b2 = _bf(gen, N1, std=0.1), (torch.randn(N2, device="cuda", generator=gen) * 0.1)
+    args = (x1, x2, w1, w2, s1, s2, b1, b2, None, act2, bits, G)
+    before = fused_qkv_up.launches
+    y1, y2 = fused_qkv_up(*args)
+    assert fused_qkv_up.launches == before + 1
+    r1, r2 = fused_qkv_up_plain(*args)
+    assert y1.shape == (M, N1) and y2.shape == (M, N2) and y1.dtype == y2.dtype == torch.bfloat16
+    assert _rel(torch.cat([y1, y2], 1), torch.cat([r1, r2], 1)) < 1e-2
+
+
+@pytest.mark.parametrize("M", [1, 4, 130])
+@pytest.mark.parametrize("bits,G", FUSED_FORMATS[:3])
+def test_k13_segments_equal_the_gemm_alone(gen, M, bits, G):
+    """Each K13 segment runs K1's (K6's, K7's) arithmetic on its own: the
+    same splits and tiles, so the same bits."""
+    K, N1, N2 = 512, 384, 1024
+    x1, x2 = _bf(gen, M, K), _bf(gen, M, K)
+    w1, s1 = _fmt_weight(gen, K, N1, bits, G)
+    w2, s2 = _fmt_weight(gen, K, N2, bits, G)
+    b1, b2 = _bf(gen, N1, std=0.1), _bf(gen, N2, std=0.1)
+    y1, y2 = fused_qkv_up(x1, x2, w1, w2, s1, s2, b1, b2, None, "gelu-tanh", bits, G)
+    if bits == 8:
+        a1, a2 = quant_matmul(x1, w1, s1, b1), quant_matmul(x2, w2, s2, b2, "gelu-tanh")
+    elif G:
+        a1 = quant_matmul_w4_group(x1, w1, s1, G, b1)
+        a2 = quant_matmul_w4_group(x2, w2, s2, G, b2, "gelu-tanh")
+    else:
+        a1, a2 = quant_matmul_w4(x1, w1, s1, b1), quant_matmul_w4(x2, w2, s2, b2, "gelu-tanh")
+    torch.cuda.synchronize()
+    assert torch.equal(y1, a1) and torch.equal(y2, a2)
+
+
+@pytest.mark.parametrize("M", [1, 4, 9])
+@pytest.mark.parametrize("bits,G", [(8, 128), (4, 128), (4, 32)])
+def test_k2_k3_group_scales_match_plain(gen, M, bits, G):
+    H, F = 256, 1024
+    x_up, x_proj, res, h = _bf(gen, M, H), _bf(gen, M, H), _bf(gen, M, H), _bf(gen, M, F, std=0.5)
+    (w_up, s_up), (w_proj, s_proj), (w_down, s_down) = (
+        _fmt_weight(gen, k, n, bits, G) for k, n in ((H, F), (H, H), (F, H)))
+    b_up, b_down = _bf(gen, F, std=0.1), _bf(gen, H, std=0.1)
+    args3 = (x_proj, h, w_proj, w_down, s_proj, s_down, b_down, res, bits, G)
+    assert _rel(fused_proj_down(*args3), fused_proj_down_plain(*args3)) < 1e-2
+    for act in ("gelu-tanh", "gelu"):
+        args = (x_up, x_proj, res, w_up, w_proj, w_down, s_up, s_proj, s_down, b_up, b_down, act,
+                bits, G)
+        assert _rel(fused_up_proj_down(*args), fused_up_proj_down_plain(*args)) < 2e-2
+
+
+def test_fused_kernels_raise_on_what_they_do_not_take(gen):
+    x = _bf(gen, 2, 64)
+    p8, s8 = _fmt_weight(gen, 64, 32, 8, 0)
+    g8 = _fmt_weight(gen, 64, 32, 8, 32)[1]
+    p4, g4 = _fmt_weight(gen, 64, 32, 4, 32)
+    bad = [
+        lambda: fused_qkv_up(x, _bf(gen, 3, 64), p8, p8, s8, s8),  # x1 and x2 differ
+        lambda: fused_qkv_up(x.float(), x.float(), p8, p8, s8, s8),  # fp32 activations
+        lambda: fused_qkv_up(x, x, p8, p8, s8, s8, act2="tanh"),  # unknown activation
+        lambda: fused_qkv_up(_bf(gen, 40, 64), _bf(gen, 40, 64), p8, p8, g8, g8,
+                             group_size=32),  # int8 group scales above decode widths
+        lambda: fused_qkv_up(x, x, p4, p4, g4.float(), g4.float(), bits=4,
+                             group_size=32),  # fp32 scales with int4 groups
+        lambda: fused_proj_down(x, x, p8, p8, g8.bfloat16(), g8.bfloat16(), s8,
+                                _bf(gen, 2, 32), group_size=32),  # bf16 scales with int8
+        lambda: fused_proj_down(x, x, p4, p4, g4, g4, s8, _bf(gen, 2, 32), bits=4,
+                                group_size=24),  # G does not divide K
     ]
     for i, fn in enumerate(bad):
         with pytest.raises(ValueError):

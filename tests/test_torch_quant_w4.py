@@ -111,7 +111,7 @@ def test_unserved_int4_forms_raise():
     rng = np.random.default_rng(1)
     _, p, _, ts, _ = _operands(rng, 1, 64, 32, G=16)
     head = QuantizedTensor(q=torch.from_numpy(p), scale=ts, k_axis=-2, bits=4, group_size=16)
-    with pytest.raises(NotImplementedError, match="queue 2"):
+    with pytest.raises(NotImplementedError, match="item 11"):
         quantized_matmul_transposed_head(torch.zeros(1, 64), head)
 
 
