@@ -13,13 +13,16 @@ Phases (any failure exits non-zero):
      against its plain PyTorch version at CodeFuse-13B shapes, K12 at Longformer-base shapes (S = 4096, w_half 256, both band
      modes): max error against the stated tolerance, median kernel and
      plain times (CUDA events, device time), the card's bound for the same
-     work, and where one PyTorch call computes the same function, its time
+     work and the kernel's share of it, and where one PyTorch call computes
+     the same function, its time at every case
      (``scaled_dot_product_attention`` on a dense bf16 K/V of the same
      length, causal for K5, the resolved cache for K11, with a boolean
      band-and-length mask for K12;
      ``torch._weight_int8pack_mm`` / ``torch._weight_int4pack_mm`` for the
      weight-only GEMMs where they run on the card; the port calls none of
-     them); K11 also bit for bit against K4 over a gathered copy;
+     them); the group-scaled GEMVs beside their per-channel forms (K7 beside
+     K6, K13 g128 beside K13 int4, K3 g128 beside K3 per-channel); K11 also
+     bit for bit against K4 over a gathered copy;
   3. 2-layer models of CodeFuse-13B width (int8 and int4 g128, each with
      ``fused_decode`` True (K13 + K3) and False (unfused GEMMs), the two
      routes' card logits also against each other; int4 per-channel; int8 on
@@ -36,7 +39,8 @@ Phases (any failure exits non-zero):
      ``GptNeoXEngine.generate`` and ``CodeFuseHandler.predict``, then a
      ``fused_decode`` A/B (decode ms/step of each route, in turns); on the int8
      weights, a 3000-token prompt on an "int4" cache (greedy x2 + streamed;
-     its prefill profiled with K5 and with the plain attention forced in),
+     its prefill profiled with K5, whose milliseconds and launches it
+     reports, and with the plain attention forced in),
      prompts of 2048 and 1300 tokens on an "int8k_int4v" cache, and beam
      search (2 prompts x 4 beams, x2 + streamed, every hypothesis rescored
      teacher-forced);
@@ -75,6 +79,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -139,6 +144,32 @@ def device_time_ms(torch, fn, reps=5, calls=10):
         end.synchronize()
         out.append(start.elapsed_time(end) / calls)
     return statistics.median(out)
+
+
+def ptxas_entries(build_log):
+    """(source, kernel, template arguments, registers, spill store bytes,
+    spill load bytes) of each entry function in ``nvcc -Xptxas -v``'s log."""
+    out, src, entry, spill = [], "", None, (0, 0)
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].split(" (")[0]
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spill = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            k = re.search(r"N4ftcfL?\d+(\w+?)I((?:Li\d+E)+)", entry)
+            name, args = (k.group(1), ",".join(re.findall(r"Li(\d+)E", k.group(2)))) if k \
+                else (entry[:40], "")
+            out.append((src, name, args, int(m.group(1)), *spill))
+            entry = None
+    return out
 
 
 def bound(nbytes, flops):
@@ -211,13 +242,16 @@ def phase_kernels(torch, records):
     ok = True
 
     def report(name, case, fn_k, fn_p, tol, ms_key, work=None, fn_lib=None, lib_label="",
-               err=rel_err, fn_pair=None, pair_label=""):
+               err=rel_err, fn_pair=None, pair_label="", peers=()):
         """Check one case and time it; the record's case (``ms_key``) fills the
         record. ``work`` = (bytes read, operations): the output's bytes are
-        added and the bound logged. ``err`` gives (max abs error, the
-        relative error held to ``tol``). A kernel with two outputs returns a
-        tuple, held as their concatenation. ``fn_pair``: the unfused kernels
-        this one replaces, timed beside it."""
+        added and the bound and the kernel's share of it logged. ``err``
+        gives (max abs error, the relative error held to ``tol``). A kernel
+        with two outputs returns a tuple, held as their concatenation.
+        ``fn_pair``: the unfused kernels this one replaces, timed beside it;
+        ``fn_lib``: the library call, timed at every case given; ``peers``:
+        (label, ms) of kernels timed earlier in this run, logged beside.
+        Returns the kernel's time."""
         nonlocal ok
         got, ref = fn_k(), fn_p()
         torch.cuda.synchronize()
@@ -235,23 +269,28 @@ def phase_kernels(torch, records):
         r["max_abs_err"] = max(r["max_abs_err"], absd)
         if work is not None:
             b_ms, b_by = bound(work[0] + nbytes(got), work[1])
-            line += f"  bound {b_ms:.4f} ms ({b_by})"
+            line += f"  bound {b_ms:.4f} ms ({b_by}; {b_ms / t_k:.1%} of it)"
         if fn_pair is not None:
             t_pair = device_time_ms(torch, fn_pair)
             line += f"  replaces {pair_label}: {t_pair:.4f} ms"
+        t_lib = None
+        if fn_lib is not None:
+            t_lib = device_time_ms(torch, fn_lib)
+            line += f"  library {t_lib:.4f} ms ({lib_label}; kernel {t_k / t_lib:.2f}x)"
+        elif lib_label:
+            line += f"  library: {lib_label}"
+        for label, ms in peers:
+            line += f"  beside {label} {ms:.4f} ms ({t_k / ms:.2f}x)"
         if case == ms_key:
             r["ms"], r["plain_ms"] = t_k, t_p
             r["bound_ms"], r["bound_by"] = b_ms, b_by
             if fn_pair is not None:
                 r["replaced_pair_ms"] = t_pair
-            if fn_lib is not None:
-                r["library_ms"] = device_time_ms(torch, fn_lib)
-                line += f"  library {r['library_ms']:.4f} ms ({lib_label})"
-            elif lib_label:
-                line += f"  library: {lib_label}"
+            r["library_ms"] = t_lib
             if lib_label:
                 r["library"] = lib_label
         log(line)
+        return t_k
 
     def library_mm(bits, M, K, N, G=0):
         """(fn, label): one PyTorch call computing a weight-only GEMM of these
@@ -282,7 +321,8 @@ def phase_kernels(torch, records):
 
     log("phase 2: kernels against their plain versions (CodeFuse-13B and Longformer-base "
         "shapes)")
-    # K1: bf16 output rounding (2^-8 relative) + fp32 summation order
+    # K1: bf16 output rounding (2^-8 relative) + fp32 summation order; the
+    # library call beside the QKV cases
     tol_mm = 1e-2
     shapes = [("qkv", H, 3 * H, True, None), ("up", H, F_, True, "gelu-tanh"),
               ("down", F_, H, False, None)]
@@ -291,7 +331,7 @@ def phase_kernels(torch, records):
         b = bf(N, std=0.02) if has_bias else None
         for M in (1, 4, 512):
             x = bf(M, K)
-            lib = library_mm(8, M, K, N) if (tag, M) == ("qkv", 1) else (None, "")
+            lib = library_mm(8, M, K, N) if tag == "qkv" else (None, "")
             report("quant_matmul", f"{tag} {K}->{N} M={M}",
                    lambda: quant_matmul(x, w, s, b, act),
                    lambda: quant_matmul_plain(x, w, s, b, act), tol_mm, "qkv 5120->15360 M=1",
@@ -299,9 +339,10 @@ def phase_kernels(torch, records):
     w_up, w_proj, w_down = i8(H, F_), i8(H, H), i8(F_, H)
     s_up, s_proj, s_down = scale(F_), scale(H), scale(H)
     b_up, b_down = bf(F_, std=0.02), bf(H, std=0.02)
+    k3_ms = {}  # (format, M) -> K3's time, beside the group-scaled K3 below
     for M in (1, 4):
         x_up, x_proj, res, h = bf(M, H), bf(M, H), bf(M, H), bf(M, F_, std=0.5)
-        report("fused_proj_down", f"proj+down M={M}",
+        k3_ms["int8", M] = report("fused_proj_down", f"proj+down M={M}",
                lambda: fused_proj_down(x_proj, h, w_proj, w_down, s_proj, s_down, b_down, res),
                lambda: fused_proj_down_plain(x_proj, h, w_proj, w_down, s_proj, s_down,
                                              b_down, res), tol_mm, "proj+down M=1",
@@ -320,6 +361,7 @@ def phase_kernels(torch, records):
     def scale4(n):
         return torch.empty(n, device=dev).uniform_(0.5, 1.5, generator=gen) * (0.02 / 7)
 
+    # The library call beside the QKV cases; K7 beside K6 on the same x
     G = 128
     for tag, K, N, has_bias, act in shapes:
         p4, s4 = i8(K // 2, N), scale4(N)
@@ -328,9 +370,9 @@ def phase_kernels(torch, records):
         b = bf(N, std=0.02) if has_bias else None
         for M in (1, 4, 512):
             x = bf(M, K)
-            first = (tag, M) == ("qkv", 1)
+            first = tag == "qkv"
             lib = library_mm(4, M, K, N) if first else (None, "")
-            report("quant_matmul_w4", f"{tag} {K}->{N} M={M}",
+            t6 = report("quant_matmul_w4", f"{tag} {K}->{N} M={M}",
                    lambda: quant_matmul_w4(x, p4, s4, b, act),
                    lambda: quant_matmul_w4_plain(x, p4, s4, b, act), tol_mm,
                    "qkv 5120->15360 M=1", work=(nbytes(x, p4, s4, b), 2 * M * K * N),
@@ -340,13 +382,13 @@ def phase_kernels(torch, records):
                    lambda: quant_matmul_w4_group(x, p4, gs, G, b, act),
                    lambda: quant_matmul_w4_group_plain(x, p4, gs, G, b, act), tol_mm,
                    "qkv 5120->15360 g128 M=1", work=(nbytes(x, p4, gs, b), 2 * M * K * N),
-                   fn_lib=lib[0], lib_label=lib[1])
+                   fn_lib=lib[0], lib_label=lib[1], peers=[("K6", t6)])
     # K8: fp32 logits; only the summation order differs
     Vp = 102400
     p_head, s_head = i8(H // 2, Vp), scale4(Vp)
     for M in (1, 4):
         x = bf(M, H)
-        lib = library_mm(4, M, H, Vp) if M == 1 else (None, "")
+        lib = library_mm(4, M, H, Vp)
         report("quant_matmul_w4_head", f"head {H}->{Vp} M={M}",
                lambda: quant_matmul_w4_head(x, p_head, s_head),
                lambda: quant_matmul_w4_head_plain(x, p_head, s_head), 1e-4,
@@ -358,7 +400,7 @@ def phase_kernels(torch, records):
     s_up, s_proj, s_down = scale4(F_), scale4(H), scale4(H)
     for M in (1, 4):
         x_up, x_proj, res, h = bf(M, H), bf(M, H), bf(M, H), bf(M, F_, std=0.5)
-        report("fused_proj_down", f"int4 proj+down M={M}",
+        k3_ms["int4", M] = report("fused_proj_down", f"int4 proj+down M={M}",
                lambda: fused_proj_down(x_proj, h, w_proj, w_down, s_proj, s_down, b_down, res,
                                        bits=4),
                lambda: fused_proj_down_plain(x_proj, h, w_proj, w_down, s_proj, s_down,
@@ -396,7 +438,8 @@ def phase_kernels(torch, records):
                    lambda: fused_proj_down(*args3), lambda: fused_proj_down_plain(*args3),
                    tol_mm, "proj+down M=1",
                    work=(nbytes(x_proj, h, w_proj, w_down, g_proj, g_down, b_down, res),
-                         2 * M * (H * H + F_ * H)), fn_pair=pair, pair_label="K7 proj + K7 down")
+                         2 * M * (H * H + F_ * H)), fn_pair=pair, pair_label="K7 proj + K7 down",
+                   peers=[(f"K3 int{bits} per-channel", k3_ms[f"int{bits}", M])])
             args2 = (x_up, x_proj, res, w_up, w_proj, w_down, g_up, g_proj, g_down, b_up, b_down,
                      "gelu-tanh", bits, G)
             report("fused_up_proj_down", f"{tag} up+proj+down M={M}",
@@ -412,6 +455,7 @@ def phase_kernels(torch, records):
     # beside the pair of unfused GEMMs it replaces (K1 QKV + K1 up; K6 + K6;
     # K7 + K7) timed the same way
     b_q, b_u = bf(3 * H, std=0.02), bf(F_, std=0.02)
+    k13_int4_ms = {}  # M -> K13 int4 per-channel, beside K13 g128
     for bits, G13, lab in ((8, 0, "int8"), (4, 0, "int4"), (4, G, "int4 g128")):
         if bits == 8:
             wq, sq, wu, su = i8(H, 3 * H), scale(3 * H), i8(H, F_), scale(F_)
@@ -431,12 +475,16 @@ def phase_kernels(torch, records):
         for M in Ms:
             x1, x2 = bf(M, H), bf(M, H)
             args = (x1, x2, wq, wu, sq, su, b_q, b_u, None, "gelu-tanh", bits, G13)
-            report("fused_qkv_up", f"{lab} {H}->{3 * H}|{F_} M={M}",
+            peers = [("K13 int4", k13_int4_ms[M])] if G13 and M in k13_int4_ms else []
+            t13 = report("fused_qkv_up", f"{lab} {H}->{3 * H}|{F_} M={M}",
                    lambda: fused_qkv_up(*args), lambda: fused_qkv_up_plain(*args), tol_mm,
                    f"int8 {H}->{3 * H}|{F_} M=1",
                    work=(nbytes(x1, x2, wq, sq, wu, su, b_q, b_u), 2 * M * H * (3 * H + F_)),
                    fn_pair=lambda: (single(x1, wq, sq, b_q), single(x2, wu, su, b_u, "gelu-tanh")),
-                   pair_label=pair_label, lib_label="none: no one PyTorch call computes it")
+                   pair_label=pair_label, lib_label="none: no one PyTorch call computes it",
+                   peers=peers)
+            if lab == "int4":
+                k13_int4_ms[M] = t13
             del x1, x2
         del wq, wu
 
@@ -1311,9 +1359,16 @@ def main() -> int:
     log("  compile time per source: " + ", ".join(
         line[3:] for line in _cuda.build_log.splitlines()
         if line.startswith("== ") and "(" in line))
-    for line in _cuda.build_log.splitlines():
-        if "spill" in line and "0 bytes spill stores" not in line:
-            log("   ", line.strip())
+    entries = ptxas_entries(_cuda.build_log)
+    for src_name, kern, args, regs, st, ld in entries:
+        if st or ld:
+            log(f"    spills: {src_name} {kern}<{args}>: {regs} registers, {st} B spill stores, "
+                f"{ld} B spill loads")
+    # K5's instances and the group-scaled GEMV loops (formats W_I4G = 2, W_I8G = 3)
+    log("  registers (spill stores/loads, bytes): " + ", ".join(
+        f"{kern}<{args}> {regs} ({st}/{ld})" for _, kern, args, regs, st, ld in entries
+        if kern == "prefill_flash_kernel"
+        or (kern.startswith("gemv") and args.split(",")[-1] in ("2", "3"))))
 
     src = "fastertransformer4codefuse_tpu_torch/csrc/"
     tpu = "fastertransformer4codefuse_tpu/ops/"
@@ -1341,7 +1396,7 @@ def main() -> int:
                                tpu + "flash_decode.py:370"),
         "flash_chunk_paged": (flash_chunk_paged, "launches", src + "flash_chunk.cu",
                               tpu + "flash_decode.py:480"),
-        "prefill_attention_flash": (prefill_attention_flash, "launches", src + "flash_chunk.cu",
+        "prefill_attention_flash": (prefill_attention_flash, "launches", src + "prefill_flash.cu",
                                     tpu + "attention.py:39"),
         "flash_decode_int4": (flash_decode_stacked, "launches_packed", src + "flash_decode.cu",
                               tpu + "flash_decode.py:593"),
@@ -1700,6 +1755,11 @@ def prefill_profile(torch, engine, prompt, label):
         f"device kernels {dev:.1f} ms ({CARD}); by kernel:")
     for name, ms, n in rows[:6]:
         log(f"    {ms:9.3f} ms {n:5d}x  {name[:90]}")
+    k5 = [(ms, n) for name, ms, n in rows if "prefill_flash_kernel" in name]
+    if k5:
+        log(f"    K5 (prefill_flash_kernel): {sum(m for m, _ in k5):.3f} ms in "
+            f"{sum(n for _, n in k5)} launches, {sum(m for m, _ in k5) / dev:.1%} of the device "
+            f"time")
     return min(walls), dev
 
 

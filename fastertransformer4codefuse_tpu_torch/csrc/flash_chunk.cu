@@ -1,18 +1,11 @@
-// K10 and K5: many-query flash attention, one tile loop for both.
+// K10: chunked-prefill attention over the paged KV pool, many queries a row.
 //
-// K10: chunked-prefill attention over the paged KV pool. Row b brings C
-// consecutive queries starting at logical position pos[b]; query c with
-// head j of KV group h attends keys 0 .. pos[b] + c. Replaces
+// Row b brings C consecutive queries starting at logical position pos[b];
+// query c with head j of KV group h attends keys 0 .. pos[b] + c. Replaces
 // fastertransformer4codefuse_tpu/ops/flash_decode.py flash_chunk_paged
-// (_kernel in chunk mode).
-//
-// K5: causal prefill attention over the prompt's own K/V [B, S, nKV, dh]
-// bf16, before any cache: C = S queries from position 0, query i of row b
-// bounded at min(i, lens[b] - 1), so padded rows attend the valid prefix
-// (the plain masked prefill computes exactly that on every row; the TPU
-// kernel's pads attend only pads, and no caller reads them). Replaces
-// fastertransformer4codefuse_tpu/ops/attention.py prefill_attention_flash
-// (the library Pallas flash_attention with causal segment ids).
+// (_kernel in chunk mode). (K5, the causal prefill over the prompt's own
+// K/V, ran on this tile loop until it moved to wgmma + TMA in
+// prefill_flash.cu.)
 //
 // Math: the C queries and the gq query heads of a KV head ride one row axis,
 // r = c * gq + j, bounded at start + r / gq; scores = (q . k) * k_s *
@@ -28,8 +21,7 @@
 //
 // Bound: at CodeFuse-13B with C = 128 queries over ~1000 keys a row is
 // ~2.7 GFLOP a layer against ~10.5 MB of int8 K/V, near the card's
-// 295 FLOP/byte balance; K5 at S = 4096 is ~172 GFLOP a layer against
-// ~170 MB, far above it. So the products run on the tensor cores:
+// 295 FLOP/byte balance. So the products run on the tensor cores:
 // mma.sync m16n8k16 bf16 with fp32 accumulation (its fragment layouts are
 // fixed by the PTX ISA, so the online-softmax rescale of each accumulator row
 // happens in registers and P feeds the PV product from registers).
@@ -37,19 +29,17 @@
 // Design: one block of 8 warps per (128-row query tile, KV head, row); each
 // warp owns 16 query rows, and the 128 rows of a KV head share one block,
 // so each K/V byte is read and converted once per (query tile, KV head). The
-// block loops over 64-key tiles up to the tile's last bound (K5's causal
-// loop is triangular: the last query tile reads all S keys, the first 128).
-// Each thread resolves its keys' vectors through the KV policy (K10: the
-// block table, the block loading its own page ids, no host round trip; K5:
-// the dense [B, S, nKV] index) and loads K, V and their scales with 16-byte
-// loads into registers; at dh 128 the next tile's loads are issued before
-// the current tile's products, so they stay in flight under them, and each
-// warp keeps its Q fragments in registers. A tile is stored in shared memory
-// as bf16 [key][dh] for K and V; each warp computes S = Q K^T (16 x 64), the
-// K fragments read with ldmatrix, updates its rows' running max and
-// denominator, and accumulates P V into 16 x dh fp32 registers, the V
-// fragments read with ldmatrix.trans. PERF.md holds the measured effect of
-// each of these choices. wgmma, TMA and a deeper ring are later work.
+// block loops over 64-key tiles up to the tile's last bound. Each thread
+// resolves its keys' vectors through the KV policy (the block table, the
+// block loading its own page ids, no host round trip) and loads K, V and
+// their scales with 16-byte loads into registers; at dh 128 the next tile's
+// loads are issued before the current tile's products, so they stay in
+// flight under them, and each warp keeps its Q fragments in registers. A
+// tile is stored in shared memory as bf16 [key][dh] for K and V; each warp
+// computes S = Q K^T (16 x 64), the K fragments read with ldmatrix, updates
+// its rows' running max and denominator, and accumulates P V into 16 x dh
+// fp32 registers, the V fragments read with ldmatrix.trans. PERF.md holds
+// the measured effect of each of these choices.
 #include <math.h>
 
 #include "ftcf_common.cuh"
@@ -62,12 +52,10 @@ constexpr int FC_THREADS = FC_WARPS * 32;
 constexpr int FC_BM = FC_WARPS * 16;  // query rows per block, 16 per warp
 constexpr int FC_BN = 64;             // keys per tile
 
-// KV policies: where row b's queries start (start), how many of its keys
+// The KV policy: where row b's queries start (start), how many of its keys
 // exist (keys), and where key s of (row b, KV head h) is cached (vec, the
-// unpacked vector index).
-//
-// K10: the layer's [P, nKV, ps, dh] page slab through the block table
-// pt [B, n_pg]; row b's C queries start at pos[b].
+// unpacked vector index): the layer's [P, nKV, ps, dh] page slab through
+// the block table pt [B, n_pg]; row b's C queries start at pos[b].
 struct PagedKV {
   const int* pos;
   const int* pt;
@@ -77,19 +65,6 @@ struct PagedKV {
   __device__ uint32_t vec(int b, int h, int nKV, int s) const {
     const int page = pt[(size_t)b * n_pg + min(s / ps, n_pg - 1)];
     return ((uint32_t)page * nKV + h) * ps + s % ps;
-  }
-};
-
-// K5: the prefill's own K/V [B, S, nKV, dh]; query i of row b sees keys
-// 0 .. min(i, lens[b] - 1), so rows at or past the length attend the valid
-// prefix (the plain masked prefill's rows, every one of them).
-struct DenseKV {
-  const int* lens;
-  int S;
-  __device__ int start(int) const { return 0; }
-  __device__ int keys(int b) const { return min(lens[b], S); }
-  __device__ uint32_t vec(int b, int h, int nKV, int s) const {
-    return ((uint32_t)b * S + s) * nKV + h;
   }
 };
 
@@ -442,23 +417,6 @@ int ftcf_flash_chunk_paged(const void* q, const void* k, const void* ks, const v
   if (dh == 256)
     return (int)ftcf::launch_fc_fmt<256>(q, k, ks, v, vs, kv, out, B, C, nKV, gq, kfmt, vfmt,
                                          sm_scale, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// K5. Causal prefill attention: q [B, S, nKV * gq, dh], k/v [B, S, nKV, dh]
-// bf16; lens [B] int32 prompt lengths; out like q. Query i of row b attends
-// keys 0 .. min(i, lens[b] - 1). dh is 128 or 256.
-int ftcf_prefill_flash(const void* q, const void* k, const void* v, const int* lens, void* out,
-                       int B, int S, int nKV, int gq, int dh, float sm_scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const ftcf::DenseKV kv{lens, S};
-  if (gq < 1 || S < 1) return (int)cudaErrorInvalidValue;
-  if (dh == 128)
-    return (int)ftcf::launch_fc<128, ftcf::KV_BF16, ftcf::KV_BF16>(
-        q, k, nullptr, v, nullptr, kv, out, B, S, nKV, gq, sm_scale, st);
-  if (dh == 256)
-    return (int)ftcf::launch_fc<256, ftcf::KV_BF16, ftcf::KV_BF16>(
-        q, k, nullptr, v, nullptr, kv, out, B, S, nKV, gq, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -68,6 +68,22 @@ __device__ __forceinline__ void i4x8_to_f32(uint32_t w, float* lo, float* hi) {
   }
 }
 
+// As i4x8_to_f32, but each value v comes out as the exact float 136 + v
+// (128 + the biased nibble, built by one byte permute: the nibble in the
+// mantissa below 2^7), saving the subtraction. A caller that multiplies the
+// values by x and sums them removes 136 * sum(x) once per sum; the
+// cancellation costs ~5 of fp32's 24 bits over a sum of a few dozen terms.
+__device__ __forceinline__ void i4x8_to_f32_plus136(uint32_t w, float* lo, float* hi) {
+  const uint32_t u = w ^ 0x88888888u;
+  const uint32_t l = u & 0x0F0F0F0Fu;
+  const uint32_t h = (u >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    lo[i] = __uint_as_float(__byte_perm(l, 0x43000000u, 0x7044u | (i << 8)));
+    hi[i] = __uint_as_float(__byte_perm(h, 0x43000000u, 0x7044u | (i << 8)));
+  }
+}
+
 // KV cache payload formats: bf16; int8 (bf16 scale per cached vector);
 // packed int4 (the same scales; sequence positions 2i and 2i + 1 share pair
 // row i, position 2i in the low nibble of each byte). ops/flash_decode.py

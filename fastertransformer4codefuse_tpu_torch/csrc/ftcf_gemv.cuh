@@ -19,12 +19,19 @@
 //    int4 byte row holds two (the low nibbles the even row, the high nibbles
 //    the odd one), so each int4 load feeds two x values per row of sums and
 //    split boundaries fall on even K;
-//  - group-wise weights (W_I4G: bf16 scales; W_I8G: fp32 scales) multiply each
-//    dequantized weight by its group's scale before the FMA (one scale load
-//    per weight load; an int4 byte row pair never straddles a group since G is
-//    even), so the splits need not align with groups and the epilogue applies
-//    no scale;
-//  - the x rows of the block's K range sit in shared memory as fp32;
+//  - group-wise weights (W_I4G: bf16 scales; W_I8G: fp32 scales) apply the
+//    scale to a partial sum, as the JAX kernel does (one dot per K group,
+//    then the [bm, bn] partial times the group's scale row): a split holds
+//    whole groups, a k lane walks a run of consecutive byte rows inside one
+//    group (the whole group, or an even part of it, so that the split's runs
+//    share out evenly over the 32 k lanes), sums the run into
+//    MT x 16 fp32 partials and adds partial * scale into its running sums
+//    once; a scale row is read once per run and column tile, not once per
+//    weight load. An int4 byte row pair never straddles a group (G is even).
+//    The epilogue applies no scale;
+//  - the x rows of the block's K range sit in shared memory as fp32, staged
+//    with 16-byte loads: the caller's ranges are multiples of 8 K rows (and
+//    of G with group scales; ops/quant_matmul.py split_ranges);
 //  - there are enough splits that the grid holds about four blocks per SM
 //    (the H100 needs ~2 MB in flight to cover memory latency); each split's
 //    sums go to an fp32 workspace, and a second small kernel adds the splits
@@ -36,6 +43,7 @@
 #pragma once
 
 #include <algorithm>
+#include <numeric>
 
 #include "ftcf_common.cuh"
 
@@ -53,7 +61,112 @@ struct GemvSeg {
   int K;
   int G;
   int splits;
+  int chunk;  // K rows of a split (the last may be shorter): a multiple of 8, and of G
 };
+
+// The 16 group scales of one thread's columns at element ``off`` of the
+// [K/G, N] scales (bf16 for int4, fp32 for int8), as fp32.
+template <int FMT>
+__device__ __forceinline__ void load_group_scales(const void* gscale, size_t off, float* sc) {
+  if constexpr (FMT == W_I4G) {
+    const uint4* sp =
+        reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(gscale) + off);
+    const uint4 a = __ldg(sp), b = __ldg(sp + 1);
+    const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) bf16x2_to_f32(w[i], sc + 2 * i);
+  } else {
+    const float4* sp = reinterpret_cast<const float4*>(static_cast<const float*>(gscale) + off);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float4 v = __ldg(sp + t);
+      sc[4 * t] = v.x;
+      sc[4 * t + 1] = v.y;
+      sc[4 * t + 2] = v.z;
+      sc[4 * t + 3] = v.w;
+    }
+  }
+}
+
+// Byte rows a k lane walks at once inside a group of ``gb`` byte rows: the
+// whole group, halved while the split's ``chunk`` byte rows hold fewer runs
+// than the 32 k lanes. Long runs spend the least on starting and ending
+// runs (zeroing, scales, the partial's multiply-add).
+__device__ __forceinline__ int group_run(int gb, int chunk) {
+  int run = gb;
+  while ((run & 1) == 0 && run * 32 > chunk) run >>= 1;
+  return run;
+}
+
+// The group-scaled loop of one thread over byte rows r0 .. r1 (whole groups)
+// of its 16 columns n0 .. n0 + 15: k lane kl takes runs kl, kl + 32, ... of
+// ``run`` consecutive byte rows inside one group, sums each run into
+// partials, then adds partial * scale into acc. int4 values come as 136 + v
+// (i4x8_to_f32_plus136): the run also sums each row's x, and the partial
+// sheds 136 * sum(x) before its scale.
+template <int MT, int FMT>
+__device__ __forceinline__ void gemv_group_runs(const GemvSeg& sg, int r0, int r1, int chunk,
+                                                int n0, int N, int kl, int chunk_stride,
+                                                float (&acc)[MT][16]) {
+  constexpr int PACK = KPack<FMT>::value;
+  extern __shared__ float smem[];
+  const int gb = sg.G / PACK;  // byte rows of a group
+  const int run = group_run(gb, chunk);
+  const int nrun = (r1 - r0) / run;
+  for (int qr = kl; qr < nrun; qr += 32) {
+    const int rs = r0 + qr * run;
+    float part[MT][16], sx[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      sx[m] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) part[m][j] = 0.0f;
+    }
+    const int8_t* wr = sg.w + (size_t)rs * N + n0;
+    const float* xr = smem + (rs - r0) * PACK;
+#pragma unroll 8
+    for (int i = 0; i < run; ++i, wr += N, xr += PACK) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(wr));
+      if constexpr (FMT == W_I8G) {
+        float f[16];
+        i8x4_to_f32(q.x, f);
+        i8x4_to_f32(q.y, f + 4);
+        i8x4_to_f32(q.z, f + 8);
+        i8x4_to_f32(q.w, f + 12);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float xv = xr[m * chunk_stride];
+#pragma unroll
+          for (int j = 0; j < 16; ++j) part[m][j] = fmaf(xv, f[j], part[m][j]);
+        }
+      } else {
+        float lo[16], hi[16];  // K rows 2r and 2r + 1, as 136 + v
+        i4x8_to_f32_plus136(q.x, lo, hi);
+        i4x8_to_f32_plus136(q.y, lo + 4, hi + 4);
+        i4x8_to_f32_plus136(q.z, lo + 8, hi + 8);
+        i4x8_to_f32_plus136(q.w, lo + 12, hi + 12);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          const float2 xv = *reinterpret_cast<const float2*>(xr + m * chunk_stride);
+          sx[m] += xv.x + xv.y;
+#pragma unroll
+          for (int j = 0; j < 16; ++j)
+            part[m][j] = fmaf(xv.y, hi[j], fmaf(xv.x, lo[j], part[m][j]));
+        }
+      }
+    }
+    // the scales are read after the run's rows: held across the run, their
+    // registers would cost more blocks an SM than their latency does
+    float sc[16];
+    load_group_scales<FMT>(sg.gscale, (size_t)(rs / gb) * N + n0, sc);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float bias = FMT == W_I4G ? -136.0f * sx[m] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) acc[m][j] = fmaf(part[m][j] + bias, sc[j], acc[m][j]);
+    }
+  }
+}
 
 // One block's partial sums: split ``s`` of segment ``sg``, column tile
 // ``tile`` of an N-wide output; the sums go to ``ws_split`` [M, N] (this
@@ -67,8 +180,8 @@ __device__ __forceinline__ void gemv_block(const GemvSeg& sg, int s, int M, int 
   const int8_t* __restrict__ w = sg.w;
   const int K = sg.K;
   const int G = sg.G;
-  const int rows = K / PACK;                         // weight byte rows
-  const int chunk = (rows + sg.splits - 1) / sg.splits;  // byte rows per split
+  const int rows = K / PACK;         // weight byte rows
+  const int chunk = sg.chunk / PACK;  // byte rows per split
   const int r0 = s * chunk;
   const int r1 = min(rows, r0 + chunk);
   const int k0 = r0 * PACK;
@@ -76,11 +189,20 @@ __device__ __forceinline__ void gemv_block(const GemvSeg& sg, int s, int M, int 
   const int m0 = blockIdx.z * MT;
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < MT * klen; i += GEMV_THREADS) {
-    const int m = i / klen, kk = i - m * klen;
-    float v = 0.0f;
-    if (m0 + m < M) v = __bfloat162float(x[(size_t)(m0 + m) * K + k0 + kk]);
-    smem[m * chunk_stride + kk] = v;
+  // 8 x values a 16-byte load (k0, klen, K and chunk_stride are multiples of 8)
+  const int n8 = klen / 8;
+  for (int i = tid; i < MT * n8; i += GEMV_THREADS) {
+    const int m = i / n8, c = i - m * n8;
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (m0 + m < M) u = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + m) * K + k0) + c);
+    float f[8];
+    bf16x2_to_f32(u.x, f);
+    bf16x2_to_f32(u.y, f + 2);
+    bf16x2_to_f32(u.z, f + 4);
+    bf16x2_to_f32(u.w, f + 6);
+    float4* d = reinterpret_cast<float4*>(smem + m * chunk_stride + 8 * c);
+    d[0] = make_float4(f[0], f[1], f[2], f[3]);
+    d[1] = make_float4(f[4], f[5], f[6], f[7]);
   }
   __syncthreads();
 
@@ -95,31 +217,21 @@ __device__ __forceinline__ void gemv_block(const GemvSeg& sg, int s, int M, int 
 #pragma unroll
     for (int j = 0; j < 16; ++j) acc[m][j] = 0.0f;
 
-  if (n0 < N) {
+  if constexpr (FMT == W_I4G || FMT == W_I8G) {
+    if (n0 < N) gemv_group_runs<MT, FMT>(sg, r0, r1, chunk, n0, N, kl, chunk_stride, acc);
+  } else if (n0 < N) {
     const int8_t* wp = w + (size_t)(r0 + kl) * N + n0;
     const size_t wstep = (size_t)32 * N;
 #pragma unroll 4
     for (int r = r0 + kl; r < r1; r += 32, wp += wstep) {
       const uint4 q = __ldg(reinterpret_cast<const uint4*>(wp));
       const float* xs = smem + (r - r0) * PACK;
-      if constexpr (FMT == W_I8 || FMT == W_I8G) {
+      if constexpr (FMT == W_I8) {
         float f[16];
         i8x4_to_f32(q.x, f);
         i8x4_to_f32(q.y, f + 4);
         i8x4_to_f32(q.z, f + 8);
         i8x4_to_f32(q.w, f + 12);
-        if constexpr (FMT == W_I8G) {
-          const float4* sp = reinterpret_cast<const float4*>(
-              static_cast<const float*>(sg.gscale) + (size_t)(r / G) * N + n0);
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            const float4 sc = __ldg(sp + t);
-            f[4 * t] *= sc.x;
-            f[4 * t + 1] *= sc.y;
-            f[4 * t + 2] *= sc.z;
-            f[4 * t + 3] *= sc.w;
-          }
-        }
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           const float xv = xs[m * chunk_stride];
@@ -132,25 +244,6 @@ __device__ __forceinline__ void gemv_block(const GemvSeg& sg, int s, int M, int 
         i4x8_to_f32(q.y, lo + 4, hi + 4);
         i4x8_to_f32(q.z, lo + 8, hi + 8);
         i4x8_to_f32(q.w, lo + 12, hi + 12);
-        if constexpr (FMT == W_I4G) {
-          const uint4* sp = reinterpret_cast<const uint4*>(
-              static_cast<const __nv_bfloat16*>(sg.gscale) + (size_t)(2 * r / G) * N + n0);
-          const uint4 sa = __ldg(sp), sb = __ldg(sp + 1);
-          float sc[16];
-          bf16x2_to_f32(sa.x, sc);
-          bf16x2_to_f32(sa.y, sc + 2);
-          bf16x2_to_f32(sa.z, sc + 4);
-          bf16x2_to_f32(sa.w, sc + 6);
-          bf16x2_to_f32(sb.x, sc + 8);
-          bf16x2_to_f32(sb.y, sc + 10);
-          bf16x2_to_f32(sb.z, sc + 12);
-          bf16x2_to_f32(sb.w, sc + 14);
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            lo[j] *= sc[j];
-            hi[j] *= sc[j];
-          }
-        }
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           const float xa = xs[m * chunk_stride], xb = xs[m * chunk_stride + 1];
@@ -190,9 +283,20 @@ __device__ __forceinline__ void gemv_block(const GemvSeg& sg, int s, int M, int 
   }
 }
 
+// Blocks an SM must hold (the register cap of each instance). At MT = 1 the
+// loop needs few registers and more resident blocks keep more weight loads
+// in flight: four (64 registers), or five (48) for the per-channel formats
+// joined over K (K1, K6, K8, K3), each measured faster than the other value
+// on its own kernels (K13's per-channel instance is slower at five). Above,
+// one block, which leaves ptxas free to schedule the MT x 16 sums (measured
+// faster at M = 4 than no hint at all).
+__host__ __device__ constexpr int gemv_min_blocks(int mt, int fmt, bool ncat) {
+  return mt > 1 ? 1 : (!ncat && (fmt == W_I8 || fmt == W_I4) ? 5 : 4);
+}
+
 // Segments joined over K: grid y runs over s1's splits, then s2's.
 template <int MT, int FMT>
-static __global__ void __launch_bounds__(GEMV_THREADS)
+static __global__ void __launch_bounds__(GEMV_THREADS, gemv_min_blocks(MT, FMT, false))
 gemv_partial_kernel(GemvSeg s1, GemvSeg s2, int M, int N, int chunk_stride,
                     float* __restrict__ ws) {
   const int split = blockIdx.y;
@@ -207,7 +311,7 @@ gemv_partial_kernel(GemvSeg s1, GemvSeg s2, int M, int N, int chunk_stride,
 // past its own segment's splits exits). Each segment's splits fill its own
 // workspace, ws1 [s1.splits, M, N1] and ws2 [s2.splits, M, N2].
 template <int MT, int FMT>
-static __global__ void __launch_bounds__(GEMV_THREADS)
+static __global__ void __launch_bounds__(GEMV_THREADS, gemv_min_blocks(MT, FMT, true))
 gemv_ncat_partial_kernel(GemvSeg s1, GemvSeg s2, int N1, int N2, int M, int chunk_stride,
                          float* __restrict__ ws1, float* __restrict__ ws2) {
   const int t1 = (N1 + GEMV_COLS - 1) / GEMV_COLS;
@@ -280,11 +384,26 @@ static __global__ void gemv_ncat_epilogue_kernel(GemvOut o1, GemvOut o2, int M) 
   o.y[i] = __float2bfloat16(v);
 }
 
-// x elements that one split of a segment covers (a whole number of byte rows).
+// Whether a segment's ranges are ones the loop takes: chunks of whole 8-row
+// units (and groups), covering K with no empty split. An empty segment
+// (splits 0) passes.
 template <int FMT>
-static inline int gemv_chunk(const GemvSeg& s) {
-  constexpr int PACK = KPack<FMT>::value;
-  return s.splits ? PACK * ((s.K / PACK + s.splits - 1) / s.splits) : 0;
+static inline bool gemv_ranges_ok(const GemvSeg& s) {
+  if (s.splits == 0) return true;
+  const int unit = FMT == W_I4G || FMT == W_I8G ? std::lcm(8, s.G) : 8;
+  return s.chunk > 0 && s.chunk % unit == 0 && s.K % 8 == 0 &&
+         (long long)(s.splits - 1) * s.chunk < s.K && (long long)s.splits * s.chunk >= s.K;
+}
+
+// The x staging of GEMV_MT rows of the wider chunk, within 48 KB; 0 when a
+// segment's ranges are not ones the loop takes.
+template <int FMT>
+static inline int gemv_stride(const GemvSeg& s1, const GemvSeg& s2) {
+  const int chunk = std::max(s1.splits ? s1.chunk : 0, s2.splits ? s2.chunk : 0);
+  if (!gemv_ranges_ok<FMT>(s1) || !gemv_ranges_ok<FMT>(s2) ||
+      (size_t)GEMV_MT * chunk * sizeof(float) > 48 * 1024)
+    return 0;
+  return chunk;
 }
 
 template <int MT>
@@ -305,8 +424,8 @@ template <int FMT>
 static cudaError_t launch_gemv(GemvSeg s1, GemvSeg s2, int M, int N, const void* bias,
                                int bias_bf16, int act, const __nv_bfloat16* residual, void* y,
                                int out_f32, float* ws, cudaStream_t stream) {
-  const int chunk = std::max(gemv_chunk<FMT>(s1), gemv_chunk<FMT>(s2));
-  if ((size_t)GEMV_MT * chunk * sizeof(float) > 48 * 1024) return cudaErrorInvalidValue;
+  const int chunk = gemv_stride<FMT>(s1, s2);
+  if (chunk == 0) return cudaErrorInvalidValue;
   // as many accumulator rows as x has, up to MT: no multiply-adds on padding
   if (M == 1)
     launch_partial<1, FMT>(s1, s2, M, N, chunk, ws, stream);
@@ -338,8 +457,8 @@ static void launch_ncat_partial(GemvSeg s1, GemvSeg s2, int N1, int N2, int M, i
 template <int FMT>
 static cudaError_t launch_gemv_ncat(GemvSeg s1, GemvSeg s2, GemvOut o1, GemvOut o2, int M,
                                     cudaStream_t stream) {
-  const int chunk = std::max(gemv_chunk<FMT>(s1), gemv_chunk<FMT>(s2));
-  if ((size_t)GEMV_MT * chunk * sizeof(float) > 48 * 1024) return cudaErrorInvalidValue;
+  const int chunk = gemv_stride<FMT>(s1, s2);
+  if (chunk == 0) return cudaErrorInvalidValue;
   if (M == 1)
     launch_ncat_partial<1, FMT>(s1, s2, o1.N, o2.N, M, chunk, o1.ws, o2.ws, stream);
   else if (M == 2)

@@ -17,13 +17,14 @@
 
 extern "C" {
 
-// Decode regime: ws holds splits * M * N floats (allocated by the caller).
+// Decode regime: K in `splits` ranges of `chunk` rows (ops/quant_matmul.py
+// split_ranges); ws holds splits * M * N floats (allocated by the caller).
 int ftcf_quant_matmul_gemv(const void* x, const void* w, const float* scale, int M, int K, int N,
-                           int splits, const void* bias, int bias_bf16, int act, void* y,
-                           float* ws, void* stream) {
+                           int splits, int chunk, const void* bias, int bias_bf16, int act,
+                           void* y, float* ws, void* stream) {
   ftcf::GemvSeg s1{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), scale,
-                   nullptr, K, 0, splits};
-  ftcf::GemvSeg s2{nullptr, nullptr, nullptr, nullptr, 0, 0, 0};
+                   nullptr, K, 0, splits, chunk};
+  ftcf::GemvSeg s2{nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0};
   return (int)ftcf::launch_gemv<ftcf::W_I8>(s1, s2, M, N, bias, bias_bf16, act, nullptr, y, 0,
                                             ws, static_cast<cudaStream_t>(stream));
 }

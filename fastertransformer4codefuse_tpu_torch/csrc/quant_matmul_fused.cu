@@ -47,10 +47,10 @@ bool grouped(int fmt) { return fmt == ftcf::W_I4G || fmt == ftcf::W_I8G; }
 // scales: per-channel fp32 [N], or with a group format the [K/G, N] group
 // scales (bf16 for int4, fp32 for int8)
 GemvSeg gemv_seg(int fmt, int G, const void* x, const void* w, const void* scales, int K,
-                 int splits) {
+                 int splits, int chunk) {
   return GemvSeg{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
                  grouped(fmt) ? nullptr : static_cast<const float*>(scales),
-                 grouped(fmt) ? scales : nullptr, K, G, splits};
+                 grouped(fmt) ? scales : nullptr, K, G, splits, chunk};
 }
 
 }  // namespace
@@ -58,13 +58,15 @@ GemvSeg gemv_seg(int fmt, int G, const void* x, const void* w, const void* scale
 extern "C" {
 
 // K3: out = x1 @ W1 * s1 + x2 @ W2 * s2 + b + residual; both weights of
-// format fmt. ws holds (splits1 + splits2) * M * N floats.
+// format fmt, K_i in splits_i ranges of chunk_i rows. ws holds (splits1 +
+// splits2) * M * N floats.
 int ftcf_fused_proj_down(int fmt, int G, const void* x1, const void* w1, const void* s1, int K1,
-                         int splits1, const void* x2, const void* w2, const void* s2, int K2,
-                         int splits2, int M, int N, const void* bias, int bias_bf16,
-                         const void* residual, void* out, float* ws, void* stream) {
-  const GemvSeg g1 = gemv_seg(fmt, G, x1, w1, s1, K1, splits1);
-  const GemvSeg g2 = gemv_seg(fmt, G, x2, w2, s2, K2, splits2);
+                         int splits1, int chunk1, const void* x2, const void* w2, const void* s2,
+                         int K2, int splits2, int chunk2, int M, int N, const void* bias,
+                         int bias_bf16, const void* residual, void* out, float* ws,
+                         void* stream) {
+  const GemvSeg g1 = gemv_seg(fmt, G, x1, w1, s1, K1, splits1, chunk1);
+  const GemvSeg g2 = gemv_seg(fmt, G, x2, w2, s2, K2, splits2, chunk2);
   const auto* res = static_cast<const __nv_bfloat16*>(residual);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int none = ftcf::ACT_NONE;
@@ -87,14 +89,15 @@ int ftcf_fused_proj_down(int fmt, int G, const void* x1, const void* w1, const v
 
 // K13 at decode widths (and K2's up phase, with N2 = 0): y1 = act1(x1 @ W1 *
 // s1 + b1) [M, N1], y2 = act2(x2 @ W2 * s2 + b2) [M, N2], bf16; both weights
-// [K(/2), N_i] of format fmt. ws1 / ws2 hold splits_i * M * N_i floats.
+// [K(/2), N_i] of format fmt, K in splits_i ranges of chunk_i rows. ws1 / ws2
+// hold splits_i * M * N_i floats.
 int ftcf_gemv_ncat(int fmt, int G, int M, int K, const void* x1, const void* w1,
-                   const void* s1, int N1, int splits1, const void* b1, int b1_bf16, int act1,
-                   void* y1, float* ws1, const void* x2, const void* w2, const void* s2, int N2,
-                   int splits2, const void* b2, int b2_bf16, int act2, void* y2, float* ws2,
-                   void* stream) {
-  const GemvSeg g1 = gemv_seg(fmt, G, x1, w1, s1, K, splits1);
-  const GemvSeg g2 = gemv_seg(fmt, G, x2, w2, s2, K, splits2);
+                   const void* s1, int N1, int splits1, int chunk1, const void* b1, int b1_bf16,
+                   int act1, void* y1, float* ws1, const void* x2, const void* w2,
+                   const void* s2, int N2, int splits2, int chunk2, const void* b2, int b2_bf16,
+                   int act2, void* y2, float* ws2, void* stream) {
+  const GemvSeg g1 = gemv_seg(fmt, G, x1, w1, s1, K, splits1, chunk1);
+  const GemvSeg g2 = gemv_seg(fmt, G, x2, w2, s2, K, splits2, chunk2);
   const GemvOut o1{ws1, splits1, N1, g1.scale, b1, b1_bf16, act1,
                    static_cast<__nv_bfloat16*>(y1)};
   const GemvOut o2{ws2, splits2, N2, g2.scale, b2, b2_bf16, act2,

@@ -14,26 +14,28 @@
 // On the TPU the packed tile is DMA'd to VMEM and unpacked by an int8 -> int4
 // bitcast before the MXU. On the H100 the decode widths (M <= 32) are bound by
 // the K*N/2 weight bytes: the weight-streaming GEMV of ftcf_gemv.cuh with an
-// int4 payload (each 16-byte load feeds 16 columns x 2 K rows; group scales
-// fold into the weight before the FMA). Prefill widths are bound by the
-// tensor cores: the wmma GEMM of ftcf_gemm.cuh, which unpacks the nibbles
-// while staging the weight tile as bf16 (group scales folded into the bf16
-// weight).
+// int4 payload (each 16-byte load feeds 16 columns x 2 K rows; with group
+// scales, as the JAX kernel applies them to each group's partial sum, a k
+// lane sums a run of byte rows inside one group and multiplies the partial
+// by the group's scale row once, and a split holds whole groups). Prefill
+// widths are bound by the tensor cores: the wmma GEMM of ftcf_gemm.cuh, which
+// unpacks the nibbles while staging the weight tile as bf16 (group scales
+// folded into the bf16 weight).
 #include "ftcf_gemm.cuh"
 #include "ftcf_gemv.cuh"
 
 extern "C" {
 
 // Decode regime. gscale == nullptr: per-channel scales in `scale` (K6, K8);
-// else group scales [K/G, N] and scale == nullptr (K7). ws holds splits * M *
-// N floats (allocated by the caller).
+// else group scales [K/G, N] and scale == nullptr (K7). K in `splits` ranges
+// of `chunk` rows; ws holds splits * M * N floats (allocated by the caller).
 int ftcf_quant_matmul_w4_gemv(const void* x, const void* w, const float* scale,
                               const void* gscale, int G, int M, int K, int N, int splits,
-                              const void* bias, int bias_bf16, int act, void* y, int out_f32,
-                              float* ws, void* stream) {
+                              int chunk, const void* bias, int bias_bf16, int act, void* y,
+                              int out_f32, float* ws, void* stream) {
   ftcf::GemvSeg s1{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), scale,
-                   static_cast<const __nv_bfloat16*>(gscale), K, G, splits};
-  ftcf::GemvSeg s2{nullptr, nullptr, nullptr, nullptr, 0, 0, 0};
+                   static_cast<const __nv_bfloat16*>(gscale), K, G, splits, chunk};
+  ftcf::GemvSeg s2{nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (gscale != nullptr)
     return (int)ftcf::launch_gemv<ftcf::W_I4G>(s1, s2, M, N, bias, bias_bf16, act, nullptr, y,

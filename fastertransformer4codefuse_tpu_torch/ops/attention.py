@@ -2,8 +2,8 @@
 
 ``prefill_attention`` dispatches as the JAX one does, minus its TPU gate: a
 CUDA tensor with the prompt lengths goes to K5 ``prefill_attention_flash``
-(CUDA in ``csrc/flash_chunk.cu``, on K10's tile loop) at every S, MHA and
-GQA alike; the JAX package's ``S >= 2048`` switch (``_flash_ok``) was a v5e
+(CUDA in ``csrc/prefill_flash.cu``: wgmma products, K/V tiles by TMA) at
+every S, MHA and GQA alike; the JAX package's ``S >= 2048`` switch (``_flash_ok``) was a v5e
 measurement and is not carried over. The CPU runs the plain masked form with
 fp32 scores, which is what the JAX package runs below S = 2048.
 """
@@ -80,6 +80,8 @@ def prefill_attention_flash(
     for t in (k, v, input_lengths):
         req(t.device == q.device, "prefill_flash: operands on different devices")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    req(q.data_ptr() % 16 == 0 and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+        "prefill_flash: q/k/v must be 16-byte aligned (TMA)")
     out = torch.empty_like(q)
     err = _cuda.lib().ftcf_prefill_flash(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), input_lengths.data_ptr(), out.data_ptr(),

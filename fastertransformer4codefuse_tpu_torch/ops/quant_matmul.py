@@ -43,17 +43,33 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def gemv_splits(K: int, N: int, device: torch.device, share: float = 1.0, bits: int = 8) -> int:
-    """K ranges per 128-column tile for the weight-streaming GEMV: about four
-    blocks per SM over the whole grid (``share`` is this segment's part of
-    it), at most 1024 K rows per range (the shared-memory x staging), at
-    least 32 weight byte rows (one per k lane). An int4 byte row holds two K
-    rows, so ranges are counted in byte rows."""
+def split_ranges(K: int, N: int, sms: int, share: float = 1.0, bits: int = 8,
+                 group_size: int = 0) -> tuple[int, int]:
+    """The K ranges of the weight-streaming GEMV (csrc/ftcf_gemv.cuh) for one
+    segment on a card of ``sms`` SMs: ``(splits, chunk)``, ``chunk`` K rows a
+    range (the last one may be shorter); the kernel takes both as given.
+    About four blocks per SM over the whole grid (``share`` is this segment's
+    part of it) of 128-column tiles, at most 1024 K rows per range (the
+    shared-memory x staging), at least 32 weight byte rows (one per k lane;
+    an int4 byte row holds two K rows). A range is a whole number of units:
+    8 K rows (the x staging's 16-byte loads), and with group scales (G =
+    ``group_size``) whole groups. The count then drops to the ranges that
+    hold any, so no range is empty."""
     rows = K // 2 if bits == 4 else K
     max_rows = 512 if bits == 4 else 1024
     tiles = -(-N // 128)
-    splits = max(-(-rows // max_rows), math.ceil(4 * _sm_count(device.index or 0) * share / tiles))
-    return max(1, min(splits, -(-rows // 32)))
+    splits = max(-(-rows // max_rows), math.ceil(4 * sms * share / tiles))
+    splits = max(1, min(splits, -(-rows // 32)))
+    unit = math.lcm(8, group_size) if group_size else 8
+    units = K // unit
+    per = -(-units // min(splits, units))  # units a range
+    return -(-units // per), unit * per
+
+
+def gemv_ranges(K: int, N: int, device: torch.device, share: float = 1.0, bits: int = 8,
+                group_size: int = 0) -> tuple[int, int]:
+    """``split_ranges`` on ``device``'s SM count."""
+    return split_ranges(K, N, _sm_count(device.index or 0), share, bits, group_size)
 
 
 def check_operands(x, w, scale, bias, name, bits=8, group_size=0):
@@ -98,10 +114,10 @@ def launch_gemv(x, w, scale, bias, act, out):
     ``out``. No launch count: the public wrappers count their own launches."""
     M, K = x.shape
     N = w.shape[1]
-    splits = gemv_splits(K, N, x.device)
+    splits, chunk = gemv_ranges(K, N, x.device)
     ws = torch.empty(splits * M * N, dtype=torch.float32, device=x.device)
     err = _cuda.lib().ftcf_quant_matmul_gemv(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), M, K, N, splits,
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), M, K, N, splits, chunk,
         _cuda.ptr(bias), int(bias is not None and bias.dtype == torch.bfloat16),
         ACT_CODES[act], out.data_ptr(), ws.data_ptr(), _cuda.stream_of(x),
     )

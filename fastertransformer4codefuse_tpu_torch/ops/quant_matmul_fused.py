@@ -34,7 +34,7 @@ import torch
 from . import _cuda
 from ..models.params import QuantizedTensor, unpack_int4
 from .linear import ACT_CODES, apply_act
-from .quant_matmul import GEMV_MAX_M, check_operands, gemv_splits
+from .quant_matmul import GEMV_MAX_M, check_operands, gemv_ranges
 
 # (bits, group scales?) -> csrc/ftcf_common.cuh WFmt
 WEIGHT_FORMATS = {(8, False): 0, (4, False): 1, (4, True): 2, (8, True): 3}
@@ -85,14 +85,14 @@ def fused_proj_down(
                   and residual.is_contiguous() and residual.device == x1.device,
                   "fused_proj_down: residual must be a contiguous bf16 [M, N]")
     share1 = K1 / (K1 + K2)
-    n1 = gemv_splits(K1, N, x1.device, share1, bits)
-    n2 = gemv_splits(K2, N, x1.device, 1.0 - share1, bits)
+    n1, c1 = gemv_ranges(K1, N, x1.device, share1, bits, group_size)
+    n2, c2 = gemv_ranges(K2, N, x1.device, 1.0 - share1, bits, group_size)
     ws = torch.empty((n1 + n2) * M * N, dtype=torch.float32, device=x1.device)
     out = torch.empty(M, N, dtype=torch.bfloat16, device=x1.device)
     err = _cuda.lib().ftcf_fused_proj_down(
         WEIGHT_FORMATS[bits, bool(group_size)], group_size,
-        x1.data_ptr(), w1.data_ptr(), s1.data_ptr(), K1, n1,
-        x2.data_ptr(), w2.data_ptr(), s2.data_ptr(), K2, n2, M, N,
+        x1.data_ptr(), w1.data_ptr(), s1.data_ptr(), K1, n1, c1,
+        x2.data_ptr(), w2.data_ptr(), s2.data_ptr(), K2, n2, c2, M, N,
         *_bias_ptr(bias), residual.data_ptr(), out.data_ptr(), ws.data_ptr(),
         _cuda.stream_of(x1),
     )
@@ -138,10 +138,10 @@ def _launch_ncat(segs, bits, G, name):
         wss = []  # each segment's split workspace, held until the launch
         for a in args:
             N = a[3]
-            splits = gemv_splits(K, N, x.device, bits=bits) if N else 0
+            splits, chunk = gemv_ranges(K, N, x.device, bits=bits, group_size=G) if N else (0, 0)
             ws = torch.empty(max(splits * M * N, 1), dtype=torch.float32, device=x.device)
             wss.append(ws)
-            a[4:4] = [splits]  # (x, w, s, N, splits, b, bf16, act, y)
+            a[4:4] = [splits, chunk]  # (x, w, s, N, splits, chunk, b, bf16, act, y)
             a.append(ws.data_ptr())
         err = _cuda.lib().ftcf_gemv_ncat(fmt, G, M, K, *args[0], *args[1], _cuda.stream_of(x))
     else:

@@ -28,7 +28,7 @@ import torch
 from ..models.params import QuantizedTensor
 from . import _cuda
 from .linear import ACT_CODES, apply_act
-from .quant_matmul import GEMV_MAX_M, check_operands, gemv_splits
+from .quant_matmul import GEMV_MAX_M, check_operands, gemv_ranges
 
 
 def _plain(x, packed, scale, G, bias, act, out_dtype):
@@ -66,10 +66,11 @@ def launch_w4(x, packed, scale, G, bias, act, out, name):
                  ACT_CODES[act])
     out_f32 = int(out.dtype == torch.float32)
     if M <= GEMV_MAX_M:
-        splits = gemv_splits(K, N, x.device, bits=4)
+        splits, chunk = gemv_ranges(K, N, x.device, bits=4, group_size=G)
         ws = torch.empty(splits * M * N, dtype=torch.float32, device=x.device)
         err = lib.ftcf_quant_matmul_w4_gemv(
-            x.data_ptr(), packed.data_ptr(), pscale, gscale, G, M, K, N, splits, *bias_args,
+            x.data_ptr(), packed.data_ptr(), pscale, gscale, G, M, K, N, splits, chunk,
+            *bias_args,
             out.data_ptr(), out_f32, ws.data_ptr(), _cuda.stream_of(x),
         )
     else:

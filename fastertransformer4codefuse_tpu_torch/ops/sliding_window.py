@@ -4,7 +4,7 @@ Longformer's local attention: query i sees key j iff |i - j| <= w_half
 (``causal=True``: i - w_half <= j <= i) and j is below the row's length, the
 count of False in ``is_masked`` (right padding, as the JAX kernel assumes).
 Rows at or past the length, the padded rows of a right-padded batch, are 0.
-The CUDA kernel is ``csrc/sliding_window.cu``: K5's tile loop with a band
+The CUDA kernel is ``csrc/sliding_window.cu``: K10's mma.sync tile loop with a band
 policy that visits only the key tiles meeting a query tile's band, so its
 work grows as S (2 w_half + tile), not S^2. ``sliding_window_attention_plain``
 is the same function in plain PyTorch, dense and masked: the CPU path and the

@@ -1,5 +1,5 @@
 """K5, the port's causal prefill flash attention (fastertransformer4codefuse_tpu_torch/
-ops/attention.py prefill_attention_flash, CUDA in csrc/flash_chunk.cu): its
+ops/attention.py prefill_attention_flash, CUDA in csrc/prefill_flash.cu): its
 plain version against the JAX package's prefill paths, and the dispatch that
 sends CUDA tensors to the kernel.
 

@@ -1,6 +1,9 @@
 """The CUDA kernels K1-K13 against their plain versions on the card, at small
-and ragged shapes (K2/K3 also with group scales, int8 and int4; K13's
-segments also bit for bit against K1/K6/K7 run alone), K4/K9/K10/K11 also on packed int4 caches (chip_smoke.py
+and ragged shapes (K2/K3 also with group scales, int8 and int4, and K3, K7
+and K13 with groups of 32 and 64 whose splits do not divide K; K13's
+segments also bit for bit against K1/K6/K7 run alone; K5 at key tiles and
+one past them, lengths of 1, GQA up to 8 query heads a KV head, two calls
+equal byte for byte), K4/K9/K10/K11 also on packed int4 caches (chip_smoke.py
 covers the CodeFuse-13B and Longformer-base shapes); K11 also bit for bit
 against K4 over a physically gathered copy of its cache. Marked
 ``cuda``: skipped where there is no GPU. On a GPU machine without jax:
@@ -181,7 +184,7 @@ def test_k6_matches_plain(gen, M, K, N, act, bias_dtype):
 
 @pytest.mark.parametrize("M", [1, 3, 5, 32, 33, 130])
 @pytest.mark.parametrize("K,N,G", [(256, 384, 128), (256, 144, 32), (2048, 160, 128),
-                                   (1152, 48, 128)])
+                                   (1152, 48, 128), (1152, 160, 64), (2560, 48, 32)])
 @pytest.mark.parametrize("act", [None, "gelu-tanh", "relu"])
 def test_k7_matches_plain(gen, M, K, N, G, act):
     x, p, s = _bf(gen, M, K), _i8(gen, K // 2, N), _gscale(gen, K // G, N)
@@ -383,11 +386,15 @@ def test_paged_kernels_raise_on_what_they_do_not_take(gen):
 @pytest.mark.parametrize(
     "B,S,nH,nKV,dh,lens",
     [(2, 300, 8, 8, 128, [300, 123]), (2, 200, 8, 2, 128, [200, 1]),
-     (1, 130, 4, 4, 256, [130]), (3, 129, 8, 2, 256, [5, 129, 64]), (1, 64, 2, 2, 128, [64])],
+     (1, 130, 4, 4, 256, [130]), (3, 129, 8, 2, 256, [5, 129, 64]), (1, 64, 2, 2, 128, [64]),
+     (1, 129, 4, 4, 128, [129]), (1, 65, 4, 4, 256, [65]), (2, 300, 16, 2, 128, [300, 1]),
+     (2, 300, 8, 4, 256, [300, 171]), (2, 300, 16, 2, 256, [1, 300])],
 )
 def test_k5_matches_plain(gen, B, S, nH, nKV, dh, lens):
-    """Ragged lengths, S not a multiple of 128, MHA and GQA: every row,
-    padded ones included, equals the plain masked prefill."""
+    """Ragged lengths, S not a multiple of the key tile (128 keys at dh 128,
+    64 at dh 256) or one past it, lengths of 1, MHA and GQA up to 8 query
+    heads a KV head: every row, padded ones included, equals the plain
+    masked prefill."""
     q, k, v = _bf(gen, B, S, nH, dh), _bf(gen, B, S, nKV, dh), _bf(gen, B, S, nKV, dh)
     ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
     sm = dh ** -0.5
@@ -398,12 +405,16 @@ def test_k5_matches_plain(gen, B, S, nH, nKV, dh, lens):
     assert _rel(got, prefill_attention_flash_plain(q, k, v, ln, sm)) < 2e-2
 
 
-def test_k5_reads_stop_at_the_length(gen):
-    """Keys at or past a row's length are never read: poisoning them changes
-    nothing."""
-    B, S, nH, dh = 2, 200, 4, 128
-    q, k, v = _bf(gen, B, S, nH, dh), _bf(gen, B, S, nH, dh), _bf(gen, B, S, nH, dh)
-    ln = torch.tensor([150, 70], dtype=torch.int32, device="cuda")
+@pytest.mark.parametrize("nH,nKV,dh,lens", [(4, 4, 128, [150, 70]), (8, 2, 128, [131, 200]),
+                                           (4, 4, 256, [100, 199]), (8, 1, 256, [1, 75])])
+def test_k5_reads_stop_at_the_length(gen, nH, nKV, dh, lens):
+    """Keys at or past a row's length are never used: poisoning them (K with
+    1e4, V with NaN) changes nothing, also where the length ends inside a
+    key tile that TMA loads whole (the rows below S past the length are real
+    memory there)."""
+    B, S = 2, 200
+    q, k, v = _bf(gen, B, S, nH, dh), _bf(gen, B, S, nKV, dh), _bf(gen, B, S, nKV, dh)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
     clean = prefill_attention_flash(q, k, v, ln, 0.09)
     for b, n in enumerate(ln.tolist()):
         k[b, n:] = 1e4
@@ -411,6 +422,18 @@ def test_k5_reads_stop_at_the_length(gen):
     again = prefill_attention_flash(q, k, v, ln, 0.09)
     torch.cuda.synchronize()
     assert torch.equal(clean, again)
+
+
+def test_k5_is_deterministic(gen):
+    """No atomics, no split over keys: two calls give equal bytes (the greedy
+    checks rely on it)."""
+    B, S, nH, nKV, dh = 2, 1000, 16, 4, 128
+    q, k, v = _bf(gen, B, S, nH, dh), _bf(gen, B, S, nKV, dh), _bf(gen, B, S, nKV, dh)
+    ln = torch.tensor([1000, 613], dtype=torch.int32, device="cuda")
+    a = prefill_attention_flash(q, k, v, ln, dh ** -0.5)
+    b = prefill_attention_flash(q, k, v, ln, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def _packed(gen, shape, kind):
@@ -739,3 +762,28 @@ def test_fused_kernels_raise_on_what_they_do_not_take(gen):
         with pytest.raises(ValueError):
             fn()
             pytest.fail(f"case {i} did not raise")
+
+
+@pytest.mark.parametrize("M", [1, 4, 9])
+@pytest.mark.parametrize("bits,G", [(4, 32), (4, 64), (8, 32), (8, 64)])
+def test_group_gemv_ragged_splits(gen, M, bits, G):
+    """K7, K3 and K13 with groups of 32 and 64 where the splits, whole groups
+    each, do not divide K (1152 = 18 groups of 64, 36 of 32): each matches
+    its plain version, and K13's segments equal K7 alone bit for bit."""
+    K, K2, N = 1152, 2560, 384
+    x1, x2, h, res = _bf(gen, M, K), _bf(gen, M, K), _bf(gen, M, K2, std=0.5), _bf(gen, M, N)
+    (w1, s1), (w2, s2), (wd, sd) = (_fmt_weight(gen, k, n, bits, G)
+                                   for k, n in ((K, N), (K, N), (K2, N)))
+    b1, b2 = _bf(gen, N, std=0.1), _bf(gen, N, std=0.1)
+    args3 = (x1, h, w1, wd, s1, sd, b1, res, bits, G)
+    assert _rel(fused_proj_down(*args3), fused_proj_down_plain(*args3)) < 1e-2
+    args13 = (x1, x2, w1, w2, s1, s2, b1, b2, None, "gelu-tanh", bits, G)
+    y1, y2 = fused_qkv_up(*args13)
+    r1, r2 = fused_qkv_up_plain(*args13)
+    assert _rel(torch.cat([y1, y2], 1), torch.cat([r1, r2], 1)) < 1e-2
+    if bits == 4:
+        a1 = quant_matmul_w4_group(x1, w1, s1, G, b1)
+        a2 = quant_matmul_w4_group(x2, w2, s2, G, b2, "gelu-tanh")
+        assert _rel(a1, quant_matmul_w4_group_plain(x1, w1, s1, G, b1)) < 1e-2
+        torch.cuda.synchronize()
+        assert torch.equal(y1, a1) and torch.equal(y2, a2)

@@ -22,6 +22,7 @@ from fastertransformer4codefuse_tpu.ops.linear import (
 )
 from fastertransformer4codefuse_tpu_torch.models.params import QuantizedTensor
 from fastertransformer4codefuse_tpu_torch.ops.linear import linear, quantized_matmul_transposed_head
+from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import split_ranges
 from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_w4 import (
     quant_matmul_w4,
     quant_matmul_w4_group,
@@ -127,3 +128,35 @@ def test_cpu_tensors_take_the_plain_versions_without_a_launch():
     quant_matmul_w4_head(T(x), T(p), ts)
     assert (quant_matmul_w4.launches, quant_matmul_w4_group.launches,
             quant_matmul_w4_head.launches) == before
+
+
+# The weight-streaming GEMV's K ranges (ops/quant_matmul.py split_ranges,
+# which the kernel takes as given): whole 8-row units and, with group
+# scales, whole groups a range; no empty range; the x staging of GEMV_MT = 4
+# rows of a range within its 48 KB of shared memory. CodeFuse-13B's N
+# widths, the H100's 132 SMs and a smaller card's 114.
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("K", [256, 1152, 2048, 5120, 20480])
+@pytest.mark.parametrize("G", [32, 64, 128])
+def test_gemv_splits_hold_whole_groups(G, K, bits):
+    for N, sms, share in ((15360, 132, 1.0), (20480, 132, 1.0), (5120, 132, 0.2),
+                          (5120, 132, 0.8), (384, 114, 1.0)):
+        splits, chunk = split_ranges(K, N, sms, share, bits, G)
+        assert splits >= 1
+        assert chunk % G == 0 and chunk % 8 == 0, (N, sms, share, splits, chunk)
+        assert (splits - 1) * chunk < K <= splits * chunk, (N, sms, splits, chunk)
+        assert 4 * chunk * 4 <= 48 * 1024, (N, sms, splits, chunk)
+        assert splits <= split_ranges(K, N, sms, share, bits)[0]
+
+
+def test_gemv_splits_per_channel_unchanged():
+    """Without group scales a range is a ceil share of the byte rows rounded
+    up to 8 K rows: CodeFuse-13B's QKV, up and down at 132 SMs need no
+    rounding."""
+    assert [split_ranges(K, N, 132, 1.0, b) for K, N in ((5120, 15360), (5120, 20480),
+                                                         (20480, 5120)) for b in (8, 4)] \
+        == [(5, 1024)] * 4 + [(20, 1024)] * 2
+    # 1000 int4 byte rows in 3 ranges: 334 a range, rounded up to 336 (672 K rows)
+    assert split_ranges(2000, 176 * 128, 132, 1.0, 4) == (3, 672)
+    # BERT-base's FFN down: 88 ranges of 35 rows would not be 8-row units
+    assert split_ranges(3072, 768, 132, 1.0, 8) == (77, 40)
