@@ -5,11 +5,15 @@
 
 Phases (any failure exits non-zero):
   1. device, torch and CUDA versions, card name and power limit; build the
-     CUDA kernels from ``fastertransformer4codefuse_tpu_torch/csrc``;
+     CUDA kernels from ``fastertransformer4codefuse_tpu_torch/csrc``; every
+     GEMV instance within 128 registers and without spills;
   2. each kernel (K1-K13; K2/K3 on int4 weights and with group scales,
-     int4 and int8, G = 128; K13's GEMV form, int8, int4 and int4 g128, at
-     M = 1 and 4, its GEMM form at M = 512, 1024 and 3072, beside the pair of
-     unfused GEMMs it replaces; and the packed int4 reads of K4/K9/K10/K11)
+     int4 and int8, G = 128; the GEMVs K1, K3, K6, K7, K8 and K13's GEMV
+     form (int8, int4 and int4 g128) at M = 1, 4 and 8, K1 QKV, K6 and K13
+     int8 also at 32, then row r of K6, K7 and K13 int8 bit for bit the same
+     at M = 2, 4, 8 and 32; K13's GEMM form at M = 512, 1024 and 3072, beside
+     the pair of unfused GEMMs it replaces; and the packed int4 reads of
+     K4/K9/K10/K11)
      against its plain PyTorch version at CodeFuse-13B shapes, K12 at Longformer-base shapes (S = 4096, w_half 256, both band
      modes): max error against the stated tolerance, median kernel and
      plain times (CUDA events, device time), the card's bound for the same
@@ -329,7 +333,9 @@ def phase_kernels(torch, records):
     for tag, K, N, has_bias, act in shapes:
         w, s = i8(K, N), scale(N)
         b = bf(N, std=0.02) if has_bias else None
-        for M in (1, 4, 512):
+        # M = 8, the pools' width, and 32, the GEMV ceiling (QKV): the
+        # tensor-core body
+        for M in (1, 4, 8, 32, 512) if tag == "qkv" else (1, 4, 8, 512):
             x = bf(M, K)
             lib = library_mm(8, M, K, N) if tag == "qkv" else (None, "")
             report("quant_matmul", f"{tag} {K}->{N} M={M}",
@@ -340,7 +346,7 @@ def phase_kernels(torch, records):
     s_up, s_proj, s_down = scale(F_), scale(H), scale(H)
     b_up, b_down = bf(F_, std=0.02), bf(H, std=0.02)
     k3_ms = {}  # (format, M) -> K3's time, beside the group-scaled K3 below
-    for M in (1, 4):
+    for M in (1, 4, 8):
         x_up, x_proj, res, h = bf(M, H), bf(M, H), bf(M, H), bf(M, F_, std=0.5)
         k3_ms["int8", M] = report("fused_proj_down", f"proj+down M={M}",
                lambda: fused_proj_down(x_proj, h, w_proj, w_down, s_proj, s_down, b_down, res),
@@ -348,6 +354,8 @@ def phase_kernels(torch, records):
                                              b_down, res), tol_mm, "proj+down M=1",
                work=(nbytes(x_proj, h, w_proj, w_down, s_proj, s_down, b_down, res),
                      2 * M * (H * H + F_ * H)))
+        if M == 8:
+            continue  # K2 (off the served routes) at M = 1 and 4 only
         # the bf16 hidden may round differently in the two versions: 2e-2
         report("fused_up_proj_down", f"up+proj+down M={M}",
                lambda: fused_up_proj_down(x_up, x_proj, res, w_up, w_proj, w_down, s_up, s_proj,
@@ -368,7 +376,7 @@ def phase_kernels(torch, records):
         gs = (torch.empty(K // G, N, device=dev).uniform_(0.5, 1.5, generator=gen)
               * (0.02 / 7)).to(torch.bfloat16)
         b = bf(N, std=0.02) if has_bias else None
-        for M in (1, 4, 512):
+        for M in (1, 4, 8, 32, 512) if tag == "qkv" else (1, 4, 8, 512):
             x = bf(M, K)
             first = tag == "qkv"
             lib = library_mm(4, M, K, N) if first else (None, "")
@@ -377,6 +385,8 @@ def phase_kernels(torch, records):
                    lambda: quant_matmul_w4_plain(x, p4, s4, b, act), tol_mm,
                    "qkv 5120->15360 M=1", work=(nbytes(x, p4, s4, b), 2 * M * K * N),
                    fn_lib=lib[0], lib_label=lib[1])
+            if M == 32:
+                continue  # K7 at 32 rows: the row-independence check below
             lib = library_mm(4, M, K, N, G) if first else (None, "")
             report("quant_matmul_w4_group", f"{tag} {K}->{N} g{G} M={M}",
                    lambda: quant_matmul_w4_group(x, p4, gs, G, b, act),
@@ -386,7 +396,7 @@ def phase_kernels(torch, records):
     # K8: fp32 logits; only the summation order differs
     Vp = 102400
     p_head, s_head = i8(H // 2, Vp), scale4(Vp)
-    for M in (1, 4):
+    for M in (1, 4, 8):
         x = bf(M, H)
         lib = library_mm(4, M, H, Vp)
         report("quant_matmul_w4_head", f"head {H}->{Vp} M={M}",
@@ -398,13 +408,15 @@ def phase_kernels(torch, records):
     # K2/K3 on per-channel int4 weights (their records keep the int8 times)
     w_up, w_proj, w_down = i8(H // 2, F_), i8(H // 2, H), i8(F_ // 2, H)
     s_up, s_proj, s_down = scale4(F_), scale4(H), scale4(H)
-    for M in (1, 4):
+    for M in (1, 4, 8):
         x_up, x_proj, res, h = bf(M, H), bf(M, H), bf(M, H), bf(M, F_, std=0.5)
         k3_ms["int4", M] = report("fused_proj_down", f"int4 proj+down M={M}",
                lambda: fused_proj_down(x_proj, h, w_proj, w_down, s_proj, s_down, b_down, res,
                                        bits=4),
                lambda: fused_proj_down_plain(x_proj, h, w_proj, w_down, s_proj, s_down,
                                              b_down, res, bits=4), tol_mm, "proj+down M=1")
+        if M == 8:
+            continue
         report("fused_up_proj_down", f"int4 up+proj+down M={M}",
                lambda: fused_up_proj_down(x_up, x_proj, res, w_up, w_proj, w_down, s_up, s_proj,
                                           s_down, b_up, b_down, "gelu-tanh", bits=4),
@@ -427,7 +439,7 @@ def phase_kernels(torch, records):
         g_up, g_proj, g_down = (gscale(H, F_, qmax, sdt), gscale(H, H, qmax, sdt),
                                 gscale(F_, H, qmax, sdt))
         tag = f"int{bits} g{G}"
-        for M in (1, 4):
+        for M in (1, 4, 8):
             x_up, x_proj, res, h = bf(M, H), bf(M, H), bf(M, H), bf(M, F_, std=0.5)
             args3 = (x_proj, h, w_proj, w_down, g_proj, g_down, b_down, res, bits, G)
             pair = None
@@ -440,6 +452,8 @@ def phase_kernels(torch, records):
                    work=(nbytes(x_proj, h, w_proj, w_down, g_proj, g_down, b_down, res),
                          2 * M * (H * H + F_ * H)), fn_pair=pair, pair_label="K7 proj + K7 down",
                    peers=[(f"K3 int{bits} per-channel", k3_ms[f"int{bits}", M])])
+            if M == 8:
+                continue
             args2 = (x_up, x_proj, res, w_up, w_proj, w_down, g_up, g_proj, g_down, b_up, b_down,
                      "gelu-tanh", bits, G)
             report("fused_up_proj_down", f"{tag} up+proj+down M={M}",
@@ -471,7 +485,8 @@ def phase_kernels(torch, records):
             single = (lambda x, w, s, b, act=None:  # noqa: E731
                       quant_matmul_w4_group(x, w, s, G, b, act))
             pair_label = "K7 QKV + K7 up"
-        Ms = (1, 4, 512) if lab == "int4" else (1, 4, 512, 1024, 3072)
+        Ms = {"int8": (1, 4, 8, 32, 512, 1024, 3072), "int4": (1, 4, 8, 512),
+              "int4 g128": (1, 4, 8, 512, 1024, 3072)}[lab]
         for M in Ms:
             x1, x2 = bf(M, H), bf(M, H)
             args = (x1, x2, wq, wu, sq, su, b_q, b_u, None, "gelu-tanh", bits, G13)
@@ -487,6 +502,26 @@ def phase_kernels(torch, records):
                 k13_int4_ms[M] = t13
             del x1, x2
         del wq, wu
+
+    # Row independence of the GEMV's tensor-core body at CodeFuse-13B shapes:
+    # row r of K6, K7 and K13 int8 is bit for bit the same at M = 2, 4, 8
+    # and 32 (the first M of the same 32 x rows)
+    x32, x32b = bf(32, H), bf(32, H)
+    p4, s4, g4 = i8(H // 2, 3 * H), scale4(3 * H), gscale(H, 3 * H, 7, torch.bfloat16)
+    wq, sq, wu, su = i8(H, 3 * H), scale(3 * H), i8(H, F_), scale(F_)
+    by_width = {
+        "quant_matmul_w4 (K6)": lambda M: quant_matmul_w4(x32[:M], p4, s4, b_q),
+        "quant_matmul_w4_group (K7)": lambda M: quant_matmul_w4_group(x32[:M], p4, g4, G, b_q),
+        "fused_qkv_up int8 (K13)": lambda M: torch.cat(fused_qkv_up(
+            x32[:M], x32b[:M], wq, wu, sq, su, b_q, b_u, None, "gelu-tanh"), 1),
+    }
+    for name, fn in by_width.items():
+        full = fn(32)
+        differ = [M for M in (2, 4, 8) if not torch.equal(fn(M), full[:M])]
+        ok &= not differ
+        log(f"  row independence {name}: rows at M = 2, 4, 8 vs the same rows at M = 32: "
+            + (f"MISS, M = {differ} differ" if differ else "bit for bit equal"))
+    del p4, wq, wu
 
     # Attention kernels: p (times v_s) rounded to bf16 before PV in both
     # versions; online vs full softmax order. Each (query, head) row of the
@@ -1364,11 +1399,16 @@ def main() -> int:
         if st or ld:
             log(f"    spills: {src_name} {kern}<{args}>: {regs} registers, {st} B spill stores, "
                 f"{ld} B spill loads")
-    # K5's instances and the group-scaled GEMV loops (formats W_I4G = 2, W_I8G = 3)
+    # K5's instances and every GEMV partial instance <NB, format>: NB 0 is
+    # the M = 1 loop, NB 1/2/4 the tensor-core body's 8-row B tiles; formats
+    # W_I8 = 0, W_I4 = 1, W_I4G = 2, W_I8G = 3
     log("  registers (spill stores/loads, bytes): " + ", ".join(
         f"{kern}<{args}> {regs} ({st}/{ld})" for _, kern, args, regs, st, ld in entries
-        if kern == "prefill_flash_kernel"
-        or (kern.startswith("gemv") and args.split(",")[-1] in ("2", "3"))))
+        if kern == "prefill_flash_kernel" or kern.startswith("gemv")))
+    gemv_over = [f"{kern}<{args}>" for _, kern, args, regs, st, ld in entries
+                 if "partial_kernel" in kern and (regs > 128 or st or ld)]
+    if gemv_over:
+        return fail(f"GEMV instances over 128 registers or spilling: {gemv_over}")
 
     src = "fastertransformer4codefuse_tpu_torch/csrc/"
     tpu = "fastertransformer4codefuse_tpu/ops/"

@@ -11,47 +11,79 @@
 //
 // At decode widths (M <= 32) the whole cost is streaming the weight from
 // device memory once: K*N bytes for int8, K*N/2 for int4, at 3.35 TB/s on an
-// H100 SXM, against M*K*N multiply-adds. Design:
-//  - a block owns 128 output columns and one K range ("split") of one segment;
-//    each of its 256 threads loads 16 contiguous weight bytes along N per
-//    byte row (one 16-byte load; 8 threads cover a 128-byte line, a warp 4
-//    rows) and keeps MT x 16 fp32 sums. An int8 byte row is one K row; an
-//    int4 byte row holds two (the low nibbles the even row, the high nibbles
-//    the odd one), so each int4 load feeds two x values per row of sums and
-//    split boundaries fall on even K;
-//  - group-wise weights (W_I4G: bf16 scales; W_I8G: fp32 scales) apply the
-//    scale to a partial sum, as the JAX kernel does (one dot per K group,
-//    then the [bm, bn] partial times the group's scale row): a split holds
-//    whole groups, a k lane walks a run of consecutive byte rows inside one
-//    group (the whole group, or an even part of it, so that the split's runs
-//    share out evenly over the 32 k lanes), sums the run into
-//    MT x 16 fp32 partials and adds partial * scale into its running sums
-//    once; a scale row is read once per run and column tile, not once per
-//    weight load. An int4 byte row pair never straddles a group (G is even).
-//    The epilogue applies no scale;
-//  - the x rows of the block's K range sit in shared memory as fp32, staged
-//    with 16-byte loads: the caller's ranges are multiples of 8 K rows (and
-//    of G with group scales; ops/quant_matmul.py split_ranges);
-//  - there are enough splits that the grid holds about four blocks per SM
-//    (the H100 needs ~2 MB in flight to cover memory latency); each split's
-//    sums go to an fp32 workspace, and a second small kernel adds the splits
-//    in a fixed order (deterministic, no atomics), applies per-segment
-//    scales, bias, activation and residual, and writes bf16 or fp32;
-//  - a block keeps MT = min(M, 4) rows of sums (M = 3 pads to 4); more than
-//    4 rows take more blocks along grid z, which re-read the weight (decode
-//    batches of the slice are 1-4 rows).
+// H100 SXM, against M*K*N multiply-adds. A block owns 128 output columns
+// ("tile") and one K range ("split") of one segment, 256 threads, and
+// streams that range's weight bytes exactly once for all M rows of x. The
+// caller's ranges (ops/quant_matmul.py split_ranges, a function of K, N, the
+// SM count and the weight format only) hold whole 8-row units, and whole
+// groups with group scales; there are enough splits that the grid holds about
+// four blocks per SM (the H100 needs ~2 MB in flight to cover memory
+// latency). Each split's sums go to an fp32 workspace, and a second small
+// kernel adds the splits in a fixed order (deterministic, no atomics),
+// applies per-segment scales, bias, activation and residual, and writes bf16
+// or fp32.
+//
+// Two bodies:
+//  - M = 1, the FMA loop (gemv_block<1, FMT>): each thread loads 16 contiguous
+//    weight bytes along N per byte row (8 threads cover a 128-byte line, a
+//    warp 4 rows), converts them to fp32 and keeps 16 fp32 sums; 32 k lanes
+//    (4 a warp) walk the range's byte rows. An int4 byte row holds two K rows
+//    (the low nibble the even one). With group scales a k lane walks a run of
+//    consecutive byte rows inside one group, sums it into partials and adds
+//    partial * scale once (the JAX kernel's per-group dot times its scale
+//    row); int4 values come as 136 + v (one byte permute) with 136 * sum(x)
+//    taken off each run's partial. x sits in shared memory as fp32;
+//  - 2 <= M <= 32, tensor cores (gemv_mma_block): mma.sync m16n8k16, bf16 in,
+//    fp32 accumulate. The dequantized weight is the A operand (16 output
+//    columns x 16 k), x the B operand (16 k x 8 rows), so each A fragment
+//    feeds NB = ceil(M / 8) B tiles (1, 2 or 4; 17-24 rows pad to 4) and the
+//    weight is read once for up to 32 rows. Warp w takes the 32-column
+//    quarter w % 4 of the tile and k lane w / 4: the range's k16 steps (runs
+//    of them with group scales) go to the two k lanes by turns. The weight
+//    streams through a ring of 4 stages of 8 KB in shared memory by cp.async
+//    (16-byte copies, 8 threads a 128-byte row, 3 stages in flight; a
+//    stage holds the next 2 int8 or 4 int4 k16 steps of each k lane), so
+//    the loads cost no registers and cover whole lines. Thread (g, t) of a
+//    warp (g = lane / 4, t = lane % 4) reads one 32-bit word (4 columns,
+//    4g .. 4g + 3 of its quarter) from each of the step's byte rows it owns:
+//    int8 rows 4t .. 4t + 3, int4 byte rows 2t and 2t + 1 (K rows 4t .. 4t
+//    + 3); the copies store 16-byte chunk c of row r at c ^ 2 (r / rows a
+//    thread % 4), so those reads hit 32 banks. Column 4g + 2j is fragment
+//    row g of product j (j = 0, 1) and 4g + 2j + 1 row g + 8; the
+//    fragment's k columns (2t, 2t + 1, 2t + 8, 2t + 9) are the K rows 4t ..
+//    4t + 3 of the step, so the B fragment is 8 consecutive bytes of x in
+//    its natural order. Every byte of a word is a fragment register: an
+//    int4 byte is the (k, k + 1) pair as it stands (one byte permute and
+//    one logic op put its nibbles under the bf16 exponent of 128, one bf16x2
+//    multiply-add removes the bias, exactly), an int8 register is the same
+//    byte of two rows' words (one byte permute; 128 + the low 7 bits plus
+//    -128 or -256 from the sign bit, exactly). x is staged in bf16 with a
+//    row pitch of 32 bytes past a multiple of 128 (the B fragments' 8-byte
+//    reads are free of bank conflicts); rows M .. 8 NB - 1 and K rows past
+//    the range are zeros there and never read from device memory, and a
+//    range that ends inside a k16 step copies no weight row past its end
+//    (zero-filled). With group scales (G a multiple of 16) a run of k16
+//    steps inside one group accumulates into a partial fragment, then acc
+//    += partial * scale[n], the scale row read once per run. The two k
+//    lanes' sums are added in a fixed order through shared memory. A row's
+//    arithmetic is the same at every M from 2 to 32 (the same steps, runs
+//    and order; padding rows are separate fragment columns), so its output
+//    is bit for bit the same.
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <numeric>
 
 #include "ftcf_common.cuh"
+#include "ftcf_mma.cuh"
 
 namespace ftcf {
 
 constexpr int GEMV_THREADS = 256;
-constexpr int GEMV_COLS = 128;  // 8 column threads x 16 columns
-constexpr int GEMV_MT = 4;      // rows of x per block
+constexpr int GEMV_COLS = 128;        // columns of a block's tile
+constexpr int GEMV_KLANES = 2;        // k lanes of the tensor-core body (warps w / 4)
+constexpr int GEMV_MAX_CHUNK = 3072;  // K rows of a range the x staging takes
 
 struct GemvSeg {
   const __nv_bfloat16* x;  // [M, K] row-major
@@ -63,6 +95,11 @@ struct GemvSeg {
   int splits;
   int chunk;  // K rows of a split (the last may be shorter): a multiple of 8, and of G
 };
+
+template <int FMT>
+__host__ __device__ constexpr bool grouped_fmt() {
+  return FMT == W_I4G || FMT == W_I8G;
+}
 
 // The 16 group scales of one thread's columns at element ``off`` of the
 // [K/G, N] scales (bf16 for int4, fp32 for int8), as fp32.
@@ -168,9 +205,9 @@ __device__ __forceinline__ void gemv_group_runs(const GemvSeg& sg, int r0, int r
   }
 }
 
-// One block's partial sums: split ``s`` of segment ``sg``, column tile
-// ``tile`` of an N-wide output; the sums go to ``ws_split`` [M, N] (this
-// split's plane of the workspace).
+// M = 1 (instantiated at MT = 1 only): one block's partial sums, split
+// ``s`` of segment ``sg``, column tile ``tile`` of an N-wide output; the
+// sums go to ``ws_split`` [M, N] (this split's plane of the workspace).
 template <int MT, int FMT>
 __device__ __forceinline__ void gemv_block(const GemvSeg& sg, int s, int M, int N, int tile,
                                            int chunk_stride, float* __restrict__ ws_split) {
@@ -283,36 +320,321 @@ __device__ __forceinline__ void gemv_block(const GemvSeg& sg, int s, int M, int 
   }
 }
 
-// Blocks an SM must hold (the register cap of each instance). At MT = 1 the
+// bf16x2 d = a * b + c (one rounding; exact on the small integers below).
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// The second constants of the conversions' logic ops below. A logic op
+// takes one immediate; read from the constant bank, the other is an
+// operand too, so each ``(x & mask) op constant`` is one instruction on the
+// integer pipe, which bounds the int4 conversion, instead of two.
+static __constant__ uint32_t kI4Exp = 0x43404308u;
+static __constant__ uint32_t kI8Exp = 0x43004300u;
+static __constant__ uint32_t kI8Sign = 0xC300C300u;
+
+// Byte I of a packed int4 word as the bf16x2 (low nibble, high nibble), the
+// signed values exactly. One byte permute takes byte I of q (its low nibble
+// in bits 0-3) and of q >> 1 (its high nibble in bits 3-6) into the two
+// halves; one logic op keeps those bits, xors 8 into each nibble (biasing it
+// to unsigned u) and writes 0x43 above, so the halves are the bf16 values
+// 128 + u and 128 + 8 u; then (1, 1/8) * r + (-136, -24) gives u - 8 in both.
+template <int I>
+__device__ __forceinline__ uint32_t i4_pair_bf16x2(uint32_t q) {
+  const uint32_t r = __byte_perm(q, q >> 1, I | (I << 4) | ((4 + I) << 8) | ((4 + I) << 12));
+  return fma_bf16x2((r & 0x0078000Fu) ^ kI4Exp, 0x3E003F80u, 0xC1C0C308u);
+}
+
+// Byte i of two int8 words (rows k and k + 1 of one column) as the bf16x2
+// (row k, row k + 1), exactly: a value v with low 7 bits l and sign bit s is
+// l - 128 s = (128 + l) + (-128 - 128 s), both halves bf16 bit patterns
+// (0x4300 | l and 0xC300 | s << 7), added in bf16.
+template <int I>
+__device__ __forceinline__ uint32_t i8_pair_bf16x2(uint32_t a, uint32_t b) {
+  const uint32_t p = __byte_perm(a, b, I | (I << 4) | ((4 + I) << 8) | ((4 + I) << 12));
+  return fma_bf16x2((p & 0x007F007Fu) | kI8Exp, 0x3F803F80u, (p & 0x00800080u) | kI8Sign);
+}
+
+// The A fragments of the two products of one k16 step from a thread's weight
+// words (int8: rows 4t .. 4t + 3; int4: byte rows 2t, 2t + 1): product j
+// takes byte 2j (fragment row g) and byte 2j + 1 (row g + 8).
+template <int FMT>
+__device__ __forceinline__ void step_fragments(const uint32_t* q, uint32_t (&a)[2][4]) {
+  if constexpr (KPack<FMT>::value == 2) {
+    a[0][0] = i4_pair_bf16x2<0>(q[0]);
+    a[0][1] = i4_pair_bf16x2<1>(q[0]);
+    a[0][2] = i4_pair_bf16x2<0>(q[1]);
+    a[0][3] = i4_pair_bf16x2<1>(q[1]);
+    a[1][0] = i4_pair_bf16x2<2>(q[0]);
+    a[1][1] = i4_pair_bf16x2<3>(q[0]);
+    a[1][2] = i4_pair_bf16x2<2>(q[1]);
+    a[1][3] = i4_pair_bf16x2<3>(q[1]);
+  } else {
+    a[0][0] = i8_pair_bf16x2<0>(q[0], q[1]);
+    a[0][1] = i8_pair_bf16x2<1>(q[0], q[1]);
+    a[0][2] = i8_pair_bf16x2<0>(q[2], q[3]);
+    a[0][3] = i8_pair_bf16x2<1>(q[2], q[3]);
+    a[1][0] = i8_pair_bf16x2<2>(q[0], q[1]);
+    a[1][1] = i8_pair_bf16x2<3>(q[0], q[1]);
+    a[1][2] = i8_pair_bf16x2<2>(q[2], q[3]);
+    a[1][3] = i8_pair_bf16x2<3>(q[2], q[3]);
+  }
+}
+
+// Elements between two staged x rows of the tensor-core body: the range's K
+// rows rounded up to 64, plus 16 (a pitch of 128 a + 32 bytes).
+__host__ __device__ constexpr int gemv_xs_pitch(int chunk) { return (chunk + 63) / 64 * 64 + 16; }
+
+// The tensor-core body's ring of weight stages in shared memory: a stage
+// is 8 KB, two 16-byte copies a thread, and holds the next k16 steps of each
+// k lane (its "slots", 128 bytes a byte row): 2 of int8, 4 of int4.
+// GEMV_STAGES stages, all but one in flight.
+constexpr int GEMV_STAGES = 4;
+constexpr int GEMV_STAGE_BYTES = 2 * 16 * GEMV_THREADS;
+constexpr int GEMV_RING_BYTES = GEMV_STAGES * GEMV_STAGE_BYTES;
+
+// 16 bytes global -> shared, asynchronously; ``bytes`` < 16 zero-fills the rest.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2 <= M <= 32: one block's partial sums on tensor cores (NB 8-row B tiles),
+// split ``s`` of segment ``sg``, column tile ``tile``, into ``ws_split``
+// [M, N]; ``pitch`` is gemv_xs_pitch of the launch's widest range.
+template <int NB, int FMT>
+__device__ __forceinline__ void gemv_mma_block(const GemvSeg& sg, int s, int M, int N, int tile,
+                                               int pitch, float* __restrict__ ws_split) {
+  constexpr int PACK = KPack<FMT>::value;
+  constexpr int WORDS = 4 / PACK;       // weight words a thread reads a k16 step
+  constexpr int STEP_ROWS = 16 / PACK;  // weight byte rows of a k16 step
+  constexpr int SLOT = STEP_ROWS * GEMV_COLS;             // bytes of one k16 step
+  constexpr int STEPS = GEMV_THREADS * 16 / SLOT;           // steps of a k lane a stage
+  constexpr int STAGE = GEMV_STAGE_BYTES;
+  constexpr bool GROUPED = grouped_fmt<FMT>();
+  static_assert(GEMV_KLANES == 2 && STAGE == GEMV_KLANES * STEPS * SLOT, "stage layout");
+  extern __shared__ float smem[];
+  char* ring = reinterpret_cast<char*>(smem);
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(ring + GEMV_RING_BYTES);
+  const int K = sg.K;
+  const int k0 = s * sg.chunk;
+  const int klen = max(min(K - k0, sg.chunk), 0);
+  const int r0 = k0 / PACK, r1 = r0 + klen / PACK;
+  const int nsteps = (klen + 15) / 16;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kl = warp >> 2, quarter = warp & 3;
+  const int nw = tile * GEMV_COLS + quarter * 32;
+  const int nt = nw + 4 * g;  // the thread's 4 columns
+
+  // runs of R consecutive k16 steps inside one group (single steps without
+  // group scales), halved while the range holds fewer runs than k lanes; k
+  // lane k takes runs k, k + 2, ...: its l-th step is step (k + 2 (l / R)) R
+  // + l % R of the range
+  int R = 1;
+  if constexpr (GROUPED) {
+    R = sg.G / 16;
+    while ((R & 1) == 0 && R * GEMV_KLANES > nsteps) R >>= 1;
+  }
+  const int nruns = nsteps / R;
+  const int mine0 = (nruns + 1) / 2 * R, mine1 = nruns / 2 * R;  // steps of k lanes 0, 1
+  const int nstage = (mine0 + STEPS - 1) / STEPS;
+
+  // The copies: 16-byte chunk ch of byte row ``row`` of slot k STEPS + ii
+  // (k lane k, its step ii of the stage), stored at chunk ch ^ 2 (row / WORDS
+  // % 4) of its row, so that a warp's 4-byte fragment reads below hit 32
+  // banks. A thread's two copies share ii, row and ch: one for each k lane.
+  const int ci_row = (tid % (SLOT / 16)) >> 3, ci_ch = tid & 7;
+  const int ci_ii = tid / (SLOT / 16);
+  const int ci_off = ci_row * GEMV_COLS + ((ci_ch ^ ((ci_row / WORDS % 4) << 1)) << 4);
+  const int8_t* ci_src = sg.w + (size_t)(r0 + ci_row) * N + tile * GEMV_COLS + 16 * ci_ch;
+  const bool ci_col = tile * GEMV_COLS + 16 * ci_ch < N;
+  int cq = 0, cr_ = ci_ii;  // the copies' cursor: l = 2 j + ii, as (l / R, l % R)
+  while (cr_ >= R) cr_ -= R, ++cq;
+  auto copy_stage = [&](int j) {
+    char* dst = ring + (j % GEMV_STAGES) * STAGE + ci_off;
+    const int l = STEPS * j + ci_ii;
+#pragma unroll
+    for (int k = 0; k < GEMV_KLANES; ++k) {
+      const int st = (k + 2 * cq) * R + cr_;
+      const bool ok = ci_col && l < (k ? mine1 : mine0) && r0 + ci_row + st * STEP_ROWS < r1;
+      cp_async16(dst + (k * STEPS + ci_ii) * SLOT,
+                 ok ? ci_src + (size_t)st * STEP_ROWS * N : sg.w, ok ? 16 : 0);
+    }
+    cr_ += STEPS;
+    while (cr_ >= R) cr_ -= R, ++cq;
+  };
+
+#pragma unroll
+  for (int j = 0; j < GEMV_STAGES - 1; ++j) {
+    if (j < nstage) copy_stage(j);
+    cp_async_commit();
+  }
+
+  const int n8 = nsteps * 2;  // 16-byte units of a staged row
+  for (int i = tid; i < 8 * NB * n8; i += GEMV_THREADS) {
+    const int m = i / n8, c = i - m * n8;
+    uint4 u = make_uint4(0, 0, 0, 0);
+    if (m < M && 8 * c < klen)
+      u = __ldg(reinterpret_cast<const uint4*>(sg.x + (size_t)m * K + k0) + c);
+    *reinterpret_cast<uint4*>(xs + m * pitch + 8 * c) = u;
+  }
+
+  float acc[NB][2][4], part[NB][2][4];
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  const __nv_bfloat16* xt = xs + g * pitch + 4 * t;
+  // the thread's 4-byte fragment words in a slot: byte rows t WORDS + h,
+  // columns 4g .. 4g + 3 of its quarter (chunk 2 quarter + g / 4, swizzled)
+  const int rd_off = t * WORDS * GEMV_COLS + (((2 * quarter + (g >> 2)) ^ (t << 1)) << 4) +
+                     4 * (g & 3);
+  const int mine = nw < N ? (kl ? mine1 : mine0) : 0;
+  int cr = kl, cb = 0;  // the compute cursor: run cr, step cb within it
+  float sc[4];
+  for (int j = 0; j < nstage; ++j) {
+    cp_async_wait<GEMV_STAGES - 2>();
+    __syncthreads();  // stage j landed for all; stage j - 1's slots are free
+    if (j + GEMV_STAGES - 1 < nstage) copy_stage(j + GEMV_STAGES - 1);
+    cp_async_commit();
+    const char* sj = ring + (j % GEMV_STAGES) * STAGE + kl * STEPS * SLOT + rd_off;
+#pragma unroll
+    for (int ii = 0; ii < STEPS; ++ii) {
+      if (STEPS * j + ii >= mine) break;
+      const int st = cr * R + cb;
+      uint32_t q[WORDS];
+#pragma unroll
+      for (int h = 0; h < WORDS; ++h)
+        q[h] = *reinterpret_cast<const uint32_t*>(sj + ii * SLOT + h * GEMV_COLS);
+      uint32_t a[2][4];
+      step_fragments<FMT>(q, a);
+      if constexpr (GROUPED) {
+        if (cb == 0) {
+#pragma unroll
+          for (int i = 0; i < NB; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) part[i][jj][e] = 0.0f;
+          // the run's scale row, used after its last step
+          const size_t off = (size_t)((k0 + st * 16) / sg.G) * N + nt;
+          if (nt >= N) {
+            sc[0] = sc[1] = sc[2] = sc[3] = 0.0f;
+          } else if constexpr (FMT == W_I4G) {
+            const uint2 v = __ldg(reinterpret_cast<const uint2*>(
+                static_cast<const __nv_bfloat16*>(sg.gscale) + off));
+            bf16x2_to_f32(v.x, sc);
+            bf16x2_to_f32(v.y, sc + 2);
+          } else {
+            const float4 v =
+                __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(sg.gscale) + off));
+            sc[0] = v.x, sc[1] = v.y, sc[2] = v.z, sc[3] = v.w;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NB; ++i) {
+        const uint2 bv = *reinterpret_cast<const uint2*>(xt + 8 * i * pitch + st * 16);
+        const uint32_t b[2] = {bv.x, bv.y};
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          if constexpr (GROUPED)
+            mma_16816(part[i][jj], a[jj], b);
+          else
+            mma_16816(acc[i][jj], a[jj], b);
+        }
+      }
+      if constexpr (GROUPED) {
+        if (cb == R - 1) {
+#pragma unroll
+          for (int i = 0; i < NB; ++i)
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                acc[i][jj][e] = fmaf(part[i][jj][e], sc[2 * jj + (e >> 1)], acc[i][jj][e]);
+        }
+      }
+      if (++cb == R) cb = 0, cr += GEMV_KLANES;
+    }
+  }
+
+  // the k lanes' sums, added in a fixed order: red [k lane][8 NB rows][128]
+  cp_async_wait<0>();
+  __syncthreads();  // the ring and the x staging are dead
+  float* red = smem;
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float* p = red + (kl * 8 * NB + 8 * i + 2 * t) * GEMV_COLS + quarter * 32 + 4 * g + 2 * j;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[i][j][0], acc[i][j][2]);
+      *reinterpret_cast<float2*>(p + GEMV_COLS) = make_float2(acc[i][j][1], acc[i][j][3]);
+    }
+  __syncthreads();
+  for (int i = tid; i < M * GEMV_COLS; i += GEMV_THREADS) {
+    const int m = i / GEMV_COLS, c = i - m * GEMV_COLS;
+    float v = red[m * GEMV_COLS + c];
+#pragma unroll
+    for (int k = 1; k < GEMV_KLANES; ++k) v += red[(k * 8 * NB + m) * GEMV_COLS + c];
+    const int n = tile * GEMV_COLS + c;
+    if (n < N) ws_split[(size_t)m * N + n] = v;
+  }
+}
+
+// One block of either body: NB = 0 is the M = 1 loop (its x staging is one
+// row, so the pitch is not read).
+template <int NB, int FMT>
+__device__ __forceinline__ void gemv_tile(const GemvSeg& sg, int s, int M, int N, int tile,
+                                          int pitch, float* __restrict__ ws_split) {
+  if constexpr (NB == 0)
+    gemv_block<1, FMT>(sg, s, M, N, tile, pitch, ws_split);
+  else
+    gemv_mma_block<NB, FMT>(sg, s, M, N, tile, pitch, ws_split);
+}
+
+// Blocks an SM must hold (the register cap of each instance). At M = 1 the
 // loop needs few registers and more resident blocks keep more weight loads
 // in flight: four (64 registers), or five (48) for the per-channel formats
 // joined over K (K1, K6, K8, K3), each measured faster than the other value
-// on its own kernels (K13's per-channel instance is slower at five). Above,
-// one block, which leaves ptxas free to schedule the MT x 16 sums (measured
-// faster at M = 4 than no hint at all).
-__host__ __device__ constexpr int gemv_min_blocks(int mt, int fmt, bool ncat) {
-  return mt > 1 ? 1 : (!ncat && (fmt == W_I8 || fmt == W_I4) ? 5 : 4);
+// on its own kernels (K13's per-channel instance is slower at five). The
+// tensor-core body: four blocks at 8 rows (64 registers), three at 16 (80),
+// two at 32 (128), as its accumulators grow.
+__host__ __device__ constexpr int gemv_min_blocks(int nb, int fmt, bool ncat) {
+  return nb == 0 ? (!ncat && (fmt == W_I8 || fmt == W_I4) ? 5 : 4) : nb == 1 ? 4 : nb == 2 ? 3 : 2;
 }
 
 // Segments joined over K: grid y runs over s1's splits, then s2's.
-template <int MT, int FMT>
-static __global__ void __launch_bounds__(GEMV_THREADS, gemv_min_blocks(MT, FMT, false))
-gemv_partial_kernel(GemvSeg s1, GemvSeg s2, int M, int N, int chunk_stride,
-                    float* __restrict__ ws) {
+template <int NB, int FMT>
+static __global__ void __launch_bounds__(GEMV_THREADS, gemv_min_blocks(NB, FMT, false))
+gemv_partial_kernel(GemvSeg s1, GemvSeg s2, int M, int N, int pitch, float* __restrict__ ws) {
   const int split = blockIdx.y;
   const bool second = split >= s1.splits;
   const GemvSeg sg = second ? s2 : s1;
-  gemv_block<MT, FMT>(sg, second ? split - s1.splits : split, M, N, blockIdx.x, chunk_stride,
-                      ws + (size_t)split * M * N);
+  gemv_tile<NB, FMT>(sg, second ? split - s1.splits : split, M, N, blockIdx.x, pitch,
+                     ws + (size_t)split * M * N);
 }
 
 // Segments joined over N: grid x runs over s1's column tiles (N1 columns),
 // then s2's (N2); grid y over the splits of the wider-split segment (a block
 // past its own segment's splits exits). Each segment's splits fill its own
 // workspace, ws1 [s1.splits, M, N1] and ws2 [s2.splits, M, N2].
-template <int MT, int FMT>
-static __global__ void __launch_bounds__(GEMV_THREADS, gemv_min_blocks(MT, FMT, true))
-gemv_ncat_partial_kernel(GemvSeg s1, GemvSeg s2, int N1, int N2, int M, int chunk_stride,
+template <int NB, int FMT>
+static __global__ void __launch_bounds__(GEMV_THREADS, gemv_min_blocks(NB, FMT, true))
+gemv_ncat_partial_kernel(GemvSeg s1, GemvSeg s2, int N1, int N2, int M, int pitch,
                          float* __restrict__ ws1, float* __restrict__ ws2) {
   const int t1 = (N1 + GEMV_COLS - 1) / GEMV_COLS;
   const bool second = (int)blockIdx.x >= t1;
@@ -320,8 +642,8 @@ gemv_ncat_partial_kernel(GemvSeg s1, GemvSeg s2, int N1, int N2, int M, int chun
   const int split = blockIdx.y;
   if (split >= sg.splits) return;  // uniform over the block
   const int N = second ? N2 : N1;
-  gemv_block<MT, FMT>(sg, split, M, N, second ? blockIdx.x - t1 : blockIdx.x, chunk_stride,
-                      (second ? ws2 : ws1) + (size_t)split * M * N);
+  gemv_tile<NB, FMT>(sg, split, M, N, second ? blockIdx.x - t1 : blockIdx.x, pitch,
+                     (second ? ws2 : ws1) + (size_t)split * M * N);
 }
 
 // Sums the splits in a fixed order, then scale (none for group scales), bias,
@@ -384,39 +706,65 @@ static __global__ void gemv_ncat_epilogue_kernel(GemvOut o1, GemvOut o2, int M) 
   o.y[i] = __float2bfloat16(v);
 }
 
-// Whether a segment's ranges are ones the loop takes: chunks of whole 8-row
-// units (and groups), covering K with no empty split. An empty segment
+// Whether a segment's ranges are ones the bodies take: chunks of whole 8-row
+// units (and groups) up to GEMV_MAX_CHUNK rows, covering K with no empty
+// split; above one row of x, groups of whole k16 steps. An empty segment
 // (splits 0) passes.
 template <int FMT>
-static inline bool gemv_ranges_ok(const GemvSeg& s) {
+static inline bool gemv_ranges_ok(const GemvSeg& s, int M) {
   if (s.splits == 0) return true;
-  const int unit = FMT == W_I4G || FMT == W_I8G ? std::lcm(8, s.G) : 8;
-  return s.chunk > 0 && s.chunk % unit == 0 && s.K % 8 == 0 &&
-         (long long)(s.splits - 1) * s.chunk < s.K && (long long)s.splits * s.chunk >= s.K;
+  const bool grouped = grouped_fmt<FMT>();
+  const int unit = grouped ? std::lcm(8, s.G) : 8;
+  return s.chunk > 0 && s.chunk % unit == 0 && s.chunk <= GEMV_MAX_CHUNK && s.K % 8 == 0 &&
+         (!grouped || M == 1 || s.G % 16 == 0) && (long long)(s.splits - 1) * s.chunk < s.K &&
+         (long long)s.splits * s.chunk >= s.K;
 }
 
-// The x staging of GEMV_MT rows of the wider chunk, within 48 KB; 0 when a
-// segment's ranges are not ones the loop takes.
+// The wider chunk of the two segments; 0 when a segment's ranges are not
+// ones the bodies take.
 template <int FMT>
-static inline int gemv_stride(const GemvSeg& s1, const GemvSeg& s2) {
-  const int chunk = std::max(s1.splits ? s1.chunk : 0, s2.splits ? s2.chunk : 0);
-  if (!gemv_ranges_ok<FMT>(s1) || !gemv_ranges_ok<FMT>(s2) ||
-      (size_t)GEMV_MT * chunk * sizeof(float) > 48 * 1024)
-    return 0;
-  return chunk;
+static inline int gemv_chunk(const GemvSeg& s1, const GemvSeg& s2, int M) {
+  if (!gemv_ranges_ok<FMT>(s1, M) || !gemv_ranges_ok<FMT>(s2, M)) return 0;
+  return std::max(s1.splits ? s1.chunk : 0, s2.splits ? s2.chunk : 0);
 }
 
-template <int MT>
+// Dynamic shared memory of a block: the x staging (after the weight ring in
+// the tensor-core body), reused for the cross-warp sums.
+template <int NB, int FMT>
 static inline size_t gemv_smem(int chunk) {
-  return std::max((size_t)MT * chunk, (size_t)8 * MT * GEMV_COLS) * sizeof(float);
+  if (NB == 0) return std::max((size_t)chunk, (size_t)8 * GEMV_COLS) * sizeof(float);
+  return std::max(GEMV_RING_BYTES + (size_t)8 * NB * gemv_xs_pitch(chunk) * sizeof(__nv_bfloat16),
+                  (size_t)GEMV_KLANES * 8 * NB * GEMV_COLS * sizeof(float));
 }
 
-template <int MT, int FMT>
-static void launch_partial(GemvSeg s1, GemvSeg s2, int M, int N, int chunk, float* ws,
-                           cudaStream_t stream) {
-  const dim3 grid((N + GEMV_COLS - 1) / GEMV_COLS, s1.splits + s2.splits, (M + MT - 1) / MT);
-  gemv_partial_kernel<MT, FMT>
-      <<<grid, GEMV_THREADS, gemv_smem<MT>(chunk), stream>>>(s1, s2, M, N, chunk, ws);
+// Lets ``kernel`` take up to gemv_smem(GEMV_MAX_CHUNK) bytes of dynamic
+// shared memory (above 48 KB only after this attribute), once per device:
+// ``devices`` (one per kernel instance) holds a bit per device done.
+template <int NB, int FMT, class Kernel>
+static inline cudaError_t allow_smem(Kernel kernel, size_t smem,
+                                     std::atomic<unsigned long long>& devices) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (err != cudaSuccess || (devices.load() & bit)) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)gemv_smem<NB, FMT>(GEMV_MAX_CHUNK));
+  if (err == cudaSuccess) devices.fetch_or(bit);
+  return err;
+}
+
+template <int NB, int FMT>
+static cudaError_t launch_partial(GemvSeg s1, GemvSeg s2, int M, int N, int chunk, float* ws,
+                                  cudaStream_t stream) {
+  const dim3 grid((N + GEMV_COLS - 1) / GEMV_COLS, s1.splits + s2.splits);
+  const size_t smem = gemv_smem<NB, FMT>(chunk);
+  static std::atomic<unsigned long long> devices{0};
+  const cudaError_t err = allow_smem<NB, FMT>(gemv_partial_kernel<NB, FMT>, smem, devices);
+  if (err != cudaSuccess) return err;
+  gemv_partial_kernel<NB, FMT>
+      <<<grid, GEMV_THREADS, smem, stream>>>(s1, s2, M, N, gemv_xs_pitch(chunk), ws);
+  return cudaGetLastError();
 }
 
 // Both segments share one weight format FMT.
@@ -424,16 +772,14 @@ template <int FMT>
 static cudaError_t launch_gemv(GemvSeg s1, GemvSeg s2, int M, int N, const void* bias,
                                int bias_bf16, int act, const __nv_bfloat16* residual, void* y,
                                int out_f32, float* ws, cudaStream_t stream) {
-  const int chunk = gemv_stride<FMT>(s1, s2);
-  if (chunk == 0) return cudaErrorInvalidValue;
-  // as many accumulator rows as x has, up to MT: no multiply-adds on padding
-  if (M == 1)
-    launch_partial<1, FMT>(s1, s2, M, N, chunk, ws, stream);
-  else if (M == 2)
-    launch_partial<2, FMT>(s1, s2, M, N, chunk, ws, stream);
-  else
-    launch_partial<GEMV_MT, FMT>(s1, s2, M, N, chunk, ws, stream);
-  cudaError_t err = cudaGetLastError();
+  const int chunk = gemv_chunk<FMT>(s1, s2, M);
+  if (chunk == 0 || M < 1 || M > 32) return cudaErrorInvalidValue;
+  // 8-row B tiles of the tensor-core body: as many as x has (17-24 rows take 4)
+  const cudaError_t err =
+      M == 1    ? launch_partial<0, FMT>(s1, s2, M, N, chunk, ws, stream)
+      : M <= 8  ? launch_partial<1, FMT>(s1, s2, M, N, chunk, ws, stream)
+      : M <= 16 ? launch_partial<2, FMT>(s1, s2, M, N, chunk, ws, stream)
+                : launch_partial<4, FMT>(s1, s2, M, N, chunk, ws, stream);
   if (err != cudaSuccess) return err;
   const size_t total = (size_t)M * N;
   gemv_epilogue_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
@@ -442,13 +788,18 @@ static cudaError_t launch_gemv(GemvSeg s1, GemvSeg s2, int M, int N, const void*
   return cudaGetLastError();
 }
 
-template <int MT, int FMT>
-static void launch_ncat_partial(GemvSeg s1, GemvSeg s2, int N1, int N2, int M, int chunk,
-                                float* ws1, float* ws2, cudaStream_t stream) {
+template <int NB, int FMT>
+static cudaError_t launch_ncat_partial(GemvSeg s1, GemvSeg s2, int N1, int N2, int M, int chunk,
+                                       float* ws1, float* ws2, cudaStream_t stream) {
   const int tiles = (N1 + GEMV_COLS - 1) / GEMV_COLS + (N2 + GEMV_COLS - 1) / GEMV_COLS;
-  const dim3 grid(tiles, std::max(s1.splits, s2.splits), (M + MT - 1) / MT);
-  gemv_ncat_partial_kernel<MT, FMT><<<grid, GEMV_THREADS, gemv_smem<MT>(chunk), stream>>>(
-      s1, s2, N1, N2, M, chunk, ws1, ws2);
+  const dim3 grid(tiles, std::max(s1.splits, s2.splits));
+  const size_t smem = gemv_smem<NB, FMT>(chunk);
+  static std::atomic<unsigned long long> devices{0};
+  const cudaError_t err = allow_smem<NB, FMT>(gemv_ncat_partial_kernel<NB, FMT>, smem, devices);
+  if (err != cudaSuccess) return err;
+  gemv_ncat_partial_kernel<NB, FMT><<<grid, GEMV_THREADS, smem, stream>>>(
+      s1, s2, N1, N2, M, gemv_xs_pitch(chunk), ws1, ws2);
+  return cudaGetLastError();
 }
 
 // Two segments joined over N into two bf16 outputs; o1.ws / o2.ws are the
@@ -457,15 +808,14 @@ static void launch_ncat_partial(GemvSeg s1, GemvSeg s2, int N1, int N2, int M, i
 template <int FMT>
 static cudaError_t launch_gemv_ncat(GemvSeg s1, GemvSeg s2, GemvOut o1, GemvOut o2, int M,
                                     cudaStream_t stream) {
-  const int chunk = gemv_stride<FMT>(s1, s2);
-  if (chunk == 0) return cudaErrorInvalidValue;
-  if (M == 1)
-    launch_ncat_partial<1, FMT>(s1, s2, o1.N, o2.N, M, chunk, o1.ws, o2.ws, stream);
-  else if (M == 2)
-    launch_ncat_partial<2, FMT>(s1, s2, o1.N, o2.N, M, chunk, o1.ws, o2.ws, stream);
-  else
-    launch_ncat_partial<GEMV_MT, FMT>(s1, s2, o1.N, o2.N, M, chunk, o1.ws, o2.ws, stream);
-  cudaError_t err = cudaGetLastError();
+  const int chunk = gemv_chunk<FMT>(s1, s2, M);
+  if (chunk == 0 || M < 1 || M > 32) return cudaErrorInvalidValue;
+  const int N1 = o1.N, N2 = o2.N;
+  const cudaError_t err =
+      M == 1    ? launch_ncat_partial<0, FMT>(s1, s2, N1, N2, M, chunk, o1.ws, o2.ws, stream)
+      : M <= 8  ? launch_ncat_partial<1, FMT>(s1, s2, N1, N2, M, chunk, o1.ws, o2.ws, stream)
+      : M <= 16 ? launch_ncat_partial<2, FMT>(s1, s2, N1, N2, M, chunk, o1.ws, o2.ws, stream)
+                : launch_ncat_partial<4, FMT>(s1, s2, N1, N2, M, chunk, o1.ws, o2.ws, stream);
   if (err != cudaSuccess) return err;
   const size_t total = (size_t)M * (o1.N + o2.N);
   gemv_ncat_epilogue_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(o1, o2, M);

@@ -14,10 +14,11 @@
 // On the TPU the packed tile is DMA'd to VMEM and unpacked by an int8 -> int4
 // bitcast before the MXU. On the H100 the decode widths (M <= 32) are bound by
 // the K*N/2 weight bytes: the weight-streaming GEMV of ftcf_gemv.cuh with an
-// int4 payload (each 16-byte load feeds 16 columns x 2 K rows; with group
-// scales, as the JAX kernel applies them to each group's partial sum, a k
-// lane sums a run of byte rows inside one group and multiplies the partial
-// by the group's scale row once, and a split holds whole groups). Prefill
+// int4 payload (one byte is a K row pair of one column: at M = 1 an fp32
+// FMA loop, at 2-32 rows a tensor-core A fragment register as it stands;
+// with group scales, as the JAX kernel applies them to each group's partial
+// sum, a run of K rows inside one group sums into a partial that is
+// multiplied by the group's scale row once, and a split holds whole groups). Prefill
 // widths are bound by the tensor cores: the wmma GEMM of ftcf_gemm.cuh, which
 // unpacks the nibbles while staging the weight tile as bf16 (group scales
 // folded into the bf16 weight).

@@ -95,6 +95,9 @@ def check_operands(x, w, scale, bias, name, bits=8, group_size=0):
         sdt = torch.bfloat16 if bits == 4 else torch.float32
         req(group_size % 2 == 0 and K % group_size == 0,
             f"{name}: group size {group_size} must be even and divide K={K}")
+        req(not 1 < x.shape[0] <= GEMV_MAX_M or group_size % 16 == 0,
+            f"{name}: the GEMV at 2-{GEMV_MAX_M} rows takes groups of whole 16-row steps, "
+            f"not {group_size}")
         req(scale.dtype == sdt and scale.shape == (K // group_size, N)
             and scale.is_contiguous() and scale.data_ptr() % 16 == 0,
             f"{name}: {bits}-bit group scale must be a contiguous, 16-byte aligned {sdt} "

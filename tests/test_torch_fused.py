@@ -63,9 +63,9 @@ def test_plain_k2_matches_pallas_interpret():
     assert _rel_err(got, ref) < 2e-2
 
 
-def test_plain_k3_matches_pallas_interpret():
+def _k3_against_pallas_interpret(M):
     rng = np.random.default_rng(1)
-    M, K1, K2, N, L = 3, 1024, 2048, 768, 2
+    K1, K2, N, L = 1024, 2048, 768, 2
     (jx1, x1), (jx2, x2) = (
         _bf16_pair(rng.standard_normal((M, k)).astype(np.float32)) for k in (K1, K2)
     )
@@ -82,6 +82,15 @@ def test_plain_k3_matches_pallas_interpret():
     got = fused_proj_down(x1, x2, t(p1[0]), t(p2[0]), t(s1[0]), t(s2[0]), t(b[0, 0]), res)
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     assert _rel_err(got, ref) < 5e-3
+
+
+def test_plain_k3_matches_pallas_interpret():
+    _k3_against_pallas_interpret(3)
+
+
+def test_plain_k3_matches_pallas_interpret_at_pool_width():
+    """M = 8, the pools' width (the GEMV's tensor-core body on the card)."""
+    _k3_against_pallas_interpret(8)
 
 
 def test_plain_k2_k3_int4_match_jax_xla_composition():
@@ -130,14 +139,9 @@ def _jax_group_dot(x, p, s, G):
     return sum((xf[:, g * G:(g + 1) * G] @ w[g * G:(g + 1) * G]) * s[g] for g in range(K // G))
 
 
-@pytest.mark.parametrize("G", [0, 128])
-def test_plain_k13_matches_pallas_interpret(G):
-    """K13 plain against the JAX ``fused_qkv_up`` in interpret mode, at the
-    cases of tests/test_fused_kernels.py::test_fused_qkv_up_int8 (5e-3), with
-    the up activation (tanh-gelu) in both; the port's two outputs compared
-    as their concatenation."""
+def _k13_against_pallas_interpret(M, G):
     rng = np.random.default_rng(0)
-    M, K, N1, N2, L = 3, 512, 768, 1024, 2
+    K, N1, N2, L = 512, 768, 1024, 2
     (jx1, x1), (jx2, x2) = (_bf16_pair(rng.standard_normal((M, K)).astype(np.float32))
                             for _ in range(2))
     p1 = rng.integers(-128, 128, (L, K, N1)).astype(np.int8)
@@ -157,14 +161,24 @@ def test_plain_k13_matches_pallas_interpret(G):
 
 
 @pytest.mark.parametrize("G", [0, 128])
-def test_plain_k13_int4_matches_jax_group_dots(G):
-    """int4 K13 (the JAX int4 Pallas kernels do not run on the CPU) against
-    the JAX kernels' own arithmetic: per-group dots of the unpacked nibbles,
-    bias, the up activation, one bf16 rounding (5e-3)."""
+def test_plain_k13_matches_pallas_interpret(G):
+    """K13 plain against the JAX ``fused_qkv_up`` in interpret mode, at the
+    cases of tests/test_fused_kernels.py::test_fused_qkv_up_int8 (5e-3), with
+    the up activation (tanh-gelu) in both; the port's two outputs compared
+    as their concatenation."""
+    _k13_against_pallas_interpret(3, G)
+
+
+@pytest.mark.parametrize("G", [0, 128])
+def test_plain_k13_matches_pallas_interpret_at_pool_width(G):
+    _k13_against_pallas_interpret(8, G)
+
+
+def _k13_int4_against_group_dots(M, G):
     from fastertransformer4codefuse_tpu.models.params import QuantizedTensor as JaxQT
 
     rng = np.random.default_rng(5)
-    M, K, N1, N2 = 3, 256, 384, 512
+    K, N1, N2 = 256, 384, 512
     (jx1, x1), (jx2, x2) = (_bf16_pair(rng.standard_normal((M, K)).astype(np.float32))
                             for _ in range(2))
     p1, p2 = (rng.integers(-128, 128, (K // 2, n)).astype(np.int8) for n in (N1, N2))
@@ -183,6 +197,19 @@ def test_plain_k13_int4_matches_jax_group_dots(G):
     y1, y2 = fused_qkv_up(x1, x2, t(p1), t(p2), ts(s1), ts(s2), t(b1), t(b2),
                           act2="gelu-tanh", bits=4, group_size=G)
     assert _rel_err(torch.cat([y1, y2], 1), ref) < 5e-3
+
+
+@pytest.mark.parametrize("G", [0, 128])
+def test_plain_k13_int4_matches_jax_group_dots(G):
+    """int4 K13 (the JAX int4 Pallas kernels do not run on the CPU) against
+    the JAX kernels' own arithmetic: per-group dots of the unpacked nibbles,
+    bias, the up activation, one bf16 rounding (5e-3)."""
+    _k13_int4_against_group_dots(3, G)
+
+
+@pytest.mark.parametrize("G", [0, 128])
+def test_plain_k13_int4_matches_jax_group_dots_at_pool_width(G):
+    _k13_int4_against_group_dots(8, G)
 
 
 def test_plain_k2_k3_group_scales_match_pallas_interpret():

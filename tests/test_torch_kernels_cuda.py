@@ -702,7 +702,7 @@ def test_k13_matches_plain(gen, M, bits, G, act2):
     assert _rel(torch.cat([y1, y2], 1), torch.cat([r1, r2], 1)) < 1e-2
 
 
-@pytest.mark.parametrize("M", [1, 4, 130])
+@pytest.mark.parametrize("M", [1, 2, 4, 8, 32, 130])
 @pytest.mark.parametrize("bits,G", FUSED_FORMATS[:3])
 def test_k13_segments_equal_the_gemm_alone(gen, M, bits, G):
     """Each K13 segment runs K1's (K6's, K7's) arithmetic on its own: the
@@ -787,3 +787,93 @@ def test_group_gemv_ragged_splits(gen, M, bits, G):
         assert _rel(a1, quant_matmul_w4_group_plain(x1, w1, s1, G, b1)) < 1e-2
         torch.cuda.synchronize()
         assert torch.equal(y1, a1) and torch.equal(y2, a2)
+
+
+# The GEMV's tensor-core body (2 <= M <= 32): every weight format, both
+# joins (K3 over K, K13 over N) and the single GEMMs, on ranges that end
+# inside a k16 step (per-channel K = 1160 and 2568: 8 rows past a multiple
+# of 16) or hold whole groups of 32 that do not divide K evenly among the
+# splits, and columns that end inside a 128-column tile.
+ALL_FORMATS = [(8, 0), (4, 0), (4, 32), (8, 32)]
+TC_WIDTHS = [2, 3, 8, 9, 16, 31, 32]
+
+
+def _gemv_calls(gen, M, bits, G, x1=None, x2=None, h=None):
+    """(kernel, plain) pairs of K3, K13 and the single GEMM of one format on
+    ragged shapes; x1, x2 [M, K] and h [M, K2] may be given."""
+    K, K2 = (1152, 2560) if G else (1160, 2568)
+    N1, N2, N = 144, 384, 272
+    x1 = _bf(gen, M, K) if x1 is None else x1
+    x2 = _bf(gen, M, K) if x2 is None else x2
+    h = _bf(gen, M, K2, std=0.5) if h is None else h
+    (w1, s1), (w2, s2), (wd, sd), (wp, sp) = (_fmt_weight(gen, k, n, bits, G) for k, n in
+                                              ((K, N1), (K, N2), (K2, N), (K, N)))
+    b1, b2, bd = _bf(gen, N1, std=0.1), _bf(gen, N2, std=0.1), _bf(gen, N, std=0.1)
+    res = _bf(gen, 32, N)[:M]  # row r the same at every M
+    args3 = (x1, h, wp, wd, sp, sd, bd, res, bits, G)
+    args13 = (x1, x2, w1, w2, s1, s2, b1, b2, None, "gelu-tanh", bits, G)
+    calls = {"K3": (lambda: fused_proj_down(*args3), lambda: fused_proj_down_plain(*args3)),
+             "K13": (lambda: fused_qkv_up(*args13), lambda: fused_qkv_up_plain(*args13))}
+    if bits == 8 and not G:
+        calls["K1"] = (lambda: quant_matmul(x1, w1, s1, b1, "relu"),
+                       lambda: quant_matmul_plain(x1, w1, s1, b1, "relu"))
+    elif bits == 4:
+        one, plain = ((quant_matmul_w4_group, quant_matmul_w4_group_plain) if G else
+                      (quant_matmul_w4, quant_matmul_w4_plain))
+        extra = (G,) if G else ()
+        calls["K7" if G else "K6"] = (lambda: one(x1, w1, s1, *extra, b1, "silu"),
+                                      lambda: plain(x1, w1, s1, *extra, b1, "silu"))
+    return calls
+
+
+def _cat(y):
+    return torch.cat(y, 1) if isinstance(y, tuple) else y
+
+
+@pytest.mark.parametrize("M", TC_WIDTHS)
+@pytest.mark.parametrize("bits,G", ALL_FORMATS)
+def test_gemv_tensor_core_body_matches_plain(gen, M, bits, G):
+    for name, (kernel, plain) in _gemv_calls(gen, M, bits, G).items():
+        assert _rel(_cat(kernel()), _cat(plain())) < 1e-2, name
+
+
+@pytest.mark.parametrize("bits,G", ALL_FORMATS)
+def test_gemv_rows_are_the_same_at_every_width(gen, bits, G):
+    """Row r of every GEMV's output is bit for bit the same at M = 2 .. 32
+    (the pools' "alone == inside the mix" rests on it)."""
+    K, K2 = (1152, 2560) if G else (1160, 2568)
+    x1, x2, h = _bf(gen, 32, K), _bf(gen, 32, K), _bf(gen, 32, K2, std=0.5)
+    seed = int(torch.randint(0, 2**31, (1,), generator=gen, device="cuda"))
+
+    def outs(M):
+        g = torch.Generator(device="cuda").manual_seed(seed)  # the same weights each time
+        calls = _gemv_calls(g, M, bits, G, x1[:M].contiguous(), x2[:M].contiguous(),
+                            h[:M].contiguous())
+        return {n: _cat(k()) for n, (k, _) in calls.items()}
+
+    full = outs(32)
+    for M in (2, 4, 8, 9, 16, 17, 31):
+        for name, y in outs(M).items():
+            torch.cuda.synchronize()
+            assert torch.equal(y, full[name][:M]), (name, M)
+
+
+@pytest.mark.parametrize("M", [2, 8, 31])
+@pytest.mark.parametrize("bits,G", ALL_FORMATS)
+def test_gemv_reads_no_row_past_m(gen, M, bits, G):
+    """x's memory past row M (up to the 8-row tile and beyond) is NaN: the
+    outputs stay finite and equal those of a clean copy."""
+    K, K2 = (1152, 2560) if G else (1160, 2568)
+    x1p, x2p, hp = (torch.full((M + 40, k), float("nan"), dtype=torch.bfloat16, device="cuda")
+                    for k in (K, K, K2))
+    x1p[:M], x2p[:M], hp[:M] = _bf(gen, M, K), _bf(gen, M, K), _bf(gen, M, K2, std=0.5)
+    seed = int(torch.randint(0, 2**31, (1,), generator=gen, device="cuda"))
+    poisoned = _gemv_calls(torch.Generator(device="cuda").manual_seed(seed), M, bits, G,
+                           x1p[:M], x2p[:M], hp[:M])
+    clean = _gemv_calls(torch.Generator(device="cuda").manual_seed(seed), M, bits, G,
+                        x1p[:M].clone(), x2p[:M].clone(), hp[:M].clone())
+    for name, (kernel, _) in poisoned.items():
+        y = _cat(kernel())
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(y.float()).all()), name
+        assert torch.equal(y, _cat(clean[name][0]())), name

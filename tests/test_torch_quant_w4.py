@@ -54,8 +54,10 @@ def _operands(rng, M, K, N, G=0):
     return x, packed, s, ts, b
 
 
+# M = 8 (the pools' and beam pools' width) and 32 (the GEMV ceiling) are the
+# widths of the GEMV's tensor-core body on the card
 @pytest.mark.parametrize("act", ACTS)
-@pytest.mark.parametrize("M", [1, 3, 40])
+@pytest.mark.parametrize("M", [1, 3, 8, 32, 40])
 def test_plain_k6_matches_jax_int4_linear(M, act):
     rng = np.random.default_rng(M)
     x, p, s, ts, b = _operands(rng, M, 256, 384)
@@ -68,7 +70,7 @@ def test_plain_k6_matches_jax_int4_linear(M, act):
 
 
 @pytest.mark.parametrize("act", ACTS)
-@pytest.mark.parametrize("M,G", [(1, 32), (3, 128), (40, 32)])
+@pytest.mark.parametrize("M,G", [(1, 32), (3, 128), (8, 128), (32, 32), (40, 32)])
 def test_plain_k7_matches_jax_group_int4_linear(M, G, act):
     rng = np.random.default_rng(100 + M)
     x, p, s, ts, b = _operands(rng, M, 256, 384, G)
@@ -82,7 +84,7 @@ def test_plain_k7_matches_jax_group_int4_linear(M, G, act):
     np.testing.assert_array_equal(qt.dequantize().numpy(), np.asarray(jqt.dequantize(jnp.float32)))
 
 
-@pytest.mark.parametrize("M", [1, 4, 9])
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 32])
 def test_plain_k8_matches_jax_transposed_head(M):
     rng = np.random.default_rng(200 + M)
     x, p, s, ts, _ = _operands(rng, M, 128, 2560)
@@ -132,9 +134,9 @@ def test_cpu_tensors_take_the_plain_versions_without_a_launch():
 
 # The weight-streaming GEMV's K ranges (ops/quant_matmul.py split_ranges,
 # which the kernel takes as given): whole 8-row units and, with group
-# scales, whole groups a range; no empty range; the x staging of GEMV_MT = 4
-# rows of a range within its 48 KB of shared memory. CodeFuse-13B's N
-# widths, the H100's 132 SMs and a smaller card's 114.
+# scales, whole groups a range; no empty range; at most 3072 K rows a range
+# (GEMV_MAX_CHUNK in csrc/ftcf_gemv.cuh, the bound of its x staging).
+# CodeFuse-13B's N widths, the H100's 132 SMs and a smaller card's 114.
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("K", [256, 1152, 2048, 5120, 20480])
 @pytest.mark.parametrize("G", [32, 64, 128])
