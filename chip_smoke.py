@@ -6,14 +6,20 @@
 Phases (any failure exits non-zero):
   1. device, torch and CUDA versions, card name and power limit; build the
      CUDA kernels from ``fastertransformer4codefuse_tpu_torch/csrc``; every
-     GEMV instance within 128 registers and without spills;
+     GEMV instance within 128 registers and without spills, and no TMA +
+     wgmma instance (K5, K10, the GEMM) spilling;
   2. each kernel (K1-K13; K2/K3 on int4 weights and with group scales,
      int4 and int8, G = 128; the GEMVs K1, K3, K6, K7, K8 and K13's GEMV
      form (int8, int4 and int4 g128) at M = 1, 4 and 8, K1 QKV, K6 and K13
      int8 also at 32, then row r of K6, K7 and K13 int8 bit for bit the same
-     at M = 2, 4, 8 and 32; K13's GEMM form at M = 512, 1024 and 3072, beside
-     the pair of unfused GEMMs it replaces; and the packed int4 reads of
-     K4/K9/K10/K11)
+     at M = 2, 4, 8 and 32; the prefill-width GEMM (TMA + wgmma): K13's form
+     at M = 512, 1024 and 3072 beside the pair of unfused GEMMs it replaces,
+     K1 QKV, K6 and K7 at 512 and 1024, K1 proj and down at 1024 and 3072,
+     K8's head at 64, each with its tiles and waves and beside the bf16
+     ``torch.matmul`` yardstick, then rows of K1, K7 and K13 at M = 130 bit
+     for bit the same rows at M = 1024, two calls equal bytes, and the host
+     cost of a call; the packed int4 reads of K4/K9/K10/K11; K10 also on
+     pages of 128 and two calls equal bytes)
      against its plain PyTorch version at CodeFuse-13B shapes, K12 at Longformer-base shapes (S = 4096, w_half 256, both band
      modes): max error against the stated tolerance, median kernel and
      plain times (CUDA events, device time), the card's bound for the same
@@ -23,8 +29,9 @@ Phases (any failure exits non-zero):
      length, causal for K5, the resolved cache for K11, with a boolean
      band-and-length mask for K12;
      ``torch._weight_int8pack_mm`` / ``torch._weight_int4pack_mm`` for the
-     weight-only GEMMs where they run on the card; the port calls none of
-     them); the group-scaled GEMVs beside their per-channel forms (K7 beside
+     weight-only GEMVs where they run on the card, ``torch.matmul`` on a bf16
+     weight dequantized beforehand for the GEMM (two for K13); the port
+     calls none of them); the group-scaled GEMVs beside their per-channel forms (K7 beside
      K6, K13 g128 beside K13 int4, K3 g128 beside K3 per-channel); K11 also
      bit for bit against K4 over a gathered copy;
   3. 2-layer models of CodeFuse-13B width (int8 and int4 g128, each with
@@ -44,7 +51,7 @@ Phases (any failure exits non-zero):
      ``fused_decode`` A/B (decode ms/step of each route, in turns); on the int8
      weights, a 3000-token prompt on an "int4" cache (greedy x2 + streamed;
      its prefill profiled with K5, whose milliseconds and launches it
-     reports, and with the plain attention forced in),
+     reports beside the GEMM's, and with the plain attention forced in),
      prompts of 2048 and 1300 tokens on an "int8k_int4v" cache, and beam
      search (2 prompts x 4 beams, x2 + streamed, every hypothesis rescored
      teacher-forced);
@@ -215,8 +222,9 @@ def phase_kernels(torch, records):
         flash_decode_stacked, flash_decode_stacked_plain, gather_beam_rows, gather_pages,
         is_packed, pack_seq_pairs, unpack_seq_pairs,
     )
+    from fastertransformer4codefuse_tpu_torch.models.params import QuantizedTensor
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import (
-        quant_matmul, quant_matmul_plain,
+        gemm_tiles, quant_matmul, quant_matmul_plain,
     )
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_fused import (
         fused_proj_down, fused_proj_down_plain, fused_qkv_up, fused_qkv_up_plain,
@@ -246,7 +254,7 @@ def phase_kernels(torch, records):
     ok = True
 
     def report(name, case, fn_k, fn_p, tol, ms_key, work=None, fn_lib=None, lib_label="",
-               err=rel_err, fn_pair=None, pair_label="", peers=()):
+               err=rel_err, fn_pair=None, pair_label="", peers=(), note=""):
         """Check one case and time it; the record's case (``ms_key``) fills the
         record. ``work`` = (bytes read, operations): the output's bytes are
         added and the bound and the kernel's share of it logged. ``err``
@@ -254,8 +262,8 @@ def phase_kernels(torch, records):
         with two outputs returns a tuple, held as their concatenation.
         ``fn_pair``: the unfused kernels this one replaces, timed beside it;
         ``fn_lib``: the library call, timed at every case given; ``peers``:
-        (label, ms) of kernels timed earlier in this run, logged beside.
-        Returns the kernel's time."""
+        (label, ms) of kernels timed earlier in this run, logged beside;
+        ``note`` ends the line. Returns the kernel's time."""
         nonlocal ok
         got, ref = fn_k(), fn_p()
         torch.cuda.synchronize()
@@ -285,6 +293,7 @@ def phase_kernels(torch, records):
             line += f"  library: {lib_label}"
         for label, ms in peers:
             line += f"  beside {label} {ms:.4f} ms ({t_k / ms:.2f}x)"
+        line += note
         if case == ms_key:
             r["ms"], r["plain_ms"] = t_k, t_p
             r["bound_ms"], r["bound_by"] = b_ms, b_by
@@ -325,23 +334,46 @@ def phase_kernels(torch, records):
 
     log("phase 2: kernels against their plain versions (CodeFuse-13B and Longformer-base "
         "shapes)")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    # The prefill-width GEMM (M > 32): its tiles and waves on this card, and
+    # its yardstick, one torch.matmul on a bf16 weight dequantized
+    # beforehand (the port never calls it)
+    def tiles(M, N1, N2=0):
+        n = gemm_tiles(M, N1, N2)
+        return f"  GEMM {n} tiles of 128x128, {n / sms:.2f} waves on {sms} SMs"
+
+    lib_bf16 = "torch.matmul, bf16 weight dequantized beforehand"
+
+    def gemm_lib(M, x, wb, lib=lambda: (None, "")):
+        """(fn, label) of a case's library call: the bf16 yardstick at M >
+        32, ``lib()`` (a weight-only library call or none) at GEMV widths."""
+        return ((lambda: torch.matmul(x, wb)), lib_bf16) if M > 32 else lib()
+
     # K1: bf16 output rounding (2^-8 relative) + fp32 summation order; the
-    # library call beside the QKV cases
+    # library call beside the QKV cases at GEMV widths
     tol_mm = 1e-2
     shapes = [("qkv", H, 3 * H, True, None), ("up", H, F_, True, "gelu-tanh"),
-              ("down", F_, H, False, None)]
+              ("down", F_, H, False, None), ("proj", H, H, True, None)]
+    # M = 8, the pools' width, and 32, the GEMV ceiling (QKV): the
+    # tensor-core body; 1024 (a chunk tick) and 3072 (the 3000-token
+    # prefill): the GEMM
+    k1_widths = {"qkv": (1, 4, 8, 32, 512), "up": (1, 4, 8, 512),
+                 "down": (1, 4, 8, 512, 1024, 3072), "proj": (1024, 3072)}
     for tag, K, N, has_bias, act in shapes:
         w, s = i8(K, N), scale(N)
+        wb = (w.float() * s).to(torch.bfloat16)
         b = bf(N, std=0.02) if has_bias else None
-        # M = 8, the pools' width, and 32, the GEMV ceiling (QKV): the
-        # tensor-core body
-        for M in (1, 4, 8, 32, 512) if tag == "qkv" else (1, 4, 8, 512):
+        for M in k1_widths[tag]:
             x = bf(M, K)
-            lib = library_mm(8, M, K, N) if tag == "qkv" else (None, "")
+            lib = gemm_lib(M, x, wb, (lambda: library_mm(8, M, K, N)) if tag == "qkv"
+                           else (lambda: (None, "")))
             report("quant_matmul", f"{tag} {K}->{N} M={M}",
                    lambda: quant_matmul(x, w, s, b, act),
                    lambda: quant_matmul_plain(x, w, s, b, act), tol_mm, "qkv 5120->15360 M=1",
-                   work=(nbytes(x, w, s, b), 2 * M * K * N), fn_lib=lib[0], lib_label=lib[1])
+                   work=(nbytes(x, w, s, b), 2 * M * K * N), fn_lib=lib[0], lib_label=lib[1],
+                   note=tiles(M, N) if M > 32 else "")
+        del wb
     w_up, w_proj, w_down = i8(H, F_), i8(H, H), i8(F_, H)
     s_up, s_proj, s_down = scale(F_), scale(H), scale(H)
     b_up, b_down = bf(F_, std=0.02), bf(H, std=0.02)
@@ -371,40 +403,51 @@ def phase_kernels(torch, records):
 
     # The library call beside the QKV cases; K7 beside K6 on the same x
     G = 128
-    for tag, K, N, has_bias, act in shapes:
+
+    def dequant4(p, sc, G=0):  # a packed int4 weight dequantized to bf16
+        return QuantizedTensor(q=p, scale=sc, k_axis=-2, group_size=G,
+                               bits=4).dequantize().to(torch.bfloat16)
+
+    for tag, K, N, has_bias, act in shapes[:3]:
         p4, s4 = i8(K // 2, N), scale4(N)
         gs = (torch.empty(K // G, N, device=dev).uniform_(0.5, 1.5, generator=gen)
               * (0.02 / 7)).to(torch.bfloat16)
+        wb4, wbg = dequant4(p4, s4), dequant4(p4, gs, G)
         b = bf(N, std=0.02) if has_bias else None
-        for M in (1, 4, 8, 32, 512) if tag == "qkv" else (1, 4, 8, 512):
+        for M in (1, 4, 8, 32, 512, 1024) if tag == "qkv" else (1, 4, 8, 512):
             x = bf(M, K)
             first = tag == "qkv"
-            lib = library_mm(4, M, K, N) if first else (None, "")
+            lib = gemm_lib(M, x, wb4, (lambda: library_mm(4, M, K, N)) if first
+                           else (lambda: (None, "")))
             t6 = report("quant_matmul_w4", f"{tag} {K}->{N} M={M}",
                    lambda: quant_matmul_w4(x, p4, s4, b, act),
                    lambda: quant_matmul_w4_plain(x, p4, s4, b, act), tol_mm,
                    "qkv 5120->15360 M=1", work=(nbytes(x, p4, s4, b), 2 * M * K * N),
-                   fn_lib=lib[0], lib_label=lib[1])
+                   fn_lib=lib[0], lib_label=lib[1], note=tiles(M, N) if M > 32 else "")
             if M == 32:
                 continue  # K7 at 32 rows: the row-independence check below
-            lib = library_mm(4, M, K, N, G) if first else (None, "")
+            lib = gemm_lib(M, x, wbg, (lambda: library_mm(4, M, K, N, G)) if first
+                           else (lambda: (None, "")))
             report("quant_matmul_w4_group", f"{tag} {K}->{N} g{G} M={M}",
                    lambda: quant_matmul_w4_group(x, p4, gs, G, b, act),
                    lambda: quant_matmul_w4_group_plain(x, p4, gs, G, b, act), tol_mm,
                    "qkv 5120->15360 g128 M=1", work=(nbytes(x, p4, gs, b), 2 * M * K * N),
-                   fn_lib=lib[0], lib_label=lib[1], peers=[("K6", t6)])
+                   fn_lib=lib[0], lib_label=lib[1], peers=[("K6", t6)],
+                   note=tiles(M, N) if M > 32 else "")
+        del wb4, wbg
     # K8: fp32 logits; only the summation order differs
     Vp = 102400
     p_head, s_head = i8(H // 2, Vp), scale4(Vp)
-    for M in (1, 4, 8):
+    wb_head = dequant4(p_head, s_head)
+    for M in (1, 4, 8, 64):  # 64: the GEMM (a beam prefill's head, 8 rows x 8 beams)
         x = bf(M, H)
-        lib = library_mm(4, M, H, Vp)
+        lib = gemm_lib(M, x, wb_head, lambda: library_mm(4, M, H, Vp))
         report("quant_matmul_w4_head", f"head {H}->{Vp} M={M}",
                lambda: quant_matmul_w4_head(x, p_head, s_head),
                lambda: quant_matmul_w4_head_plain(x, p_head, s_head), 1e-4,
                f"head {H}->{Vp} M=1", work=(nbytes(x, p_head, s_head), 2 * M * H * Vp),
-               fn_lib=lib[0], lib_label=lib[1])
-    del p_head
+               fn_lib=lib[0], lib_label=lib[1], note=tiles(M, Vp) if M > 32 else "")
+    del p_head, wb_head
     # K2/K3 on per-channel int4 weights (their records keep the int8 times)
     w_up, w_proj, w_down = i8(H // 2, F_), i8(H // 2, H), i8(F_ // 2, H)
     s_up, s_proj, s_down = scale4(F_), scale4(H), scale4(H)
@@ -414,7 +457,9 @@ def phase_kernels(torch, records):
                lambda: fused_proj_down(x_proj, h, w_proj, w_down, s_proj, s_down, b_down, res,
                                        bits=4),
                lambda: fused_proj_down_plain(x_proj, h, w_proj, w_down, s_proj, s_down,
-                                             b_down, res, bits=4), tol_mm, "proj+down M=1")
+                                             b_down, res, bits=4), tol_mm, "proj+down M=1",
+               work=(nbytes(x_proj, h, w_proj, w_down, s_proj, s_down, b_down, res),
+                     2 * M * (H * H + F_ * H)))
         if M == 8:
             continue
         report("fused_up_proj_down", f"int4 up+proj+down M={M}",
@@ -485,23 +530,34 @@ def phase_kernels(torch, records):
             single = (lambda x, w, s, b, act=None:  # noqa: E731
                       quant_matmul_w4_group(x, w, s, G, b, act))
             pair_label = "K7 QKV + K7 up"
+        # the GEMM form's yardstick: the two matmuls (x1 @ Wqkv, x2 @ Wup) on
+        # bf16 weights dequantized beforehand, since the two products take
+        # different x (ln1 and ln2 under the parallel residual)
+        if bits == 8:
+            wqb, wub = (wq.float() * sq).to(torch.bfloat16), (wu.float() * su).to(torch.bfloat16)
+        else:
+            wqb, wub = dequant4(wq, sq, G13), dequant4(wu, su, G13)
         Ms = {"int8": (1, 4, 8, 32, 512, 1024, 3072), "int4": (1, 4, 8, 512),
               "int4 g128": (1, 4, 8, 512, 1024, 3072)}[lab]
         for M in Ms:
             x1, x2 = bf(M, H), bf(M, H)
             args = (x1, x2, wq, wu, sq, su, b_q, b_u, None, "gelu-tanh", bits, G13)
             peers = [("K13 int4", k13_int4_ms[M])] if G13 and M in k13_int4_ms else []
+            lib = (((lambda: (torch.matmul(x1, wqb), torch.matmul(x2, wub))),
+                    "two torch.matmul, x1 @ Wqkv + x2 @ Wup, bf16 weights dequantized "
+                    "beforehand") if M > 32 else
+                   (None, "none: no one PyTorch call computes it"))
             t13 = report("fused_qkv_up", f"{lab} {H}->{3 * H}|{F_} M={M}",
                    lambda: fused_qkv_up(*args), lambda: fused_qkv_up_plain(*args), tol_mm,
                    f"int8 {H}->{3 * H}|{F_} M=1",
                    work=(nbytes(x1, x2, wq, sq, wu, su, b_q, b_u), 2 * M * H * (3 * H + F_)),
                    fn_pair=lambda: (single(x1, wq, sq, b_q), single(x2, wu, su, b_u, "gelu-tanh")),
-                   pair_label=pair_label, lib_label="none: no one PyTorch call computes it",
-                   peers=peers)
+                   pair_label=pair_label, fn_lib=lib[0], lib_label=lib[1], peers=peers,
+                   note=tiles(M, 3 * H, F_) if M > 32 else "")
             if lab == "int4":
                 k13_int4_ms[M] = t13
             del x1, x2
-        del wq, wu
+        del wq, wu, wqb, wub
 
     # Row independence of the GEMV's tensor-core body at CodeFuse-13B shapes:
     # row r of K6, K7 and K13 int8 is bit for bit the same at M = 2, 4, 8
@@ -521,7 +577,48 @@ def phase_kernels(torch, records):
         ok &= not differ
         log(f"  row independence {name}: rows at M = 2, 4, 8 vs the same rows at M = 32: "
             + (f"MISS, M = {differ} differ" if differ else "bit for bit equal"))
-    del p4, wq, wu
+    # ... and of the GEMM: its 130 rows at M = 130 are the first 130 of M =
+    # 1024 bit for bit, and two calls give equal bytes
+    x1k, x2k = bf(1024, H), bf(1024, H)
+    by_rows = {
+        "quant_matmul (K1)": lambda M: quant_matmul(x1k[:M], wq, sq, b_q),
+        "quant_matmul_w4_group (K7)": lambda M: quant_matmul_w4_group(x1k[:M], p4, g4, G, b_q),
+        "fused_qkv_up int8 (K13)": lambda M: torch.cat(fused_qkv_up(
+            x1k[:M], x2k[:M], wq, wu, sq, su, b_q, b_u, None, "gelu-tanh"), 1),
+    }
+    for name, fn in by_rows.items():
+        full, again, part = fn(1024), fn(1024), fn(130)
+        rows_same, calls_same = torch.equal(part, full[:130]), torch.equal(full, again)
+        ok &= rows_same and calls_same
+        log(f"  GEMM {name}: rows at M = 130 vs the same rows at M = 1024: "
+            f"{'bit for bit equal' if rows_same else 'MISS, they differ'}; two calls at M = "
+            f"1024: {'equal bytes' if calls_same else 'MISS, they differ'}")
+
+    # Host cost of one call (the wrapper, the tensor maps it encodes, the
+    # launch), enqueued behind a busy card: the GEMV encodes none, a GEMM two
+    # a segment (x, weight) and three with group scales
+    def host_us(fn, n=40):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return t
+
+    costs = {
+        "K1 GEMV M=8 (no maps)": lambda: quant_matmul(x1k[:8], wq, sq, b_q),
+        "K1 GEMM M=1024 (2 maps)": lambda: quant_matmul(x1k, wq, sq, b_q),
+        "K7 GEMM M=1024 (3 maps)": lambda: quant_matmul_w4_group(x1k, p4, g4, G, b_q),
+        "K13 int8 GEMM M=1024 (4 maps)": lambda: fused_qkv_up(
+            x1k, x2k, wq, wu, sq, su, b_q, b_u, None, "gelu-tanh"),
+    }
+    log("  host us a call (median of 3 runs of 40 calls, enqueued behind a busy card): " +
+        ", ".join(f"{k} {statistics.median(host_us(f) for _ in range(3)):.1f}"
+                  for k, f in costs.items()))
+    del p4, wq, wu, x1k, x2k
 
     # Attention kernels: p (times v_s) rounded to bf16 before PV in both
     # versions; online vs full softmax order. Each (query, head) row of the
@@ -695,7 +792,38 @@ def phase_kernels(torch, records):
                fn_lib=sdpa(qc.transpose(1, 2), dense_pages(a, sa), dense_pages(b_, sb), mask_c,
                            sm),
                lib_label="sdpa, dense bf16 K/V of the same length")
-    del pk8, pv8, pkb, pvb, pk4, pv4
+    # K10 gives equal bytes in two calls (no split over keys, no atomics)
+    a1 = flash_chunk_paged(qc, pk8, pks, pv8, pvs, 1, starts, pt, sm)
+    a2 = flash_chunk_paged(qc, pk8, pks, pv8, pvs, 1, starts, pt, sm)
+    same = torch.equal(a1, a2)
+    ok &= same
+    log(f"  flash_chunk_paged  int8 pages: two calls give "
+        f"{'equal bytes' if same else 'MISS: other bytes'}")
+    del pk8, pv8, pkb, pvb, pk4, pv4, a1, a2
+    # K10 on pages of 128, the CLI pool's: the same rows and keys, 16 pages a
+    # row; a tile takes one TMA box of each page it reads
+    ps2 = 128
+    n_pg2 = S // ps2
+    P2 = B * n_pg2 + 1
+    pt2 = (torch.randperm(P2 - 1, device=dev, generator=gen) + 1).reshape(B, n_pg2).to(
+        torch.int32)
+    pk8, pv8 = i8(L, P2, nKV, ps2, dh), i8(L, P2, nKV, ps2, dh)
+    pks2 = (torch.rand((L, P2, nKV, ps2), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+    pvs2 = (torch.rand((L, P2, nKV, ps2), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+
+    def dense_pages2(pages, scales):
+        return dense_bf16(gather_pages(pages[1], pt2), gather_pages(scales[1], pt2))
+
+    report_attn("flash_chunk_paged", "int8 pages of 128 B=8 C=128",
+           lambda: flash_chunk_paged(qc, pk8, pks2, pv8, pvs2, 1, starts, pt2, sm),
+           lambda: flash_chunk_paged_plain(qc, pk8, pks2, pv8, pvs2, 1, starts, pt2, sm), 2e-2,
+           "int8 pages B=8 C=128",
+           work=(nbytes(qc, starts) + B * n_pg2 * 4 + n_read * nKV * (2 * dh + 4),
+                 4 * n_pairs * nKV * dh),
+           fn_lib=sdpa(qc.transpose(1, 2), dense_pages2(pk8, pks2), dense_pages2(pv8, pvs2),
+                       mask_c, sm),
+           lib_label="sdpa, dense bf16 K/V of the same length")
+    del pk8, pv8
 
     # K5: causal prefill over the prompt's own bf16 K/V, 40 heads, dh 128.
     # The work counts the (query, key) pairs the causal and length bounds
@@ -1246,6 +1374,7 @@ def encoder_profile(torch, engine, ids, lens, label):
         f"({dev / wall:.0%} busy; {CARD}); by kernel:")
     for name, ms, n in rows[:6]:
         log(f"    {ms:9.3f} ms {n:5d}x  {name[:90]}")
+    log_named(rows, dev)
 
 
 def phase_encoders(torch, kernels, launched):
@@ -1399,16 +1528,23 @@ def main() -> int:
         if st or ld:
             log(f"    spills: {src_name} {kern}<{args}>: {regs} registers, {st} B spill stores, "
                 f"{ld} B spill loads")
-    # K5's instances and every GEMV partial instance <NB, format>: NB 0 is
-    # the M = 1 loop, NB 1/2/4 the tensor-core body's 8-row B tiles; formats
-    # W_I8 = 0, W_I4 = 1, W_I4G = 2, W_I8G = 3
+    # The TMA + wgmma instances (K5 <dh>, K10 <dh, K format, V format>, the
+    # GEMM <format, block width>; ptxas reports the launch bound's 168, and
+    # setmaxnreg gives the consumers 232-240) and every GEMV partial instance
+    # <NB, format>: NB 0 is the M = 1 loop, NB 1/2/4 the tensor-core body's
+    # 8-row B tiles; formats W_I8 = 0, W_I4 = 1, W_I4G = 2, W_I8G = 3
+    wgmma_kernels = ("prefill_flash_kernel", "flash_chunk_kernel", "qmm_gemm_kernel")
     log("  registers (spill stores/loads, bytes): " + ", ".join(
         f"{kern}<{args}> {regs} ({st}/{ld})" for _, kern, args, regs, st, ld in entries
-        if kern == "prefill_flash_kernel" or kern.startswith("gemv")))
+        if kern in wgmma_kernels or kern.startswith("gemv")))
     gemv_over = [f"{kern}<{args}>" for _, kern, args, regs, st, ld in entries
                  if "partial_kernel" in kern and (regs > 128 or st or ld)]
     if gemv_over:
         return fail(f"GEMV instances over 128 registers or spilling: {gemv_over}")
+    wgmma_spills = [f"{kern}<{args}>" for _, kern, args, regs, st, ld in entries
+                    if kern in wgmma_kernels and (st or ld)]
+    if wgmma_spills:
+        return fail(f"TMA + wgmma instances spilling: {wgmma_spills}")
 
     src = "fastertransformer4codefuse_tpu_torch/csrc/"
     tpu = "fastertransformer4codefuse_tpu/ops/"
@@ -1795,12 +1931,25 @@ def prefill_profile(torch, engine, prompt, label):
         f"device kernels {dev:.1f} ms ({CARD}); by kernel:")
     for name, ms, n in rows[:6]:
         log(f"    {ms:9.3f} ms {n:5d}x  {name[:90]}")
-    k5 = [(ms, n) for name, ms, n in rows if "prefill_flash_kernel" in name]
-    if k5:
-        log(f"    K5 (prefill_flash_kernel): {sum(m for m, _ in k5):.3f} ms in "
-            f"{sum(n for _, n in k5)} launches, {sum(m for m, _ in k5) / dev:.1%} of the device "
-            f"time")
+    log_named(rows, dev)
     return min(walls), dev
+
+
+# the kernels the profiles name: (label, a piece of the kernel's symbol)
+PROFILED = (("K5 (prefill_flash_kernel)", "prefill_flash_kernel"),
+            ("K10 (flash_chunk_kernel)", "flash_chunk_kernel"),
+            ("the GEMM (qmm_gemm_kernel: K1/K6/K7/K8/K13 at M > 32)", "qmm_gemm_kernel"))
+
+
+def log_named(rows, dev, unit="ms"):
+    """One line for each kernel of ``PROFILED`` in a profile's ``rows``
+    (name, ms, launches): its device ms, launches and share of ``dev``."""
+    for label, key in PROFILED:
+        hit = [(ms, n) for name, ms, n in rows if key in name]
+        if hit:
+            ms = sum(m for m, _ in hit)
+            log(f"    {label}: {ms:.3f} {unit} in {sum(n for _, n in hit):.0f} launches, "
+                f"{ms / dev:.1%} of the device time")
 
 
 def phase_long(torch, engine, kernels, launched):
@@ -2365,6 +2514,7 @@ def phase_pool(torch, engine, kernels, launched):
                 f"{sum(r[2] for r in rows):.0f} device ops (kernels, copies) ({CARD}); per tick:")
             for name, ms, n in rows[:8]:
                 log(f"    {ms:8.3f} ms {n:7.1f}x  {name[:90]}")
+            log_named(rows, dev, "ms a tick")
 
     fresh()
     tok = ByteTokenizer()

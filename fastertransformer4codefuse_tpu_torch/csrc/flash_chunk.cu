@@ -1,346 +1,502 @@
-// K10: chunked-prefill attention over the paged KV pool, many queries a row.
+// K10: chunked-prefill attention over the paged KV pool, on wgmma + TMA.
 //
 // Row b brings C consecutive queries starting at logical position pos[b];
 // query c with head j of KV group h attends keys 0 .. pos[b] + c. Replaces
 // fastertransformer4codefuse_tpu/ops/flash_decode.py flash_chunk_paged
-// (_kernel in chunk mode). (K5, the causal prefill over the prompt's own
-// K/V, ran on this tile loop until it moved to wgmma + TMA in
-// prefill_flash.cu.)
+// (_kernel in chunk mode).
 //
 // Math: the C queries and the gq query heads of a KV head ride one row axis,
 // r = c * gq + j, bounded at start + r / gq; scores = (q . k) * k_s *
-// sm_scale, masked per row; online softmax in fp32; (p * v_s) rounded to
-// bf16 before the PV product (int8 and int4 -> bf16 are exact; bf16 K/V
-// round p alone); the denominator sums the unrounded fp32 p. A row whose
-// bound lies before a key tile gets p = 0 there (the JAX kernel's re-mask
-// hazard), and keys past the tile's last bound are never read (zeros in
-// shared memory, so stale page bytes never reach PV). Pages are bf16, int8
-// or packed int4 (K and V templated apart: "int8k_int4v" mixes them); a
-// packed pair row holds positions 2i (low nibble) and 2i + 1, read at the
-// unpacked index's u / 2 with the scale at u.
+// sm_scale, masked per row; online softmax in fp32 (exp2, log2 e folded into
+// the scale); (p * v_s) rounded to bf16 before the P V product (int8 and
+// int4 -> bf16 are exact; bf16 K/V round p alone); the denominator sums the
+// unrounded fp32 p. Pages are bf16, int8 or packed int4 (K and V templated
+// apart: "int8k_int4v" mixes them); a packed pair row holds positions 2i
+// (low nibble) and 2i + 1.
 //
 // Bound: at CodeFuse-13B with C = 128 queries over ~1000 keys a row is
 // ~2.7 GFLOP a layer against ~10.5 MB of int8 K/V, near the card's
-// 295 FLOP/byte balance. So the products run on the tensor cores:
-// mma.sync m16n8k16 bf16 with fp32 accumulation (its fragment layouts are
-// fixed by the PTX ISA, so the online-softmax rescale of each accumulator row
-// happens in registers and P feeds the PV product from registers).
+// 295 FLOP/byte balance: both products run on the tensor cores by wgmma,
+// and the pages arrive by TMA, so no thread spends registers or
+// instructions on the copies.
 //
-// Design: one block of 8 warps per (128-row query tile, KV head, row); each
-// warp owns 16 query rows, and the 128 rows of a KV head share one block,
-// so each K/V byte is read and converted once per (query tile, KV head). The
-// block loops over 64-key tiles up to the tile's last bound. Each thread
-// resolves its keys' vectors through the KV policy (the block table, the
-// block loading its own page ids, no host round trip) and loads K, V and
-// their scales with 16-byte loads into registers; at dh 128 the next tile's
-// loads are issued before the current tile's products, so they stay in
-// flight under them, and each warp keeps its Q fragments in registers. A
-// tile is stored in shared memory as bf16 [key][dh] for K and V; each warp
-// computes S = Q K^T (16 x 64), the K fragments read with ldmatrix, updates
-// its rows' running max and denominator, and accumulates P V into 16 x dh
-// fp32 registers, the V fragments read with ldmatrix.trans. PERF.md holds
-// the measured effect of each of these choices.
-#include <math.h>
-
+// Design (one block per 128-row query tile, KV head and row b, as K5's
+// prefill_flash.cu):
+//  - schedule: the blocks with the most key tiles start first. The work of a
+//    (query tile, row) pair depends on pos[b], which lives on the device, so
+//    each block ranks the pairs itself (work descending, index ascending)
+//    and takes the pair of its rank; past FC_MAX_RANKED pairs, query tiles
+//    descending;
+//  - three warpgroups: a producer, whose first warp keeps the K and V tiles
+//    of the block's key range (64 keys at dh 128, 32 at dh 256) in flight by
+//    TMA into a ring of four stages (full and empty mbarriers), and two
+//    consumers of 64 query rows each; setmaxnreg gives the producer 40
+//    registers and the consumers 232 (without it the dh 256 instances
+//    spill and ptxas serializes their products);
+//  - page addressing: the producer reads the block table and issues one TMA
+//    box per (page, key range) over a 4-D tensor map of the layer's page
+//    slab [P, nKV, ps(/2), dh]: key s of head h is row (page nKV + h) ps +
+//    s % ps. A box holds g = gcd(ps, key tile) keys (g / 2 pair rows of
+//    packed int4), so no box crosses a page and a tile takes tile / g boxes;
+//    keys past the block's last bound are never requested past its tile,
+//    and page ids past the row's table are clamped to its last page;
+//  - bf16 pages land straight in the 128-byte swizzled layout wgmma reads
+//    (64-dim column blocks, K K-major for Q K^T, V MN-major with the
+//    transpose bit for P V). int8 and packed int4 pages land raw; the two
+//    consumers convert a tile to bf16 into one of two swizzled buffers
+//    (exactly, as the GEMV's conversions), load its scales through the block
+//    table, and release the raw stage. The conversion of tile t + 1 runs
+//    while tile t's P V is in flight; one 256-thread barrier a tile (after
+//    fence.proxy.async) publishes it and frees the other buffer;
+//  - keys past the block's last bound are real memory (stale bytes): S is
+//    masked per row in the tiles that hold a bound, and V's rows there are
+//    zero before P V reads them (written as zeros by the conversion; for
+//    bf16 pages zeroed by the two consumers, rows split between them, then
+//    fence.proxy.async and one 256-thread barrier before either's P V);
+//  - Q is read once, by the consumers, into the swizzled layout;
+//  - S = Q K^T by wgmma (n64 at dh 128, n32 at dh 256), both operands from
+//    shared memory; O += P V by wgmma with P (bf16) from registers;
+//  - no atomics and no split over keys: two calls give equal bytes.
 #include "ftcf_common.cuh"
 #include "ftcf_mma.cuh"
+#include "ftcf_sm90.cuh"
+#include "ftcf_tma.cuh"
 
 namespace ftcf {
 
-constexpr int FC_WARPS = 8;
-constexpr int FC_THREADS = FC_WARPS * 32;
-constexpr int FC_BM = FC_WARPS * 16;  // query rows per block, 16 per warp
-constexpr int FC_BN = 64;             // keys per tile
+constexpr int FC_THREADS = 384;      // producer warpgroup + two consumer warpgroups
+constexpr int FC_BM = 128;           // query rows per block, 64 per consumer
+constexpr int FC_STAGES = 4;         // TMA ring depth
+constexpr int FC_MAX_RANKED = 256;   // (query tile, row) pairs a block ranks
 
-// The KV policy: where row b's queries start (start), how many of its keys
-// exist (keys), and where key s of (row b, KV head h) is cached (vec, the
-// unpacked vector index): the layer's [P, nKV, ps, dh] page slab through
-// the block table pt [B, n_pg]; row b's C queries start at pos[b].
-struct PagedKV {
-  const int* pos;
-  const int* pt;
-  int n_pg, ps;
-  __device__ int start(int b) const { return pos[b]; }
-  __device__ int keys(int) const { return n_pg * ps; }
-  __device__ uint32_t vec(int b, int h, int nKV, int s) const {
-    const int page = pt[(size_t)b * n_pg + min(s / ps, n_pg - 1)];
-    return ((uint32_t)page * nKV + h) * ps + s % ps;
-  }
+template <int DH, int KF, int VF>
+struct ChunkTile {
+  static constexpr bool QUANT = KF != KV_BF16;
+  static constexpr int BN = DH == 128 ? 64 : 32;  // keys per tile: 16 KB of bf16 K
+  static constexpr int CB = DH / 64;              // 64-wide column blocks
+  static constexpr int Q_BYTES = FC_BM * DH * 2;
+  static constexpr int TILE = BN * DH * 2;        // a bf16 K (or V) tile, swizzled
+  static constexpr int CBLK = BN * 128;           // one column block of it
+  // a raw tile as it lands: bf16 swizzled, int8 [BN][dh], int4 [BN/2][dh]
+  static constexpr int RAW_K = KF == KV_BF16 ? TILE : (KF == KV_I8 ? BN * DH : BN * DH / 2);
+  static constexpr int RAW_V = VF == KV_BF16 ? TILE : (VF == KV_I8 ? BN * DH : BN * DH / 2);
+  static constexpr int STAGE = RAW_K + RAW_V;
+  static constexpr int CONV = QUANT ? 2 * 2 * TILE : 0;  // two converted (K, V) buffers
+  static constexpr int SCALES = QUANT ? 2 * 2 * BN * 4 : 0;  // their fp32 k_s and v_s
+  static constexpr int RING = Q_BYTES + CONV;
+  static constexpr int BARS = RING + FC_STAGES * STAGE + SCALES;
+  static constexpr int SCHED = BARS + 2 * FC_STAGES * 8;
+  static constexpr size_t SMEM = SCHED + (FC_MAX_RANKED + 1) * 4 + 1024;  // + alignment slack
 };
 
 template <int DH>
-struct ChunkSmem {
-  static constexpr int LD = DH + 8;  // bf16 row pitch of Q, K and V (pad: no bank conflicts)
-  static constexpr size_t bytes = (size_t)(FC_BM + 2 * FC_BN) * LD * 2 + FC_BN * 8;
-};
+__device__ __forceinline__ void wgmma_qk(float (&s)[DH == 128 ? 32 : 16], uint64_t da,
+                                         uint64_t db, int acc) {
+  if constexpr (DH == 128)
+    wgmma_ss_n64(s, da, db, acc);
+  else
+    wgmma_ss_n32(s, da, db, acc);
+}
 
-// 16 cached values of one key, from one 16-byte load, stored as bf16 (int8
-// and int4 -> bf16 are exact). A packed int4 load holds dims of two keys,
-// the even one in the low nibbles: ``odd`` picks the key.
-template <int FMT>
-__device__ __forceinline__ void stage16(const uint4& u, bool odd, __nv_bfloat16* dst) {
-  if constexpr (FMT == KV_BF16) {
-    *reinterpret_cast<uint4*>(dst) = u;
-  } else {
-    float f[16];
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DH == 128)
+    wgmma_rs_n128(o, a, db);
+  else
+    wgmma_rs_n256(o, a, db);
+}
+
+// Sixteen floats as two 16-byte bf16 chunks.
+__device__ __forceinline__ void store_bf16x16(unsigned char* c0, unsigned char* c1,
+                                              const float* f) {
+  *reinterpret_cast<uint4*>(c0) = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                                             pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+  *reinterpret_cast<uint4*>(c1) = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]),
+                                             pack_bf16(f[12], f[13]), pack_bf16(f[14], f[15]));
+}
+
+// One raw tile (int8 [BN][dh] or packed int4 [BN/2][dh]) -> the bf16
+// swizzled tile at dst, 256 threads (ct), keys past key_end as zeros. A
+// thread converts 16 bytes at a time: 16 dims of one key (int8) or of two
+// keys (int4: the low nibbles hold the even key).
+template <int DH, int F, int BN>
+__device__ __forceinline__ void convert_tile(const unsigned char* raw, unsigned char* dst, int k0,
+                                             int key_end, int ct) {
+  constexpr int CH = DH / 16;  // 16-byte chunks of a raw row
+  constexpr int ROWS = F == KV_I8 ? BN : BN / 2;
+  // the 16-byte chunk of dims d .. d + 7 of key row kr in the swizzled tile
+  auto chunk = [&](int kr, int d) {
+    return dst + (d >> 6) * (BN * 128) + kr * 128 + ((((d & 63) >> 3) ^ (kr & 7)) << 4);
+  };
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if constexpr (FMT == KV_I8)
-        i8x4_to_f32(w[i], f + 4 * i);
-      else
-        i4x4_nibble_to_f32(w[i], odd, f + 4 * i);
+  for (int i = ct; i < ROWS * CH; i += 256) {
+    const int r = i / CH, d = (i - r * CH) * 16;
+    const uint4 u = *reinterpret_cast<const uint4*>(raw + r * DH + d);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+    float f[16];
+    if constexpr (F == KV_I8) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) i8x4_to_f32(w[e], f + 4 * e);
+      if (k0 + r > key_end)
+#pragma unroll
+        for (int e = 0; e < 16; ++e) f[e] = 0.0f;
+      store_bf16x16(chunk(r, d), chunk(r, d + 8), f);
+    } else {
+#pragma unroll
+      for (int odd = 0; odd < 2; ++odd) {
+        const int kr = 2 * r + odd;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) i4x4_nibble_to_f32(w[e], odd, f + 4 * e);
+        if (k0 + kr > key_end)
+#pragma unroll
+          for (int e = 0; e < 16; ++e) f[e] = 0.0f;
+        store_bf16x16(chunk(kr, d), chunk(kr, d + 8), f);
+      }
     }
-    uint4* d = reinterpret_cast<uint4*>(dst);
-    d[0] = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]), pack_bf16(f[4], f[5]),
-                      pack_bf16(f[6], f[7]));
-    d[1] = make_uint4(pack_bf16(f[8], f[9]), pack_bf16(f[10], f[11]), pack_bf16(f[12], f[13]),
-                      pack_bf16(f[14], f[15]));
   }
 }
 
-template <int DH, int KF, int VF, class KV>
-__global__ void __launch_bounds__(FC_THREADS)
-flash_chunk_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ kc,
-                   const __nv_bfloat16* __restrict__ ks, const void* __restrict__ vc,
-                   const __nv_bfloat16* __restrict__ vs, __nv_bfloat16* __restrict__ out, int C,
-                   int nKV, int gq, KV kv, float sm_scale) {
-  constexpr bool QUANT = KF != KV_BF16;  // int8 or int4 payloads carry scales
-  static_assert((KF == KV_BF16) == (VF == KV_BF16), "bf16 K goes with bf16 V");
-  constexpr int LD = ChunkSmem<DH>::LD;
-  constexpr int W = QUANT ? 16 : 8;                 // cache values per 16-byte load
-  constexpr int KCH = DH / W;                       // 16-byte loads per cached vector
-  constexpr int NLD = FC_BN * KCH / FC_THREADS;     // of K (and of V) per thread per tile
-  constexpr int NT = FC_BN / 8;                     // 8-key MMA tiles of a key tile
-  constexpr int DT = DH / 8;                        // 8-dim MMA tiles of the output
-  // the next tile's loads are issued before the current tile's products,
-  // and the warp's Q fragments stay in registers, where the registers allow
-  // it (dh 128)
-  constexpr bool PREFETCH = DH == 128;
-  constexpr bool QREG = DH == 128;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [FC_BM][LD]
-  __nv_bfloat16* Ks = Qs + FC_BM * LD;                           // [FC_BN][LD]
-  __nv_bfloat16* Vs = Ks + FC_BN * LD;                           // [FC_BN][LD]
-  float* ks_s = reinterpret_cast<float*>(Vs + FC_BN * LD);       // [FC_BN]
-  float* vs_s = ks_s + FC_BN;                                    // [FC_BN]
+template <int DH, int KF, int VF>
+__global__ void __launch_bounds__(FC_THREADS, 1)
+flash_chunk_kernel(const __grid_constant__ CUtensorMap tmk,
+                   const __grid_constant__ CUtensorMap tmv, const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ ks, const __nv_bfloat16* __restrict__ vs,
+                   const int* __restrict__ pos, const int* __restrict__ pt,
+                   __nv_bfloat16* __restrict__ out, int B, int C, int nKV, int gq, int n_pg,
+                   int ps, int g, float scale2) {
+  using T = ChunkTile<DH, KF, VF>;
+  constexpr int BN = T::BN;
+  constexpr bool QUANT = T::QUANT;
+  extern __shared__ unsigned char smem_raw[];
+  // swizzled tiles need 1024-byte alignment
+  const uint32_t raw_base = smem_u32(smem_raw);
+  const uint32_t base = (raw_base + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw_base);
+  const uint32_t sQ = base;
+  const uint32_t bars = base + T::BARS;  // full[stage], then empty[stage]
+  int* sched = reinterpret_cast<int*>(sm + T::SCHED);
+  float* scales = reinterpret_cast<float*>(sm + T::BARS - T::SCALES);  // [2][k_s, v_s][BN]
+  auto stage = [&](int t) { return T::RING + (t % FC_STAGES) * T::STAGE; };  // byte offsets
 
-  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane >> 2, t4 = lane & 3;
+  const int tid = threadIdx.x;
   const int R = C * gq, nH = nKV * gq;
-  const int r0 = tile * FC_BM;
-  const int p0 = kv.start(b);
-  // the last key any row of this tile may see (inclusive)
-  const int key_end = min(p0 + (min(R, r0 + FC_BM) - 1) / gq, kv.keys(b) - 1);
+  const int n_rt = (R + FC_BM - 1) / FC_BM;
+  const int keys = n_pg * ps;
+  const int h = (int)blockIdx.x % nKV, rank = (int)blockIdx.x / nKV;
+  // the last key any row of query tile ``tl`` of row ``bb`` may see (inclusive)
+  auto last_key = [&](int tl, int bb) {
+    return min(pos[bb] + (min(R, tl * FC_BM + FC_BM) - 1) / gq, keys - 1);
+  };
 
-  for (int i = tid; i < FC_BM * (DH / 8); i += FC_THREADS) {
-    const int r = i / (DH / 8), c8 = (i - r * (DH / 8)) * 8, rr = r0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (rr < R) {
-      const int c = rr / gq, j = rr - c * gq;
-      val = *reinterpret_cast<const uint4*>(q + ((size_t)(b * C + c) * nH + h * gq + j) * DH + c8);
+  if (tid == 0) {
+    for (int st = 0; st < FC_STAGES; ++st) {
+      mbar_init(bars + 8 * st, 1);                  // the producer's arrive + TMA bytes
+      mbar_init(bars + 8 * (FC_STAGES + st), 256);  // every consumer thread
     }
-    *reinterpret_cast<uint4*>(Qs + r * LD + c8) = val;
+    mbar_fence_init();
   }
-
-  // a tile's K, V (16-byte loads; consecutive threads, consecutive bytes of
-  // a key) and scales, resolved through the block table
-  auto load_one = [&](int i, int k0, uint4& uk, uint4& uv) {
-    const int idx = tid + i * FC_THREADS, key = idx / KCH, c = idx - key * KCH;
-    uk = uv = make_uint4(0, 0, 0, 0);
-    if (k0 + key <= key_end) {
-      const uint32_t u = kv.vec(b, h, nKV, k0 + key);
-      const size_t ko = kv_vec_off<KF>(u, DH) + c * W, vo = kv_vec_off<VF>(u, DH) + c * W;
-      if constexpr (QUANT) {
-        uk = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(kc) + ko);
-        uv = *reinterpret_cast<const uint4*>(static_cast<const int8_t*>(vc) + vo);
-      } else {
-        uk = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(kc) + ko);
-        uv = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(vc) + vo);
-      }
-    }
-  };
-  // ... stored as bf16 [key][dh]. A key's vector index has the parity of
-  // its position (even page size), and tiles start at even positions, so
-  // key % 2 picks the nibble of a packed pair row.
-  auto store_one = [&](int i, const uint4& uk, const uint4& uv) {
-    const int idx = tid + i * FC_THREADS, key = idx / KCH, c = idx - key * KCH;
-    stage16<KF>(uk, key & 1, Ks + key * LD + c * W);
-    stage16<VF>(uv, key & 1, Vs + key * LD + c * W);
-  };
-  float ksr = 0.0f, vsr = 0.0f;
-  auto load_scales = [&](int k0) {
-    if (QUANT && tid < FC_BN) {
-      ksr = vsr = 0.0f;
-      if (k0 + tid <= key_end) {
-        const uint32_t vv = kv.vec(b, h, nKV, k0 + tid);
-        ksr = __bfloat162float(ks[vv]);
-        vsr = __bfloat162float(vs[vv]);
-      }
-    }
-  };
-  auto store_scales = [&]() {
-    if (QUANT && tid < FC_BN) {
-      ks_s[tid] = ksr;
-      vs_s[tid] = vsr;
-    }
-  };
-  constexpr int NPF = PREFETCH ? NLD : 1;
-  uint4 kr[NPF], vr[NPF];  // the next tile, in flight
-  auto load_tile = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < (PREFETCH ? NLD : 0); ++i) load_one(i, k0, kr[i], vr[i]);
-    load_scales(k0);
-  };
-  // stage tile k0 in shared memory: from the registers the previous
-  // iteration filled, or (no prefetch) load by load, so that only one
-  // load's registers are live beside the accumulators
-  auto stage_tile = [&](int k0) {
-    if constexpr (PREFETCH) {
-#pragma unroll
-      for (int i = 0; i < NPF; ++i) store_one(i, kr[i], vr[i]);
-    } else {
-#pragma unroll 2
-      for (int i = 0; i < NLD; ++i) {
-        uint4 uk, uv;
-        load_one(i, k0, uk, uv);
-        store_one(i, uk, uv);
-      }
-      load_scales(k0);
-    }
-    store_scales();
-  };
-
-  // this thread's two rows of the warp's 16: grp and grp + 8
-  const int rr0 = r0 + warp * 16 + grp, rr1 = rr0 + 8;
-  const int bound0 = rr0 < R ? min(p0 + rr0 / gq, key_end) : -1;
-  const int bound1 = rr1 < R ? min(p0 + rr1 / gq, key_end) : -1;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-  float o[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
-
-  // A fragment of the warp's Q rows for dims kk .. kk + 15
-  auto load_qa = [&](int kk, uint32_t* a) {
-    const __nv_bfloat16* qa = Qs + (warp * 16 + grp) * LD + kk + t4 * 2;
-    a[0] = *reinterpret_cast<const uint32_t*>(qa);
-    a[1] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD);
-    a[2] = *reinterpret_cast<const uint32_t*>(qa + 8);
-    a[3] = *reinterpret_cast<const uint32_t*>(qa + 8 * LD + 8);
-  };
-  uint32_t qf[QREG ? DH / 16 : 1][4];
-  if constexpr (QREG) {
-    __syncthreads();  // Q is stored
-#pragma unroll
-    for (int kk = 0; kk < DH; kk += 16) load_qa(kk, qf[kk / 16]);
-  }
-  // ldmatrix row address of this lane for the K fragments: matrix j = lane / 8
-  // covers keys 8 (j / 2) .. + 7 of a 16-key pair and dims 8 (j % 2) .. + 7
-  const int krow = (lane >> 4) * 8 + (lane & 7), kcol = (lane >> 3 & 1) * 8;
-
-  if constexpr (PREFETCH) load_tile(0);
-  for (int k0 = 0; k0 <= key_end; k0 += FC_BN) {
-    __syncthreads();  // the previous tile's readers are done (and Q is stored)
-    stage_tile(k0);
+  // this block's (query tile, row): rank ``rank`` of the pairs by key tiles
+  int tile, b;
+  const int n_cand = n_rt * B;
+  if (n_cand <= FC_MAX_RANKED) {
+    if (tid < n_cand) sched[tid] = last_key(tid / B, tid % B) / BN;
     __syncthreads();
-    if constexpr (PREFETCH) {
-      if (k0 + FC_BN <= key_end) load_tile(k0 + FC_BN);
+    if (tid < n_cand) {
+      const int w = sched[tid];
+      int r = 0;
+      for (int j = 0; j < n_cand; ++j) {
+        const int wj = sched[j];
+        r += wj > w || (wj == w && j < tid);
+      }
+      if (r == rank) sched[FC_MAX_RANKED] = tid;
     }
+    __syncthreads();
+    const int pick = sched[FC_MAX_RANKED];
+    tile = pick / B;
+    b = pick - tile * B;
+  } else {
+    __syncthreads();
+    tile = n_rt - 1 - rank / B;
+    b = rank % B;
+  }
+  const int r0 = tile * FC_BM;
+  const int p0 = pos[b];
+  const int key_end = last_key(tile, b);
+  const int n_tiles = key_end / BN + 1;
+  const int* ptb = pt + (size_t)b * n_pg;
 
-    // S = Q K^T for the warp's 16 rows and the tile's 64 keys
-    float sc[NT][4];
+  if (tid < 128) {
+    // producer warpgroup: its first warp issues every load, a lane a box
+    regs_dec<40>();
+    if (tid < 32) {
+      const int nbox = BN / g;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % FC_STAGES;
+        int page[2] = {0, 0};  // the pages of this lane's boxes (nbox <= 64)
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.0f;
+        for (int u = 0; u < 2; ++u) {
+          const int i = tid + 32 * u;
+          if (i < nbox) page[u] = ptb[min((t * BN + i * g) / ps, n_pg - 1)];
+        }
+        if (t >= FC_STAGES) mbar_wait(bars + 8 * (FC_STAGES + st), (t / FC_STAGES - 1) & 1);
+        const uint32_t full = bars + 8 * st;
+        if (tid == 0) mbar_arrive_expect_tx(full, T::STAGE);
+        __syncwarp();
+        const uint32_t sK = base + stage(t), sV = sK + T::RAW_K;
 #pragma unroll
-    for (int kk = 0; kk < DH; kk += 16) {
-      uint32_t a_ld[4];
-      const uint32_t* a = a_ld;
-      if constexpr (QREG)
-        a = qf[kk / 16];
-      else
-        load_qa(kk, a_ld);
-      // B fragments of two 8-key tiles per 4-matrix load
+        for (int u = 0; u < 2; ++u) {
+          const int i = tid + 32 * u;
+          if (i >= nbox) continue;
+          const int row = (t * BN + i * g) % ps;
+          if constexpr (KF == KV_BF16) {
 #pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, Ks + (np * 16 + krow) * LD + kk + kcol);
-        mma_16816(sc[2 * np], a, r);
-        mma_16816(sc[2 * np + 1], a, r + 2);
+            for (int cb = 0; cb < T::CB; ++cb) {
+              tma_load_4d(sK + cb * T::CBLK + i * g * 128, &tmk, full, cb * 64, row, h, page[u]);
+              tma_load_4d(sV + cb * T::CBLK + i * g * 128, &tmv, full, cb * 64, row, h, page[u]);
+            }
+          } else {
+            if constexpr (KF == KV_I8)
+              tma_load_4d(sK + i * g * DH, &tmk, full, 0, row, h, page[u]);
+            else
+              tma_load_4d(sK + i * (g / 2) * DH, &tmk, full, 0, row / 2, h, page[u]);
+            if constexpr (VF == KV_I8)
+              tma_load_4d(sV + i * g * DH, &tmv, full, 0, row, h, page[u]);
+            else
+              tma_load_4d(sV + i * (g / 2) * DH, &tmv, full, 0, row / 2, h, page[u]);
+          }
+        }
       }
     }
+    return;
+  }
 
-    // scale, mask per row, running max over the 4 threads of a row
+  regs_inc<232>();
+  const int ct = tid - 128;
+  const int cw = ct >> 7;  // consumer warpgroup: rows 64 cw .. 64 cw + 63 of the tile
+  const int wt = ct & 127;
+  const int warp = wt >> 5, lane = wt & 31, grp = lane >> 2, t4 = lane & 3;
+
+  // Q rows of this warpgroup -> shared memory, swizzled as TMA would store
+  // them: every load issued before the first store
+  constexpr int QN = 64 * (DH / 8) / 128;  // 16-byte chunks a thread
+  uint4 qv[QN];
+#pragma unroll
+  for (int u = 0; u < QN; ++u) {
+    const int i = wt + u * 128, rl = i / (DH / 8), c = i - rl * (DH / 8);
+    const int rr = r0 + cw * 64 + rl;
+    qv[u] = make_uint4(0, 0, 0, 0);
+    if (rr < R) {
+      const int cq = rr / gq, j = rr - cq * gq;
+      qv[u] = __ldg(reinterpret_cast<const uint4*>(
+          q + ((size_t)(b * C + cq) * nH + h * gq + j) * DH + c * 8));
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < QN; ++u) {
+    const int i = wt + u * 128, rl = i / (DH / 8), c = i - rl * (DH / 8);
+    const int rb = cw * 64 + rl;
+    *reinterpret_cast<uint4*>(sm + (c >> 3) * (FC_BM * 128) + rb * 128 +
+                              (((c & 7) ^ (rb & 7)) << 4)) = qv[u];
+  }
+  fence_proxy_async();
+  named_bar(1 + cw, 128);
+
+  // this thread's two rows: grp and grp + 8 of its warp's 16
+  const int rr0 = r0 + cw * 64 + warp * 16 + grp, rr1 = rr0 + 8;
+  const int bound0 = rr0 < R ? min(p0 + rr0 / gq, key_end) : key_end;
+  const int bound1 = rr1 < R ? min(p0 + rr1 / gq, key_end) : key_end;
+  // every row of the warpgroup sees the keys up to wg_min: tiles within it
+  // need no mask
+  const int wr = r0 + cw * 64;
+  const int wg_min = wr < R ? min(p0 + wr / gq, key_end) : key_end;
+
+  float o[DH / 2], s[BN / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) s[i] = 0.0f;
+  uint32_t pa[BN / 16][4];  // P (bf16, times v_s) as the A fragments of P V
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f, al0 = 1.0f, al1 = 1.0f;
+
+  // where tile t's bf16 K (V at + TILE) is read: a converted buffer, or
+  // (bf16 pages) its TMA stage
+  auto k_tile = [&](int t) {
+    return base + (QUANT ? T::Q_BYTES + (t & 1) * 2 * T::TILE : stage(t));
+  };
+  auto wait_tile = [&](int t) {
+    mbar_wait(bars + 8 * (t % FC_STAGES), (t / FC_STAGES) & 1);
+  };
+  auto release = [&](int t) { mbar_arrive(bars + 8 * (FC_STAGES + t % FC_STAGES)); };
+
+  // quantized pages: tile t's raw stage -> converted buffer t & 1, with its
+  // scales (zero past key_end); the raw stage is then released
+  auto convert = [&](int t) {
+    const int k0 = t * BN;
+    float* sc = scales + (t & 1) * 2 * BN;
+    float a = 0.0f, c = 0.0f;
+    if (ct < BN && k0 + ct <= key_end) {
+      const int key = k0 + ct;
+      const size_t vec = ((size_t)ptb[key / ps] * nKV + h) * ps + key % ps;
+      a = __bfloat162float(ks[vec]);
+      c = __bfloat162float(vs[vec]);
+    }
+    wait_tile(t);
+    unsigned char* dK = sm + T::Q_BYTES + (t & 1) * 2 * T::TILE;
+    convert_tile<DH, KF, BN>(sm + stage(t), dK, k0, key_end, ct);
+    convert_tile<DH, VF, BN>(sm + stage(t) + T::RAW_K, dK + T::TILE, k0, key_end, ct);
+    release(t);
+    if (ct < BN) {
+      sc[ct] = a;
+      sc[BN + ct] = c;
+    }
+    fence_proxy_async();
+  };
+
+  // S = Q K^T of tile t over dh in 16-wide steps, waited for
+  auto scores = [&](int t) {
+    const uint32_t sK = k_tile(t);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk & 3) * 32;  // the k step inside a 128-byte row
+      const uint64_t da = desc_sw128(sQ + (kk >> 2) * (FC_BM * 128) + cw * 64 * 128 + off, 16,
+                                     1024);
+      const uint64_t db = desc_sw128(sK + (kk >> 2) * T::CBLK + off, 16, 1024);
+      wgmma_qk<DH>(s, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+  };
+
+  // the online softmax of tile t's scores: k_s, mask, running max, P (times
+  // v_s) into pa, the denominator; O's factors al0 / al1
+  auto softmax = [&](int t) {
+    const int k0 = t * BN;
+    const float* sc = scales + (t & 1) * 2 * BN;
+    // element i of s: key k0 + 8 (i / 4) + 2 t4 + (i & 1), row grp (+ 8 if i & 2)
+    if constexpr (QUANT) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[i] *= sc[8 * (i >> 2) + 2 * t4 + (i & 1)];
+    }
+    if (k0 + BN - 1 > wg_min) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        if (key > ((i & 2) ? bound1 : bound0)) s[i] = -INFINITY;
+      }
+    }
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = nt * 8 + t4 * 2 + e, s = k0 + col;
-        const float kscale = QUANT ? ks_s[col] : 1.0f;
-        sc[nt][e] = s <= bound0 ? sc[nt][e] * kscale * sm_scale : -INFINITY;
-        sc[nt][2 + e] = s <= bound1 ? sc[nt][2 + e] * kscale * sm_scale : -INFINITY;
-        mx0 = fmaxf(mx0, sc[nt][e]);
-        mx1 = fmaxf(mx1, sc[nt][2 + e]);
-      }
+    for (int i = 0; i < BN / 2; ++i) {
+      if (i & 2)
+        mx1 = fmaxf(mx1, s[i]);
+      else
+        mx0 = fmaxf(mx0, s[i]);
     }
 #pragma unroll
-    for (int o2 = 1; o2 < 4; o2 <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
+    for (int d = 1; d < 4; d <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, d));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, d));
     }
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    // a row with no visible key yet keeps alpha 1 and p 0
-    const float al0 = mn0 == -INFINITY ? 1.0f : expf(m0 - mn0);
-    const float al1 = mn1 == -INFINITY ? 1.0f : expf(m1 - mn1);
+    // the running max in the exp2 domain (key 0 is in every row's first
+    // tile, so it is finite from there on)
+    const float ms0 = mn0 == -INFINITY ? 0.0f : mn0 * scale2;
+    const float ms1 = mn1 == -INFINITY ? 0.0f : mn1 * scale2;
+    al0 = ex2(m0 * scale2 - ms0);
+    al1 = ex2(m1 * scale2 - ms1);
     m0 = mn0;
     m1 = mn1;
-
-    // P (times the value scales, rounded to bf16) as the A fragments of P V:
-    // S tiles 2kt and 2kt + 1 are keys 16kt .. 16kt + 15
-    uint32_t pa[FC_BN / 16][4];
+    // k step kt of P V holds keys 16 kt .. 16 kt + 15, registers (row grp,
+    // 2 t4), (grp + 8, 2 t4), (grp, 2 t4 + 8), (grp + 8, 2 t4 + 8):
+    // s[8 kt .. 8 kt + 7] in pairs
     float ps0 = 0.0f, ps1 = 0.0f;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      float p[4], w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float mrow = e < 2 ? mn0 : mn1;
-        p[e] = sc[nt][e] == -INFINITY ? 0.0f : expf(sc[nt][e] - mrow);
-        w[e] = QUANT ? p[e] * vs_s[nt * 8 + t4 * 2 + (e & 1)] : p[e];
+    for (int u = 0; u < BN / 4; ++u) {
+      const bool hi = u & 1;  // s[2u], s[2u + 1] lie in row grp + 8 when u is odd
+      const float p0 = ex2(fmaf(s[2 * u], scale2, hi ? -ms1 : -ms0));
+      const float p1 = ex2(fmaf(s[2 * u + 1], scale2, hi ? -ms1 : -ms0));
+      if (hi)
+        ps1 += p0 + p1;
+      else
+        ps0 += p0 + p1;
+      if constexpr (QUANT) {
+        const int col = 8 * (u >> 1) + 2 * t4;
+        pa[u >> 2][u & 3] = pack_bf16(p0 * sc[BN + col], p1 * sc[BN + col + 1]);
+      } else {
+        pa[u >> 2][u & 3] = pack_bf16(p0, p1);
       }
-      ps0 += p[0] + p[1];
-      ps1 += p[2] + p[3];
-      pa[nt / 2][(nt & 1) * 2 + 0] = pack_bf16(w[0], w[1]);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(w[2], w[3]);
     }
-    l0 = al0 * l0 + ps0;  // this thread's share; the 4 shares add up at the end
+    l0 = al0 * l0 + ps0;  // this thread's share; the four shares add up at the end
     l1 = al1 * l1 + ps1;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      o[dt][0] *= al0;
-      o[dt][1] *= al0;
-      o[dt][2] *= al1;
-      o[dt][3] *= al1;
+    for (int i = 0; i < DH / 2; ++i) o[i] *= (i & 2) ? al1 : al0;
+  };
+
+  // O += P V of tile t over its keys in 16-key steps (issued, not waited for)
+  auto issue_pv = [&](int t) {
+    const uint32_t sV = k_tile(t) + T::TILE;
+    fence_regs(o);
+    fence_regs(pa);
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < BN / 16; ++kt)
+      wgmma_pv<DH>(o, pa[kt], desc_sw128(sV + kt * 16 * 128, T::CBLK, 1024));
+    wgmma_commit();
+  };
+  auto wait_pv = [&]() {
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+  };
+
+  if constexpr (QUANT) {
+    convert(0);
+    named_bar(3, 256);
+    for (int t = 0; t < n_tiles; ++t) {
+      scores(t);
+      softmax(t);
+      issue_pv(t);
+      if (t + 1 < n_tiles) convert(t + 1);  // under tile t's P V
+      wait_pv();
+      // tile t + 1 is converted and visible; every P V of tile t is done, so
+      // tile t + 2 may overwrite its buffer
+      named_bar(3, 256);
     }
-    // O += P V: B fragments of two 8-dim tiles per transposed 4-matrix load
-    const int mkey = (lane >> 3 & 1) * 8 + (lane & 7), mdim = (lane >> 4) * 8;
-#pragma unroll
-    for (int kt = 0; kt < FC_BN / 16; ++kt) {
-#pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, Vs + (kt * 16 + mkey) * LD + dp * 16 + mdim);
-        mma_16816(o[2 * dp], pa[kt], r);
-        mma_16816(o[2 * dp + 1], pa[kt], r + 2);
+  } else {
+    for (int t = 0; t < n_tiles; ++t) {
+      wait_tile(t);
+      const int k0 = t * BN;
+      if (k0 + BN - 1 > key_end) {
+        // V's rows past the last bound are stale page bytes: zero them, the
+        // two consumers sharing the 16-byte chunks, then one barrier of both,
+        // so that neither's P V (async proxy) reads a row before every zero
+        // is written (every consumer passes here for the same tile)
+        const uint32_t sV = k_tile(t) + T::TILE;
+        const int z0 = key_end + 1 - k0;
+        for (int i = ct; i < (BN - z0) * T::CB * 8; i += 256) {
+          const int row = z0 + i / (T::CB * 8), rest8 = i % (T::CB * 8);
+          *reinterpret_cast<uint4*>(sm + (sV - base) + (rest8 >> 3) * T::CBLK + row * 128 +
+                                    ((rest8 & 7) << 4)) = make_uint4(0, 0, 0, 0);
+        }
+        fence_proxy_async();
+        named_bar(3, 256);
       }
+      scores(t);
+      softmax(t);
+      issue_pv(t);
+      wait_pv();
+      release(t);
     }
   }
 
 #pragma unroll
-  for (int o2 = 1; o2 < 4; o2 <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
+  for (int d = 1; d < 4; d <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, d);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, d);
   }
   const float inv0 = 1.0f / fmaxf(l0, 1e-20f), inv1 = 1.0f / fmaxf(l1, 1e-20f);
 #pragma unroll
@@ -351,47 +507,90 @@ flash_chunk_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__
     const int c = rr / gq, j = rr - c * gq;
     __nv_bfloat16* dst = out + ((size_t)(b * C + c) * nH + h * gq + j) * DH + t4 * 2;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(dst + dt * 8) =
-          pack_bf16(o[dt][half * 2] * inv, o[dt][half * 2 + 1] * inv);
+    for (int nt = 0; nt < DH / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(dst + nt * 8) =
+          pack_bf16(o[4 * nt + 2 * half] * inv, o[4 * nt + 2 * half + 1] * inv);
   }
 }
 
-template <int DH, int KF, int VF, class KV>
+static int gcd_int(int a, int b) {
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return a;
+}
+
+// The tensor map of one layer's page slab [P, nKV, ps(/2), dh] in format F:
+// boxes of g keys (g / 2 pair rows of packed int4) of one head of one page,
+// bf16 as 64-dim column blocks in the 128-byte swizzle, int8 / int4 raw
+// rows. The page extent is left open (page ids are trusted, as the block
+// table always was).
+template <int DH, int F>
+static bool page_tensor_map(CUtensorMap* m, const void* p, int nKV, int ps, int g) {
+  const uint64_t rows = F == KV_I4 ? ps / 2 : ps;
+  const uint64_t row_bytes = F == KV_BF16 ? DH * 2 : (uint64_t)DH;
+  const uint64_t dims[4] = {(uint64_t)DH, rows, (uint64_t)nKV, 0x7FFFFFFFull};
+  const uint64_t strides[3] = {row_bytes, rows * row_bytes, nKV * rows * row_bytes};
+  if (F == KV_BF16)
+    return tensor_map<4>(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, dims, strides,
+                         {64, (uint32_t)g, 1, 1}, CU_TENSOR_MAP_SWIZZLE_128B);
+  return tensor_map<4>(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, p, dims, strides,
+                       {(uint32_t)DH, (uint32_t)(F == KV_I4 ? g / 2 : g), 1, 1},
+                       CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+template <int DH, int KF, int VF>
 static cudaError_t launch_fc(const void* q, const void* k, const void* ks, const void* v,
-                             const void* vs, KV kv, void* out, int B, int C, int nKV, int gq,
-                             float sm_scale, cudaStream_t stream) {
-  auto kern = flash_chunk_kernel<DH, KF, VF, KV>;
-  const size_t smem = ChunkSmem<DH>::bytes;
+                             const void* vs, const int* pos, const int* pt, void* out, int B,
+                             int C, int nKV, int gq, int n_pg, int ps, float sm_scale,
+                             cudaStream_t stream) {
+  using T = ChunkTile<DH, KF, VF>;
+  // g keys a box: divides the key tile and the page, so no box crosses a
+  // page; bf16 boxes land swizzled, so whole 8-row swizzle groups
+  const int g = gcd_int(ps, T::BN);
+  if (KF == KV_BF16 && g % 8 != 0) return cudaErrorInvalidValue;
+  CUtensorMap tmk, tmv;
+  if (!page_tensor_map<DH, KF>(&tmk, k, nKV, ps, g) ||
+      !page_tensor_map<DH, VF>(&tmv, v, nKV, ps, g))
+    return cudaErrorInvalidValue;
+  auto kern = flash_chunk_kernel<DH, KF, VF>;
   // one flag per template instance; benign race: every setter writes the same value
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  const dim3 grid((C * gq + FC_BM - 1) / FC_BM, nKV, B);
-  kern<<<grid, FC_THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), k, static_cast<const __nv_bfloat16*>(ks), v,
-      static_cast<const __nv_bfloat16*>(vs), static_cast<__nv_bfloat16*>(out), C, nKV, gq, kv,
-      sm_scale);
+  const int n_rt = (C * gq + FC_BM - 1) / FC_BM;
+  const float scale2 = sm_scale * 1.4426950408889634f;  // log2(e)
+  kern<<<n_rt * B * nKV, FC_THREADS, T::SMEM, stream>>>(
+      tmk, tmv, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(ks),
+      static_cast<const __nv_bfloat16*>(vs), pos, pt, static_cast<__nv_bfloat16*>(out), B, C,
+      nKV, gq, n_pg, ps, g, scale2);
   return cudaGetLastError();
 }
 
 // The (K, V) page formats served: bf16/bf16, int8/int8, int4/int4, int8/int4.
 template <int DH>
 static cudaError_t launch_fc_fmt(const void* q, const void* k, const void* ks, const void* v,
-                                 const void* vs, PagedKV kv, void* out, int B, int C, int nKV,
-                                 int gq, int kfmt, int vfmt, float sm_scale, cudaStream_t st) {
+                                 const void* vs, const int* pos, const int* pt, void* out, int B,
+                                 int C, int nKV, int gq, int n_pg, int ps, int kfmt, int vfmt,
+                                 float sm, cudaStream_t st) {
   if (kfmt == KV_BF16 && vfmt == KV_BF16)
-    return launch_fc<DH, KV_BF16, KV_BF16>(q, k, ks, v, vs, kv, out, B, C, nKV, gq, sm_scale, st);
+    return launch_fc<DH, KV_BF16, KV_BF16>(q, k, ks, v, vs, pos, pt, out, B, C, nKV, gq, n_pg,
+                                           ps, sm, st);
   if (kfmt == KV_I8 && vfmt == KV_I8)
-    return launch_fc<DH, KV_I8, KV_I8>(q, k, ks, v, vs, kv, out, B, C, nKV, gq, sm_scale, st);
+    return launch_fc<DH, KV_I8, KV_I8>(q, k, ks, v, vs, pos, pt, out, B, C, nKV, gq, n_pg, ps,
+                                       sm, st);
   if (kfmt == KV_I4 && vfmt == KV_I4)
-    return launch_fc<DH, KV_I4, KV_I4>(q, k, ks, v, vs, kv, out, B, C, nKV, gq, sm_scale, st);
+    return launch_fc<DH, KV_I4, KV_I4>(q, k, ks, v, vs, pos, pt, out, B, C, nKV, gq, n_pg, ps,
+                                       sm, st);
   if (kfmt == KV_I8 && vfmt == KV_I4)
-    return launch_fc<DH, KV_I8, KV_I4>(q, k, ks, v, vs, kv, out, B, C, nKV, gq, sm_scale, st);
+    return launch_fc<DH, KV_I8, KV_I4>(q, k, ks, v, vs, pos, pt, out, B, C, nKV, gq, n_pg, ps,
+                                       sm, st);
   return cudaErrorInvalidValue;
 }
 
@@ -403,20 +602,19 @@ extern "C" {
 // slabs in the formats kfmt / vfmt (KVFmt: bf16; int8; packed int4
 // [P, nKV, ps/2, dh] with ps even), the quantized ones with ks/vs
 // [P, nKV, ps] bf16 scales; pos [B] int32 chunk starts; pt [B, n_pg] int32
-// block table; out like q. dh is 128 or 256.
+// block table; out like q. dh is 128 or 256; bf16 pages need ps % 8 == 0.
 int ftcf_flash_chunk_paged(const void* q, const void* k, const void* ks, const void* v,
                            const void* vs, const int* pos, const int* pt, void* out, int B, int C,
                            int nKV, int gq, int n_pg, int ps, int dh, int kfmt, int vfmt,
                            float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const ftcf::PagedKV kv{pos, pt, n_pg, ps};
-  if (gq < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  if (gq < 1 || C < 1 || B < 1 || n_pg < 1 || ps < 1) return (int)cudaErrorInvalidValue;
   if (dh == 128)
-    return (int)ftcf::launch_fc_fmt<128>(q, k, ks, v, vs, kv, out, B, C, nKV, gq, kfmt, vfmt,
-                                         sm_scale, st);
+    return (int)ftcf::launch_fc_fmt<128>(q, k, ks, v, vs, pos, pt, out, B, C, nKV, gq, n_pg, ps,
+                                         kfmt, vfmt, sm_scale, st);
   if (dh == 256)
-    return (int)ftcf::launch_fc_fmt<256>(q, k, ks, v, vs, kv, out, B, C, nKV, gq, kfmt, vfmt,
-                                         sm_scale, st);
+    return (int)ftcf::launch_fc_fmt<256>(q, k, ks, v, vs, pos, pt, out, B, C, nKV, gq, n_pg, ps,
+                                         kfmt, vfmt, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

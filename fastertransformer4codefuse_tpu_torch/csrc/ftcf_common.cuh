@@ -116,10 +116,26 @@ __device__ __forceinline__ void bf16x2_to_f32(uint32_t w, float* f) {
   f[1] = __uint_as_float(w & 0xFFFF0000u);
 }
 
+// bf16x2 d = a * b + c (one rounding; exact on the small integers of the
+// weight conversions).
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
 __device__ __forceinline__ float load_bias(const void* bias, int bias_bf16, int n) {
   if (bias == nullptr) return 0.0f;
   return bias_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(bias)[n])
                    : static_cast<const float*>(bias)[n];
+}
+
+// 2^x by the SFU (ex2.approx: 2 ulp; -inf gives 0): the attention kernels'
+// softmax, log2 e folded into the scale.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float round_bf16(float v) {

@@ -320,13 +320,6 @@ __device__ __forceinline__ void gemv_block(const GemvSeg& sg, int s, int M, int 
   }
 }
 
-// bf16x2 d = a * b + c (one rounding; exact on the small integers below).
-__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-
 // The second constants of the conversions' logic ops below. A logic op
 // takes one immediate; read from the constant bank, the other is an
 // operand too, so each ``(x & mask) op constant`` is one instruction on the
@@ -347,14 +340,19 @@ __device__ __forceinline__ uint32_t i4_pair_bf16x2(uint32_t q) {
   return fma_bf16x2((r & 0x0078000Fu) ^ kI4Exp, 0x3E003F80u, 0xC1C0C308u);
 }
 
+// Bytes 0 and 2 of a word (two int8 values) as the bf16x2 (byte 0, byte 2),
+// exactly: a value v with low 7 bits l and sign bit s is l - 128 s = (128 +
+// l) + (-128 - 128 s), both halves bf16 bit patterns (0x4300 | l and 0xC300
+// | s << 7), added in bf16.
+__device__ __forceinline__ uint32_t i8_rows_bf16x2(uint32_t p) {
+  return fma_bf16x2((p & 0x007F007Fu) | kI8Exp, 0x3F803F80u, (p & 0x00800080u) | kI8Sign);
+}
+
 // Byte i of two int8 words (rows k and k + 1 of one column) as the bf16x2
-// (row k, row k + 1), exactly: a value v with low 7 bits l and sign bit s is
-// l - 128 s = (128 + l) + (-128 - 128 s), both halves bf16 bit patterns
-// (0x4300 | l and 0xC300 | s << 7), added in bf16.
+// (row k, row k + 1), exactly.
 template <int I>
 __device__ __forceinline__ uint32_t i8_pair_bf16x2(uint32_t a, uint32_t b) {
-  const uint32_t p = __byte_perm(a, b, I | (I << 4) | ((4 + I) << 8) | ((4 + I) << 12));
-  return fma_bf16x2((p & 0x007F007Fu) | kI8Exp, 0x3F803F80u, (p & 0x00800080u) | kI8Sign);
+  return i8_rows_bf16x2(__byte_perm(a, b, I | (I << 4) | ((4 + I) << 8) | ((4 + I) << 12)));
 }
 
 // The A fragments of the two products of one k16 step from a thread's weight

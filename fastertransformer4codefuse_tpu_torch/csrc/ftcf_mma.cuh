@@ -1,6 +1,7 @@
-// Warp-level tensor-core helpers shared by the attention tile loops
-// (flash_chunk.cu: K5 and K10; sliding_window.cu: K12): mma.sync m16n8k16 in
-// bf16 with fp32 accumulation, and the ldmatrix loads of its B fragments.
+// Warp-level tensor-core helpers of K12's tile loop (sliding_window.cu):
+// mma.sync m16n8k16 in bf16 with fp32 accumulation and the ldmatrix loads of
+// its B fragments; and pack_bf16, which the wgmma kernels (K5, K10, the GEMM)
+// and the GEMV use too.
 #pragma once
 
 #include <cuda_bf16.h>

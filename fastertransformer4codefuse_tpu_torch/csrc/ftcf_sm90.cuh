@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks of the port's TMA + wgmma kernels (K5,
-// csrc/prefill_flash.cu): mbarriers, the tensor-map TMA load, shared-memory
+// csrc/prefill_flash.cu; K10, csrc/flash_chunk.cu; the prefill-width GEMM,
+// csrc/ftcf_gemm.cuh): mbarriers, the tensor-map TMA loads, shared-memory
 // matrix descriptors for the 128-byte swizzle, the warpgroup products
 // (wgmma.mma_async) and register reallocation. Raw PTX, as the PTX ISA
-// defines each instruction; no CUTLASS.
+// defines each instruction; no CUTLASS. The host side of TMA (encoding the
+// tensor maps) is csrc/ftcf_tma.cuh.
 //
 // Layouts. A TMA box whose inner extent is 64 bf16 (128 bytes), loaded with
 // CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte aligned buffer, lands as rows
@@ -11,9 +13,10 @@
 //  - K-major (the contraction dim contiguous, as Q and K are for Q K^T):
 //    8-row groups of 1024 bytes (the stride byte offset); a 16-wide k step
 //    advances the start address by 32 bytes inside the 128-byte row;
-//  - MN-major (the output dim contiguous, as V [key][dh] is for P V, with
-//    the transpose bit): 64 output columns per 128-byte row, the next 64 at
-//    the leading byte offset, the next 8 keys at the stride byte offset.
+//  - MN-major (the output dim contiguous, as V [key][dh] is for P V, or a
+//    weight [k][n] for x W, with the transpose bit): 64 output columns per
+//    128-byte row, the next 64 at the leading byte offset, the next 8 k rows
+//    at the stride byte offset.
 #pragma once
 
 #include <stdint.h>
@@ -69,6 +72,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap, uint
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of a 2-D tensor map (coordinates innermost first), as above.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap, uint32_t bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -232,4 +245,42 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32]: A and B K-major in shared memory
+// (128-byte swizzle), D fp32 in registers; ``accumulate`` 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 128] += A[64 x 16] B[16 x 128]: A (bf16) in registers, B K-major in
+// shared memory (128-byte swizzle), D fp32.
+__device__ __forceinline__ void wgmma_rs_kb_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 }  // namespace ftcf

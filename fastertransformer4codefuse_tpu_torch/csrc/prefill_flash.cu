@@ -40,11 +40,10 @@
 //    takes its new factors after P V completes); at dh 256, where O alone
 //    takes 128 registers a thread, one tile at a time;
 //  - no atomics and no split over keys: two calls give equal bytes.
-#include <cuda.h>  // CUtensorMap and the encoder's types; the encoder is found at run time
-
 #include "ftcf_common.cuh"
 #include "ftcf_mma.cuh"
 #include "ftcf_sm90.cuh"
+#include "ftcf_tma.cuh"
 
 namespace ftcf {
 
@@ -62,13 +61,6 @@ struct PrefillTile {
   static constexpr int BARS = Q_BYTES + STAGES * 2 * TILE;
   static constexpr size_t SMEM = BARS + 64 + 1024;   // + barriers + alignment slack
 };
-
-// 2^x by the SFU (ex2.approx: 2 ulp; -inf gives 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int DH>
 __device__ __forceinline__ void wgmma_qk(float (&s)[PrefillTile<DH>::BN / 2], uint64_t da,
@@ -389,40 +381,13 @@ prefill_flash_kernel(const __grid_constant__ CUtensorMap tmk,
   }
 }
 
-// cuTensorMapEncodeTiled, resolved through the runtime: the library is not
-// linked against the driver library (-lcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;  // benign race: every setter writes the same value
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The tensor map of a [B, S, nKV, dh] bf16 K or V: boxes of 64 dims x 1 head
 // x bn keys x 1 row, 128-byte swizzle, zeros past S.
 static bool kv_tensor_map(CUtensorMap* m, const void* p, int B, int S, int nKV, int dh, int bn) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)nKV, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2, (cuuint64_t)nKV * dh * 2,
-                                 (cuuint64_t)S * nKV * dh * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)bn, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tensor_map<4>(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p,
+                       {(uint64_t)dh, (uint64_t)nKV, (uint64_t)S, (uint64_t)B},
+                       {(uint64_t)dh * 2, (uint64_t)nKV * dh * 2, (uint64_t)S * nKV * dh * 2},
+                       {64, 1, (uint32_t)bn, 1}, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int DH>

@@ -10,8 +10,10 @@
 // Two regimes on the H100:
 //  - decode widths (M <= 32) are bound by the K*N weight bytes: the
 //    weight-streaming GEMV of ftcf_gemv.cuh;
-//  - prefill widths are bound by the tensor cores: the wmma bf16 GEMM of
-//    ftcf_gemm.cuh, which converts the int8 tile to bf16 while staging it.
+//  - prefill widths are bound by the tensor cores: the TMA + wgmma GEMM of
+//    ftcf_gemm.cuh, whose consumer warps convert their channels of each raw
+//    int8 weight tile into the products' A fragments, in registers, while
+//    the previous tile's products run.
 #include "ftcf_gemm.cuh"
 #include "ftcf_gemv.cuh"
 

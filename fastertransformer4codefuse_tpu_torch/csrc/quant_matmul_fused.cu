@@ -26,8 +26,8 @@
 // [M, N1 + N2] array that its caller slices; here each segment writes its own
 // buffer, so the up half (h) is the contiguous [M, F] that K3 then reads.
 // Decode widths (M <= 32) run the GEMV with the segments joined over N;
-// prefill widths the wmma GEMM of ftcf_gemm.cuh with the A operand, weight,
-// scales, bias and activation chosen by the column tile. Each segment's
+// prefill widths the TMA + wgmma GEMM of ftcf_gemm.cuh with x (its tensor
+// map), weight, scales, bias and activation chosen by the column tile. Each segment's
 // arithmetic is K1's (K6's, K7's) on its own: the same splits, tiles and
 // summation order.
 //
@@ -116,7 +116,7 @@ int ftcf_gemv_ncat(int fmt, int G, int M, int K, const void* x1, const void* w1,
   return (int)cudaErrorInvalidValue;
 }
 
-// K13 at prefill widths: the same two outputs from one wmma GEMM launch
+// K13 at prefill widths: the same two outputs from one GEMM launch
 // (int8, int4, or int4 with bf16 group scales).
 int ftcf_gemm_ncat(int fmt, int G, int M, int K, const void* x1, const void* w1, const void* s1,
                    int N1, const void* b1, int b1_bf16, int act1, void* y1, const void* x2,

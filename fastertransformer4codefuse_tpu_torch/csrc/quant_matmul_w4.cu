@@ -19,9 +19,11 @@
 // with group scales, as the JAX kernel applies them to each group's partial
 // sum, a run of K rows inside one group sums into a partial that is
 // multiplied by the group's scale row once, and a split holds whole groups). Prefill
-// widths are bound by the tensor cores: the wmma GEMM of ftcf_gemm.cuh, which
-// unpacks the nibbles while staging the weight tile as bf16 (group scales
-// folded into the bf16 weight).
+// widths are bound by the tensor cores: the TMA + wgmma GEMM of
+// ftcf_gemm.cuh, whose consumer warps unpack their channels of each raw
+// packed tile into the products' A fragments, in registers (group scales,
+// which arrive by TMA beside it, folded into the bf16 weight), while the
+// previous tile's products run.
 #include "ftcf_gemm.cuh"
 #include "ftcf_gemv.cuh"
 

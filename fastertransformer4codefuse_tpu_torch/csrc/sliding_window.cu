@@ -18,7 +18,8 @@
 // tiles, which L2 serves, so the floor is the bytes: q, k and v of the
 // unpadded rows (no padded row is read) and the whole out, once each.
 //
-// Design: K5/K10's tile loop (csrc/flash_chunk.cu) with a band policy, kept
+// Design: the mma.sync tile loop K5 and K10 ran before they moved to wgmma +
+// TMA (prefill_flash.cu, flash_chunk.cu), with a band policy, kept
 // in its own file so that the decode/prefill kernels' instances do not
 // change. One block of 8 warps per (128-query tile, head, row); each warp
 // owns 16 query rows and keeps their Q fragments in registers. The block

@@ -11,9 +11,10 @@ ops/flash_decode.py).
   through a block table): the same math over the paged pool
   ``[L, P, nKV, ps, dh]``, logical position s of row b at
   ``page_table[b, s // ps]``, offset ``s % ps``.
-- K10 ``flash_chunk_paged`` (``csrc/flash_chunk.cu``): C consecutive
-  queries per row starting at ``pos[b]`` over the paged pool; query c
-  attends keys ``0 .. pos[b] + c``.
+- K10 ``flash_chunk_paged`` (``csrc/flash_chunk.cu``, wgmma + TMA): C
+  consecutive queries per row starting at ``pos[b]`` over the paged pool;
+  query c attends keys ``0 .. pos[b] + c``. Pages of any size the pool takes
+  (bf16 pages: a multiple of 8).
 - K11 ``flash_decode_beam_stacked`` (K4's body, positions addressed through
   the beam indirection): beam-minor rows (row b * bw + j) over the dense
   slab, position s of row b read from row ``b - b % bw + indir[b, s]``.
@@ -30,6 +31,8 @@ kernel's oracle. A CPU tensor takes it; a CUDA tensor launches the kernel or
 raises.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -384,6 +387,39 @@ flash_decode_paged.launches = 0
 flash_decode_paged.launches_packed = 0
 
 
+def chunk_key_tile(dh: int) -> int:
+    """Keys a tile of K10 (``csrc/flash_chunk.cu``) holds: 16 KB of bf16 K."""
+    return 64 if dh == 128 else 32
+
+
+def chunk_page_box(ps: int, dh: int) -> int:
+    """Keys one TMA box of K10 brings: g = gcd(page size, key tile), so that
+    no box crosses a page and a key tile is a whole number of boxes (g / 2
+    pair rows of packed int4 pages, whose page size is even)."""
+    return math.gcd(ps, chunk_key_tile(dh))
+
+
+CHUNK_MAX_RANKED = 256  # csrc/flash_chunk.cu FC_MAX_RANKED
+
+
+def chunk_block_order(pos, C: int, gq: int, n_pg: int, ps: int, dh: int) -> list:
+    """The (query tile, row) pairs of one K10 launch in the order its blocks
+    take them (each block ranks the pairs in-kernel, from pos on the
+    device): the most key tiles first, ties by tile then row; past
+    ``CHUNK_MAX_RANKED`` pairs, query tiles descending, rows ascending."""
+    R, B, bn = C * gq, len(pos), chunk_key_tile(dh)
+    n_rt = -(-R // 128)
+    cands = [(t, b) for t in range(n_rt) for b in range(B)]
+    if len(cands) > CHUNK_MAX_RANKED:
+        return [(n_rt - 1 - i // B, i % B) for i in range(len(cands))]
+
+    def work(tb):  # the pair's key tiles, less one
+        t, b = tb
+        return min(int(pos[b]) + (min(R, 128 * t + 128) - 1) // gq, n_pg * ps - 1) // bn
+
+    return sorted(cands, key=lambda tb: -work(tb))  # stable: ties keep index order
+
+
 def flash_chunk_paged_plain(q, pk, pks, pv, pvs, layer, pos, page_table, sm_scale):
     """Full-softmax form of K10's math (the JAX _kernel in chunk mode): fp32
     scores times the key scales and sm_scale, query c of row b bounded at
@@ -435,6 +471,8 @@ def flash_chunk_paged(
     L, nKV, ps, kfmt, vfmt = _check_pages("flash_chunk_paged", q.dtype, pk, pks, pv, pvs,
                                            page_table, B, dh, nH)
     quant = pks is not None
+    req(quant or ps % 8 == 0, f"flash_chunk_paged: bf16 pages need a page size that is a "
+        f"multiple of 8 (a TMA box lands whole 8-row swizzle groups), got {ps}")
     req(0 <= int(layer) < L, "flash_chunk_paged: layer out of range")
     req(pos.dtype == torch.int32 and pos.shape == (B,) and pos.is_contiguous(),
         "flash_chunk_paged: pos must be int32 [B]")

@@ -3,8 +3,8 @@
 Port of ops/quant_matmul.py (``quant_matmul_pallas_stacked``, and through a
 layer's view of the stacked weight the 2-D ``quant_matmul_pallas``). The CUDA
 kernel is ``csrc/quant_matmul.cu``: a weight-streaming GEMV at decode widths
-(M <= 32) and a wmma bf16 GEMM with the int8 -> bf16 conversion in shared
-memory above. ``quant_matmul_plain`` is the same function in plain PyTorch:
+(M <= 32) and, above, a TMA + wgmma GEMM whose warps convert each raw int8
+weight tile to bf16 A fragments in registers (``csrc/ftcf_gemm.cuh``). ``quant_matmul_plain`` is the same function in plain PyTorch:
 the CPU path and the kernel's oracle.
 """
 from __future__ import annotations
@@ -19,6 +19,8 @@ from . import _cuda
 from .linear import ACT_CODES, apply_act
 
 GEMV_MAX_M = 32  # widest x the weight-streaming path takes
+# the prefill-width GEMM's block (rows x columns) and k tile (csrc/ftcf_gemm.cuh)
+GEMM_BM, GEMM_BN, GEMM_BK = 128, 128, 64
 
 
 def quant_matmul_plain(
@@ -70,6 +72,19 @@ def gemv_ranges(K: int, N: int, device: torch.device, share: float = 1.0, bits: 
                 group_size: int = 0) -> tuple[int, int]:
     """``split_ranges`` on ``device``'s SM count."""
     return split_ranges(K, N, _sm_count(device.index or 0), share, bits, group_size)
+
+
+def gemm_tiles(M: int, N1: int, N2: int = 0) -> int:
+    """Blocks of one prefill-width GEMM launch over segments of N1 and N2
+    columns (K13 joins two): 128 x 128 output tiles, each segment's own."""
+    return -(-M // GEMM_BM) * (-(-N1 // GEMM_BN) + -(-N2 // GEMM_BN))
+
+
+def gemm_group_rows(K: int, G: int) -> int:
+    """Group-scale rows the GEMM's TMA brings with each 64-deep k tile: the
+    most groups of G rows any k tile of K touches (csrc/ftcf_gemm.cuh
+    ``gemm_group_rows``, the same rule)."""
+    return max((min(k0 + GEMM_BK, K) - 1) // G - k0 // G + 1 for k0 in range(0, K, GEMM_BK))
 
 
 def check_operands(x, w, scale, bias, name, bits=8, group_size=0):

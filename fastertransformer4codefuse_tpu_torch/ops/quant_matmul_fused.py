@@ -168,7 +168,7 @@ def fused_qkv_up(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K13: ``(act1(x1 @ w1 * s1 + b1), act2(x2 @ w2 * s2 + b2))``, [M, N1]
     and [M, N2] in x's dtype, from one launch: the weight-streaming GEMV at
-    M <= 32, the wmma GEMM above."""
+    M <= 32, the TMA + wgmma GEMM above."""
     if not x1.is_cuda:
         return fused_qkv_up_plain(x1, x2, w1, w2, s1, s2, b1, b2, act1, act2, bits, group_size)
     check_operands(x1, w1, s1, b1, "fused_qkv_up", bits=bits, group_size=group_size)

@@ -14,7 +14,7 @@ weight is free, so the JAX package's stacked and 2-D forms are one entry here:
   uses it): K6 with fp32 out and no bias.
 
 The CUDA is ``csrc/quant_matmul_w4.cu``: a weight-streaming GEMV at decode
-widths (M <= 32) and a wmma bf16 GEMM above. Each ``*_plain`` function is the
+widths (M <= 32) and the TMA + wgmma GEMM of ``csrc/ftcf_gemm.cuh`` above. Each ``*_plain`` function is the
 same math in plain PyTorch (unpack to int8, dequantize in fp32, contract in
 fp32, bias and activation in fp32, one rounding to the output dtype): the CPU
 path and the kernel's oracle.

@@ -1,19 +1,32 @@
 #!/usr/bin/env python3
-"""Time the port's weight-streaming GEMVs (K1, K3, K6, K7, K8 and K13's GEMV
-form) at CodeFuse-13B shapes on one NVIDIA GPU, for an A/B of two copies of
-the port on one card.
+"""Time the port's weight-only GEMVs, its prefill-width GEMM and K10 at
+CodeFuse-13B shapes on one NVIDIA GPU, for an A/B of two copies of the port
+on one card.
 
-    python3 gemv_ab.py [--root DIR] [--label NAME] [--widths 1,4,8]
+    python3 gemv_ab.py [--root DIR] [--label NAME] [--kernels gemv,gemm,k10]
+                       [--widths 1,4,8]
 
 ``--root`` is the directory that holds the ``fastertransformer4codefuse_tpu_torch``
 package to time (default: the one beside this script), so one call can time
-an unpacked copy of another commit, in turns with this one. Each case is
-checked against its plain version (max |kernel - plain| / max |plain| below
-1e-2) and timed as ``chip_smoke.py`` times its kernels (CUDA events, median
-of 5 windows of 10 calls, a sleep kernel ahead of each window); ``torch._weight_int4pack_mm`` on the QKV shape
-is timed beside at every width above 1. Prints one JSON object a line, the
-card's name and power limit first; exits non-zero without a card or on a
-miss.
+an unpacked copy of another commit, in turns with this one (parent, tree,
+tree, parent). ``--kernels`` picks the groups of cases:
+
+- ``gemv`` (the default): K1, K3, K6, K7, K8 and K13's GEMV form at the
+  ``--widths`` (M <= 32), with ``torch._weight_int4pack_mm`` on the QKV
+  shape beside at every width above 1;
+- ``gemm``: the prefill-width GEMM (M > 32): K13 int8 and int4 g128 at
+  M = 512, 1024 and 3072, K1 proj (5120 -> 5120) and down (20480 -> 5120)
+  at 1024 and 3072, K6 and K7 QKV at 1024, K8's head at 64;
+- ``k10``: chunked-prefill attention over pages (B = 8 rows of C = 128
+  queries starting at 0 .. 1920, 40 heads x 128) on int8, packed int4 and
+  bf16 pages of 256, and int8 pages of 128.
+
+Each case is checked against its plain version (max |kernel - plain| / max
+|plain| below 1e-2 for the GEMMs, 2e-2 for K10) and timed as
+``chip_smoke.py`` times its kernels (CUDA events, median of 5 windows of 10
+calls, a sleep kernel ahead of each window). Prints one JSON object a line,
+the card's name and power limit first; exits non-zero without a card or on
+a miss.
 """
 from __future__ import annotations
 
@@ -30,8 +43,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--label", default="tree")
+    ap.add_argument("--kernels", default="gemv")
     ap.add_argument("--widths", default="1,4,8")
     args = ap.parse_args()
+    groups = set(args.kernels.split(","))
+    if not groups <= {"gemv", "gemm", "k10"}:
+        print(f"gemv_ab: --kernels takes gemv, gemm and k10, got {args.kernels}",
+              file=sys.stderr)
+        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -39,6 +58,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
     from fastertransformer4codefuse_tpu_torch.ops import _cuda
+    from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
+        flash_chunk_paged, flash_chunk_paged_plain,
+    )
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import (
         quant_matmul, quant_matmul_plain,
     )
@@ -59,6 +81,7 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1234)
     H, F, V = 5120, 20480, 102400
+    ok = True
 
     def i8(*shape):
         return torch.empty(shape, dtype=torch.int8, device=dev).random_(-128, 128, generator=gen)
@@ -72,59 +95,117 @@ def main() -> int:
     def gscale(k, n, qmax, dtype, G=128):
         return scale((k // G, n), qmax).to(dtype)
 
+    def run(name, M, kernel, plain, a, tol=1e-2, rel_of=None):
+        nonlocal ok
+        got, ref = kernel(*a), plain(*a)
+        if isinstance(got, tuple):
+            got, ref = torch.cat(got, 1), torch.cat(ref, 1)
+        rel = (rel_of or (lambda g, r: ((g.float() - r.float()).abs().max()
+                                        / r.float().abs().max()).item()))(got, ref)
+        ok &= rel < tol
+        del got, ref
+        print(json.dumps({"label": args.label, "case": name, "M": M,
+                          "ms": device_time_ms(torch, lambda: kernel(*a)), "rel": rel}),
+              flush=True)
+
     bf16, f32 = torch.bfloat16, torch.float32
-    w8q, s8q, w4q, s4q = i8(H, 3 * H), scale(3 * H, 127), i8(H // 2, 3 * H), scale(3 * H, 7)
-    g4q = gscale(H, 3 * H, 7, bf16)
-    w8u, s8u, w4u, s4u = i8(H, F), scale(F, 127), i8(H // 2, F), scale(F, 7)
-    g4u = gscale(H, F, 7, bf16)
-    w8p, w8d, s8p, s8d = i8(H, H), i8(F, H), scale(H, 127), scale(H, 127)
-    w4p, w4d, s4p, s4d = i8(H // 2, H), i8(F // 2, H), scale(H, 7), scale(H, 7)
-    g4p, g4d, g8p, g8d = (gscale(H, H, 7, bf16), gscale(F, H, 7, bf16), gscale(H, H, 127, f32),
-                          gscale(F, H, 127, f32))
-    bq, bu, bd = bf(3 * H, std=0.02), bf(F, std=0.02), bf(H, std=0.02)
-    wh, sh = i8(H // 2, V), scale(V, 7)
-    lib_w = torch._convert_weight_to_int4pack(
-        torch.randint(0, 256, (3 * H, H // 2), dtype=torch.uint8, device=dev, generator=gen), 8)
-    ok = True
-    for M in (int(w) for w in args.widths.split(",")):
-        x1, x2, h, res = bf(M, H), bf(M, H), bf(M, F, std=0.5), bf(M, H)
+    if "gemv" in groups or "gemm" in groups:
+        w8q, s8q, w4q, s4q = i8(H, 3 * H), scale(3 * H, 127), i8(H // 2, 3 * H), scale(3 * H, 7)
+        g4q = gscale(H, 3 * H, 7, bf16)
+        w8u, s8u, w4u, s4u = i8(H, F), scale(F, 127), i8(H // 2, F), scale(F, 7)
+        g4u = gscale(H, F, 7, bf16)
+        w8p, w8d, s8p, s8d = i8(H, H), i8(F, H), scale(H, 127), scale(H, 127)
+        bq, bu, bd = bf(3 * H, std=0.02), bf(F, std=0.02), bf(H, std=0.02)
+        wh, sh = i8(H // 2, V), scale(V, 7)
         act = "gelu-tanh"
-        cases = {
-            "K1 qkv": (quant_matmul, quant_matmul_plain, (x1, w8q, s8q, bq)),
-            "K6 qkv": (quant_matmul_w4, quant_matmul_w4_plain, (x1, w4q, s4q, bq)),
-            "K7 qkv g128": (quant_matmul_w4_group, quant_matmul_w4_group_plain,
-                            (x1, w4q, g4q, 128, bq)),
-            "K8 head": (quant_matmul_w4_head, quant_matmul_w4_head_plain, (x1, wh, sh)),
-            "K13 int8": (fused_qkv_up, fused_qkv_up_plain,
-                         (x1, x2, w8q, w8u, s8q, s8u, bq, bu, None, act, 8, 0)),
-            "K13 int4": (fused_qkv_up, fused_qkv_up_plain,
-                         (x1, x2, w4q, w4u, s4q, s4u, bq, bu, None, act, 4, 0)),
-            "K13 int4 g128": (fused_qkv_up, fused_qkv_up_plain,
-                              (x1, x2, w4q, w4u, g4q, g4u, bq, bu, None, act, 4, 128)),
-            "K3 int8": (fused_proj_down, fused_proj_down_plain,
-                        (x1, h, w8p, w8d, s8p, s8d, bd, res, 8, 0)),
-            "K3 int4": (fused_proj_down, fused_proj_down_plain,
-                        (x1, h, w4p, w4d, s4p, s4d, bd, res, 4, 0)),
-            "K3 int4 g128": (fused_proj_down, fused_proj_down_plain,
-                             (x1, h, w4p, w4d, g4p, g4d, bd, res, 4, 128)),
-            "K3 int8 g128": (fused_proj_down, fused_proj_down_plain,
-                             (x1, h, w8p, w8d, g8p, g8d, bd, res, 8, 128)),
-        }
-        for name, (kernel, plain, a) in cases.items():
-            got, ref = kernel(*a), plain(*a)
-            if isinstance(got, tuple):
-                got, ref = torch.cat(got, 1), torch.cat(ref, 1)
-            rel = ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
-            ok &= rel < 1e-2
-            print(json.dumps({"label": args.label, "case": name, "M": M,
-                              "ms": device_time_ms(torch, lambda: kernel(*a)), "rel": rel}),
-                  flush=True)
-        if M > 1:
-            sz = torch.ones(H // 128, 3 * H, 2, dtype=bf16, device=dev)
-            print(json.dumps({"label": args.label, "case": "_weight_int4pack_mm qkv g128", "M": M,
-                              "ms": device_time_ms(
-                                  torch, lambda: torch._weight_int4pack_mm(x1, lib_w, 128, sz))}),
-                  flush=True)
+    if "gemv" in groups:
+        w4p, w4d, s4p, s4d = i8(H // 2, H), i8(F // 2, H), scale(H, 7), scale(H, 7)
+        g4p, g4d, g8p, g8d = (gscale(H, H, 7, bf16), gscale(F, H, 7, bf16),
+                              gscale(H, H, 127, f32), gscale(F, H, 127, f32))
+        lib_w = torch._convert_weight_to_int4pack(
+            torch.randint(0, 256, (3 * H, H // 2), dtype=torch.uint8, device=dev,
+                          generator=gen), 8)
+        for M in (int(w) for w in args.widths.split(",")):
+            x1, x2, h, res = bf(M, H), bf(M, H), bf(M, F, std=0.5), bf(M, H)
+            cases = {
+                "K1 qkv": (quant_matmul, quant_matmul_plain, (x1, w8q, s8q, bq)),
+                "K6 qkv": (quant_matmul_w4, quant_matmul_w4_plain, (x1, w4q, s4q, bq)),
+                "K7 qkv g128": (quant_matmul_w4_group, quant_matmul_w4_group_plain,
+                                (x1, w4q, g4q, 128, bq)),
+                "K8 head": (quant_matmul_w4_head, quant_matmul_w4_head_plain, (x1, wh, sh)),
+                "K13 int8": (fused_qkv_up, fused_qkv_up_plain,
+                             (x1, x2, w8q, w8u, s8q, s8u, bq, bu, None, act, 8, 0)),
+                "K13 int4": (fused_qkv_up, fused_qkv_up_plain,
+                             (x1, x2, w4q, w4u, s4q, s4u, bq, bu, None, act, 4, 0)),
+                "K13 int4 g128": (fused_qkv_up, fused_qkv_up_plain,
+                                  (x1, x2, w4q, w4u, g4q, g4u, bq, bu, None, act, 4, 128)),
+                "K3 int8": (fused_proj_down, fused_proj_down_plain,
+                            (x1, h, w8p, w8d, s8p, s8d, bd, res, 8, 0)),
+                "K3 int4": (fused_proj_down, fused_proj_down_plain,
+                            (x1, h, w4p, w4d, s4p, s4d, bd, res, 4, 0)),
+                "K3 int4 g128": (fused_proj_down, fused_proj_down_plain,
+                                 (x1, h, w4p, w4d, g4p, g4d, bd, res, 4, 128)),
+                "K3 int8 g128": (fused_proj_down, fused_proj_down_plain,
+                                 (x1, h, w8p, w8d, g8p, g8d, bd, res, 8, 128)),
+            }
+            for name, (kernel, plain, a) in cases.items():
+                run(name, M, kernel, plain, a)
+            if M > 1:
+                sz = torch.ones(H // 128, 3 * H, 2, dtype=bf16, device=dev)
+                print(json.dumps({"label": args.label, "case": "_weight_int4pack_mm qkv g128",
+                                  "M": M, "ms": device_time_ms(
+                                      torch, lambda: torch._weight_int4pack_mm(x1, lib_w, 128,
+                                                                               sz))}),
+                      flush=True)
+        del w4p, w4d, lib_w
+    if "gemm" in groups:
+        for M in (512, 1024, 3072):
+            x1, x2 = bf(M, H), bf(M, H)
+            run("K13 int8", M, fused_qkv_up, fused_qkv_up_plain,
+                (x1, x2, w8q, w8u, s8q, s8u, bq, bu, None, act, 8, 0))
+            run("K13 int4 g128", M, fused_qkv_up, fused_qkv_up_plain,
+                (x1, x2, w4q, w4u, g4q, g4u, bq, bu, None, act, 4, 128))
+            if M == 512:
+                continue
+            h = bf(M, F, std=0.5)
+            run("K1 proj", M, quant_matmul, quant_matmul_plain, (x1, w8p, s8p, bd))
+            run("K1 down", M, quant_matmul, quant_matmul_plain, (h, w8d, s8d, bd))
+            if M == 1024:
+                run("K6 qkv", M, quant_matmul_w4, quant_matmul_w4_plain, (x1, w4q, s4q, bq))
+                run("K7 qkv g128", M, quant_matmul_w4_group, quant_matmul_w4_group_plain,
+                    (x1, w4q, g4q, 128, bq))
+            del x1, x2, h
+        x = bf(64, H)
+        run("K8 head", 64, quant_matmul_w4_head, quant_matmul_w4_head_plain, (x, wh, sh),
+            tol=1e-4)
+    if "k10" in groups:
+        B, nKV, dh, C, L = 8, 40, 128, 128, 2
+        starts = torch.tensor([0, 128, 384, 640, 896, 1152, 1536, 1920], dtype=torch.int32,
+                              device=dev)
+        q = bf(B, C, nKV, dh)
+
+        def row_rel(g, r):  # each (query, head) row held to its own magnitude
+            d = (g.float() - r.float()).abs()
+            return (d.amax(-1) / r.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+
+        for ps in (256, 128):
+            n_pg = 2048 // ps
+            P = B * n_pg + 1
+            pt = (torch.randperm(P - 1, device=dev, generator=gen) + 1).reshape(
+                B, n_pg).to(torch.int32)
+            sk = (torch.rand((L, P, nKV, ps), device=dev, generator=gen) * 0.02).to(bf16)
+            sv = (torch.rand((L, P, nKV, ps), device=dev, generator=gen) * 0.02).to(bf16)
+            pk8, pv8 = i8(L, P, nKV, ps, dh), i8(L, P, nKV, ps, dh)
+            kinds = [("int8", (pk8, sk, pv8, sv))]
+            if ps == 256:
+                kinds += [("int4", (i8(L, P, nKV, ps // 2, dh), sk, i8(L, P, nKV, ps // 2, dh),
+                                    sv)),
+                          ("bf16", (bf(L, P, nKV, ps, dh), None, bf(L, P, nKV, ps, dh), None))]
+            for tag, (a, sa, b_, sb) in kinds:
+                run(f"K10 {tag} pages of {ps}", B * C, flash_chunk_paged,
+                    flash_chunk_paged_plain, (q, a, sa, b_, sb, 1, starts, pt, dh ** -0.5),
+                    tol=2e-2, rel_of=row_rel)
+            del kinds, pk8, pv8, a, b_
     return 0 if ok else 1
 
 

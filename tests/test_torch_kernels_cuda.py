@@ -5,7 +5,12 @@ segments also bit for bit against K1/K6/K7 run alone; K5 at key tiles and
 one past them, lengths of 1, GQA up to 8 query heads a KV head, two calls
 equal byte for byte), K4/K9/K10/K11 also on packed int4 caches (chip_smoke.py
 covers the CodeFuse-13B and Longformer-base shapes); K11 also bit for bit
-against K4 over a physically gathered copy of its cache. Marked
+against K4 over a physically gathered copy of its cache. The prefill-width
+GEMM (K1/K6/K7/K13 at M > 32) at its tile edges, on a layer's view of a
+stacked weight, with ragged K13 segments, its rows bit for bit the same at
+every M and two calls equal; K10 on pages under a key tile, 8 query heads a
+KV head, chunks across three pages, every format poisoned past the chunk,
+two calls equal, and its refusal of bf16 pages off the swizzle groups. Marked
 ``cuda``: skipped where there is no GPU. On a GPU machine without jax:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -877,3 +882,172 @@ def test_gemv_reads_no_row_past_m(gen, M, bits, G):
         torch.cuda.synchronize()
         assert bool(torch.isfinite(y.float()).all()), name
         assert torch.equal(y, _cat(clean[name][0]())), name
+
+
+# --- the prefill-width GEMM (TMA + wgmma, csrc/ftcf_gemm.cuh) at its tile
+# edges: 128-row blocks (M = 33 .. 1000), 64-deep k tiles (K = 136 ends
+# inside one; 20480 is the FFN's down), 128- and 256-column blocks (N = 48
+# and 144 end inside one; 2304 is BERT-base's QKV), groups of 32 inside one
+# k tile (of 34, across two, where 32 does not divide K). K1, K6 and K7 on
+# each shape.
+GEMM_EDGE_M = [33, 64, 127, 129, 130, 257, 1000]
+GEMM_EDGE_KN = [(136, 48), (136, 144), (1024, 2304), (20480, 144)]
+
+
+def _gemm_calls(gen, K, N, w_all=None):
+    """(name, kernel(x), plain(x)) of K1, K6 and K7 on one random [K, N]
+    weight (or a layer's view of ``w_all``'s stacked weights)."""
+    G = 32 if K % 32 == 0 else 34
+    w8 = _i8(gen, K, N) if w_all is None else w_all[0]
+    p4 = _i8(gen, K // 2, N) if w_all is None else w_all[1]
+    s8, s4, g4 = _scale(gen, N), _scale(gen, N) * 16, _gscale(gen, K // G, N)
+    b = _bf(gen, N, std=0.1)
+    return [
+        ("K1", lambda x: quant_matmul(x, w8, s8, b, "gelu-tanh"),
+         lambda x: quant_matmul_plain(x, w8, s8, b, "gelu-tanh")),
+        ("K6", lambda x: quant_matmul_w4(x, p4, s4, b),
+         lambda x: quant_matmul_w4_plain(x, p4, s4, b)),
+        ("K7", lambda x: quant_matmul_w4_group(x, p4, g4, G, b, "relu"),
+         lambda x: quant_matmul_w4_group_plain(x, p4, g4, G, b, "relu")),
+    ]
+
+
+@pytest.mark.parametrize("K,N", GEMM_EDGE_KN)
+@pytest.mark.parametrize("M", GEMM_EDGE_M)
+def test_gemm_tile_edges_match_plain(gen, M, K, N):
+    x = _bf(gen, M, K)
+    for name, kernel, plain in _gemm_calls(gen, K, N):
+        got = kernel(x)
+        assert got.shape == (M, N)
+        assert _rel(got, plain(x)) < 1e-2, name
+
+
+@pytest.mark.parametrize("M", [130, 257])
+def test_gemm_layer_view_of_stacked_weights(gen, M):
+    """A layer's view of a stacked weight (its offset 16-byte aligned) is a
+    TMA tensor of its own."""
+    K, N = 512, 384
+    w_all = (_i8(gen, 3, K, N)[2], _i8(gen, 3, K // 2, N)[1])
+    x = _bf(gen, M, K)
+    for name, kernel, plain in _gemm_calls(gen, K, N, w_all=w_all):
+        assert _rel(kernel(x), plain(x)) < 1e-2, name
+
+
+@pytest.mark.parametrize("M", [33, 130, 257])
+@pytest.mark.parametrize("bits,G", [(8, 0), (4, 0), (4, 32)])
+def test_k13_gemm_ragged_segments_match_plain(gen, M, bits, G):
+    """K13's GEMM form with segment widths that are not block multiples."""
+    K, N1, N2 = 1088, 400, 272
+    x1, x2 = _bf(gen, M, K), _bf(gen, M, K)
+    w1, s1 = _fmt_weight(gen, K, N1, bits, G)
+    w2, s2 = _fmt_weight(gen, K, N2, bits, G)
+    args = (x1, x2, w1, w2, s1, s2, _bf(gen, N1, std=0.1), None, None, "gelu", bits, G)
+    y1, y2 = fused_qkv_up(*args)
+    r1, r2 = fused_qkv_up_plain(*args)
+    assert _rel(torch.cat([y1, y2], 1), torch.cat([r1, r2], 1)) < 1e-2
+
+
+@pytest.mark.parametrize("K,N", [(1024, 2304), (5120, 15360)])
+def test_gemm_rows_are_the_same_at_every_m(gen, K, N):
+    """Row r of the GEMM's output is bit for bit the same at every M > 32
+    (no split over k, one k order a column whatever M), and two calls give
+    equal bytes: K1, K6, K7 and K13."""
+    x, x2 = _bf(gen, 1000, K), _bf(gen, 1000, K)
+    calls = _gemm_calls(gen, K, N)
+    w1, s1 = _fmt_weight(gen, K, N, 8, 0)
+    w2, s2 = _fmt_weight(gen, K, 3 * 128, 8, 0)
+    calls.append(("K13", lambda xx: torch.cat(fused_qkv_up(
+        xx, x2[:xx.shape[0]], w1, w2, s1, s2, None, None, None, "gelu"), 1), None))
+    for name, kernel, _ in calls:
+        full = kernel(x)
+        assert torch.equal(full, kernel(x)), name
+        for M in (33, 64, 129, 130, 257, 999):
+            assert torch.equal(kernel(x[:M]), full[:M]), (name, M)
+
+
+# --- K10 on TMA + wgmma (csrc/flash_chunk.cu): page sizes under a key tile
+# (16 and 32 keys), a page size that is not a power of two, 8 query heads a
+# KV head, chunks of 33 and 100 queries, a chunk across three pages, every
+# (K, V) format.
+def _kv_pages(gen, kind, L, P, nKV, ps, dh):
+    if kind == "bf16":
+        return _pages(gen, L, P, nKV, ps, dh, False)
+    if kind == "int8":
+        return _pages(gen, L, P, nKV, ps, dh, True)
+    return _packed(gen, (L, P, nKV, ps, dh), kind)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "int8k_int4v"])
+@pytest.mark.parametrize("ps,n_pg,nH,nKV,dh,C", [(16, 24, 8, 1, 128, 100), (32, 12, 16, 2, 128, 33),
+                                                 (48, 8, 4, 4, 256, 100), (256, 2, 8, 1, 256, 64)])
+def test_k10_page_sizes_and_groups_match_plain(gen, kind, ps, n_pg, nH, nKV, dh, C):
+    L, B = 2, 3
+    S = ps * n_pg
+    P = B * n_pg + 1
+    pk, pks, pv, pvs = _kv_pages(gen, kind, L, P, nKV, ps, dh)
+    pt = _table(gen, B, n_pg, P)
+    q = _bf(gen, B, C, nH, dh)
+    # row 1's chunk spans three pages; row 2 ends at the table's last key
+    pos = torch.tensor([0, ps - 3, S - C], dtype=torch.int32, device="cuda")
+    sm = dh ** -0.5
+    got = flash_chunk_paged(q, pk, pks, pv, pvs, 1, pos, pt, sm)
+    assert _rel(got, flash_chunk_paged_plain(q, pk, pks, pv, pvs, 1, pos, pt, sm)) < 2e-2
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "int8k_int4v"])
+def test_k10_reads_stop_at_the_chunk_every_format(gen, kind):
+    """Keys past the chunk's last query are never used, whatever the page
+    format: poisoning them (bf16 K 1e4 and V NaN; the scales of quantized
+    pages NaN and their payload bytes random) changes nothing, also inside
+    the last key tile that TMA brings whole."""
+    B, nKV, dh, ps, C = 2, 2, 128, 128, 8
+    pk, pks, pv, pvs = _kv_pages(gen, kind, 1, 5, nKV, ps, dh)
+    pt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device="cuda")
+    q = _bf(gen, B, C, nKV * 4, dh)
+    pos = torch.tensor([16, 100], dtype=torch.int32, device="cuda")
+    clean = flash_chunk_paged(q, pk, pks, pv, pvs, 0, pos, pt, 0.09)
+    for b, s in enumerate(pos.tolist()):
+        end = s + C  # the first key past the chunk (even: whole pair rows below)
+        for slab, scales, poison in ((pk, pks, 1e4), (pv, pvs, float("nan"))):
+            packed = scales is not None and is_packed(slab, scales)
+            first = end // 2 if packed else end
+            if scales is None:
+                slab[0, pt[b, 0], :, first:] = poison
+                slab[0, pt[b, 1]] = poison
+            else:
+                scales[0, pt[b, 0], :, end:] = float("nan")
+                scales[0, pt[b, 1]] = float("nan")
+                slab[0, pt[b, 0], :, first:] = _i8(gen, *slab[0, pt[b, 0], :, first:].shape)
+    again = flash_chunk_paged(q, pk, pks, pv, pvs, 0, pos, pt, 0.09)
+    torch.cuda.synchronize()
+    assert torch.equal(clean, again)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_k10_is_deterministic(gen, kind):
+    """No atomics, no split over keys: two calls give equal bytes."""
+    B, nKV, dh, ps, n_pg, C = 4, 4, 128, 64, 16, 128
+    P = B * n_pg + 1
+    pk, pks, pv, pvs = _kv_pages(gen, kind, 1, P, nKV, ps, dh)
+    pt = _table(gen, B, n_pg, P)
+    q = _bf(gen, B, C, nKV * 2, dh)
+    pos = torch.tensor([0, 333, 500, 896], dtype=torch.int32, device="cuda")
+    a = flash_chunk_paged(q, pk, pks, pv, pvs, 0, pos, pt, 0.09)
+    b = flash_chunk_paged(q, pk, pks, pv, pvs, 0, pos, pt, 0.09)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_k10_refuses_bf16_pages_off_the_swizzle_groups(gen):
+    """bf16 pages land swizzled, 8 rows a swizzle group: K10 refuses a page
+    size that is not a multiple of 8 (quantized pages of that size are
+    taken: they land raw)."""
+    pk, _, pv, _ = _pages(gen, 1, 4, 2, 12, 128, False)
+    pt = torch.ones(1, 2, dtype=torch.int32, device="cuda")
+    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
+    q = _bf(gen, 1, 8, 2, 128)
+    with pytest.raises(ValueError):
+        flash_chunk_paged(q, pk, None, pv, None, 0, pos, pt, 0.1)
+    k8, ks, v8, vs = _pages(gen, 1, 4, 2, 12, 128, True)
+    got = flash_chunk_paged(q, k8, ks, v8, vs, 0, pos, pt, 0.1)
+    assert _rel(got, flash_chunk_paged_plain(q, k8, ks, v8, vs, 0, pos, pt, 0.1)) < 2e-2
