@@ -7,7 +7,8 @@ Phases (any failure exits non-zero):
   1. device, torch and CUDA versions, card name and power limit; build the
      CUDA kernels from ``fastertransformer4codefuse_tpu_torch/csrc``; every
      GEMV instance within 128 registers and without spills, and no TMA +
-     wgmma instance (K5, K10, the GEMM) spilling;
+     wgmma instance (K5, K10, the GEMM) and no decode attention instance
+     (K4/K9/K11 and their combine) spilling;
   2. each kernel (K1-K13; K2/K3 on int4 weights and with group scales,
      int4 and int8, G = 128; the GEMVs K1, K3, K6, K7, K8 and K13's GEMV
      form (int8, int4 and int4 g128) at M = 1, 4 and 8, K1 QKV, K6 and K13
@@ -19,7 +20,12 @@ Phases (any failure exits non-zero):
      ``torch.matmul`` yardstick, then rows of K1, K7 and K13 at M = 130 bit
      for bit the same rows at M = 1024, two calls equal bytes, and the host
      cost of a call; the packed int4 reads of K4/K9/K10/K11; K10 also on
-     pages of 128 and two calls equal bytes)
+     pages of 128 and on bf16 pages of 12 (raw rows), and two calls equal
+     bytes; K4 also at B = 1, S = 4096, with GQA g = 8 (40 query heads) and
+     MQA g = 48 (48 x 128, one KV head), at 80 x 64 heads and MQA g = 80 (80
+     x 64, one KV head), and each row at B = 1 bit for bit its row at B = 8
+     and two calls equal bytes; K9 also at g = 8 and 48; K5 also at 32 x 64
+     heads)
      against its plain PyTorch version at CodeFuse-13B shapes, K12 at Longformer-base shapes (S = 4096, w_half 256, both band
      modes): max error against the stated tolerance, median kernel and
      plain times (CUDA events, device time), the card's bound for the same
@@ -43,7 +49,13 @@ Phases (any failure exits non-zero):
      card (kernels) against the CPU (plain versions);
      and 2-layer Longformer-base (K12; with a global token, the dense path)
      and int8 BERT-base (K1) from random weights under HF's names: hidden
-     states and pooled outputs, card (bf16) against CPU (fp32);
+     states and pooled outputs, card (bf16) against CPU (fp32); no plain
+     attention route taken on any of them; then four tiny configs with
+     attention shapes off the 13B path (64-wide heads, 16 query heads a KV
+     head, a pool on bf16 pages of 4: kernels; 32-wide heads: the plain
+     routes, where the JAX package takes XLA) served on the card and the
+     CPU: the same greedy tokens (teacher-forced past a near-tie), and each
+     route the one the config must take;
   4. CodeFuse-13B (40 layers, full width, int8 KV cache, random weights)
      built on the card, once with int8 weights and then with int4 weights,
      per-channel and group-wise (G = 128), and driven through
@@ -82,7 +94,7 @@ Phases (any failure exits non-zero):
      time, read rate and reader logged; the directory removed.
 For each path of phases 4 to 7 the kernel launch counters are zeroed just
 before it is driven and checked just after against the counts its route must
-give. The line before the last holds the kernels' JSON record; the last line
+give, with the attention dispatchers' ``plain_routes`` at 0. The line before the last holds the kernels' JSON record; the last line
 is the device record. Without a CUDA device, or without the package beside
 it, the script exits non-zero and prints no result.
 """
@@ -107,6 +119,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 CARD = ""  # nvidia-smi's "name, power limit", logged beside each phase-5 measurement
+# the attention dispatchers (prefill_attention, kv_cache.attend_chunk and
+# attend_decode), whose ``plain_routes`` count calls sent to a plain version
+ROUTERS = ()
 
 
 T0 = time.time()
@@ -656,7 +671,10 @@ def phase_kernels(torch, records):
     report_attn("flash_decode", "bf16 cache B=4 S=1152",
            lambda: flash_decode_stacked(q, kb, None, vb, None, 1, pos, sm),
            lambda: flash_decode_stacked_plain(q, kb, None, vb, None, 1, pos, sm), 2e-2,
-           "int8 cache B=4 S=1152")
+           "int8 cache B=4 S=1152",
+           work=(nbytes(q, pos) + n_keys * nH * 4 * dh, 4 * n_keys * nH * dh),
+           fn_lib=sdpa(q[:, :, None], kb[1], vb[1], mask, sm),
+           lib_label="sdpa, the same bf16 K/V")
     # packed int4: "int4" (K and V) and "int8k_int4v" (V only) over the same
     # positions; the bound counts the packed bytes up to each row's position
     k4, v4 = i8(L, B, nH, S // 2, dh), i8(L, B, nH, S // 2, dh)
@@ -672,6 +690,86 @@ def phase_kernels(torch, records):
                            dense_bf16(unpack_seq_pairs(v4[1]), vs[1]), mask, sm),
                lib_label="sdpa, dense bf16 K/V of the same length")
     del k8, v8, kb, vb, k4, v4
+
+    # K4's split-S plan: each row's output at B = 1 is the same row of a B = 8
+    # call (positions across 1-5 splits of 256) bit for bit, and two calls
+    # give equal bytes
+    B8 = 8
+    pos8 = torch.tensor([1151, 0, 255, 256, 257, 700, 1000, 64], dtype=torch.int32, device=dev)
+    q8 = bf(B8, nH, dh)
+    k8, v8 = i8(1, B8, nH, S, dh), i8(1, B8, nH, S, dh)
+    ks8, vs8 = [(torch.rand((1, B8, nH, S), device=dev, generator=gen) * 0.02).to(
+        torch.bfloat16) for _ in range(2)]
+    full = flash_decode_stacked(q8, k8, ks8, v8, vs8, 0, pos8, sm)
+    again = flash_decode_stacked(q8, k8, ks8, v8, vs8, 0, pos8, sm)
+    rows_same = all(
+        torch.equal(full[b], flash_decode_stacked(
+            q8[b:b + 1].contiguous(), k8[:, b:b + 1].contiguous(), ks8[:, b:b + 1].contiguous(),
+            v8[:, b:b + 1].contiguous(), vs8[:, b:b + 1].contiguous(), 0,
+            pos8[b:b + 1].contiguous(), sm)[0]) for b in range(B8))
+    calls_same = torch.equal(full, again)
+    ok &= rows_same and calls_same
+    log(f"  flash_decode       int8 cache: each row at B=1 equals its row at B=8 bit for bit: "
+        f"{rows_same}; two calls give {'equal bytes' if calls_same else 'MISS: other bytes'}")
+    del k8, v8, ks8, vs8, full, again
+
+    # K4 further shapes: a long prompt at B = 1 (split-S fills the card with
+    # one row), GQA with g = 8 at CodeFuse-13B's 40 query heads (5 KV heads),
+    # StarCoder's MQA g = 48 (48 x 128 query heads, one KV head), 64-wide heads
+    # at CodeFuse-13B's width (80 x 64), and those 80 heads on one KV head
+    # (g = 80: two blocks a KV head, 64 and 16 query rows)
+    def attn_case(name, case, B, S, nH, nKV, dh, kinds, fn, fn_p, extra=None):
+        """K4 (or K9 with ``extra`` = (page table, page size)) over random
+        caches of ``kinds``, positions as phase 2's other cases, against
+        the plain version, its bound and SDPA on the same bf16 K/V."""
+        q = bf(B, nH, dh)
+        pos = (torch.tensor([S - 1], dtype=torch.int32, device=dev) if B == 1 else
+               torch.tensor(np.linspace(100, S - 48, B).astype(np.int32), device=dev))
+        n_keys = int((pos + 1).sum())
+        X, n = (B, S) if extra is None else (extra[0].numel() + 1, extra[1])
+        mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
+        g = nH // nKV
+        for kind in kinds:
+            if kind == "bf16":
+                k, kss, v, vss = bf(1, X, nKV, n, dh), None, bf(1, X, nKV, n, dh), None
+            else:
+                k, v = i8(1, X, nKV, n, dh), i8(1, X, nKV, n, dh)
+                kss, vss = [(torch.rand((1, X, nKV, n), device=dev, generator=gen) * 0.02).to(
+                    torch.bfloat16) for _ in range(2)]
+            a = (q, k, kss, v, vss, 0, pos) + ((extra[0],) if extra is not None else ()) + (
+                dh ** -0.5,)
+            if extra is None:
+                kd = dense_bf16(k[0], None if kss is None else kss[0])
+                vd = dense_bf16(v[0], None if vss is None else vss[0])
+            else:
+                kd = dense_bf16(gather_pages(k[0], extra[0]),
+                                None if kss is None else gather_pages(kss[0], extra[0]))
+                vd = dense_bf16(gather_pages(v[0], extra[0]),
+                                None if vss is None else gather_pages(vss[0], extra[0]))
+            per_key = 2 * dh * k.element_size() + (4 if kss is not None else 0)
+            # SDPA takes the g query heads of a KV head as its g query rows
+            qh = q.reshape(B, nKV, g, dh)
+            report_attn(name, f"{kind} {case}", lambda: fn(*a), lambda: fn_p(*a), 2e-2,
+                        None, work=(nbytes(q, pos) + n_keys * nKV * per_key,
+                                    4 * n_keys * nH * dh),
+                        fn_lib=sdpa(qh, kd, vd, mask, dh ** -0.5),
+                        lib_label="sdpa, dense bf16 K/V, g query rows a KV head")
+            del k, v, kd, vd
+
+    attn_case("flash_decode", "B=1 S=4096 40x128", 1, 4096, 40, 40, 128, ("int8",),
+              flash_decode_stacked, flash_decode_stacked_plain)
+    for nh, nkv in ((40, 5), (48, 1)):
+        attn_case("flash_decode", f"B=4 S=1152 {nh}x128 g={nh // nkv}", 4, 1152, nh, nkv, 128,
+                  ("int8", "bf16"), flash_decode_stacked, flash_decode_stacked_plain)
+    attn_case("flash_decode", "B=4 S=1152 80x64", 4, 1152, 80, 80, 64, ("int8", "bf16"),
+              flash_decode_stacked, flash_decode_stacked_plain)
+    attn_case("flash_decode", "B=4 S=1152 80x64 g=80", 4, 1152, 80, 1, 64, ("int8",),
+              flash_decode_stacked, flash_decode_stacked_plain)
+    pt_g = (torch.randperm(64, device=dev, generator=gen) + 1).reshape(8, 8).to(torch.int32)
+    for nh, nkv in ((40, 5), (48, 1)):
+        attn_case("flash_decode_paged", f"pages B=8 pos 100-2000 {nh}x128 g={nh // nkv}", 8,
+                  2048, nh, nkv, 128, ("int8",), flash_decode_paged, flash_decode_paged_plain,
+                  extra=(pt_g, 256))
 
     # K11: beam decode over the dense cache through the indirection, B = 2
     # batches of bw = 4 beams, random indirection, ragged positions; also
@@ -824,17 +922,39 @@ def phase_kernels(torch, records):
                        mask_c, sm),
            lib_label="sdpa, dense bf16 K/V of the same length")
     del pk8, pv8
+    # K10 on bf16 pages of 12 (not a multiple of 8: no box holds whole 8-row
+    # swizzle groups, so the rows land raw and the consumers copy them into
+    # the swizzled layout), the same rows and keys
+    ps3 = 12
+    n_pg3 = -(-S // ps3)
+    P3 = B * n_pg3 + 1
+    pt3 = (torch.randperm(P3 - 1, device=dev, generator=gen) + 1).reshape(B, n_pg3).to(
+        torch.int32)
+    pkb, pvb = bf(L, P3, nKV, ps3, dh), bf(L, P3, nKV, ps3, dh)
+    report_attn("flash_chunk_paged", "bf16 pages of 12 B=8 C=128",
+           lambda: flash_chunk_paged(qc, pkb, None, pvb, None, 1, starts, pt3, sm),
+           lambda: flash_chunk_paged_plain(qc, pkb, None, pvb, None, 1, starts, pt3, sm), 2e-2,
+           "int8 pages B=8 C=128",
+           work=(nbytes(qc, starts) + B * n_pg3 * 4 + n_read * nKV * 4 * dh,
+                 4 * n_pairs * nKV * dh),
+           fn_lib=sdpa(qc.transpose(1, 2), gather_pages(pkb[1], pt3)[:, :, :S],
+                       gather_pages(pvb[1], pt3)[:, :, :S], mask_c, sm),
+           lib_label="sdpa, dense bf16 K/V of the same length")
+    del pkb, pvb
 
-    # K5: causal prefill over the prompt's own bf16 K/V, 40 heads, dh 128.
+    # K5: causal prefill over the prompt's own bf16 K/V, 40 heads, dh 128
+    # (and 32 x 64, a 2048-wide model's heads).
     # The work counts the (query, key) pairs the causal and length bounds
     # admit; the yardstick is one causal scaled_dot_product_attention call
     # on equal lengths (a ragged batch has no is_causal form).
-    nH = 40
-    for B, S, lens in ((1, 4096, [4096]), (2, 2048, [2048, 1300])):
+    for B, S, lens, nH, dh in ((1, 4096, [4096], 40, 128), (2, 2048, [2048, 1300], 40, 128),
+                               (1, 4096, [4096], 32, 64)):
         q, k, v = bf(B, S, nH, dh), bf(B, S, nH, dh), bf(B, S, nH, dh)
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
         n_pairs = sum(n * (n + 1) // 2 + (S - n) * n for n in lens)
-        report_attn("prefill_attention_flash", f"B={B} S={S} lengths {lens}",
+        sm = dh ** -0.5
+        report_attn("prefill_attention_flash",
+               f"B={B} S={S} lengths {lens}" + ("" if dh == 128 else f" {nH}x{dh}"),
                lambda: prefill_attention_flash(q, k, v, ln, sm),
                lambda: prefill_attention_flash_plain(q, k, v, ln, sm), 2e-2,
                "B=1 S=4096 lengths [4096]",
@@ -1023,6 +1143,132 @@ def phase_reference_beam(torch, ref):
             raise RuntimeError(f"beam reference step {i}: bad logits {a.shape}")
         rels.append(rel_err(torch, a, b)[1])
     return rels
+
+
+# Attention shapes off the CodeFuse-13B path (tiny configs, random weights
+# from seed 3, tests/test_torch_kernels_cuda.py and
+# tests/test_torch_attention_routes.py serve them too): 64-wide heads (K5
+# and K4 at dh 64), 16 query heads a KV head (K5, K4 at g = 16), bf16 pages
+# of 4 (K10 lands them as raw rows, K9), and 32-wide heads, which no
+# attention kernel takes (nor does the JAX package's: it takes XLA), so
+# prefill and decode take the plain routes. (config, KV cache (None: a pool
+# on bf16 pages of 4), the route each of prefill, chunk and decode must
+# take: "kernel", "plain", or None where the config runs no such call)
+ROUTE_CONFIGS = {
+    "dh64": (dict(head_num=4, size_per_head=64, rotary_embedding_dim=16), "int8",
+             ("kernel", None, "kernel")),
+    "gqa16": (dict(head_num=16, kv_head_num=1, qkv_layout="concat", size_per_head=128,
+                   rotary_embedding_dim=32, inter_size=512), "int8", ("kernel", None, "kernel")),
+    "pages4": (dict(head_num=2, size_per_head=128, rotary_embedding_dim=32), None,
+               (None, "kernel", "kernel")),
+    "dh32": (dict(head_num=4, size_per_head=32, rotary_embedding_dim=16), "int8",
+             ("plain", None, "plain")),
+}
+ROUTE_PROMPTS = [[5, 9, 3, 17, 2], [11, 4, 90], [30, 31, 32, 33, 34, 35, 36, 37, 38]]
+ROUTE_TOKENS = 8  # greedy tokens a prompt
+# a greedy token may part from the CPU's only where the CPU's two best logits
+# lie within this share of max |logits| (phase 3 measures 3.3e-3 at 13B width)
+NEAR_TIE = 1e-2
+
+
+def route_tokens(pkg, cfg, params, kv, prompts=ROUTE_PROMPTS, n=ROUTE_TOKENS):
+    """Greedy tokens (``n``) of ``prompts`` on the params' device: the static
+    engine, or (kv None) a pool on bf16 pages of 4."""
+    from fastertransformer4codefuse_tpu_torch.engine.batcher import ContinuousBatcher
+
+    rt = pkg.RuntimeConfig(dtype="bf16", int8_mode=1, kv_cache_dtype=kv, seq_bucket=8)
+    eng = pkg.GptNeoXEngine(cfg, params, rt)
+    if kv is not None:
+        out = eng.generate(prompts, output_len=n, top_k=1)
+        return [list(map(int, r[0][len(p):len(p) + n])) for r, p in zip(out.output_ids, prompts)]
+    cb = ContinuousBatcher(eng, max_slots=2, max_seq_len=32, prompt_bucket=4,
+                           paged=dict(num_pages=17, page_size=4))
+    uids = [cb.submit(prompt=p, output_len=n, top_k=1) for p in prompts]
+    done = cb.run(max_ticks=400)
+    return [list(map(int, done[u].output_ids[len(p):])) for u, p in zip(uids, prompts)]
+
+
+def serve_route_config(torch, pkg, name):
+    """Serve ROUTE_CONFIGS[name] on the card and on the CPU (bf16 both, the
+    same params). Returns (error or None, the card's plain routes (prefill,
+    chunk, decode), the near-ties where the card's greedy tokens part from
+    the CPU's). Where a card token parts from the CPU's at a near-tie of the
+    CPU's logits, both go on from the CPU's tokens up to and including that
+    step (teacher forcing), so every step of every prompt is compared. An
+    error: tokens that part elsewhere, or a route other than the config's
+    (a plain route taken where a kernel should run, or the other way)."""
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+    from fastertransformer4codefuse_tpu_torch.models.params import params_to
+    from fastertransformer4codefuse_tpu_torch.ops.attention import (
+        prefill_attention, prefill_attention_flash,
+    )
+    from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
+        flash_chunk_paged, flash_decode_paged, flash_decode_stacked,
+    )
+
+    over, kv, want = ROUTE_CONFIGS[name]
+    routers = (prefill_attention, kv_cache.attend_chunk, kv_cache.attend_decode)
+    kernels = (prefill_attention_flash, flash_chunk_paged,
+               flash_decode_stacked if kv is not None else flash_decode_paged)
+    cfg = pkg.GptNeoXConfig.tiny(vocab_size=128, activation="gelu-tanh", end_id=127, **over)
+    p_cpu = pkg.init_params(cfg, seed=3, dtype="bf16", int8_mode=1, quantize_embeddings=True,
+                            device="cpu")
+    p_card = params_to(p_cpu, "cuda")
+    want_tok = route_tokens(pkg, cfg, p_cpu, kv)
+    for fn in routers:
+        fn.plain_routes = 0
+    launches = [fn.launches for fn in kernels]
+    got = route_tokens(pkg, cfg, p_card, kv)
+    torch.cuda.synchronize()
+    plain = [fn.plain_routes for fn in routers]
+    took = [fn.launches > n for fn, n in zip(kernels, launches)]
+    seen = [("both" if k else "plain") if p else "kernel" if k else None
+            for p, k in zip(plain, took)]
+    if any(w is not None and s != w for s, w in zip(seen, want)) or (
+            any(plain[i] for i in range(3) if want[i] != "plain")):
+        return f"{name}: routes (prefill, chunk, decode) {seen}, expected {want}", plain, []
+    ties = []
+    for prompt, a, b in zip(ROUTE_PROMPTS, got, want_tok):
+        forced = []  # the CPU's tokens both sides go on from
+        while True:
+            i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+            if i is None:
+                if len(a) != len(b):
+                    return f"{name}: card tokens {a} against the CPU's {b}", plain, ties
+                break
+            ids = prompt + forced + b[:i]
+            cache = kv_cache.init_cache(cfg, 1, len(ids) + 1,
+                                        torch.int8 if kv else torch.bfloat16, "cpu")
+            lens = torch.tensor([len(ids)], dtype=torch.int32)
+            hidden, _ = model.prefill(cfg, p_cpu, torch.tensor([ids]), lens, cache)
+            lg = model.lm_logits(cfg, p_cpu, model.last_token_hidden(hidden, lens))[0].float()
+            gap = (lg[b[i]] - lg[a[i]]).item() / lg.abs().max().item()
+            step = len(forced) + i
+            ties.append(f"step {step} of {prompt}: gap {gap:.2e}")
+            if gap >= NEAR_TIE:
+                return f"{name}: card tokens part from the CPU's at step {step} of {prompt} " \
+                       f"({a[i]} against {b[i]})", plain, ties
+            forced += b[:i + 1]
+            left = ROUTE_TOKENS - len(forced)
+            if left == 0:
+                break
+            a = route_tokens(pkg, cfg, p_card, kv, [prompt + forced], left)[0]
+            b = route_tokens(pkg, cfg, p_cpu, kv, [prompt + forced], left)[0]
+    return None, plain, ties
+
+
+def phase_routes(torch, pkg):
+    """Phase 3's ROUTE_CONFIGS, each served on the card and the CPU
+    (serve_route_config). Returns an error or None."""
+    for name in ROUTE_CONFIGS:
+        err, plain, ties = serve_route_config(torch, pkg, name)
+        log(f"  {name}: card greedy tokens == CPU's: {err is None and not ties}"
+            f"{' (near-ties, then teacher-forced: ' + '; '.join(ties) + ')' if ties else ''}; "
+            f"plain routes (prefill, chunk, decode) {plain}")
+        if err:
+            return err
+    return None
 
 
 # Published encoder configurations, under HF's config names (read by the
@@ -1339,14 +1585,14 @@ def check_encoder_counts(torch, kernels, launched, expect, label):
     them to ``launched``."""
     torch.cuda.synchronize()
     counts = read_counts(kernels)
-    want = {n: 0 for n in kernels}
+    want = {n: 0 for n in counts}
     want.update(expect)
     log(f"  {label}: launches {({n: c for n, c in counts.items() if c})}, expected "
         f"{({n: c for n, c in want.items() if c})}")
     if counts != want:
         return f"{label}: kernel launch counts do not match the forwards run"
-    for n, c in counts.items():
-        launched[n] += c
+    for n in kernels:
+        launched[n] += counts[n]
     return None
 
 
@@ -1489,8 +1735,11 @@ def main() -> int:
         import fastertransformer4codefuse_tpu_torch as pkg
     except ImportError as e:
         return fail(f"the port's package is not beside this script: {e}")
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
     from fastertransformer4codefuse_tpu_torch.ops import _cuda
-    from fastertransformer4codefuse_tpu_torch.ops.attention import prefill_attention_flash
+    from fastertransformer4codefuse_tpu_torch.ops.attention import (
+        prefill_attention, prefill_attention_flash,
+    )
     from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
         flash_chunk_paged, flash_decode_beam_stacked, flash_decode_paged, flash_decode_stacked,
     )
@@ -1510,8 +1759,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    global CARD
+    global CARD, ROUTERS
     CARD = smi
+    ROUTERS = (prefill_attention, kv_cache.attend_chunk, kv_cache.attend_decode)
     log("phase 1: device")
     log(f"  device {kind} x{torch.cuda.device_count()}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -1545,6 +1795,17 @@ def main() -> int:
                     if kern in wgmma_kernels and (st or ld)]
     if wgmma_spills:
         return fail(f"TMA + wgmma instances spilling: {wgmma_spills}")
+    # the decode attention body (K4, K9, K11: <dh, K format, V format> in
+    # each entry file; formats KV_BF16 = 0, KV_I8 = 1, KV_I4 = 2) and its
+    # combine <dh>: none may spill
+    decode_kernels = ("flash_decode_kernel", "flash_decode_combine_kernel")
+    log("  decode attention registers (spill stores/loads, bytes): " + ", ".join(
+        f"{src_name.split('.')[0]} {kern.split('_kernel')[0]}<{args}> {regs} ({st}/{ld})"
+        for src_name, kern, args, regs, st, ld in entries if kern in decode_kernels))
+    decode_spills = [f"{src_name} {kern}<{args}>" for src_name, kern, args, regs, st, ld in entries
+                     if kern in decode_kernels and (st or ld)]
+    if decode_spills:
+        return fail(f"decode attention instances spilling: {decode_spills}")
 
     src = "fastertransformer4codefuse_tpu_torch/csrc/"
     tpu = "fastertransformer4codefuse_tpu/ops/"
@@ -1595,9 +1856,12 @@ def main() -> int:
         return fail("a kernel disagrees with its plain version")
 
     log("phase 3: 2-layer CodeFuse-13B-width, Longformer-base and BERT-base models, card "
-        "(kernels) vs CPU (plain)")
+        "(kernels) vs CPU (plain); tiny configs of 64-wide heads, g = 16, bf16 pages of 4 "
+        "and 32-wide heads served on both")
     tol_ref = 5e-2
     int8_ref = None  # built once, shared by the int8 cases below
+    for fn in ROUTERS:
+        fn.plain_routes = 0
     for label, quant in CONFIGS:
         ref = reference_model(torch, pkg, **quant)
         int8_ref = ref if label == "int8" else int8_ref
@@ -1642,6 +1906,14 @@ def main() -> int:
             f"(tol {tol_ref:g})")
         if max(rel_h, rel_p) >= tol_ref:
             return fail(f"{label}: card and CPU hidden states disagree")
+    plain = [fn.plain_routes for fn in ROUTERS]
+    log(f"  plain attention routes over the CodeFuse-13B-width, Longformer and BERT models: "
+        f"{plain} (prefill, chunk, decode; must be 0)")
+    if any(plain):
+        return fail("a CodeFuse-13B, Longformer or BERT path took a plain attention route")
+    err = phase_routes(torch, pkg)
+    if err:
+        return fail(err)
 
     launched = {n: 0 for n in kernels}
     for label, quant in CONFIGS:
@@ -1938,6 +2210,8 @@ def prefill_profile(torch, engine, prompt, label):
 # the kernels the profiles name: (label, a piece of the kernel's symbol)
 PROFILED = (("K5 (prefill_flash_kernel)", "prefill_flash_kernel"),
             ("K10 (flash_chunk_kernel)", "flash_chunk_kernel"),
+            ("K4/K9/K11 splits (flash_decode_kernel)", "flash_decode_kernel"),
+            ("K4/K9/K11 combine (flash_decode_combine_kernel)", "flash_decode_combine_kernel"),
             ("the GEMM (qmm_gemm_kernel: K1/K6/K7/K8/K13 at M > 32)", "qmm_gemm_kernel"))
 
 
@@ -2168,7 +2442,7 @@ def check_static_counts(torch, kernels, launched, L, prefills, forwards, quant, 
     ``launched``."""
     torch.cuda.synchronize()
     counts = read_counts(kernels)
-    expect = {n: 0 for n in kernels}
+    expect = {n: 0 for n in counts}
     expect.update(expect_runs if expect_runs is not None else
                   expected_launches(L, prefills, forwards, packed_kv=packed_kv, beam=beam,
                                     **quant))
@@ -2177,8 +2451,8 @@ def check_static_counts(torch, kernels, launched, L, prefills, forwards, quant, 
         f"{({n: c for n, c in expect.items() if c})}")
     if counts != expect:
         return "kernel launch counts do not match the forwards run"
-    for n, c in counts.items():
-        launched[n] += c
+    for n in kernels:
+        launched[n] += counts[n]
     return None
 
 
@@ -2209,7 +2483,7 @@ def check_counts(kernels, launched, pools, L, label, extra=None, gemm="quant_mat
     the counts the ticks of ``pools`` (batchers) must give, plus ``extra``
     (static-path launches of the same run); add them to ``launched``."""
     counts = read_counts(kernels)
-    expect = {n: 0 for n in kernels}
+    expect = {n: 0 for n in counts}
     for n, c in add_counts(extra or {}, *(pool_launches(L, b, gemm) for b in pools)).items():
         expect[n] += c
     ticks = ", ".join(f"{b.decode_ticks} decode ticks ({b.chunk_ticks} with a chunk)"
@@ -2218,18 +2492,25 @@ def check_counts(kernels, launched, pools, L, label, extra=None, gemm="quant_mat
         f"{({n: c for n, c in expect.items() if c})}")
     if counts != expect:
         return f"{label}: kernel launch counts do not match the ticks run"
-    for n, c in counts.items():
-        launched[n] += c
+    for n in kernels:
+        launched[n] += counts[n]
     return None
 
 
 def zero_counts(kernels):
     for fn, attr, _, _ in kernels.values():
         setattr(fn, attr, 0)
+    for fn in ROUTERS:
+        fn.plain_routes = 0
 
 
 def read_counts(kernels):
-    return {n: getattr(fn, attr) for n, (fn, attr, _, _) in kernels.items()}
+    """Each kernel's launches, and ``plain_routes``: the attention calls the
+    dispatchers sent to a plain version for want of a kernel instance,
+    which every CodeFuse-13B, Longformer and BERT path must keep at 0."""
+    out = {n: getattr(fn, attr) for n, (fn, attr, _, _) in kernels.items()}
+    out["plain_routes"] = sum(fn.plain_routes for fn in ROUTERS)
+    return out
 
 
 def instrument(torch, b, ticks):

@@ -42,10 +42,13 @@
 //    and page ids past the row's table are clamped to its last page;
 //  - bf16 pages land straight in the 128-byte swizzled layout wgmma reads
 //    (64-dim column blocks, K K-major for Q K^T, V MN-major with the
-//    transpose bit for P V). int8 and packed int4 pages land raw; the two
-//    consumers convert a tile to bf16 into one of two swizzled buffers
-//    (exactly, as the GEMV's conversions), load its scales through the block
-//    table, and release the raw stage. The conversion of tile t + 1 runs
+//    transpose bit for P V) where a box holds whole 8-row swizzle groups (g
+//    a multiple of 8). int8 and packed int4 pages, and bf16 pages of other
+//    sizes, land raw; the two consumers convert a tile to bf16 (a copy for
+//    bf16) into one of two swizzled buffers (exactly, as the GEMV's
+//    conversions), load its scales through the block table, and release the
+//    raw stage (a ring of two stages for raw bf16 rows, so that the two
+//    converted buffers still fit). The conversion of tile t + 1 runs
 //    while tile t's P V is in flight; one 256-thread barrier a tile (after
 //    fence.proxy.async) publishes it and frees the other buffer;
 //  - keys past the block's last bound are real memory (stale bytes): S is
@@ -66,26 +69,33 @@ namespace ftcf {
 
 constexpr int FC_THREADS = 384;      // producer warpgroup + two consumer warpgroups
 constexpr int FC_BM = 128;           // query rows per block, 64 per consumer
-constexpr int FC_STAGES = 4;         // TMA ring depth
 constexpr int FC_MAX_RANKED = 256;   // (query tile, row) pairs a block ranks
+// The format of bf16 pages landed as raw rows (a page size that is not a
+// multiple of 8: a box cannot hold whole 8-row swizzle groups), beside KVFmt.
+constexpr int FC_BF16_ROWS = 3;
 
 template <int DH, int KF, int VF>
 struct ChunkTile {
-  static constexpr bool QUANT = KF != KV_BF16;
+  static constexpr bool STAGED = KF != KV_BF16;             // raw tiles, converted
+  static constexpr bool QUANT = KF == KV_I8 || KF == KV_I4;  // with scales
+  static constexpr int STAGES = KF == FC_BF16_ROWS ? 2 : 4;  // TMA ring depth
   static constexpr int BN = DH == 128 ? 64 : 32;  // keys per tile: 16 KB of bf16 K
   static constexpr int CB = DH / 64;              // 64-wide column blocks
   static constexpr int Q_BYTES = FC_BM * DH * 2;
   static constexpr int TILE = BN * DH * 2;        // a bf16 K (or V) tile, swizzled
   static constexpr int CBLK = BN * 128;           // one column block of it
-  // a raw tile as it lands: bf16 swizzled, int8 [BN][dh], int4 [BN/2][dh]
-  static constexpr int RAW_K = KF == KV_BF16 ? TILE : (KF == KV_I8 ? BN * DH : BN * DH / 2);
-  static constexpr int RAW_V = VF == KV_BF16 ? TILE : (VF == KV_I8 ? BN * DH : BN * DH / 2);
+  // a raw tile as it lands: bf16 swizzled, bf16 rows [BN][dh], int8
+  // [BN][dh], int4 [BN/2][dh]
+  static constexpr int raw(int f) {
+    return f == KV_BF16 || f == FC_BF16_ROWS ? TILE : f == KV_I8 ? BN * DH : BN * DH / 2;
+  }
+  static constexpr int RAW_K = raw(KF), RAW_V = raw(VF);
   static constexpr int STAGE = RAW_K + RAW_V;
-  static constexpr int CONV = QUANT ? 2 * 2 * TILE : 0;  // two converted (K, V) buffers
+  static constexpr int CONV = STAGED ? 2 * 2 * TILE : 0;  // two converted (K, V) buffers
   static constexpr int SCALES = QUANT ? 2 * 2 * BN * 4 : 0;  // their fp32 k_s and v_s
   static constexpr int RING = Q_BYTES + CONV;
-  static constexpr int BARS = RING + FC_STAGES * STAGE + SCALES;
-  static constexpr int SCHED = BARS + 2 * FC_STAGES * 8;
+  static constexpr int BARS = RING + STAGES * STAGE + SCALES;
+  static constexpr int SCHED = BARS + 2 * STAGES * 8;
   static constexpr size_t SMEM = SCHED + (FC_MAX_RANKED + 1) * 4 + 1024;  // + alignment slack
 };
 
@@ -116,19 +126,31 @@ __device__ __forceinline__ void store_bf16x16(unsigned char* c0, unsigned char* 
                                              pack_bf16(f[12], f[13]), pack_bf16(f[14], f[15]));
 }
 
-// One raw tile (int8 [BN][dh] or packed int4 [BN/2][dh]) -> the bf16
-// swizzled tile at dst, 256 threads (ct), keys past key_end as zeros. A
-// thread converts 16 bytes at a time: 16 dims of one key (int8) or of two
-// keys (int4: the low nibbles hold the even key).
+// One raw tile (bf16 [BN][dh], int8 [BN][dh] or packed int4 [BN/2][dh]) ->
+// the bf16 swizzled tile at dst, 256 threads (ct), keys past key_end as
+// zeros. A thread converts 16 bytes at a time: 8 dims of one key (bf16), 16
+// dims of one key (int8) or of two keys (int4: the low nibbles hold the
+// even key).
 template <int DH, int F, int BN>
 __device__ __forceinline__ void convert_tile(const unsigned char* raw, unsigned char* dst, int k0,
                                              int key_end, int ct) {
-  constexpr int CH = DH / 16;  // 16-byte chunks of a raw row
-  constexpr int ROWS = F == KV_I8 ? BN : BN / 2;
   // the 16-byte chunk of dims d .. d + 7 of key row kr in the swizzled tile
   auto chunk = [&](int kr, int d) {
     return dst + (d >> 6) * (BN * 128) + kr * 128 + ((((d & 63) >> 3) ^ (kr & 7)) << 4);
   };
+  if constexpr (F == FC_BF16_ROWS) {
+    constexpr int CH = DH / 8;  // 16-byte chunks of a raw row
+#pragma unroll
+    for (int i = ct; i < BN * CH; i += 256) {
+      const int r = i / CH, d = (i - r * CH) * 8;
+      uint4 u = *reinterpret_cast<const uint4*>(raw + (r * DH + d) * 2);
+      if (k0 + r > key_end) u = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(chunk(r, d)) = u;
+    }
+    return;
+  }
+  constexpr int CH = DH / 16;  // 16-byte chunks of a raw row
+  constexpr int ROWS = F == KV_I8 ? BN : BN / 2;
 #pragma unroll
   for (int i = ct; i < ROWS * CH; i += 256) {
     const int r = i / CH, d = (i - r * CH) * 16;
@@ -167,7 +189,8 @@ flash_chunk_kernel(const __grid_constant__ CUtensorMap tmk,
                    int ps, int g, float scale2) {
   using T = ChunkTile<DH, KF, VF>;
   constexpr int BN = T::BN;
-  constexpr bool QUANT = T::QUANT;
+  constexpr bool QUANT = T::QUANT, STAGED = T::STAGED;
+  constexpr int NST = T::STAGES;
   extern __shared__ unsigned char smem_raw[];
   // swizzled tiles need 1024-byte alignment
   const uint32_t raw_base = smem_u32(smem_raw);
@@ -177,7 +200,7 @@ flash_chunk_kernel(const __grid_constant__ CUtensorMap tmk,
   const uint32_t bars = base + T::BARS;  // full[stage], then empty[stage]
   int* sched = reinterpret_cast<int*>(sm + T::SCHED);
   float* scales = reinterpret_cast<float*>(sm + T::BARS - T::SCALES);  // [2][k_s, v_s][BN]
-  auto stage = [&](int t) { return T::RING + (t % FC_STAGES) * T::STAGE; };  // byte offsets
+  auto stage = [&](int t) { return T::RING + (t % NST) * T::STAGE; };  // byte offsets
 
   const int tid = threadIdx.x;
   const int R = C * gq, nH = nKV * gq;
@@ -190,9 +213,9 @@ flash_chunk_kernel(const __grid_constant__ CUtensorMap tmk,
   };
 
   if (tid == 0) {
-    for (int st = 0; st < FC_STAGES; ++st) {
-      mbar_init(bars + 8 * st, 1);                  // the producer's arrive + TMA bytes
-      mbar_init(bars + 8 * (FC_STAGES + st), 256);  // every consumer thread
+    for (int st = 0; st < NST; ++st) {
+      mbar_init(bars + 8 * st, 1);            // the producer's arrive + TMA bytes
+      mbar_init(bars + 8 * (NST + st), 256);  // every consumer thread
     }
     mbar_fence_init();
   }
@@ -232,14 +255,14 @@ flash_chunk_kernel(const __grid_constant__ CUtensorMap tmk,
     if (tid < 32) {
       const int nbox = BN / g;
       for (int t = 0; t < n_tiles; ++t) {
-        const int st = t % FC_STAGES;
+        const int st = t % NST;
         int page[2] = {0, 0};  // the pages of this lane's boxes (nbox <= 64)
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int i = tid + 32 * u;
           if (i < nbox) page[u] = ptb[min((t * BN + i * g) / ps, n_pg - 1)];
         }
-        if (t >= FC_STAGES) mbar_wait(bars + 8 * (FC_STAGES + st), (t / FC_STAGES - 1) & 1);
+        if (t >= NST) mbar_wait(bars + 8 * (NST + st), (t / NST - 1) & 1);
         const uint32_t full = bars + 8 * st;
         if (tid == 0) mbar_arrive_expect_tx(full, T::STAGE);
         __syncwarp();
@@ -256,11 +279,15 @@ flash_chunk_kernel(const __grid_constant__ CUtensorMap tmk,
               tma_load_4d(sV + cb * T::CBLK + i * g * 128, &tmv, full, cb * 64, row, h, page[u]);
             }
           } else {
-            if constexpr (KF == KV_I8)
+            if constexpr (KF == FC_BF16_ROWS)
+              tma_load_4d(sK + i * g * DH * 2, &tmk, full, 0, row, h, page[u]);
+            else if constexpr (KF == KV_I8)
               tma_load_4d(sK + i * g * DH, &tmk, full, 0, row, h, page[u]);
             else
               tma_load_4d(sK + i * (g / 2) * DH, &tmk, full, 0, row / 2, h, page[u]);
-            if constexpr (VF == KV_I8)
+            if constexpr (VF == FC_BF16_ROWS)
+              tma_load_4d(sV + i * g * DH * 2, &tmv, full, 0, row, h, page[u]);
+            else if constexpr (VF == KV_I8)
               tma_load_4d(sV + i * g * DH, &tmv, full, 0, row, h, page[u]);
             else
               tma_load_4d(sV + i * (g / 2) * DH, &tmv, full, 0, row / 2, h, page[u]);
@@ -320,22 +347,20 @@ flash_chunk_kernel(const __grid_constant__ CUtensorMap tmk,
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f, al0 = 1.0f, al1 = 1.0f;
 
   // where tile t's bf16 K (V at + TILE) is read: a converted buffer, or
-  // (bf16 pages) its TMA stage
+  // (bf16 pages landed swizzled) its TMA stage
   auto k_tile = [&](int t) {
-    return base + (QUANT ? T::Q_BYTES + (t & 1) * 2 * T::TILE : stage(t));
+    return base + (STAGED ? T::Q_BYTES + (t & 1) * 2 * T::TILE : stage(t));
   };
-  auto wait_tile = [&](int t) {
-    mbar_wait(bars + 8 * (t % FC_STAGES), (t / FC_STAGES) & 1);
-  };
-  auto release = [&](int t) { mbar_arrive(bars + 8 * (FC_STAGES + t % FC_STAGES)); };
+  auto wait_tile = [&](int t) { mbar_wait(bars + 8 * (t % NST), (t / NST) & 1); };
+  auto release = [&](int t) { mbar_arrive(bars + 8 * (NST + t % NST)); };
 
-  // quantized pages: tile t's raw stage -> converted buffer t & 1, with its
-  // scales (zero past key_end); the raw stage is then released
+  // raw pages: tile t's raw stage -> converted buffer t & 1, with its scales
+  // (quantized pages; zero past key_end); the raw stage is then released
   auto convert = [&](int t) {
     const int k0 = t * BN;
     float* sc = scales + (t & 1) * 2 * BN;
     float a = 0.0f, c = 0.0f;
-    if (ct < BN && k0 + ct <= key_end) {
+    if (QUANT && ct < BN && k0 + ct <= key_end) {
       const int key = k0 + ct;
       const size_t vec = ((size_t)ptb[key / ps] * nKV + h) * ps + key % ps;
       a = __bfloat162float(ks[vec]);
@@ -346,7 +371,7 @@ flash_chunk_kernel(const __grid_constant__ CUtensorMap tmk,
     convert_tile<DH, KF, BN>(sm + stage(t), dK, k0, key_end, ct);
     convert_tile<DH, VF, BN>(sm + stage(t) + T::RAW_K, dK + T::TILE, k0, key_end, ct);
     release(t);
-    if (ct < BN) {
+    if (QUANT && ct < BN) {
       sc[ct] = a;
       sc[BN + ct] = c;
     }
@@ -453,7 +478,7 @@ flash_chunk_kernel(const __grid_constant__ CUtensorMap tmk,
     fence_regs(pa);
   };
 
-  if constexpr (QUANT) {
+  if constexpr (STAGED) {
     convert(0);
     named_bar(3, 256);
     for (int t = 0; t < n_tiles; ++t) {
@@ -524,18 +549,22 @@ static int gcd_int(int a, int b) {
 
 // The tensor map of one layer's page slab [P, nKV, ps(/2), dh] in format F:
 // boxes of g keys (g / 2 pair rows of packed int4) of one head of one page,
-// bf16 as 64-dim column blocks in the 128-byte swizzle, int8 / int4 raw
-// rows. The page extent is left open (page ids are trusted, as the block
-// table always was).
+// bf16 as 64-dim column blocks in the 128-byte swizzle, bf16 rows, int8 and
+// int4 raw rows. The page extent is left open (page ids are trusted, as the
+// block table always was).
 template <int DH, int F>
 static bool page_tensor_map(CUtensorMap* m, const void* p, int nKV, int ps, int g) {
   const uint64_t rows = F == KV_I4 ? ps / 2 : ps;
-  const uint64_t row_bytes = F == KV_BF16 ? DH * 2 : (uint64_t)DH;
+  const bool bf16 = F == KV_BF16 || F == FC_BF16_ROWS;
+  const uint64_t row_bytes = bf16 ? DH * 2 : (uint64_t)DH;
   const uint64_t dims[4] = {(uint64_t)DH, rows, (uint64_t)nKV, 0x7FFFFFFFull};
   const uint64_t strides[3] = {row_bytes, rows * row_bytes, nKV * rows * row_bytes};
   if (F == KV_BF16)
     return tensor_map<4>(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, dims, strides,
                          {64, (uint32_t)g, 1, 1}, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (F == FC_BF16_ROWS)
+    return tensor_map<4>(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p, dims, strides,
+                         {(uint32_t)DH, (uint32_t)g, 1, 1}, CU_TENSOR_MAP_SWIZZLE_NONE);
   return tensor_map<4>(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, p, dims, strides,
                        {(uint32_t)DH, (uint32_t)(F == KV_I4 ? g / 2 : g), 1, 1},
                        CU_TENSOR_MAP_SWIZZLE_NONE);
@@ -548,7 +577,8 @@ static cudaError_t launch_fc(const void* q, const void* k, const void* ks, const
                              cudaStream_t stream) {
   using T = ChunkTile<DH, KF, VF>;
   // g keys a box: divides the key tile and the page, so no box crosses a
-  // page; bf16 boxes land swizzled, so whole 8-row swizzle groups
+  // page; bf16 boxes land swizzled, so whole 8-row swizzle groups (other
+  // page sizes take FC_BF16_ROWS)
   const int g = gcd_int(ps, T::BN);
   if (KF == KV_BF16 && g % 8 != 0) return cudaErrorInvalidValue;
   CUtensorMap tmk, tmv;
@@ -573,15 +603,20 @@ static cudaError_t launch_fc(const void* q, const void* k, const void* ks, const
   return cudaGetLastError();
 }
 
-// The (K, V) page formats served: bf16/bf16, int8/int8, int4/int4, int8/int4.
+// The (K, V) page formats served: bf16/bf16 (swizzled by TMA where the
+// page size allows it, else raw rows), int8/int8, int4/int4, int8/int4.
 template <int DH>
 static cudaError_t launch_fc_fmt(const void* q, const void* k, const void* ks, const void* v,
                                  const void* vs, const int* pos, const int* pt, void* out, int B,
                                  int C, int nKV, int gq, int n_pg, int ps, int kfmt, int vfmt,
                                  float sm, cudaStream_t st) {
-  if (kfmt == KV_BF16 && vfmt == KV_BF16)
-    return launch_fc<DH, KV_BF16, KV_BF16>(q, k, ks, v, vs, pos, pt, out, B, C, nKV, gq, n_pg,
-                                           ps, sm, st);
+  if (kfmt == KV_BF16 && vfmt == KV_BF16) {
+    if (gcd_int(ps, ChunkTile<DH, KV_BF16, KV_BF16>::BN) % 8 == 0)
+      return launch_fc<DH, KV_BF16, KV_BF16>(q, k, ks, v, vs, pos, pt, out, B, C, nKV, gq,
+                                             n_pg, ps, sm, st);
+    return launch_fc<DH, FC_BF16_ROWS, FC_BF16_ROWS>(q, k, ks, v, vs, pos, pt, out, B, C, nKV,
+                                                     gq, n_pg, ps, sm, st);
+  }
   if (kfmt == KV_I8 && vfmt == KV_I8)
     return launch_fc<DH, KV_I8, KV_I8>(q, k, ks, v, vs, pos, pt, out, B, C, nKV, gq, n_pg, ps,
                                        sm, st);
@@ -602,7 +637,7 @@ extern "C" {
 // slabs in the formats kfmt / vfmt (KVFmt: bf16; int8; packed int4
 // [P, nKV, ps/2, dh] with ps even), the quantized ones with ks/vs
 // [P, nKV, ps] bf16 scales; pos [B] int32 chunk starts; pt [B, n_pg] int32
-// block table; out like q. dh is 128 or 256; bf16 pages need ps % 8 == 0.
+// block table; out like q. dh is 128 or 256; any page size (even if packed).
 int ftcf_flash_chunk_paged(const void* q, const void* k, const void* ks, const void* v,
                            const void* vs, const int* pos, const int* pt, void* out, int B, int C,
                            int nKV, int gq, int n_pg, int ps, int dh, int kfmt, int vfmt,

@@ -10,11 +10,12 @@ extern "C" {
 // cache indirection: position s of row b reads row b - b % bw + indir[b, s].
 int ftcf_flash_decode_beam(const void* q, const void* k, const void* ks, const void* v,
                            const void* vs, const int* positions, const int* indir, void* out,
-                           int BB, int nKV, int g, int S, int bw, int dh, int kfmt, int vfmt,
-                           float sm_scale, void* stream) {
+                           void* ws, long long ws_floats, int split, int BB, int nKV, int g,
+                           int S, int bw, int dh, int kfmt, int vfmt, float sm_scale,
+                           void* stream) {
   if (bw < 1 || BB % bw != 0) return (int)cudaErrorInvalidValue;
-  return ftcf::dispatch_fd(q, k, ks, v, vs, positions, out, BB, nKV, g,
-                           ftcf::BeamAddr{indir, S, bw}, dh, kfmt, vfmt, sm_scale, stream);
+  return ftcf::dispatch_fd(q, k, ks, v, vs, positions, out, ws, ws_floats, BB, nKV, g,
+                           ftcf::BeamAddr{indir, S, bw}, S, split, dh, kfmt, vfmt, sm_scale, stream);
 }
 
 }  // extern "C"

@@ -10,11 +10,13 @@ extern "C" {
 // dh] packed, ps even; ks/vs [P, nKV, ps]) and pt [B, n_pg] int32 the block
 // table: logical position s of row b is page pt[b, s / ps], offset s % ps.
 int ftcf_flash_decode_paged(const void* q, const void* k, const void* ks, const void* v,
-                            const void* vs, const int* positions, const int* pt, void* out, int B,
-                            int nKV, int g, int n_pg, int ps, int dh, int kfmt, int vfmt,
-                            float sm_scale, void* stream) {
-  return ftcf::dispatch_fd(q, k, ks, v, vs, positions, out, B, nKV, g,
-                           ftcf::PagedAddr{pt, n_pg, ps}, dh, kfmt, vfmt, sm_scale, stream);
+                            const void* vs, const int* positions, const int* pt, void* out,
+                            void* ws, long long ws_floats, int split, int B, int nKV, int g,
+                            int n_pg, int ps, int dh, int kfmt, int vfmt, float sm_scale,
+                            void* stream) {
+  return ftcf::dispatch_fd(q, k, ks, v, vs, positions, out, ws, ws_floats, B, nKV, g,
+                           ftcf::PagedAddr{pt, n_pg, ps}, n_pg * ps, split, dh, kfmt, vfmt,
+                           sm_scale, stream);
 }
 
 }  // extern "C"

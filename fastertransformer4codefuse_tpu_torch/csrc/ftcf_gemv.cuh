@@ -320,41 +320,6 @@ __device__ __forceinline__ void gemv_block(const GemvSeg& sg, int s, int M, int 
   }
 }
 
-// The second constants of the conversions' logic ops below. A logic op
-// takes one immediate; read from the constant bank, the other is an
-// operand too, so each ``(x & mask) op constant`` is one instruction on the
-// integer pipe, which bounds the int4 conversion, instead of two.
-static __constant__ uint32_t kI4Exp = 0x43404308u;
-static __constant__ uint32_t kI8Exp = 0x43004300u;
-static __constant__ uint32_t kI8Sign = 0xC300C300u;
-
-// Byte I of a packed int4 word as the bf16x2 (low nibble, high nibble), the
-// signed values exactly. One byte permute takes byte I of q (its low nibble
-// in bits 0-3) and of q >> 1 (its high nibble in bits 3-6) into the two
-// halves; one logic op keeps those bits, xors 8 into each nibble (biasing it
-// to unsigned u) and writes 0x43 above, so the halves are the bf16 values
-// 128 + u and 128 + 8 u; then (1, 1/8) * r + (-136, -24) gives u - 8 in both.
-template <int I>
-__device__ __forceinline__ uint32_t i4_pair_bf16x2(uint32_t q) {
-  const uint32_t r = __byte_perm(q, q >> 1, I | (I << 4) | ((4 + I) << 8) | ((4 + I) << 12));
-  return fma_bf16x2((r & 0x0078000Fu) ^ kI4Exp, 0x3E003F80u, 0xC1C0C308u);
-}
-
-// Bytes 0 and 2 of a word (two int8 values) as the bf16x2 (byte 0, byte 2),
-// exactly: a value v with low 7 bits l and sign bit s is l - 128 s = (128 +
-// l) + (-128 - 128 s), both halves bf16 bit patterns (0x4300 | l and 0xC300
-// | s << 7), added in bf16.
-__device__ __forceinline__ uint32_t i8_rows_bf16x2(uint32_t p) {
-  return fma_bf16x2((p & 0x007F007Fu) | kI8Exp, 0x3F803F80u, (p & 0x00800080u) | kI8Sign);
-}
-
-// Byte i of two int8 words (rows k and k + 1 of one column) as the bf16x2
-// (row k, row k + 1), exactly.
-template <int I>
-__device__ __forceinline__ uint32_t i8_pair_bf16x2(uint32_t a, uint32_t b) {
-  return i8_rows_bf16x2(__byte_perm(a, b, I | (I << 4) | ((4 + I) << 8) | ((4 + I) << 12)));
-}
-
 // The A fragments of the two products of one k16 step from a thread's weight
 // words (int8: rows 4t .. 4t + 3; int4: byte rows 2t, 2t + 1): product j
 // takes byte 2j (fragment row g) and byte 2j + 1 (row g + 8).
@@ -392,20 +357,6 @@ __host__ __device__ constexpr int gemv_xs_pitch(int chunk) { return (chunk + 63)
 constexpr int GEMV_STAGES = 4;
 constexpr int GEMV_STAGE_BYTES = 2 * 16 * GEMV_THREADS;
 constexpr int GEMV_RING_BYTES = GEMV_STAGES * GEMV_STAGE_BYTES;
-
-// 16 bytes global -> shared, asynchronously; ``bytes`` < 16 zero-fills the rest.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // 2 <= M <= 32: one block's partial sums on tensor cores (NB 8-row B tiles),
 // split ``s`` of segment ``sg``, column tile ``tile``, into ``ws_split``

@@ -18,12 +18,12 @@
 // with the most keys are launched first, so the causal triangle leaves no
 // long tail):
 //  - three warpgroups: a producer, whose one thread keeps the K and V tiles
-//    of the block's key range in flight by TMA into a ring of three stages
-//    at dh 128, two at dh 256 (full and empty mbarriers), and two consumers
-//    of 64 query rows each; setmaxnreg gives the producer 24 registers and
-//    the consumers 240;
-//  - K and V tiles (128 keys at dh 128, 64 at dh 256) arrive as 64-wide
-//    column blocks in the 128-byte swizzle (ftcf_sm90.cuh); keys past S are
+//    of the block's key range in flight by TMA into a ring of four stages at
+//    dh 64, three at dh 128, two at dh 256 (full and empty mbarriers), and
+//    two consumers of 64 query rows each; setmaxnreg gives the producer 24
+//    registers and the consumers 240;
+//  - K and V tiles (128 keys at dh 64 and 128, 64 at dh 256) arrive as
+//    64-wide column blocks in the 128-byte swizzle (ftcf_sm90.cuh); keys past S are
 //    zero-filled by TMA, and no tile past the block's last key is loaded;
 //  - Q is read once, by the consumers, into the same swizzled layout (a
 //    thread's loads all in flight before its first store);
@@ -35,7 +35,7 @@
 //    memory. In the tile holding lens[b] - 1 the consumers zero V's rows at
 //    or past the length first: they are real memory (TMA zero-fills only
 //    past S), and a masked p of 0 times a non-finite value is not 0;
-//  - at dh 128 each consumer issues the next tile's Q K^T before this
+//  - at dh 64 and 128 each consumer issues the next tile's Q K^T before this
 //    tile's P V and runs the next tile's softmax while P V is in flight (O
 //    takes its new factors after P V completes); at dh 256, where O alone
 //    takes 128 registers a thread, one tile at a time;
@@ -52,8 +52,9 @@ constexpr int PF_BM = 128;       // query rows per block, 64 per consumer
 
 template <int DH>
 struct PrefillTile {
-  static constexpr int BN = DH == 128 ? 128 : 64;   // keys per tile
-  static constexpr int STAGES = DH == 128 ? 3 : 2;   // K/V ring depth (225 KB at dh 128)
+  static constexpr int BN = DH == 256 ? 64 : 128;   // keys per tile
+  // K/V ring depth (144 KB at dh 64, 225 KB at dh 128)
+  static constexpr int STAGES = DH == 64 ? 4 : DH == 128 ? 3 : 2;
   static constexpr int CB = DH / 64;                 // 64-wide column blocks
   static constexpr int Q_BYTES = PF_BM * DH * 2;
   static constexpr int KV_BLOCK = BN * 128;          // one column block of a K or V tile
@@ -65,7 +66,7 @@ struct PrefillTile {
 template <int DH>
 __device__ __forceinline__ void wgmma_qk(float (&s)[PrefillTile<DH>::BN / 2], uint64_t da,
                                          uint64_t db, int acc) {
-  if constexpr (DH == 128)
+  if constexpr (PrefillTile<DH>::BN == 128)
     wgmma_ss_n128(s, da, db, acc);
   else
     wgmma_ss_n64(s, da, db, acc);
@@ -74,7 +75,9 @@ __device__ __forceinline__ void wgmma_qk(float (&s)[PrefillTile<DH>::BN / 2], ui
 template <int DH>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)[4],
                                          uint64_t db) {
-  if constexpr (DH == 128)
+  if constexpr (DH == 64)
+    wgmma_rs_n64(o, a, db);
+  else if constexpr (DH == 128)
     wgmma_rs_n128(o, a, db);
   else
     wgmma_rs_n256(o, a, db);
@@ -421,11 +424,13 @@ extern "C" {
 
 // K5. Causal prefill attention: q [B, S, nKV * gq, dh], k/v [B, S, nKV, dh]
 // bf16 (k and v 16-byte aligned); lens [B] int32 prompt lengths; out like q.
-// Query i of row b attends keys 0 .. min(i, lens[b] - 1). dh is 128 or 256.
+// Query i of row b attends keys 0 .. min(i, lens[b] - 1). dh is 64, 128 or 256.
 int ftcf_prefill_flash(const void* q, const void* k, const void* v, const int* lens, void* out,
                        int B, int S, int nKV, int gq, int dh, float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (gq < 1 || S < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  if (dh == 64)
+    return (int)ftcf::launch_prefill<64>(q, k, v, lens, out, B, S, nKV, gq, sm_scale, st);
   if (dh == 128)
     return (int)ftcf::launch_prefill<128>(q, k, v, lens, out, B, S, nKV, gq, sm_scale, st);
   if (dh == 256)

@@ -9,6 +9,10 @@ row i, 2i in the low nibble) and ``"int8k_int4v"`` packs only V (``k`` int8,
 ``v4``); scales stay per unpacked position, so S must be even. A paged cache
 (``engine/paged_kv.py``, a dict with a block table ``pt``) takes the same
 write and attend calls, which dispatch to its page writes and to K9/K10.
+On the card, a head dim that the attention kernels have no instance for (K10
+outside 128 and 256, K4/K9/K11 outside 64, 128 and 256: head dims for which
+the JAX package runs no kernel either) goes to the plain version, as the JAX
+package sends it to XLA, and counts in the dispatcher's ``plain_routes``.
 Unlike the JAX package's functional updates, writes here are in place, so a
 pool never copies a slab; each write function also returns the cache for the
 same call shape.
@@ -23,10 +27,15 @@ from ..core.config import GptNeoXConfig
 from ..core.device import resolve_device
 from ..ops.attention import MASK_VALUE
 from ..ops.flash_decode import (
+    chunk_kernel_takes,
+    decode_kernel_takes,
     flash_chunk_paged,
+    flash_decode_beam_plain,
     flash_decode_beam_stacked,
     flash_decode_paged,
+    flash_decode_paged_plain,
     flash_decode_stacked,
+    flash_decode_stacked_plain,
     pack_seq_pairs as _pack_seq_pairs,
     quantize_vec as _quantize_vec,
     unpack_seq_pairs as _unpack_seq_pairs,
@@ -195,17 +204,20 @@ def attend_chunk(
     positions=None,  # [B] int32 chunk starts: a paged cache then runs K10
 ) -> torch.Tensor:
     """C-query attention over layer ``layer``: [B, C, nH, dh]. A paged cache
-    with ``positions`` goes to K10; otherwise the plain math below (the JAX
+    with ``positions`` goes to K10 where it has an instance for the head dim
+    (``chunk_kernel_takes``); otherwise the plain math below (the JAX
     package computes it in XLA), with the g query heads of a KV head folded
     into the query axis as the JAX code folds them."""
     B, C, nH, dh = q.shape
     if paged_kv.is_paged(cache):
         if positions is not None:
-            return flash_chunk_paged(
-                q.contiguous(), slab(cache, "pk"), cache.get("pk_s"),
-                slab(cache, "pv"), cache.get("pv_s"), layer, positions, cache["pt"],
-                sm_scale,
-            )
+            if not q.is_cuda or chunk_kernel_takes(dh):
+                return flash_chunk_paged(
+                    q.contiguous(), slab(cache, "pk"), cache.get("pk_s"),
+                    slab(cache, "pv"), cache.get("pv_s"), layer, positions, cache["pt"],
+                    sm_scale,
+                )
+            attend_chunk.plain_routes += 1
         cache_l = paged_kv.gather_layer_dense(cache, layer)
     else:
         cache_l = _layer_dense(cache, layer)
@@ -216,6 +228,9 @@ def attend_chunk(
         out = _attend_dense(cache_l, qc, valid.repeat_interleave(g, dim=1), sm_scale)
         return out.reshape(B, C, g, nKV, dh).transpose(2, 3).reshape(B, C, nH, dh)
     return _attend_dense(cache_l, q, valid, sm_scale)
+
+
+attend_chunk.plain_routes = 0
 
 
 def _layer_dense(cache: Cache, layer: int) -> Cache:
@@ -257,23 +272,29 @@ def attend_decode(
 ) -> torch.Tensor:
     """Single-token attention over layer ``layer`` of the cache: K4 for a
     dense cache, K11 for a dense cache with ``beam``, K9 for a paged one (the
-    kernel on CUDA, its plain version on the CPU). The scales commute out of
-    both contractions: scores = (q . k8) * k_s, out = (p * v_s) @ v8. Beam
-    indirection addresses row-contiguous slabs: a paged cache refuses it."""
-    if paged_kv.is_paged(cache):
+    kernel on CUDA where it has an instance for the head dim,
+    ``decode_kernel_takes``; its plain version on the CPU and for other
+    head dims). The scales commute out of both contractions: scores = (q . k8)
+    * k_s, out = (p * v_s) @ v8. Beam indirection addresses row-contiguous
+    slabs: a paged cache refuses it."""
+    paged = paged_kv.is_paged(cache)
+    k, v = slab(cache, "pk" if paged else "k"), slab(cache, "pv" if paged else "v")
+    kernel = not q.is_cuda or decode_kernel_takes(q.shape[2])
+    if q.is_cuda and not kernel:
+        attend_decode.plain_routes += 1
+    if paged:
         if beam is not None:
             raise ValueError("paged pools do not support beam search")
-        return flash_decode_paged(
-            q, slab(cache, "pk"), cache.get("pk_s"), slab(cache, "pv"),
-            cache.get("pv_s"), layer, positions, cache["pt"], sm_scale,
-        )
+        fn = flash_decode_paged if kernel else flash_decode_paged_plain
+        return fn(q, k, cache.get("pk_s"), v, cache.get("pv_s"), layer, positions, cache["pt"],
+                  sm_scale)
     if beam is not None:
         bw, indir = beam
-        return flash_decode_beam_stacked(
-            q, slab(cache, "k"), cache.get("k_s"), slab(cache, "v"), cache.get("v_s"),
-            layer, positions, indir, bw, sm_scale,
-        )
-    return flash_decode_stacked(
-        q, slab(cache, "k"), cache.get("k_s"), slab(cache, "v"), cache.get("v_s"),
-        layer, positions, sm_scale,
-    )
+        fn = flash_decode_beam_stacked if kernel else flash_decode_beam_plain
+        return fn(q, k, cache.get("k_s"), v, cache.get("v_s"), layer, positions, indir, bw,
+                  sm_scale)
+    fn = flash_decode_stacked if kernel else flash_decode_stacked_plain
+    return fn(q, k, cache.get("k_s"), v, cache.get("v_s"), layer, positions, sm_scale)
+
+
+attend_decode.plain_routes = 0

@@ -30,6 +30,7 @@ NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 F = ctypes.c_float
 
 # C entry -> argument types (see each .cu file's extern "C" block)
@@ -43,9 +44,9 @@ _SIGNATURES = {
     "ftcf_gemv_ncat": [I, I, I, I, P, P, P, I, I, I, P, I, I, P, P,
                        P, P, P, I, I, I, P, I, I, P, P, P],
     "ftcf_gemm_ncat": [I, I, I, I, P, P, P, I, P, I, I, P, P, P, P, I, P, I, I, P, P],
-    "ftcf_flash_decode": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
-    "ftcf_flash_decode_paged": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
-    "ftcf_flash_decode_beam": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+    "ftcf_flash_decode": [P, P, P, P, P, P, P, P, LL, I, I, I, I, I, I, I, I, F, P],
+    "ftcf_flash_decode_paged": [P, P, P, P, P, P, P, P, P, LL, I, I, I, I, I, I, I, I, I, F, P],
+    "ftcf_flash_decode_beam": [P, P, P, P, P, P, P, P, P, LL, I, I, I, I, I, I, I, I, I, F, P],
     "ftcf_flash_chunk_paged": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
     "ftcf_prefill_flash": [P, P, P, P, P, I, I, I, I, I, F, P],
     "ftcf_sliding_window": [P, P, P, P, P, I, I, I, I, I, I, P],

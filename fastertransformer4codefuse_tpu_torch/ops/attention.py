@@ -3,9 +3,14 @@
 ``prefill_attention`` dispatches as the JAX one does, minus its TPU gate: a
 CUDA tensor with the prompt lengths goes to K5 ``prefill_attention_flash``
 (CUDA in ``csrc/prefill_flash.cu``: wgmma products, K/V tiles by TMA) at
-every S, MHA and GQA alike; the JAX package's ``S >= 2048`` switch (``_flash_ok``) was a v5e
-measurement and is not carried over. The CPU runs the plain masked form with
-fp32 scores, which is what the JAX package runs below S = 2048.
+every S, MHA and GQA alike, where K5 has an instance for the head dim
+(``prefill_kernel_takes``: dh 64, 128 or 256, those of the JAX package's
+flash kernel); other head dims take the plain masked form on the card too,
+as the JAX package takes its XLA path for them, and count in
+``prefill_attention.plain_routes``. The JAX package's ``S >=
+2048`` switch (``_flash_ok``) was a v5e measurement and is not carried over.
+The CPU runs the plain masked form with fp32 scores, which is what the JAX
+package runs below S = 2048.
 """
 from __future__ import annotations
 
@@ -14,6 +19,12 @@ import torch
 from . import _cuda
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+PREFILL_HEAD_DIMS = (64, 128, 256)  # the dh K5 takes
+
+
+def prefill_kernel_takes(dh: int) -> bool:
+    """Whether K5 has an instance for this head dim."""
+    return dh in PREFILL_HEAD_DIMS
 
 
 def prefill_attention(
@@ -25,9 +36,13 @@ def prefill_attention(
     input_lengths=None,  # [B] int32: CUDA tensors then run K5
 ) -> torch.Tensor:
     """Causal prefill attention. A CUDA tensor with ``input_lengths`` runs K5
-    (which builds no mask); otherwise the plain masked math."""
+    (which builds no mask) where it has an instance for the head dim;
+    otherwise the plain masked math (counted in ``plain_routes`` on the
+    card)."""
     if q.is_cuda and input_lengths is not None:
-        return prefill_attention_flash(q, k, v, input_lengths, sm_scale)
+        if prefill_kernel_takes(q.shape[3]):
+            return prefill_attention_flash(q, k, v, input_lengths, sm_scale)
+        prefill_attention.plain_routes += 1
     if mask is None:
         mask = make_prefill_mask(input_lengths, q.shape[1])
     B, S, nH, dh = q.shape
@@ -48,6 +63,9 @@ def prefill_attention(
     return out.to(q.dtype)
 
 
+prefill_attention.plain_routes = 0
+
+
 def prefill_attention_flash_plain(q, k, v, input_lengths, sm_scale):
     """K5's plain version: the masked prefill (causal, keys below the row's
     length) with fp32 scores and probabilities rounded to v's dtype. Rows at
@@ -64,7 +82,7 @@ def prefill_attention_flash(
 ) -> torch.Tensor:
     """K5: causal flash attention over the prompt, query i of row b bounded
     at min(i, input_lengths[b] - 1). A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises (dh 128 or 256, bf16)."""
+    CUDA tensor launches the kernel or raises (dh 64, 128 or 256, bf16)."""
     if not q.is_cuda:
         return prefill_attention_flash_plain(q, k, v, input_lengths, sm_scale)
     req = _cuda.require
@@ -72,7 +90,7 @@ def prefill_attention_flash(
     B, S, nH, dh = q.shape
     nKV = k.shape[2]
     req(k.shape[:2] == (B, S) and k.shape[3] == dh, "prefill_flash: k/v shape vs q")
-    req(dh in (128, 256), f"prefill_flash: dh must be 128 or 256, got {dh}")
+    req(prefill_kernel_takes(dh), f"prefill_flash: dh must be 64, 128 or 256, got {dh}")
     req(nH % nKV == 0, "prefill_flash: nH must be a multiple of nKV")
     req(all(t.dtype == torch.bfloat16 for t in (q, k, v)), "prefill_flash: q/k/v must be bf16")
     req(input_lengths.dtype == torch.int32 and input_lengths.shape == (B,)

@@ -4,17 +4,19 @@ ops/flash_decode.py).
 - K4 ``flash_decode_stacked`` (CUDA in ``csrc/flash_decode.cuh``, entry in
   ``csrc/flash_decode.cu``; K9 and K11 have their own entry files): one query
   token per row attends the dense cache slots ``[0, positions[b]]`` of its
-  row; GQA takes g = nH / nKV query heads per KV head. The cache is the
-  stacked ``[L, B, nKV, S, dh]`` slab (int8 with ``[L, B, nKV, S]`` bf16
-  scales, or bf16 without); ``k_all[layer]`` is a free view.
+  row; GQA takes g = nH / nKV query heads per KV head (any g, a block
+  for each 64 of them), dh 64, 128 or 256. The cache is the stacked ``[L, B, nKV, S, dh]`` slab (int8 with
+  ``[L, B, nKV, S]`` bf16 scales, or bf16 without); ``k_all[layer]`` is a
+  free view. The kernel splits each row's positions into runs of
+  ``decode_split`` positions (split-S) and combines the runs' partials from
+  an fp32 workspace (``decode_workspace``) in a fixed order.
 - K9 ``flash_decode_paged`` (the same CUDA kernel body, positions addressed
   through a block table): the same math over the paged pool
   ``[L, P, nKV, ps, dh]``, logical position s of row b at
   ``page_table[b, s // ps]``, offset ``s % ps``.
 - K10 ``flash_chunk_paged`` (``csrc/flash_chunk.cu``, wgmma + TMA): C
   consecutive queries per row starting at ``pos[b]`` over the paged pool;
-  query c attends keys ``0 .. pos[b] + c``. Pages of any size the pool takes
-  (bf16 pages: a multiple of 8).
+  query c attends keys ``0 .. pos[b] + c``. Pages of any size the pool takes.
 - K11 ``flash_decode_beam_stacked`` (K4's body, positions addressed through
   the beam indirection): beam-minor rows (row b * bw + j) over the dense
   slab, position s of row b read from row ``b - b % bw + indir[b, s]``.
@@ -132,6 +134,51 @@ def _kv_formats(name, k, ks, v, vs):
     return tuple(fmts)
 
 
+DECODE_HEAD_DIMS = (64, 128, 256)  # the dh K4, K9 and K11 take
+CHUNK_HEAD_DIMS = (128, 256)  # the dh K10 takes
+
+
+def decode_split(dh: int, kfmt: int, vfmt: int) -> int:
+    """Positions one split of K4/K9/K11 takes, passed to the kernel: 256,
+    or 128 where 256 would hold more than 64 KB of K and V (bf16 at dh 128;
+    bf16, int8 and int8k_int4v at dh 256). Short splits keep enough blocks
+    in flight at small batches."""
+    half_bytes = dh * sum({KV_BF16: 4, KV_I8: 2, KV_I4: 1}[f] for f in (kfmt, vfmt))
+    s = 256
+    while s > 128 and s * half_bytes > 2 * 65536:
+        s //= 2
+    return s
+
+
+def decode_splits(S: int, dh: int, fmt) -> list:
+    """The splits of a row of ``S`` positions (its positions up to
+    positions[b]) as (start, stop) ranges: fixed runs of ``decode_split``
+    positions, the last one cut at S. ``fmt`` is the (K format, V format)
+    pair. The plan depends on neither the batch nor the other rows."""
+    n = decode_split(dh, *fmt)
+    return [(s0, min(s0 + n, S)) for s0 in range(0, S, n)]
+
+
+def decode_workspace(B, nKV, g, seq_len, dh, kfmt, vfmt, device) -> torch.Tensor:
+    """The fp32 workspace of one K4/K9/K11 launch: a record of dh + 4 floats
+    (acc, m, l) per (row, KV head, split, query head)."""
+    n_split = max(1, -(-seq_len // decode_split(dh, kfmt, vfmt)))
+    return torch.empty(B * nKV * n_split * g * (dh + 4), dtype=torch.float32, device=device)
+
+
+def decode_kernel_takes(dh: int) -> bool:
+    """Whether K4/K9/K11 have an instance for this head dim (64, 128 or
+    256; any g and KV format). The JAX package's decode kernels take dh 128
+    and 256 and send other head dims to XLA."""
+    return dh in DECODE_HEAD_DIMS
+
+
+def chunk_kernel_takes(dh: int) -> bool:
+    """Whether K10 has an instance for this head dim (128 or 256, as the
+    JAX package's chunk kernel; any page size and format)."""
+    return dh in CHUNK_HEAD_DIMS
+
+
 def _count(fn, kfmt, vfmt) -> None:
     fn.launches += 1
     if KV_I4 in (kfmt, vfmt):
@@ -189,20 +236,24 @@ def flash_decode_stacked(
     L, B2, nKV, _, dh2 = k_all.shape
     S = ks_all.shape[3] if quant else k_all.shape[3]
     req((B2, dh2) == (B, dh) and 0 <= int(layer) < L, "flash_decode: cache shape vs q / layer")
-    req(dh in (128, 256), f"flash_decode: dh must be 128 or 256, got {dh}")
-    req(nH % nKV == 0 and nH // nKV <= 8, "flash_decode: nH must be nKV * g with g <= 8")
+    req(dh in DECODE_HEAD_DIMS, f"flash_decode: dh must be 64, 128 or 256, got {dh}")
+    req(nH % nKV == 0, "flash_decode: nH must be a multiple of nKV")
+    req(q.data_ptr() % 16 == 0, "flash_decode: q must be 16-byte aligned")
     req(positions.dtype == torch.int32 and positions.shape == (B,)
         and positions.is_contiguous(), "flash_decode: positions must be int32 [B]")
     for t in (k_all, v_all, ks_all, vs_all, positions):
         req(t is None or t.device == q.device, "flash_decode: operands on different devices")
     layer = int(layer)
+    g = nH // nKV
     out = torch.empty_like(q)
+    ws = decode_workspace(B, nKV, g, S, dh, kfmt, vfmt, q.device)
     err = _cuda.lib().ftcf_flash_decode(
         q.data_ptr(), k_all[layer].data_ptr(),
         ks_all[layer].data_ptr() if quant else None,
         v_all[layer].data_ptr(), vs_all[layer].data_ptr() if quant else None,
-        positions.data_ptr(), out.data_ptr(), B, nKV, nH // nKV, S, dh, kfmt, vfmt,
-        float(sm_scale), _cuda.stream_of(q),
+        positions.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(),
+        decode_split(dh, kfmt, vfmt), B, nKV, g, S, dh, kfmt, vfmt, float(sm_scale),
+        _cuda.stream_of(q),
     )
     _cuda.check(err, "flash_decode")
     _count(flash_decode_stacked, kfmt, vfmt)
@@ -257,7 +308,7 @@ def flash_decode_beam_stacked(
 ) -> torch.Tensor:
     """K11: decode attention where position s of row b reads the cached
     vector of row ``b - b % bw + indir[b, s]`` (the reference's cache
-    indirection). Every K4 format and GQA up to g = 8. The indirection is
+    indirection). Every K4 format, dh and g. The indirection is
     trusted, as in the JAX package: its values are never checked on the card.
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
@@ -274,8 +325,9 @@ def flash_decode_beam_stacked(
     S = ks_all.shape[3] if quant else k_all.shape[3]
     req((B2, dh2) == (BB, dh) and 0 <= int(layer) < L,
         "flash_decode_beam: cache shape vs q / layer")
-    req(dh in (128, 256), f"flash_decode_beam: dh must be 128 or 256, got {dh}")
-    req(nH % nKV == 0 and nH // nKV <= 8, "flash_decode_beam: nH must be nKV * g with g <= 8")
+    req(dh in DECODE_HEAD_DIMS, f"flash_decode_beam: dh must be 64, 128 or 256, got {dh}")
+    req(nH % nKV == 0, "flash_decode_beam: nH must be a multiple of nKV")
+    req(q.data_ptr() % 16 == 0, "flash_decode_beam: q must be 16-byte aligned")
     req(int(bw) >= 1 and BB % int(bw) == 0, "flash_decode_beam: rows must be groups of bw beams")
     req(positions.dtype == torch.int32 and positions.shape == (BB,)
         and positions.is_contiguous(), "flash_decode_beam: positions must be int32 [BB]")
@@ -284,13 +336,16 @@ def flash_decode_beam_stacked(
     for t in (k_all, v_all, ks_all, vs_all, positions, indir):
         req(t is None or t.device == q.device, "flash_decode_beam: operands on different devices")
     layer = int(layer)
+    g = nH // nKV
     out = torch.empty_like(q)
+    ws = decode_workspace(BB, nKV, g, S, dh, kfmt, vfmt, q.device)
     err = _cuda.lib().ftcf_flash_decode_beam(
         q.data_ptr(), k_all[layer].data_ptr(),
         ks_all[layer].data_ptr() if quant else None,
         v_all[layer].data_ptr(), vs_all[layer].data_ptr() if quant else None,
-        positions.data_ptr(), indir.data_ptr(), out.data_ptr(), BB, nKV, nH // nKV, S, int(bw),
-        dh, kfmt, vfmt, float(sm_scale), _cuda.stream_of(q),
+        positions.data_ptr(), indir.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(),
+        decode_split(dh, kfmt, vfmt), BB, nKV, g, S, int(bw), dh, kfmt, vfmt, float(sm_scale),
+        _cuda.stream_of(q),
     )
     _cuda.check(err, "flash_decode_beam")
     _count(flash_decode_beam_stacked, kfmt, vfmt)
@@ -325,16 +380,16 @@ def flash_decode_paged_plain(q, pk, pks, pv, pvs, layer, positions, page_table, 
     )
 
 
-def _check_pages(name, q_dtype, pk, pks, pv, pvs, page_table, rows, dh, nH):
-    """Shape, type, contiguity and device checks shared by K9 and K10;
-    returns (L, nKV, page size, K format, V format). Any even page size is
-    taken for packed pages, any page size otherwise."""
+def _check_pages(name, q_dtype, pk, pks, pv, pvs, page_table, rows, dh, nH, head_dims):
+    """Shape, type, contiguity and device checks shared by K9 and K10 (dh
+    one of ``head_dims``); returns (L, nKV, page size, K format, V format).
+    Any even page size is taken for packed pages, any page size otherwise."""
     req = _cuda.require
     req(q_dtype == torch.bfloat16, f"{name}: q must be bf16")
     kfmt, vfmt = _kv_formats(name, pk, pks, pv, pvs)
     L, P, nKV, _, dh2 = pk.shape
     ps = pks.shape[3] if pks is not None else pk.shape[3]
-    req(dh2 == dh and dh in (128, 256), f"{name}: dh must be 128 or 256 and match q")
+    req(dh2 == dh and dh in head_dims, f"{name}: dh must be one of {head_dims} and match q")
     req(nH % nKV == 0, f"{name}: nH must be a multiple of nKV")
     req(page_table.dtype == torch.int32 and page_table.ndim == 2
         and page_table.shape[0] == rows and page_table.is_contiguous(),
@@ -362,21 +417,24 @@ def flash_decode_paged(
     B, nH, dh = q.shape
     req(q.is_contiguous(), "flash_decode_paged: q must be contiguous")
     L, nKV, ps, kfmt, vfmt = _check_pages("flash_decode_paged", q.dtype, pk, pks, pv, pvs,
-                                           page_table, B, dh, nH)
+                                           page_table, B, dh, nH, DECODE_HEAD_DIMS)
     quant = pks is not None
-    req(nH // nKV <= 8, "flash_decode_paged: g = nH / nKV must be <= 8")
+    req(q.data_ptr() % 16 == 0, "flash_decode_paged: q must be 16-byte aligned")
     req(0 <= int(layer) < L, "flash_decode_paged: layer out of range")
     req(positions.dtype == torch.int32 and positions.shape == (B,)
         and positions.is_contiguous(), "flash_decode_paged: positions must be int32 [B]")
     for t in (pk, pv, pks, pvs, positions, page_table):
         req(t is None or t.device == q.device, "flash_decode_paged: operands on different devices")
     layer = int(layer)
+    g, n_pg = nH // nKV, page_table.shape[1]
     out = torch.empty_like(q)
+    ws = decode_workspace(B, nKV, g, n_pg * ps, dh, kfmt, vfmt, q.device)
     err = _cuda.lib().ftcf_flash_decode_paged(
         q.data_ptr(), pk[layer].data_ptr(), pks[layer].data_ptr() if quant else None,
         pv[layer].data_ptr(), pvs[layer].data_ptr() if quant else None,
-        positions.data_ptr(), page_table.data_ptr(), out.data_ptr(), B, nKV, nH // nKV,
-        page_table.shape[1], ps, dh, kfmt, vfmt, float(sm_scale), _cuda.stream_of(q),
+        positions.data_ptr(), page_table.data_ptr(), out.data_ptr(), ws.data_ptr(), ws.numel(),
+        decode_split(dh, kfmt, vfmt), B, nKV, g, n_pg, ps, dh, kfmt, vfmt, float(sm_scale),
+        _cuda.stream_of(q),
     )
     _cuda.check(err, "flash_decode_paged")
     _count(flash_decode_paged, kfmt, vfmt)
@@ -469,10 +527,8 @@ def flash_chunk_paged(
     req(q.ndim == 4 and q.is_contiguous(), "flash_chunk_paged: q must be contiguous [B, C, nH, dh]")
     B, C, nH, dh = q.shape
     L, nKV, ps, kfmt, vfmt = _check_pages("flash_chunk_paged", q.dtype, pk, pks, pv, pvs,
-                                           page_table, B, dh, nH)
+                                           page_table, B, dh, nH, CHUNK_HEAD_DIMS)
     quant = pks is not None
-    req(quant or ps % 8 == 0, f"flash_chunk_paged: bf16 pages need a page size that is a "
-        f"multiple of 8 (a TMA box lands whole 8-row swizzle groups), got {ps}")
     req(0 <= int(layer) < L, "flash_chunk_paged: layer out of range")
     req(pos.dtype == torch.int32 and pos.shape == (B,) and pos.is_contiguous(),
         "flash_chunk_paged: pos must be int32 [B]")

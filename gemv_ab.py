@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time the port's weight-only GEMVs, its prefill-width GEMM and K10 at
-CodeFuse-13B shapes on one NVIDIA GPU, for an A/B of two copies of the port
-on one card.
+"""Time the port's weight-only GEMVs, its prefill-width GEMM, K10 and the
+decode attention kernels K4/K9/K11 at CodeFuse-13B shapes on one NVIDIA
+GPU, for an A/B of two copies of the port on one card.
 
-    python3 gemv_ab.py [--root DIR] [--label NAME] [--kernels gemv,gemm,k10]
-                       [--widths 1,4,8]
+    python3 gemv_ab.py [--root DIR] [--label NAME]
+                       [--kernels gemv,gemm,k10,decode] [--widths 1,4,8] [--may-refuse]
 
 ``--root`` is the directory that holds the ``fastertransformer4codefuse_tpu_torch``
 package to time (default: the one beside this script), so one call can time
@@ -19,10 +19,20 @@ tree, parent). ``--kernels`` picks the groups of cases:
   at 1024 and 3072, K6 and K7 QKV at 1024, K8's head at 64;
 - ``k10``: chunked-prefill attention over pages (B = 8 rows of C = 128
   queries starting at 0 .. 1920, 40 heads x 128) on int8, packed int4 and
-  bf16 pages of 256, and int8 pages of 128.
+  bf16 pages of 256, and int8 pages of 128;
+- ``decode``: the decode attention cases of ``chip_smoke.py`` phase 2: K4 on
+  int8, bf16, "int4" and "int8k_int4v" caches (B = 4, S = 1152, 40 x 128
+  heads), int8 at B = 1, S = 4096, GQA g = 8 (40 query heads) and g = 48
+  (48 x 128, one KV head), and 80 x 64 heads on 80 KV heads and on one; K9 on int8, bf16, "int4" and
+  "int8k_int4v" pages of 256 (8 slots, positions 100-2000), and g = 8 and
+  48; K11 on int8, bf16 and "int4" (2 x 4 beams, S = 1152). With
+  ``--may-refuse`` (for an older copy, whose kernels took fewer shapes) a
+  case the copy's kernel does not take prints its refusal instead of a time;
+  without it a refusal is a miss.
 
 Each case is checked against its plain version (max |kernel - plain| / max
-|plain| below 1e-2 for the GEMMs, 2e-2 for K10) and timed as
+|plain| below 1e-2 for the GEMMs, 2e-2 per (query, head) row for the
+attention kernels) and timed as
 ``chip_smoke.py`` times its kernels (CUDA events, median of 5 windows of 10
 calls, a sleep kernel ahead of each window). Prints one JSON object a line,
 the card's name and power limit first; exits non-zero without a card or on
@@ -45,10 +55,12 @@ def main() -> int:
     ap.add_argument("--label", default="tree")
     ap.add_argument("--kernels", default="gemv")
     ap.add_argument("--widths", default="1,4,8")
+    ap.add_argument("--may-refuse", action="store_true",
+                    help="a decode case the copy's kernel refuses is logged, not a miss")
     args = ap.parse_args()
     groups = set(args.kernels.split(","))
-    if not groups <= {"gemv", "gemm", "k10"}:
-        print(f"gemv_ab: --kernels takes gemv, gemm and k10, got {args.kernels}",
+    if not groups <= {"gemv", "gemm", "k10", "decode"}:
+        print(f"gemv_ab: --kernels takes gemv, gemm, k10 and decode, got {args.kernels}",
               file=sys.stderr)
         return 2
     import torch
@@ -59,7 +71,9 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     from fastertransformer4codefuse_tpu_torch.ops import _cuda
     from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
-        flash_chunk_paged, flash_chunk_paged_plain,
+        flash_chunk_paged, flash_chunk_paged_plain, flash_decode_beam_plain,
+        flash_decode_beam_stacked, flash_decode_paged, flash_decode_paged_plain,
+        flash_decode_stacked, flash_decode_stacked_plain,
     )
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import (
         quant_matmul, quant_matmul_plain,
@@ -94,6 +108,10 @@ def main() -> int:
 
     def gscale(k, n, qmax, dtype, G=128):
         return scale((k // G, n), qmax).to(dtype)
+
+    def row_rel(g, r):  # each (query, head) row of attention held to its own magnitude
+        d = (g.float() - r.float()).abs()
+        return (d.amax(-1) / r.float().abs().amax(-1).clamp_min(1e-30)).max().item()
 
     def run(name, M, kernel, plain, a, tol=1e-2, rel_of=None):
         nonlocal ok
@@ -184,10 +202,6 @@ def main() -> int:
                               device=dev)
         q = bf(B, C, nKV, dh)
 
-        def row_rel(g, r):  # each (query, head) row held to its own magnitude
-            d = (g.float() - r.float()).abs()
-            return (d.amax(-1) / r.float().abs().amax(-1).clamp_min(1e-30)).max().item()
-
         for ps in (256, 128):
             n_pg = 2048 // ps
             P = B * n_pg + 1
@@ -206,6 +220,64 @@ def main() -> int:
                     flash_chunk_paged_plain, (q, a, sa, b_, sb, 1, starts, pt, dh ** -0.5),
                     tol=2e-2, rel_of=row_rel)
             del kinds, pk8, pv8, a, b_
+    if "decode" in groups:
+        L = 2
+
+        def attn(name, M, kernel, plain, a):
+            nonlocal ok
+            try:
+                run(name, M, kernel, plain, a, tol=2e-2, rel_of=row_rel)
+            except ValueError as e:  # a shape this copy's kernel does not take
+                print(json.dumps({"label": args.label, "case": name, "M": M,
+                                  "refused": str(e)}), flush=True)
+                ok &= args.may_refuse
+
+        def cache(X, nKV, n, dh, kind):  # (k, ks, v, vs) over n positions
+            sc = [(torch.rand((L, X, nKV, n), device=dev, generator=gen) * 0.02).to(bf16)
+                  for _ in range(2)]
+            if kind == "bf16":
+                return bf(L, X, nKV, n, dh), None, bf(L, X, nKV, n, dh), None
+            k = i8(L, X, nKV, n // 2 if kind == "int4" else n, dh)
+            v = i8(L, X, nKV, n if kind == "int8" else n // 2, dh)
+            return k, sc[0], v, sc[1]
+
+        for B, S, nH, nKV, dh, kinds in (
+                (4, 1152, 40, 40, 128, ("int8", "bf16", "int4", "int8k_int4v")),
+                (1, 4096, 40, 40, 128, ("int8",)), (4, 1152, 40, 5, 128, ("int8", "bf16")),
+                (4, 1152, 48, 1, 128, ("int8", "bf16")), (4, 1152, 80, 80, 64, ("int8",)),
+                (4, 1152, 80, 1, 64, ("int8",))):
+            pos = torch.tensor([10, S - 1, 500, 777][:B] if B > 1 else [S - 1],
+                               dtype=torch.int32, device=dev)
+            q = bf(B, nH, dh)
+            for kind in kinds:
+                a = (q, *cache(B, nKV, S, dh, kind), 1, pos, dh ** -0.5)
+                attn(f"K4 {kind} B={B} S={S} {nH}x{dh} g={nH // nKV}", B,
+                     flash_decode_stacked, flash_decode_stacked_plain, a)
+                del a
+        B, ps, n_pg = 8, 256, 8
+        P = B * n_pg + 1
+        pt = (torch.randperm(P - 1, device=dev, generator=gen) + 1).reshape(B, n_pg).to(
+            torch.int32)
+        pos = torch.tensor([100, 371, 642, 914, 1185, 1457, 1728, 2000], dtype=torch.int32,
+                           device=dev)
+        for nH, nKV, kinds in ((40, 40, ("int8", "bf16", "int4", "int8k_int4v")),
+                               (40, 5, ("int8",)), (48, 1, ("int8",))):
+            q = bf(B, nH, 128)
+            for kind in kinds:
+                a = (q, *cache(P, nKV, ps, 128, kind), 1, pos, pt, 128 ** -0.5)
+                attn(f"K9 {kind} pages B=8 pos 100-2000 {nH}x128 g={nH // nKV}", B,
+                     flash_decode_paged, flash_decode_paged_plain, a)
+                del a
+        BB, bw, S = 8, 4, 1152
+        pos = torch.tensor([1151, 700, 1000, 64, 900, 333, 1100, 512], dtype=torch.int32,
+                           device=dev)
+        indir = torch.randint(0, bw, (BB, S), generator=gen, device=dev, dtype=torch.int32)
+        q = bf(BB, 40, 128)
+        for kind in ("int8", "bf16", "int4"):
+            a = (q, *cache(BB, 40, S, 128, kind), 1, pos, indir, bw, 128 ** -0.5)
+            attn(f"K11 {kind} B=2 bw=4 S=1152", BB, flash_decode_beam_stacked,
+                 flash_decode_beam_plain, a)
+            del a
     return 0 if ok else 1
 
 

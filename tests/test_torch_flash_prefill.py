@@ -90,7 +90,7 @@ def test_k5_raises_on_what_it_does_not_take():
     the library."""
     lens = torch.tensor([8], dtype=torch.int32)
     bad = [
-        (torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16), lens),  # dh 64
+        (torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16), lens),  # dh 96 (64 is served)
         (torch.zeros(1, 8, 2, 128), lens),  # fp32
         (torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16), lens.long()),  # int64 lengths
     ]

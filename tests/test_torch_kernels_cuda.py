@@ -2,16 +2,21 @@
 and ragged shapes (K2/K3 also with group scales, int8 and int4, and K3, K7
 and K13 with groups of 32 and 64 whose splits do not divide K; K13's
 segments also bit for bit against K1/K6/K7 run alone; K5 at key tiles and
-one past them, lengths of 1, GQA up to 8 query heads a KV head, two calls
-equal byte for byte), K4/K9/K10/K11 also on packed int4 caches (chip_smoke.py
+one past them, lengths of 1, GQA up to 8 query heads a KV head, dh 64, 128
+and 256, two calls equal byte for byte), K4/K9/K10/K11 also on packed int4 caches (chip_smoke.py
 covers the CodeFuse-13B and Longformer-base shapes); K11 also bit for bit
 against K4 over a physically gathered copy of its cache. The prefill-width
 GEMM (K1/K6/K7/K13 at M > 32) at its tile edges, on a layer's view of a
 stacked weight, with ragged K13 segments, its rows bit for bit the same at
 every M and two calls equal; K10 on pages under a key tile, 8 query heads a
 KV head, chunks across three pages, every format poisoned past the chunk,
-two calls equal, and its refusal of bf16 pages off the swizzle groups. Marked
-``cuda``: skipped where there is no GPU. On a GPU machine without jax:
+two calls equal, and bf16 pages off the swizzle groups (sizes 12 and 5,
+landed as raw rows). K4, K9 and K11 also at dh 64, with 12, 16, 48, 64, 65
+and 80 query heads a KV head, rows ending across a split boundary (255,
+256, 257) and at one position, each row the same bit for bit alone or in a
+batch of 8 and two calls equal; the configurations of chip_smoke.py
+ROUTE_CONFIGS served on the card give the CPU's greedy tokens. Marked ``cuda``: skipped where there is no
+GPU. On a GPU machine without jax:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
@@ -22,6 +27,7 @@ differently."""
 import pytest
 import torch
 
+import chip_smoke
 from fastertransformer4codefuse_tpu_torch.ops.attention import (
     prefill_attention_flash,
     prefill_attention_flash_plain,
@@ -139,7 +145,11 @@ def test_k2_k3_match_plain(gen, M):
 @pytest.mark.parametrize(
     "B,nH,nKV,dh,S,quant",
     [(4, 8, 8, 128, 300, True), (2, 8, 4, 128, 200, True), (3, 16, 2, 128, 129, False),
-     (2, 4, 4, 256, 70, True), (2, 4, 4, 256, 64, False)],
+     (2, 4, 4, 256, 70, True), (2, 4, 4, 256, 64, False), (4, 4, 4, 64, 300, True),
+     (3, 8, 2, 64, 129, False), (2, 12, 1, 128, 300, True), (3, 16, 1, 128, 129, False),
+     (4, 48, 1, 128, 300, True), (2, 48, 1, 64, 70, False), (2, 32, 2, 256, 64, True),
+     (2, 64, 1, 128, 300, True), (2, 64, 1, 256, 70, False), (2, 65, 1, 128, 129, True),
+     (4, 80, 1, 64, 300, True), (2, 160, 2, 128, 70, False), (2, 144, 1, 256, 64, True)],
 )
 def test_k4_matches_plain(gen, B, nH, nKV, dh, S, quant):
     L = 2
@@ -285,7 +295,10 @@ def _table(gen, B, n_pg, P, garbage_rows=()):
 @pytest.mark.parametrize(
     "B,nH,nKV,dh,ps,n_pg,quant",
     [(4, 8, 8, 128, 256, 3, True), (3, 8, 4, 128, 64, 8, True), (2, 16, 2, 128, 16, 20, False),
-     (2, 4, 4, 256, 128, 2, True), (3, 4, 4, 256, 256, 2, False)],
+     (2, 4, 4, 256, 128, 2, True), (3, 4, 4, 256, 256, 2, False), (4, 4, 4, 64, 64, 5, True),
+     (3, 4, 2, 64, 4, 70, False), (2, 12, 1, 128, 16, 20, True), (3, 16, 1, 128, 4, 70, False),
+     (4, 48, 1, 128, 64, 5, True), (2, 64, 1, 128, 16, 20, False),
+     (3, 80, 1, 64, 12, 25, True), (2, 96, 1, 128, 16, 20, False)],
 )
 def test_k9_matches_plain(gen, B, nH, nKV, dh, ps, n_pg, quant):
     L, S = 2, ps * n_pg
@@ -328,7 +341,8 @@ def test_k9_equals_k4_on_the_same_bytes(gen):
 @pytest.mark.parametrize(
     "B,nH,nKV,dh,ps,n_pg,quant",
     [(3, 8, 8, 128, 256, 3, True), (2, 8, 4, 128, 128, 4, False), (2, 4, 2, 128, 256, 2, True),
-     (2, 4, 4, 256, 256, 2, True), (2, 2, 2, 256, 128, 3, False)],
+     (2, 4, 4, 256, 256, 2, True), (2, 2, 2, 256, 128, 3, False),
+     (2, 8, 4, 128, 4, 40, False), (2, 4, 2, 256, 12, 20, False), (2, 4, 4, 128, 5, 50, False)],
 )
 def test_k10_matches_plain(gen, C, B, nH, nKV, dh, ps, n_pg, quant):
     L, S = 2, ps * n_pg
@@ -375,8 +389,8 @@ def test_paged_kernels_raise_on_what_they_do_not_take(gen):
         lambda: flash_decode_paged(q, pk, pks, pv, None, 0, pos, pt, 0.1),  # one scale slab
         lambda: flash_decode_paged(q, pk, pks, pv, pvs, 0, pos, pt.long(), 0.1),  # int64 table
         lambda: flash_decode_paged(q, pk, pks, pv, pvs, 1, pos, pt, 0.1),  # layer out of range
-        lambda: flash_decode_paged(_bf(gen, 1, 2, 64), pk[..., :64].contiguous(), pks,
-                                   pv[..., :64].contiguous(), pvs, 0, pos, pt, 0.1),  # dh 64
+        lambda: flash_decode_paged(_bf(gen, 1, 2, 96), pk[..., :96].contiguous(), pks,
+                                   pv[..., :96].contiguous(), pvs, 0, pos, pt, 0.1),  # dh 96
         lambda: flash_chunk_paged(qc.transpose(1, 2), pk, pks, pv, pvs, 0, pos, pt, 0.1),
         lambda: flash_chunk_paged(qc, pk, pks, pv, pvs, 0, pos.long(), pt, 0.1),  # int64 pos
         lambda: flash_chunk_paged(qc, pk.float(), pks, pv.float(), pvs, 0, pos, pt, 0.1),
@@ -393,11 +407,13 @@ def test_paged_kernels_raise_on_what_they_do_not_take(gen):
     [(2, 300, 8, 8, 128, [300, 123]), (2, 200, 8, 2, 128, [200, 1]),
      (1, 130, 4, 4, 256, [130]), (3, 129, 8, 2, 256, [5, 129, 64]), (1, 64, 2, 2, 128, [64]),
      (1, 129, 4, 4, 128, [129]), (1, 65, 4, 4, 256, [65]), (2, 300, 16, 2, 128, [300, 1]),
-     (2, 300, 8, 4, 256, [300, 171]), (2, 300, 16, 2, 256, [1, 300])],
+     (2, 300, 8, 4, 256, [300, 171]), (2, 300, 16, 2, 256, [1, 300]),
+     (2, 300, 8, 8, 64, [300, 123]), (1, 129, 4, 4, 64, [129]), (2, 200, 16, 2, 64, [200, 1]),
+     (3, 256, 8, 1, 64, [5, 256, 128])],
 )
 def test_k5_matches_plain(gen, B, S, nH, nKV, dh, lens):
-    """Ragged lengths, S not a multiple of the key tile (128 keys at dh 128,
-    64 at dh 256) or one past it, lengths of 1, MHA and GQA up to 8 query
+    """Ragged lengths, S not a multiple of the key tile (128 keys at dh 64
+    and 128, 64 at dh 256) or one past it, lengths of 1, MHA and GQA up to 8 query
     heads a KV head: every row, padded ones included, equals the plain
     masked prefill."""
     q, k, v = _bf(gen, B, S, nH, dh), _bf(gen, B, S, nKV, dh), _bf(gen, B, S, nKV, dh)
@@ -411,7 +427,8 @@ def test_k5_matches_plain(gen, B, S, nH, nKV, dh, lens):
 
 
 @pytest.mark.parametrize("nH,nKV,dh,lens", [(4, 4, 128, [150, 70]), (8, 2, 128, [131, 200]),
-                                           (4, 4, 256, [100, 199]), (8, 1, 256, [1, 75])])
+                                           (4, 4, 256, [100, 199]), (8, 1, 256, [1, 75]),
+                                           (4, 4, 64, [150, 70]), (8, 2, 64, [1, 199])])
 def test_k5_reads_stop_at_the_length(gen, nH, nKV, dh, lens):
     """Keys at or past a row's length are never used: poisoning them (K with
     1e4, V with NaN) changes nothing, also where the length ends inside a
@@ -453,7 +470,8 @@ def _packed(gen, shape, kind):
 
 @pytest.mark.parametrize("kind", ["int4", "int8k_int4v"])
 @pytest.mark.parametrize("B,nH,nKV,dh,S", [(4, 8, 8, 128, 300), (2, 8, 4, 128, 200),
-                                           (2, 4, 4, 256, 70)])
+                                           (2, 4, 4, 256, 70), (4, 4, 4, 64, 300),
+                                           (2, 16, 1, 128, 200), (4, 48, 1, 128, 300)])
 def test_k4_packed_matches_plain(gen, kind, B, nH, nKV, dh, S):
     L = 2
     k, ks, v, vs = _packed(gen, (L, B, nKV, S, dh), kind)
@@ -469,7 +487,8 @@ def test_k4_packed_matches_plain(gen, kind, B, nH, nKV, dh, S):
 
 @pytest.mark.parametrize("kind", ["int4", "int8k_int4v"])
 @pytest.mark.parametrize("B,nH,nKV,dh,ps,n_pg", [(4, 8, 8, 128, 256, 3), (3, 8, 4, 128, 16, 20),
-                                                 (2, 4, 4, 256, 2, 40)])
+                                                 (2, 4, 4, 256, 2, 40), (4, 4, 4, 64, 64, 5),
+                                                 (3, 12, 1, 128, 4, 70)])
 def test_k9_packed_matches_plain(gen, kind, B, nH, nKV, dh, ps, n_pg):
     """Packed pages of any even size, down to 2."""
     L, S = 2, ps * n_pg
@@ -550,7 +569,9 @@ def _gathered(slab, scales, layer, indir, bw):
 
 @pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "int8k_int4v"])
 @pytest.mark.parametrize("B,bw,nH,nKV,dh,S", [(2, 4, 8, 8, 128, 300), (1, 3, 8, 2, 128, 130),
-                                              (2, 2, 4, 4, 256, 64)])
+                                              (2, 2, 4, 4, 256, 64), (2, 4, 4, 4, 64, 300),
+                                              (1, 4, 16, 1, 128, 260), (2, 2, 48, 1, 128, 130),
+                                              (1, 2, 64, 1, 64, 130), (1, 2, 80, 1, 64, 130)])
 def test_k11_matches_plain_and_k4_over_a_gathered_copy(gen, kind, B, bw, nH, nKV, dh, S):
     """MHA and GQA, every cache format: K11 against its plain version, and
     bit for bit against K4 over the physically resolved cache (one body, the
@@ -603,6 +624,105 @@ def test_k11_raises_on_what_it_does_not_take(gen):
         flash_decode_beam_stacked(q, k, None, v, None, 0, pos, indir[:, :32], bw, 0.1)
     with pytest.raises(ValueError):
         flash_decode_beam_stacked(q.float(), k, None, v, None, 0, pos, indir, bw, 0.1)
+
+
+SPLIT_KINDS = ["bf16", "int8", "int4", "int8k_int4v"]
+
+
+@pytest.mark.parametrize("kind", SPLIT_KINDS)
+@pytest.mark.parametrize("nH,nKV,dh", [(4, 4, 64), (12, 1, 128), (16, 2, 128), (48, 1, 128),
+                                       (64, 1, 128), (80, 1, 64), (130, 2, 128),
+                                       (8, 4, 256)])
+def test_decode_kernels_across_split_boundaries(gen, kind, nH, nKV, dh):
+    """Rows ending just before, on and after a split boundary (255, 256, 257:
+    the splits are 128 or 256 positions, so 256 is a boundary of every split
+    size) and a row of one position: K4, K9 (pages of 16)
+    and K11 against their plain versions; K9 bit for bit K4 on the same
+    bytes, K11 bit for bit K4 over the gathered copy."""
+    B, S, ps, bw = 4, 320, 16, 2
+    k, ks, v, vs = _beam_cache(gen, kind, (1, B, nKV, S, dh))
+    q = _bf(gen, B, nH, dh)
+    pos = torch.tensor([255, 256, 257, 0], dtype=torch.int32, device="cuda")
+    sm = dh ** -0.5
+    got = flash_decode_stacked(q, k, ks, v, vs, 0, pos, sm)
+    assert _rel(got, flash_decode_stacked_plain(q, k, ks, v, vs, 0, pos, sm)) < 2e-2
+
+    n_pg = S // ps  # the dense slab as pages, identity table
+    def to_pages(t, packed=False):
+        n = ps // 2 if packed else ps
+        t = t.reshape((1, B, nKV, n_pg, n) + tuple(t.shape[4:])).transpose(2, 3)
+        return t.reshape((1, B * n_pg, nKV, n) + tuple(t.shape[5:])).contiguous()
+
+    pt = torch.arange(B * n_pg, device="cuda", dtype=torch.int32).reshape(B, n_pg)
+    pk, pv = to_pages(k, is_packed(k, ks)), to_pages(v, is_packed(v, vs))
+    pks, pvs = (None, None) if ks is None else (to_pages(ks), to_pages(vs))
+    paged = flash_decode_paged(q, pk, pks, pv, pvs, 0, pos, pt, sm)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, got)
+
+    indir = torch.randint(0, bw, (B, S), generator=gen, device="cuda", dtype=torch.int32)
+    beam = flash_decode_beam_stacked(q, k, ks, v, vs, 0, pos, indir, bw, sm)
+    assert _rel(beam, flash_decode_beam_plain(q, k, ks, v, vs, 0, pos, indir, bw, sm)) < 2e-2
+    gk, gv = _gathered(k, ks, 0, indir, bw), _gathered(v, vs, 0, indir, bw)
+    gks = None if ks is None else _gathered(ks, None, 0, indir, bw)
+    gvs = None if vs is None else _gathered(vs, None, 0, indir, bw)
+    torch.cuda.synchronize()
+    assert torch.equal(beam, flash_decode_stacked(q, gk, gks, gv, gvs, 0, pos, sm))
+
+
+@pytest.mark.parametrize("kind", SPLIT_KINDS)
+@pytest.mark.parametrize("nH,nKV,dh", [(8, 8, 128), (16, 1, 64), (48, 1, 128), (80, 1, 64)])
+def test_decode_rows_are_batch_invariant_and_calls_repeat(gen, kind, nH, nKV, dh):
+    """Split-S fixed in positions: a row's output at B = 1 is the same row
+    of a B = 8 call, bit for bit (K4 and K9), and two calls give equal
+    bytes (the combine adds the splits in a fixed order, no atomics)."""
+    B, S, ps = 8, 1100, 4
+    k, ks, v, vs = _beam_cache(gen, kind, (1, B, nKV, S, dh))
+    q = _bf(gen, B, nH, dh)
+    pos = torch.tensor([1099, 0, 300, 511, 512, 700, 129, 1000], dtype=torch.int32,
+                       device="cuda")
+    sm = dh ** -0.5
+    full = flash_decode_stacked(q, k, ks, v, vs, 0, pos, sm)
+    again = flash_decode_stacked(q, k, ks, v, vs, 0, pos, sm)
+    torch.cuda.synchronize()
+    assert torch.equal(full, again)
+    for b in (0, 3, 6):
+        one = flash_decode_stacked(q[b:b + 1].contiguous(), k[:, b:b + 1].contiguous(),
+                                   None if ks is None else ks[:, b:b + 1].contiguous(),
+                                   v[:, b:b + 1].contiguous(),
+                                   None if vs is None else vs[:, b:b + 1].contiguous(), 0,
+                                   pos[b:b + 1].contiguous(), sm)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], full[b]), b
+    # K9: a slot's row alone with its own pages, and two calls
+    P = B * (S // ps) + 1
+    pk, pks, pv, pvs = _beam_cache(gen, kind, (1, P, nKV, ps, dh))
+    pt = _table(gen, B, S // ps, P)
+    full = flash_decode_paged(q, pk, pks, pv, pvs, 0, pos, pt, sm)
+    again = flash_decode_paged(q, pk, pks, pv, pvs, 0, pos, pt, sm)
+    torch.cuda.synchronize()
+    assert torch.equal(full, again)
+    for b in (0, 3, 6):
+        one = flash_decode_paged(q[b:b + 1].contiguous(), pk, pks, pv, pvs, 0,
+                                 pos[b:b + 1].contiguous(), pt[b:b + 1].contiguous(), sm)
+        torch.cuda.synchronize()
+        assert torch.equal(one[0], full[b]), b
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.ROUTE_CONFIGS))
+def test_served_attention_shapes_match_the_cpu(gen, name):
+    """dh 64 (K5 and K4 at dh 64), g = 16 (K5 and K4 at 16 query heads a KV
+    head), bf16 pages of 4 (K10 on raw rows, K9) and dh 32 (no kernel takes
+    it, nor does the JAX package's: the plain routes) served on the card
+    give the CPU's greedy tokens (a parting only at a near-tie of the CPU's
+    logits, both then teacher-forced on); each route is the one the config
+    must take (chip_smoke.py phase 3 runs the same check;
+    tests/test_torch_attention_routes.py holds the configs to the JAX
+    engine)."""
+    import fastertransformer4codefuse_tpu_torch as pkg
+
+    err, _, _ = chip_smoke.serve_route_config(torch, pkg, name)
+    assert err is None, err
 
 
 def _masked(lens, S):
@@ -979,7 +1099,8 @@ def _kv_pages(gen, kind, L, P, nKV, ps, dh):
 
 @pytest.mark.parametrize("kind", ["bf16", "int8", "int4", "int8k_int4v"])
 @pytest.mark.parametrize("ps,n_pg,nH,nKV,dh,C", [(16, 24, 8, 1, 128, 100), (32, 12, 16, 2, 128, 33),
-                                                 (48, 8, 4, 4, 256, 100), (256, 2, 8, 1, 256, 64)])
+                                                 (48, 8, 4, 4, 256, 100), (256, 2, 8, 1, 256, 64),
+                                                 (12, 30, 8, 2, 128, 100), (6, 50, 4, 4, 256, 64)])
 def test_k10_page_sizes_and_groups_match_plain(gen, kind, ps, n_pg, nH, nKV, dh, C):
     L, B = 2, 3
     S = ps * n_pg
@@ -1039,15 +1160,29 @@ def test_k10_is_deterministic(gen, kind):
 
 
 def test_k10_refuses_bf16_pages_off_the_swizzle_groups(gen):
-    """bf16 pages land swizzled, 8 rows a swizzle group: K10 refuses a page
-    size that is not a multiple of 8 (quantized pages of that size are
-    taken: they land raw)."""
-    pk, _, pv, _ = _pages(gen, 1, 4, 2, 12, 128, False)
+    """bf16 pages whose size is not a multiple of 8 (12 and 5: no TMA box
+    holds whole 8-row swizzle groups) are no longer refused: they land as
+    raw rows and the consumers copy them into the swizzled layout, as they
+    convert quantized pages of any size. Each matches the plain version, and
+    keys past the chunk poisoned (K 1e4, V NaN) change nothing."""
+    for ps in (12, 5):
+        P, n_pg, C = 9, 4, 8
+        pk, _, pv, _ = _pages(gen, 1, P, 2, ps, 128, False)
+        pt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32, device="cuda")
+        pos = torch.tensor([0, ps * n_pg - C], dtype=torch.int32, device="cuda")
+        q = _bf(gen, 2, C, 4, 128)
+        got = flash_chunk_paged(q, pk, None, pv, None, 0, pos, pt, 0.1)
+        assert _rel(got, flash_chunk_paged_plain(q, pk, None, pv, None, 0, pos, pt, 0.1)) < 2e-2
+        for page in range(n_pg):  # row 0: keys C and past are never used
+            first = max(0, C - page * ps)
+            pk[0, pt[0, page], :, first:] = 1e4
+            pv[0, pt[0, page], :, first:] = float("nan")
+        again = flash_chunk_paged(q, pk, None, pv, None, 0, pos, pt, 0.1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+    k8, ks, v8, vs = _pages(gen, 1, 4, 2, 12, 128, True)
     pt = torch.ones(1, 2, dtype=torch.int32, device="cuda")
     pos = torch.zeros(1, dtype=torch.int32, device="cuda")
     q = _bf(gen, 1, 8, 2, 128)
-    with pytest.raises(ValueError):
-        flash_chunk_paged(q, pk, None, pv, None, 0, pos, pt, 0.1)
-    k8, ks, v8, vs = _pages(gen, 1, 4, 2, 12, 128, True)
     got = flash_chunk_paged(q, k8, ks, v8, vs, 0, pos, pt, 0.1)
     assert _rel(got, flash_chunk_paged_plain(q, k8, ks, v8, vs, 0, pos, pt, 0.1)) < 2e-2
