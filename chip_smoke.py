@@ -7,8 +7,10 @@ Phases (any failure exits non-zero):
   1. device, torch and CUDA versions, card name and power limit; build the
      CUDA kernels from ``fastertransformer4codefuse_tpu_torch/csrc``; every
      GEMV instance within 128 registers and without spills, and no TMA +
-     wgmma instance (K5, K10, the GEMM) and no decode attention instance
-     (K4/K9/K11 and their combine) spilling;
+     wgmma instance (the prefill attention body: K5 under CausalPrefix, K12
+     under Band, whose dh 64 and 128 instances must be built; K10, the GEMM)
+     and no decode attention instance (K4/K9/K11 and their combine)
+     spilling;
   2. each kernel (K1-K13; K2/K3 on int4 weights and with group scales,
      int4 and int8, G = 128; the GEMVs K1, K3, K6, K7, K8 and K13's GEMV
      form (int8, int4 and int4 g128) at M = 1, 4 and 8, K1 QKV, K6 and K13
@@ -26,8 +28,11 @@ Phases (any failure exits non-zero):
      x 64, one KV head), and each row at B = 1 bit for bit its row at B = 8
      and two calls equal bytes; K9 also at g = 8 and 48; K5 also at 32 x 64
      heads)
-     against its plain PyTorch version at CodeFuse-13B shapes, K12 at Longformer-base shapes (S = 4096, w_half 256, both band
-     modes): max error against the stated tolerance, median kernel and
+     against its plain PyTorch version at CodeFuse-13B shapes, K12 at
+     Longformer-base shapes (S = 4096, w_half 256, both band modes; two
+     calls equal bytes) and at the band's edges (S = 1000: w = 0, 130 and
+     S, dh 128 with w = 300; lengths off the 128-key tiles, an empty row;
+     both modes): max error against the stated tolerance, median kernel and
      plain times (CUDA events, device time), the card's bound for the same
      work and the kernel's share of it, and where one PyTorch call computes
      the same function, its time at every case
@@ -77,7 +82,14 @@ Phases (any failure exits non-zero):
      (K4), a dense beam pool (2 slots x 4 beams, K11; each request's beams
      in the mix equal its beams alone) and a handler with a sampling and a
      beam class. Tick dispatch runs under
-     ``torch.cuda.set_sync_debug_mode("error")``;
+     ``torch.cuda.set_sync_debug_mode("error")``. Then prompt-lookup
+     speculative decoding (k = 8, 3-grams) on code prompts with repeated
+     lines: ``speculative_generate`` (1000-token prompt, 128 tokens) beside
+     static greedy decode, ``speculative_generate_batched`` at B = 4, a
+     ``MultiPoolServer`` with a speculative and a sampling class taking 8
+     requests from threads (speculative ticks under the same sync check),
+     and the handler's speculative route; each path's tokens held to greedy
+     through the same chunked program, teacher-forced (near-ties allowed);
   6. encoder serving at full depth: Longformer-base (12 layers) behind an
      ``EncoderBatchingServer`` takes 8 requests of 300-4096 tokens from
      threads, a batch with a global token takes the dense path, and int8
@@ -1006,7 +1018,28 @@ def phase_kernels(torch, records):
             log(f"  sliding_window_attention: the sdpa yardstick against the plain version: "
                 f"row_rel_err {row_rel_err(torch, got, ref)[1]:.2e}")
         del allow
-    del q, k, v
+    a1 = sliding_window_attention(q, k, v, w, masked)
+    a2 = sliding_window_attention(q, k, v, w, masked)
+    torch.cuda.synchronize()
+    log(f"  sliding_window_attention: two calls equal bytes: {torch.equal(a1, a2)}")
+    ok &= torch.equal(a1, a2)
+    del q, k, v, a1, a2
+    # K12 at the band's edges (S = 1000, 12 heads): w = 0, w = 130 (a band
+    # edge inside a 128-key tile), w = S, and dh 128 with w = 300; lengths
+    # off the tile boundaries and an empty row; each in both band modes
+    S = 1000
+    pos = torch.arange(S, device=dev)
+    for w, lens, dh in ((0, [1000, 129], 64), (130, [1000, 257], 64), (1000, [1000, 1], 64),
+                        (300, [1000, 0], 128)):
+        q, k, v = bf(B, S, nH, dh, std=dh ** -0.5), bf(B, S, nH, dh), bf(B, S, nH, dh)
+        masked = pos[None, :] >= torch.tensor(lens, device=dev)[:, None]
+        for causal in (False, True):
+            report_attn("sliding_window_attention",
+                   f"{'causal band' if causal else 'band'} S=1000 12x{dh} w={w} lengths {lens}",
+                   lambda: sliding_window_attention(q, k, v, w, masked, causal=causal),
+                   lambda: sliding_window_attention_plain(q, k, v, w, masked, causal=causal),
+                   2e-2, f"band B=2 S=4096 w=256 lengths {[4096, 2900]}")
+        del q, k, v
     return ok
 
 
@@ -1778,21 +1811,34 @@ def main() -> int:
         if st or ld:
             log(f"    spills: {src_name} {kern}<{args}>: {regs} registers, {st} B spill stores, "
                 f"{ld} B spill loads")
-    # The TMA + wgmma instances (K5 <dh>, K10 <dh, K format, V format>, the
-    # GEMM <format, block width>; ptxas reports the launch bound's 168, and
-    # setmaxnreg gives the consumers 232-240) and every GEMV partial instance
-    # <NB, format>: NB 0 is the M = 1 loop, NB 1/2/4 the tensor-core body's
-    # 8-row B tiles; formats W_I8 = 0, W_I4 = 1, W_I4G = 2, W_I8G = 3
+    # The TMA + wgmma instances (the prefill attention body <dh, policy>: K5
+    # CausalPrefix from prefill_flash.cu, K12 Band from sliding_window.cu;
+    # K10 <dh, K format, V format>, the GEMM <format, block width>; ptxas
+    # reports the launch bound's 168, and setmaxnreg gives the consumers
+    # 232-240) and every GEMV partial instance <NB, format>: NB 0 is the M =
+    # 1 loop, NB 1/2/4 the tensor-core body's 8-row B tiles; formats W_I8 =
+    # 0, W_I4 = 1, W_I4G = 2, W_I8G = 3
     wgmma_kernels = ("prefill_flash_kernel", "flash_chunk_kernel", "qmm_gemm_kernel")
+
+    def instance(src_name, kern, args):
+        if kern == "prefill_flash_kernel":
+            return f"{kern}<{args}, {'Band' if src_name.startswith('sliding') else 'CausalPrefix'}>"
+        return f"{kern}<{args}>"
+
     log("  registers (spill stores/loads, bytes): " + ", ".join(
-        f"{kern}<{args}> {regs} ({st}/{ld})" for _, kern, args, regs, st, ld in entries
+        f"{instance(src_name, kern, args)} {regs} ({st}/{ld})"
+        for src_name, kern, args, regs, st, ld in entries
         if kern in wgmma_kernels or kern.startswith("gemv")))
+    band = sorted(args for src_name, kern, args, *_ in entries
+                  if kern == "prefill_flash_kernel" and src_name.startswith("sliding"))
+    if band != ["128", "64"]:
+        return fail(f"K12's Band instances of the prefill body (dh 64, 128) not built: {band}")
     gemv_over = [f"{kern}<{args}>" for _, kern, args, regs, st, ld in entries
                  if "partial_kernel" in kern and (regs > 128 or st or ld)]
     if gemv_over:
         return fail(f"GEMV instances over 128 registers or spilling: {gemv_over}")
-    wgmma_spills = [f"{kern}<{args}>" for _, kern, args, regs, st, ld in entries
-                    if kern in wgmma_kernels and (st or ld)]
+    wgmma_spills = [instance(src_name, kern, args) for src_name, kern, args, regs, st, ld
+                    in entries if kern in wgmma_kernels and (st or ld)]
     if wgmma_spills:
         return fail(f"TMA + wgmma instances spilling: {wgmma_spills}")
     # the decode attention body (K4, K9, K11: <dh, K format, V format> in
@@ -1809,42 +1855,43 @@ def main() -> int:
 
     src = "fastertransformer4codefuse_tpu_torch/csrc/"
     tpu = "fastertransformer4codefuse_tpu/ops/"
-    # name -> (wrapper, its counter, source, the TPU kernel it replaces). A
-    # packed-int4 form counts its launches apart (``launches_packed``) and
-    # within the wrapper's ``launches``.
+    # name -> (wrapper, its counter, source, the TPU kernel it replaces: the
+    # line of its pl.pallas_call, or of the library flash_attention call for
+    # K5). A packed-int4 form counts its launches apart (``launches_packed``)
+    # and within the wrapper's ``launches``.
     kernels = {
         "quant_matmul": (quant_matmul, "launches", src + "quant_matmul.cu",
-                         tpu + "quant_matmul.py:139"),
+                         tpu + "quant_matmul.py:221"),
         "fused_up_proj_down": (fused_up_proj_down, "launches", src + "quant_matmul_fused.cu",
-                               tpu + "quant_matmul_fused.py:434"),
+                               tpu + "quant_matmul_fused.py:571"),
         "fused_proj_down": (fused_proj_down, "launches", src + "quant_matmul_fused.cu",
-                            tpu + "quant_matmul_fused.py:280"),
+                            tpu + "quant_matmul_fused.py:360"),
         "fused_qkv_up": (fused_qkv_up, "launches", src + "quant_matmul_fused.cu",
-                         tpu + "quant_matmul_fused.py:132"),
+                         tpu + "quant_matmul_fused.py:226"),
         "flash_decode": (flash_decode_stacked, "launches", src + "flash_decode.cu",
-                         tpu + "flash_decode.py:593"),
+                         tpu + "flash_decode.py:674"),
         "quant_matmul_w4": (quant_matmul_w4, "launches", src + "quant_matmul_w4.cu",
-                            tpu + "quant_matmul_w4.py:204"),
+                            tpu + "quant_matmul_w4.py:262"),
         "quant_matmul_w4_group": (quant_matmul_w4_group, "launches", src + "quant_matmul_w4.cu",
-                                  tpu + "quant_matmul_w4.py:315"),
+                                  tpu + "quant_matmul_w4.py:376"),
         "quant_matmul_w4_head": (quant_matmul_w4_head, "launches", src + "quant_matmul_w4.cu",
-                                 tpu + "quant_matmul_w4.py:82"),
+                                 tpu + "quant_matmul_w4.py:124"),
         "flash_decode_paged": (flash_decode_paged, "launches", src + "flash_decode_paged.cu",
-                               tpu + "flash_decode.py:370"),
+                               tpu + "flash_decode.py:458"),
         "flash_chunk_paged": (flash_chunk_paged, "launches", src + "flash_chunk.cu",
-                              tpu + "flash_decode.py:480"),
+                              tpu + "flash_decode.py:567"),
         "prefill_attention_flash": (prefill_attention_flash, "launches", src + "prefill_flash.cu",
-                                    tpu + "attention.py:39"),
+                                    tpu + "attention.py:61"),
         "flash_decode_int4": (flash_decode_stacked, "launches_packed", src + "flash_decode.cu",
-                              tpu + "flash_decode.py:593"),
+                              tpu + "flash_decode.py:674"),
         "flash_decode_paged_int4": (flash_decode_paged, "launches_packed",
-                                    src + "flash_decode_paged.cu", tpu + "flash_decode.py:370"),
+                                    src + "flash_decode_paged.cu", tpu + "flash_decode.py:458"),
         "flash_chunk_paged_int4": (flash_chunk_paged, "launches_packed", src + "flash_chunk.cu",
-                                   tpu + "flash_decode.py:480"),
+                                   tpu + "flash_decode.py:567"),
         "flash_decode_beam": (flash_decode_beam_stacked, "launches",
-                              src + "flash_decode_beam.cu", tpu + "flash_decode.py:261"),
+                              src + "flash_decode_beam.cu", tpu + "flash_decode.py:349"),
         "sliding_window_attention": (sliding_window_attention, "launches",
-                                     src + "sliding_window.cu", tpu + "sliding_window.py:86"),
+                                     src + "sliding_window.cu", tpu + "sliding_window.py:141"),
     }
     records = {
         n: {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": 0,
@@ -2208,7 +2255,8 @@ def prefill_profile(torch, engine, prompt, label):
 
 
 # the kernels the profiles name: (label, a piece of the kernel's symbol)
-PROFILED = (("K5 (prefill_flash_kernel)", "prefill_flash_kernel"),
+PROFILED = (("K5 (prefill_flash_kernel, CausalPrefix)", "ftcf::CausalPrefix>"),
+            ("K12 (prefill_flash_kernel, Band)", "ftcf::Band>"),
             ("K10 (flash_chunk_kernel)", "flash_chunk_kernel"),
             ("K4/K9/K11 splits (flash_decode_kernel)", "flash_decode_kernel"),
             ("K4/K9/K11 combine (flash_decode_combine_kernel)", "flash_decode_combine_kernel"),
@@ -2422,7 +2470,293 @@ def rescore(torch, engine, out, prompts):
 def phase_int8_model(torch, engine, kernels, launched):
     return (phase_long(torch, engine, kernels, launched)
             or phase_beam(torch, engine, kernels, launched)
-            or phase_pool(torch, engine, kernels, launched))
+            or phase_pool(torch, engine, kernels, launched)
+            or phase_spec(torch, engine, kernels, launched))
+
+
+# Phase 5's speculative decoding: code with repeated lines, as completions
+# repeat their context; a row's prompt is its first SPEC_LENS[i] tokens
+SPEC_CODE = "".join(
+    f"def {name}(self, x):\n    if x is None:\n        return self.{name}_default\n"
+    f"    y = self.layer_{i}(x)\n    return y + self.bias_{i}\n\n"
+    for i, name in enumerate(("forward", "encode", "decode", "project", "score", "update",
+                              "reset", "step", "sample", "merge", "split", "pool") * 4))
+SPEC_LENS = (1000, 700, 1300, 400)
+SPEC_K, SPEC_NGRAM, SPEC_OUT = 8, 3, 128
+
+
+def spec_reference(torch, engine, seqs, prompts, rows, S, chunk=0, k=SPEC_K):
+    """Hold ``seqs`` (each prompt and its generated tokens) to greedy decoding
+    through the same chunked program on the card, teacher-forced: the
+    prompts' prefill as the path ran it (one shot, or with ``chunk`` > 0 in
+    chunks of that width over [0, n - 1), as a pool admits them), then the
+    tokens fed k + 1 at a time through ``prefill_chunk`` on a dense cache of
+    ``S`` positions, ``rows`` rows a forward (the path's batch, so each
+    product runs at the path's width: the kernels' rows do not depend on
+    the other rows, at one width). At every generated position the argmax
+    given the tokens before it must be the token there, or the two must be
+    a near-tie of these logits (within NEAR_TIE of max |logits|). Returns
+    (error or None, the near-ties)."""
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+
+    cfg, C, dev = engine.config, k + 1, engine.device
+    ns = [len(p) for p in prompts] + [1] * (rows - len(seqs))
+    cache = kv_cache.init_cache(cfg, rows, S, engine._cache_dtype(), dev)
+    ids = torch.full((rows, S), cfg.end_id, dtype=torch.int32, device=dev)
+    for b, seq in enumerate(seqs):
+        ids[b, :len(seq)] = torch.tensor(seq, dtype=torch.int32, device=dev)
+    real = torch.tensor([b < len(seqs) for b in range(rows)], device=dev)
+    pred = {}  # (row, position) -> the logits that predict it
+
+    def run(pos, width, active, keep):
+        cols = torch.clamp(torch.tensor(pos, device=dev)[:, None]
+                           + torch.arange(width, device=dev)[None, :], max=S - 1)
+        h, _ = model.prefill_chunk(cfg, engine.params, ids.gather(1, cols),
+                                   torch.tensor(pos, dtype=torch.int32, device=dev), cache,
+                                   active)
+        if keep:
+            lg = model.lm_logits(cfg, engine.params, h)
+            for b, seq in enumerate(seqs):
+                for i in range(width):
+                    if ns[b] <= pos[b] + i + 1 < len(seq):
+                        pred[(b, pos[b] + i + 1)] = lg[b, i]
+
+    if chunk:
+        for j in range(max(-(-(n - 1) // chunk) for n in ns)):
+            run([min(j * chunk, S - chunk)] * rows, chunk,
+                real & torch.tensor([j * chunk < n - 1 for n in ns], device=dev), False)
+        p = [n - 1 for n in ns]
+    else:
+        lens = torch.tensor(ns, dtype=torch.int32, device=dev)
+        hidden, _ = model.prefill(cfg, engine.params, ids, lens, cache)
+        lg = model.lm_logits(cfg, engine.params, model.last_token_hidden(hidden, lens))
+        for b in range(len(seqs)):
+            pred[(b, ns[b])] = lg[b]
+        p = list(ns)
+    while any(p[b] + 1 < len(seq) for b, seq in enumerate(seqs)):
+        live = [b < len(seqs) and p[b] + 1 < len(seqs[b]) for b in range(rows)]
+        run([min(x, S - 1) for x in p], C, torch.tensor(live, device=dev), True)
+        p = [x + C if on else x for x, on in zip(p, live)]
+    ties = []
+    for b, seq in enumerate(seqs):
+        for i in range(ns[b], len(seq)):
+            lg = pred[(b, i)].float()
+            a, want = seq[i], int(lg.argmax())
+            if a == want:
+                continue
+            gap = (lg[want] - lg[a]).item() / lg.abs().max().item()
+            if gap >= NEAR_TIE:
+                return (f"row {b}, token {i - ns[b]} is {a}, the chunked program's greedy {want} "
+                        f"(gap {gap:.2e})"), ties
+            ties.append(f"row {b} token {i - ns[b]}: gap {gap:.2e}")
+    return None, ties
+
+
+def spec_expected(L, prefills, verifies, pools=()):
+    """Launches of ``prefills`` prefills (K13's GEMM form, K1 proj and down,
+    K5) and ``verifies`` verify forwards (k + 1 rows a sequence: K13, K1 proj
+    and down; attention over the dense cache in plain PyTorch, no kernel),
+    plus the ticks of ``pools``; the int8 head is a plain matmul."""
+    out = {"prefill_attention_flash": L * prefills, "fused_qkv_up": L * (prefills + verifies),
+           "quant_matmul": 2 * L * (prefills + verifies)}
+    return add_counts(out, *(pool_launches(L, b) for b in pools))
+
+
+def phase_spec(torch, engine, kernels, launched):
+    """Phase 5, speculative decoding on the int8 CodeFuse-13B ``engine``
+    (int8 KV): ``speculative_generate`` and its batched form, a
+    MultiPoolServer with a speculative and a sampling class taking requests
+    from threads, and the handler's speculative route; each path's launches
+    checked exactly and its tokens held to the chunked program's greedy
+    (``spec_reference``). Returns an error message, or None."""
+    import gc
+
+    from fastertransformer4codefuse_tpu_torch.api.detok import trim_garbage
+    from fastertransformer4codefuse_tpu_torch.api.handler import CodeFuseHandler
+    from fastertransformer4codefuse_tpu_torch.engine.server import MultiPoolServer
+    from fastertransformer4codefuse_tpu_torch.engine.speculative import (
+        _buffer_len, speculative_generate, speculative_generate_batched,
+    )
+
+    cfg = engine.config
+    L, V, end_id = cfg.layer_num, cfg.vocab_size, cfg.end_id
+    tok = ByteTokenizer()
+    code = tok.encode(SPEC_CODE)
+    prompts = [code[:n] for n in SPEC_LENS]
+    log(f"phase 5 (speculative): prompt-lookup speculative decoding of CodeFuse-13B int8, k = "
+        f"{SPEC_K}, n-gram {SPEC_NGRAM}, on code prompts with repeated lines ({CARD})")
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero_counts(kernels)
+
+    def check(label, expect, ref=None):
+        torch.cuda.synchronize()
+        counts = read_counts(kernels)
+        want = {n: 0 for n in counts}
+        want.update(expect)
+        log(f"  {label}: launches {({n: c for n, c in counts.items() if c})}, expected "
+            f"{({n: c for n, c in want.items() if c})}")
+        if counts != want:
+            return f"{label}: kernel launch counts do not match the forwards run"
+        for n in kernels:
+            launched[n] += counts[n]
+        if ref is not None:
+            err, ties = spec_reference(torch, engine, **ref)
+            if err:
+                return f"{label}: {err}"
+            log(f"  {label}: every token the chunked program's greedy, teacher-forced; "
+                f"near-ties {ties or 'none'}")
+        return None
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    # static greedy decode on the same prompt, the yardstick
+    fresh()
+    g, t_greedy = timed(lambda: engine.generate([prompts[0]], output_len=SPEC_OUT, top_k=1))
+    n_greedy = int(g.sequence_lengths[0, 0]) - SPEC_LENS[0]
+    # B = 1: the prompt's prefill alone, then the whole run
+    fresh()
+    (_, st1), t_pre = timed(lambda: speculative_generate(engine, prompts[0], 1, SPEC_K,
+                                                         SPEC_NGRAM))
+    (out, st), t_spec = timed(lambda: speculative_generate(engine, prompts[0], SPEC_OUT, SPEC_K,
+                                                           SPEC_NGRAM))
+    err = check(f"speculative_generate, B = 1 (x2: prefill alone, then {SPEC_OUT} tokens)",
+                spec_expected(L, 2, st.iterations - 1),
+                dict(seqs=[out], prompts=prompts[:1], rows=1,
+                     S=_buffer_len(engine, SPEC_LENS[0], SPEC_OUT, SPEC_K + 1)))
+    if err:
+        return err
+    if out[:SPEC_LENS[0]] != prompts[0] or any(t < 0 or t >= V for t in out[SPEC_LENS[0]:]):
+        return "speculative_generate: bad output"
+    if not (len(out) - SPEC_LENS[0] == SPEC_OUT or out[-1] == end_id):
+        return f"speculative_generate: {len(out) - SPEC_LENS[0]} tokens for {SPEC_OUT}"
+    verify_ms = (t_spec - t_pre) / max(st.iterations - 1, 1) * 1e3
+    same = sum(a == b for a, b in zip(out[SPEC_LENS[0]:], g.output_ids[0, 0, SPEC_LENS[0]:]))
+    log(f"  B = 1, {SPEC_LENS[0]}-token prompt, {st.emitted} tokens: {st.iterations} "
+        f"iterations (the prefill one), {st.tokens_per_step:.2f} tokens per step, accepted "
+        f"{st.accepted} of {st.drafted} drafted (random weights: the acceptance says little "
+        f"about real code); prefill {t_pre * 1e3:.1f} ms, {verify_ms:.1f} ms per verify "
+        f"iteration; wall {st.emitted / t_spec:.1f} tokens/s against static greedy decode's "
+        f"{n_greedy / t_greedy:.1f} ({t_greedy * 1e3:.0f} ms for {n_greedy} tokens; "
+        f"{same} of its tokens equal, another program)")
+
+    # B = 4: ragged prompts in one loop
+    fresh()
+    _, t_pre4 = timed(lambda: speculative_generate_batched(engine, prompts, 1, SPEC_K,
+                                                           SPEC_NGRAM))
+    (outs, stats), t_b = timed(lambda: speculative_generate_batched(engine, prompts, SPEC_OUT,
+                                                                    SPEC_K, SPEC_NGRAM))
+    it4 = stats[0].iterations - 1
+    err = check(f"speculative_generate_batched, B = 4 (x2: prefill alone, then {SPEC_OUT} "
+                "tokens)",
+                spec_expected(L, 2, it4),
+                dict(seqs=outs, prompts=prompts, rows=len(prompts),
+                     S=_buffer_len(engine, max(SPEC_LENS), SPEC_OUT, SPEC_K + 1)))
+    if err:
+        return err
+    emitted = sum(s.emitted for s in stats)
+    log(f"  B = 4, prompts {list(SPEC_LENS)}: {it4 + 1} iterations, tokens per step "
+        f"{[round(s.tokens_per_step, 2) for s in stats]}, {emitted} tokens in {t_b * 1e3:.0f} ms "
+        f"({emitted / t_b:.1f} tokens/s); prefill {t_pre4 * 1e3:.1f} ms, "
+        f"{(t_b - t_pre4) / max(it4, 1) * 1e3:.1f} ms per verify iteration")
+
+    # pooled: a speculative class and a sampling class; 8 requests from threads
+    fresh()
+    pool = dict(max_slots=4, max_seq_len=2048, prompt_bucket=128, pipeline_ticks=True)
+    srv = MultiPoolServer(engine, [dict(pool, max_slots=8, speculative=True, spec_k=SPEC_K,
+                                        spec_ngram=SPEC_NGRAM), pool])
+    spec_b = next(s.batcher for s in srv.servers if s.batcher.speculative)
+    samp_b = next(s.batcher for s in srv.servers if not s.batcher.speculative)
+    ticks, commits = [], []
+    instrument(torch, spec_b, ticks)
+    # the sync check is one mode for the process: the two drivers take turns
+    # a step each, so that no step of the sampling class runs while a
+    # speculative tick is dispatched under it
+    turns = threading.Lock()
+    for b in (spec_b, samp_b):
+        def in_turn(step=b.step):
+            with turns:
+                return step()
+        b.step = in_turn
+    process = spec_b._process_results
+
+    def counted(fetched):  # committed tokens and ready slots of each verify tick
+        commits.append((int(fetched[1].sum()), int(fetched[4].sum())))
+        return process(fetched)
+
+    spec_b._process_results = counted
+    reqs = []
+    for i in range(8):
+        if i % 2 == 0:
+            reqs.append((code[100 * i: 100 * i + SPEC_LENS[i // 2 % 4]], SPEC_OUT,
+                         dict(speculative=True)))
+        else:
+            reqs.append((code[50 * i: 50 * i + 600], 64,
+                         dict(top_k=1) if i % 4 == 1 else dict(SAMPLED, random_seed=300 + i)))
+    try:
+        res, wall = drive_mix(srv, reqs)
+    finally:
+        srv.close()
+    err = bad_length(res, reqs, end_id, V)
+    if err:
+        return f"pooled speculative: {err}"
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    want = {n: 0 for n in counts}
+    want.update(spec_expected(L, 0, 0, (spec_b, samp_b)))
+    log(f"  MultiPoolServer (a speculative class of 8 dense slots and a sampling class of 4, "
+        f"2048 positions each), "
+        f"8 requests from threads (4 speculative, 2 greedy, 2 sampled): {spec_b.decode_ticks} "
+        f"verify ticks ({spec_b.chunk_ticks} with a chunk), {samp_b.decode_ticks} sampling "
+        f"ticks; launches {({n: c for n, c in counts.items() if c})}, expected "
+        f"{({n: c for n, c in want.items() if c})}")
+    if counts != want:
+        return "pooled speculative: kernel launch counts do not match the ticks run"
+    for n in kernels:
+        launched[n] += counts[n]
+    spec_res = [(p, r.output_ids) for r, (p, _, kw) in zip(res, reqs) if kw.get("speculative")]
+    err, ties = spec_reference(torch, engine, [o for _, o in spec_res], [p for p, _ in spec_res],
+                               spec_b.rows, spec_b.max_seq_len, spec_b.prompt_bucket)
+    if err:
+        return f"pooled speculative requests: {err}"
+    log(f"  pooled speculative requests: every token the chunked program's greedy (prompts in "
+        f"{spec_b.prompt_bucket}-token chunks, {spec_b.rows} rows a forward), teacher-forced; "
+        f"near-ties {ties or 'none'}")
+    tok_n = sum(c for c, _ in commits)
+    slots = sum(r for _, r in commits)
+    spec_wall = [w for w, _ in ticks]
+    log(f"  pooled: {tok_n} tokens committed over {slots} slot-ticks, {tok_n / max(slots, 1):.2f} "
+        f"tokens per verify step; {statistics.median(spec_wall) * 1e3:.1f} ms median wall a "
+        f"verify tick ({len(spec_wall)} ticks; dispatch never synchronised, "
+        f"set_sync_debug_mode error); the mix in {wall:.2f} s")
+
+    # the handler's speculative route, once through predict
+    fresh()
+    handler = CodeFuseHandler(engine=engine, tokenizer=tok, warmup=False)
+    req = {"prompts": [{"prompt": SPEC_CODE[:SPEC_LENS[0]], "top_k": 1}],
+           "out_seq_length": SPEC_OUT, "speculative": True}
+    rcode, msg, res = handler.predict(req, "spec")
+    if rcode != 0:
+        return f"speculative handler request failed: {msg}"
+    r = json.loads(res["res"])
+    if "speculative" not in r or r["length"][0][0] > SPEC_OUT:
+        return f"bad speculative handler response {r}"
+    err = check("handler, speculative", spec_expected(L, 1, r["speculative"]["iterations"] - 1))
+    if err:
+        return err
+    gen = [t for t in out[SPEC_LENS[0]:] if t != end_id]  # the output ends at its end id
+    if r["generated_code"][0][0] != trim_garbage(tok.decode(gen)):
+        return "speculative handler: text differs from speculative_generate's tokens"
+    log(f"  handler: {r['speculative']} (the B = 1 run's tokens, same program)")
+    return None
 
 
 # Phase 5's mix: prompt lengths, output lengths; even requests greedy, odd
@@ -2466,6 +2800,8 @@ def pool_launches(L, b, gemm="quant_matmul"):
     from fastertransformer4codefuse_tpu_torch.engine import paged_kv
 
     d, c = b.decode_ticks, b.chunk_ticks
+    if b.speculative:  # a verify tick is a (k + 1)-wide chunk: K13, then K1 proj and down
+        return {gemm: L * 2 * (c + d), "fused_qkv_up": L * (d + c)}
     out = {gemm: L * 2 * c, "fused_qkv_up": L * (d + c), "fused_proj_down": L * d}
     if b.paged is not None:
         out.update(flash_decode_paged=L * d, flash_chunk_paged=L * c)

@@ -10,6 +10,9 @@
 once through the handler's continuous-batching pool (``--paged_pages`` P:
 paged KV with P pages of ``--page_size``) and prints each response as it
 completes; without ``--input_file`` it reads requests from stdin until EOF.
+``--serve --speculative_pool`` makes the pool a speculative one (dense KV;
+``--spec_k`` drafts a verify): greedy requests flagged ``"speculative"``
+ride it, every other request the static path.
 ``--serve --http PORT`` serves POST /predict instead (``api/http_server.py``).
 The model runs on the card unless ``--device`` names another.
 """
@@ -63,7 +66,9 @@ def main(argv=None):
     parser.add_argument("--page_size", type=int, default=256)
     parser.add_argument(
         "--speculative_pool", action="store_true",
-        help="with --serve: a speculative-serving pool (not ported: ROADMAP item 15)",
+        help="with --serve: the pool is a speculative-serving SpecPool (engine/spec_pool.py): "
+        "greedy requests flagged speculative ride (k+1)-wide verify ticks, the rest the "
+        "static path",
     )
     parser.add_argument("--spec_k", type=int, default=8)
     parser.add_argument(
@@ -79,8 +84,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not args.serve and args.input_file is None:
         parser.error("--input_file is required (or use --serve with stdin)")
-    if args.speculative_pool:
-        raise NotImplementedError("speculative serving is ROADMAP queue 1 item 15")
     if args.tensor_parallel > 1:
         raise NotImplementedError("tensor-parallel serving is ROADMAP queue 1 item 19")
 
@@ -97,6 +100,8 @@ def main(argv=None):
                     prompt_bucket=args.prompt_bucket)
         if args.paged_pages:
             pool["paged"] = dict(num_pages=args.paged_pages, page_size=args.page_size)
+        if args.speculative_pool:
+            pool.update(speculative=True, spec_k=args.spec_k)
     handler = CodeFuseHandler(
         ckpt_path=args.ckpt_path,
         tokenizer_path=args.tokenizer_path,

@@ -16,7 +16,15 @@ its buffers) take the static path. A beam request (``beam_width > 1``)
 rides a beam pool class of its width when the handler has one, except
 streamed beams and beams with ``output_log_probs``: the static path streams
 every beam's newest token and tracks per-step log-probs along each
-hypothesis. Speculative requests are ROADMAP queue 1 item 15.
+hypothesis. A request with ``"speculative": true`` that is greedy and
+processor-free rides prompt-lookup speculative decoding
+(``engine/speculative.py``): a speculative pool class when the handler has
+one that fits it (``pool=dict(speculative=True, spec_k=8, ...)``, streaming
+included), else the static speculative loop (not streamed, no per-step
+log-probs; several prompts share the batched loop), whose response also
+carries ``"speculative"`` statistics; any other speculative request takes
+the ordinary routes. A speculative pool class serves speculative requests
+only.
 """
 from __future__ import annotations
 
@@ -108,7 +116,8 @@ class CodeFuseHandler:
 
         ``pool``: kwargs of ``engine.server.BatchingServer`` (e.g.
         ``dict(max_slots=8, max_seq_len=2048, paged=dict(num_pages=65,
-        page_size=256))``), or a list of them for length-classed pools
+        page_size=256))``, or ``dict(speculative=True, spec_k=8, ...)`` for a
+        speculative pool), or a list of them for length-classed pools
         (``MultiPoolServer``)."""
         if engine is None:
             engine, tokenizer, trie = init_engine_and_tokenizer(
@@ -164,6 +173,85 @@ class CodeFuseHandler:
             print(text, end="", flush=True)
 
     # ------------------------------------------------------------- pooled ----
+    @staticmethod
+    def _plain_greedy(dp: dict, prompts: List[List[int]]) -> bool:
+        """Non-empty prompts decoded greedily with nothing that changes a
+        token or its log-prob: top_k 1, no beams, default temperature,
+        penalties, min length and top_p, no word lists or trie constraint."""
+        n = len(prompts)
+        if not prompts or any(len(ids) == 0 for ids in prompts):
+            return False
+        if dp["beam_width"] != 1 or any(v != 1 for v in (dp["top_k"] or [50] * n)):
+            return False
+        for key, default in (("temperature", 1.0), ("repetition_penalty", 1.0),
+                             ("presence_penalty", 0.0), ("min_length", 0), ("top_p", 0.0)):
+            v = dp.get(key)
+            if v is not None and any(x != default for x in v):
+                return False
+        for key in ("stop_words_list", "bad_words_list", "last_token_list"):
+            v = dp.get(key)
+            if v is not None and any(v):
+                return False
+        return True
+
+    def _spec_pool_routable(self, dp: dict, prompts: List[List[int]]) -> bool:
+        """Whether a speculative-flagged request can ride a speculative pool
+        class: plain greedy, each prompt fitting a speculative class within
+        its draft margin."""
+        return self._plain_greedy(dp, prompts) and all(
+            self.server.routable_pool(len(ids) + dp["output_len"], 1, speculative=True)
+            is not None
+            for ids in prompts
+        )
+
+    def _spec_eligible(self, dp: dict, prompts: List[List[int]], use_callback: bool) -> bool:
+        """The static speculative loop serves plain greedy requests that are
+        not streamed and want no per-step log-probs (any number of prompts:
+        several share the batched loop). Unlike the JAX handler's check, the
+        penalties, min length, temperature and top_p must be the defaults:
+        the loop applies none of them, so a request that sets one takes the
+        ordinary routes, which do."""
+        if use_callback or dp["output_log_probs"]:
+            return False
+        return self._plain_greedy(dp, prompts)
+
+    def _predict_speculative(self, dp: dict, prompts: List[List[int]]) -> dict:
+        """The static speculative loop (``speculative_generate``, or its
+        batched form for several prompts); the response adds the loop's
+        iterations, its mean tokens a step and the drafts accepted."""
+        from ..engine.speculative import speculative_generate, speculative_generate_batched
+
+        start = time.time()
+        with self._static_lock:  # the engine's one-shot resources
+            if len(prompts) == 1:
+                toks, stats = speculative_generate(self.engine, prompts[0], dp["output_len"])
+                all_toks, all_stats = [toks], [stats]
+            else:
+                all_toks, all_stats = speculative_generate_batched(self.engine, prompts,
+                                                                   dp["output_len"])
+        end_id = self.engine.config.end_id
+        codes, lengths = [], []
+        for prompt, toks in zip(prompts, all_toks):
+            gen = []
+            for t in toks[len(prompt):]:
+                if t == end_id:
+                    break
+                gen.append(int(t))
+            codes.append([trim_garbage(self.tokenizer.decode(gen))])
+            lengths.append([len(gen)])
+        return {
+            "latency": time.time() - start,
+            "random_seed": dp["random_seed"],
+            "generated_code": codes,
+            "length": lengths,
+            "cum_log_prob": [[s.cum_log_prob] for s in all_stats],
+            "speculative": {
+                "iterations": all_stats[0].iterations,
+                "tokens_per_step": sum(s.tokens_per_step for s in all_stats) / len(all_stats),
+                "accepted": sum(s.accepted for s in all_stats),
+            },
+        }
+
     def _pool_routable(self, dp: dict, prompts: List[List[int]], stream: bool = False) -> bool:
         """Whether every prompt of this request can ride the slot pool: a
         request of non-empty prompts, each fitting the pool class of its beam
@@ -198,10 +286,11 @@ class CodeFuseHandler:
                     return False
         return True
 
-    def _predict_pooled(self, dp: dict, use_callback: bool, prompts: List[List[int]]):
-        """Route one request's prompts through the pool; same sampling
-        semantics and processor order as the static path, same response
-        schema."""
+    def _predict_pooled(self, dp: dict, use_callback: bool, prompts: List[List[int]],
+                        speculative: bool = False):
+        """Route one request's prompts through the pool (``speculative``: its
+        speculative classes); same sampling semantics and processor order as
+        the static path, same response schema."""
         tok = self.tokenizer
         end_id = self.engine.config.end_id
         sink = self.on_stream_text or self._default_stream_sink
@@ -251,7 +340,7 @@ class CodeFuseHandler:
                     beam_search_diversity_rate=float(pick("beam_search_diversity_rate", 0.0, b)),
                     len_penalty=float(pick("len_penalty", 0.0, b)),
                 )
-            uids.append(self.server.submit(ids, dp["output_len"], **kw))
+            uids.append(self.server.submit(ids, dp["output_len"], speculative=speculative, **kw))
         results = [self.server.wait(u) for u in uids]
         latency = time.time() - start
 
@@ -291,8 +380,6 @@ class CodeFuseHandler:
     def predict(self, request_dict: dict, trace_id: str):
         logger.info("%s request: %s", trace_id, json.dumps(request_dict, ensure_ascii=False))
         try:
-            if request_dict.get("speculative"):
-                raise NotImplementedError("speculative decoding is ROADMAP queue 1 item 15")
             default_random_seed = random.randint(0, 1048576)
             use_callback = bool(request_dict.get("stream"))
             data_package = get_data_package(request_dict, default_random_seed)
@@ -300,8 +387,23 @@ class CodeFuseHandler:
             beam_width = data_package["beam_width"]
             random_seed = data_package["random_seed"]
 
-            if self.server is not None:
+            speculative = bool(request_dict.get("speculative"))
+            if speculative or self.server is not None:
                 prompts = [list(self.tokenizer.encode(t)) for t in data_package["texts"]]
+            if speculative and self.server is not None \
+                    and self._spec_pool_routable(data_package, prompts):
+                response = self._predict_pooled(data_package, use_callback, prompts,
+                                                speculative=True)
+                response_str = json.dumps(response, ensure_ascii=False)
+                logger.info("%s response (pooled speculative): %s", trace_id, response_str)
+                return (0, "ok", {"res": response_str})
+            if speculative and self._spec_eligible(data_package, prompts, use_callback):
+                response = self._predict_speculative(data_package, prompts)
+                response_str = json.dumps(response, ensure_ascii=False)
+                logger.info("%s response (speculative): %s", trace_id, response_str)
+                return (0, "ok", {"res": response_str})
+
+            if self.server is not None:
                 if self._pool_routable(data_package, prompts, stream=use_callback):
                     response = self._predict_pooled(data_package, use_callback, prompts)
                     response_str = json.dumps(response, ensure_ascii=False)

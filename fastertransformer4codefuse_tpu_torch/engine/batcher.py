@@ -137,6 +137,9 @@ class ContinuousBatcher:
     admission, ``running`` and retirement go by slot."""
 
     _row_mult = 1
+    # a SpecPool (engine/spec_pool.py) serves speculative requests only, and
+    # only it does: the servers route by this
+    speculative = False
 
     def __init__(
         self,

@@ -13,8 +13,13 @@ fire on the driver thread, so keep them cheap. A driver that dies reports
 its exception to every waiter.
 
 ``beam_width > 1`` builds a beam pool (``engine/beam_pool.py``) on dense
-slabs. Speculative pools are ROADMAP queue 1 item 15: asking for one raises
-instead of building a sampling pool.
+slabs; ``speculative=True`` (with ``spec_k``, ``spec_ngram``) a speculative
+pool (``engine/spec_pool.py``) on dense slabs, whose tick is a (k+1)-wide
+verify of greedy requests. ``MultiPoolServer`` routes a request only to a
+class of its kind: beams to beam classes of their width, speculative
+requests (``submit(..., speculative=True)``) to speculative classes, and
+every other request to sampling classes; within its kind, to the smallest
+class it fits.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 from .batcher import ContinuousBatcher, Request
 from .beam_pool import BeamPool
+from .spec_pool import SpecPool
 
 
 class BatchingServer:
@@ -31,8 +37,12 @@ class BatchingServer:
     def __init__(self, engine, **pool_kwargs):
         bw = int(pool_kwargs.pop("beam_width", 1) or 1)
         if pool_kwargs.pop("speculative", False):
-            raise NotImplementedError("speculative pools are ROADMAP queue 1 item 15")
-        if bw > 1:
+            if bw > 1:
+                raise ValueError("speculative pools are greedy (beam_width 1)")
+            pool_kwargs.pop("sampling_cap", None)  # greedy only
+            self.batcher = SpecPool(engine, k=int(pool_kwargs.pop("spec_k", 8)),
+                                    ngram=int(pool_kwargs.pop("spec_ngram", 3)), **pool_kwargs)
+        elif bw > 1:
             if pool_kwargs.pop("paged", None):
                 # a dense pool instead would multiply the requested page
                 # budget by beam_width
@@ -61,10 +71,15 @@ class BatchingServer:
         on_token: Optional[Callable[[int], None]] = None,
         on_text: Optional[Callable[[str], None]] = None,
         tokenizer=None,
+        speculative: Optional[bool] = None,
         **kw,
     ) -> int:
         """Enqueue one request; returns its uid immediately. The request joins
-        the pool at the driver's next tick."""
+        the pool at the driver's next tick. ``speculative``, when given, must
+        match the pool's kind."""
+        if speculative is not None and bool(speculative) != self.batcher.speculative:
+            raise ValueError(f"a {'' if speculative else 'non-'}speculative request for a "
+                             f"{'' if self.batcher.speculative else 'non-'}speculative pool")
         if self._shutdown:
             raise RuntimeError("server is shut down")
         if self._error is not None:
@@ -104,12 +119,16 @@ class BatchingServer:
         """submit + wait, for synchronous callers."""
         return self.wait(self.submit(prompt, output_len, **kw))
 
-    def routable_pool(self, need: int, beam_width: int = 1):
-        """The batcher a (length, beam_width) request would land in, or None."""
+    def routable_pool(self, need: int, beam_width: int = 1, speculative: bool = False):
+        """The batcher a request of this length, beam width and kind would
+        land in, or None: a speculative request only in a speculative pool,
+        no other request there. A speculative pool keeps a draft margin of
+        k + 2 positions."""
         b = self.batcher
-        if getattr(b, "beam_width", 1) != beam_width:
+        if getattr(b, "beam_width", 1) != beam_width or b.speculative != bool(speculative):
             return None
-        return b if need <= b.max_seq_len else None
+        room = b.max_seq_len - (b.k + 2 if b.speculative else 0)
+        return b if need <= room else None
 
     def close(self):
         self._shutdown = True
@@ -164,22 +183,26 @@ class MultiPoolServer:
     def batcher(self):  # the largest class bounds capacity
         return self.servers[-1].batcher
 
-    def submit(self, prompt, output_len: int, **kw) -> int:
+    def submit(self, prompt, output_len: int, speculative: bool = False, **kw) -> int:
+        """Route to the smallest class of the request's kind that it fits
+        (``speculative``: a speculative class; otherwise a class of its beam
+        width that is not speculative)."""
         need = len(prompt) + output_len
         bw = int(kw.pop("beam_width", 1) or 1)
         for srv in self.servers:
-            if srv.routable_pool(need, bw) is not None:
+            if srv.routable_pool(need, bw, speculative) is not None:
                 uid = srv.submit(prompt, output_len, **kw)
                 self._route[uid] = srv  # uids are process-wide unique
                 return uid
         raise ValueError(
-            f"prompt({len(prompt)}) + output({output_len}) @ beam_width={bw} fits no pool "
-            f"class (largest {self.servers[-1].batcher.max_seq_len})"
+            f"prompt({len(prompt)}) + output({output_len}) @ beam_width={bw}"
+            f"{', speculative' if speculative else ''} fits no pool class (largest "
+            f"{self.servers[-1].batcher.max_seq_len})"
         )
 
-    def routable_pool(self, need: int, beam_width: int = 1):
+    def routable_pool(self, need: int, beam_width: int = 1, speculative: bool = False):
         for srv in self.servers:
-            b = srv.routable_pool(need, beam_width)
+            b = srv.routable_pool(need, beam_width, speculative)
             if b is not None:
                 return b
         return None

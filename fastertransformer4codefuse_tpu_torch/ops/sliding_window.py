@@ -4,9 +4,10 @@ Longformer's local attention: query i sees key j iff |i - j| <= w_half
 (``causal=True``: i - w_half <= j <= i) and j is below the row's length, the
 count of False in ``is_masked`` (right padding, as the JAX kernel assumes).
 Rows at or past the length, the padded rows of a right-padded batch, are 0.
-The CUDA kernel is ``csrc/sliding_window.cu``: K10's mma.sync tile loop with a band
-policy that visits only the key tiles meeting a query tile's band, so its
-work grows as S (2 w_half + tile), not S^2. ``sliding_window_attention_plain``
+The CUDA kernel is K5's TMA + wgmma body (``csrc/prefill_flash.cuh``) under
+the ``Band`` policy, entered from ``csrc/sliding_window.cu``: a 128-query
+block walks only the 128-key tiles of its band, so its work grows as S
+(2 w_half + tile), not S^2. ``sliding_window_attention_plain``
 is the same function in plain PyTorch, dense and masked: the CPU path and the
 kernel's oracle.
 """
@@ -61,7 +62,7 @@ def sliding_window_attention(
     kernel or raises (bf16, dh 64 or 128). ``chunk`` is accepted only for
     parity with the JAX signature, where it is the Pallas kernel's block of
     queries and keys: it changes nothing here (the CUDA kernel's tiles are
-    fixed at 128 queries by 64 keys, and the plain version has no blocks)."""
+    fixed at 128 queries by 128 keys, and the plain version has no blocks)."""
     w = int(w_half)
     if not q.is_cuda:
         return sliding_window_attention_plain(q, k, v, w, is_masked, causal=causal)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the port's weight-only GEMVs, its prefill-width GEMM, K10 and the
-decode attention kernels K4/K9/K11 at CodeFuse-13B shapes on one NVIDIA
-GPU, for an A/B of two copies of the port on one card.
+"""Time the port's weight-only GEMVs, its prefill-width GEMM, K10, the
+decode attention kernels K4/K9/K11 at CodeFuse-13B shapes, and the prefill
+attention body of K5 and K12, on one NVIDIA GPU, for an A/B of two copies
+of the port on one card.
 
     python3 gemv_ab.py [--root DIR] [--label NAME]
-                       [--kernels gemv,gemm,k10,decode] [--widths 1,4,8] [--may-refuse]
+                       [--kernels gemv,gemm,k10,decode,band] [--widths 1,4,8] [--may-refuse]
 
 ``--root`` is the directory that holds the ``fastertransformer4codefuse_tpu_torch``
 package to time (default: the one beside this script), so one call can time
@@ -28,7 +29,11 @@ tree, parent). ``--kernels`` picks the groups of cases:
   48; K11 on int8, bf16 and "int4" (2 x 4 beams, S = 1152). With
   ``--may-refuse`` (for an older copy, whose kernels took fewer shapes) a
   case the copy's kernel does not take prints its refusal instead of a time;
-  without it a refusal is a miss.
+  without it a refusal is a miss;
+- ``band``: K12 at Longformer-base's shape (B = 2, S = 4096, 12 x 64 heads,
+  w_half 256, lengths 4096 and 2900), the band and the causal band, and K5
+  at ``chip_smoke.py`` phase 2's cases (B = 1, S = 4096, 40 x 128; B = 2,
+  S = 2048, lengths 2048 and 1300; B = 1, S = 4096, 32 x 64).
 
 Each case is checked against its plain version (max |kernel - plain| / max
 |plain| below 1e-2 for the GEMMs, 2e-2 per (query, head) row for the
@@ -59,8 +64,8 @@ def main() -> int:
                     help="a decode case the copy's kernel refuses is logged, not a miss")
     args = ap.parse_args()
     groups = set(args.kernels.split(","))
-    if not groups <= {"gemv", "gemm", "k10", "decode"}:
-        print(f"gemv_ab: --kernels takes gemv, gemm, k10 and decode, got {args.kernels}",
+    if not groups <= {"gemv", "gemm", "k10", "decode", "band"}:
+        print(f"gemv_ab: --kernels takes gemv, gemm, k10, decode and band, got {args.kernels}",
               file=sys.stderr)
         return 2
     import torch
@@ -70,6 +75,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
     from fastertransformer4codefuse_tpu_torch.ops import _cuda
+    from fastertransformer4codefuse_tpu_torch.ops.attention import (
+        prefill_attention_flash, prefill_attention_flash_plain,
+    )
     from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
         flash_chunk_paged, flash_chunk_paged_plain, flash_decode_beam_plain,
         flash_decode_beam_stacked, flash_decode_paged, flash_decode_paged_plain,
@@ -84,6 +92,9 @@ def main() -> int:
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_w4 import (
         quant_matmul_w4, quant_matmul_w4_group, quant_matmul_w4_group_plain,
         quant_matmul_w4_head, quant_matmul_w4_head_plain, quant_matmul_w4_plain,
+    )
+    from fastertransformer4codefuse_tpu_torch.ops.sliding_window import (
+        sliding_window_attention, sliding_window_attention_plain,
     )
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -278,6 +289,26 @@ def main() -> int:
             attn(f"K11 {kind} B=2 bw=4 S=1152", BB, flash_decode_beam_stacked,
                  flash_decode_beam_plain, a)
             del a
+    if "band" in groups:
+        B, S, nH, dh, w = 2, 4096, 12, 64, 256
+        q, k, v = bf(B, S, nH, dh, std=dh ** -0.5), bf(B, S, nH, dh), bf(B, S, nH, dh)
+        masked = torch.arange(S, device=dev)[None, :] >= torch.tensor(
+            [4096, 2900], device=dev)[:, None]
+        for causal in (False, True):
+            run(f"K12 {'causal band' if causal else 'band'} B=2 S=4096 12x64 w=256 "
+                "lengths 4096/2900", B * S,
+                lambda *a, c=causal: sliding_window_attention(*a, causal=c),
+                lambda *a, c=causal: sliding_window_attention_plain(*a, causal=c),
+                (q, k, v, w, masked), tol=2e-2, rel_of=row_rel)
+        del q, k, v
+        for B, S, lens, nH, dh in ((1, 4096, [4096], 40, 128), (2, 2048, [2048, 1300], 40, 128),
+                                   (1, 4096, [4096], 32, 64)):
+            q, k, v = bf(B, S, nH, dh), bf(B, S, nH, dh), bf(B, S, nH, dh)
+            ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+            run(f"K5 B={B} S={S} {nH}x{dh} lengths {lens}", B * S, prefill_attention_flash,
+                prefill_attention_flash_plain, (q, k, v, ln, dh ** -0.5), tol=2e-2,
+                rel_of=row_rel)
+            del q, k, v
     return 0 if ok else 1
 
 

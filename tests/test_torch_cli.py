@@ -123,8 +123,9 @@ def test_cli_serve_from_stdin_answers_as_the_jax_cli(ckpt, tokenizers, capsys, m
 
 def test_cli_refuses_what_is_not_ported(ckpt, tokenizers):
     base = ["--ckpt_path", ckpt, "--tokenizer_path", "tok", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        cli.main(base + ["--serve", "--speculative_pool"])
+    # a speculative pool is dense: with pages it is refused, as the JAX CLI refuses it
+    with pytest.raises(ValueError, match="dense"):
+        cli.main(base + ["--serve", "--speculative_pool", "--paged_pages", "17"])
     with pytest.raises(NotImplementedError, match="item 19"):
         cli.main(base + ["--input_file", "x", "--tensor_parallel", "2"])
     with pytest.raises(NotImplementedError, match="item 19"):

@@ -263,10 +263,22 @@ def test_handler_reports_unported_requests():
     import json
 
     jh, th, _ = _handlers()
-    code, msg, res = th.predict(
-        {"prompts": [{"prompt": "a"}], "out_seq_length": 2, "speculative": True}, "t"
-    )
-    assert code == 1 and "NotImplementedError" in msg and res == {"res": ""}
+    # a speculative request is served now, as the JAX handler serves it: a
+    # sampled one (top_k 50) on the ordinary route, a greedy one by the
+    # speculative loop, whose response adds its statistics
+    for top_k, spec in ((50, False), (1, True)):
+        req = {"prompts": [{"prompt": "def fib(n):", "top_k": top_k, "random_seed": 2}],
+               "out_seq_length": 6, "speculative": True}
+        (tcode, tmsg, tres), (jcode, jmsg, jres) = th.predict(req, "t"), jh.predict(req, "j")
+        assert tcode == 0 and jcode == 0, (tmsg, jmsg)
+        tr, jr = json.loads(tres["res"]), json.loads(jres["res"])
+        assert ("speculative" in tr) == ("speculative" in jr) == spec
+        if top_k == 1:
+            assert tr["generated_code"] == jr["generated_code"]
+            assert tr["speculative"] == jr["speculative"]
+    # an unported request still reports its failure in the handler's contract
+    code, msg, res = th.predict({"prompts": [{"prompt": 3}], "out_seq_length": 2}, "t")
+    assert code == 1 and "TypeError" in msg and res == {"res": ""}
     # a handler with a beam pool builds and serves beams, as the JAX one does
     pool = dict(beam_width=2, max_slots=2, max_seq_len=64, prompt_bucket=8)
     req = {"prompts": [{"prompt": "def fib(n):", "len_penalty": 0.6}], "out_seq_length": 6,

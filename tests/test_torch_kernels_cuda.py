@@ -15,7 +15,10 @@ landed as raw rows). K4, K9 and K11 also at dh 64, with 12, 16, 48, 64, 65
 and 80 query heads a KV head, rows ending across a split boundary (255,
 256, 257) and at one position, each row the same bit for bit alone or in a
 batch of 8 and two calls equal; the configurations of chip_smoke.py
-ROUTE_CONFIGS served on the card give the CPU's greedy tokens. Marked ``cuda``: skipped where there is no
+ROUTE_CONFIGS served on the card give the CPU's greedy tokens. K12 at the
+band's edges (w = 0, 130, S and wider than S; lengths off the 128-key tiles;
+empty rows; both band modes) held per (query, head) row, and two calls
+equal. Marked ``cuda``: skipped where there is no
 GPU. On a GPU machine without jax:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -734,12 +737,18 @@ def _masked(lens, S):
     "B,S,nH,dh,w,lens",
     [(2, 300, 4, 64, 50, [300, 123]), (2, 300, 4, 128, 50, [300, 123]),
      (3, 129, 2, 64, 0, [129, 1, 64]), (1, 1000, 2, 64, 256, [1000]),
-     (2, 77, 3, 128, 200, [77, 40]), (2, 640, 2, 64, 100, [640, 130])],
+     (2, 77, 3, 128, 200, [77, 40]), (2, 640, 2, 64, 100, [640, 130]),
+     # the band's edges at the 128-key tiles: w = 0, w = 130 (a block's band
+     # starts and ends inside a tile), w = S and wider, lengths off the tile
+     # boundaries, an empty row
+     (2, 300, 2, 64, 0, [300, 129]), (2, 300, 2, 128, 130, [300, 257]),
+     (2, 300, 2, 64, 300, [300, 1]), (2, 300, 2, 128, 400, [257, 0]),
+     (2, 1000, 2, 64, 130, [1000, 0]), (1, 4096, 12, 64, 256, [2900])],
 )
 def test_k12_matches_plain(gen, causal, B, S, nH, dh, w, lens):
     """Ragged lengths, S and w not multiples of the tiles, w = 0 and w wider
-    than S, dh 64 and 128: every row, padded ones (0) included, equals the
-    plain banded attention."""
+    than S, dh 64 and 128, empty rows, Longformer-base's heads: every row,
+    padded ones (0) included, equals the plain banded attention."""
     q, k, v = _bf(gen, B, S, nH, dh, std=0.5), _bf(gen, B, S, nH, dh), _bf(gen, B, S, nH, dh)
     m = _masked(lens, S)
     before = (sliding_window_attention.launches, sliding_window_attention.launches_causal)
@@ -747,7 +756,11 @@ def test_k12_matches_plain(gen, causal, B, S, nH, dh, w, lens):
     assert (sliding_window_attention.launches,
             sliding_window_attention.launches_causal) == (before[0] + 1, before[1] + int(causal))
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
-    assert _rel(got, sliding_window_attention_plain(q, k, v, w, m, causal=causal)) < 2e-2
+    ref = sliding_window_attention_plain(q, k, v, w, m, causal=causal)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    # each (query, head) row held to its own magnitude
+    assert chip_smoke.row_rel_err(torch, got, ref)[1] < 2e-2
     for b, n in enumerate(lens):
         assert not got[b, n:].any()
 
@@ -771,6 +784,18 @@ def test_k12_reads_stay_in_the_band(gen):
     again = sliding_window_attention(q, k, v, w, m)
     torch.cuda.synchronize()
     assert torch.equal(clean, again)
+
+
+def test_k12_is_deterministic(gen):
+    """No atomics and no split over keys: two calls give equal bytes."""
+    B, S, nH, dh, w = 2, 1000, 4, 64, 130
+    q, k, v = _bf(gen, B, S, nH, dh, std=0.5), _bf(gen, B, S, nH, dh), _bf(gen, B, S, nH, dh)
+    m = _masked([1000, 611], S)
+    for causal in (False, True):
+        a = sliding_window_attention(q, k, v, w, m, causal=causal)
+        b = sliding_window_attention(q, k, v, w, m, causal=causal)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
 
 
 def test_k12_raises_on_what_it_does_not_take(gen):

@@ -27,6 +27,7 @@ def test_port_imports_no_jax():
         timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    # every module was imported: 48 with the checkpoint-to-CLI path (ckpt/loader,
-    # ckpt/cutlass_interop, native, api/cli, api/wordlist_csv)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 48
+    # every module was imported: 50 with the checkpoint-to-CLI path (ckpt/loader,
+    # ckpt/cutlass_interop, native, api/cli, api/wordlist_csv) and speculative
+    # decoding (engine/speculative, engine/spec_pool)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 50

@@ -31,6 +31,7 @@ from fastertransformer4codefuse_tpu_torch.engine import paged_kv
 from fastertransformer4codefuse_tpu_torch.engine.batcher import ContinuousBatcher
 from fastertransformer4codefuse_tpu_torch.engine.beam_pool import BeamPool
 from fastertransformer4codefuse_tpu_torch.engine.server import BatchingServer, MultiPoolServer
+from fastertransformer4codefuse_tpu_torch.engine.spec_pool import SpecPool
 from test_api import CharTokenizer
 
 torch.set_num_threads(2)
@@ -135,12 +136,12 @@ def test_multi_pool_server_routes_by_length(engine):
 
 
 def test_unported_pool_kinds_raise_naming_their_item(engine):
-    """Speculative and prompt-learning pools are not served yet: each raises
-    NotImplementedError naming its ROADMAP item and none builds another pool
-    instead. ``beam_width > 1`` builds a beam pool, on dense slabs only (a
-    paged beam pool raises ValueError). Packed int4 KV is served on pages
-    only: a dense pool refuses it (pair bytes), as do odd buckets or page
-    sizes."""
+    """Prompt-learning pools are not served yet: they raise
+    NotImplementedError naming their ROADMAP item and build no other pool
+    instead. ``beam_width > 1`` builds a beam pool and ``speculative=True`` a
+    speculative pool, each on dense slabs only (paged, either raises
+    ValueError). Packed int4 KV is served on pages only: a dense pool refuses
+    it (pair bytes), as do odd buckets or page sizes."""
     srv = BatchingServer(engine, beam_width=2, max_slots=2, max_seq_len=16, prompt_bucket=8)
     try:
         assert isinstance(srv.batcher, BeamPool) and srv.batcher.beam_width == 2
@@ -149,9 +150,15 @@ def test_unported_pool_kinds_raise_naming_their_item(engine):
     with pytest.raises(ValueError, match="beam pools are dense"):
         BatchingServer(engine, beam_width=2, max_slots=2, max_seq_len=16, prompt_bucket=8,
                        paged=dict(num_pages=4, page_size=8))
+    srv = BatchingServer(engine, speculative=True, max_slots=2, max_seq_len=16, prompt_bucket=8)
+    try:
+        assert isinstance(srv.batcher, SpecPool) and srv.batcher.speculative
+    finally:
+        srv.close()
+    with pytest.raises(ValueError, match="dense"):
+        BatchingServer(engine, speculative=True, max_slots=2, max_seq_len=16, prompt_bucket=8,
+                       paged=dict(num_pages=4, page_size=8))
     cases = [
-        (lambda: BatchingServer(engine, speculative=True, max_slots=2, max_seq_len=16,
-                                prompt_bucket=8), "item 15"),
         (lambda: ContinuousBatcher(engine, max_slots=2, max_seq_len=16, prompt_bucket=8,
                                    prompt_table={0: (np.zeros((2, 2, 4, 4, 8)), 4)}), "item 8"),
     ]

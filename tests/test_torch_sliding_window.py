@@ -98,3 +98,29 @@ def test_k12_cpu_tensors_take_the_plain_version():
         assert torch.equal(got, want)
     assert (sw.sliding_window_attention.launches,
             sw.sliding_window_attention.launches_causal) == before
+
+
+# The band's edges at the CUDA kernel's 128-key tiles (its blocks walk the
+# band from their first row's first key, so a band edge may fall anywhere in
+# a tile): w = 0, w not a multiple of 128 (130), w as wide as S and wider,
+# lengths off the tile boundaries (129, 257), and an empty row (length 0).
+BAND_EDGES = [
+    (0, [300, 129]),
+    (130, [300, 257]),
+    (300, [300, 1]),
+    (400, [257, 0]),
+]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("w,lens", BAND_EDGES)
+def test_k12_plain_at_the_band_edges_matches_jax_interpret(causal, w, lens):
+    """S = 300 at the JAX kernel's default chunk (128, as the CUDA tiles):
+    every row equals the JAX kernel's, padded and empty rows 0."""
+    q, k, v, is_masked = _inputs(4, 2, 300, 2, 16, lens)
+    want = np.asarray(jax_swa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), w,
+                              jnp.asarray(is_masked), interpret=True, causal=causal))
+    got = _port(q, k, v, w, is_masked, causal)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-6)
+    for b, n in enumerate(lens):
+        assert not got[b, n:].any()
