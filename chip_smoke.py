@@ -43,13 +43,17 @@ Phases (any failure exits non-zero):
      weight-only GEMVs where they run on the card, ``torch.matmul`` on a bf16
      weight dequantized beforehand for the GEMM (two for K13); the port
      calls none of them); the group-scaled GEMVs beside their per-channel forms (K7 beside
-     K6, K13 g128 beside K13 int4, K3 g128 beside K3 per-channel); K11 also
-     bit for bit against K4 over a gathered copy;
+     K6, K13 g128 beside K13 int4, K3 g128 beside K3 per-channel); the int4
+     instances with fp32 group scales (FTCF_GSCALE_BF16=0: K7 and K13 at M =
+     1, 4, 8, 512 and 1024, K3 at 1, 4 and 8, K2 at 1 and 4) beside their
+     bf16-scale instances; K11 also bit for bit against K4 over a gathered
+     copy;
   3. 2-layer models of CodeFuse-13B width (int8 and int4 g128, each with
      ``fused_decode`` True (K13 + K3) and False (unfused GEMMs), the two
      routes' card logits also against each other; int4 per-channel; int8 on
      an int4 dense cache; int8 on int8 and int4 KV pools through chunked
-     prefill; int8 beam decode through a beam history) built on the CPU and
+     prefill; int8 beam decode through a beam history; int4 g128 with fp32
+     group scales on both routes, its launches counted) built on the CPU and
      copied to the card: prefill and teacher-forced decode logits on the
      card (kernels) against the CPU (plain versions);
      and 2-layer Longformer-base (K12; with a global token, the dense path)
@@ -71,7 +75,21 @@ Phases (any failure exits non-zero):
      reports beside the GEMM's, and with the plain attention forced in),
      prompts of 2048 and 1300 tokens on an "int8k_int4v" cache, and beam
      search (2 prompts x 4 beams, x2 + streamed, every hypothesis rescored
-     teacher-forced);
+     teacher-forced); prompt learning: prefix tables of the model's own K/V
+     of a 128- and a 96-token prefix, a prefix-prompted and a soft-prompted
+     (64 x 5120 embeddings) greedy run held to the concatenated sequence's
+     greedy (teacher-forced), prefix-prompted beams (2 x 4, rescored), a
+     dense pool (bf16 KV) with the two-task table (prompted and plain
+     requests mid-flight) against each request's solo run; the DEBUG sweep on clean
+     weights and with a NaN planted in layer 17's scales (named by the sweep
+     and by the checked forward), its ms;
+  4b. SmoothQuant W8A8 and AWQ: at 2 layers of 13B width, calibration stats
+     card vs CPU, the AWQ fold (fp-exact; int4 g128 error against
+     round-to-nearest), the SmoothQuant fold, act_int8 logits card vs CPU;
+     at 40 layers, the float model built on the card for its stats, folded,
+     quantized and freed, the 1000- and 3000-token prefills with act_int8
+     beside weight-only (profiled), torch._int_mm against the port's GEMM
+     at M = 3072, decode with K13 + K3 and no torch._int_mm, peak memory;
   5. on the int8 model of phase 4, pooled serving: a ``BatchingServer`` on a
      paged pool (8 slots, 2048 positions, 65 pages of 256) takes a mix of 10
      greedy and sampled requests from threads, twice, and one greedy request
@@ -585,6 +603,73 @@ def phase_kernels(torch, records):
                 k13_int4_ms[M] = t13
             del x1, x2
         del wq, wu, wqb, wub
+
+    # The int4 instances with fp32 group scales (the JAX package's
+    # FTCF_GSCALE_BF16=0): K7 and K13 at M = 1, 4, 8 and the GEMM at 512 and
+    # 1024, K3 at 1, 4 and 8, K2 (off the served routes) at 1 and 4; each
+    # beside its bf16-scale instance on the same payload and x, with the
+    # scales rounded to bf16
+    def f32_pair(k, n):
+        g = gscale(k, n, 7, torch.float32)
+        return g, g.to(torch.bfloat16)
+
+    p_q, p_u, p_p, p_d = i8(H // 2, 3 * H), i8(H // 2, F_), i8(H // 2, H), i8(F_ // 2, H)
+    (g_q, g_q16), (g_u, g_u16), (g_p, g_p16), (g_d, g_d16) = (
+        f32_pair(H, 3 * H), f32_pair(H, F_), f32_pair(H, H), f32_pair(F_, H))
+    none = "none: no one PyTorch call computes it"
+    for M in (1, 4, 8, 512, 1024):
+        x, x2 = bf(M, H), bf(M, H)
+        t16 = device_time_ms(torch, lambda: quant_matmul_w4_group(x, p_q, g_q16, G, b_q))
+        lib = gemm_lib(M, x, dequant4(p_q, g_q, G) if M > 32 else None,
+                       lambda: library_mm(4, M, H, 3 * H, G))
+        report("quant_matmul_w4_group_f32", f"qkv {H}->{3 * H} g128 fp32 M={M}",
+               lambda: quant_matmul_w4_group(x, p_q, g_q, G, b_q),
+               lambda: quant_matmul_w4_group_plain(x, p_q, g_q, G, b_q), tol_mm,
+               f"qkv {H}->{3 * H} g128 fp32 M=1",
+               work=(nbytes(x, p_q, g_q, b_q), 2 * M * H * 3 * H), fn_lib=lib[0],
+               lib_label=lib[1], peers=[("its bf16-scale instance", t16)],
+               note=tiles(M, 3 * H) if M > 32 else "")
+        del lib
+        args = (x, x2, p_q, p_u, g_q, g_u, b_q, b_u, None, "gelu-tanh", 4, G)
+        args16 = (x, x2, p_q, p_u, g_q16, g_u16, b_q, b_u, None, "gelu-tanh", 4, G)
+        t16 = device_time_ms(torch, lambda: fused_qkv_up(*args16))
+        lib = (None, none)
+        if M > 32:
+            wqb, wub = dequant4(p_q, g_q, G), dequant4(p_u, g_u, G)
+            lib = ((lambda: (torch.matmul(x, wqb), torch.matmul(x2, wub))),
+                   "two torch.matmul, x1 @ Wqkv + x2 @ Wup, bf16 weights dequantized beforehand")
+        report("fused_qkv_up_f32", f"int4 g128 fp32 {H}->{3 * H}|{F_} M={M}",
+               lambda: fused_qkv_up(*args), lambda: fused_qkv_up_plain(*args), tol_mm,
+               f"int4 g128 fp32 {H}->{3 * H}|{F_} M=1",
+               work=(nbytes(x, x2, p_q, g_q, p_u, g_u, b_q, b_u), 2 * M * H * (3 * H + F_)),
+               fn_lib=lib[0], lib_label=lib[1], peers=[("its bf16-scale instance", t16)],
+               note=tiles(M, 3 * H, F_) if M > 32 else "")
+        del lib
+        if M > 8:
+            continue
+        x_p, h, res = bf(M, H), bf(M, F_, std=0.5), bf(M, H)
+        args3 = (x_p, h, p_p, p_d, g_p, g_d, b_down, res, 4, G)
+        args3_16 = (x_p, h, p_p, p_d, g_p16, g_d16, b_down, res, 4, G)
+        t16 = device_time_ms(torch, lambda: fused_proj_down(*args3_16))
+        report("fused_proj_down_f32", f"int4 g128 fp32 proj+down M={M}",
+               lambda: fused_proj_down(*args3), lambda: fused_proj_down_plain(*args3), tol_mm,
+               "int4 g128 fp32 proj+down M=1",
+               work=(nbytes(x_p, h, p_p, p_d, g_p, g_d, b_down, res),
+                     2 * M * (H * H + F_ * H)), lib_label=none,
+               peers=[("its bf16-scale instance", t16)])
+        if M == 8:
+            continue
+        args2 = (x2, x_p, res, p_u, p_p, p_d, g_u, g_p, g_d, b_u, b_down, "gelu-tanh", 4, G)
+        args2_16 = (x2, x_p, res, p_u, p_p, p_d, g_u16, g_p16, g_d16, b_u, b_down, "gelu-tanh",
+                    4, G)
+        t16 = device_time_ms(torch, lambda: fused_up_proj_down(*args2_16))
+        report("fused_up_proj_down_f32", f"int4 g128 fp32 up+proj+down M={M}",
+               lambda: fused_up_proj_down(*args2), lambda: fused_up_proj_down_plain(*args2),
+               2e-2, "int4 g128 fp32 up+proj+down M=1",
+               work=(nbytes(x2, x_p, res, p_u, p_p, p_d, g_u, g_p, g_d, b_u, b_down),
+                     2 * M * (H * F_ + H * H + F_ * H)), lib_label=none,
+               peers=[("its bf16-scale instance", t16)])
+    del p_q, p_u, p_p, p_d
 
     # Row independence of the GEMV's tensor-core body at CodeFuse-13B shapes:
     # row r of K6, K7 and K13 int8 is bit for bit the same at M = 2, 4, 8
@@ -1631,23 +1716,15 @@ def check_encoder_counts(torch, kernels, launched, expect, label):
 
 def encoder_profile(torch, engine, ids, lens, label):
     """Device time by kernel of one encode under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    from fastertransformer4codefuse_tpu_torch.utils.profiling import summarize_trace, trace
 
     engine.encode(ids, lens)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with trace(cpu=False) as prof:
         engine.encode(ids, lens)
-        torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t > 0:
-            rows.append((e.key, t / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = [r[:3] for r in summarize_trace(prof, top=0)]
     dev = sum(r[1] for r in rows)
     log(f"  {label}: wall {wall:.1f} ms (profiled), device kernels {dev:.1f} ms "
         f"({dev / wall:.0%} busy; {CARD}); by kernel:")
@@ -1892,6 +1969,17 @@ def main() -> int:
                               src + "flash_decode_beam.cu", tpu + "flash_decode.py:349"),
         "sliding_window_attention": (sliding_window_attention, "launches",
                                      src + "sliding_window.cu", tpu + "sliding_window.py:141"),
+        # the int4 instances with fp32 group scales (FTCF_GSCALE_BF16=0),
+        # counted apart and within their wrappers' ``launches``
+        "quant_matmul_w4_group_f32": (quant_matmul_w4_group, "launches_f32",
+                                      src + "quant_matmul_w4.cu", tpu + "quant_matmul_w4.py:376"),
+        "fused_qkv_up_f32": (fused_qkv_up, "launches_f32", src + "quant_matmul_fused.cu",
+                             tpu + "quant_matmul_fused.py:226"),
+        "fused_proj_down_f32": (fused_proj_down, "launches_f32", src + "quant_matmul_fused.cu",
+                                tpu + "quant_matmul_fused.py:360"),
+        "fused_up_proj_down_f32": (fused_up_proj_down, "launches_f32",
+                                   src + "quant_matmul_fused.cu",
+                                   tpu + "quant_matmul_fused.py:571"),
     }
     records = {
         n: {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": 0,
@@ -1906,6 +1994,7 @@ def main() -> int:
         "(kernels) vs CPU (plain); tiny configs of 64-wide heads, g = 16, bf16 pages of 4 "
         "and 32-wide heads served on both")
     tol_ref = 5e-2
+    launched = {n: 0 for n in kernels}
     int8_ref = None  # built once, shared by the int8 cases below
     for fn in ROUTERS:
         fn.plain_routes = 0
@@ -1930,6 +2019,9 @@ def main() -> int:
                 f"step: {', '.join(f'{g:.2e}' for g in gaps)} (tol {tol_ref:g})")
             if max(gaps) >= tol_ref:
                 return fail(f"{label}: the fused and unfused routes disagree on the card")
+    err = phase_f32_scales(torch, pkg, kernels, launched, tol_ref)
+    if err:
+        return fail(err)
     rels = phase_reference(torch, int8_ref, kv="int4")
     log(f"  int8 on an int4 dense cache (packed K4): {', '.join(f'{r:.2e}' for r in rels)} "
         f"(tol {tol_ref:g})")
@@ -1962,7 +2054,6 @@ def main() -> int:
     if err:
         return fail(err)
 
-    launched = {n: 0 for n in kernels}
     for label, quant in CONFIGS:
         log(f"phase 4: CodeFuse-13B {label} (40 layers, int8 KV) on the card")
         # the long-prompt runs on packed caches and phase 5's pools use the
@@ -1971,6 +2062,9 @@ def main() -> int:
                           then=phase_int8_model if label == "int8" else None)
         if err:
             return fail(f"{label}: {err}")
+    err = phase_w8a8(torch, pkg, kernels, launched)
+    if err:
+        return fail(err)
     err = phase_encoders(torch, kernels, launched)
     if err:
         return fail(err)
@@ -1980,8 +2074,10 @@ def main() -> int:
     for n in records:
         records[n]["launches"] = launched[n]
     # K2 is off the served routes: K13 + K3 replace it (phase 2 holds it)
-    records["fused_up_proj_down"]["on_main_path"] = False
-    if not all(c for n, c in launched.items() if n != "fused_up_proj_down"):
+    off_path = ("fused_up_proj_down", "fused_up_proj_down_f32")
+    for n in off_path:
+        records[n]["on_main_path"] = False
+    if not all(c for n, c in launched.items() if n not in off_path):
         return fail(f"a kernel of the main path was never launched by it: {launched}")
     print(smi, flush=True)
     print(json.dumps({"kernels": list(records.values())}), flush=True)
@@ -2225,7 +2321,7 @@ def with_kv(engine, kind):
 def prefill_profile(torch, engine, prompt, label):
     """Wall time (best of two) of one prefill (``generate`` with output_len
     1) and the device time by kernel of a third under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+    from fastertransformer4codefuse_tpu_torch.utils.profiling import summarize_trace, trace
 
     walls = []
     for _ in range(2):
@@ -2234,17 +2330,9 @@ def prefill_profile(torch, engine, prompt, label):
         engine.generate([prompt], 1, top_k=1)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with trace(cpu=False) as prof:
         engine.generate([prompt], 1, top_k=1)
-        torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0.0)
-        if t > 0:
-            rows.append((e.key, t / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = [r[:3] for r in summarize_trace(prof, top=0)]
     dev = sum(r[1] for r in rows)
     log(f"  prefill of {len(prompt)} tokens, {label}: wall {min(walls):.1f} ms (best of 2), "
         f"device kernels {dev:.1f} ms ({CARD}); by kernel:")
@@ -2467,9 +2555,559 @@ def rescore(torch, engine, out, prompts):
     return np.concatenate(deltas), len(deltas)
 
 
+def forced_check(torch, engine, context, gen):
+    """Hold greedy tokens ``gen``, generated after ``context``, to the
+    concatenated sequence's greedy run on the engine's KV cache kind,
+    teacher-forced: a prefill of ``context`` (K5), then a decode step (K13 +
+    K3, K4) on each token of ``gen`` but the last. A token that is not its
+    step's argmax must be a near-tie (its gap to the argmax under NEAR_TIE
+    of max |logits|). Returns (error or None, the near-ties as (step,
+    gap), each token's log-prob there); runs one prefill and len(gen) - 1
+    decode forwards."""
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+
+    cfg, params = engine.config, engine.params
+    n = len(context)
+    cache = kv_cache.init_cache(cfg, 1, n + len(gen), engine._cache_dtype(), "cuda")
+    lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+    hidden, _ = model.prefill(cfg, params, torch.tensor([list(context)], device="cuda"), lens,
+                              cache)
+    steps = [model.lm_logits(cfg, params, model.last_token_hidden(hidden, lens))]
+    toks = torch.tensor(list(gen), dtype=torch.int32, device="cuda")
+    for i in range(len(gen) - 1):
+        h, _ = model.decode_step(cfg, params, toks[i: i + 1], lens + i, cache)
+        steps.append(model.lm_logits(cfg, params, h))
+    lg = torch.cat(steps).float()
+    best = lg.argmax(-1, keepdim=True)
+    gap = ((lg.gather(1, best) - lg.gather(1, toks[:, None].long()))[:, 0]
+           / lg.abs().amax(-1)).cpu().numpy()
+    off = [(int(i), round(float(gap[i]), 5)) for i in np.nonzero(gap > 0)[0]]
+    far = [(i, x) for i, x in off if x >= NEAR_TIE]
+    logp = torch.log_softmax(lg, -1).gather(1, toks[:, None].long())[:, 0].cpu().numpy()
+    if far:
+        return f"greedy step {far[0][0]} is no argmax of the concatenated run's teacher-forced " \
+               f"logits (gap {far[0][1]:.2e})", off, logp
+    return None, off, logp
+
+
+def prompted_launches(L, chunk_prefills, forwards, beam=False):
+    """Launches of the int8 CodeFuse model's prompted runs: each prompted
+    prefill is the chunk program (K13 and the proj and down GEMMs, K1;
+    plain dense chunk attention over the prompt's cache slots), each decode
+    forward K13 + K3 and K4 (K11 for beams)."""
+    return {"fused_qkv_up": L * (chunk_prefills + forwards), "quant_matmul": 2 * L * chunk_prefills,
+            "fused_proj_down": L * forwards,
+            "flash_decode_beam" if beam else "flash_decode": L * forwards}
+
+
+def check_run_counts(torch, kernels, launched, expect, label):
+    """Compare the counters (zeroed just before ``label`` ran) with
+    ``expect``; add them to ``launched``. Returns an error or None."""
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    want = {n: 0 for n in counts}
+    want.update(expect)
+    log(f"  {label}: launches {({n: c for n, c in counts.items() if c})}, expected "
+        f"{({n: c for n, c in want.items() if c})}")
+    if counts != want:
+        return f"{label}: kernel launch counts do not match the run"
+    for n in kernels:
+        launched[n] += counts[n]
+    return None
+
+
+# Phase 4's prompt learning: the tasks' prefix lengths, the inputs after them
+PROMPT_PREFIX = (128, 96)
+PROMPT_TAILS = (300, 200, 150)
+PROMPT_OUT = 32
+
+
+def phase_prompt(torch, engine, kernels, launched):
+    """Prompt learning and the DEBUG sweep on the int8 CodeFuse-13B
+    ``engine`` (40 layers, int8 KV): prefix tables made of the model's own
+    K/V of a 128- and a 96-token prefix; a prefix-prompted greedy run and a
+    soft prompt of 64 x 5120 embeddings (real tokens' embedding rows), each
+    held to the model's greedy on the concatenated sequence, teacher-forced;
+    prefix-prompted beams (2 prompts x 4 beams, x2, every hypothesis
+    rescored teacher-forced); a dense pool on a bf16 cache with the two-task
+    table serving prompted and plain requests mid-flight, each against its
+    solo static run; then the DEBUG sweep on clean weights and with a NaN planted in one
+    layer's scales. Returns an error message, or None."""
+    import dataclasses
+
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.engine.server import BatchingServer
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+    from fastertransformer4codefuse_tpu_torch.utils.debug import (
+        DebugCheckError, checked_forward, debug_verify, scan_params,
+    )
+
+    cfg, params = engine.config, engine.params
+    L, V = cfg.layer_num, cfg.vocab_size
+    quant = dict(weight_bits=8, group_size=0)
+    rng = np.random.default_rng(17)
+    log("phase 4: CodeFuse-13B int8, prompt learning (prefix and soft prompts, beams, a dense "
+        "pool) and the DEBUG sweep")
+    zero_counts(kernels)
+    prefixes, table = {}, {}
+    for task, n in zip((1, 2), PROMPT_PREFIX):
+        ids = rng.integers(0, V, n).tolist()
+        cache = kv_cache.init_cache(cfg, 1, n, torch.bfloat16, "cuda")
+        model.prefill(cfg, params, torch.tensor([ids], device="cuda"),
+                      torch.tensor([n], dtype=torch.int32, device="cuda"), cache)
+        table[task] = (torch.stack([cache["k"][:, 0], cache["v"][:, 0]], 1).float(), n)
+        prefixes[task] = ids
+    engine.set_prompt_learning_table(table)
+    err = check_static_counts(torch, kernels, launched, L, 2, 0, quant)
+    if err:
+        return f"prefix tables: {err}"
+    log(f"  prefix tables [L, 2, 40, P, 128] fp32 of {PROMPT_PREFIX} tokens from the model's own "
+        "prefill (bf16 cache)")
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = engine.generate(*a, **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def gen_of(out, b, n_in, j=0):
+        return out.output_ids[b, j, n_in:out.sequence_lengths[b, j]].tolist()
+
+    tails = [rng.integers(0, V, n).tolist() for n in PROMPT_TAILS]
+    zero_counts(kernels)
+    forced = 0
+    out, t_pre = timed([tails[0]], PROMPT_OUT, top_k=1, prompt_learning_task_name_ids=[1])
+    again, _ = timed([tails[0]], PROMPT_OUT, top_k=1, prompt_learning_task_name_ids=[1])
+    if not np.array_equal(out.output_ids, again.output_ids):
+        return "prefix prompt: two greedy runs differ"
+    gen = gen_of(out, 0, len(tails[0]))
+    fw = 2 * engine.decode_forwards
+    err, ties, _ = forced_check(torch, engine, prefixes[1] + tails[0], gen)
+    forced, forced_fw = 1, len(gen) - 1
+    if err:
+        return f"prefix prompt: {err}"
+    log(f"  prefix prompt (task of {PROMPT_PREFIX[0]} tokens) + {PROMPT_TAILS[0]}-token input, "
+        f"{len(gen)} greedy tokens x2: identical, {t_pre:.2f} s a run; every token the "
+        f"concatenated sequence's greedy, teacher-forced ({len(ties)} near-ties: {ties[:3]})")
+
+    soft_ids = rng.integers(0, V, 64).tolist()
+    e = params["embed"]
+    sid = torch.tensor(soft_ids, device="cuda")
+    soft = (e.q[sid].float() * e.scale[sid].float()[:, None])[None]  # [1, 64, 5120]
+    out, t_soft = timed([tails[1]], PROMPT_OUT, top_k=1, request_prompt_embedding=soft.cpu(),
+                        request_prompt_lengths=[64])
+    fw += engine.decode_forwards
+    gen = gen_of(out, 0, len(tails[1]))
+    err, ties, _ = forced_check(torch, engine, soft_ids + tails[1], gen)
+    forced, forced_fw = forced + 1, forced_fw + len(gen) - 1
+    if err:
+        return f"soft prompt: {err}"
+    log(f"  soft prompt of 64 x {cfg.hidden_size} embeddings (64 tokens' rows) + "
+        f"{PROMPT_TAILS[1]}-token input, {len(gen)} greedy tokens in {t_soft:.2f} s: the "
+        f"concatenated sequence's greedy, teacher-forced ({len(ties)} near-ties)")
+    expect = add_counts(prompted_launches(L, 4, fw),
+                        expected_launches(L, forced, forced_fw, **quant))
+    err = check_run_counts(torch, kernels, launched, expect,
+                           "prefix x2 and soft prompts (chunk program; soft: 2 chunks)")
+    if err:
+        return err
+
+    zero_counts(kernels)
+    bw = 4
+    kw = dict(beam_width=bw, output_log_probs=True, prompt_learning_task_name_ids=[1, 2])
+    b1, t_b = timed(tails[1:3], PROMPT_OUT, **kw)
+    fw = engine.decode_forwards
+    b2, _ = timed(tails[1:3], PROMPT_OUT, **kw)
+    fw += engine.decode_forwards
+    if not all(np.array_equal(x, y) for x, y in zip(b1, b2)):
+        return "prefix-prompted beams: two runs differ"
+    deltas, n_resc = [], 0
+    for b, (task, tail) in enumerate(zip((1, 2), tails[1:3])):
+        ctx = prefixes[task] + tail
+        score = b1.cum_log_probs[b]
+        if not np.isfinite(score).all() or (np.diff(score) > 1e-6 * np.abs(score).max()).any():
+            return f"prefix-prompted beams of prompt {b} are not best-first: {score}"
+        for j in range(bw):
+            hyp = gen_of(b1, b, len(tail), j)
+            ids = ctx + hyp
+            n = len(ids)
+            cache = kv_cache.init_cache(cfg, 1, n, torch.int8, "cuda")
+            hidden, _ = model.prefill(cfg, params, torch.tensor([ids], device="cuda"),
+                                      torch.tensor([n], dtype=torch.int32, device="cuda"), cache)
+            logp = torch.log_softmax(model.lm_logits(cfg, params, hidden[0, len(ctx) - 1: n - 1]),
+                                     dim=-1)
+            want = logp.gather(1, torch.tensor(hyp, device="cuda")[:, None])[:, 0].cpu().numpy()
+            deltas.append(np.abs(want - b1.output_log_probs[b, j, :len(hyp)]))
+            n_resc += 1
+    d = np.concatenate(deltas)
+    log(f"  prefix-prompted beams, 2 prompts x {bw} beams (tasks 1, 2), {PROMPT_OUT} tokens x2: "
+        f"identical, best-first, {t_b:.2f} s a run; every hypothesis rescored teacher-forced "
+        f"over prefix + input: |dlogprob| mean {d.mean():.2e}, max {d.max():.2e} nats (limit "
+        f"0.05 mean) ({CARD})")
+    if not np.isfinite(d).all() or d.mean() > 0.05:
+        return "prefix-prompted beams: the hypotheses' log-probs disagree with their rescoring"
+    expect = add_counts(prompted_launches(L, 2, fw, beam=True),
+                        expected_launches(L, n_resc, 0, **quant))
+    err = check_run_counts(torch, kernels, launched, expect, "prefix-prompted beams (K11)")
+    if err:
+        return err
+
+    # a dense pool with the two-task table: prompted and plain requests, two
+    # of them arriving mid-flight, each against its solo static run. A
+    # pool's program (128-row chunks, the last prompt token by a decode
+    # tick) is not the static one (one prefill), so a request that parts
+    # from its static run is rescored: its per-step log-probs against the
+    # concatenated sequence's, teacher-forced, within 0.05 nats a token on
+    # average (the beam limit). Greedy flips above NEAR_TIE occur (1.2-1.3e-2
+    # of max |logits| on CodeFuse-13B's random weights, on an int8 and on a
+    # bf16 cache): the programs' roundings, not a prompt fault, which would
+    # move whole distributions. On a bf16 cache.
+    peng = with_kv(engine, "bf16")
+    peng.set_prompt_learning_table(table)
+    zero_counts(kernels)
+    lens = (300, 500, 200, 700, 150, 400)
+    tasks = (1, None, 2, 1, None, 2)
+    reqs = [(rng.integers(0, V, n).tolist(), PROMPT_OUT, dict(top_k=1, prompt_task_id=t))
+            for n, t in zip(lens, tasks)]
+    srv = BatchingServer(peng, max_slots=4, max_seq_len=2048, prompt_bucket=128,
+                         pipeline_ticks=True, prompt_table=table, return_log_probs=True)
+    b = srv.batcher
+    try:
+        res, wall = drive_mix(srv, reqs, late=2)
+    finally:
+        srv.close()
+    err = bad_length(res, reqs, cfg.end_id, V)
+    if err:
+        return f"prompt-learning pool: {err}"
+    err = check_counts(kernels, launched, [b], L, "prompt-learning dense pool (4 slots, 2 tasks)")
+    if err:
+        return err
+    zero_counts(kernels)
+    same, fw, ties_all, forced_fw, deltas = 0, 0, [], 0, []
+    for (p, o, kw_), r in zip(reqs, res):
+        t = kw_["prompt_task_id"]
+        ptk = {} if t is None else dict(prompt_learning_task_name_ids=[t])
+        solo = peng.generate([p], o, top_k=1, **ptk)
+        fw += peng.decode_forwards
+        pooled = r.output_ids[len(p):]
+        if pooled == gen_of(solo, 0, len(p)):
+            same += 1
+            continue
+        _, ties, logp = forced_check(torch, peng, (prefixes[t] if t else []) + p, pooled)
+        forced_fw += len(pooled) - 1
+        d = np.abs(logp - np.asarray(r.step_log_probs))
+        if not np.isfinite(d).all() or d.mean() > 0.05:
+            return f"prompt-learning pool, task {t}: its log-probs part from the concatenated " \
+                   f"run's, teacher-forced, by {d.mean():.2e} nats a token"
+        ties_all += ties
+        deltas.append(d)
+    n_forced = len(reqs) - same
+    n_prompted = sum(t is not None for t in tasks)
+    expect = add_counts(prompted_launches(L, n_prompted, 0),
+                        expected_launches(L, len(reqs) - n_prompted + n_forced, forced_fw,
+                                          **quant),
+                        {"fused_qkv_up": L * fw, "fused_proj_down": L * fw,
+                         "flash_decode": L * fw})
+    err = check_run_counts(torch, kernels, launched, expect, "the pool's requests alone")
+    if err:
+        return err
+    d = np.concatenate(deltas) if deltas else np.zeros(1)
+    log(f"  prompt-learning pool, bf16 KV: 6 requests (tasks {tasks}), 2 mid-flight, {wall:.2f} "
+        f"s; {same} of 6 token for token their solo static run; the others rescored "
+        f"teacher-forced over the concatenated sequence: |dlogprob| mean {d.mean():.2e}, max "
+        f"{d.max():.2e} nats (limit 0.05 mean), greedy flips at {ties_all} ({CARD})")
+
+    # the DEBUG sweep: clean weights pass; a NaN planted in one layer's
+    # scales is named by the sweep and, layer for layer, by checked_forward
+    dbg = type(engine)(cfg, params, dataclasses.replace(engine.runtime, debug_level="DEBUG"))
+    prompt = rng.integers(0, V, 1000).tolist()
+    zero_counts(kernels)
+    out = dbg.generate([prompt], 8, top_k=1)
+    fw = dbg.decode_forwards
+    ids, lens_ = np.array([prompt], np.int32), np.array([1000], np.int32)
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        debug_verify(dbg, ids, lens_)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    err = check_run_counts(torch, kernels, launched,
+                           expected_launches(L, 4, fw + 3, **quant),
+                           "DEBUG generate (the sweep, then the run) and two sweeps")
+    if err:
+        return err
+    layer, col = 17, 5
+    s = params["layers"]["up_w"].scale
+    old = s[layer, col].clone()
+    s[layer, col] = float("nan")
+    try:
+        zero_counts(kernels)
+        try:
+            dbg.generate([prompt], 8, top_k=1)
+            return "DEBUG: a NaN in layer 17's up_w scales passed the sweep"
+        except DebugCheckError as e:
+            swept = str(e)
+        try:
+            checked_forward(cfg, params, ids, lens_, torch.int8)
+            return "DEBUG: checked_forward passed a NaN in layer 17's up_w scales"
+        except DebugCheckError as e:
+            staged = str(e)
+    finally:
+        s[layer, col] = old
+    if "layers.up_w.scale (1 bad)" not in swept or staged != \
+            f"non-finite activation after layer {layer} (prefill)":
+        return f"DEBUG: the planted NaN was named {swept!r} / {staged!r}"
+    err = check_run_counts(torch, kernels, launched, expected_launches(L, 1, 0, **quant),
+                           "DEBUG with the NaN: the sweep (no launch), then the checked prefill")
+    if err:
+        return err
+    if scan_params(params):
+        return "DEBUG: the planted NaN was not restored"
+    log(f"  DEBUG sweep (weights swept, then a checked prefill of 1000 tokens + a decode step, "
+        f"one sync each): {min(walls):.1f} ms (best of 2) ({CARD}); clean weights pass, "
+        f"{out.sequence_lengths[0, 0] - 1000} tokens after it; a NaN in layer {layer}'s up_w "
+        f"scales: {swept!r}, then {staged!r}; restored")
+    return None
+
+
+def phase_f32_scales(torch, pkg, kernels, launched, tol_ref):
+    """The 2-layer int4 g128 model of CodeFuse-13B width with fp32 group
+    scales (``FTCF_GSCALE_BF16=0``): card vs CPU logits on both routes (K13 +
+    K3, and the unfused K7), each with exact counts of the fp32 instances.
+    Returns an error or None."""
+    os.environ["FTCF_GSCALE_BF16"] = "0"
+    try:
+        ref = reference_model(torch, pkg, weight_bits=4, group_size=128)
+    finally:
+        os.environ.pop("FTCF_GSCALE_BF16")
+    if ref[2]["layers"]["up_w"].scale.dtype != torch.float32:
+        return "fp32 group scales: the quantizer kept bf16"
+    for fused in (True, False):
+        zero_counts(kernels)
+        rels = phase_reference(torch, ref, fused=fused)
+        expect = expected_launches(2, 1, 3, 4, 128, fused=fused)
+        for base in ("quant_matmul_w4_group", "fused_qkv_up", "fused_proj_down"):
+            if base in expect:
+                expect[base + "_f32"] = expect[base]
+        err = check_run_counts(torch, kernels, launched, expect,
+                               f"int4 g128 fp32 scales, {'K13 + K3' if fused else 'unfused K7'}")
+        if err:
+            return err
+        log(f"  int4 g128 with fp32 group scales (FTCF_GSCALE_BF16=0; "
+            f"{'K13 + K3' if fused else 'fused_decode=False: K7'}): "
+            f"{', '.join(f'{r:.2e}' for r in rels)} (tol {tol_ref:g})")
+        if max(rels) >= tol_ref:
+            return "fp32 group scales: card and CPU logits disagree"
+    return None
+
+
+def phase_w8a8(torch, pkg, kernels, launched):
+    """SmoothQuant W8A8 (phase 4b). At 2 layers of CodeFuse-13B width:
+    calibration stats on the card and the CPU, the AWQ fold (fp-exact) and
+    its int4 g128 error against round-to-nearest, the SmoothQuant fold, and
+    an ``act_int8`` model's logits on the card against the CPU. At 40
+    layers: the float model built on the card for the stats only, folded,
+    quantized and freed; the 1000- and 3000-token prefills with act_int8
+    beside weight-only (turns a8, wo, wo, a8); ``torch._int_mm`` against the
+    port's GEMM at M = 3072; decode steps launch K13 + K3 and no
+    ``_int_mm``; peak memory. Returns an error or None."""
+    import dataclasses
+    import gc
+
+    from fastertransformer4codefuse_tpu_torch.ckpt.calibrate import (
+        apply_awq_scaling, collect_activation_stats,
+    )
+    from fastertransformer4codefuse_tpu_torch.ckpt.quantize import quantize_params
+    from fastertransformer4codefuse_tpu_torch.ckpt.smoothquant import apply_smoothquant_scaling
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+    from fastertransformer4codefuse_tpu_torch.models.params import params_to
+    from fastertransformer4codefuse_tpu_torch.ops import linear
+    from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import quant_matmul
+    from fastertransformer4codefuse_tpu_torch.utils.profiling import summarize_trace, trace
+
+    log("phase 4b: SmoothQuant W8A8 and AWQ on CodeFuse-13B width")
+    tol = 5e-2
+    cfg2 = pkg.GptNeoXConfig(**{**pkg.GptNeoXConfig.codefuse_13b().__dict__, "layer_num": 2})
+    rng = np.random.default_rng(23)
+    V = cfg2.vocab_size
+    calib = [[rng.integers(0, V, 256).tolist() for _ in range(2)]]
+    p = pkg.init_params(cfg2, seed=9, dtype="bf16", device="cuda")
+    p_cpu = params_to(p, "cpu")
+    t0 = time.time()
+    st = collect_activation_stats(cfg2, p, calib)
+    st_cpu = collect_activation_stats(cfg2, p_cpu, calib)
+    gaps = {k: float(np.abs(st[k] - st_cpu[k]).max() / np.abs(st_cpu[k]).max()) for k in st}
+    log(f"  calibration stats (2 x 256 tokens, unfused route), card vs CPU, max |d| / max: "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in gaps.items())} (tol {tol:g}); {time.time() - t0:.1f} s")
+    if max(gaps.values()) >= tol or set(st) != {"qkv", "proj", "up", "down"}:
+        return "W8A8: calibration stats disagree between card and CPU"
+
+    ids = torch.from_numpy(rng.integers(0, V, (2, 64))).to("cuda")
+    lens = torch.full((2,), 64, dtype=torch.int32, device="cuda")
+
+    def logits_of(params, a8=False, steps=0, fused=True):
+        cache = kv_cache.init_cache(cfg2, 2, 64 + steps, torch.int8, params["final_ln_w"].device)
+        dev = params["final_ln_w"].device
+        h, cache = model.prefill(cfg2, params, ids.to(dev), lens.to(dev), cache, fused=fused,
+                                 a8=a8)
+        out = [model.lm_logits(cfg2, params, h[:, -1]).float().cpu()]
+        for s_ in range(steps):
+            hd, cache = model.decode_step(cfg2, params, ids[:, s_].to(dev),
+                                          (lens + s_).to(dev), cache)
+            out.append(model.lm_logits(cfg2, params, hd).float().cpu())
+        return out
+
+    t0 = time.time()
+    awq = apply_awq_scaling(cfg2, p, st, weight_bits=4, group_size=128)
+    t_awq = time.time() - t0
+    base = logits_of(p, fused=False)[0]
+    fold_gap = rel_err(torch, logits_of(awq, fused=False)[0], base)[1]
+    errs = {}
+    for label, src in (("round-to-nearest", p), ("AWQ", awq)):
+        q4 = quantize_params(src, weight_bits=4, group_size=128)
+        errs[label] = rel_err(torch, logits_of(q4)[0], base)[1]
+        del q4
+    log(f"  AWQ fold (grid of 20 on the card, {t_awq:.1f} s): float logits of the folded model vs "
+        f"the unfolded {fold_gap:.2e} (bf16 weights; tol {tol:g}); int4 g128 logits vs float: "
+        f"round-to-nearest {errs['round-to-nearest']:.3e}, AWQ {errs['AWQ']:.3e}")
+    if fold_gap >= tol:
+        return "AWQ: the fold changed the float model"
+    del awq
+
+    sq = apply_smoothquant_scaling(cfg2, p, st)
+    fold_gap = rel_err(torch, logits_of(sq, fused=False)[0], base)[1]
+    q = quantize_params(sq, include_embeddings=True)
+    del sq
+    zero_counts(kernels)
+    linear.w8a8_matmul.launches = 0
+    card = logits_of(q, a8=True, steps=3)
+    torch.cuda.synchronize()
+    n_int_mm = linear.w8a8_matmul.launches
+    err = check_run_counts(torch, kernels, launched,
+                           {"prefill_attention_flash": 2, "fused_qkv_up": 6,
+                            "fused_proj_down": 6, "flash_decode": 6},
+                           "act_int8, 2 layers: a W8A8 prefill, 3 decode steps (K13 + K3)")
+    if err:
+        return err
+    if n_int_mm != 8:
+        return f"W8A8: {n_int_mm} torch._int_mm calls for a 2-layer prefill (expected 8)"
+    cpu = logits_of(params_to(q, "cpu"), a8=True, steps=3)
+    wo = logits_of(q, steps=0)[0]
+    rels = [rel_err(torch, a, b)[1] for a, b in zip(card, cpu)]
+    log(f"  SmoothQuant fold: float logits vs unfolded {fold_gap:.2e}; act_int8 (W8A8 prefill "
+        f"of 2 x 64 rows: 8 torch._int_mm calls; 3 decode steps) card vs CPU: "
+        f"{', '.join(f'{r:.2e}' for r in rels)} (tol {tol:g}); W8A8 vs weight-only prefill "
+        f"logits on the card {rel_err(torch, card[0], wo)[1]:.2e}")
+    if max(rels) >= tol or fold_gap >= tol:
+        return "W8A8: card and CPU logits disagree, or the fold changed the model"
+    del p, p_cpu, q, card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 40 layers: the float model on the card for the stats, then freed
+    cfg = pkg.GptNeoXConfig.codefuse_13b()
+    L = cfg.layer_num
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pf = pkg.init_params(cfg, seed=0, dtype="bf16", device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    calib = [[rng.integers(0, V, 512).tolist() for _ in range(2)]]
+    t0 = time.time()
+    st = collect_activation_stats(cfg, pf, calib)
+    t_stats = time.time() - t0
+    t0 = time.time()
+    sq = apply_smoothquant_scaling(cfg, pf, st)
+    del pf
+    q = quantize_params(sq, include_embeddings=True)
+    del sq
+    gc.collect()
+    torch.cuda.synchronize()
+    t_fold = time.time() - t0
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  40 layers: float bf16 model built in {t_build:.1f} s, stats of 2 x 512 tokens in "
+        f"{t_stats:.1f} s, SmoothQuant fold + int8 quantization on the card in {t_fold:.1f} s, "
+        f"the float model freed; peak device memory {peak:.2f} GiB ({CARD})")
+    if peak >= 80:
+        return f"W8A8: peak device memory {peak:.2f} GiB"
+    rt = pkg.RuntimeConfig(dtype="bf16", int8_mode=1, kv_cache_dtype="int8")
+    a8 = pkg.GptNeoXEngine(cfg, q, dataclasses.replace(rt, act_int8=True))
+    wo = pkg.GptNeoXEngine(cfg, q, rt)
+    for n in (1000, 3000):
+        prompt = rng.integers(0, V, n).tolist()
+        walls = {"a8": [], "wo": []}
+        for name in ("a8", "wo", "wo", "a8"):
+            e = a8 if name == "a8" else wo
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e.generate([prompt], 1, top_k=1)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+        dev = {}
+        for name, e in (("a8", a8), ("wo", wo)):
+            with trace(cpu=False) as prof:
+                e.generate([prompt], 1, top_k=1)
+            dev[name] = sum(r[1] for r in summarize_trace(prof, top=0))
+        log(f"  {n}-token prefill: act_int8 wall {min(walls['a8']):.1f} ms, device "
+            f"{dev['a8']:.1f} ms; weight-only wall {min(walls['wo']):.1f} ms, device "
+            f"{dev['wo']:.1f} ms (turns a8, wo, wo, a8; best of 2) ({CARD})")
+    # torch._int_mm against the port's GEMM at M = 3072, on layer 0's weights
+    M = 3072
+    x = (torch.randn(M, cfg.hidden_size, device="cuda") * 0.5).to(torch.bfloat16)
+    x8, _ = linear.quantize_per_token(x)
+    rows = []
+    for name in ("qkv_w", "up_w", "proj_w", "down_w"):
+        w = q["layers"][name][0]
+        K = w.q.shape[0]
+        q2, s2 = w.q.reshape(K, -1), w.scale.reshape(-1)
+        xk = x if K == cfg.hidden_size else (torch.randn(M, K, device="cuda") * 0.5).to(
+            torch.bfloat16)
+        xk8 = x8 if K == cfg.hidden_size else linear.quantize_per_token(xk)[0]
+        qt = q2.t().contiguous().t()
+        rows.append((name, q2.shape[1], K,
+                     device_time_ms(torch, lambda: torch._int_mm(xk8, qt)),
+                     device_time_ms(torch, lambda: linear.w8a8_matmul(xk, q2, s2)),
+                     device_time_ms(torch, lambda: quant_matmul(xk, q2, s2))))
+    for name, N, K, t_mm, t_full, t_k1 in rows:
+        log(f"  M = {M}, {name} {K}->{N}: torch._int_mm {t_mm:.4f} ms (K-major weight), "
+            f"w8a8_matmul {t_full:.4f} ms (per-token quantization and the weight's K-major copy "
+            f"included), the port's GEMM (K1) {t_k1:.4f} ms ({CARD})")
+    # decode steps: K13 + K3, no _int_mm
+    zero_counts(kernels)
+    linear.w8a8_matmul.launches = 0
+    prompt = rng.integers(0, V, 1000).tolist()
+    out = a8.generate([prompt], 16, top_k=1, return_cum_log_probs=True)
+    fw = a8.decode_forwards
+    n_int_mm = linear.w8a8_matmul.launches
+    ref = wo.generate([prompt], 16, top_k=1)
+    fw_wo = wo.decode_forwards
+    if not np.isfinite(out.cum_log_probs).all():
+        return "W8A8: non-finite logits"
+    expect = add_counts({"prefill_attention_flash": L, "fused_qkv_up": L * fw,
+                         "fused_proj_down": L * fw, "flash_decode": L * fw},
+                        expected_launches(L, 1, fw_wo, 8, 0))
+    err = check_run_counts(torch, kernels, launched, expect,
+                           "act_int8 generate (W8A8 prefill; decode K13 + K3) and weight-only")
+    if err:
+        return err
+    if n_int_mm != 4 * L:
+        return f"W8A8: {n_int_mm} torch._int_mm calls for one prefill (expected {4 * L}: " \
+               "no decode step may take one)"
+    same = int(np.sum(out.output_ids[0, 0, 1000:1016] == ref.output_ids[0, 0, 1000:1016]))
+    log(f"  act_int8 generate, 1000-token prompt, 16 greedy tokens: {n_int_mm} torch._int_mm "
+        f"calls (the prefill's {4 * L}; none in {fw} decode steps); tokens equal to "
+        f"weight-only's at {same} of 16 positions (random weights)")
+    return None
+
+
 def phase_int8_model(torch, engine, kernels, launched):
     return (phase_long(torch, engine, kernels, launched)
             or phase_beam(torch, engine, kernels, launched)
+            or phase_prompt(torch, engine, kernels, launched)
             or phase_pool(torch, engine, kernels, launched)
             or phase_spec(torch, engine, kernels, launched))
 
@@ -2918,7 +3556,7 @@ def tick_profile(torch, engine, ContinuousBatcher, n_chunk=3, n_decode=10):
     ``n_chunk`` ticks (every slot chunk-prefilling) and, once all 8 decode,
     ``n_decode`` decode ticks run under torch.profiler (kernel activity
     only); the same number of each runs unprofiled for the wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    from fastertransformer4codefuse_tpu_torch.utils.profiling import summarize_trace, trace
 
     V = engine.config.vocab_size
     rng = np.random.default_rng(9)
@@ -2935,18 +3573,10 @@ def tick_profile(torch, engine, ContinuousBatcher, n_chunk=3, n_decode=10):
         return (time.perf_counter() - t0) / n * 1e3
 
     def profiled(n):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with trace(cpu=False) as prof:
             for _ in range(n):
                 b.step()
-            torch.cuda.synchronize()
-        rows = []
-        for e in prof.key_averages():
-            t = getattr(e, "self_device_time_total", None)
-            if t is None:
-                t = getattr(e, "self_cuda_time_total", 0.0)
-            if t > 0:
-                rows.append((e.key, t / 1e3 / n, e.count / n))
-        rows.sort(key=lambda r: -r[1])
+        rows = [(name, ms / n, count / n) for name, ms, count, _ in summarize_trace(prof, top=0)]
         return sum(r[1] for r in rows), rows
 
     out = {}

@@ -4,8 +4,8 @@ Symmetric scales over the contraction axis: per output channel, or per
 (K-group, output channel) with ``group_size``. int8 stores one value a byte;
 int4 packs two nibbles a byte along K, row 2i in the low nibble and row 2i+1
 in the high one (``models.params.QuantizedTensor``). The stored (q, scale)
-pairs are bit-identical to the JAX package's. Group-wise int4 scales are bf16
-(the JAX default; its ``FTCF_GSCALE_BF16=0`` switch to fp32 is not ported).
+pairs are bit-identical to the JAX package's. Group-wise int4 scales are bf16,
+or fp32 under ``FTCF_GSCALE_BF16=0``, the JAX package's switch.
 
 ``quant_and_save`` is the offline tool: it writes quantized payload and
 scale files beside a reference-format checkpoint's float kernels (the
@@ -28,8 +28,12 @@ from ..models.params import LM_HEAD_INT4_TILE, Params, QuantizedTensor
 
 def group_scale_dtype(bits: int, group_size: int) -> torch.dtype:
     """bf16 for group-wise int4 scales ([K/G, N], streamed every decode step),
-    fp32 otherwise."""
-    return torch.bfloat16 if bits == 4 and group_size else torch.float32
+    unless the environment sets ``FTCF_GSCALE_BF16=0``; fp32 otherwise. The
+    kernels take either (K7, K2, K3, K13 each have an fp32 group-scale
+    instance)."""
+    if bits == 4 and group_size and os.environ.get("FTCF_GSCALE_BF16", "1") != "0":
+        return torch.bfloat16
+    return torch.float32
 
 
 def _fp32(w) -> torch.Tensor:
@@ -97,7 +101,17 @@ def quantize_params(
         w = layers.get(k)
         if w is None or isinstance(w, QuantizedTensor):
             continue
-        layers[k] = quantize_array(w, k_axis=-2, bits=weight_bits, group_size=group_size)
+        if w.ndim == 3:
+            # one layer at a time (the same bytes: each layer's scales are its
+            # own), so a 13B model quantizes on the card in a layer's fp32 room
+            per = [quantize_array(w[l], k_axis=-2, bits=weight_bits, group_size=group_size)
+                   for l in range(w.shape[0])]
+            layers[k] = QuantizedTensor(q=torch.stack([t.q for t in per]),
+                                        scale=torch.stack([t.scale for t in per]), k_axis=-2,
+                                        bits=weight_bits, group_size=group_size)
+            del per
+        else:
+            layers[k] = quantize_array(w, k_axis=-2, bits=weight_bits, group_size=group_size)
     out = dict(params, layers=layers)
     if include_embeddings:
         if not isinstance(out["embed"], QuantizedTensor):
@@ -149,8 +163,11 @@ def quant_and_save(
     ``.s4.bin`` for nibble-packed int4, ``.s4gN.bin`` with group size N.
     Scales are written in the checkpoint's ``weight_data_type``, as the JAX
     tool writes them. Only the float rank files are read, so int8 and int4
-    payloads of one directory can be written in either order (the JAX tool
-    would take an earlier ``.q4.bin`` for a float kernel)."""
+    payloads of one directory can be written in either order, each byte for
+    byte the JAX tool's. The JAX tool also takes an earlier ``.q4.bin`` (and
+    ``.s4*.bin``) for a float kernel and writes int8 quantizations of those
+    bytes beside it (``*.q4.q.bin``, ...), which no loader reads; the port
+    does not write them."""
     if config is None:
         config = GptNeoXConfig.from_ini(ckpt_path)
     wdt = np.float16 if config.weight_data_type == "fp16" else np.float32

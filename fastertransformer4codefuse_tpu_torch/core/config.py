@@ -209,7 +209,16 @@ class RuntimeConfig:
       seq_bucket: the padded prefill width is rounded up to a multiple of this.
       tensor_para_size / data_para_size / pipeline_para_size: parallel layout;
         only 1 is ported.
-      debug_level: "DEBUG" asks for the NaN/Inf sweep, which is not ported.
+      act_int8: SmoothQuant W8A8 (the reference's int8_mode=2 semantics): with
+        int8 per-channel weights, the GEMMs of sequence-wide calls of at least
+        16 rows (prefill, chunk ticks, speculative verifies) quantize their
+        activations per token and run an int8 x int8 product
+        (``ops.linear.w8a8_matmul``); decode-width calls, int4 and group-wise
+        weights stay weight-only. The flag is the engine's own: the forward
+        carries it, no process-wide state.
+      debug_level: "DEBUG" (or, when empty, the ``FT_DEBUG_LEVEL`` environment
+        variable set to DEBUG) makes ``generate`` first sweep the weights and
+        run a checked prefill and decode step (``utils/debug.py``).
       fused_decode: a parallel-residual layer with its four big kernels
         quantized alike runs QKV and up as one K13 launch (decode, prefill
         and chunk ticks) and, in decode, proj + down + bias + residual as K3;
@@ -227,3 +236,8 @@ class RuntimeConfig:
     pipeline_para_size: int = 1
     debug_level: str = ""
     fused_decode: bool = True
+    act_int8: bool = False
+
+    def debug_enabled(self) -> bool:
+        lvl = self.debug_level or os.environ.get("FT_DEBUG_LEVEL", "")
+        return lvl.upper() == "DEBUG"

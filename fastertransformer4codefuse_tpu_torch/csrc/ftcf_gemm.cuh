@@ -46,6 +46,8 @@
 #include "ftcf_sm90.cuh"
 #include "ftcf_tma.cuh"
 
+#include <type_traits>
+
 namespace ftcf {
 
 constexpr int GM_THREADS = 384;  // producer warpgroup + two consumer warpgroups
@@ -63,7 +65,7 @@ struct GemmSeg {
   const __nv_bfloat16* x;       // [M, K]
   const int8_t* w;              // [K, N] int8 or [K/2, N] packed int4
   const float* scale;           // [N] per-channel, or nullptr with group scales
-  const __nv_bfloat16* gscale;  // [K/G, N] bf16 group scales (W_I4G)
+  const void* gscale;           // [K/G, N] group scales: bf16 (W_I4G) or fp32 (W_I4GF)
   const void* bias;
   int bias_bf16;
   int act;
@@ -76,7 +78,17 @@ struct GemmTile {
   static constexpr int X_BYTES = GM_BM * GM_BK * 2;          // 16 KB, swizzled
   static constexpr int W_ROWS = FMT == W_I8 ? GM_BK : GM_BK / 2;
   static constexpr int W_BYTES = W_ROWS * GM_BN;             // raw, swizzled
+  // bytes of one group scale: int4 with bf16 or fp32 group scales, else none
+  static constexpr int S_BYTES = FMT == W_I4G ? 2 : FMT == W_I4GF ? 4 : 0;
 };
+
+// bf16x2 a (two exact int4 values) times the fp32 scale s, each product
+// rounded once to fp32 and then to bf16.
+__device__ __forceinline__ uint32_t mul_bf16x2_f32(uint32_t a, float s) {
+  float f[2];
+  bf16x2_to_f32(a, f);
+  return pack_bf16(__fmul_rn(f[0], s), __fmul_rn(f[1], s));
+}
 
 // bf16x2 a * s rounded once (the exact product of two bf16, as fp32 would
 // hold it, rounded to bf16); -0 as the addend keeps the product's sign.
@@ -87,7 +99,7 @@ __device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t s) {
 // Block b of a 1-D grid: the output tiles in groups of GM_GROUP_M row tiles
 // (s1's column tiles, then s2's; none when s2.N is 0), a group's blocks row
 // tile fastest, so that the blocks in flight share their x and weight panels
-// in L2. ``gr`` group-scale rows a stage holds (W_I4G); ``stage_bytes`` one
+// in L2. ``gr`` group-scale rows a stage holds (W_I4G, W_I4GF); ``stage_bytes`` one
 // stage of x, raw weight and scales, 1024-aligned; ``stages`` the ring's
 // depth.
 template <int FMT>
@@ -133,14 +145,14 @@ qmm_gemm_kernel(const __grid_constant__ CUtensorMap tx1, const __grid_constant__
       const CUtensorMap* mx = second ? &tx2 : &tx1;
       const CUtensorMap* mw = second ? &tw2 : &tw1;
       const CUtensorMap* ms = second ? &ts2 : &ts1;
-      const uint32_t bytes = T::X_BYTES + T::W_BYTES + (FMT == W_I4G ? gr * BN * 2 : 0);
+      const uint32_t bytes = T::X_BYTES + T::W_BYTES + gr * BN * T::S_BYTES;
       for (int kt = 0, st = 0, ph = 0; kt < nk; ++kt) {
         if (kt >= stages) mbar_wait(empty + 8 * st, ph ^ 1);
         const uint32_t sx = base + st * stage_bytes, bar = full + 8 * st;
         mbar_arrive_expect_tx(bar, bytes);
         tma_load_2d(sx, mx, bar, kt * GM_BK, m0);
         tma_load_2d(sx + T::X_BYTES, mw, bar, n0, kt * T::W_ROWS);
-        if constexpr (FMT == W_I4G)
+        if constexpr (T::S_BYTES > 0)
           tma_load_2d(sx + T::X_BYTES + T::W_BYTES, ms, bar, n0, kt * GM_BK / G);
         if (++st == stages) {
           st = 0;
@@ -160,7 +172,7 @@ qmm_gemm_kernel(const __grid_constant__ CUtensorMap tx1, const __grid_constant__
   float acc[GM_BM / 2];
 #pragma unroll
   for (int i = 0; i < GM_BM / 2; ++i) acc[i] = 0.0f;
-  const float ginv = FMT == W_I4G ? 1.0f / (float)G : 0.0f;
+  const float ginv = T::S_BYTES > 0 ? 1.0f / (float)G : 0.0f;
   uint32_t fa[4][4], fb[4][4];  // A fragments of a k tile's four k16 steps, in turns
 
   // k tile kt's raw weight -> this warp's A fragments, once its stage landed
@@ -199,18 +211,24 @@ qmm_gemm_kernel(const __grid_constant__ CUtensorMap tx1, const __grid_constant__
         f[s][2] = i4_pair_bf16x2<2>(r[s]);
         f[s][3] = i4_pair_bf16x2<3>(r[s]);
       }
-      if constexpr (FMT == W_I4G) {
+      if constexpr (T::S_BYTES > 0) {
         // each pair of k rows shares a group (G even): the scales of
         // channels 2g, 2g + 1 at k rows 16 s + 2t and 16 s + 2t + 8 of the
         // tile, from the stage's scale rows (the first is group k0 / G)
-        const unsigned char* scl = w + T::W_BYTES + (wc * 16 + 2 * g) * 2;
-        auto scale = [&](int s, int hh, uint32_t sw) {
-          f[s][2 * hh] = mul_bf16x2(f[s][2 * hh], __byte_perm(sw, 0, 0x1010));
-          f[s][2 * hh + 1] = mul_bf16x2(f[s][2 * hh + 1], __byte_perm(sw, 0, 0x3232));
+        const unsigned char* scl = w + T::W_BYTES + (wc * 16 + 2 * g) * T::S_BYTES;
+        using SW = std::conditional_t<T::S_BYTES == 2, uint32_t, float2>;
+        auto scale = [&](int s, int hh, SW sw) {
+          if constexpr (T::S_BYTES == 2) {
+            f[s][2 * hh] = mul_bf16x2(f[s][2 * hh], __byte_perm(sw, 0, 0x1010));
+            f[s][2 * hh + 1] = mul_bf16x2(f[s][2 * hh + 1], __byte_perm(sw, 0, 0x3232));
+          } else {
+            f[s][2 * hh] = mul_bf16x2_f32(f[s][2 * hh], sw.x);
+            f[s][2 * hh + 1] = mul_bf16x2_f32(f[s][2 * hh + 1], sw.y);
+          }
         };
         if (G % GM_BK == 0) {
           // one group holds the whole k tile
-          const uint32_t sw = *reinterpret_cast<const uint32_t*>(scl);
+          const SW sw = *reinterpret_cast<const SW*>(scl);
 #pragma unroll
           for (int s = 0; s < 4; ++s) {
             scale(s, 0, sw);
@@ -227,7 +245,7 @@ qmm_gemm_kernel(const __grid_constant__ CUtensorMap tx1, const __grid_constant__
             for (int hh = 0; hh < 2; ++hh) {
               const float kr = (float)(k0 + 16 * s + 2 * t + 8 * hh) + 0.5f;
               const int gi = __float2int_rd(kr * ginv) - g0;
-              scale(s, hh, *reinterpret_cast<const uint32_t*>(scl + gi * BN * 2));
+              scale(s, hh, *reinterpret_cast<const SW*>(scl + gi * BN * T::S_BYTES));
             }
         }
       }
@@ -333,7 +351,7 @@ inline int gemm_group_rows(int K, int G) {
 
 // One segment's tensor maps: x [M, K] bf16 in 64 x 128 boxes and the raw
 // weight [K(/2), N] in 128 x 64 (32) boxes, both in the 128-byte swizzle;
-// group scales [K/G, N] bf16 in 128 x gr boxes.
+// group scales [K/G, N] (bf16 or fp32) in 128 x gr boxes.
 template <int FMT>
 static bool gemm_maps(const GemmSeg& sg, int M, int K, int G, int gr, CUtensorMap* mx,
                       CUtensorMap* mw, CUtensorMap* ms) {
@@ -344,10 +362,11 @@ static bool gemm_maps(const GemmSeg& sg, int M, int K, int G, int gr, CUtensorMa
       !tensor_map<2>(mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, sg.w, {N, rows}, {N},
                      {(uint32_t)GM_BN, (uint32_t)T::W_ROWS}, CU_TENSOR_MAP_SWIZZLE_128B))
     return false;
-  if (FMT != W_I4G) return true;
-  return tensor_map<2>(ms, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sg.gscale,
-                       {N, (uint64_t)(K / G)}, {N * 2}, {(uint32_t)GM_BN, (uint32_t)gr},
-                       CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (T::S_BYTES == 0) return true;
+  return tensor_map<2>(ms, T::S_BYTES == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                       sg.gscale, {N, (uint64_t)(K / G)}, {N * T::S_BYTES},
+                       {(uint32_t)GM_BN, (uint32_t)gr}, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 template <int FMT>
@@ -356,11 +375,11 @@ static cudaError_t launch_gemm_ncat(GemmSeg s1, GemmSeg s2, int G, int out_f32, 
   using T = GemmTile<FMT>;
   constexpr int BN = GM_BN;
   int gr = 0;
-  if (FMT == W_I4G) {
+  if (T::S_BYTES > 0) {
     if (G < 2 || G % 2 != 0 || K % G != 0) return cudaErrorInvalidValue;
     gr = gemm_group_rows(K, G);
   }
-  const int stage_bytes = (T::X_BYTES + T::W_BYTES + gr * BN * 2 + 1023) / 1024 * 1024;
+  const int stage_bytes = (T::X_BYTES + T::W_BYTES + gr * BN * T::S_BYTES + 1023) / 1024 * 1024;
   // as many stages as shared memory holds beside the barriers and the
   // alignment slack
   const int stages = min(GM_MAX_STAGES, (GM_SMEM_MAX - 1024) / (stage_bytes + 16));
@@ -391,7 +410,7 @@ static cudaError_t launch_gemm(const void* x, const void* w, const float* scale,
                                int bias_bf16, int act, void* y, int out_f32,
                                cudaStream_t stream) {
   const GemmSeg s1{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), scale,
-                   static_cast<const __nv_bfloat16*>(gscale), bias, bias_bf16, act, y, N};
+                   gscale, bias, bias_bf16, act, y, N};
   const GemmSeg s2{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, nullptr, 0};
   return launch_gemm_ncat<FMT>(s1, s2, G, out_f32, M, K, stream);
 }

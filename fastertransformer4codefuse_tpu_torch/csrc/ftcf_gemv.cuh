@@ -89,7 +89,7 @@ struct GemvSeg {
   const __nv_bfloat16* x;  // [M, K] row-major
   const int8_t* w;         // [K, N] int8 or [K/2, N] packed int4, row-major
   const float* scale;      // [N] per-channel (nullptr with group scales)
-  const void* gscale;      // [K/G, N] group scales: bf16 (W_I4G) or fp32 (W_I8G)
+  const void* gscale;      // [K/G, N] group scales: bf16 (W_I4G) or fp32 (W_I8G, W_I4GF)
   int K;
   int G;
   int splits;
@@ -98,11 +98,11 @@ struct GemvSeg {
 
 template <int FMT>
 __host__ __device__ constexpr bool grouped_fmt() {
-  return FMT == W_I4G || FMT == W_I8G;
+  return FMT == W_I4G || FMT == W_I8G || FMT == W_I4GF;
 }
 
 // The 16 group scales of one thread's columns at element ``off`` of the
-// [K/G, N] scales (bf16 for int4, fp32 for int8), as fp32.
+// [K/G, N] scales (bf16 for W_I4G, fp32 otherwise), as fp32.
 template <int FMT>
 __device__ __forceinline__ void load_group_scales(const void* gscale, size_t off, float* sc) {
   if constexpr (FMT == W_I4G) {
@@ -198,7 +198,7 @@ __device__ __forceinline__ void gemv_group_runs(const GemvSeg& sg, int r0, int r
     load_group_scales<FMT>(sg.gscale, (size_t)(rs / gb) * N + n0, sc);
 #pragma unroll
     for (int m = 0; m < MT; ++m) {
-      const float bias = FMT == W_I4G ? -136.0f * sx[m] : 0.0f;
+      const float bias = PACK == 2 ? -136.0f * sx[m] : 0.0f;
 #pragma unroll
       for (int j = 0; j < 16; ++j) acc[m][j] = fmaf(part[m][j] + bias, sc[j], acc[m][j]);
     }
@@ -254,7 +254,7 @@ __device__ __forceinline__ void gemv_block(const GemvSeg& sg, int s, int M, int 
 #pragma unroll
     for (int j = 0; j < 16; ++j) acc[m][j] = 0.0f;
 
-  if constexpr (FMT == W_I4G || FMT == W_I8G) {
+  if constexpr (grouped_fmt<FMT>()) {
     if (n0 < N) gemv_group_runs<MT, FMT>(sg, r0, r1, chunk, n0, N, kl, chunk_stride, acc);
   } else if (n0 < N) {
     const int8_t* wp = w + (size_t)(r0 + kl) * N + n0;

@@ -32,8 +32,8 @@
 // summation order.
 //
 // Weight formats (fmt, ftcf_common.cuh WFmt): int8 and int4 with fp32
-// per-channel scales, int4 with bf16 group scales, and int8 with fp32 group
-// scales (GEMV only: the JAX package's int8 group-wise cases).
+// per-channel scales, int4 with bf16 or fp32 group scales, and int8 with fp32
+// group scales (GEMV only: the JAX package's int8 group-wise cases).
 #include "ftcf_gemm.cuh"
 #include "ftcf_gemv.cuh"
 
@@ -42,10 +42,12 @@ namespace {
 using ftcf::GemvOut;
 using ftcf::GemvSeg;
 
-bool grouped(int fmt) { return fmt == ftcf::W_I4G || fmt == ftcf::W_I8G; }
+bool grouped(int fmt) {
+  return fmt == ftcf::W_I4G || fmt == ftcf::W_I8G || fmt == ftcf::W_I4GF;
+}
 
 // scales: per-channel fp32 [N], or with a group format the [K/G, N] group
-// scales (bf16 for int4, fp32 for int8)
+// scales (bf16 for W_I4G, fp32 for W_I8G and W_I4GF)
 GemvSeg gemv_seg(int fmt, int G, const void* x, const void* w, const void* scales, int K,
                  int splits, int chunk) {
   return GemvSeg{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
@@ -83,6 +85,9 @@ int ftcf_fused_proj_down(int fmt, int G, const void* x1, const void* w1, const v
     case ftcf::W_I8G:
       return (int)ftcf::launch_gemv<ftcf::W_I8G>(g1, g2, M, N, bias, bias_bf16, none, res, out,
                                                  0, ws, st);
+    case ftcf::W_I4GF:
+      return (int)ftcf::launch_gemv<ftcf::W_I4GF>(g1, g2, M, N, bias, bias_bf16, none, res, out,
+                                                  0, ws, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -112,24 +117,24 @@ int ftcf_gemv_ncat(int fmt, int G, int M, int K, const void* x1, const void* w1,
       return (int)ftcf::launch_gemv_ncat<ftcf::W_I4G>(g1, g2, o1, o2, M, st);
     case ftcf::W_I8G:
       return (int)ftcf::launch_gemv_ncat<ftcf::W_I8G>(g1, g2, o1, o2, M, st);
+    case ftcf::W_I4GF:
+      return (int)ftcf::launch_gemv_ncat<ftcf::W_I4GF>(g1, g2, o1, o2, M, st);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // K13 at prefill widths: the same two outputs from one GEMM launch
-// (int8, int4, or int4 with bf16 group scales).
+// (int8, int4, or int4 with bf16 or fp32 group scales).
 int ftcf_gemm_ncat(int fmt, int G, int M, int K, const void* x1, const void* w1, const void* s1,
                    int N1, const void* b1, int b1_bf16, int act1, void* y1, const void* x2,
                    const void* w2, const void* s2, int N2, const void* b2, int b2_bf16, int act2,
                    void* y2, void* stream) {
-  const bool g = fmt == ftcf::W_I4G;
+  const bool g = fmt == ftcf::W_I4G || fmt == ftcf::W_I4GF;
   const ftcf::GemmSeg g1{static_cast<const __nv_bfloat16*>(x1), static_cast<const int8_t*>(w1),
-                         g ? nullptr : static_cast<const float*>(s1),
-                         g ? static_cast<const __nv_bfloat16*>(s1) : nullptr,
+                         g ? nullptr : static_cast<const float*>(s1), g ? s1 : nullptr,
                          b1, b1_bf16, act1, y1, N1};
   const ftcf::GemmSeg g2{static_cast<const __nv_bfloat16*>(x2), static_cast<const int8_t*>(w2),
-                         g ? nullptr : static_cast<const float*>(s2),
-                         g ? static_cast<const __nv_bfloat16*>(s2) : nullptr,
+                         g ? nullptr : static_cast<const float*>(s2), g ? s2 : nullptr,
                          b2, b2_bf16, act2, y2, N2};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (fmt) {
@@ -139,6 +144,8 @@ int ftcf_gemm_ncat(int fmt, int G, int M, int K, const void* x1, const void* w1,
       return (int)ftcf::launch_gemm_ncat<ftcf::W_I4>(g1, g2, G, 0, M, K, st);
     case ftcf::W_I4G:
       return (int)ftcf::launch_gemm_ncat<ftcf::W_I4G>(g1, g2, G, 0, M, K, st);
+    case ftcf::W_I4GF:
+      return (int)ftcf::launch_gemm_ncat<ftcf::W_I4GF>(g1, g2, G, 0, M, K, st);
   }
   return (int)cudaErrorInvalidValue;
 }

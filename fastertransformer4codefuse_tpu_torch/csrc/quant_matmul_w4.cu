@@ -6,9 +6,10 @@
 // Replaces fastertransformer4codefuse_tpu/ops/quant_matmul_w4.py:
 //  - K6 quant_matmul_w4_pallas_stacked: fp32 per-channel scales [N] applied
 //    in the epilogue, bias and activation after them, bf16 out;
-//  - K7 quant_matmul_w4_group_stacked: bf16 group scales [K/G, N] inside the
-//    contraction (an epilogue multiply would be wrong across groups), bias
-//    and activation in the epilogue, bf16 out;
+//  - K7 quant_matmul_w4_group_stacked: group scales [K/G, N] inside the
+//    contraction (an epilogue multiply would be wrong across groups), bf16 by
+//    default or fp32 (the JAX package's FTCF_GSCALE_BF16=0), bias and
+//    activation in the epilogue, bf16 out;
 //  - K8 quant_matmul_w4_pallas, as the JAX package uses it for the int4 LM
 //    head [H/2, V_pad]: K6 with fp32 out and no bias.
 // On the TPU the packed tile is DMA'd to VMEM and unpacked by an int8 -> int4
@@ -30,16 +31,20 @@
 extern "C" {
 
 // Decode regime. gscale == nullptr: per-channel scales in `scale` (K6, K8);
-// else group scales [K/G, N] and scale == nullptr (K7). K in `splits` ranges
-// of `chunk` rows; ws holds splits * M * N floats (allocated by the caller).
+// else group scales [K/G, N], bf16 or (gscale_f32) fp32, and scale ==
+// nullptr (K7). K in `splits` ranges of `chunk` rows; ws holds splits * M * N
+// floats (allocated by the caller).
 int ftcf_quant_matmul_w4_gemv(const void* x, const void* w, const float* scale,
-                              const void* gscale, int G, int M, int K, int N, int splits,
-                              int chunk, const void* bias, int bias_bf16, int act, void* y,
-                              int out_f32, float* ws, void* stream) {
+                              const void* gscale, int gscale_f32, int G, int M, int K, int N,
+                              int splits, int chunk, const void* bias, int bias_bf16, int act,
+                              void* y, int out_f32, float* ws, void* stream) {
   ftcf::GemvSeg s1{static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w), scale,
-                   static_cast<const __nv_bfloat16*>(gscale), K, G, splits, chunk};
+                   gscale, K, G, splits, chunk};
   ftcf::GemvSeg s2{nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gscale != nullptr && gscale_f32)
+    return (int)ftcf::launch_gemv<ftcf::W_I4GF>(s1, s2, M, N, bias, bias_bf16, act, nullptr, y,
+                                                out_f32, ws, st);
   if (gscale != nullptr)
     return (int)ftcf::launch_gemv<ftcf::W_I4G>(s1, s2, M, N, bias, bias_bf16, act, nullptr, y,
                                                out_f32, ws, st);
@@ -49,9 +54,13 @@ int ftcf_quant_matmul_w4_gemv(const void* x, const void* w, const float* scale,
 
 // Prefill regime; the same operands.
 int ftcf_quant_matmul_w4_gemm(const void* x, const void* w, const float* scale,
-                              const void* gscale, int G, int M, int K, int N, const void* bias,
-                              int bias_bf16, int act, void* y, int out_f32, void* stream) {
+                              const void* gscale, int gscale_f32, int G, int M, int K, int N,
+                              const void* bias, int bias_bf16, int act, void* y, int out_f32,
+                              void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gscale != nullptr && gscale_f32)
+    return (int)ftcf::launch_gemm<ftcf::W_I4GF>(x, w, nullptr, gscale, G, M, K, N, bias,
+                                                bias_bf16, act, y, out_f32, st);
   if (gscale != nullptr)
     return (int)ftcf::launch_gemm<ftcf::W_I4G>(x, w, nullptr, gscale, G, M, K, N, bias,
                                                bias_bf16, act, y, out_f32, st);

@@ -35,8 +35,16 @@ preemption, so a resumed request continues its stream (the JAX package's
 ``steps`` fold-in); greedy requests (top_k 1) draw none. The tokens equal
 the JAX pool's for greedy requests; sampled ones follow another generator.
 
-Not ported: prompt-learning pools (ROADMAP queue 1 item 8), pools on a
-pipeline mesh (item 19), and the JAX package's v5e flash-decode gates.
+Prompt learning (``prompt_table={task: (kv [L, 2, kv_heads, P, dh], len)}``,
+dense slabs only, as in the JAX package): every slot's cache holds
+``prompt_width`` (the longest prompt padded to 8) slots ahead of its
+``max_seq_len``; admission writes a request's prefix K/V into its slot's
+first slots and its prompt length into ``pos_offset``, so that its chunks
+and decode steps write and rotate at buffer index + offset. A request with no
+task has offset 0.
+
+Not ported: pools on a pipeline mesh (item 19), and the JAX package's v5e
+flash-decode gates.
 """
 from __future__ import annotations
 
@@ -104,7 +112,7 @@ class Request:
     step_log_probs: Optional[List[float]] = None
     # times this request was preempted (lazy paged pools; recompute on resume)
     preemptions: int = 0
-    # prompt-learning task id: no pool of the port serves one (item 8)
+    # prompt-learning task id (pools built with prompt_table=...)
     prompt_task_id: Optional[int] = None
     # beam pools (engine/beam_pool.BeamPool) only: the request's beam knobs
     # and, on completion, every beam best-first (output_ids is beam 0)
@@ -156,8 +164,6 @@ class ContinuousBatcher:
         pipeline_ticks: bool = False,
         prompt_table: Optional[dict] = None,
     ):
-        if prompt_table is not None:
-            raise NotImplementedError("prompt learning in pools is ROADMAP queue 1 item 8")
         if getattr(engine, "mesh", None) is not None or engine.runtime.pipeline_para_size > 1:
             raise NotImplementedError("pools on a device mesh are ROADMAP queue 1 item 19")
         if max_seq_len % prompt_bucket:
@@ -197,6 +203,10 @@ class ContinuousBatcher:
             # pages come just in time, and on exhaustion the worst
             # (priority, uid) slot is preempted and later recomputed
             self.lazy = bool(self.paged.get("lazy", False))
+        self.prompt_table = None
+        self.prompt_width = 0
+        if prompt_table:
+            self._set_prompt_table(prompt_table)
         self.preemptions = 0
         self.decode_ticks = 0
         self.chunk_ticks = 0
@@ -209,11 +219,22 @@ class ContinuousBatcher:
         self._state = self._init_state()
         cfg = self.cfg
         self._rotary = make_rotary_tables(
-            max_seq_len, cfg.rotary_embedding_dim, cfg.rotary_base, self.device
+            max_seq_len + self.prompt_width, cfg.rotary_embedding_dim, cfg.rotary_base,
+            self.device
         )
         self._zero_noise = torch.zeros(
             (self.rows, min(sampling_cap, cfg.vocab_size)), dtype=torch.float32, device=self.device
         )
+
+    def _set_prompt_table(self, table: dict) -> None:
+        """Check and keep the prefix tables (fp32 on the pool's device); the
+        prompt width is the longest prompt padded to 8."""
+        if self.paged is not None:
+            raise ValueError("prompt learning in paged pools is not supported (block tables "
+                             "carry no prefix region): use a dense pool")
+        self.prompt_table = kv_cache.prompt_tables(self.cfg, table, self.device)
+        longest = max(n for _, n in self.prompt_table.values())
+        self.prompt_width = -(-longest // 8) * 8
 
     # ------------------------------------------------------------ state ----
     def _init_state(self):
@@ -223,7 +244,7 @@ class ContinuousBatcher:
             cache = init_paged_cache(cfg, B, S, int(self.paged["num_pages"]), self.page_size,
                                      dt, dev)
         else:
-            cache = kv_cache.init_cache(cfg, B, S, dt, dev)
+            cache = kv_cache.init_cache(cfg, B, S + self.prompt_width, dt, dev)
 
         def full(shape, value, dtype):
             return torch.full(shape, value, dtype=dtype, device=dev)
@@ -247,6 +268,8 @@ class ContinuousBatcher:
             "bad_words": full((B, 2, self.bad_words_width), -1, i32),
             "olt": full((B, self.optional_last_width), -1, i32),
             "steps": full((B,), 0, i32),  # tokens generated since the first admission
+            # prompt learning: cache slot / rotary offset of buffer index 0
+            "pos_offset": full((B,), 0, i32),
         }
 
     def _h2d(self, arr: np.ndarray) -> torch.Tensor:
@@ -280,7 +303,11 @@ class ContinuousBatcher:
                     "allocatable"
                 )
         if r.prompt_task_id is not None:
-            raise ValueError("pool has no prompt_table (prompt learning is ROADMAP queue 1 item 8)")
+            if self.prompt_table is None:
+                raise ValueError("pool has no prompt_table; build the batcher with "
+                                 "prompt_table={task: (kv, len)} to serve prompt learning")
+            if r.prompt_task_id not in self.prompt_table:
+                raise ValueError(f"unknown prompt task {r.prompt_task_id}")
 
         # widths validate here, on the client thread: a failure on the
         # driver thread would kill the whole pool
@@ -348,13 +375,15 @@ class ContinuousBatcher:
             # prompt's pages (+2-tick margin), the rest just in time
             cap = self._lazy_bound(r) if self.lazy else self._stop_at(r)
             r._pages = self.allocator.alloc(self.allocator.pages_needed(cap, self.page_size))
+        p_off = 0 if r.prompt_task_id is None else self.prompt_table[r.prompt_task_id][1]
         ints = [
             ids,
             # in_len, stop_at, top_k, min_length (counted from the original
             # first generated token), steps (keeps the first-step-only
-            # optional-last-tokens mask where an uninterrupted run has it)
+            # optional-last-tokens mask where an uninterrupted run has it),
+            # the prompt's offset
             np.array([len(src), self._stop_at(r), r.top_k, max(0, r.min_length - gen_offset),
-                      gen_offset], np.int32),
+                      gen_offset, p_off], np.int32),
             encode_word_list(r.stop_words, self.stop_words_width).ravel(),
             encode_word_list(r.bad_words, self.bad_words_width).ravel(),
             olt,
@@ -373,8 +402,9 @@ class ContinuousBatcher:
             return iv[o - n: o]
 
         st["tokens"][slot] = take(S)
-        sc = take(5)
-        for i, name in enumerate(("input_lens", "stop_at", "top_k", "min_length", "steps")):
+        sc = take(6)
+        for i, name in enumerate(("input_lens", "stop_at", "top_k", "min_length", "steps",
+                                  "pos_offset")):
             st[name][slot] = sc[i]
         st["seq_lens"][slot] = sc[0]
         st["prefill_pos"][slot] = 0
@@ -386,6 +416,11 @@ class ContinuousBatcher:
             st["cache"]["pt"][slot] = take(self.max_seq_len // self.page_size)
         for i, name in enumerate(("top_p", "temperature", "rep_penalty", "pres_penalty")):
             st[name][slot] = fv[i]
+        if r.prompt_task_id is not None:
+            # the task's K/V into the slot's first slots (quantized per vector
+            # on an int8 cache); the slots past its length are the input's
+            kv, _ = self.prompt_table[r.prompt_task_id]
+            kv_cache.write_prefix(st["cache"], kv[:, 0], kv[:, 1], row=slot)
         if r._gen is None and r.top_k > 1:
             r._gen = torch.Generator(device=self.device).manual_seed(int(r.random_seed))
         r.slot = slot
@@ -497,9 +532,11 @@ class ContinuousBatcher:
         buf_pos = torch.clamp(st["prefill_pos"], 0, S - C)
         cols = buf_pos.long()[:, None] + torch.arange(C, device=self.device)[None, :]
         tok_chunk = st["tokens"].gather(1, cols)  # [B, C]
-        model.prefill_chunk(self.cfg, self.engine.params, tok_chunk, buf_pos, st["cache"],
-                            prefilling, rotary_tables=self._rotary,
-                            fused=self.engine.runtime.fused_decode)
+        # cache slot / rotary position = buffer index + the prompt's offset
+        rt = self.engine.runtime
+        model.prefill_chunk(self.cfg, self.engine.params, tok_chunk, buf_pos + st["pos_offset"],
+                            st["cache"], prefilling, rotary_tables=self._rotary,
+                            fused=rt.fused_decode, a8=rt.act_int8)
         st["prefill_pos"] += prefilling.to(torch.int32) * C
         self.chunk_ticks += 1
 
@@ -546,7 +583,7 @@ class ContinuousBatcher:
         # a position-0 dummy whose cache write lands where no row reads it
         buf_idx = torch.clamp(st["seq_lens"] - 1, 0, S - 1)
         newest = st["tokens"].gather(1, buf_idx.long()[:, None])[:, 0]
-        positions = torch.where(ready, buf_idx, torch.zeros_like(buf_idx))
+        positions = torch.where(ready, buf_idx + st["pos_offset"], torch.zeros_like(buf_idx))
         hidden, _ = model.decode_step(
             self.cfg, self.engine.params, newest, positions, st["cache"],
             rotary_tables=self._rotary, kv_skip=~ready, kv_skip_mode="sacrifice_last",

@@ -10,6 +10,18 @@ token lands in cache slot ``seq_lens[b]``), so rotary positions stay exact.
 Sampling draws its Gumbel noise from one ``torch.Generator`` per request row,
 seeded with the row's ``random_seed``: the same seed gives the same tokens,
 but not the JAX package's tokens (another generator).
+
+Prompt learning (the reference's prompt_learning_table): a prefix prompt is a
+task's saved K/V ``[L, 2, kv_heads, P, dh]`` written into cache slots
+[0, p_len) of its row; a soft prompt is ``[B, P, H]`` embeddings run through
+``prefill_chunk`` at slots [0, P). The input then prefills as one chunk at
+the row's offset (cache slot and rotary position = buffer index + p_len) and
+decodes there. Unlike the JAX static engine, which checks and writes
+``head_num`` heads and so refuses every GQA/MQA prefix table, the table holds
+``kv_heads`` heads, as the JAX pool's does.
+
+With ``RuntimeConfig.debug_enabled()`` each ``generate`` first runs
+``utils.debug.debug_verify``; otherwise nothing of it runs.
 """
 from __future__ import annotations
 
@@ -48,9 +60,12 @@ class DecodeState:
     generators: Optional[list]  # one torch.Generator per row (sampled requests)
     step_log_probs: Optional[torch.Tensor]  # [B, output_len] fp32
     gen_step: int = 0
-    # beam search: [B, T] int32, the beam (in [0, bw)) of its group whose
-    # cache row holds each position of the row's hypothesis
+    # beam search: [B, T + P] int32, the beam (in [0, bw)) of its group whose
+    # cache row holds each cache slot of the row's hypothesis
     beam_indir: Optional[torch.Tensor] = None
+    # prompt learning: [B] int32, the cache slot / rotary offset of buffer
+    # index 0 (the prompt holds slots [0, offset))
+    pos_offset: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +87,8 @@ class _Statics:
     sampling_cap: int  # 0 = full sort; >0 = top-cap fast path
     use_output_log_probs: bool = False
     use_cum_log_probs: bool = False
+    prompt_width: int = 0  # P, the prompts' cache slots padded to 8 (0: none)
+    prompt_kind: str = "none"  # "none" | "prefix" | "soft"
 
 
 def _pad_to(x: np.ndarray, width: int, axis: int, value) -> np.ndarray:
@@ -110,14 +127,61 @@ class GptNeoXEngine:
         if mesh is not None or max(rt.tensor_para_size, rt.data_para_size,
                                    rt.pipeline_para_size) > 1:
             raise NotImplementedError("tensor/pipeline parallel serving is ROADMAP item 19")
-        if rt.debug_level.upper() == "DEBUG":
-            raise NotImplementedError("the DEBUG NaN/Inf sweep is not ported")
         self.params = params
         self.device = params["final_ln_w"].device
         self.decode_forwards = 0
+        # {task id: (kv [L, 2, kv_heads, P, dh] fp32 on the device, length)}
+        self._prompt_table: dict = {}
 
-    def set_prompt_learning_table(self, table):
-        raise NotImplementedError("prompt learning is ROADMAP queue 1 item 8")
+    # ------------------------------------------------------------ prompts --
+    def set_prompt_learning_table(self, table) -> None:
+        """Register prefix prompts: ``table[task_id] = (kv, length)``, kv
+        ``[L, 2, kv_heads, P, dh]`` (numpy or torch), the saved per-layer K/V
+        of a tuned prefix, ``length <= P``. Requests pick a task with
+        ``prompt_learning_task_name_ids``."""
+        self._prompt_table = kv_cache.prompt_tables(self.config, table, self.device)
+
+    def _prepare_prompt(self, B, task_ids, soft_embedding, soft_lengths):
+        """(kind, P, device inputs) of a request's prompts: P the widest
+        prompt padded to 8."""
+        cfg, dev = self.config, self.device
+        if task_ids is not None:
+            if soft_embedding is not None:
+                raise ValueError("prefix and soft prompts are exclusive")
+            task_ids = list(task_ids)
+            if len(task_ids) != B:
+                raise ValueError(f"{len(task_ids)} prompt task ids for a batch of {B}")
+            unknown = [t for t in task_ids if t not in self._prompt_table]
+            if unknown:
+                raise ValueError(f"unknown prompt task {unknown[0]}")
+            lens = [self._prompt_table[t][1] for t in task_ids]
+            P = -(-max(max(lens), 1) // 8) * 8
+            shape = (cfg.layer_num, B, cfg.kv_heads, P, cfg.size_per_head)
+            k_pre = torch.zeros(shape, dtype=torch.float32, device=dev)
+            v_pre = torch.zeros_like(k_pre)
+            for b, t in enumerate(task_ids):
+                kv, n = self._prompt_table[t]
+                k_pre[:, b, :, :n] = kv[:, 0, :, :n]
+                v_pre[:, b, :, :n] = kv[:, 1, :, :n]
+            return "prefix", P, {
+                "prefix_k": k_pre, "prefix_v": v_pre,
+                "prompt_lengths": torch.tensor(lens, dtype=torch.int32, device=dev),
+            }
+        if soft_embedding is not None:
+            emb = torch.as_tensor(np.asarray(soft_embedding, np.float32)
+                                  if not torch.is_tensor(soft_embedding) else soft_embedding)
+            if not (emb.ndim == 3 and emb.shape[0] == B and emb.shape[2] == cfg.hidden_size):
+                raise ValueError(f"soft prompt of shape {tuple(emb.shape)}, expected "
+                                 f"[{B}, P, {cfg.hidden_size}]")
+            lens = (np.full((B,), emb.shape[1], np.int32) if soft_lengths is None
+                    else np.asarray(soft_lengths, np.int32))
+            P = -(-emb.shape[1] // 8) * 8
+            emb = torch.nn.functional.pad(emb.float(), (0, 0, 0, P - emb.shape[1]))
+            return "soft", P, {
+                "prompt_embeds": emb.to(dev),
+                "prompt_lengths": torch.from_numpy(lens).to(dev),
+            }
+        return "none", 0, {}
 
     def _cache_dtype(self):
         """The KV cache's torch dtype, or the packed int4 kind ("int4",
@@ -210,8 +274,11 @@ class GptNeoXEngine:
         if beam_width > 1:
             kw = dict(beam=(beam_width, s.beam_indir), kv_skip=s.finished,
                       kv_skip_mode="sacrifice_last")
+        positions = buf_idx.to(torch.int32)
+        if s.pos_offset is not None:
+            positions = positions + s.pos_offset
         hidden, s.cache = model.decode_step(
-            self.config, self.params, newest, buf_idx.to(torch.int32), s.cache,
+            self.config, self.params, newest, positions, s.cache,
             rotary_tables=rotary_tables, fused=self.runtime.fused_decode, **kw,
         )
         s.logits = model.lm_logits(self.config, self.params, hidden)
@@ -222,11 +289,32 @@ class GptNeoXEngine:
         B = st.batch
         tokens = inputs["tokens"]
         input_lengths = inputs["input_lengths"]
-        cache = kv_cache.init_cache(cfg, B, st.total_len, self._cache_dtype(), self.device)
-        hidden, cache = model.prefill(
-            cfg, self.params, tokens[:, : st.input_width], input_lengths, cache,
-            fused=self.runtime.fused_decode,
-        )
+        rt = self.runtime
+        cache = kv_cache.init_cache(cfg, B, st.total_len + st.prompt_width, self._cache_dtype(),
+                                    self.device)
+        pos_offset = None
+        if st.prompt_width:
+            # the prompt holds slots [0, p_len) of its row; the input
+            # prefills as one chunk at p_len (the chunk program's dense
+            # attention over the prompt and the input)
+            pos_offset = inputs["prompt_lengths"]
+            active = torch.ones(B, dtype=torch.bool, device=self.device)
+            if st.prompt_kind == "prefix":
+                kv_cache.write_prefix(cache, inputs["prefix_k"], inputs["prefix_v"])
+            else:
+                emb = inputs["prompt_embeds"].to(self.params["final_ln_w"].dtype)
+                dummy = torch.zeros((B, st.prompt_width), dtype=torch.int32, device=self.device)
+                model.prefill_chunk(cfg, self.params, dummy, torch.zeros_like(pos_offset), cache,
+                                    active, fused=rt.fused_decode, a8=rt.act_int8, embeds=emb)
+            hidden, cache = model.prefill_chunk(
+                cfg, self.params, tokens[:, : st.input_width], pos_offset, cache, active,
+                fused=rt.fused_decode, a8=rt.act_int8,
+            )
+        else:
+            hidden, cache = model.prefill(
+                cfg, self.params, tokens[:, : st.input_width], input_lengths, cache,
+                fused=rt.fused_decode, a8=rt.act_int8,
+            )
         logits = model.lm_logits(cfg, self.params, model.last_token_hidden(hidden, input_lengths))
         generators = None
         if not st.greedy:
@@ -247,6 +335,7 @@ class GptNeoXEngine:
                 torch.zeros(B, st.output_len, dtype=torch.float32, device=self.device)
                 if st.use_output_log_probs else None
             ),
+            pos_offset=pos_offset,
         )
 
     # -------------------------------------------------------------- host API --
@@ -270,10 +359,14 @@ class GptNeoXEngine:
         output_log_probs: bool = False,
         return_cum_log_probs: bool = False,
     ):
-        if prompt_learning_task_name_ids is not None or request_prompt_embedding is not None:
-            raise NotImplementedError("prompt learning is ROADMAP queue 1 item 8")
         cfg = self.config
         B = len(input_ids)
+        prompt_kind, prompt_width, prompt_inputs = self._prepare_prompt(
+            B, prompt_learning_task_name_ids, request_prompt_embedding, request_prompt_lengths)
+        if prompt_width and self.packed_kv():
+            raise ValueError(
+                "prompt learning requires an unpacked KV cache (int8/bf16): prefix widths are "
+                "per-row and may straddle int4 position-pair bytes")
         lengths = np.array([len(x) for x in input_ids], np.int32)
         if not (lengths > 0).all():
             raise ValueError("input len must be larger than zero")
@@ -348,6 +441,8 @@ class GptNeoXEngine:
             sampling_cap=sampling_cap,
             use_output_log_probs=bool(output_log_probs),
             use_cum_log_probs=bool(return_cum_log_probs),
+            prompt_width=prompt_width,
+            prompt_kind=prompt_kind,
         )
         dev = self.device
         inputs = {
@@ -364,6 +459,7 @@ class GptNeoXEngine:
             "bad_words": torch.from_numpy(words_arr(bad_words_list)).to(dev),
             "optional_last_tokens": torch.from_numpy(olt).to(dev),
         }
+        inputs.update(prompt_inputs)
         return st, inputs
 
     @torch.inference_mode()
@@ -382,7 +478,18 @@ class GptNeoXEngine:
         (gen_idx: 0-based index in the generated region; a finished row
         repeats end_id with its last index) -- the reference's callback
         message format. ``beam_width > 1`` runs beam search
-        (``sampling/beam.py``): outputs per beam, best first."""
+        (``sampling/beam.py``): outputs per beam, best first. With
+        ``RuntimeConfig.debug_enabled()`` the weights are swept and a checked
+        prefill + decode step runs first (``utils.debug.debug_verify``),
+        raising ``DebugCheckError`` at the first non-finite stage."""
+        if self.runtime.debug_enabled():
+            from ..utils.debug import debug_verify
+
+            lens = np.array([len(x) for x in input_ids], np.int32)
+            padded = np.full((len(input_ids), int(lens.max())), self.config.end_id, np.int32)
+            for i, ids in enumerate(input_ids):
+                padded[i, : len(ids)] = np.asarray(ids, np.int32)
+            debug_verify(self, padded, lens)
         if beam_width != 1:
             return GenerationOutput(*beam_search_generate(
                 self, input_ids, output_len, beam_width, callback=callback,
@@ -393,7 +500,8 @@ class GptNeoXEngine:
         self.decode_forwards = 0
         s = self._prefill_state(st, inputs)
         rotary_tables = make_rotary_tables(
-            st.total_len, self.config.rotary_embedding_dim, self.config.rotary_base, self.device
+            st.total_len + st.prompt_width, self.config.rotary_embedding_dim,
+            self.config.rotary_base, self.device
         )
         in_lens = inputs["input_lengths"]
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ..core.config import GptNeoXConfig
@@ -119,6 +120,47 @@ def write_prefill(cache: Cache, layer: int, k: torch.Tensor, v: torch.Tensor) ->
             cache[name + "_s"][layer, :, :, :S] = s
         else:
             cache[name][layer, :, :, :S] = t.to(cache[name].dtype)
+    return cache
+
+
+def prompt_tables(config: GptNeoXConfig, table: dict, device) -> dict:
+    """Checked prefix tables: ``{task: (kv, length)}`` with kv ``[L, 2,
+    kv_heads, P, dh]`` (numpy or torch) and ``length <= P``, as fp32 on
+    ``device``. Raises ValueError on another shape."""
+    out = {}
+    for tid, (kv, length) in table.items():
+        kv = kv if torch.is_tensor(kv) else torch.from_numpy(np.asarray(kv, np.float32))
+        if not (kv.ndim == 5 and tuple(kv.shape[:3]) == (config.layer_num, 2, config.kv_heads)
+                and kv.shape[4] == config.size_per_head and kv.shape[3] >= int(length)):
+            raise ValueError(
+                f"prompt task {tid}: table of shape {tuple(kv.shape)}, expected "
+                f"[{config.layer_num}, 2, {config.kv_heads}, P >= {int(length)}, "
+                f"{config.size_per_head}]")
+        out[tid] = (kv.to(device=device, dtype=torch.float32), int(length))
+    return out
+
+
+def write_prefix(cache: Cache, k_pre: torch.Tensor, v_pre: torch.Tensor, row=None) -> Cache:
+    """Write prefix-prompt K/V into slots [0, P) of every layer: k_pre, v_pre
+    [L, B, nKV, P, dh] float over the cache's B rows, or with ``row`` one
+    row's [L, nKV, P, dh] (a pool slot). As the reference preloads a tuned
+    prefix, no rotary is applied; an int8 cache quantizes the prefix per
+    vector, as every write does. A row whose prompt is shorter than P leaves
+    slots its input then overwrites before they become visible."""
+    if paged_kv.is_paged(cache) or packed4(cache, "k") or packed4(cache, "v"):
+        raise ValueError(
+            "prompt learning requires an unpacked KV cache (int8/bf16): prefix widths are "
+            "per-row and may straddle int4 position-pair bytes"
+        )
+    P = k_pre.shape[-2]
+    sel = (slice(None), slice(None) if row is None else row)
+    for name, t in (("k", k_pre), ("v", v_pre)):
+        if quantized(cache):
+            q, sc = _quantize_vec(t)
+            cache[name][sel + (slice(None), slice(0, P))] = q
+            cache[name + "_s"][sel + (slice(None), slice(0, P))] = sc.to(cache[name + "_s"].dtype)
+        else:
+            cache[name][sel + (slice(None), slice(0, P))] = t.to(cache[name].dtype)
     return cache
 
 

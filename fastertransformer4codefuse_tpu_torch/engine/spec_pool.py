@@ -42,6 +42,8 @@ class SpecPool(ContinuousBatcher):
     def __init__(self, engine, k: int = 8, ngram: int = 3, **kw):
         if kw.get("paged") is not None:
             raise ValueError("speculative pools are dense-KV; drop paged= or speculative=")
+        if kw.get("prompt_table"):
+            raise ValueError("speculative pool does not serve prompt learning")
         self.k = int(k)
         self.ngram = int(ngram)
         super().__init__(engine, **kw)
@@ -80,7 +82,8 @@ class SpecPool(ContinuousBatcher):
         ready = st["active"] & (st["prefill_pos"] >= target)
         l = torch.clamp(st["seq_lens"], min=1)  # the committed buffer length
         v = verify_step(self.cfg, self.engine.params, st["tokens"], l, st["cache"], ready,
-                        self.k, self.ngram, self._rotary, self.engine.runtime.fused_decode)
+                        self.k, self.ngram, self._rotary, self.engine.runtime.fused_decode,
+                        self.engine.runtime.act_int8)
         n = torch.minimum(torch.minimum(v.m, v.first_end) + 1, st["stop_at"] - l)
         n = torch.where(ready, torch.clamp(n, min=0), 0)
         commit(st["tokens"], l, v.cand, n)

@@ -112,7 +112,7 @@ class Verify:
 
 
 def verify_step(cfg, params, tokens, l, cache, active, k: int, ngram: int, rotary_tables,
-                fused: bool = True) -> Verify:
+                fused: bool = True, a8: bool = False) -> Verify:
     """Propose from ``tokens``, run [last committed, draft] through
     ``prefill_chunk`` at position l - 1 (rows with ``active`` False keep
     their cache bytes), and score the draft against the greedy argmaxes.
@@ -125,7 +125,7 @@ def verify_step(cfg, params, tokens, l, cache, active, k: int, ngram: int, rotar
     last = tokens.gather(1, pos.long()[:, None])
     chunk = torch.cat([last, draft], dim=1)  # [B, C]
     hidden, _ = model.prefill_chunk(cfg, params, chunk, pos, cache, active,
-                                    rotary_tables=rotary_tables, fused=fused)
+                                    rotary_tables=rotary_tables, fused=fused, a8=a8)
     logits = model.lm_logits(cfg, params, hidden)  # [B, C, V] fp32
     g = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, C]
     # the leading run of matches
@@ -161,7 +161,8 @@ def _buffer_len(engine, in_len: int, output_len: int, C: int) -> int:
 def _prefill(engine, ids: torch.Tensor, n: torch.Tensor, cache):
     """The prompts' forward: (first greedy token [B], its log-prob [B])."""
     cfg, params = engine.config, engine.params
-    hidden, _ = model.prefill(cfg, params, ids, n, cache, fused=engine.runtime.fused_decode)
+    hidden, _ = model.prefill(cfg, params, ids, n, cache, fused=engine.runtime.fused_decode,
+                              a8=engine.runtime.act_int8)
     logits = model.lm_logits(cfg, params, model.last_token_hidden(hidden, n))  # [B, V]
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     lp = logits.gather(1, tok.long()[:, None])[:, 0] - torch.logsumexp(logits, dim=-1)
@@ -228,7 +229,7 @@ def speculative_generate_batched(
     iota = torch.arange(C, device=tokens.device)[None, :]
     while not bool(done.all()):  # the iteration's one sync
         v = verify_step(cfg, engine.params, tokens, l, cache, ~done, k, ngram, rot,
-                        engine.runtime.fused_decode)
+                        engine.runtime.fused_decode, engine.runtime.act_int8)
         n_commit = torch.minimum(torch.minimum(v.m, v.first_end) + 1, stop_at - l)
         n_commit = torch.where(done, 0, n_commit)
         commit(tokens, l, v.cand, n_commit)

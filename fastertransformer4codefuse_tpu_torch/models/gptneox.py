@@ -24,6 +24,13 @@ has erf). Any other layer, and every layer with ``fused=False``, runs
 unfused GEMMs: K1 (int8), K6 (int4) or K7 (int4 group-wise). The JAX package
 gates group-wise layers and the QKV + up merge out of its fused kernels by
 measurements on a TPU; the port does not copy those gates.
+
+With ``a8`` (``RuntimeConfig.act_int8``, SmoothQuant W8A8) every GEMM that
+``ops.linear.a8_takes`` admits runs ``w8a8_matmul``: in prefill, chunk ticks
+and verifies of at least 16 rows the layer gives up K13 and runs QKV, up,
+proj and down unmerged, as the JAX package's prefill does; decode keeps
+K13 + K3. ``prefill_chunk(embeds=)`` runs pre-embedded rows (soft prompts)
+instead of the token lookup.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ from ..core.config import GptNeoXConfig
 from ..engine import kv_cache as kvc
 from ..ops.attention import prefill_attention
 from ..ops.layernorm import layernorm, rmsnorm
-from ..ops.linear import linear, quantized_matmul_transposed_head
+from ..ops.linear import a8_takes, linear, quantized_matmul_transposed_head
 from ..ops.quant_matmul_fused import fused_proj_down, fused_qkv_up
 from ..ops.rotary import apply_rotary, make_rotary_tables
 from .params import Params, QuantizedTensor, check_supported, layer_slice
@@ -86,20 +93,20 @@ def _heads(config: GptNeoXConfig, qkv, cos, sin):
     return q, k, v
 
 
-def _qkv(config: GptNeoXConfig, lp, x, cos, sin):
+def _qkv(config: GptNeoXConfig, lp, x, cos, sin, a8=False):
     """ln1 output -> fused QKV -> heads -> rotary. x: [B, S, H]."""
-    return _heads(config, linear(x, lp["qkv_w"], lp.get("qkv_b")), cos, sin)
+    return _heads(config, linear(x, lp["qkv_w"], lp.get("qkv_b"), act_int8=a8), cos, sin)
 
 
-def _attention_inputs(config: GptNeoXConfig, lp, x, cos, sin, fused):
+def _attention_inputs(config: GptNeoXConfig, lp, x, cos, sin, fused, a8=False):
     """x [B, S, H] -> (q, k, v with rotary, h). On the fused route (``fused``
-    and ``_fused_ok``) K13 computes QKV from ln1(x) and the activated up
-    projection h [B*S, F] from ln2(x) in one launch; elsewhere h is None
-    and the FFN runs after attention."""
+    and ``_fused_ok``, and no W8A8 call under ``a8``) K13 computes QKV from
+    ln1(x) and the activated up projection h [B*S, F] from ln2(x) in one
+    launch; elsewhere h is None and the FFN runs after attention."""
     B, S, H = x.shape
     ln1 = _norm(config, x, lp["ln1_w"], lp.get("ln1_b"))
-    if not (fused and _fused_ok(config, lp)):
-        return (*_qkv(config, lp, ln1, cos, sin), None)
+    if not (fused and _fused_ok(config, lp)) or a8_takes(x, lp["qkv_w"], a8):
+        return (*_qkv(config, lp, ln1, cos, sin, a8), None)
     ln2 = _norm(config, x, lp["ln2_w"], lp.get("ln2_b"))
     qkv_w, up_w = lp["qkv_w"], lp["up_w"]
     qkv, h = fused_qkv_up(ln1.reshape(B * S, H), ln2.reshape(B * S, H), qkv_w.q, up_w.q,
@@ -109,39 +116,40 @@ def _attention_inputs(config: GptNeoXConfig, lp, x, cos, sin, fused):
     return (*_heads(config, qkv.reshape(B, S, -1), cos, sin), h)
 
 
-def _ffn(config: GptNeoXConfig, lp, x):
+def _ffn(config: GptNeoXConfig, lp, x, a8=False):
     """Up with bias and activation, then down; the down bias is added by the
     caller's residual."""
-    h = linear(x, lp["up_w"], lp.get("up_b"), act=config.activation)
-    return linear(h, lp["down_w"])
+    h = linear(x, lp["up_w"], lp.get("up_b"), act=config.activation, act_int8=a8)
+    return linear(h, lp["down_w"], act_int8=a8)
 
 
-def _residual(config, lp, x, attn_out, h=None):
+def _residual(config, lp, x, attn_out, h=None, a8=False):
     """The block output from its input x and the projected attention; ``h``:
     the activated up projection the fused route already computed."""
     if config.use_gptj_residual:
         if h is None:
-            ffn = _ffn(config, lp, _norm(config, x, lp["ln2_w"], lp.get("ln2_b")))
+            ffn = _ffn(config, lp, _norm(config, x, lp["ln2_w"], lp.get("ln2_b")), a8)
         else:
-            ffn = linear(h.reshape(x.shape[:-1] + h.shape[-1:]), lp["down_w"])
+            ffn = linear(h.reshape(x.shape[:-1] + h.shape[-1:]), lp["down_w"], act_int8=a8)
         return _addb(x + attn_out + ffn, lp.get("down_b"))
     h = _addb(x + attn_out, lp.get("proj_b"))
     ln2 = _norm(config, h, lp["ln2_w"], lp.get("ln2_b"))
-    return _addb(h + _ffn(config, lp, ln2), lp.get("down_b"))
+    return _addb(h + _ffn(config, lp, ln2, a8), lp.get("down_b"))
 
 
-def block_prefill(config, lp, x, cache, layer, cos, sin, input_lengths, fused=True):
+def block_prefill(config, lp, x, cache, layer, cos, sin, input_lengths, fused=True, a8=False):
     """x [B, S, H]; cos/sin [S, rot/2]; input_lengths [B] int32. Fills cache
     [0, S). Attention is K5 on CUDA (no [B, S, S] mask is built there), the
     plain causal, length-masked math on the CPU. ``fused``: QKV and up by
-    K13's GEMM form where the layer allows; proj and down stay GEMMs."""
+    K13's GEMM form where the layer allows; proj and down stay GEMMs.
+    ``a8``: W8A8 GEMMs where ``a8_takes``."""
     B, S, H = x.shape
     sm_scale = 1.0 / (config.size_per_head ** 0.5)
-    q, k, v, h = _attention_inputs(config, lp, x, cos, sin, fused)
+    q, k, v, h = _attention_inputs(config, lp, x, cos, sin, fused, a8)
     kvc.write_prefill(cache, layer, k, v)
     attn = prefill_attention(q, k, v, None, sm_scale, input_lengths)
-    attn_out = linear(attn.reshape(B, S, H), lp["proj_w"])
-    return _residual(config, lp, x, attn_out, h), cache
+    attn_out = linear(attn.reshape(B, S, H), lp["proj_w"], act_int8=a8)
+    return _residual(config, lp, x, attn_out, h, a8), cache
 
 
 def block_decode(config, lp, x, cache, layer, cos, sin, positions, kv_skip=None,
@@ -166,20 +174,22 @@ def block_decode(config, lp, x, cache, layer, cos, sin, positions, kv_skip=None,
     return _residual(config, lp, x, attn_out), cache
 
 
-def block_prefill_chunk(config, lp, x, cache, layer, cos, sin, pos, valid, active, fused=True):
+def block_prefill_chunk(config, lp, x, cache, layer, cos, sin, pos, valid, active, fused=True,
+                        a8=False):
     """Chunked prefill block. x [B, C, H], C consecutive prompt tokens per
     row; cos/sin [B, C, rot/2]; pos [B] int32 chunk start slots; valid
     [B, C, S] keys visible to each query (the dense cache's mask); active [B]
     rows really prefilling (the others keep their cache bytes). The chunk
     attends over the already-filled cache: K10 on a paged cache. Its GEMMs
-    run at M = B * C (QKV and up as one K13 launch where ``fused``)."""
+    run at M = B * C (QKV and up as one K13 launch where ``fused``; W8A8
+    where ``a8`` and ``a8_takes``)."""
     B, C, H = x.shape
     sm_scale = 1.0 / (config.size_per_head ** 0.5)
-    q, k, v, h = _attention_inputs(config, lp, x, cos, sin, fused)
+    q, k, v, h = _attention_inputs(config, lp, x, cos, sin, fused, a8)
     kvc.write_chunk(cache, layer, k, v, pos, active)
     attn = kvc.attend_chunk(cache, layer, q, valid, sm_scale, positions=pos)
-    attn_out = linear(attn.reshape(B, C, H), lp["proj_w"])
-    return _residual(config, lp, x, attn_out, h), cache
+    attn_out = linear(attn.reshape(B, C, H), lp["proj_w"], act_int8=a8)
+    return _residual(config, lp, x, attn_out, h, a8), cache
 
 
 def _embed_lookup(params: Params, ids: torch.Tensor) -> torch.Tensor:
@@ -198,9 +208,11 @@ def prefill(
     input_lengths: torch.Tensor,  # [B]
     cache: KVCache,
     fused: bool = True,
+    a8: bool = False,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Full-prompt forward: (hidden [B, S, H], cache with [0, S) filled).
-    ``fused``: QKV and up through K13 (``RuntimeConfig.fused_decode``)."""
+    ``fused``: QKV and up through K13 (``RuntimeConfig.fused_decode``);
+    ``a8``: W8A8 GEMMs (``RuntimeConfig.act_int8``)."""
     check_supported(config)
     B, S = input_ids.shape
     dev = input_ids.device
@@ -209,7 +221,7 @@ def prefill(
     layers = params["layers"]
     for l in range(config.layer_num):
         x, cache = block_prefill(config, layer_slice(layers, l), x, cache, l, cos, sin,
-                                 input_lengths, fused)
+                                 input_lengths, fused, a8)
     return x, cache
 
 
@@ -256,15 +268,19 @@ def prefill_chunk(
     active: torch.Tensor,  # [B] bool rows mid-prefill
     rotary_tables=None,
     fused: bool = True,
+    a8: bool = False,
+    embeds: torch.Tensor = None,  # [B, C, H] pre-embedded rows (soft prompts)
 ) -> Tuple[torch.Tensor, KVCache]:
     """One chunked-prefill step over the layer stack: fills cache positions
     [pos, pos + C) of active rows and keeps the other rows' bytes. Returns
-    (hidden [B, C, H], cache). ``fused``: QKV and up through K13."""
+    (hidden [B, C, H], cache). ``fused``: QKV and up through K13; ``a8``:
+    W8A8 GEMMs; ``embeds``: the chunk's embeddings, in place of the token
+    lookup (``tokens_chunk`` then only gives C)."""
     check_supported(config)
     B, C = tokens_chunk.shape
     S = kvc.seq_len_of(cache)
     dev = tokens_chunk.device
-    x = _embed_lookup(params, tokens_chunk)
+    x = _embed_lookup(params, tokens_chunk) if embeds is None else embeds
     if rotary_tables is None:
         rotary_tables = make_rotary_tables(S, config.rotary_embedding_dim, config.rotary_base, dev)
     cos_t, sin_t = rotary_tables
@@ -275,7 +291,7 @@ def prefill_chunk(
     layers = params["layers"]
     for l in range(config.layer_num):
         x, cache = block_prefill_chunk(config, layer_slice(layers, l), x, cache, l, cos, sin,
-                                       pos, valid, active, fused)
+                                       pos, valid, active, fused, a8)
     return x, cache
 
 

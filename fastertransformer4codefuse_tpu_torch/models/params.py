@@ -15,7 +15,8 @@ a copy.
 With ``int8_mode=1`` the four big kernels are ``QuantizedTensor``s: an int8
 payload in the logical shape with fp32 per-output-channel scales, or
 (``weight_bits=4``) an int4 payload packed two nibbles per byte along K with
-fp32 per-channel or bf16 group-wise (``group_size``) scales.
+fp32 per-channel or group-wise (``group_size``) scales, bf16 unless
+``FTCF_GSCALE_BF16=0`` (``ckpt.quantize.group_scale_dtype``).
 """
 from __future__ import annotations
 
@@ -50,7 +51,7 @@ class QuantizedTensor:
     (end-relative), interleaved: logical row 2i sits in the LOW nibble of
     byte row i and row 2i+1 in its HIGH nibble. ``scale`` is fp32 with
     ``q``'s logical shape minus ``k_axis`` (per output channel), or, with
-    ``group_size`` G > 0, has ``k_axis`` cut to K/G groups (bf16 for int4).
+    ``group_size`` G > 0, has ``k_axis`` cut to K/G groups (bf16 for int4 unless ``FTCF_GSCALE_BF16=0``).
     Same fields, layout and ``dequantize`` as the JAX class.
     """
 
@@ -165,8 +166,9 @@ def init_params(
         q = rand_i8((L_, K // 2, N) if weight_bits == 4 else shape)
         if group_size:
             scale = uniform_scale((L_, K // group_size, N), qmax)
-            if weight_bits == 4:
-                scale = scale.to(torch.bfloat16)
+            from ..ckpt.quantize import group_scale_dtype
+
+            scale = scale.to(group_scale_dtype(weight_bits, group_size))
         else:
             scale = uniform_scale((L_, N), qmax)
         return QuantizedTensor(q=q, scale=scale, k_axis=-2, bits=weight_bits,

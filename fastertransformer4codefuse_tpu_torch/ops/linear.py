@@ -8,9 +8,19 @@ weight's layer view ``w[l]`` is a free view, so the JAX package's stacked and
 2-D variants are one entry here. The transposed int4 LM head goes to K8
 (``quantized_matmul_transposed_head``). Dense weights are a plain matmul, as
 the JAX package left them to XLA.
+
+SmoothQuant W8A8 (``RuntimeConfig.act_int8``, the reference's int8_mode=2):
+``linear(..., act_int8=True)`` sends a sequence-wide call of at least
+``A8_MIN_M`` rows on an int8 per-channel weight to ``w8a8_matmul``: per-token
+int8 activations, an int8 x int8 product with int32 sums, then ``acc * s_x *
+scale``, bias and activation. The JAX package computes this product in XLA,
+outside any Pallas kernel; on the card it is ``torch._int_mm`` (cuBLASLt),
+which counts its calls in ``w8a8_matmul.launches``. Decode-width calls, int4
+and group-wise weights stay weight-only, as in the JAX package.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -33,6 +43,81 @@ def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
     if act == "silu":
         return F.silu(y)
     raise ValueError(f"unknown activation {act!r}")
+
+
+# Sequence-wide calls narrower than this stay weight-only (the JAX package's
+# _A8_MIN_M): decode-width GEMMs are bound by the weight bytes.
+A8_MIN_M = 16
+# torch._int_mm on CUDA takes only more than this many rows: a call of
+# A8_MIN_M rows is padded with zero rows
+_INT_MM_MIN_M = 17
+
+
+def a8_takes(x: torch.Tensor, w, act_int8: bool) -> bool:
+    """Whether ``linear(x, w, act_int8=...)`` runs W8A8: int8 per-channel
+    weights, a sequence width above 1 and at least A8_MIN_M rows."""
+    return (bool(act_int8) and isinstance(w, QuantizedTensor) and w.bits == 8
+            and not w.group_size and x.ndim >= 3 and x.shape[-2] > 1
+            and math.prod(x.shape[:-1]) >= A8_MIN_M)
+
+
+def quantize_per_token(x2d: torch.Tensor):
+    """(int8 codes [M, K], fp32 scales [M]): s_x = amax / 127 over each row
+    (1 for a zero row), codes round(x / s_x) half to even. Both divisions take
+    a tensor divisor: CUDA computes a division by a Python scalar as a
+    multiply by its reciprocal."""
+    xf = x2d.float()
+    amax = xf.abs().amax(dim=1)
+    s_x = torch.where(amax > 0, amax / torch.full_like(amax, 127.0), torch.ones_like(amax))
+    return torch.round(xf / s_x[:, None]).to(torch.int8), s_x
+
+
+def int8_mm(x8: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """int32 ``x8 @ q`` for int8 [M, K] and [K, N], exact: ``torch._int_mm``
+    (on the CPU as it stands; on CUDA with rows padded to the 17 it takes,
+    and K and N multiples of 8, else it raises). cuBLASLt's int8 product
+    wants both operands K-major: on the card a row-major [K, N] weight is
+    copied to [N, K] first (on an H100 at M = 3072, K = 5120, N = 15360 the
+    product takes 0.52 ms on a K-major weight, 3.75 ms on a row-major one)."""
+    if not x8.is_cuda:
+        return torch._int_mm(x8.contiguous(), q)
+    from . import _cuda
+
+    M, K = x8.shape
+    N = q.shape[1]
+    _cuda.require(K % 8 == 0 and N % 8 == 0,
+                  f"w8a8_matmul: torch._int_mm needs K and N multiples of 8, got {K}, {N}")
+    if M < _INT_MM_MIN_M:
+        x8 = torch.cat([x8, x8.new_zeros(_INT_MM_MIN_M - M, K)])
+    acc = torch._int_mm(x8.contiguous(), q.t().contiguous().t())
+    w8a8_matmul.launches += 1
+    return acc[:M]
+
+
+def w8a8_matmul(
+    x2d: torch.Tensor,  # [M, K] float
+    q: torch.Tensor,  # [K, N] int8, per-output-channel scales
+    scale: torch.Tensor,  # [N]
+    bias: Optional[torch.Tensor] = None,
+    act: Optional[str] = None,
+    out_dtype=None,
+) -> torch.Tensor:
+    """SmoothQuant W8A8: ``act((round(x / s_x) @ q) * s_x * scale + bias)``,
+    s_x per token; the int32 sums times the two scales in fp32, rounded once
+    to ``out_dtype`` (x's dtype by default), then bias and activation in it,
+    as the JAX package's ``w8a8_matmul``."""
+    x8, s_x = quantize_per_token(x2d)
+    acc = int8_mm(x8, q)
+    y = acc.float() * s_x[:, None] * scale.float()[None, :]
+    y = y.to(out_dtype if out_dtype is not None else x2d.dtype)
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    if act is not None:
+        y = apply_act(y, act)
+    return y
+
+
+w8a8_matmul.launches = 0
 
 
 def quantized_matmul(
@@ -85,10 +170,16 @@ def linear(
     w,
     b: Optional[torch.Tensor] = None,
     act: Optional[str] = None,
+    act_int8: bool = False,
 ) -> torch.Tensor:
     """``y = act(x @ w + b)``; ``w`` a dense [K, ...out] tensor or a per-layer
-    QuantizedTensor."""
-    if isinstance(w, QuantizedTensor):
+    QuantizedTensor. ``act_int8``: the call runs W8A8 where ``a8_takes``."""
+    if a8_takes(x, w, act_int8):
+        y = w8a8_matmul(x.reshape(-1, x.shape[-1]), w.q.reshape(w.q.shape[0], -1),
+                        w.scale.reshape(-1), None if b is None else b.reshape(-1), act,
+                        out_dtype=x.dtype)
+        y = y.reshape(x.shape[:-1] + w.q.shape[1:])
+    elif isinstance(w, QuantizedTensor):
         y = quantized_matmul(x, w, bias=b, act=act)
     else:
         w2d = w.reshape(w.shape[0], -1)

@@ -91,8 +91,9 @@ def check_operands(x, w, scale, bias, name, bits=8, group_size=0):
     """Raise on what the kernels do not take (shared with K2/K3/K13 and K6-K8):
     x a contiguous bf16 [M, K]; w a contiguous int8 [K, N], or for ``bits=4``
     the packed [K/2, N]; scale a contiguous fp32 [N], or with ``group_size``
-    G a contiguous, 16-byte aligned [K/G, N], bf16 for int4 and fp32 for int8
-    (``ckpt.quantize.group_scale_dtype``); bias a contiguous bf16/fp32 [N]."""
+    G a contiguous, 16-byte aligned [K/G, N], bf16 or fp32 for int4 and fp32
+    for int8 (``ckpt.quantize.group_scale_dtype``); bias a contiguous
+    bf16/fp32 [N]."""
     req = _cuda.require
     dev = x.device
     req(x.dtype == torch.bfloat16, f"{name}: x must be bf16, got {x.dtype}")
@@ -107,16 +108,16 @@ def check_operands(x, w, scale, bias, name, bits=8, group_size=0):
     req(K % 8 == 0 and N % 16 == 0, f"{name}: needs K % 8 == 0 and N % 16 == 0")
     req(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0, f"{name}: x, w not 16-byte aligned")
     if group_size:
-        sdt = torch.bfloat16 if bits == 4 else torch.float32
+        sdt = (torch.bfloat16, torch.float32) if bits == 4 else (torch.float32,)
         req(group_size % 2 == 0 and K % group_size == 0,
             f"{name}: group size {group_size} must be even and divide K={K}")
         req(not 1 < x.shape[0] <= GEMV_MAX_M or group_size % 16 == 0,
             f"{name}: the GEMV at 2-{GEMV_MAX_M} rows takes groups of whole 16-row steps, "
             f"not {group_size}")
-        req(scale.dtype == sdt and scale.shape == (K // group_size, N)
+        req(scale.dtype in sdt and scale.shape == (K // group_size, N)
             and scale.is_contiguous() and scale.data_ptr() % 16 == 0,
-            f"{name}: {bits}-bit group scale must be a contiguous, 16-byte aligned {sdt} "
-            f"[K/G, N]")
+            f"{name}: {bits}-bit group scale must be a contiguous, 16-byte aligned "
+            f"{' or '.join(map(str, sdt))} [K/G, N]")
     else:
         req(scale.dtype == torch.float32 and scale.shape == (N,) and scale.is_contiguous(),
             f"{name}: scale must be a contiguous fp32 [N]")

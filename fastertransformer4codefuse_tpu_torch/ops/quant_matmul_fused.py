@@ -4,8 +4,9 @@ Port of ops/quant_matmul_fused.py ``fused_up_proj_down`` (K2),
 ``fused_proj_down`` (K3) and ``fused_qkv_up`` (K13); CUDA in
 ``csrc/quant_matmul_fused.cu``. The weights are a layer's views ([K, N] int8,
 or with ``bits=4`` the packed int4 [K/2, N]; [N] fp32 per-channel scales or,
-with ``group_size`` G, [K/G, N] group scales, bf16 for int4 and fp32 for int8;
-[N] biases) instead of the stacked arrays plus a layer index.
+with ``group_size`` G, [K/G, N] group scales, bf16 or fp32 for int4 (each
+with its own kernel instance) and fp32 for int8; [N] biases) instead of the
+stacked arrays plus a layer index.
 
 K13 computes ``[x1 @ W1 * s1 + b1 | act2(x2 @ W2 * s2 + b2)]`` over the
 concatenated output columns; the JAX kernel returns the [M, N1 + N2] array
@@ -36,8 +37,15 @@ from ..models.params import QuantizedTensor, unpack_int4
 from .linear import ACT_CODES, apply_act
 from .quant_matmul import GEMV_MAX_M, check_operands, gemv_ranges
 
-# (bits, group scales?) -> csrc/ftcf_common.cuh WFmt
-WEIGHT_FORMATS = {(8, False): 0, (4, False): 1, (4, True): 2, (8, True): 3}
+# (bits, group scales?, fp32 group scales?) -> csrc/ftcf_common.cuh WFmt
+WEIGHT_FORMATS = {(8, False, False): 0, (4, False, False): 1, (4, True, False): 2,
+                  (8, True, True): 3, (4, True, True): 4}
+
+
+def weight_format(bits, group_size, scale) -> int:
+    """The kernels' format code of a weight with these scales."""
+    grouped = bool(group_size)
+    return WEIGHT_FORMATS[bits, grouped, grouped and scale.dtype == torch.float32]
 
 
 def _contract(x, w, s, bits, G=0):
@@ -81,6 +89,7 @@ def fused_proj_down(
     M, K1 = x1.shape
     K2, N = x2.shape[1], w2.shape[1]
     _cuda.require(w1.shape[1] == N and x2.shape[0] == M, "fused_proj_down: shapes disagree")
+    _cuda.require(s1.dtype == s2.dtype, "fused_proj_down: the two scales differ in dtype")
     _cuda.require(residual.dtype == torch.bfloat16 and residual.shape == (M, N)
                   and residual.is_contiguous() and residual.device == x1.device,
                   "fused_proj_down: residual must be a contiguous bf16 [M, N]")
@@ -90,7 +99,7 @@ def fused_proj_down(
     ws = torch.empty((n1 + n2) * M * N, dtype=torch.float32, device=x1.device)
     out = torch.empty(M, N, dtype=torch.bfloat16, device=x1.device)
     err = _cuda.lib().ftcf_fused_proj_down(
-        WEIGHT_FORMATS[bits, bool(group_size)], group_size,
+        weight_format(bits, group_size, s1), group_size,
         x1.data_ptr(), w1.data_ptr(), s1.data_ptr(), K1, n1, c1,
         x2.data_ptr(), w2.data_ptr(), s2.data_ptr(), K2, n2, c2, M, N,
         *_bias_ptr(bias), residual.data_ptr(), out.data_ptr(), ws.data_ptr(),
@@ -98,10 +107,19 @@ def fused_proj_down(
     )
     _cuda.check(err, "fused_proj_down")
     fused_proj_down.launches += 1
+    fused_proj_down.launches_f32 += bits == 4 and _f32_groups(group_size, s1)
     return out
 
 
+def _f32_groups(group_size, scale) -> bool:
+    """The call took an fp32 group-scale instance of int4 weights."""
+    return bool(group_size) and scale.dtype == torch.float32 and scale.ndim == 2
+
+
+# ``launches_f32``: the launches on int4 weights with fp32 group scales (the
+# JAX package's FTCF_GSCALE_BF16=0), counted within ``launches``
 fused_proj_down.launches = 0
+fused_proj_down.launches_f32 = 0
 
 
 def _segment_plain(x, w, s, b, act, bits, G):
@@ -133,7 +151,7 @@ def _launch_ncat(segs, bits, G, name):
                      ACT_CODES[act], y.data_ptr()])
     if len(segs) == 1:  # an empty second segment
         args.append([None, None, None, 0, None, 0, 0, None])
-    fmt = WEIGHT_FORMATS[bits, bool(G)]
+    fmt = weight_format(bits, G, segs[0][2])
     if M <= GEMV_MAX_M:
         wss = []  # each segment's split workspace, held until the launch
         for a in args:
@@ -145,7 +163,7 @@ def _launch_ncat(segs, bits, G, name):
             a.append(ws.data_ptr())
         err = _cuda.lib().ftcf_gemv_ncat(fmt, G, M, K, *args[0], *args[1], _cuda.stream_of(x))
     else:
-        _cuda.require(fmt != WEIGHT_FORMATS[8, True],
+        _cuda.require(fmt != WEIGHT_FORMATS[8, True, True],
                       f"{name}: int8 weights with group scales run at decode widths only")
         err = _cuda.lib().ftcf_gemm_ncat(fmt, G, M, K, *args[0], *args[1], _cuda.stream_of(x))
     _cuda.check(err, name)
@@ -174,15 +192,18 @@ def fused_qkv_up(
     check_operands(x1, w1, s1, b1, "fused_qkv_up", bits=bits, group_size=group_size)
     check_operands(x2, w2, s2, b2, "fused_qkv_up", bits=bits, group_size=group_size)
     _cuda.require(x1.shape == x2.shape, "fused_qkv_up: x1 and x2 must have one shape")
+    _cuda.require(s1.dtype == s2.dtype, "fused_qkv_up: the two scales differ in dtype")
     _cuda.require(act1 in ACT_CODES and act2 in ACT_CODES,
                   f"fused_qkv_up: unknown activation {act1!r} / {act2!r}")
     y1, y2 = _launch_ncat([(x1, w1, s1, b1, act1), (x2, w2, s2, b2, act2)], bits, group_size,
                           "fused_qkv_up")
     fused_qkv_up.launches += 1
+    fused_qkv_up.launches_f32 += bits == 4 and _f32_groups(group_size, s1)
     return y1, y2
 
 
 fused_qkv_up.launches = 0
+fused_qkv_up.launches_f32 = 0
 
 
 def fused_up_proj_down_plain(
@@ -227,7 +248,9 @@ def fused_up_proj_down(
     out = fused_proj_down(x_proj, h, w_proj, w_down, s_proj, s_down, b_down, residual, bits,
                           group_size)
     fused_up_proj_down.launches += 1
+    fused_up_proj_down.launches_f32 += bits == 4 and _f32_groups(group_size, s_up)
     return out
 
 
 fused_up_proj_down.launches = 0
+fused_up_proj_down.launches_f32 = 0

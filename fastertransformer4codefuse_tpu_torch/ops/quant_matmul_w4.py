@@ -7,9 +7,10 @@ weight is free, so the JAX package's stacked and 2-D forms are one entry here:
 
 - K6 ``quant_matmul_w4`` (``quant_matmul_w4_pallas_stacked``): per-channel
   fp32 scales [N], ``act(x @ W * scale + bias)``, bf16 out;
-- K7 ``quant_matmul_w4_group`` (``quant_matmul_w4_group_stacked``): bf16
-  group scales [K/G, N] inside the contraction, ``act(x @ (W * scale) +
-  bias)``, bf16 out;
+- K7 ``quant_matmul_w4_group`` (``quant_matmul_w4_group_stacked``): group
+  scales [K/G, N] inside the contraction, ``act(x @ (W * scale) + bias)``,
+  bf16 out; the scales are bf16, or fp32 as the JAX package stores them
+  under ``FTCF_GSCALE_BF16=0`` (a kernel instance of each, no conversion);
 - K8 ``quant_matmul_w4_head`` (``quant_matmul_w4_pallas`` as the int4 LM head
   uses it): K6 with fp32 out and no bias.
 
@@ -61,6 +62,7 @@ def launch_w4(x, packed, scale, G, bias, act, out, name):
     N = packed.shape[1]
     lib = _cuda.lib()
     gscale = scale.data_ptr() if G else None
+    gscale_f32 = int(bool(G) and scale.dtype == torch.float32)
     pscale = None if G else scale.data_ptr()
     bias_args = (_cuda.ptr(bias), int(bias is not None and bias.dtype == torch.bfloat16),
                  ACT_CODES[act])
@@ -69,13 +71,14 @@ def launch_w4(x, packed, scale, G, bias, act, out, name):
         splits, chunk = gemv_ranges(K, N, x.device, bits=4, group_size=G)
         ws = torch.empty(splits * M * N, dtype=torch.float32, device=x.device)
         err = lib.ftcf_quant_matmul_w4_gemv(
-            x.data_ptr(), packed.data_ptr(), pscale, gscale, G, M, K, N, splits, chunk,
+            x.data_ptr(), packed.data_ptr(), pscale, gscale, gscale_f32, G, M, K, N, splits,
+            chunk,
             *bias_args,
             out.data_ptr(), out_f32, ws.data_ptr(), _cuda.stream_of(x),
         )
     else:
         err = lib.ftcf_quant_matmul_w4_gemm(
-            x.data_ptr(), packed.data_ptr(), pscale, gscale, G, M, K, N, *bias_args,
+            x.data_ptr(), packed.data_ptr(), pscale, gscale, gscale_f32, G, M, K, N, *bias_args,
             out.data_ptr(), out_f32, _cuda.stream_of(x),
         )
     _cuda.check(err, name)
@@ -109,18 +112,20 @@ def quant_matmul_w4(
 def quant_matmul_w4_group(
     x: torch.Tensor,  # [M, K] bf16
     packed: torch.Tensor,  # [K/2, N] int8
-    scale: torch.Tensor,  # [K/G, N] bf16
+    scale: torch.Tensor,  # [K/G, N] bf16 or fp32
     G: int,
     bias: Optional[torch.Tensor] = None,  # [N] bf16 or fp32
     act: Optional[str] = None,
 ) -> torch.Tensor:
     """K7: ``act(x @ (unpack(packed) * scale[k // G]) + bias)``, [M, N] in
-    x's dtype; each group's scale applies inside the contraction."""
+    x's dtype; each group's scale applies inside the contraction. fp32
+    scales take their own instance (counted also in ``launches_f32``)."""
     if not x.is_cuda:
         return quant_matmul_w4_group_plain(x, packed, scale, G, bias, act)
     _cuda.require(G > 0, "quant_matmul_w4_group: needs a group size G > 0")
     y = _run(x, packed, scale, G, bias, act, torch.bfloat16, "quant_matmul_w4_group")
     quant_matmul_w4_group.launches += 1
+    quant_matmul_w4_group.launches_f32 += scale.dtype == torch.float32
     return y
 
 
@@ -139,4 +144,5 @@ def quant_matmul_w4_head(
 
 quant_matmul_w4.launches = 0
 quant_matmul_w4_group.launches = 0
+quant_matmul_w4_group.launches_f32 = 0  # of them, with fp32 group scales
 quant_matmul_w4_head.launches = 0

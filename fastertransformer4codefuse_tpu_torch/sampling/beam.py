@@ -10,8 +10,8 @@ stop words.
 
 The KV cache stays fixed: a beam's reassignment moves only its ``[BB, S]``
 int32 row of ``beam_indir``, which decode attention resolves (K11). Prompts
-are tiled beam-minor (row b * bw + j) before the prefill; only beam 0
-proposes at the first merge.
+are tiled beam-minor (row b * bw + j) before the prefill, prompt-learning
+prompts with them; only beam 0 proposes at the first merge.
 
 Ties: ``jax.lax.top_k`` and ``jnp.argsort`` take the lower index first.
 ``torch.topk`` documents no tie order, so every selection here is a stable
@@ -112,9 +112,14 @@ def beam_advance(engine, st, inputs, s, bw: int) -> None:
     tok = torch.where(finished, torch.full_like(new_tok, end_id), new_tok)
     write_idx = seq_lens.clamp(0, T - 1).long()
     tokens[rows, write_idx] = torch.where(finished, tokens[rows, write_idx], tok)
-    # the next forward writes row r's new KV into row r itself
+    # the next forward writes row r's new KV into row r itself, at the cache
+    # slot = buffer index + the row's prompt length (the prompt's slots are
+    # never re-pointed: every beam of a row shares its prompt KV)
     own = (rows % bw).to(torch.int32)
-    indir[rows, write_idx] = torch.where(finished, indir[rows, write_idx], own)
+    cache_idx = write_idx
+    if st.prompt_width:
+        cache_idx = write_idx + inputs["prompt_lengths"].long()
+    indir[rows, cache_idx] = torch.where(finished, indir[rows, cache_idx], own)
     seq_lens = seq_lens + (~finished).to(torch.int32)
     cum = torch.where(finished, prev_cum, new_cum)
 
@@ -141,7 +146,8 @@ def beam_prefill(engine, st, inputs, bw: int):
     s = engine._prefill_state(st, inputs)
     beam_idx = torch.arange(st.batch, device=engine.device) % bw
     s.cum_log_probs = torch.where(beam_idx == 0, 0.0, NEG_INF).to(torch.float32)
-    s.beam_indir = beam_idx.to(torch.int32)[:, None].expand(st.batch, st.total_len).contiguous()
+    width = st.total_len + st.prompt_width  # the whole cache, prompt slots included
+    s.beam_indir = beam_idx.to(torch.int32)[:, None].expand(st.batch, width).contiguous()
     return s
 
 
@@ -199,8 +205,8 @@ def beam_search_generate(
     engine.decode_forwards = 0
     s = beam_prefill(engine, st, inputs, bw)
     cfg = engine.config
-    rotary_tables = make_rotary_tables(st.total_len, cfg.rotary_embedding_dim, cfg.rotary_base,
-                                       dev)
+    rotary_tables = make_rotary_tables(st.total_len + st.prompt_width, cfg.rotary_embedding_dim,
+                                       cfg.rotary_base, dev)
     in_lens = inputs["input_lengths"]
 
     def emit():

@@ -10,6 +10,7 @@ reads: float, int8 ``.q.bin``, int4 ``.q4.bin`` per-channel and group-wise,
 quantize-on-load, the CUTLASS layout, tp 1 and 2."""
 import glob
 import os
+import re
 
 import numpy as np
 import pytest
@@ -137,6 +138,25 @@ def test_quant_and_save_reads_only_the_float_kernels(tmp_path):
     quantize.quant_and_save(b, weight_bits=8)
     da, db = _dir_bytes(a), _dir_bytes(b)
     assert {n: v for n, v in da.items() if n in db} == db
+
+
+def test_quant_and_save_over_int4_payloads_is_the_jax_tool_without_its_junk(tmp_path):
+    """int4 g16 then int8 over one directory, by both tools. The JAX tool
+    also takes each earlier ``.q4.bin`` / ``.s4g16.bin`` for a float kernel
+    and writes int8 quantizations of those bytes (``*.q4.q.bin``,
+    ``*.s4g16.s.bin``, ...) that no loader reads; the port reads only the
+    float rank files. Every other file is byte for byte the JAX tool's."""
+    hf = make_hf()
+    a, b = str(tmp_path / "port"), str(tmp_path / "jax")
+    convert.convert_hf_to_bin(hf, a)
+    jconvert.convert_hf_to_bin(hf, b)
+    for bits, G in ((4, 16), (8, 0)):
+        quantize.quant_and_save(a, weight_bits=bits, group_size=G)
+        jquant.quant_and_save(b, weight_bits=bits, group_size=G)
+    da, db = _dir_bytes(a), _dir_bytes(b)
+    junk = {n for n in db if re.search(r"\.(q4|s4g16)\.(q|s)\.bin$", n)}
+    assert junk and not junk & set(da)
+    assert da == {n: v for n, v in db.items() if n not in junk}
 
 
 def test_quantization_error_matches_jax():

@@ -1,7 +1,10 @@
 """The CUDA kernels K1-K13 against their plain versions on the card, at small
 and ragged shapes (K2/K3 also with group scales, int8 and int4, and K3, K7
 and K13 with groups of 32 and 64 whose splits do not divide K; K13's
-segments also bit for bit against K1/K6/K7 run alone; K5 at key tiles and
+segments also bit for bit against K1/K6/K7 run alone; the fp32
+group-scale instances of K7, K2, K3 and K13 (int4, the JAX package's
+``FTCF_GSCALE_BF16=0``) against their plain versions and, on scales that
+bf16 holds exactly, bit for bit against the bf16 instances; K5 at key tiles and
 one past them, lengths of 1, GQA up to 8 query heads a KV head, dh 64, 128
 and 256, two calls equal byte for byte), K4/K9/K10/K11 also on packed int4 caches (chip_smoke.py
 covers the CodeFuse-13B and Longformer-base shapes); K11 also bit for bit
@@ -264,7 +267,7 @@ def test_w4_kernels_raise_on_what_they_do_not_take(gen):
         lambda: quant_matmul_w4(x, _i8(gen, 32, 40), _scale(gen, 40)),  # N % 16
         lambda: quant_matmul_w4(x, p, g),  # group scales to the per-channel kernel
         lambda: quant_matmul_w4_group(x, p, s, 32),  # fp32 [N] scales to the group kernel
-        lambda: quant_matmul_w4_group(x, p, g.float(), 32),  # fp32 group scales
+        lambda: quant_matmul_w4_group(x, p, g.double(), 32),  # fp64 group scales
         lambda: quant_matmul_w4_group(x, p, _gscale(gen, 3, 32), 24),  # G does not divide K
         lambda: quant_matmul_w4_group(x, p, _gscale(gen, 64, 32), 1),  # odd G
         lambda: quant_matmul_w4_head(x, p, s.bfloat16()),  # bf16 head scales
@@ -901,8 +904,8 @@ def test_fused_kernels_raise_on_what_they_do_not_take(gen):
         lambda: fused_qkv_up(x, x, p8, p8, s8, s8, act2="tanh"),  # unknown activation
         lambda: fused_qkv_up(_bf(gen, 40, 64), _bf(gen, 40, 64), p8, p8, g8, g8,
                              group_size=32),  # int8 group scales above decode widths
-        lambda: fused_qkv_up(x, x, p4, p4, g4.float(), g4.float(), bits=4,
-                             group_size=32),  # fp32 scales with int4 groups
+        lambda: fused_qkv_up(x, x, p4, p4, g4, g4.float(), bits=4,
+                             group_size=32),  # the two segments' scales differ in dtype
         lambda: fused_proj_down(x, x, p8, p8, g8.bfloat16(), g8.bfloat16(), s8,
                                 _bf(gen, 2, 32), group_size=32),  # bf16 scales with int8
         lambda: fused_proj_down(x, x, p4, p4, g4, g4, s8, _bf(gen, 2, 32), bits=4,
@@ -1211,3 +1214,46 @@ def test_k10_refuses_bf16_pages_off_the_swizzle_groups(gen):
     q = _bf(gen, 1, 8, 2, 128)
     got = flash_chunk_paged(q, k8, ks, v8, vs, 0, pos, pt, 0.1)
     assert _rel(got, flash_chunk_paged_plain(q, k8, ks, v8, vs, 0, pos, pt, 0.1)) < 2e-2
+
+
+# int4 with fp32 group scales (``FTCF_GSCALE_BF16=0``): K7, K13, K3 and K2
+# at the GEMV's widths and the GEMM's, G = 32 and 128.
+@pytest.mark.parametrize("M", [1, 4, 9, 32, 33, 130])
+@pytest.mark.parametrize("G", [32, 128])
+def test_int4_fp32_group_scales_match_plain(gen, M, G):
+    K, F, N1 = 1024, 512, 144
+    x1, x2 = _bf(gen, M, K), _bf(gen, M, K)
+    (w1, s1), (w2, s2), (wd, sd) = (_fmt_weight(gen, k, n, 4, G) for k, n in
+                                    ((K, N1), (K, F), (F, K)))
+    s1, s2, sd = s1.float(), s2.float(), sd.float() * 1.0009765625  # off the bf16 grid too
+    b1, b2, bd = _bf(gen, N1, std=0.1), _bf(gen, F, std=0.1), _bf(gen, K, std=0.1)
+    before = quant_matmul_w4_group.launches
+    got = quant_matmul_w4_group(x1, w1, s1, G, b1, "gelu-tanh")
+    assert quant_matmul_w4_group.launches == before + 1
+    assert _rel(got, quant_matmul_w4_group_plain(x1, w1, s1, G, b1, "gelu-tanh")) < 1e-2
+    args13 = (x1, x2, w1, w2, s1, s2, b1, b2, None, "gelu-tanh", 4, G)
+    assert _rel(_cat(fused_qkv_up(*args13)), _cat(fused_qkv_up_plain(*args13))) < 1e-2
+    if M <= 32:  # K3 and K2 are decode-width kernels
+        h, res = _bf(gen, M, F, std=0.5), _bf(gen, M, K)
+        wp, sp = _fmt_weight(gen, K, K, 4, G)
+        args3 = (x1, h, wp, wd, sp.float(), sd, bd, res, 4, G)
+        assert _rel(fused_proj_down(*args3), fused_proj_down_plain(*args3)) < 1e-2
+        args2 = (x2, x1, res, w2, wp, wd, s2, sp.float(), sd, b2, bd, "gelu-tanh", 4, G)
+        assert _rel(fused_up_proj_down(*args2), fused_up_proj_down_plain(*args2)) < 2e-2
+
+
+@pytest.mark.parametrize("M", [1, 4, 32, 130])
+def test_int4_fp32_group_scales_equal_bf16_on_bf16_values(gen, M):
+    """fp32 group scales that bf16 holds exactly give the bf16 instances'
+    bytes: the GEMV multiplies each partial by the same float, the GEMM
+    rounds each int4 x scale product once to bf16 either way."""
+    K, N, G = 1024, 384, 128
+    x, x2 = _bf(gen, M, K), _bf(gen, M, K)
+    (w, s), (w2, s2) = _fmt_weight(gen, K, N, 4, G), _fmt_weight(gen, K, N, 4, G)
+    b = _bf(gen, N, std=0.1)
+    a16 = quant_matmul_w4_group(x, w, s, G, b)
+    a32 = quant_matmul_w4_group(x, w, s.float(), G, b)
+    y16 = fused_qkv_up(x, x2, w, w2, s, s2, b, b, None, "gelu-tanh", 4, G)
+    y32 = fused_qkv_up(x, x2, w, w2, s.float(), s2.float(), b, b, None, "gelu-tanh", 4, G)
+    torch.cuda.synchronize()
+    assert torch.equal(a16, a32) and torch.equal(_cat(y16), _cat(y32))

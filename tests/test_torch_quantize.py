@@ -118,3 +118,59 @@ def test_from_jax_params_keeps_int4_layouts():
             assert a.q.shape == (jcfg.hidden_size // 2, 2560) and a.k_axis == -2
             assert a.bits == 4 and a.scale.dtype == torch.float32
         _same(jp["lm_head"], tp["lm_head"])
+
+
+# FTCF_GSCALE_BF16=0: fp32 group scales for int4, the JAX package's switch
+GSCALE_F32_CASES = [((3, 64, 48), 32), ((64, 48), 16), ((256, 32), 128)]
+
+
+@pytest.mark.parametrize("shape,G", GSCALE_F32_CASES)
+def test_fp32_group_scales_are_bit_identical_to_jax(shape, G, monkeypatch):
+    """Under FTCF_GSCALE_BF16=0 both quantizers keep fp32 int4 group scales
+    and quantize against them: payload, scales and dequantized weights bit
+    for bit; without it both round the scales to bf16 first."""
+    rng = np.random.default_rng(G)
+    w = (rng.standard_normal(shape) * 0.02).astype(np.float32)
+    w[..., 1] = 0.0
+    monkeypatch.setenv("FTCF_GSCALE_BF16", "0")
+    assert tq.group_scale_dtype(4, G) == torch.float32
+    assert tq.group_scale_dtype(8, G) == torch.float32
+    j, t = jq.quantize_array(jnp.asarray(w), -2, 4, G), tq.quantize_array(w, -2, 4, G)
+    assert t.scale.dtype == torch.float32
+    _same(j, t)
+    monkeypatch.setenv("FTCF_GSCALE_BF16", "1")
+    j16, t16 = jq.quantize_array(jnp.asarray(w), -2, 4, G), tq.quantize_array(w, -2, 4, G)
+    assert t16.scale.dtype == torch.bfloat16
+    _same(j16, t16)
+
+
+@pytest.mark.parametrize("G", [16, 32])
+def test_fp32_group_scales_through_params_and_engine(G, monkeypatch):
+    """quantize_params, init_params and from_jax_params keep fp32 group scales
+    under the switch, and the engine on them (the plain K7/K13/K3) gives the
+    JAX engine's greedy tokens and logits."""
+    from fastertransformer4codefuse_tpu import GptNeoXEngine as JaxEngine
+    from fastertransformer4codefuse_tpu import RuntimeConfig as JaxRuntime
+    from fastertransformer4codefuse_tpu_torch import GptNeoXEngine, RuntimeConfig
+
+    monkeypatch.setenv("FTCF_GSCALE_BF16", "0")
+    jcfg = JaxConfig.tiny(vocab_size=100)
+    cfg = GptNeoXConfig(**dataclasses.asdict(jcfg))
+    jp = jax_init_params(jcfg, jax.random.PRNGKey(3), dtype="fp32")
+    jqp = jq.quantize_params(jp, weight_bits=4, group_size=G)
+    tqp = tq.quantize_params(from_jax_params(jp, device="cpu"), weight_bits=4, group_size=G)
+    for k in ("qkv_w", "proj_w", "up_w", "down_w"):
+        _same(jqp["layers"][k], tqp["layers"][k])
+        assert tqp["layers"][k].scale.dtype == torch.float32
+    own = init_params(cfg, seed=0, dtype="fp32", int8_mode=1, weight_bits=4, group_size=G,
+                      device="cpu")
+    assert own["layers"]["up_w"].scale.dtype == torch.float32
+    rt = dict(dtype="fp32", int8_mode=1, seq_bucket=8)
+    want = JaxEngine(jcfg, jqp, JaxRuntime(**rt)).generate(
+        [[3, 4, 5, 6, 7]], output_len=5, top_k=1, return_cum_log_probs=True)
+    for fused in (True, False):
+        got = GptNeoXEngine(cfg, from_jax_params(jqp, device="cpu"),
+                            RuntimeConfig(fused_decode=fused, **rt)).generate(
+            [[3, 4, 5, 6, 7]], output_len=5, top_k=1, return_cum_log_probs=True)
+        np.testing.assert_array_equal(got.output_ids, np.asarray(want.output_ids))
+        np.testing.assert_allclose(got.cum_log_probs, np.asarray(want.cum_log_probs), atol=1e-4)

@@ -136,11 +136,11 @@ def test_multi_pool_server_routes_by_length(engine):
 
 
 def test_unported_pool_kinds_raise_naming_their_item(engine):
-    """Prompt-learning pools are not served yet: they raise
-    NotImplementedError naming their ROADMAP item and build no other pool
-    instead. ``beam_width > 1`` builds a beam pool and ``speculative=True`` a
+    """``beam_width > 1`` builds a beam pool and ``speculative=True`` a
     speculative pool, each on dense slabs only (paged, either raises
-    ValueError). Packed int4 KV is served on pages only: a dense pool refuses
+    ValueError). A prompt-learning pool refuses what the JAX pool refuses: a
+    task on a pool without a table, an unknown task, a table on pages, a
+    packed cache. Packed int4 KV is served on pages only: a dense pool refuses
     it (pair bytes), as do odd buckets or page sizes."""
     srv = BatchingServer(engine, beam_width=2, max_slots=2, max_seq_len=16, prompt_bucket=8)
     try:
@@ -158,12 +158,26 @@ def test_unported_pool_kinds_raise_naming_their_item(engine):
     with pytest.raises(ValueError, match="dense"):
         BatchingServer(engine, speculative=True, max_slots=2, max_seq_len=16, prompt_bucket=8,
                        paged=dict(num_pages=4, page_size=8))
+    cfg = engine.config
+    table = {0: (np.zeros((cfg.layer_num, 2, cfg.kv_heads, 4, cfg.size_per_head)), 4)}
+    pool = ContinuousBatcher(engine, max_slots=2, max_seq_len=16, prompt_bucket=8,
+                             prompt_table=table)
+    assert pool.prompt_width == 8
     cases = [
+        (lambda: ContinuousBatcher(engine, max_slots=2, max_seq_len=16, prompt_bucket=8)
+         .submit([3], 2, prompt_task_id=0), "prompt_table"),
+        (lambda: pool.submit([3], 2, prompt_task_id=5), "unknown prompt task"),
         (lambda: ContinuousBatcher(engine, max_slots=2, max_seq_len=16, prompt_bucket=8,
-                                   prompt_table={0: (np.zeros((2, 2, 4, 4, 8)), 4)}), "item 8"),
+                                   prompt_table=table, paged=dict(num_pages=4, page_size=8)),
+         "paged pools"),
+        (lambda: ContinuousBatcher(
+            GptNeoXEngine(CFG, engine.params, RuntimeConfig(dtype="fp32", int8_mode=1,
+                                                            kv_cache_dtype="int4")),
+            max_slots=2, max_seq_len=16, prompt_bucket=8, prompt_table=table),
+         "unpacked KV cache"),
     ]
-    for build, item in cases:
-        with pytest.raises(NotImplementedError, match=item):
+    for build, msg in cases:
+        with pytest.raises(ValueError, match=msg):
             build()
     for kind in ("int4", "int8k_int4v"):
         eng4 = GptNeoXEngine(CFG, engine.params, RuntimeConfig(dtype="fp32", int8_mode=1,
