@@ -67,7 +67,7 @@ Phases (any failure exits non-zero):
      route the one the config must take;
   4. CodeFuse-13B (40 layers, full width, int8 KV cache, random weights)
      built on the card, once with int8 weights and then with int4 weights,
-     per-channel and group-wise (G = 128), and driven through
+     per-channel and group-wise (G = 128; 20 layers each), and driven through
      ``GptNeoXEngine.generate`` and ``CodeFuseHandler.predict``, then a
      ``fused_decode`` A/B (decode ms/step of each route, in turns); on the int8
      weights, a 3000-token prompt on an "int4" cache (greedy x2 + streamed;
@@ -121,10 +121,23 @@ Phases (any failure exits non-zero):
      the loaded parameters equal the reference bit for bit, ``api.cli.main``
      over a JSONL file and with ``--serve --paged_pages`` on stdin prints
      what handlers on an engine over the reference parameters give; load
-     time, read rate and reader logged; the directory removed.
-For each path of phases 4 to 7 the kernel launch counters are zeroed just
+     time, read rate and reader logged; the directory removed;
+  8. the decoder families (``phase_families``): StarCoder (bigcode/starcoder,
+     40 layers, full width, int8 weights, embeddings and KV) through the
+     engine (a 1000-token prompt, 64 greedy tokens x2; B = 4 sampled x2; a
+     3000-token prompt), the handler, a paged ``BatchingServer`` taking 7
+     greedy requests from threads (three of them alone equal to themselves
+     in the mix; each compared with its static greedy run) and beam search
+     (2 x 4 beams, rescored); then Qwen2.5-Coder-7B, CodeLlama-7B (int8 and
+     int4 g128), GPT-J-6B, GPT-2 XL (a paged pool whose dh-64 chunk
+     attention takes the plain route), OPT-6.7B and Mixtral-8x7B (a dense
+     pool; two runs equal bytes) at their published widths and 2 layers,
+     card against CPU: logits, greedy tokens (teacher-forced past near-ties;
+     for Mixtral also past router near-ties) and exact launches.
+For each path of phases 4 to 8 the kernel launch counters are zeroed just
 before it is driven and checked just after against the counts its route must
-give, with the attention dispatchers' ``plain_routes`` at 0. The line before the last holds the kernels' JSON record; the last line
+give, with the attention dispatchers' ``plain_routes`` at 0 (on GPT-2 XL's
+paged pool, one a layer a chunk tick). The line before the last holds the kernels' JSON record; the last line
 is the device record. Without a CUDA device, or without the package beside
 it, the script exits non-zero and prints no result.
 """
@@ -377,8 +390,8 @@ def phase_kernels(torch, records):
             why = (str(e).strip().splitlines() or [type(e).__name__])[0][:100]
             return None, f"none on CUDA, torch {torch.__version__} (checked: {name}: {why})"
 
-    log("phase 2: kernels against their plain versions (CodeFuse-13B and Longformer-base "
-        "shapes)")
+    log("phase 2: kernels against their plain versions (CodeFuse-13B, StarCoder and "
+        "Longformer-base shapes)")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     # The prefill-width GEMM (M > 32): its tiles and waves on this card, and
@@ -419,6 +432,24 @@ def phase_kernels(torch, records):
                    work=(nbytes(x, w, s, b), 2 * M * K * N), fn_lib=lib[0], lib_label=lib[1],
                    note=tiles(M, N) if M > 32 else "")
         del wb
+    # K1 at StarCoder's widths (6144 wide, MQA QKV 6144 + 2 x 128 = 6400,
+    # FFN 24576, biases everywhere): a decode step (M = 1), a pool tick (8)
+    # and the 1000-token prefill (the GEMM)
+    star = [("qkv", 6144, 6400, "none"), ("up", 6144, 24576, "gelu-tanh"),
+            ("down", 24576, 6144, "none"), ("proj", 6144, 6144, "none")]
+    for tag, K, N, act in star:
+        act = None if act == "none" else act
+        w, s, b = i8(K, N), scale(N), bf(N, std=0.02)
+        wb = (w.float() * s).to(torch.bfloat16)
+        for M in (1, 8, 1000):
+            x = bf(M, K)
+            lib = gemm_lib(M, x, wb)
+            report("quant_matmul", f"StarCoder {tag} {K}->{N} M={M}",
+                   lambda: quant_matmul(x, w, s, b, act),
+                   lambda: quant_matmul_plain(x, w, s, b, act), tol_mm, "qkv 5120->15360 M=1",
+                   work=(nbytes(x, w, s, b), 2 * M * K * N), fn_lib=lib[0], lib_label=lib[1],
+                   note=tiles(M, N) if M > 32 else "")
+        del w, wb
     w_up, w_proj, w_down = i8(H, F_), i8(H, H), i8(F_, H)
     s_up, s_proj, s_down = scale(F_), scale(H), scale(H)
     b_up, b_down = bf(F_, std=0.02), bf(H, std=0.02)
@@ -995,6 +1026,24 @@ def phase_kernels(torch, records):
     log(f"  flash_chunk_paged  int8 pages: two calls give "
         f"{'equal bytes' if same else 'MISS: other bytes'}")
     del pk8, pv8, pkb, pvb, pk4, pv4, a1, a2
+    # K10 at StarCoder's MQA (48 x 128 query heads on one KV head, g = 48)
+    # on int8 pages of 256: the same slots, chunks and block tables
+    nH_g = 48
+    pk8, pv8 = i8(L, P, 1, ps, dh), i8(L, P, 1, ps, dh)
+    pks1 = (torch.rand((L, P, 1, ps), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+    pvs1 = (torch.rand((L, P, 1, ps), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+    qg = bf(B, C, nH_g, dh)
+    report_attn("flash_chunk_paged", f"int8 pages B=8 C=128 {nH_g}x128 g={nH_g}",
+           lambda: flash_chunk_paged(qg, pk8, pks1, pv8, pvs1, 1, starts, pt, sm),
+           lambda: flash_chunk_paged_plain(qg, pk8, pks1, pv8, pvs1, 1, starts, pt, sm), 2e-2,
+           "int8 pages B=8 C=128",
+           work=(nbytes(qg, starts) + B * n_pg * 4 + n_read * (2 * dh + 4),
+                 4 * n_pairs * nH_g * dh),
+           fn_lib=lambda: F.scaled_dot_product_attention(
+               qg.transpose(1, 2), dense_pages(pk8, pks1), dense_pages(pv8, pvs1),
+               attn_mask=mask_c, scale=sm, enable_gqa=True),
+           lib_label="sdpa, dense bf16 K/V of the same length, enable_gqa")
+    del pk8, pv8, qg
     # K10 on pages of 128, the CLI pool's: the same rows and keys, 16 pages a
     # row; a tile takes one TMA box of each page it reads
     ps2 = 128
@@ -1044,21 +1093,26 @@ def phase_kernels(torch, records):
     # The work counts the (query, key) pairs the causal and length bounds
     # admit; the yardstick is one causal scaled_dot_product_attention call
     # on equal lengths (a ragged batch has no is_causal form).
-    for B, S, lens, nH, dh in ((1, 4096, [4096], 40, 128), (2, 2048, [2048, 1300], 40, 128),
-                               (1, 4096, [4096], 32, 64)):
-        q, k, v = bf(B, S, nH, dh), bf(B, S, nH, dh), bf(B, S, nH, dh)
+    # StarCoder's prompts of 1000 and 3000 tokens: 48 x 128 on one KV head
+    # (MQA, g = 48; SDPA takes it with enable_gqa).
+    for B, S, lens, nH, nKV, dh in ((1, 4096, [4096], 40, 40, 128),
+                                    (2, 2048, [2048, 1300], 40, 40, 128),
+                                    (1, 4096, [4096], 32, 32, 64), (1, 1000, [1000], 48, 1, 128),
+                                    (1, 3000, [3000], 48, 1, 128)):
+        q, k, v = bf(B, S, nH, dh), bf(B, S, nKV, dh), bf(B, S, nKV, dh)
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
         n_pairs = sum(n * (n + 1) // 2 + (S - n) * n for n in lens)
         sm = dh ** -0.5
         report_attn("prefill_attention_flash",
-               f"B={B} S={S} lengths {lens}" + ("" if dh == 128 else f" {nH}x{dh}"),
+               f"B={B} S={S} lengths {lens}" + ("" if (nH, dh) == (40, 128) else f" {nH}x{dh}")
+               + ("" if nKV == nH else f" g={nH // nKV}"),
                lambda: prefill_attention_flash(q, k, v, ln, sm),
                lambda: prefill_attention_flash_plain(q, k, v, ln, sm), 2e-2,
                "B=1 S=4096 lengths [4096]",
                work=(nbytes(q, k, v, ln), 4 * n_pairs * nH * dh),
                fn_lib=lambda: F.scaled_dot_product_attention(
                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
-                   scale=sm),
+                   scale=sm, enable_gqa=nKV != nH),
                lib_label="sdpa is_causal, equal lengths")
         del q, k, v
 
@@ -1170,10 +1224,10 @@ def phase_reference(torch, ref, kv=None, fused=True, card_logits=None):
     if card_logits is not None:
         card_logits.extend(logits["card"])
     rels = []
-    for i, (a, b) in enumerate(zip(logits["card"], logits["cpu"])):
+    for i, a in enumerate(logits["card"]):
         if not bool(torch.isfinite(a).all()) or a.shape != (B, cfg.vocab_size):
             raise RuntimeError(f"reference step {i}: bad logits {a.shape}")
-        rels.append(rel_err(torch, a, b)[1])
+        rels.append(rel_err(torch, a, logits["cpu"][i])[1])
     return rels
 
 
@@ -1316,7 +1370,6 @@ def serve_route_config(torch, pkg, name):
     error: tokens that part elsewhere, or a route other than the config's
     (a plain route taken where a kernel should run, or the other way)."""
     from fastertransformer4codefuse_tpu_torch.engine import kv_cache
-    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
     from fastertransformer4codefuse_tpu_torch.models.params import params_to
     from fastertransformer4codefuse_tpu_torch.ops.attention import (
         prefill_attention, prefill_attention_flash,
@@ -1346,34 +1399,103 @@ def serve_route_config(torch, pkg, name):
     if any(w is not None and s != w for s, w in zip(seen, want)) or (
             any(plain[i] for i in range(3) if want[i] != "plain")):
         return f"{name}: routes (prefill, chunk, decode) {seen}, expected {want}", plain, []
+    err, ties = hold_to_cpu(torch, cfg, p_cpu, torch.int8 if kv else torch.bfloat16,
+                            ROUTE_PROMPTS, got, want_tok, ROUTE_TOKENS,
+                            lambda p, n: route_tokens(pkg, cfg, p_card, kv, [p], n)[0],
+                            lambda p, n: route_tokens(pkg, cfg, p_cpu, kv, [p], n)[0])
+    return (f"{name}: {err}" if err else None), plain, ties
+
+
+def expert_choices(torch, cfg, p, ids, kv):
+    """The experts each position of ``ids`` is routed to in a prefill on the
+    params' device (an MoE model): for each MoE layer, its top-k expert ids
+    [T, k] in ascending order, on the CPU."""
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+
+    real, picks = model.moe_ffn, []
+
+    def recording(x2d, router_w, *a, **kw):
+        probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
+        picks.append(probs.topk(cfg.moe_top_k, dim=-1).indices.sort(-1).values.cpu())
+        return real(x2d, router_w, *a, **kw)
+
+    dev = p["final_ln_w"].device
+    model.moe_ffn = recording
+    try:
+        lens = torch.tensor([len(ids)], dtype=torch.int32, device=dev)
+        model.prefill(cfg, p, torch.tensor([ids], device=dev), lens,
+                      kv_cache.init_cache(cfg, 1, len(ids), kv, dev))
+    finally:
+        model.moe_ffn = real
+    return picks
+
+
+def routing_differs(torch, cfg, p_card, p_cpu, ids, kv):
+    """Where the card routes a position of ``ids`` to other experts than the
+    CPU does (``expert_choices`` of both): "layer l, position t", or ""."""
+    for layer, (a, b) in enumerate(zip(expert_choices(torch, cfg, p_card, ids, kv),
+                                       expert_choices(torch, cfg, p_cpu, ids, kv))):
+        rows = (a != b).any(-1).nonzero()
+        if len(rows):
+            return f"layer {layer}, position {int(rows[0])}"
+    return ""
+
+
+def hold_to_cpu(torch, cfg, p_cpu, kv, prompts, got, want, n, card_more, cpu_more,
+                routes=None):
+    """Hold the card's greedy tokens ``got`` (``n`` a prompt) to the CPU's
+    ``want``. Where a card token parts from the CPU's at a near-tie of the
+    CPU's logits (a CPU prefill of the context on a ``kv`` cache), both go
+    on from the CPU's tokens up to and including that step
+    (``card_more(context, left)`` and ``cpu_more``), so every step of every
+    prompt is compared. In an MoE model, whose expert products take their
+    shapes from the batch (each expert's bucket holds C = ceil(T k / E
+    factor) rows), a parting past NEAR_TIE is also taken where the card
+    routes a token of the context to other experts than the CPU does
+    (``routes(context)``: ``routing_differs`` of the card and the CPU), or
+    where the card,
+    given the context alone (``card_more(context, 1)``), picks the CPU's
+    token: the parting then comes from the routing or from the batch's
+    roundings, not from the context's program. Returns (error or None, the
+    near-ties)."""
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+
     ties = []
-    for prompt, a, b in zip(ROUTE_PROMPTS, got, want_tok):
+    for prompt, a, b in zip(prompts, got, want):
         forced = []  # the CPU's tokens both sides go on from
         while True:
             i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
             if i is None:
                 if len(a) != len(b):
-                    return f"{name}: card tokens {a} against the CPU's {b}", plain, ties
+                    return f"card tokens {a} against the CPU's {b}", ties
                 break
             ids = prompt + forced + b[:i]
-            cache = kv_cache.init_cache(cfg, 1, len(ids) + 1,
-                                        torch.int8 if kv else torch.bfloat16, "cpu")
+            cache = kv_cache.init_cache(cfg, 1, len(ids) + 1, kv, "cpu")
             lens = torch.tensor([len(ids)], dtype=torch.int32)
             hidden, _ = model.prefill(cfg, p_cpu, torch.tensor([ids]), lens, cache)
             lg = model.lm_logits(cfg, p_cpu, model.last_token_hidden(hidden, lens))[0].float()
             gap = (lg[b[i]] - lg[a[i]]).item() / lg.abs().max().item()
             step = len(forced) + i
-            ties.append(f"step {step} of {prompt}: gap {gap:.2e}")
+            ties.append(f"step {step} of a {len(prompt)}-token prompt: gap {gap:.2e}")
+            if gap >= NEAR_TIE and routes is not None:
+                moved = routes(ids)
+                alone = card_more(ids, 1)[0]
+                ties[-1] += (f", experts {'differ at ' + moved if moved else 'the same'}, the "
+                             f"card alone on this context picks {alone}")
+                if moved or alone == b[i]:
+                    gap = 0.0
             if gap >= NEAR_TIE:
-                return f"{name}: card tokens part from the CPU's at step {step} of {prompt} " \
-                       f"({a[i]} against {b[i]})", plain, ties
+                return (f"card tokens part from the CPU's at step {step} of {prompt} "
+                        f"({a[i]} against {b[i]}; {ties[-1]})"), ties
             forced += b[:i + 1]
-            left = ROUTE_TOKENS - len(forced)
+            left = n - len(forced)
             if left == 0:
                 break
-            a = route_tokens(pkg, cfg, p_card, kv, [prompt + forced], left)[0]
-            b = route_tokens(pkg, cfg, p_cpu, kv, [prompt + forced], left)[0]
-    return None, plain, ties
+            a = card_more(prompt + forced, left)
+            b = cpu_more(prompt + forced, left)
+    return None, ties
 
 
 def phase_routes(torch, pkg):
@@ -1835,6 +1957,75 @@ def phase_encoders(torch, kernels, launched):
     return None
 
 
+def kernel_table():
+    """The kernel wrappers: name -> (wrapper, its counter, source, the TPU
+    kernel it replaces)."""
+    from fastertransformer4codefuse_tpu_torch.ops.attention import prefill_attention_flash
+    from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
+        flash_chunk_paged, flash_decode_beam_stacked, flash_decode_paged, flash_decode_stacked,
+    )
+    from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import quant_matmul
+    from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_fused import (
+        fused_proj_down, fused_qkv_up, fused_up_proj_down,
+    )
+    from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_w4 import (
+        quant_matmul_w4, quant_matmul_w4_group, quant_matmul_w4_head,
+    )
+    from fastertransformer4codefuse_tpu_torch.ops.sliding_window import sliding_window_attention
+
+    src = "fastertransformer4codefuse_tpu_torch/csrc/"
+    tpu = "fastertransformer4codefuse_tpu/ops/"
+    # name -> (wrapper, its counter, source, the TPU kernel it replaces: the
+    # line of its pl.pallas_call, or of the library flash_attention call for
+    # K5). A packed-int4 form counts its launches apart (``launches_packed``)
+    # and within the wrapper's ``launches``.
+    return {
+        "quant_matmul": (quant_matmul, "launches", src + "quant_matmul.cu",
+                         tpu + "quant_matmul.py:221"),
+        "fused_up_proj_down": (fused_up_proj_down, "launches", src + "quant_matmul_fused.cu",
+                               tpu + "quant_matmul_fused.py:571"),
+        "fused_proj_down": (fused_proj_down, "launches", src + "quant_matmul_fused.cu",
+                            tpu + "quant_matmul_fused.py:360"),
+        "fused_qkv_up": (fused_qkv_up, "launches", src + "quant_matmul_fused.cu",
+                         tpu + "quant_matmul_fused.py:226"),
+        "flash_decode": (flash_decode_stacked, "launches", src + "flash_decode.cu",
+                         tpu + "flash_decode.py:674"),
+        "quant_matmul_w4": (quant_matmul_w4, "launches", src + "quant_matmul_w4.cu",
+                            tpu + "quant_matmul_w4.py:262"),
+        "quant_matmul_w4_group": (quant_matmul_w4_group, "launches", src + "quant_matmul_w4.cu",
+                                  tpu + "quant_matmul_w4.py:376"),
+        "quant_matmul_w4_head": (quant_matmul_w4_head, "launches", src + "quant_matmul_w4.cu",
+                                 tpu + "quant_matmul_w4.py:124"),
+        "flash_decode_paged": (flash_decode_paged, "launches", src + "flash_decode_paged.cu",
+                               tpu + "flash_decode.py:458"),
+        "flash_chunk_paged": (flash_chunk_paged, "launches", src + "flash_chunk.cu",
+                              tpu + "flash_decode.py:567"),
+        "prefill_attention_flash": (prefill_attention_flash, "launches", src + "prefill_flash.cu",
+                                    tpu + "attention.py:61"),
+        "flash_decode_int4": (flash_decode_stacked, "launches_packed", src + "flash_decode.cu",
+                              tpu + "flash_decode.py:674"),
+        "flash_decode_paged_int4": (flash_decode_paged, "launches_packed",
+                                    src + "flash_decode_paged.cu", tpu + "flash_decode.py:458"),
+        "flash_chunk_paged_int4": (flash_chunk_paged, "launches_packed", src + "flash_chunk.cu",
+                                   tpu + "flash_decode.py:567"),
+        "flash_decode_beam": (flash_decode_beam_stacked, "launches",
+                              src + "flash_decode_beam.cu", tpu + "flash_decode.py:349"),
+        "sliding_window_attention": (sliding_window_attention, "launches",
+                                     src + "sliding_window.cu", tpu + "sliding_window.py:141"),
+        # the int4 instances with fp32 group scales (FTCF_GSCALE_BF16=0),
+        # counted apart and within their wrappers' ``launches``
+        "quant_matmul_w4_group_f32": (quant_matmul_w4_group, "launches_f32",
+                                      src + "quant_matmul_w4.cu", tpu + "quant_matmul_w4.py:376"),
+        "fused_qkv_up_f32": (fused_qkv_up, "launches_f32", src + "quant_matmul_fused.cu",
+                             tpu + "quant_matmul_fused.py:226"),
+        "fused_proj_down_f32": (fused_proj_down, "launches_f32", src + "quant_matmul_fused.cu",
+                                tpu + "quant_matmul_fused.py:360"),
+        "fused_up_proj_down_f32": (fused_up_proj_down, "launches_f32",
+                                   src + "quant_matmul_fused.cu",
+                                   tpu + "quant_matmul_fused.py:571"),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1847,20 +2038,7 @@ def main() -> int:
         return fail(f"the port's package is not beside this script: {e}")
     from fastertransformer4codefuse_tpu_torch.engine import kv_cache
     from fastertransformer4codefuse_tpu_torch.ops import _cuda
-    from fastertransformer4codefuse_tpu_torch.ops.attention import (
-        prefill_attention, prefill_attention_flash,
-    )
-    from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
-        flash_chunk_paged, flash_decode_beam_stacked, flash_decode_paged, flash_decode_stacked,
-    )
-    from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import quant_matmul
-    from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_fused import (
-        fused_proj_down, fused_qkv_up, fused_up_proj_down,
-    )
-    from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_w4 import (
-        quant_matmul_w4, quant_matmul_w4_group, quant_matmul_w4_head,
-    )
-    from fastertransformer4codefuse_tpu_torch.ops.sliding_window import sliding_window_attention
+    from fastertransformer4codefuse_tpu_torch.ops.attention import prefill_attention
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1930,57 +2108,7 @@ def main() -> int:
     if decode_spills:
         return fail(f"decode attention instances spilling: {decode_spills}")
 
-    src = "fastertransformer4codefuse_tpu_torch/csrc/"
-    tpu = "fastertransformer4codefuse_tpu/ops/"
-    # name -> (wrapper, its counter, source, the TPU kernel it replaces: the
-    # line of its pl.pallas_call, or of the library flash_attention call for
-    # K5). A packed-int4 form counts its launches apart (``launches_packed``)
-    # and within the wrapper's ``launches``.
-    kernels = {
-        "quant_matmul": (quant_matmul, "launches", src + "quant_matmul.cu",
-                         tpu + "quant_matmul.py:221"),
-        "fused_up_proj_down": (fused_up_proj_down, "launches", src + "quant_matmul_fused.cu",
-                               tpu + "quant_matmul_fused.py:571"),
-        "fused_proj_down": (fused_proj_down, "launches", src + "quant_matmul_fused.cu",
-                            tpu + "quant_matmul_fused.py:360"),
-        "fused_qkv_up": (fused_qkv_up, "launches", src + "quant_matmul_fused.cu",
-                         tpu + "quant_matmul_fused.py:226"),
-        "flash_decode": (flash_decode_stacked, "launches", src + "flash_decode.cu",
-                         tpu + "flash_decode.py:674"),
-        "quant_matmul_w4": (quant_matmul_w4, "launches", src + "quant_matmul_w4.cu",
-                            tpu + "quant_matmul_w4.py:262"),
-        "quant_matmul_w4_group": (quant_matmul_w4_group, "launches", src + "quant_matmul_w4.cu",
-                                  tpu + "quant_matmul_w4.py:376"),
-        "quant_matmul_w4_head": (quant_matmul_w4_head, "launches", src + "quant_matmul_w4.cu",
-                                 tpu + "quant_matmul_w4.py:124"),
-        "flash_decode_paged": (flash_decode_paged, "launches", src + "flash_decode_paged.cu",
-                               tpu + "flash_decode.py:458"),
-        "flash_chunk_paged": (flash_chunk_paged, "launches", src + "flash_chunk.cu",
-                              tpu + "flash_decode.py:567"),
-        "prefill_attention_flash": (prefill_attention_flash, "launches", src + "prefill_flash.cu",
-                                    tpu + "attention.py:61"),
-        "flash_decode_int4": (flash_decode_stacked, "launches_packed", src + "flash_decode.cu",
-                              tpu + "flash_decode.py:674"),
-        "flash_decode_paged_int4": (flash_decode_paged, "launches_packed",
-                                    src + "flash_decode_paged.cu", tpu + "flash_decode.py:458"),
-        "flash_chunk_paged_int4": (flash_chunk_paged, "launches_packed", src + "flash_chunk.cu",
-                                   tpu + "flash_decode.py:567"),
-        "flash_decode_beam": (flash_decode_beam_stacked, "launches",
-                              src + "flash_decode_beam.cu", tpu + "flash_decode.py:349"),
-        "sliding_window_attention": (sliding_window_attention, "launches",
-                                     src + "sliding_window.cu", tpu + "sliding_window.py:141"),
-        # the int4 instances with fp32 group scales (FTCF_GSCALE_BF16=0),
-        # counted apart and within their wrappers' ``launches``
-        "quant_matmul_w4_group_f32": (quant_matmul_w4_group, "launches_f32",
-                                      src + "quant_matmul_w4.cu", tpu + "quant_matmul_w4.py:376"),
-        "fused_qkv_up_f32": (fused_qkv_up, "launches_f32", src + "quant_matmul_fused.cu",
-                             tpu + "quant_matmul_fused.py:226"),
-        "fused_proj_down_f32": (fused_proj_down, "launches_f32", src + "quant_matmul_fused.cu",
-                                tpu + "quant_matmul_fused.py:360"),
-        "fused_up_proj_down_f32": (fused_up_proj_down, "launches_f32",
-                                   src + "quant_matmul_fused.cu",
-                                   tpu + "quant_matmul_fused.py:571"),
-    }
+    kernels = kernel_table()
     records = {
         n: {"name": n, "route": "cuda", "source": s, "replaces": r, "launches": 0,
             "max_abs_err": 0.0, "ms": None, "plain_ms": None, "bound_ms": None,
@@ -2055,7 +2183,7 @@ def main() -> int:
         return fail(err)
 
     for label, quant in CONFIGS:
-        log(f"phase 4: CodeFuse-13B {label} (40 layers, int8 KV) on the card")
+        log(f"phase 4: CodeFuse-13B {label} ({SERVE_LAYERS[label]} layers, int8 KV) on the card")
         # the long-prompt runs on packed caches and phase 5's pools use the
         # int8 model phase 4 builds
         err = phase_serve(torch, pkg, quant, kernels, launched,
@@ -2071,6 +2199,9 @@ def main() -> int:
     err = phase_cli(torch, pkg, kernels, launched)
     if err:
         return fail(f"checkpoint -> CLI: {err}")
+    err = phase_families(torch, pkg, kernels, launched)
+    if err:
+        return fail(f"decoder families: {err}")
     for n in records:
         records[n]["launches"] = launched[n]
     # K2 is off the served routes: K13 + K3 replace it (phase 2 holds it)
@@ -2092,6 +2223,9 @@ CONFIGS = [
     ("int4 per-channel", dict(weight_bits=4, group_size=0)),
     ("int4 g128", dict(weight_bits=4, group_size=128)),
 ]
+# phase 4's depth of each: the int8 model (phases 4 and 5) at full depth; the
+# int4 ones at 20 of 40 layers, to keep the run within its time with phase 8
+SERVE_LAYERS = {"int8": 40, "int4 per-channel": 20, "int4 g128": 20}
 
 
 def gemm_of(weight_bits, group_size):
@@ -2148,6 +2282,8 @@ def phase_serve(torch, pkg, quant, kernels, launched, then=None):
     from fastertransformer4codefuse_tpu_torch.models.params import param_bytes
 
     cfg = pkg.GptNeoXConfig.codefuse_13b()
+    label = next(n for n, q in CONFIGS if q == quant)
+    cfg = pkg.GptNeoXConfig(**{**cfg.__dict__, "layer_num": SERVE_LAYERS[label]})
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2181,6 +2317,7 @@ def phase_serve(torch, pkg, quant, kernels, launched, then=None):
         prefills += 1
         return out, time.time() - t, engine.decode_forwards
 
+    run([prompt[:100]], 1, top_k=1)  # the first call's set-up is not prefill time
     _, t_pre, _ = run([prompt], 1, top_k=1)
     g1, t1, f1 = run([prompt], 64, top_k=1, return_cum_log_probs=True)
     g2, t2, f2 = run([prompt], 64, top_k=1, return_cum_log_probs=True)
@@ -4266,6 +4403,502 @@ def phase_cli(torch, pkg, kernels, launched, cfg=None, dev="cuda"):
         generate.load_tokenizer, handler_mod.CodeFuseHandler = saved
         pkg.GptNeoXEngine.generate = engine_generate
         shutil.rmtree(path, ignore_errors=True)
+
+
+# The decoder families at their published widths, under the attribute names
+# of their HF config classes (the port's config_from_hf_* read them; no file
+# is read and nothing is fetched): bigcode/starcoder (GPTBigCodeConfig),
+# Qwen/Qwen2.5-Coder-7B (Qwen2Config), codellama/CodeLlama-7b-hf
+# (LlamaConfig), EleutherAI/gpt-j-6b (GPTJConfig), gpt2-xl (GPT2Config),
+# facebook/opt-6.7b (OPTConfig), mistralai/Mixtral-8x7B-v0.1 (MixtralConfig)
+STARCODER = dict(n_embd=6144, n_head=48, n_layer=40, n_inner=24576, n_positions=8192,
+                 vocab_size=49152, multi_query=True, activation_function="gelu_pytorch_tanh",
+                 layer_norm_epsilon=1e-5, bos_token_id=0, eos_token_id=0)
+CODELLAMA_7B = dict(hidden_size=4096, num_attention_heads=32, num_key_value_heads=32,
+                    intermediate_size=11008, num_hidden_layers=32, vocab_size=32016,
+                    rope_theta=1e6, rms_norm_eps=1e-5, hidden_act="silu", bos_token_id=1,
+                    eos_token_id=2)
+INT8 = dict(weight_bits=8, group_size=0)
+# (label, registry family, HF config, weights, pool served beside the static
+# engine: None, or the batcher's keywords)
+FAMILIES = [
+    # StarCoder's pool on int8 pages of 256: a 270-token prompt's third
+    # chunk attends across a page boundary (K10 at g = 48)
+    ("StarCoder", "starcoder", STARCODER, INT8,
+     dict(max_slots=3, max_seq_len=512, prompt_bucket=128,
+          paged=dict(num_pages=7, page_size=256))),
+    ("Qwen2.5-Coder-7B", "qwen2", dict(
+        hidden_size=3584, num_attention_heads=28, num_key_value_heads=4, intermediate_size=18944,
+        num_hidden_layers=28, vocab_size=152064, rope_theta=1e6, rms_norm_eps=1e-6,
+        hidden_act="silu", attention_bias=True, bos_token_id=151643, eos_token_id=151643),
+     INT8, None),
+    ("CodeLlama-7B", "llama", CODELLAMA_7B, INT8, None),
+    ("CodeLlama-7B int4 g128", "llama", CODELLAMA_7B, dict(weight_bits=4, group_size=128), None),
+    ("GPT-J-6B", "gptj", dict(
+        n_embd=4096, n_head=16, n_layer=28, rotary_dim=64, n_inner=None, vocab_size=50400,
+        activation_function="gelu_new", layer_norm_epsilon=1e-5, bos_token_id=50256,
+        eos_token_id=50256), INT8, None),
+    ("GPT-2 XL", "gpt", dict(
+        n_embd=1600, n_head=25, n_layer=48, n_positions=1024, n_inner=None, vocab_size=50257,
+        activation_function="gelu_new", layer_norm_epsilon=1e-5, bos_token_id=50256,
+        eos_token_id=50256), INT8,
+     dict(max_slots=2, max_seq_len=64, prompt_bucket=8, paged=dict(num_pages=17, page_size=8))),
+    ("OPT-6.7B", "opt", dict(
+        hidden_size=4096, num_attention_heads=32, num_hidden_layers=32, ffn_dim=16384,
+        vocab_size=50272, max_position_embeddings=2048, activation_function="relu",
+        do_layer_norm_before=True, word_embed_proj_dim=4096, bos_token_id=2, eos_token_id=2),
+     INT8, None),
+    ("Mixtral-8x7B", "mixtral", dict(
+        hidden_size=4096, num_attention_heads=32, num_key_value_heads=8, intermediate_size=14336,
+        num_hidden_layers=32, vocab_size=32000, num_local_experts=8, num_experts_per_tok=2,
+        rope_theta=1e6, rms_norm_eps=1e-5, hidden_act="silu", bos_token_id=1, eos_token_id=2),
+     INT8, dict(max_slots=2, max_seq_len=64, prompt_bucket=8)),
+]
+FAMILY_PROMPTS = [[5, 9, 3, 17, 2, 40, 41], [11, 4, 90], [30, 31, 32, 33, 34, 35, 36, 37, 38, 39]]
+FAMILY_TOKENS = 8
+# a pool on pages of 256 takes prompts of these lengths (random ids, seed 5):
+# the longest chunked across a page boundary
+LONG_FAMILY_PROMPTS = (270, 9, 140)
+
+
+def family_prompts(pool, vocab):
+    """The prompts of a family check: FAMILY_PROMPTS, or, where the pool's
+    pages are 256 long, LONG_FAMILY_PROMPTS' lengths."""
+    if pool is None or pool.get("paged", {}).get("page_size", 0) < 256:
+        return FAMILY_PROMPTS
+    rng = np.random.default_rng(5)
+    return [rng.integers(0, vocab, n).tolist() for n in LONG_FAMILY_PROMPTS]
+
+
+def family_config(pkg, family, hf, layers=None):
+    """The port's config of a published HF configuration (``hf``, attribute
+    names as HF's config class), through the registry's parser; ``layers``
+    cuts the depth."""
+    import types
+
+    from fastertransformer4codefuse_tpu_torch.models import registry
+
+    cfg = registry.get(family).config_from_hf(types.SimpleNamespace(**hf))
+    if layers:
+        cfg = pkg.GptNeoXConfig(**{**cfg.__dict__, "layer_num": layers})
+    return cfg
+
+
+def family_params(torch, pkg, cfg, hf, seed, device, quant):
+    """Random int8 (or ``quant``) weights and int8 embeddings, as each
+    family's converter lays them out: the learned position table as long as
+    ``n_positions`` (the converters install the checkpoint's whole table);
+    GPT-J with no QKV bias (its q, k and v are bias-free, and the port's
+    converter stores none)."""
+    p = pkg.init_params(cfg, seed=seed, dtype="bf16", int8_mode=1, quantize_embeddings=True,
+                        device=device, **quant)
+    if "pos_embed" in p:
+        rows = hf.get("n_positions") or hf.get("max_position_embeddings")
+        gen = torch.Generator(device=device).manual_seed(seed + 1)
+        p["pos_embed"] = (torch.randn(rows, cfg.hidden_size, device=device, generator=gen)
+                          * 0.01).to(torch.bfloat16)
+    if cfg.rotary_style == "gptj":
+        del p["layers"]["qkv_b"]
+    return p
+
+
+def family_launches(cfg, quant, prefills=0, forwards=0, beam=False, pools=()):
+    """Launches each kernel wrapper must count for ``prefills`` prefills and
+    ``forwards`` decode forwards of a decoder family's static engine, plus
+    the ticks of ``pools``, with every big kernel quantized as ``quant``. A
+    layer whose FFN K13 can compute (parallel residual, ungated, dense:
+    GPT-J) runs K13 and the proj and down GEMMs in a sequence-wide forward
+    (prefill, chunk tick), K13 and K3 in decode; any other layer one GEMM
+    (K1, or K7 for int4 g128) for each of QKV and proj, and for each of
+    up and down (and gate, gated) unless its FFN is an MoE, whose experts
+    are batched products outside the kernels. Attention: K5 in prefill, K4
+    in decode (K11 for beams); on pages K9, and K10 at dh 128 or 256 (other
+    head dims count in ``plain_routes``, as the JAX package takes XLA);
+    dense pools attend chunks in plain PyTorch. The int4 head is K8, one a
+    prefill and a decode forward or tick."""
+    from fastertransformer4codefuse_tpu_torch.ops.flash_decode import chunk_kernel_takes
+
+    L = cfg.layer_num
+    gemm = gemm_of(**quant)
+    fused = cfg.use_gptj_residual and not cfg.gated_ffn and not cfg.moe_experts
+    per_layer = 2 + (0 if cfg.moe_experts else 3 if cfg.gated_ffn else 2)
+    out = {}
+
+    def add(n, c):
+        out[n] = out.get(n, 0) + c
+
+    def forward(n, wide):
+        if fused:
+            add("fused_qkv_up", L * n)
+            add(gemm, 2 * L * n) if wide else add("fused_proj_down", L * n)
+        else:
+            add(gemm, per_layer * L * n)
+
+    forward(prefills, True)
+    forward(forwards, False)
+    add("prefill_attention_flash", L * prefills)
+    add("flash_decode_beam" if beam else "flash_decode", L * forwards)
+    heads = prefills + forwards
+    for b in pools:
+        d, c = b.decode_ticks, b.chunk_ticks
+        forward(c, True)
+        forward(d, False)
+        heads += c + d
+        if b.paged is None:
+            add("flash_decode", L * d)
+        else:
+            add("flash_decode_paged", L * d)
+            add("flash_chunk_paged" if chunk_kernel_takes(cfg.size_per_head) else "plain_routes",
+                L * c)
+    if quant["weight_bits"] == 4:
+        add("quant_matmul_w4_head", heads)
+    return {n: c for n, c in out.items() if c}
+
+
+def family_tokens(pkg, cfg, params, prompts, n, pool=None, runs=None):
+    """Greedy tokens (``n`` a prompt) of ``prompts`` on the params' device
+    over an int8 KV cache: the static engine, or a ContinuousBatcher with
+    the ``pool`` keywords. ``runs`` (a dict) counts the static prefills and
+    decode forwards and keeps the batchers."""
+    from fastertransformer4codefuse_tpu_torch.engine.batcher import ContinuousBatcher
+
+    rt = pkg.RuntimeConfig(dtype="bf16", int8_mode=1, kv_cache_dtype="int8", seq_bucket=8)
+    eng = pkg.GptNeoXEngine(cfg, params, rt)
+    if pool is None:
+        out = eng.generate(prompts, output_len=n, top_k=1)
+        if runs is not None:
+            runs["prefills"] += 1
+            runs["forwards"] += eng.decode_forwards
+        return [list(map(int, r[0][len(p):len(p) + n])) for r, p in zip(out.output_ids, prompts)]
+    cb = ContinuousBatcher(eng, **pool)
+    uids = [cb.submit(prompt=p, output_len=n, top_k=1) for p in prompts]
+    done = cb.run(max_ticks=400)
+    if runs is not None:
+        runs["pools"].append(cb)
+    return [list(map(int, done[u].output_ids[len(p):])) for u, p in zip(uids, prompts)]
+
+
+def family_check(torch, pkg, kernels, launched, label, family, hf, quant, pool):
+    """One decoder family at its published widths and 2 layers, built on
+    the card and copied to the CPU: prefill (B = 2, 64 tokens) and 3
+    teacher-forced decode steps, card logits against the CPU's; greedy
+    tokens of FAMILY_PROMPTS on the static engine and of
+    ``family_prompts`` on (``pool``) a pool, the card's held to the CPU's
+    (``hold_to_cpu``); the launches of every card run exact. An MoE
+    model's card logits and tokens, static and pooled, are also run twice
+    and must be equal bytes. Returns an error or None."""
+    import gc
+
+    from fastertransformer4codefuse_tpu_torch.models.params import param_bytes, params_to
+
+    cfg = family_config(pkg, family, hf, layers=2)
+    t0 = time.time()
+    p_card = family_params(torch, pkg, cfg, hf, 11, "cuda", quant)  # the card's generator: fast
+    p_cpu = params_to(p_card, "cpu")
+    kv = torch.int8
+    zero_counts(kernels)
+    card = []
+    rels = phase_reference(torch, (cfg, p_cpu, p_card), card_logits=card)
+    runs = dict(prefills=0, forwards=0, pools=[])
+    def routes(ids):  # the card's and the CPU's experts on a context (one prefill each)
+        runs["prefills"] += 1
+        return routing_differs(torch, cfg, p_card, p_cpu, ids, kv)
+
+    log_ties, sides = [], [("static", None, FAMILY_PROMPTS)] + (
+        [("pool", pool, family_prompts(pool, cfg.vocab_size))] if pool is not None else [])
+    got = {}
+    for side, kw, prompts in sides:
+        got[side] = family_tokens(pkg, cfg, p_card, prompts, FAMILY_TOKENS, kw, runs)
+        want = family_tokens(pkg, cfg, p_cpu, prompts, FAMILY_TOKENS, kw)
+        err, ties = hold_to_cpu(
+            torch, cfg, p_cpu, kv, prompts, got[side], want, FAMILY_TOKENS,
+            lambda p, n, kw=kw: family_tokens(pkg, cfg, p_card, [p], n, kw, runs)[0],
+            lambda p, n, kw=kw: family_tokens(pkg, cfg, p_cpu, [p], n, kw)[0],
+            routes if cfg.moe_experts else None)
+        if err:
+            return f"{label}: {side} greedy: {err}"
+        log_ties += [f"{side} {t}" for t in ties]
+    same = ""
+    if cfg.moe_experts:
+        again = []
+        phase_reference(torch, (cfg, p_cpu, p_card), card_logits=again)
+        if not all(torch.equal(a, b) for a, b in zip(card, again)) or any(
+                family_tokens(pkg, cfg, p_card, prompts, FAMILY_TOKENS, kw, runs) != got[side]
+                for side, kw, prompts in sides):
+            return f"{label}: two runs on the card differ (the MoE combine must be deterministic)"
+        same = "; two runs on the card: equal bytes (logits) and tokens (static and pool)"
+    torch.cuda.synchronize()
+    forwards = 3 * (2 if cfg.moe_experts else 1) + runs["forwards"]
+    prefills = (2 if cfg.moe_experts else 1) + runs["prefills"]
+    expect = family_launches(cfg, quant, prefills, forwards, pools=runs["pools"])
+    err = check_run_counts(torch, kernels, launched, expect, f"{label}, card runs")
+    log(f"  {label} ({cfg.hidden_size}, {cfg.head_num} x {cfg.size_per_head} on "
+        f"{cfg.kv_heads} KV heads, FFN {cfg.inter_size}"
+        f"{f' x {cfg.moe_experts} experts' if cfg.moe_experts else ''}, vocab "
+        f"{cfg.vocab_size}, {param_bytes(p_card) / 2**30:.2f} GiB at 2 layers; checked in "
+        f"{time.time() - t0:.1f} s): logits after prefill and 3 steps "
+        f"{', '.join(f'{r:.2e}' for r in rels)} (tol 5e-2); greedy == CPU's ("
+        + " and ".join(f"{side}, prompts of {[len(p) for p in prompts]} tokens"
+                       for side, _, prompts in sides) + ")"
+        f"{' (near-ties, then teacher-forced: ' + '; '.join(log_ties) + ')' if log_ties else ''}"
+        f"{same}")
+    del p_cpu, p_card, card
+    gc.collect()
+    torch.cuda.empty_cache()
+    if err:
+        return err
+    if max(rels) >= 5e-2:
+        return f"{label}: card and CPU logits disagree"
+    return None
+
+
+def phase_families(torch, pkg, kernels, launched):
+    """The decoder families: StarCoder at full width and depth
+    (``phase_starcoder``), then the six others at their published widths
+    and 2 layers, card against CPU (``family_check``). Returns an error or
+    None."""
+    err = phase_starcoder(torch, pkg, kernels, launched)
+    if err:
+        return f"StarCoder: {err}"
+    log("phase 8b: decoder families at published widths, 2 layers, card (kernels) vs CPU "
+        "(plain)")
+    for label, family, hf, quant, pool in FAMILIES:
+        err = family_check(torch, pkg, kernels, launched, label, family, hf, quant, pool)
+        if err:
+            return err
+    return None
+
+
+# A full-size pool token may lie this far (a share of max |logits|) below
+# the static program's argmax at its step: the pool attends its chunks by
+# K10 and decodes by K9, the static prefill by K5, and over 40 layers of
+# random weights their roundings part greedy runs at gaps up to 2.28e-2
+# (recorded on the card); 5e-2 is the logits tolerance of every card check.
+POOL_GAP = 5e-2
+STAR_POOL_PROMPTS = (1800, 130, 900, 1500, 400, 1100, 700)
+STAR_POOL_OUTS = (128, 32, 64, 96, 48, 128, 32)
+STAR_ALONE = (1, 4, 6)  # the requests run again alone
+
+
+def static_gaps(torch, engine, context, gen):
+    """Greedy tokens ``gen``, generated after ``context``, against the static
+    program teacher-forced: one prefill (K5) of ``context`` and all of
+    ``gen`` but the last, its logits at each step. Returns each step's gap
+    from its argmax to the token's logit over max |logits| (0 where the
+    token is the argmax)."""
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+
+    cfg, params = engine.config, engine.params
+    ids = list(context) + list(gen[:-1])
+    cache = kv_cache.init_cache(cfg, 1, len(ids), engine._cache_dtype(), "cuda")
+    lens = torch.tensor([len(ids)], dtype=torch.int32, device="cuda")
+    hidden, _ = model.prefill(cfg, params, torch.tensor([ids], device="cuda"), lens, cache)
+    lg = model.lm_logits(cfg, params, hidden[0, len(context) - 1:]).float()
+    toks = torch.tensor(list(gen), device="cuda")[:, None]
+    return ((lg.amax(-1) - lg.gather(1, toks)[:, 0]) / lg.abs().amax(-1)).cpu().numpy()
+
+
+def phase_starcoder(torch, pkg, kernels, launched):
+    """StarCoder (bigcode/starcoder: 6144 wide, 48 query heads on one KV head,
+    40 layers, learned positions of 8192 rows) at full size on the card, int8
+    weights and embeddings, an int8 KV cache, random weights: the engine (a
+    1000-token prompt, 64 greedy tokens x2; B = 4 sampled x2; a 3000-token
+    prompt), the handler, a paged BatchingServer taking 7 greedy requests
+    from threads, and beam search (2 prompts x 4 beams, every hypothesis
+    rescored); each path's launches exact, ``plain_routes`` 0. The pool's
+    requests (STAR_ALONE) must give the same tokens alone as in the mix,
+    and every pool token is held to the static program teacher-forced
+    (``static_gaps``): it must lie within POOL_GAP of max |logits| of that
+    step's argmax. (The 2-layer StarCoder of FAMILIES holds a pool on the
+    same pages to the CPU's, token for token past NEAR_TIE.) Returns an
+    error or None."""
+    import gc
+
+    from fastertransformer4codefuse_tpu_torch.api.handler import CodeFuseHandler
+    from fastertransformer4codefuse_tpu_torch.api.trie import VocabTrie
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.engine.server import BatchingServer
+    from fastertransformer4codefuse_tpu_torch.models.params import param_bytes
+
+    log("phase 8: StarCoder (bigcode/starcoder, 40 layers, full width, int8 weights and KV) on "
+        "the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = family_config(pkg, "starcoder", STARCODER)
+    t0 = time.time()
+    params = family_params(torch, pkg, cfg, STARCODER, 0, "cuda", INT8)
+    torch.cuda.synchronize()
+    log(f"  params {param_bytes(params) / 2**30:.2f} GiB built in {time.time() - t0:.1f} s "
+        f"({cfg.head_num} x {cfg.size_per_head} on {cfg.kv_heads} KV head, FFN "
+        f"{cfg.inter_size}, vocab {cfg.vocab_size}, {params['pos_embed'].shape[0]} positions)")
+    engine = pkg.GptNeoXEngine(
+        cfg, params, pkg.RuntimeConfig(dtype="bf16", int8_mode=1, kv_cache_dtype="int8"))
+    V = cfg.vocab_size
+    rng = np.random.default_rng(21)
+    prompt = rng.integers(0, V, 1000).tolist()
+    zero_counts(kernels)
+    runs = dict(prefills=0, forwards=0)
+
+    def run(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = engine.generate(*a, **kw)
+        torch.cuda.synchronize()
+        runs["forwards"] += engine.decode_forwards
+        runs["prefills"] += 1
+        return out, time.time() - t, engine.decode_forwards
+
+    run([prompt[:100]], 1, top_k=1)  # the first call's set-up is not prefill time
+    _, t_pre, _ = run([prompt], 1, top_k=1)
+    g1, t1, f1 = run([prompt], 64, top_k=1, return_cum_log_probs=True)
+    g2, t2, _ = run([prompt], 64, top_k=1, return_cum_log_probs=True)
+    if not np.array_equal(g1.output_ids, g2.output_ids):
+        return "greedy generation is not deterministic"
+    gen = g1.output_ids[0, 0, 1000:g1.sequence_lengths[0, 0]]
+    if (gen < 0).any() or (gen >= V).any() or not np.isfinite(g1.cum_log_probs).all():
+        return "greedy ids out of range or non-finite logits"
+    step_ms = (min(t1, t2) - t_pre) / max(f1, 1) * 1e3
+    err, off, _ = forced_check(torch, engine, prompt, gen.tolist()[:16])
+    if err:
+        return f"greedy tokens: {err}"
+    runs["prefills"] += 1
+    runs["forwards"] += min(16, len(gen)) - 1
+    lens = [100, 367, 633, 900]
+    prompts = [rng.integers(0, V, n).tolist() for n in lens]
+    kw = dict(top_k=40, top_p=0.9, temperature=0.8, repetition_penalty=1.1,
+              random_seed=[11, 22, 33, 44], return_cum_log_probs=True)
+    _, t_pre4, _ = run(prompts, 1, **kw)
+    s1, ts, fs = run(prompts, 32, **kw)
+    s2, _, _ = run(prompts, 32, **kw)
+    if not np.array_equal(s1.output_ids, s2.output_ids) or not np.isfinite(s1.cum_log_probs).all():
+        return "sampling with per-row seeds is not reproducible"
+    step4_ms = (ts - t_pre4) / max(fs, 1) * 1e3
+    long_prompt = rng.integers(0, V, 3000).tolist()
+    _, t_long, _ = run([long_prompt], 1, top_k=1)
+    l1, _, _ = run([long_prompt], 16, top_k=1)
+    if (l1.output_ids[0, 0, 3000:l1.sequence_lengths[0, 0]] >= V).any():
+        return "3000-token prompt: ids out of range"
+    log(f"  B=1 1000-token prompt, 64 greedy tokens x2: identical (first 16 the concatenated "
+        f"run's argmax{' but near-ties ' + str(off) if off else ''}); prefill "
+        f"{t_pre * 1e3:.1f} ms, decode {step_ms:.2f} ms/step; B=4 ragged {lens}, 32 sampled x2: "
+        f"reproducible, decode {step4_ms:.2f} ms/step; 3000-token prompt: prefill "
+        f"{t_long * 1e3:.1f} ms ({CARD})")
+    tok = ByteTokenizer()
+    handler = CodeFuseHandler(engine=engine, tokenizer=tok, trie=VocabTrie(tok.get_vocab()),
+                              warmup=False)
+    req = {"prompts": [{"prompt": "def fib(n):\n    " * 30, "top_k": 1, "random_seed": 5}],
+           "out_seq_length": 32}
+    answers = []
+    for stream in (False, True):
+        code, msg, res = handler.predict(dict(req, stream=stream), f"star-{int(stream)}")
+        runs["forwards"] += engine.decode_forwards
+        runs["prefills"] += 1
+        if code != 0:
+            return f"handler request failed: {msg}"
+        answers.append(json.loads(res["res"]))
+    if answers[0]["generated_code"] != answers[1]["generated_code"]:
+        return "the streamed handler response differs"
+    log(f"  handler: greedy == streamed, length {answers[0]['length']}")
+    err = check_run_counts(torch, kernels, launched,
+                           family_launches(cfg, INT8, runs["prefills"], runs["forwards"]),
+                           "StarCoder engine and handler")
+    if err:
+        return err
+
+    # the paged pool: 7 greedy requests from threads, 2 arriving late
+    reqs = [(rng.integers(0, V, n).tolist(), o, dict(top_k=1))
+            for n, o in zip(STAR_POOL_PROMPTS, STAR_POOL_OUTS)]
+    zero_counts(kernels)
+    srv = BatchingServer(engine, paged=dict(PAGES), max_slots=8,
+                         max_seq_len=2048, prompt_bucket=128, pipeline_ticks=True)
+    try:
+        res, wall = drive_mix(srv, reqs, late=2)
+        b = srv.batcher
+        err = bad_length(res, reqs, cfg.end_id, V)
+        if err:
+            return f"pool: {err}"
+        torch.cuda.synchronize()
+        gen_n = sum(len(r.output_ids) - len(p) for r, (p, _, _) in zip(res, reqs))
+        err = check_run_counts(torch, kernels, launched, family_launches(cfg, INT8, pools=[b]),
+                               f"StarCoder paged pool ({b.decode_ticks} decode ticks, "
+                               f"{b.chunk_ticks} with a chunk)")
+        if err:
+            return err
+        log(f"  paged pool (8 slots, 64 pages of 256): 7 greedy requests (prompts "
+            f"{min(STAR_POOL_PROMPTS)}-{max(STAR_POOL_PROMPTS)}, outputs {min(STAR_POOL_OUTS)}-"
+            f"{max(STAR_POOL_OUTS)}, 2 arriving late): {gen_n} tokens in {wall:.2f} s = "
+            f"{gen_n / wall:.1f} tokens/s ({CARD})")
+        # requests alone in the pool: their tokens in the mix, bit for bit
+        # (a pool's rows do not depend on the other rows); the three shortest
+        zero_counts(kernels)
+        b.decode_ticks = b.chunk_ticks = 0
+        for i in STAR_ALONE:
+            p, o, kw = reqs[i]
+            if srv.generate(p, o, **kw).output_ids != res[i].output_ids:
+                return f"pool request {i} alone differs from itself inside the mix"
+        err = check_run_counts(torch, kernels, launched, family_launches(cfg, INT8, pools=[b]),
+                               f"StarCoder paged pool, each request alone ({b.decode_ticks} "
+                               f"decode ticks, {b.chunk_ticks} with a chunk)")
+        if err:
+            return err
+        # every pool token against the static program's teacher-forced
+        # logits at its step (a prefill, K5, of the prompt and the tokens)
+        gaps = [static_gaps(torch, engine, p, r.output_ids[len(p):])
+                for r, (p, _, _) in zip(res, reqs)]
+        log(f"  requests {list(STAR_ALONE)} alone == themselves in the mix; each pool token vs "
+            f"the static program's argmax at its step (teacher-forced): "
+            + "; ".join(f"request {i}: {int((g > 0).sum())} of {len(g)} steps off, max gap "
+                        f"{g.max():.2e}" for i, g in enumerate(gaps))
+            + f" (limit {POOL_GAP:g} of max |logits|)")
+        worst = int(np.argmax([g.max() for g in gaps]))
+        if gaps[worst].max() > 0:
+            # the witness: the same request in a pool whose chunk attention
+            # is the plain version (not K10), held the same way
+            p, o, kw = reqs[worst]
+            real = kv_cache.chunk_kernel_takes
+            kv_cache.chunk_kernel_takes = lambda dh: False
+            try:
+                plain = srv.generate(p, o, **kw).output_ids
+            finally:
+                kv_cache.chunk_kernel_takes = real
+            g = static_gaps(torch, engine, p, plain[len(p):])
+            j = next((j - len(p) for j, (x, y) in enumerate(zip(plain, res[worst].output_ids))
+                      if x != y), None)
+            log(f"  witness: request {worst} in a pool whose chunk attention is the plain version "
+                f"({kv_cache.attend_chunk.plain_routes} plain chunk calls): "
+                + ("the K10 pool's tokens" if j is None else
+                   f"parts from the K10 pool's tokens at token {j}")
+                + f"; {int((g > 0).sum())} of {len(g)} steps off the static argmax, max gap "
+                f"{g.max():.2e}")
+        if max(g.max() for g in gaps) >= POOL_GAP:
+            return (f"pool request {worst}: a token lies {gaps[worst].max():.2e} of max |logits| "
+                    f"below the static program's argmax (limit {POOL_GAP:g})")
+    finally:
+        srv.close()
+    # beam search: 2 prompts x 4 beams, 32 tokens, every hypothesis rescored
+    zero_counts(kernels)
+    bprompts = [rng.integers(0, V, n).tolist() for n in (600, 300)]
+    bo = engine.generate(bprompts, 32, beam_width=4, output_log_probs=True)
+    bf = engine.decode_forwards
+    d, n = rescore(torch, engine, bo, bprompts)
+    log(f"  beam search B=2 x 4 beams, 32 tokens: {bf} decode forwards; rescoring of the 8 "
+        f"hypotheses |dlogprob| mean {d.mean():.2e}, max {d.max():.2e} nats per token (limit "
+        f"0.05 mean)")
+    if not np.isfinite(d).all() or d.mean() > 0.05:
+        return "beam search: the hypotheses' log-probs disagree with their rescoring"
+    err = check_run_counts(torch, kernels, launched,
+                           add_counts(family_launches(cfg, INT8, 1, bf, beam=True),
+                                      family_launches(cfg, INT8, n)),
+                           "StarCoder beam search and its rescoring")
+    if err:
+        return err
+    log(f"  StarCoder: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"prefill {t_pre * 1e3:.1f} ms (1000 tokens), {t_long * 1e3:.1f} ms (3000); decode "
+        f"{step_ms:.2f} ms/step at B=1, {step4_ms:.2f} at B=4; pool {gen_n / wall:.1f} "
+        f"tokens/s ({CARD})")
+    return None
 
 
 if __name__ == "__main__":

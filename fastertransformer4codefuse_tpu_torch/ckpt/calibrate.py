@@ -5,15 +5,24 @@ Collect each linear's per-input-channel activation amax on sample prompts,
 grid-search per-channel weight scales that protect the salient channels (s_k
 = (amax_k / geomean)^alpha, alpha against an activation-weighted
 reconstruction error of the quantized weight), and fold the scales exactly
-into the preceding layernorm's affine, so the float forward is unchanged:
-qkv_w (fed by ln1) and up_w (fed by ln2). proj_w and down_w have no
-preceding affine and stay round-to-nearest.
+into the preceding norm's affine, so the float forward is unchanged: qkv_w
+(fed by ln1) and up_w (fed by ln2; under a gated FFN gate_w reads the same
+ln2 output and takes the same scales). proj_w and down_w have no preceding
+affine and stay round-to-nearest.
 
 The JAX recorder patches the model's ``linear`` and keys each call by its
-position in the block (qkv, proj, up, down). The port's fused route computes
-QKV and up in one K13 launch, so its recorder runs the unfused route and
-keys each call by the weight it multiplies (a layer's view of a stacked
-kernel starts at a known address), whatever the call order.
+position in the block (qkv, proj, up, down; qkv, proj, gate, up, down in a
+gated block). The port's fused route computes QKV and up in one K13 launch,
+so its recorder runs the unfused route and keys each call by the weight it
+multiplies (a layer's view of a stacked kernel starts at a known address),
+whatever the call order. MoE blocks are refused, as the JAX package
+refuses them.
+
+The JAX fold (``apply_awq_scaling``) scales up_w and ln2 but not gate_w,
+which changes a gated model's float forward, and reads ln1_b and ln2_b,
+which RMSNorm models lack; the port scales gate_w with up_w, by the scales
+searched on up_w as the JAX function searches them, and folds into the
+norms' biases only where they exist.
 
 Flow:
     stats  = collect_activation_stats(cfg, params, token_batches)
@@ -34,7 +43,8 @@ from ..models import gptneox as model
 from ..models.params import Params, QuantizedTensor
 
 # the linears recorded, by their weight's name
-_RECORDED = {"qkv_w": "qkv", "proj_w": "proj", "up_w": "up", "down_w": "down"}
+_RECORDED = {"qkv_w": "qkv", "proj_w": "proj", "gate_w": "gate", "up_w": "up",
+             "down_w": "down"}
 
 
 def _addr(w) -> int:
@@ -48,6 +58,8 @@ def _record_linear_inputs(config: GptNeoXConfig, params: Params, sink: Dict[str,
     layers = params["layers"]
     where = {}
     for key, name in _RECORDED.items():
+        if key not in layers:
+            continue
         for l in range(config.layer_num):
             where[_addr(layers[key][l])] = (name, l)
     real = model.linear
@@ -77,7 +89,11 @@ def collect_activation_stats(
     """Run the calibration prompts (each batch right-padded with end_id)
     through the unfused prefill on the params' device and keep each linear's
     running per-input-channel amax: {"qkv": [L, H], "proj": [L, H], "up":
-    [L, H], "down": [L, I]} fp32 numpy, one host read at the end."""
+    [L, H], "down": [L, I]} (and "gate": [L, H] in a gated block) fp32
+    numpy, one host read at the end."""
+    if config.moe_experts:
+        raise ValueError("the positional linear-call recorder assumes the dense block's call "
+                         "order; MoE blocks run batched expert einsums it never sees")
     dev = params["final_ln_w"].device
     stats: Dict[str, torch.Tensor] = {}
     for batch in token_batches:
@@ -151,20 +167,22 @@ def apply_awq_scaling(
     n_grid: int = 20,
 ) -> Params:
     """A copy of ``params`` with the AWQ scales folded in, fp-forward exact:
-    qkv_w[l] * s, ln1_{w,b}[l] / s (and up_w with ln2). Quantize afterwards
-    with ``ckpt.quantize.quantize_params``."""
-    layers = dict(params["layers"])
-    for w_key, ln_key, st_key in (("qkv_w", "ln1", "qkv"), ("up_w", "ln2", "up")):
-        w_all = layers[w_key].float().clone()
-        ln_w = layers[f"{ln_key}_w"].float().clone()
-        ln_b = layers[f"{ln_key}_b"].float().clone()
+    qkv_w[l] * s, ln1_{w,b}[l] / s (and up_w with ln2; gate_w takes up_w's
+    s). Quantize afterwards with ``ckpt.quantize.quantize_params``."""
+    src = params["layers"]
+    layers = dict(src)
+    gated = ["gate_w"] if "gate_w" in src else []
+    for w_key, ln_key, st_key, also in (("qkv_w", "ln1", "qkv", []),
+                                        ("up_w", "ln2", "up", gated)):
+        ws = {k: src[k].float().clone() for k in [w_key] + also}
+        lns = {k: src[k].float().clone() for k in (f"{ln_key}_w", f"{ln_key}_b") if k in src}
         for l in range(config.layer_num):
-            s = torch.from_numpy(awq_search_scales(w_all[l], stats[st_key][l], weight_bits,
-                                                   group_size, n_grid)).to(w_all.device)
-            w_all[l] *= s[:, None]
-            ln_w[l] /= s
-            ln_b[l] /= s
-        layers[w_key] = w_all.to(params["layers"][w_key].dtype)
-        layers[f"{ln_key}_w"] = ln_w.to(params["layers"][f"{ln_key}_w"].dtype)
-        layers[f"{ln_key}_b"] = ln_b.to(params["layers"][f"{ln_key}_b"].dtype)
+            s = torch.from_numpy(awq_search_scales(ws[w_key][l], stats[st_key][l], weight_bits,
+                                                   group_size, n_grid)).to(ws[w_key].device)
+            for w in ws.values():
+                w[l] *= s[:, None]
+            for a in lns.values():
+                a[l] /= s
+        for k, v in {**ws, **lns}.items():
+            layers[k] = v.to(src[k].dtype)
     return dict(params, layers=layers)

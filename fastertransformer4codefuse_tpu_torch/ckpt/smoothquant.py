@@ -55,7 +55,10 @@ def apply_smoothquant_scaling(
     ``ckpt.quantize.quantize_params``. Works layer by layer on the params'
     device: a stacked kernel is rebuilt one layer at a time."""
     if config.moe_experts:
-        raise ValueError("SmoothQuant folds dense FFN blocks; MoE expert weights are not covered")
+        raise ValueError(
+            "SmoothQuant folding targets dense FFN blocks; MoE expert weights (egate_w/eup_w) "
+            "are not covered (and the positional calibration recorder does not see MoE's "
+            "batched expert GEMMs)")
     src = params["layers"]
     layers = dict(src)
     groups = [("ln1", ["qkv_w"], "qkv")]

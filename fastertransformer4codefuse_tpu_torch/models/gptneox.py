@@ -12,6 +12,15 @@ the stacked weights and cache without a copy.
 cache (the continuous batcher's chunk tick); ``decode_step``'s ``kv_skip``
 rows write where no row reads (the pool's idle slots).
 
+The decoder families ride the same block through the config's knobs, as in
+the JAX package: RMSNorm, bias-free layers and a QKV-only bias (LLaMA,
+Qwen2, Mixtral), GQA and MQA (``qkv_layout="concat"``), interleaved rotary
+pairs (GPT-J), a gated FFN (SwiGLU: the gate's activation in its GEMM's
+epilogue), an MoE FFN (``ops.moe.moe_ffn``: padding, idle pool rows and
+inactive chunk rows hold no expert capacity) and learned absolute positions
+added after the embedding at each token's absolute position (a chunk's
+start and a prompt-learning offset included).
+
 Routing (``fused=True``, ``RuntimeConfig.fused_decode``): a
 parallel-residual layer whose four big kernels are quantized alike (one bit
 width, one group size: int8, int4, or int4 with group scales) and which has
@@ -20,7 +29,8 @@ projection in one launch: the GEMV at decode widths, the GEMM in prefill and
 chunk ticks), rotary, the cache write and attention; then, in decode, K3
 (proj + down + bias + residual), and in prefill the proj and down GEMMs.
 Every activation of the port is admitted (exact gelu too: the CUDA epilogue
-has erf). Any other layer, and every layer with ``fused=False``, runs
+has erf). A gated or MoE FFN is not K13's act(x @ up) and never takes
+the route. Any other layer, and every layer with ``fused=False``, runs
 unfused GEMMs: K1 (int8), K6 (int4) or K7 (int4 group-wise). The JAX package
 gates group-wise layers and the QKV + up merge out of its fused kernels by
 measurements on a TPU; the port does not copy those gates.
@@ -45,7 +55,8 @@ from ..ops.layernorm import layernorm, rmsnorm
 from ..ops.linear import a8_takes, linear, quantized_matmul_transposed_head
 from ..ops.quant_matmul_fused import fused_proj_down, fused_qkv_up
 from ..ops.rotary import apply_rotary, make_rotary_tables
-from .params import Params, QuantizedTensor, check_supported, layer_slice
+from ..ops.moe import moe_ffn
+from .params import Params, QuantizedTensor, layer_slice
 
 KVCache = dict
 
@@ -67,9 +78,12 @@ def _quantized_alike(ws) -> bool:
 
 def _fused_ok(config: GptNeoXConfig, lp: Dict[str, Any]) -> bool:
     """The layer can run as K13 (qkv + up) then K3 (proj + down + bias +
-    residual)."""
+    residual): K13's second segment is act(x @ up), so a gated or routed FFN
+    cannot take it."""
     return (
         config.use_gptj_residual
+        and not config.gated_ffn
+        and not config.moe_experts
         and _quantized_alike([lp[k] for k in ("qkv_w", "up_w", "proj_w", "down_w")])
         and "down_b" in lp
     )
@@ -116,25 +130,42 @@ def _attention_inputs(config: GptNeoXConfig, lp, x, cos, sin, fused, a8=False):
     return (*_heads(config, qkv.reshape(B, S, -1), cos, sin), h)
 
 
-def _ffn(config: GptNeoXConfig, lp, x, a8=False):
-    """Up with bias and activation, then down; the down bias is added by the
-    caller's residual."""
-    h = linear(x, lp["up_w"], lp.get("up_b"), act=config.activation, act_int8=a8)
+def _ffn(config: GptNeoXConfig, lp, x, a8=False, token_valid=None):
+    """The FFN of ln2's output x [B, S, H]; the down bias is added by the
+    caller's residual. Dense: up with bias and activation, then down; gated
+    (SwiGLU): act(x @ gate + gate_b) * (x @ up + up_b), then down, the
+    activation in the gate's epilogue; MoE: ``ops.moe.moe_ffn`` over the
+    B * S rows, ``token_valid`` [B, S] keeping padding and idle rows out of
+    the experts' capacity."""
+    if config.moe_experts:
+        B, S, H = x.shape
+        y = moe_ffn(x.reshape(-1, H), lp["router_w"], lp.get("egate_w"), lp["eup_w"],
+                    lp["edown_w"], config.moe_top_k, config.moe_capacity_factor,
+                    act=config.activation,
+                    valid=None if token_valid is None else token_valid.reshape(-1))
+        return y.reshape(B, S, H)
+    if config.gated_ffn:
+        g = linear(x, lp["gate_w"], lp.get("gate_b"), act=config.activation, act_int8=a8)
+        h = g * linear(x, lp["up_w"], lp.get("up_b"), act_int8=a8)
+    else:
+        h = linear(x, lp["up_w"], lp.get("up_b"), act=config.activation, act_int8=a8)
     return linear(h, lp["down_w"], act_int8=a8)
 
 
-def _residual(config, lp, x, attn_out, h=None, a8=False):
+def _residual(config, lp, x, attn_out, h=None, a8=False, token_valid=None):
     """The block output from its input x and the projected attention; ``h``:
-    the activated up projection the fused route already computed."""
+    the activated up projection the fused route already computed;
+    ``token_valid``: the rows an MoE FFN routes."""
     if config.use_gptj_residual:
         if h is None:
-            ffn = _ffn(config, lp, _norm(config, x, lp["ln2_w"], lp.get("ln2_b")), a8)
+            ffn = _ffn(config, lp, _norm(config, x, lp["ln2_w"], lp.get("ln2_b")), a8,
+                       token_valid)
         else:
             ffn = linear(h.reshape(x.shape[:-1] + h.shape[-1:]), lp["down_w"], act_int8=a8)
         return _addb(x + attn_out + ffn, lp.get("down_b"))
     h = _addb(x + attn_out, lp.get("proj_b"))
     ln2 = _norm(config, h, lp["ln2_w"], lp.get("ln2_b"))
-    return _addb(h + _ffn(config, lp, ln2, a8), lp.get("down_b"))
+    return _addb(h + _ffn(config, lp, ln2, a8, token_valid), lp.get("down_b"))
 
 
 def block_prefill(config, lp, x, cache, layer, cos, sin, input_lengths, fused=True, a8=False):
@@ -149,7 +180,10 @@ def block_prefill(config, lp, x, cache, layer, cos, sin, input_lengths, fused=Tr
     kvc.write_prefill(cache, layer, k, v)
     attn = prefill_attention(q, k, v, None, sm_scale, input_lengths)
     attn_out = linear(attn.reshape(B, S, H), lp["proj_w"], act_int8=a8)
-    return _residual(config, lp, x, attn_out, h, a8), cache
+    tv = None
+    if config.moe_experts:  # padding stays out of the experts' capacity
+        tv = torch.arange(S, device=x.device)[None, :] < input_lengths[:, None]
+    return _residual(config, lp, x, attn_out, h, a8, tv), cache
 
 
 def block_decode(config, lp, x, cache, layer, cos, sin, positions, kv_skip=None,
@@ -171,7 +205,10 @@ def block_decode(config, lp, x, cache, layer, cos, sin, positions, kv_skip=None,
                               lp["down_b"], x[:, 0], bits=proj.bits, group_size=proj.group_size)
         return out[:, None, :], cache
     attn_out = linear(attn.reshape(B, 1, H), lp["proj_w"])
-    return _residual(config, lp, x, attn_out), cache
+    tv = None
+    if config.moe_experts and kv_skip is not None:  # idle pool rows route nowhere
+        tv = (~kv_skip)[:, None]
+    return _residual(config, lp, x, attn_out, token_valid=tv), cache
 
 
 def block_prefill_chunk(config, lp, x, cache, layer, cos, sin, pos, valid, active, fused=True,
@@ -189,7 +226,8 @@ def block_prefill_chunk(config, lp, x, cache, layer, cos, sin, pos, valid, activ
     kvc.write_chunk(cache, layer, k, v, pos, active)
     attn = kvc.attend_chunk(cache, layer, q, valid, sm_scale, positions=pos)
     attn_out = linear(attn.reshape(B, C, H), lp["proj_w"], act_int8=a8)
-    return _residual(config, lp, x, attn_out, h, a8), cache
+    tv = active[:, None].expand(B, C) if config.moe_experts else None
+    return _residual(config, lp, x, attn_out, h, a8, tv), cache
 
 
 def _embed_lookup(params: Params, ids: torch.Tensor) -> torch.Tensor:
@@ -199,6 +237,26 @@ def _embed_lookup(params: Params, ids: torch.Tensor) -> torch.Tensor:
         x = e.q[ids].float() * e.scale[ids].float()[..., None]
         return x.to(params["final_ln_w"].dtype)
     return e[ids]
+
+
+def _add_pos_embed(config: GptNeoXConfig, params: Params, x, positions, bound: int):
+    """Add the learned absolute position rows (GPT-2, OPT, StarCoder) at
+    ``positions`` ([S] shared by the batch, or [B, S]); ``bound``: the most
+    positions this call's cache holds, which the table must cover (the JAX
+    package asserts it: a gather past the table would clamp to its last
+    row)."""
+    if config.position_embedding != "learned":
+        return x
+    table = params["pos_embed"]
+    if bound > table.shape[0]:
+        raise ValueError(
+            f"a cache of {bound} positions exceeds the learned position table "
+            f"({table.shape[0]} rows): this model cannot serve contexts beyond its trained "
+            "n_positions")
+    pe = table[positions]
+    if pe.ndim == x.ndim - 1:  # [S, H] shared across the batch
+        pe = pe[None]
+    return x + pe.to(x.dtype)
 
 
 def prefill(
@@ -213,10 +271,10 @@ def prefill(
     """Full-prompt forward: (hidden [B, S, H], cache with [0, S) filled).
     ``fused``: QKV and up through K13 (``RuntimeConfig.fused_decode``);
     ``a8``: W8A8 GEMMs (``RuntimeConfig.act_int8``)."""
-    check_supported(config)
     B, S = input_ids.shape
     dev = input_ids.device
     x = _embed_lookup(params, input_ids)
+    x = _add_pos_embed(config, params, x, torch.arange(S, device=dev), bound=S)
     cos, sin = make_rotary_tables(S, config.rotary_embedding_dim, config.rotary_base, dev)
     layers = params["layers"]
     for l in range(config.layer_num):
@@ -243,9 +301,9 @@ def decode_step(
     rows are beam-minor hypotheses whose attention resolves the cache
     indirection (the beam search's fixed cache). ``fused`` allows the K13 +
     K3 route (``RuntimeConfig.fused_decode``)."""
-    check_supported(config)
     cache_len = kvc.seq_len_of(cache)
     x = _embed_lookup(params, tokens)[:, None, :]
+    x = _add_pos_embed(config, params, x, positions.long()[:, None], bound=cache_len)
     if rotary_tables is None:
         rotary_tables = make_rotary_tables(
             cache_len, config.rotary_embedding_dim, config.rotary_base, tokens.device
@@ -276,7 +334,6 @@ def prefill_chunk(
     (hidden [B, C, H], cache). ``fused``: QKV and up through K13; ``a8``:
     W8A8 GEMMs; ``embeds``: the chunk's embeddings, in place of the token
     lookup (``tokens_chunk`` then only gives C)."""
-    check_supported(config)
     B, C = tokens_chunk.shape
     S = kvc.seq_len_of(cache)
     dev = tokens_chunk.device
@@ -285,6 +342,7 @@ def prefill_chunk(
         rotary_tables = make_rotary_tables(S, config.rotary_embedding_dim, config.rotary_base, dev)
     cos_t, sin_t = rotary_tables
     posc = torch.clamp(pos.long()[:, None] + torch.arange(C, device=dev)[None, :], 0, S - 1)
+    x = _add_pos_embed(config, params, x, posc, bound=S)
     cos, sin = cos_t[posc], sin_t[posc]  # [B, C, rot/2]
     # query at position pos + c sees keys at positions <= pos + c
     valid = torch.arange(S, device=dev)[None, None, :] <= posc[:, :, None]  # [B, C, S]
@@ -300,10 +358,10 @@ def final_norm(config: GptNeoXConfig, params: Params, hidden):
 
 
 def lm_logits(config: GptNeoXConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """fp32 logits, padded vocab ids sliced off. The transposed int4 head
-    [H/2, V_pad] (k_axis 0) goes to K8; the int8 [V, H] head with per-row
-    scales, or a dense head, is a plain fp32 matmul, as the JAX package
-    leaves it to XLA."""
+    """fp32 logits, padded vocab ids sliced off, plus ``lm_head_b`` where the
+    family has one (GPT-J). The transposed int4 head [H/2, V_pad] (k_axis 0)
+    goes to K8; the int8 [V, H] head with per-row scales, or a dense head, is
+    a plain fp32 matmul, as the JAX package leaves it to XLA."""
     h = final_norm(config, params, hidden)
     h2 = h.reshape(-1, h.shape[-1])
     w = params["lm_head"]
@@ -316,6 +374,8 @@ def lm_logits(config: GptNeoXConfig, params: Params, hidden: torch.Tensor) -> to
     else:
         logits = h2.float() @ w.t().float()
     logits = logits[:, : config.vocab_size]
+    if "lm_head_b" in params:  # GPT-J's head carries a bias
+        logits = logits + params["lm_head_b"].float()[None, :]
     return logits.reshape(h.shape[:-1] + (config.vocab_size,))
 
 

@@ -9,8 +9,13 @@ a copy.
   qkv_w  [L, H, (nH + 2 nKV) dh]   qkv_b  [L, (nH + 2 nKV) dh]
   proj_w [L, nH dh, H]             proj_b [L, H] (serial residual only)
   up_w   [L, H, I]                 up_b   [L, I]
+  gate_w [L, H, I]                 (gated FFN, SwiGLU: act(x @ gate) * (x @ up))
   down_w [L, I, H]                 down_b [L, H] (attention + FFN bias summed
                                                   under the parallel residual)
+  MoE (Mixtral) in place of up/gate/down: router_w [L, H, E], eup_w /
+  egate_w [L, E, H, I], edown_w [L, E, I, H], float, no expert biases.
+  pos_embed [P, H] (learned absolute positions, GPT-2 / OPT / StarCoder);
+  lm_head_b [V] (GPT-J's head bias).
 
 With ``int8_mode=1`` the four big kernels are ``QuantizedTensor``s: an int8
 payload in the logical shape with fp32 per-output-channel scales, or
@@ -98,14 +103,6 @@ Params = Dict[str, Any]
 LM_HEAD_INT4_TILE = 2560
 
 
-def check_supported(config: GptNeoXConfig) -> None:
-    """Raise for architecture knobs of families this port does not serve yet."""
-    if config.moe_experts or config.gated_ffn or config.position_embedding != "rope":
-        raise NotImplementedError(
-            "MoE, gated-FFN and learned-position families are ROADMAP queue 1 item 17"
-        )
-
-
 def init_params(
     config: GptNeoXConfig,
     seed: int = 0,
@@ -129,12 +126,15 @@ def init_params(
     int8 with per-row scales, and the LM head int8 [V, H] with per-row scales
     or, at ``weight_bits=4``, the transposed packed int4 head [H/2, V_pad]
     (``k_axis=-2``, V padded to a multiple of 2560, per-column fp32 scales).
-    The numbers differ from the JAX package's (another generator): parity
-    tests share weights through ``from_jax_params``.
+    The keys follow the config as in the JAX package: ``gate_w`` (a gated
+    FFN) quantized like ``up_w``; MoE experts (``router_w``, ``eup_w``,
+    ``egate_w``, ``edown_w``) float and bias-free; a learned position table
+    ``pos_embed`` of 2048 rows (the JAX package's) with std 0.01. The
+    numbers differ from the JAX package's (another generator): parity tests
+    share weights through ``from_jax_params``.
     """
     if weight_bits not in (8, 4):
         raise ValueError(f"weight_bits must be 8 or 4, got {weight_bits}")
-    check_supported(config)
     dtype = torch_dtype(dtype)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -143,9 +143,12 @@ def init_params(
     )
     nHdh = config.head_num * config.size_per_head
 
-    def dense(shape):
+    def dense_std(shape, sd):
         out = torch.empty(shape, dtype=torch.float32, device=device)
-        return out.normal_(0.0, std, generator=gen).to(dtype)
+        return out.normal_(0.0, sd, generator=gen).to(dtype)
+
+    def dense(shape):
+        return dense_std(shape, std)
 
     def rand_i8(shape):
         out = torch.empty(shape, dtype=torch.int8, device=device)
@@ -185,17 +188,28 @@ def init_params(
         "qkv_w": maybe_quant((L, H, config.qkv_cols)),
         "proj_w": maybe_quant((L, nHdh, H)),
         "ln2_w": ones((L, H)),
-        "up_w": maybe_quant((L, H, I)),
-        "down_w": maybe_quant((L, I, H)),
     }
+    if config.moe_experts:
+        E = config.moe_experts
+        layers["router_w"] = dense((L, H, E))
+        layers["eup_w"] = dense((L, E, H, I))
+        layers["edown_w"] = dense((L, E, I, H))
+        if config.gated_ffn:
+            layers["egate_w"] = dense((L, E, H, I))
+    else:
+        layers["up_w"] = maybe_quant((L, H, I))
+        layers["down_w"] = maybe_quant((L, I, H))
+        if config.gated_ffn:
+            layers["gate_w"] = maybe_quant((L, H, I))
     if config.norm != "rmsnorm":
         layers["ln1_b"] = zeros((L, H))
         layers["ln2_b"] = zeros((L, H))
     if config.use_bias or config.qkv_bias:
         layers["qkv_b"] = zeros((L, config.qkv_cols))
     if config.use_bias:
-        layers["up_b"] = zeros((L, I))
-        layers["down_b"] = zeros((L, H))
+        if not config.moe_experts:  # expert FFNs are bias-free
+            layers["up_b"] = zeros((L, I))
+            layers["down_b"] = zeros((L, H))
         if not config.use_gptj_residual:
             layers["proj_b"] = zeros((L, H))
 
@@ -222,6 +236,8 @@ def init_params(
     }
     if config.norm != "rmsnorm":
         out["final_ln_b"] = zeros((H,))
+    if config.position_embedding == "learned":
+        out["pos_embed"] = dense_std((2048, H), 0.01)
     return out
 
 

@@ -3,9 +3,12 @@ config parser, a parameter converter and the model functions its engine
 drives.
 
 Registered here: ``gptneox`` (the CodeFuse path, with the HF converters of
-``ckpt/convert.py``), and the encoders ``bert`` and ``longformer``. The
-JAX package's other families are ROADMAP items 17 (decoders) and 18
-(encoders, encoder-decoders, vision and audio), and ``get`` refuses them.
+``ckpt/convert.py``); the decoder families on the same graph, under the JAX
+package's names, each with its converter under ``ckpt/``: ``llama``,
+``qwen2``, ``gpt`` (GPT-2), ``opt``, ``starcoder``, ``gptj`` and
+``mixtral`` (``make_engine`` builds a ``GptNeoXEngine``); and the encoders
+``bert`` and ``longformer``. The JAX package's encoder-decoder, vision and
+audio families are ROADMAP item 18, and ``get`` refuses them.
 """
 from __future__ import annotations
 
@@ -47,7 +50,16 @@ def families() -> Dict[str, ModelFamily]:
 
 
 def _register_builtin() -> None:
-    from ..ckpt import convert
+    from ..ckpt import (
+        convert,
+        convert_gpt2,
+        convert_gptj,
+        convert_llama,
+        convert_mixtral,
+        convert_opt,
+        convert_qwen2,
+        convert_starcoder,
+    )
     from ..core.config import GptNeoXConfig
     from . import bert, gptneox, longformer
 
@@ -56,20 +68,37 @@ def _register_builtin() -> None:
 
         return GptNeoXEngine(cfg, params, **kw)
 
-    register(
-        ModelFamily(
-            name="gptneox",
-            config_from_ini=GptNeoXConfig.from_ini,
-            config_from_hf=convert.config_from_hf,
-            params_from_hf=lambda cfg, sd, dtype="fp32", device=None: (
-                convert.params_from_hf_state_dict(cfg, sd, dtype, device)
-            ),
-            prefill=gptneox.prefill,
-            decode_step=gptneox.decode_step,
-            lm_logits=gptneox.lm_logits,
-            make_engine=gptneox_engine,
+    # name -> (HF config parser, HF state-dict converter): every decoder
+    # family runs the GPT-NeoX graph and its engine
+    decoders = {
+        "gptneox": (convert.config_from_hf, convert.params_from_hf_state_dict),
+        "llama": (convert_llama.config_from_hf_llama,
+                  convert_llama.params_from_hf_llama_state_dict),
+        "gpt": (convert_gpt2.config_from_hf_gpt2, convert_gpt2.params_from_hf_gpt2_state_dict),
+        "mixtral": (convert_mixtral.config_from_hf_mixtral,
+                    convert_mixtral.params_from_hf_mixtral_state_dict),
+        "opt": (convert_opt.config_from_hf_opt, convert_opt.params_from_hf_opt_state_dict),
+        "starcoder": (convert_starcoder.config_from_hf_starcoder,
+                      convert_starcoder.params_from_hf_starcoder_state_dict),
+        "qwen2": (convert_qwen2.config_from_hf_qwen2,
+                  convert_qwen2.params_from_hf_qwen2_state_dict),
+        "gptj": (convert_gptj.config_from_hf_gptj, convert_gptj.params_from_hf_gptj_state_dict),
+    }
+    for name, (config_from_hf, params_from_hf) in decoders.items():
+        register(
+            ModelFamily(
+                name=name,
+                config_from_ini=GptNeoXConfig.from_ini,
+                config_from_hf=config_from_hf,
+                params_from_hf=lambda cfg, sd, dtype="fp32", device=None, _f=params_from_hf: (
+                    _f(cfg, sd, dtype, device)
+                ),
+                prefill=gptneox.prefill,
+                decode_step=gptneox.decode_step,
+                lm_logits=gptneox.lm_logits,
+                make_engine=gptneox_engine,
+            )
         )
-    )
     register(
         ModelFamily(
             name="longformer",  # sliding-window + global attention encoder

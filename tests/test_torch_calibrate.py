@@ -140,3 +140,76 @@ def test_awq_then_quantize_generates_the_jax_tokens(setup, G):
                                                                top_k=1)
     assert int(got.sequence_lengths[0, 0]) >= 4
     np.testing.assert_array_equal(got.output_ids, np.asarray(want.output_ids))
+
+
+def _gated(**over):
+    jcfg = JaxConfig.tiny(vocab_size=96, gated_ffn=True, activation="silu", **over)
+    cfg = GptNeoXConfig(**{f.name: getattr(jcfg, f.name)
+                           for f in dataclasses.fields(GptNeoXConfig)})
+    jp = jax_init_params(jcfg, dtype="fp32")
+    return jcfg, cfg, jp, from_jax_params(jp, device="cpu")
+
+
+def _prefill_logits(cfg, p, ids):
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache as kvc
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as tm
+
+    B, S = ids.shape
+    h, _ = tm.prefill(cfg, p, torch.from_numpy(ids), torch.full((B,), S, dtype=torch.int32),
+                      kvc.init_cache(cfg, B, S, torch.float32, "cpu"))
+    return tm.lm_logits(cfg, p, h).numpy()
+
+
+@pytest.mark.parametrize("norm", ["layernorm", "rmsnorm"])
+def test_gated_stats_match_jax(norm):
+    """A gated block makes five linear calls (qkv, proj, gate, up, down, JAX
+    ``_BLOCK_CALL_ORDER_GATED``): the port records the gate too, and gate
+    and up read the same ln2 output."""
+    over = {} if norm == "layernorm" else dict(norm="rmsnorm", use_bias=False,
+                                               use_gptj_residual=False)
+    jcfg, cfg, jp, tp = _gated(**over)
+    js = jcal.collect_activation_stats(jcfg, jp, BATCHES, jnp.float32)
+    ts = tcal.collect_activation_stats(cfg, tp, BATCHES, torch.float32)
+    assert set(ts) == set(js) == {"qkv", "proj", "gate", "up", "down"}
+    for k in js:
+        np.testing.assert_allclose(ts[k], js[k], rtol=1e-5, atol=1e-7)
+    np.testing.assert_array_equal(ts["gate"], ts["up"])
+
+
+def test_gated_awq_fold_is_fp_exact_where_the_jax_fold_is_not():
+    """The JAX fold (``apply_awq_scaling``) scales up_w and ln2 but not
+    gate_w, which reads the same ln2 output: a gated model's float forward
+    moves. The port scales gate_w by up_w's scales: its qkv, up and norm
+    tensors are the JAX fold's, its gate_w the JAX one times those scales,
+    and its logits the unfolded model's within 2e-4 where the JAX fold's
+    part by more than 1e-2 of max |logits|."""
+    jcfg, cfg, jp, tp = _gated()
+    st = jcal.collect_activation_stats(jcfg, jp, BATCHES, jnp.float32)
+    got = tcal.apply_awq_scaling(cfg, tp, st, weight_bits=4)
+    want = jcal.apply_awq_scaling(jcfg, jp, st, weight_bits=4)
+    for k in ("qkv_w", "up_w", "ln1_w", "ln1_b", "ln2_w", "ln2_b"):
+        np.testing.assert_allclose(got["layers"][k].numpy(), np.asarray(want["layers"][k]),
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
+    s = np.asarray(jp["layers"]["ln2_w"]) / np.asarray(want["layers"]["ln2_w"])  # [L, H]
+    np.testing.assert_allclose(got["layers"]["gate_w"].numpy(),
+                               np.asarray(jp["layers"]["gate_w"]) * s[:, :, None], rtol=1e-5,
+                               atol=1e-7)
+    ids = np.random.RandomState(2).randint(2, 90, size=(2, 9)).astype(np.int32)
+    ref = _prefill_logits(cfg, tp, ids)
+    np.testing.assert_allclose(_prefill_logits(cfg, got, ids), ref, atol=2e-4, rtol=1e-4)
+    jax_fold = _prefill_logits(cfg, from_jax_params(want, device="cpu"), ids)
+    assert np.abs(jax_fold - ref).max() / np.abs(ref).max() > 1e-2
+
+
+def test_gated_rmsnorm_awq_fold_is_fp_exact():
+    """RMSNorm has no norm biases (the JAX fold reads ln1_b and fails): the
+    port folds into the weights alone, fp-exact."""
+    jcfg, cfg, jp, tp = _gated(norm="rmsnorm", use_bias=False, use_gptj_residual=False)
+    st = tcal.collect_activation_stats(cfg, tp, BATCHES, torch.float32)
+    with pytest.raises(KeyError):
+        jcal.apply_awq_scaling(jcfg, jp, st, weight_bits=4)
+    got = tcal.apply_awq_scaling(cfg, tp, st, weight_bits=4, group_size=16)
+    assert "ln1_b" not in got["layers"]
+    ids = np.random.RandomState(2).randint(2, 90, size=(2, 9)).astype(np.int32)
+    np.testing.assert_allclose(_prefill_logits(cfg, got, ids), _prefill_logits(cfg, tp, ids),
+                               atol=2e-4, rtol=1e-4)

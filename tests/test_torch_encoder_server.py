@@ -156,8 +156,11 @@ def test_registry_holds_the_ported_families_only():
     from fastertransformer4codefuse_tpu_torch.engine.engine import GptNeoXEngine
     from fastertransformer4codefuse_tpu_torch.models import gptneox
 
-    assert set(registry.families()) == {"gptneox", "bert", "longformer"}
-    with pytest.raises(KeyError, match="registered: \\['bert', 'gptneox', 'longformer'\\]"):
+    assert set(registry.families()) == {"gptneox", "llama", "qwen2", "gpt", "opt", "starcoder",
+                                        "gptj", "mixtral", "bert", "longformer"}
+    with pytest.raises(KeyError, match="registered: \\['bert', 'gpt', 'gptj', 'gptneox', "
+                                       "'llama', 'longformer', 'mixtral', 'opt', 'qwen2', "
+                                       "'starcoder'\\]"):
         registry.get("t5")
     fam = registry.get("gptneox")
     assert fam.prefill is gptneox.prefill and fam.decode_step is gptneox.decode_step

@@ -1257,3 +1257,74 @@ def test_int4_fp32_group_scales_equal_bf16_on_bf16_values(gen, M):
     y32 = fused_qkv_up(x, x2, w, w2, s.float(), s2.float(), b, b, None, "gelu-tanh", 4, G)
     torch.cuda.synchronize()
     assert torch.equal(a16, a32) and torch.equal(_cat(y16), _cat(y32))
+
+
+# The decoder families' widths (chip_smoke.py phase_families serves them):
+# GPT-2 XL's 1600 -> 4800 (QKV) and 6400 -> 1600 (down), off multiples of
+# 128; Qwen2.5-Coder-7B's 28 query heads on 4 KV heads (g = 7); GPT-J's 16
+# heads of 256 and its K13 with no QKV bias (4096 -> 12288 + 16384).
+@pytest.mark.parametrize("M", [1, 4, 33, 130, 512])
+@pytest.mark.parametrize("K,N", [(1600, 4800), (6400, 1600), (1600, 6400), (1600, 1600)])
+def test_k1_at_gpt2_xl_widths(gen, M, K, N):
+    x, w, s = _bf(gen, M, K), _i8(gen, K, N), _scale(gen, N)
+    b = _bf(gen, N, std=0.1)
+    got = quant_matmul(x, w, s, b, "gelu-tanh")
+    assert got.shape == (M, N)
+    assert _rel(got, quant_matmul_plain(x, w, s, b, "gelu-tanh")) < 1e-2
+
+
+@pytest.mark.parametrize("B,S,nH,nKV,dh,lens", [
+    (2, 300, 28, 4, 128, [300, 77]), (1, 257, 28, 4, 128, [257]),
+    (2, 300, 16, 16, 256, [300, 129]), (1, 65, 16, 16, 256, [65]),
+    (2, 200, 48, 1, 128, [200, 3]), (1, 300, 25, 25, 64, [300])])
+def test_k5_at_family_shapes(gen, B, S, nH, nKV, dh, lens):
+    q, k, v = _bf(gen, B, S, nH, dh), _bf(gen, B, S, nKV, dh), _bf(gen, B, S, nKV, dh)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = prefill_attention_flash(q, k, v, ln, dh ** -0.5)
+    assert _rel(got, prefill_attention_flash_plain(q, k, v, ln, dh ** -0.5)) < 2e-2
+
+
+@pytest.mark.parametrize("quant", [True, False])
+@pytest.mark.parametrize("B,nH,nKV,dh,S", [(4, 28, 4, 128, 300), (1, 28, 4, 128, 1100),
+                                            (4, 16, 16, 256, 300), (2, 25, 25, 64, 600),
+                                            (4, 32, 8, 128, 300)])
+def test_k4_at_family_shapes(gen, quant, B, nH, nKV, dh, S):
+    test_k4_matches_plain(gen, B, nH, nKV, dh, S, quant)
+
+
+@pytest.mark.parametrize("C", [8, 128])
+@pytest.mark.parametrize("B,nH,nKV,dh,ps,n_pg,quant", [
+    (2, 48, 1, 128, 256, 3, True), (2, 28, 4, 128, 256, 3, True), (2, 16, 16, 256, 128, 3, True),
+    (2, 48, 1, 128, 16, 40, False)])
+def test_k10_at_family_shapes(gen, C, B, nH, nKV, dh, ps, n_pg, quant):
+    """StarCoder's MQA (48 query heads on one KV head), Qwen2.5-Coder's g = 7
+    and GPT-J's 16 x 256 in chunked prefill over pages."""
+    test_k10_matches_plain(gen, C, B, nH, nKV, dh, ps, n_pg, quant)
+
+
+@pytest.mark.parametrize("B,nH,nKV,dh,ps,n_pg,quant", [
+    (3, 48, 1, 128, 256, 3, True), (3, 28, 4, 128, 16, 20, True), (2, 25, 25, 64, 8, 9, True),
+    (2, 16, 16, 256, 256, 2, False)])
+def test_k9_at_family_shapes(gen, B, nH, nKV, dh, ps, n_pg, quant):
+    test_k9_matches_plain(gen, B, nH, nKV, dh, ps, n_pg, quant)
+
+
+@pytest.mark.parametrize("M", [1, 4, 130])
+def test_k13_without_a_qkv_bias_at_gptj_widths(gen, M):
+    """GPT-J's K13 (QKV 4096 -> 12288 with no bias, up 4096 -> 16384 with
+    its bias and tanh-gelu) and K3 (proj 4096 -> 4096, down 16384 -> 4096,
+    fc_out's bias, the residual)."""
+    H, F = 4096, 16384
+    x1, x2 = _bf(gen, M, H), _bf(gen, M, H)
+    w1, w2, s1, s2 = _i8(gen, H, 3 * H), _i8(gen, H, F), _scale(gen, 3 * H), _scale(gen, F)
+    b2 = _bf(gen, F, std=0.1)
+    args = (x1, x2, w1, w2, s1, s2, None, b2, None, "gelu-tanh", 8, 0)
+    y1, y2 = fused_qkv_up(*args)
+    r1, r2 = fused_qkv_up_plain(*args)
+    assert _rel(torch.cat([y1, y2], 1), torch.cat([r1, r2], 1)) < 1e-2
+    assert torch.equal(y1, quant_matmul(x1, w1, s1))  # K1's arithmetic, no bias
+    if M <= 32:
+        w_p, w_d, s_p, s_d = _i8(gen, H, H), _i8(gen, F, H), _scale(gen, H), _scale(gen, H)
+        a, h, res, b_d = _bf(gen, M, H), (r2 * 0.5).contiguous(), _bf(gen, M, H), _bf(gen, H)
+        k3 = fused_proj_down(a, h, w_p, w_d, s_p, s_d, b_d, res)
+        assert _rel(k3, fused_proj_down_plain(a, h, w_p, w_d, s_p, s_d, b_d, res)) < 1e-2

@@ -1,9 +1,9 @@
 """SmoothQuant W8A8 in the port (fastertransformer4codefuse_tpu_torch/ckpt/
 smoothquant.py, ops/linear.w8a8_matmul and the ``RuntimeConfig.act_int8``
 routes of models/gptneox.py) against the JAX package, on the cases of
-tests/test_smoothquant.py (the ``gated`` fold included, compared tensor for
-tensor: the port's forward refuses gated FFNs until ROADMAP item 17), and two
-of the port's own: the flag is per engine (no process-wide state leaks from
+tests/test_smoothquant.py (the ``gated`` fold included: tensor for tensor,
+then fp-exact through the port's gated forward; and an ``act_int8`` gated
+engine against the JAX one), and two of the port's own: the flag is per engine (no process-wide state leaks from
 one engine to the next), and which calls take W8A8 (sequence-wide, at least
 16 rows, int8 per-channel weights: prefill, chunk ticks, wide verifies; never
 decode, int4 or group-wise weights).
@@ -97,8 +97,6 @@ def test_smoothquant_fold_is_fp_exact_and_matches_jax(gated):
     for k, v in want["layers"].items():
         np.testing.assert_allclose(got["layers"][k].numpy(), np.asarray(v), rtol=1e-6,
                                    atol=1e-9, err_msg=k)
-    if gated:
-        return  # the port's forward serves gated FFNs with item 17
     cfg = _cfg(jcfg)
     ids = torch.from_numpy(np.random.RandomState(2).randint(2, 60, size=(2, 9)).astype(np.int32))
     lens = torch.full((2,), 9, dtype=torch.int32)
@@ -157,6 +155,40 @@ def test_act_int8_engine_matches_jax_and_weight_only(smoothed):
     th, _ = tm.prefill(cfg, tq, torch.from_numpy(np.array(prompt * 2, np.int32)),
                        torch.full((2,), 17, dtype=torch.int32),
                        kvc.init_cache(cfg, 2, 17, torch.float32, "cpu"), a8=True)
+    tl = tm.lm_logits(cfg, tq, th).numpy()
+    assert np.abs(tl - jl).max() / np.abs(jl).max() < 1e-4
+
+
+def test_act_int8_gated_engine_matches_jax(monkeypatch):
+    """A gated (SwiGLU, RMSNorm) model folded and int8-quantized: under
+    act_int8 its prefill runs five W8A8 GEMMs a layer (qkv, proj, gate, up,
+    down), and its logits and tokens are the JAX act_int8 engine's."""
+    jcfg = JaxConfig.tiny(vocab_size=64, norm="rmsnorm", gated_ffn=True, use_bias=False,
+                          use_gptj_residual=False, activation="silu")
+    jp = jax_init_params(jcfg, dtype="fp32")
+    jq = jax_quantize(jsq.apply_smoothquant_scaling(
+        jcfg, jp, jstats_of(jcfg, jp, calib_batches(), jnp.float32)))
+    cfg, tq = _cfg(jcfg), from_jax_params(jq, device="cpu")
+    prompt = [list(range(3, 20))]
+    calls = _spy(monkeypatch)
+    out = GptNeoXEngine(cfg, tq, RuntimeConfig(dtype="fp32", int8_mode=1, act_int8=True,
+                                               seq_bucket=8)
+                        ).generate(prompt, output_len=6, top_k=1, return_cum_log_probs=True)
+    assert len(calls) == 5 * cfg.layer_num
+    try:
+        jout = JaxEngine(jcfg, jq, JaxRuntime(dtype="fp32", int8_mode=1, act_int8=True,
+                                              seq_bucket=8)
+                         ).generate(prompt, output_len=6, top_k=1, return_cum_log_probs=True)
+        h, _ = jm.prefill(jcfg, jq, jnp.asarray(np.array(prompt, np.int32)),
+                          jnp.full((1,), 17, jnp.int32), jm.init_kv_cache(jcfg, 1, 17, jnp.float32))
+        jl = np.asarray(jm.lm_logits(jcfg, jq, h))
+    finally:
+        jlin.set_act_int8(False)  # the JAX flag is process-wide
+    np.testing.assert_array_equal(out.output_ids, np.asarray(jout.output_ids))
+    np.testing.assert_allclose(out.cum_log_probs, np.asarray(jout.cum_log_probs), atol=1e-4)
+    th, _ = tm.prefill(cfg, tq, torch.from_numpy(np.array(prompt, np.int32)),
+                       torch.full((1,), 17, dtype=torch.int32),
+                       kvc.init_cache(cfg, 1, 17, torch.float32, "cpu"), a8=True)
     tl = tm.lm_logits(cfg, tq, th).numpy()
     assert np.abs(tl - jl).max() / np.abs(jl).max() < 1e-4
 
