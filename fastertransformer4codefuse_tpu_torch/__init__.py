@@ -15,16 +15,22 @@ cache, served through ``GptNeoXEngine.generate``,
 pool with ``pool=``), ``engine.server.BatchingServer`` on dense or paged KV,
 and ``api.http_server``. Encoders: BERT (float or int8 weights, K1) and
 Longformer (local attention through K12, the banded sliding-window kernel),
-served through ``engine.encoder_server.EncoderBatchingServer``. Constructors
+served through ``engine.encoder_server.EncoderBatchingServer``. The decoder
+families on the GPT-NeoX graph (LLaMA, Qwen2, StarCoder, GPT-J, GPT-2, OPT,
+Mixtral) and the encoder-decoder, vision and audio families (T5 with
+``engine.t5_engine.T5Engine`` and ``T5BatchingServer``, BART, Marian, ViT,
+Swin, DeBERTa, XLNet, Conformer) through ``models.registry``. Constructors
 build on the CUDA card unless given ``device="cpu"``.
 """
 
 from .core.config import GptNeoXConfig, RuntimeConfig
-from .engine.encoder_server import EncoderBatchingServer
+from .engine.encoder_server import EncoderBatchingServer, T5BatchingServer
 from .engine.engine import GenerationOutput, GptNeoXEngine
+from .engine.t5_engine import T5Engine, T5Output
 from .models.bert import BertConfig, BertEngine
 from .models.longformer import LongformerConfig, LongformerEngine
 from .models.params import QuantizedTensor, from_jax_params, init_params
+from .models.t5 import T5Config
 
 __version__ = "0.1.0"
 
@@ -41,4 +47,8 @@ __all__ = [
     "LongformerConfig",
     "LongformerEngine",
     "EncoderBatchingServer",
+    "T5Config",
+    "T5Engine",
+    "T5Output",
+    "T5BatchingServer",
 ]

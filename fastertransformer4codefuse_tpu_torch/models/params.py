@@ -275,10 +275,13 @@ def from_jax_params(tree, device=None) -> Params:
 
 
 def params_to(params: Params, device, dtype=None) -> Params:
-    """A copy of ``params`` on ``device``; with ``dtype``, the floating
-    tensors other than a QuantizedTensor's payload and scales in that dtype."""
+    """A copy of ``params`` (nested dicts and lists) on ``device``; with
+    ``dtype``, the floating tensors other than a QuantizedTensor's payload and
+    scales in that dtype."""
     if isinstance(params, dict):
         return {k: params_to(v, device, dtype) for k, v in params.items()}
+    if isinstance(params, list):
+        return [params_to(v, device, dtype) for v in params]
     if isinstance(params, QuantizedTensor):
         return dataclasses.replace(params, q=params.q.to(device), scale=params.scale.to(device))
     if dtype is not None and params.is_floating_point():
@@ -291,8 +294,8 @@ def param_bytes(params: Params) -> int:
 
     def walk(v):
         nonlocal total
-        if isinstance(v, dict):
-            for x in v.values():
+        if isinstance(v, (dict, list)):
+            for x in (v.values() if isinstance(v, dict) else v):
                 walk(x)
         elif isinstance(v, QuantizedTensor):
             walk(v.q)

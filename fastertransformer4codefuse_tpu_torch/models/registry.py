@@ -6,9 +6,12 @@ Registered here: ``gptneox`` (the CodeFuse path, with the HF converters of
 ``ckpt/convert.py``); the decoder families on the same graph, under the JAX
 package's names, each with its converter under ``ckpt/``: ``llama``,
 ``qwen2``, ``gpt`` (GPT-2), ``opt``, ``starcoder``, ``gptj`` and
-``mixtral`` (``make_engine`` builds a ``GptNeoXEngine``); and the encoders
-``bert`` and ``longformer``. The JAX package's encoder-decoder, vision and
-audio families are ROADMAP item 18, and ``get`` refuses them.
+``mixtral`` (``make_engine`` builds a ``GptNeoXEngine``); the encoders
+``bert`` and ``longformer``; the encoder-decoder families ``t5``
+(``make_engine`` builds an ``engine.t5_engine.T5Engine``), ``bart`` and
+``marian``; the vision encoders ``vit`` and ``swin``, the text encoders
+``deberta`` and ``xlnet`` and the audio encoder ``conformer``: the eighteen
+families of the JAX registry, with its fields.
 """
 from __future__ import annotations
 
@@ -26,7 +29,9 @@ class ModelFamily:
     decode_step: Callable = None  # encoder-only families have no decode loop
     lm_logits: Callable = None
     encode: Callable = None  # encoder families: the full bidirectional pass
-    make_engine: Callable = None  # (config, params, **kw) -> engine
+    # (config, params, **kw) -> engine: GptNeoXEngine for the decoder
+    # families, T5Engine for t5, the encoder engines for bert and longformer
+    make_engine: Callable = None
 
 
 _REGISTRY: Dict[str, ModelFamily] = {}
@@ -61,7 +66,7 @@ def _register_builtin() -> None:
         convert_starcoder,
     )
     from ..core.config import GptNeoXConfig
-    from . import bert, gptneox, longformer
+    from . import bart, bert, conformer, deberta, gptneox, longformer, swin, t5, vit, xlnet
 
     def gptneox_engine(cfg, params, **kw):
         from ..engine.engine import GptNeoXEngine
@@ -97,6 +102,52 @@ def _register_builtin() -> None:
                 decode_step=gptneox.decode_step,
                 lm_logits=gptneox.lm_logits,
                 make_engine=gptneox_engine,
+            )
+        )
+
+    def t5_engine(cfg, params, **kw):
+        from ..engine.t5_engine import T5Engine
+
+        return T5Engine(cfg, params, **kw)
+
+    register(
+        ModelFamily(
+            name="t5",  # encoder-decoder, relative position buckets
+            config_from_ini=None,
+            config_from_hf=t5.config_from_hf_t5,
+            params_from_hf=t5.params_from_hf_t5_state_dict,
+            prefill=t5.encode,
+            decode_step=t5.decode_step,
+            encode=t5.encode,
+            make_engine=t5_engine,
+        )
+    )
+    # name -> (module, HF config parser, HF state-dict converter, decode_step):
+    # the encoder-decoder families without an engine and the encoders
+    others = {
+        "bart": (bart, bart.config_from_hf_bart, bart.params_from_hf_bart_state_dict,
+                 bart.decode_step),
+        "marian": (bart, bart.config_from_hf_marian, bart.params_from_hf_marian_state_dict,
+                   bart.decode_step),
+        "vit": (vit, vit.config_from_hf_vit, vit.params_from_hf_vit_state_dict, None),
+        "swin": (swin, swin.config_from_hf_swin, swin.params_from_hf_swin_state_dict, None),
+        "deberta": (deberta, deberta.config_from_hf_deberta,
+                    deberta.params_from_hf_deberta_state_dict, None),
+        "xlnet": (xlnet, xlnet.config_from_hf_xlnet, xlnet.params_from_hf_xlnet_state_dict,
+                  None),
+        "conformer": (conformer, conformer.config_from_hf_conformer,
+                      conformer.params_from_hf_conformer_state_dict, None),
+    }
+    for name, (mod, config_from_hf, params_from_hf, decode_step) in others.items():
+        register(
+            ModelFamily(
+                name=name,
+                config_from_ini=None,
+                config_from_hf=config_from_hf,
+                params_from_hf=params_from_hf,
+                prefill=mod.encode,
+                decode_step=decode_step,
+                encode=mod.encode,
             )
         )
     register(

@@ -147,21 +147,148 @@ def test_a_failed_batch_fails_its_requests_and_the_server_lives_on():
 
 
 def test_t5_server_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 18"):
-        T5BatchingServer(object())
+    """Once a refusal naming ROADMAP item 18; the T5 server is ported now
+    and serves (``test_t5_server_batches_and_matches_solo`` holds it)."""
+    srv = T5BatchingServer(_FlakyT5Engine(), max_batch=2)
+    try:
+        out = srv.generate([5, 6, 7], 3, timeout=60)
+        assert out.output_ids.tolist() == [[5, 6, 7]] and srv.batches_run == 1
+    finally:
+        srv.close()
+
+
+class _FlakyT5Engine:
+    """Echoes each request's first ``output_len`` ids as its one beam; fails
+    when a request asks for an output of 99."""
+
+    def generate(self, ids, output_len, beam_width=1, **kw):
+        from fastertransformer4codefuse_tpu_torch.engine.t5_engine import T5Output
+
+        if output_len == 99:
+            raise ValueError("boom")
+        out = np.array([list(r[:output_len]) + [0] * (output_len - len(r[:output_len]))
+                        for r in ids])[:, None]
+        n = len(ids)
+        return T5Output(out, np.full((n, 1), output_len), np.zeros((n, 1), np.float32))
+
+
+def test_t5_server_batches_and_matches_solo():
+    """tests/test_encoder_server.py's T5 case: concurrent greedy requests
+    and a seeded sampled one with the same statics coalesce into fewer
+    engine calls, each equal to its solo run through the same engine and to
+    the JAX engine's; a beam request (other statics) runs in a batch of its
+    own and equals the engine's beams; the telemetry counts the calls."""
+    from fastertransformer4codefuse_tpu.engine.t5_engine import T5Engine as JaxT5Engine
+    from fastertransformer4codefuse_tpu.models import t5 as jt5
+    from fastertransformer4codefuse_tpu_torch.engine.t5_engine import T5Engine
+    from fastertransformer4codefuse_tpu_torch.models import t5
+    from test_t5_engine import ids_for, make_hf_t5
+
+    hf = make_hf_t5(seed=2)
+    cfg = t5.config_from_hf_t5(hf.config)
+    eng = T5Engine(cfg, t5.params_from_hf_t5_state_dict(cfg, hf.state_dict(), device="cpu"))
+    jcfg = jt5.config_from_hf_t5(hf.config)
+    jeng = JaxT5Engine(jcfg, jt5.params_from_hf_t5_state_dict(jcfg, hf.state_dict()))
+    ids = ids_for(cfg, 6, 7)
+    reqs = [(list(ids[i][: 4 + i % 4]), dict(top_k=1) if i != 3 else
+             dict(top_k=5, top_p=0.9, temperature=0.8, random_seed=77)) for i in range(6)]
+    solo = [eng.generate([r], 6, **kw) for r, kw in reqs]
+    srv = T5BatchingServer(eng, max_batch=8, seq_bucket=8, max_seq_len=32)
+    try:
+        results = [None] * 6
+
+        def call(i):
+            results[i] = srv.generate(reqs[i][0], 6, timeout=120, **reqs[i][1])
+
+        ts = [threading.Thread(target=call, args=(i,)) for i in range(6)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+        for i, (r, kw) in enumerate(reqs):
+            np.testing.assert_array_equal(results[i].output_ids, solo[i].output_ids[0])
+            np.testing.assert_array_equal(results[i].sequence_lengths,
+                                          solo[i].sequence_lengths[0])
+            if i != 3:  # greedy: the JAX engine's tokens too
+                np.testing.assert_array_equal(results[i].output_ids,
+                                              jeng.generate([r], 6, **kw).output_ids[0])
+        assert srv.batches_run < 6 and srv.requests_served == 6
+        runs = srv.batches_run
+        ob = srv.generate(reqs[0][0], 6, beam_width=2, timeout=120)
+        ref = eng.generate([reqs[0][0]], 6, beam_width=2)
+        np.testing.assert_array_equal(ob.output_ids, ref.output_ids[0])
+        np.testing.assert_allclose(ob.scores, ref.scores[0], rtol=1e-6)
+        assert srv.batches_run == runs + 1 and srv.requests_served == 7
+    finally:
+        srv.close()
+
+
+def test_t5_server_coalesces_by_statics_and_fails_only_the_failing_batch():
+    """While a first batch runs, five requests queue: the head's
+    (output_len, beam_width, length_penalty) peers ride its batch (at most
+    max_batch), the others wait for the next; a batch that raises fails its
+    own requests only."""
+    eng = _FlakyT5Engine()
+    srv = T5BatchingServer(eng, max_batch=2)
+    calls, gate = [], threading.Event()
+    real = eng.generate
+
+    def recording(ids, output_len, **kw):
+        calls.append([list(r) for r in ids])
+        gate.wait(60)  # the first batch holds the server's thread until all are queued
+        return real(ids, output_len, **kw)
+
+    eng.generate = recording
+    reqs = [([1], 2, 1.0), ([1, 2, 3], 2, 1.0), ([4, 5], 3, 1.0), ([6, 7, 8], 2, 1.0),
+            ([9], 2, 1.0), ([3, 3], 2, 0.5)]
+    results = [None] * len(reqs)
+
+    def call(i):
+        ids, n, lp = reqs[i]
+        results[i] = srv.generate(ids, n, length_penalty=lp, timeout=60)
+
+    ts = [threading.Thread(target=call, args=(i,)) for i in range(len(reqs))]
+    try:
+        for i, t in enumerate(ts):
+            t.start()
+            # one at a time: the first taken by the server's thread, the rest queued in order
+            while not (calls if i == 0 else len(srv._mailbox) == i):
+                threading.Event().wait(0.01)
+        gate.set()
+        for t in ts:
+            t.join(timeout=60)
+        assert [r.output_ids.tolist() for r in results] == [
+            [[1, 0]], [[1, 2]], [[4, 5, 0]], [[6, 7]], [[9, 0]], [[3, 3]]]
+        assert calls == [[[1]], [[1, 2, 3], [6, 7, 8]], [[4, 5]], [[9]], [[3, 3]]]
+        assert srv.batches_run == 5 and srv.requests_served == 6
+        with pytest.raises(RuntimeError, match="t5 batch failed"):
+            srv.generate([1, 2], 99, timeout=60)
+        assert srv.generate([8, 9], 1, timeout=60).output_ids.tolist() == [[8]]
+        with pytest.raises(ValueError):
+            srv.generate([], 2)
+    finally:
+        gate.set()
+        srv.close()
 
 
 def test_registry_holds_the_ported_families_only():
+    """Every family the JAX registry serves, under its name and with its
+    fields: the ten of the decoder graph and the encoders, and the
+    encoder-decoder, vision and audio families."""
+    from fastertransformer4codefuse_tpu.models import registry as jregistry
     from fastertransformer4codefuse_tpu_torch import GptNeoXConfig, init_params
     from fastertransformer4codefuse_tpu_torch.engine.engine import GptNeoXEngine
     from fastertransformer4codefuse_tpu_torch.models import gptneox
 
-    assert set(registry.families()) == {"gptneox", "llama", "qwen2", "gpt", "opt", "starcoder",
-                                        "gptj", "mixtral", "bert", "longformer"}
-    with pytest.raises(KeyError, match="registered: \\['bert', 'gpt', 'gptj', 'gptneox', "
-                                       "'llama', 'longformer', 'mixtral', 'opt', 'qwen2', "
-                                       "'starcoder'\\]"):
-        registry.get("t5")
+    assert set(registry.families()) == set(jregistry.families()) == {
+        "gptneox", "llama", "qwen2", "gpt", "opt", "starcoder", "gptj", "mixtral", "bert",
+        "longformer", "t5", "bart", "marian", "vit", "swin", "deberta", "xlnet", "conformer"}
+    for name, jfam in jregistry.families().items():
+        fam = registry.get(name)
+        for field in ("decode_step", "lm_logits", "encode"):
+            assert (getattr(fam, field) is None) == (getattr(jfam, field) is None), (name, field)
+    with pytest.raises(KeyError, match="registered: \\['bart', 'bert', 'conformer', "):
+        registry.get("t5x")
     fam = registry.get("gptneox")
     assert fam.prefill is gptneox.prefill and fam.decode_step is gptneox.decode_step
     assert fam.lm_logits is gptneox.lm_logits and fam.encode is None

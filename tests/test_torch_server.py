@@ -369,14 +369,36 @@ def test_constructors_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from fastertransformer4codefuse_tpu_torch import from_jax_params
 
+    import transformers
+
+    from fastertransformer4codefuse_tpu_torch.engine.t5_engine import T5Engine
+    from fastertransformer4codefuse_tpu_torch.models import registry, t5, vit
+
+    torch.manual_seed(0)
+    hf_t5 = transformers.T5ForConditionalGeneration(transformers.T5Config(
+        vocab_size=32, d_model=16, d_kv=4, d_ff=32, num_layers=1, num_heads=4)).eval()
+    hf_vit = transformers.ViTModel(transformers.ViTConfig(
+        hidden_size=16, num_hidden_layers=1, num_attention_heads=4, intermediate_size=32,
+        image_size=8, patch_size=4)).eval()
+    t5cfg = t5.config_from_hf_t5(hf_t5.config)
+    vitcfg = vit.config_from_hf_vit(hf_vit.config)
     for build in (
         lambda: init_params(CFG, seed=0),
         lambda: from_jax_params({"final_ln_w": np.ones(4, np.float32)}),
         lambda: kvc.init_cache(CFG, 1, 8, torch.int8),
         lambda: paged_kv.init_paged_cache(CFG, 1, 8, 2, 8, torch.int8),
+        lambda: t5.params_from_hf_t5_state_dict(t5cfg, hf_t5.state_dict()),
+        lambda: registry.get("vit").params_from_hf(vitcfg, hf_vit.state_dict()),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
+    # T5Engine and a family's encode run on the device of the params given
+    tp = t5.params_from_hf_t5_state_dict(t5cfg, hf_t5.state_dict(), device="cpu")
+    assert T5Engine(t5cfg, tp).device == torch.device("cpu")
+    assert T5Engine(t5cfg, tp).generate([[3, 4, 5]], 2).output_ids.shape[:2] == (1, 1)
+    vp = registry.get("vit").params_from_hf(vitcfg, hf_vit.state_dict(), device="cpu")
+    h, _ = registry.get("vit").encode(vitcfg, vp, np.zeros((1, 3, 8, 8), np.float32))
+    assert h.device == torch.device("cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert resolve_device(None) == torch.device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
