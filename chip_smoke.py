@@ -47,8 +47,10 @@ Phases (any failure exits non-zero):
      instances with fp32 group scales (FTCF_GSCALE_BF16=0: K7 and K13 at M =
      1, 4, 8, 512 and 1024, K3 at 1, 4 and 8, K2 at 1 and 4) beside their
      bf16-scale instances; K11 also bit for bit against K4 over a gathered
-     copy;
-  3. 2-layer models of CodeFuse-13B width (int8 and int4 g128, each with
+     copy; K13 (M = 1, 4, 1024), K3 (M = 1, 4), K1 proj and down (M = 1024),
+     K4 and K5 at CodeFuse-13B's tp = 2 shard shapes (20 heads a rank);
+  3. models of CodeFuse-13B width, int8 at 2 layers and int4 at 1
+     (``REF_LAYERS``; int8 and int4 g128, each with
      ``fused_decode`` True (K13 + K3) and False (unfused GEMMs), the two
      routes' card logits also against each other; int4 per-channel; int8 on
      an int4 dense cache; int8 on int8 and int4 KV pools through chunked
@@ -115,7 +117,7 @@ Phases (any failure exits non-zero):
      equals its solo encode; encodes/s and tokens/s of each mix x4 in three
      timed windows, ms per batch, peak memory, where Longformer's
      batched-vs-solo gap comes from, and a profiled encode of each model;
-  7. checkpoint -> CLI at CodeFuse-13B widths with 2 layers: random weights
+  7. checkpoint -> CLI at CodeFuse-13B widths with 1 layer: random weights
      under HF's GPT-NeoX names written by ``ckpt.convert.convert_hf_to_bin``
      (fp16), int8 and int4 g128 payloads by ``ckpt.quantize.quant_and_save``;
      the loaded parameters equal the reference bit for bit, ``api.cli.main``
@@ -147,8 +149,18 @@ Phases (any failure exits non-zero):
      layers, card vs CPU (logits, greedy tokens past near-ties); ViT-B/16,
      Swin-T, DeBERTa-v3-base, XLNet-base and the large Conformer at
      published widths and depths, card vs CPU (hidden states, two card
-     encodes equal bytes, encodes/s).
-For each path of phases 4 to 9 the kernel launch counters are zeroed just
+     encodes equal bytes, encodes/s);
+  10. tensor parallelism (``phase_tp``): CodeFuse-13B int8 at full width, 4
+     layers, tp = 2 as two ranks of a gloo group on the one card (spawned
+     after the kernels are built; NCCL refuses two ranks on one device)
+     beside a tp = 1 engine over the same weights: a static greedy batch of
+     two ~1000-token prompts (teacher-forced logits against tp = 1's, greedy
+     tokens equal past near-ties, both ranks' tokens the same bytes), a
+     paged pool of 4 requests (each token held to the tp = 1 static
+     program's argmax), one counted all-reduce a layer a forward and one
+     all-gather of the logits a forward, each rank's launches exact, and
+     the two ranks' times beside tp = 1's.
+For each path of phases 4 to 10 the kernel launch counters are zeroed just
 before it is driven and checked just after against the counts its route must
 give, with the attention dispatchers' ``plain_routes`` at 0 (on GPT-2 XL's
 paged pool, one a layer a chunk tick; every path of phase 9 launches 0). The line before the last holds the kernels' JSON record; the last line
@@ -159,6 +171,7 @@ from __future__ import annotations
 
 import json
 import os
+import queue
 import re
 import statistics
 import subprocess
@@ -1193,17 +1206,87 @@ def phase_kernels(torch, records):
                    lambda: sliding_window_attention_plain(q, k, v, w, masked, causal=causal),
                    2e-2, f"band B=2 S=4096 w=256 lengths {[4096, 2900]}")
         del q, k, v
+
+    # CodeFuse-13B's tp = 2 shard shapes (phase 10): a rank holds 20 of the
+    # 40 heads, QKV columns 7680 and up columns 10240 (K13), proj rows 2560
+    # and down rows 10240 into the full 5120 (K3 in decode; K1 in prefill
+    # and chunk ticks), and attends over its 20 heads (K4 in decode, K5 in
+    # prefill). Logged only: each record keeps its full-width case.
+    Ht, Ft, nHt, dh = H // 2, F_ // 2, 20, 128
+    wq, sq, wu, su = i8(H, 3 * Ht), scale(3 * Ht), i8(H, Ft), scale(Ft)
+    bq, bu = bf(3 * Ht, std=0.02), bf(Ft, std=0.02)
+    wqb, wub = (wq.float() * sq).to(torch.bfloat16), (wu.float() * su).to(torch.bfloat16)
+    for M in (1, 4, 1024):
+        x1, x2 = bf(M, H), bf(M, H)
+        args = (x1, x2, wq, wu, sq, su, bq, bu, None, "gelu-tanh", 8, 0)
+        lib = (((lambda: (torch.matmul(x1, wqb), torch.matmul(x2, wub))),
+                "two torch.matmul, bf16 weights dequantized beforehand") if M > 32 else
+               (None, "none: no one PyTorch call computes it"))
+        report("fused_qkv_up", f"tp=2 int8 {H}->{3 * Ht}|{Ft} M={M}",
+               lambda: fused_qkv_up(*args), lambda: fused_qkv_up_plain(*args), tol_mm, "",
+               work=(nbytes(x1, x2, wq, sq, wu, su, bq, bu), 2 * M * H * (3 * Ht + Ft)),
+               fn_lib=lib[0], lib_label=lib[1], note=tiles(M, 3 * Ht, Ft) if M > 32 else "")
+    del wq, wu, wqb, wub
+    wp, wd, sp, sd, bd = i8(Ht, H), i8(Ft, H), scale(H), scale(H), bf(H, std=0.02)
+    for M in (1, 4):
+        xp, hd, res = bf(M, Ht), bf(M, Ft, std=0.5), bf(M, H)
+        report("fused_proj_down", f"tp=2 proj+down {Ht}+{Ft}->{H} M={M}",
+               lambda: fused_proj_down(xp, hd, wp, wd, sp, sd, bd, res),
+               lambda: fused_proj_down_plain(xp, hd, wp, wd, sp, sd, bd, res), tol_mm, "",
+               work=(nbytes(xp, hd, wp, wd, sp, sd, bd, res), 2 * M * (Ht + Ft) * H))
+    for tag, w, s_, K in (("proj", wp, sp, Ht), ("down", wd, sd, Ft)):
+        wb, x = (w.float() * s_).to(torch.bfloat16), bf(1024, K)
+        report("quant_matmul", f"tp=2 {tag} {K}->{H} M=1024",
+               lambda: quant_matmul(x, w, s_, None, None),
+               lambda: quant_matmul_plain(x, w, s_, None, None), tol_mm, "",
+               work=(nbytes(x, w, s_), 2 * 1024 * K * H), fn_lib=lambda: torch.matmul(x, wb),
+               lib_label=lib_bf16, note=tiles(1024, H))
+        del wb
+    del wp, wd
+    # K4 over a rank's 20 heads: B = 2 (phase 10's batch) and 4, int8 cache
+    for B, S, pos_l in ((2, 1024, [999, 1007]), (4, 1152, [10, 1151, 500, 777])):
+        pos = torch.tensor(pos_l, dtype=torch.int32, device=dev)
+        n_keys = int((pos + 1).sum())
+        q = bf(B, nHt, dh)
+        k8, v8 = i8(1, B, nHt, S, dh), i8(1, B, nHt, S, dh)
+        ks = (torch.rand((1, B, nHt, S), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+        vs = (torch.rand((1, B, nHt, S), device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+        sm = 1.0 / dh ** 0.5
+        mask = (torch.arange(S, device=dev)[None, :] <= pos[:, None].long())[:, None, None, :]
+        report_attn("flash_decode", f"tp=2 20 heads int8 cache B={B} S={S}",
+               lambda: flash_decode_stacked(q, k8, ks, v8, vs, 0, pos, sm),
+               lambda: flash_decode_stacked_plain(q, k8, ks, v8, vs, 0, pos, sm), 2e-2, "",
+               work=(nbytes(q, pos) + n_keys * nHt * (2 * dh + 4), 4 * n_keys * nHt * dh),
+               fn_lib=sdpa(q[:, :, None], dense_bf16(k8[0], ks[0]), dense_bf16(v8[0], vs[0]),
+                           mask, sm),
+               lib_label="sdpa, dense bf16 K/V of the same length")
+        del k8, v8
+    # K5 over a rank's 20 heads: phase 10's two ~1000-token prompts
+    S, lens = 1008, [1000, 1008]
+    q, k, v = bf(2, S, nHt, dh), bf(2, S, nHt, dh), bf(2, S, nHt, dh)
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    n_pairs = sum(n * (n + 1) // 2 + (S - n) * n for n in lens)
+    sm = dh ** -0.5
+    report_attn("prefill_attention_flash", f"tp=2 20 heads B=2 S={S} lengths {lens}",
+           lambda: prefill_attention_flash(q, k, v, ln, sm),
+           lambda: prefill_attention_flash_plain(q, k, v, ln, sm), 2e-2, "",
+           work=(nbytes(q, k, v, ln), 4 * n_pairs * nHt * dh),
+           fn_lib=lambda: F.scaled_dot_product_attention(
+               q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True, scale=sm),
+           lib_label="sdpa is_causal, equal lengths")
+    del q, k, v
     return ok
 
 
-def reference_model(torch, pkg, **quant):
-    """(config, CPU params, card params) of the 2-layer model of CodeFuse-13B
-    width (seed 7) with ``quant`` weights (init_params' weight_bits and
-    group_size), built on the card (its generator: ~0.1 s, the CPU's ~11
-    s) and copied to the CPU."""
+def reference_model(torch, pkg, layers=2, **quant):
+    """(config, CPU params, card params) of the ``layers``-deep model of
+    CodeFuse-13B width (seed 7) with ``quant`` weights (init_params'
+    weight_bits and group_size), built on the card (its generator: ~0.1 s,
+    the CPU's ~11 s) and copied to the CPU."""
     from fastertransformer4codefuse_tpu_torch.models.params import params_to
 
-    cfg = pkg.GptNeoXConfig(**{**pkg.GptNeoXConfig.codefuse_13b().__dict__, "layer_num": 2})
+    cfg = pkg.GptNeoXConfig(**{**pkg.GptNeoXConfig.codefuse_13b().__dict__,
+                               "layer_num": layers})
     p_gpu = pkg.init_params(cfg, seed=7, dtype="bf16", int8_mode=1, quantize_embeddings=True,
                             device="cuda", **quant)
     return cfg, params_to(p_gpu, "cpu"), p_gpu
@@ -2133,9 +2216,9 @@ def main() -> int:
     if not phase_kernels(torch, records):
         return fail("a kernel disagrees with its plain version")
 
-    log("phase 3: 2-layer CodeFuse-13B-width, Longformer-base and BERT-base models, card "
-        "(kernels) vs CPU (plain); tiny configs of 64-wide heads, g = 16, bf16 pages of 4 "
-        "and 32-wide heads served on both")
+    log("phase 3: CodeFuse-13B-width (int8 2 layers, int4 1), Longformer-base and BERT-base "
+        "models, card (kernels) vs CPU (plain); tiny configs of 64-wide heads, g = 16, bf16 "
+        "pages of 4 and 32-wide heads served on both")
     tol_ref = 5e-2
     launched = {n: 0 for n in kernels}
     int8_ref = None  # built once, shared by the int8 cases below
@@ -2143,7 +2226,7 @@ def main() -> int:
         fn.plain_routes = 0
     t_models = time.time()
     for label, quant in CONFIGS:
-        ref = reference_model(torch, pkg, **quant)
+        ref = reference_model(torch, pkg, layers=REF_LAYERS[label], **quant)
         int8_ref = ref if label == "int8" else int8_ref
         card = {}
         for fused in (True, False) if label in ("int8", "int4 g128") else (True,):
@@ -2226,6 +2309,9 @@ def main() -> int:
     err = phase_seq2seq(torch, pkg, kernels, launched)
     if err:
         return fail(f"encoder-decoder, vision and audio families: {err}")
+    err = phase_tp(torch, pkg, kernels, launched)
+    if err:
+        return fail(f"tensor parallelism: {err}")
     for n in records:
         records[n]["launches"] = launched[n]
     # K2 is off the served routes: K13 + K3 replace it (phase 2 holds it)
@@ -2247,6 +2333,11 @@ CONFIGS = [
     ("int4 per-channel", dict(weight_bits=4, group_size=0)),
     ("int4 g128", dict(weight_bits=4, group_size=128)),
 ]
+# phase 3's card-vs-CPU depth of each: the CPU's plain products (each int8
+# or int4 weight dequantized to fp32 a call) take most of phase 3, so the
+# int4 models, whose graph is the int8 model's, check 1 layer; the int8
+# model (and the int4-cache, paged and beam checks on it) keeps 2
+REF_LAYERS = {"int8": 2, "int4 per-channel": 1, "int4 g128": 1}
 # phase 4's depth of each (the int8 model serves phases 4 and 5): 10 of the
 # 40 layers, to keep the run within its time limit with phases 8 and 9 (the
 # decode paths are host-bound, their time in proportion to the depth)
@@ -3035,13 +3126,14 @@ def phase_prompt(torch, engine, kernels, launched):
 
 
 def phase_f32_scales(torch, pkg, kernels, launched, tol_ref):
-    """The 2-layer int4 g128 model of CodeFuse-13B width with fp32 group
-    scales (``FTCF_GSCALE_BF16=0``): card vs CPU logits on both routes (K13 +
-    K3, and the unfused K7), each with exact counts of the fp32 instances.
-    Returns an error or None."""
+    """The int4 g128 model of CodeFuse-13B width (``REF_LAYERS``) with fp32
+    group scales (``FTCF_GSCALE_BF16=0``): card vs CPU logits on both routes
+    (K13 + K3, and the unfused K7), each with exact counts of the fp32
+    instances. Returns an error or None."""
     os.environ["FTCF_GSCALE_BF16"] = "0"
     try:
-        ref = reference_model(torch, pkg, weight_bits=4, group_size=128)
+        ref = reference_model(torch, pkg, layers=REF_LAYERS["int4 g128"], weight_bits=4,
+                              group_size=128)
     finally:
         os.environ.pop("FTCF_GSCALE_BF16")
     if ref[2]["layers"]["up_w"].scale.dtype != torch.float32:
@@ -3049,7 +3141,7 @@ def phase_f32_scales(torch, pkg, kernels, launched, tol_ref):
     for fused in (True, False):
         zero_counts(kernels)
         rels = phase_reference(torch, ref, fused=fused)
-        expect = expected_launches(2, 1, 3, 4, 128, fused=fused)
+        expect = expected_launches(ref[0].layer_num, 1, 3, 4, 128, fused=fused)
         for base in ("quant_matmul_w4_group", "fused_qkv_up", "fused_proj_down"):
             if base in expect:
                 expect[base + "_f32"] = expect[base]
@@ -4108,7 +4200,11 @@ def beam_handler(torch, engine, kernels, launched, tok):
         h.close()
 
 
-# Phase 7: a CodeFuse-13B-width checkpoint with 2 layers, through the CLI.
+# Phase 7: a CodeFuse-13B-width checkpoint of CLI_LAYERS layers, through the
+# CLI (1: writing, quantizing and reading the 13B-width layers took most of
+# the phase at 2; the loader's per-layer files and stacking are held by the
+# CPU tests at 2 layers)
+CLI_LAYERS = 1
 # Prompt lengths (bytes) of the 4 greedy requests, and their output length
 CLI_PROMPTS = (20, 150, 333, 600)
 CLI_OUT = 32
@@ -4230,7 +4326,7 @@ def response_blocks(out):
 
 
 def phase_cli(torch, pkg, kernels, launched, cfg=None, dev="cuda"):
-    """Phase 7, checkpoint -> CLI at CodeFuse-13B widths with 2 layers:
+    """Phase 7, checkpoint -> CLI at CodeFuse-13B widths, CLI_LAYERS deep:
     random weights under HF GPT-NeoX names written by ``convert_hf_to_bin``
     (fp16), ``config.ini`` from ``GptNeoXConfig.codefuse_13b()``, int8 and
     int4 g128 payloads from ``quant_and_save``; for each served form (a) the
@@ -4255,12 +4351,12 @@ def phase_cli(torch, pkg, kernels, launched, cfg=None, dev="cuda"):
     from fastertransformer4codefuse_tpu_torch.ckpt.convert import convert_hf_to_bin
     from fastertransformer4codefuse_tpu_torch.ckpt.quantize import quant_and_save
 
-    cfg = dataclasses.replace(cfg or pkg.GptNeoXConfig.codefuse_13b(), layer_num=2,
+    cfg = dataclasses.replace(cfg or pkg.GptNeoXConfig.codefuse_13b(), layer_num=CLI_LAYERS,
                               weight_data_type="fp16")
     L = cfg.layer_num
     path = os.path.join(REPO, "build", "phase7_ckpt")
-    log("phase 7: checkpoint -> CLI, CodeFuse-13B widths, 2 layers (H 5120, 40 x 128 heads, "
-        "FFN 20480, vocab 100831), fp16 on disk")
+    log(f"phase 7: checkpoint -> CLI, CodeFuse-13B widths, {L} layer{'s' * (L > 1)} (H 5120, "
+        "40 x 128 heads, FFN 20480, vocab 100831), fp16 on disk")
     tok = IdTokenizer()
     text = "def quick_sort(arr):\n    if not arr:\n        return arr\n" * 20  # no "<"
     reqs = [{"prompts": [{"prompt": text[:n], "top_k": 1, "random_seed": i}],
@@ -4725,13 +4821,13 @@ def static_gaps(torch, engine, context, gen):
     from fastertransformer4codefuse_tpu_torch.engine import kv_cache
     from fastertransformer4codefuse_tpu_torch.models import gptneox as model
 
-    cfg, params = engine.config, engine.params
+    cfg, params, dev = engine.config, engine.params, engine.device
     ids = list(context) + list(gen[:-1])
-    cache = kv_cache.init_cache(cfg, 1, len(ids), engine._cache_dtype(), "cuda")
-    lens = torch.tensor([len(ids)], dtype=torch.int32, device="cuda")
-    hidden, _ = model.prefill(cfg, params, torch.tensor([ids], device="cuda"), lens, cache)
+    cache = kv_cache.init_cache(cfg, 1, len(ids), engine._cache_dtype(), dev)
+    lens = torch.tensor([len(ids)], dtype=torch.int32, device=dev)
+    hidden, _ = model.prefill(cfg, params, torch.tensor([ids], device=dev), lens, cache)
     lg = model.lm_logits(cfg, params, hidden[0, len(context) - 1:]).float()
-    toks = torch.tensor(list(gen), device="cuda")[:, None]
+    toks = torch.tensor(list(gen), device=dev)[:, None]
     return ((lg.amax(-1) - lg.gather(1, toks)[:, 0]) / lg.abs().amax(-1)).cpu().numpy()
 
 
@@ -5756,6 +5852,293 @@ def phase_seq2seq(torch, pkg, kernels, launched):
     err = phase_seq_encoders(torch, kernels, launched)
     log(f"  phase 9: {time.time() - t0:.1f} s")
     return err
+
+
+
+# Phase 10: tensor parallelism. CodeFuse-13B at full width (40 heads x 128,
+# FFN 20480, vocab 100831 padded to 100832 for tp = 2; int8 weights and
+# embeddings, int8 KV) and TP_LAYERS deep, served by two ranks of a gloo
+# group on the one card (NCCL refuses two ranks on one device), beside a
+# tp = 1 engine over the same weights on rank 0
+TP_LAYERS = 4
+TP_PROMPTS = (1000, 992)  # the static batch, B = 2
+TP_TOKENS = 16
+TP_POOL_PROMPTS = (900, 130, 500, 300)
+TP_POOL_OUTS = (16, 24, 16, 32)
+TP_POOL = dict(max_slots=4, max_seq_len=1024, prompt_bucket=128,
+               paged=dict(num_pages=17, page_size=256))
+# seconds for the whole phase and for any one collective: the phase takes
+# ~15-25 s, and starts ~600 s into the script's 1200 s, so a hung rank
+# fails here with a message rather than at the script's limit
+TP_TIMEOUT = 120
+
+
+def tp_forced_logits(torch, engine, prompts, forced):
+    """[B, n, V] fp32 on the CPU: the logits after the prefill of
+    ``prompts`` and after each decode step that takes ``forced`` [B, n]'s
+    token of the step before (teacher-forced): one prefill and n - 1 decode
+    forwards of the engine's own program."""
+    from fastertransformer4codefuse_tpu_torch.ops.rotary import make_rotary_tables
+
+    cfg, n = engine.config, forced.shape[1]
+    st, inputs = engine._prepare(prompts, n, top_k=1)
+    s = engine._prefill_state(st, inputs)
+    rot = make_rotary_tables(st.total_len, cfg.rotary_embedding_dim, cfg.rotary_base,
+                             engine.device)
+    rows = torch.arange(len(prompts), device=engine.device)
+    f = torch.as_tensor(forced, dtype=torch.int32, device=engine.device)
+    out = [s.logits.float().cpu()]
+    for j in range(n - 1):
+        s.tokens[rows, s.seq_lens.long()] = f[:, j]
+        s.seq_lens = s.seq_lens + 1
+        engine._forward_newest(s, rot)
+        out.append(s.logits.float().cpu())
+    return torch.stack(out, 1)
+
+
+def tp_rank(rank, port, results):
+    """A rank of phase 10 (a spawned process): its results, or the
+    traceback, on ``results``."""
+    try:
+        res = _tp_rank(rank, port)
+    except BaseException:  # noqa: BLE001 - the parent reports it
+        import traceback
+
+        res = {"error": traceback.format_exc()}
+    results.put((rank, res))
+
+
+def _tp_rank(rank, port):
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    import fastertransformer4codefuse_tpu_torch as pkg
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.engine.batcher import ContinuousBatcher
+    from fastertransformer4codefuse_tpu_torch.models.params import param_bytes
+    from fastertransformer4codefuse_tpu_torch.ops import _cuda
+    from fastertransformer4codefuse_tpu_torch.ops.attention import prefill_attention
+    from fastertransformer4codefuse_tpu_torch.parallel import distributed as pd
+    from fastertransformer4codefuse_tpu_torch.parallel.sharding import build_mesh
+
+    global ROUTERS
+    ROUTERS = (prefill_attention, kv_cache.attend_chunk, kv_cache.attend_decode)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _cuda.lib()  # built by the parent
+    pd.init_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo", timeout_s=TP_TIMEOUT)
+    mesh = build_mesh(tp=2)
+    kernels = kernel_table()
+    ar, ag = pd.all_reduce, pd.all_gather
+    cfg = pkg.GptNeoXConfig(**{**pkg.GptNeoXConfig.codefuse_13b().__dict__,
+                               "layer_num": TP_LAYERS})
+    L, V = cfg.layer_num, cfg.vocab_size
+    params = pkg.init_params(cfg, seed=0, dtype="bf16", int8_mode=1, quantize_embeddings=True,
+                             device="cuda")
+    rt = pkg.RuntimeConfig(dtype="bf16", int8_mode=1, kv_cache_dtype="int8")
+    eng2 = pkg.GptNeoXEngine(cfg, params, rt, mesh=mesh)
+    eng1 = pkg.GptNeoXEngine(cfg, params, rt) if rank == 0 else None
+    out = {"backend": dist.get_backend(), "full_gib": param_bytes(params) / 2**30,
+           "shard_gib": param_bytes(eng2.params) / 2**30,
+           "head_rows": int(eng2.params["lm_head"].q.shape[0])}
+    del params
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, V, n).tolist() for n in TP_PROMPTS]
+
+    def timed(engine, n):
+        if engine is eng2:
+            dist.barrier()
+        torch.cuda.synchronize()
+        t = time.time()
+        g = engine.generate(prompts, n, top_k=1)
+        torch.cuda.synchronize()
+        return g, time.time() - t, engine.decode_forwards
+
+    def counted(fn):
+        """fn's result, its kernel launches and counted collectives."""
+        zero_counts(kernels)
+        ar.calls = ag.calls = 0
+        res = fn()
+        torch.cuda.synchronize()
+        return res, read_counts(kernels), (ar.calls, ag.calls)
+
+    # the static greedy batch under tp = 2, then its times (a prefill alone,
+    # the whole call), the same on the tp = 1 engine while rank 1 waits
+    (g2, _, f2), out["static_counts"], out["static_coll"] = counted(
+        lambda: timed(eng2, TP_TOKENS))
+    out["static_ids"], out["static_forwards"] = g2.output_ids, f2
+    _, t_pre, _ = timed(eng2, 1)
+    _, t_all, f = timed(eng2, TP_TOKENS)
+    out["tp2_ms"] = (t_pre * 1e3, (t_all - t_pre) / max(f, 1) * 1e3)
+    forced = None
+    if rank == 0:
+        g1, _, _ = timed(eng1, TP_TOKENS)
+        out["tp1_ids"] = g1.output_ids
+        _, t_pre, _ = timed(eng1, 1)
+        _, t_all, f = timed(eng1, TP_TOKENS)
+        out["tp1_ms"] = (t_pre * 1e3, (t_all - t_pre) / max(f, 1) * 1e3)
+        forced = np.stack([g1.output_ids[b, 0, n:n + TP_TOKENS]
+                           for b, n in enumerate(TP_PROMPTS)])
+    box = [forced]
+    dist.broadcast_object_list(box, src=0)
+    forced = box[0]
+    # teacher-forced logits of both programs on the tp = 1 tokens
+    lg2, out["forced_counts"], out["forced_coll"] = counted(
+        lambda: tp_forced_logits(torch, eng2, prompts, forced))
+    if rank == 0:
+        lg1 = tp_forced_logits(torch, eng1, prompts, forced)
+        out["forced_rel"] = [((lg2[:, j] - lg1[:, j]).abs().max()
+                              / lg1[:, j].abs().max()).item() for j in range(TP_TOKENS)]
+        # the greedy runs' first parting, read on the tp = 1 teacher-forced logits
+        out["parting"] = []
+        for b, n in enumerate(TP_PROMPTS):
+            a, c = g2.output_ids[b, 0, n:n + TP_TOKENS], forced[b]
+            i = next((i for i in range(TP_TOKENS) if a[i] != c[i]), None)
+            if i is not None:
+                lg = lg1[b, i]
+                out["parting"].append(
+                    (b, i, int(a[i]), int(c[i]),
+                     ((lg[int(c[i])] - lg[int(a[i])]) / lg.abs().max()).item()))
+    del lg2
+
+    # a paged pool of 4 requests, driven in lockstep by both ranks
+    pool_prompts = [rng.integers(0, V, n).tolist() for n in TP_POOL_PROMPTS]
+
+    def drive():
+        cb = ContinuousBatcher(eng2, **TP_POOL)
+        uids = [cb.submit(p, n, top_k=1) for p, n in zip(pool_prompts, TP_POOL_OUTS)]
+        ticks = []  # (chunk steps, decode steps, all-reduces, all-gathers) of each tick
+        while cb.pending or cb.running:
+            ar.calls = ag.calls = 0
+            c0, d0 = cb.chunk_ticks, cb.decode_ticks
+            cb.step()
+            ticks.append((cb.chunk_ticks - c0, cb.decode_ticks - d0, ar.calls, ag.calls))
+        return cb, [cb.requests[u].output_ids[len(p):] for u, p in zip(uids, pool_prompts)], ticks
+
+    dist.barrier()
+    t = time.time()
+    (cb, pool_out, ticks), out["pool_counts"], _ = counted(drive)
+    out["pool_s"] = time.time() - t
+    out["pool_expect"] = pool_launches(L, cb)
+    out["pool_out"], out["pool_ticks"] = pool_out, ticks
+    if rank == 0:  # each pool token held to the tp = 1 static program's argmax
+        out["pool_gaps"] = [float(static_gaps(torch, eng1, p, g).max())
+                            for p, g in zip(pool_prompts, pool_out)]
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def phase_tp(torch, pkg, kernels, launched):
+    """Phase 10: two ranks of CodeFuse-13B at tp = 2 on the one card, spawned
+    after the parent built the kernels, each holding its half of the heads,
+    the FFN and the vocab; a tp = 1 engine on rank 0 is the yardstick.
+    Checks the static greedy batch (teacher-forced logits within 5e-2 of
+    max |logits| of tp = 1's, greedy tokens equal past NEAR_TIE, both ranks'
+    tokens byte-equal), the counted collectives (one all-reduce a layer a
+    forward, one all-gather of the logits a forward), each rank's exact
+    kernel launches, and a paged pool of 4 requests (each token within
+    POOL_GAP of the tp = 1 static program's argmax). Returns an error or
+    None."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    log(f"phase 10: tensor parallelism, CodeFuse-13B int8 at full width, {TP_LAYERS} layers, "
+        "tp = 2: two ranks of a gloo group on the one card")
+    t0 = time.time()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=tp_rank, args=(r, port, q)) for r in range(2)]
+    for p in procs:
+        p.start()
+    res, deadline = {}, time.time() + TP_TIMEOUT
+    try:
+        while len(res) < 2:
+            try:
+                rank, r = q.get(timeout=5)
+                res[rank] = r
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if not p.is_alive()]
+                if len(dead) > len(res) or time.time() > deadline:
+                    return f"a rank ended without a result (exit codes {dead}) or timed out"
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for rank in range(2):
+        if "error" in res[rank]:
+            return f"rank {rank}: {res[rank]['error']}"
+    r0, r1 = res[0], res[1]
+    L = TP_LAYERS
+    log(f"  backend {r0['backend']} (both ranks: {r1['backend']}); {r0['full_gib']:.2f} GiB of "
+        f"params, {r0['shard_gib']:.2f} GiB a rank; the head's {r0['head_rows']} vocab rows a "
+        f"rank (100831 padded to {2 * r0['head_rows']})")
+    if r0["backend"] != "gloo" or r1["backend"] != "gloo":
+        return "phase 10 runs on gloo"
+    # both ranks' tokens are the same bytes
+    if not (np.array_equal(r0["static_ids"], r1["static_ids"])
+            and r0["pool_out"] == r1["pool_out"]):
+        return "the two ranks returned different tokens"
+    # the counted collectives: one all-reduce a layer a forward, one
+    # all-gather of the vocab slices a forward
+    for name, (n_ar, n_ag), forwards in (("static generate", r0["static_coll"],
+                                          1 + r0["static_forwards"]),
+                                         ("teacher-forced run", r0["forced_coll"], TP_TOKENS)):
+        log(f"  {name}: {n_ar} all-reduces, {n_ag} all-gathers over {forwards} forwards of "
+            f"{L} layers")
+        if (n_ar, n_ag) != (L * forwards, forwards):
+            return f"{name}: collectives {(n_ar, n_ag)}, expected {(L * forwards, forwards)}"
+    for chunks, decodes, n_ar, n_ag in r0["pool_ticks"]:
+        if (n_ar, n_ag) != (L * (chunks + decodes), decodes):
+            return f"a pool tick of {chunks} chunk and {decodes} decode steps ran " \
+                   f"{(n_ar, n_ag)} collectives"
+    # each rank's launches, exact
+    runs = (("static generate", "static_counts",
+             expected_launches(L, 1, r0["static_forwards"], 8, 0)),
+            ("teacher-forced run", "forced_counts", expected_launches(L, 1, TP_TOKENS - 1, 8, 0)),
+            ("paged pool", "pool_counts", r0["pool_expect"]))
+    for rank, r in res.items():
+        for label, key, expect in runs:
+            want = {n: 0 for n in r[key]}
+            want.update(expect)
+            if r[key] != want:
+                return f"rank {rank}, {label}: launches {r[key]}, expected {want}"
+            for n in kernels:
+                launched[n] += r[key][n]
+    nonzero = {key: {n: c for n, c in r0[key].items() if c}
+               for key in ("static_counts", "pool_counts")}
+    log(f"  each rank's launches as expected: static {nonzero['static_counts']}, pool "
+        f"{nonzero['pool_counts']} ({len(r0['pool_ticks'])} ticks)")
+    rel = r0["forced_rel"]
+    log(f"  teacher-forced logits, tp = 2 against tp = 1, max |d| / max |ref| after the prefill "
+        f"and each step: {', '.join(f'{x:.2e}' for x in rel)} (tol 5e-2)")
+    if max(rel) >= 5e-2:
+        return "tp = 2 and tp = 1 logits disagree"
+    same = [np.array_equal(r0["static_ids"][b, 0, n:n + TP_TOKENS],
+                           r0["tp1_ids"][b, 0, n:n + TP_TOKENS]) for b, n in enumerate(TP_PROMPTS)]
+    log(f"  greedy tokens, tp = 2 against tp = 1 (prompts of {list(TP_PROMPTS)} tokens, "
+        f"{TP_TOKENS} each): equal {same}; partings (row, step, tp = 2, tp = 1, gap on the "
+        f"tp = 1 logits): {r0['parting']}")
+    far = [x for x in r0["parting"] if x[4] >= NEAR_TIE]
+    if far:
+        return f"tp = 2 greedy parts from tp = 1 past NEAR_TIE: {far}"
+    gaps = r0["pool_gaps"]
+    log(f"  paged pool (4 requests of {list(TP_POOL_PROMPTS)} tokens, pages of 256): tokens' "
+        f"largest gap to the tp = 1 static argmax {', '.join(f'{g:.2e}' for g in gaps)} "
+        f"(tol POOL_GAP {POOL_GAP:g}); {r0['pool_s']:.1f} s")
+    if max(gaps) >= POOL_GAP:
+        return "tp = 2 pool tokens part from the tp = 1 static program"
+    (p2, d2), (p1, d1) = r0["tp2_ms"], r0["tp1_ms"]
+    log(f"  B = 2 prompts of {list(TP_PROMPTS)} tokens ({CARD}; two ranks share the card, so "
+        f"these are no two-card times): tp = 2 prefill {p2:.1f} ms, decode {d2:.2f} ms/step; "
+        f"tp = 1 prefill {p1:.1f} ms, decode {d1:.2f} ms/step")
+    log(f"  phase 10: {time.time() - t0:.1f} s")
+    return None
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import sys
 import threading
 
@@ -84,8 +85,14 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not args.serve and args.input_file is None:
         parser.error("--input_file is required (or use --serve with stdin)")
-    if args.tensor_parallel > 1:
-        raise NotImplementedError("tensor-parallel serving is ROADMAP queue 1 item 19")
+    if args.tensor_parallel > 1 and args.serve:
+        parser.error("--serve admits requests in arrival order, which differs between the "
+                     "ranks of a tensor-parallel group: serve --input_file under "
+                     "--tensor_parallel")
+    if args.tensor_parallel > 1 and int(os.environ.get("RANK", "0")):
+        # torchrun --nproc_per_node N: every rank reads the same requests and
+        # serves them in step; rank 0 alone writes the output
+        sys.stdout = open(os.devnull, "w")
 
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING,

@@ -54,11 +54,21 @@ def init_engine_and_tokenizer(
     one on load), ``group_size`` picks group-wise int4 scales,
     ``kv_cache_dtype`` the KV cache, and ``quantize_embeddings`` quantizes
     the embedding table and LM head too (``int8_mode=2`` is its alias).
-    Returns (engine, tokenizer) or (engine, tokenizer, trie)."""
+    ``tensor_parallel`` > 1 joins the process group (``torchrun``'s env://
+    rendezvous, ``parallel.distributed.init_distributed``; gloo on the CPU,
+    NCCL on a card a rank) and keeps this
+    rank's slice of the weights: every rank must then serve the same
+    requests in the same order. Returns (engine, tokenizer) or (engine,
+    tokenizer, trie)."""
     from ..ckpt.loader import load_bin_checkpoint
 
+    mesh = None
     if tensor_parallel > 1:
-        raise NotImplementedError("tensor-parallel serving is ROADMAP queue 1 item 19")
+        from ..parallel.distributed import init_distributed
+        from ..parallel.sharding import build_mesh
+
+        init_distributed(device=device)
+        mesh = build_mesh(tp=tensor_parallel)
     config, params = load_bin_checkpoint(
         ckpt_path, dtype=dtype, int8_mode=int8_mode, weight_bits=weight_bits,
         group_size=group_size, q_layout=q_layout, quantize_embeddings=quantize_embeddings,
@@ -68,8 +78,9 @@ def init_engine_and_tokenizer(
         config = dataclasses.replace(config, end_id=end_id)
     tokenizer = load_tokenizer(tokenizer_path)
     runtime = runtime or RuntimeConfig(dtype=dtype, int8_mode=int8_mode,
-                                       kv_cache_dtype=kv_cache_dtype)
-    engine = GptNeoXEngine(config, params, runtime)
+                                       kv_cache_dtype=kv_cache_dtype,
+                                       tensor_para_size=tensor_parallel)
+    engine = GptNeoXEngine(config, params, runtime, mesh=mesh)
     if trie_needed:
         from .. import native
 

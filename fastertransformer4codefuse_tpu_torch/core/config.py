@@ -64,6 +64,10 @@ class GptNeoXConfig:
         return self.head_num * self.size_per_head
 
     @property
+    def num_heads(self) -> int:
+        return self.head_num
+
+    @property
     def kv_heads(self) -> int:
         return self.kv_head_num if self.kv_head_num is not None else self.head_num
 
@@ -71,6 +75,10 @@ class GptNeoXConfig:
     def qkv_cols(self) -> int:
         """Total fused-QKV output width: (nH + 2*nKV) * dh."""
         return (self.head_num + 2 * self.kv_heads) * self.size_per_head
+
+    @property
+    def head_dim(self) -> int:
+        return self.size_per_head
 
     # ------------------------------------------------------------------ io ---
     @classmethod
@@ -177,6 +185,21 @@ class GptNeoXConfig:
         )
 
     @classmethod
+    def pythia_1_4b(cls) -> "GptNeoXConfig":
+        return cls(
+            head_num=16,
+            size_per_head=128,
+            layer_num=24,
+            vocab_size=50304,
+            rotary_embedding_dim=32,  # rotary_pct 0.25
+            inter_size=8192,
+            start_id=0,
+            end_id=0,
+            use_gptj_residual=True,
+            model_name="pythia-1.4b",
+        )
+
+    @classmethod
     def tiny(cls, **overrides) -> "GptNeoXConfig":
         """A tiny config for unit tests."""
         kw = dict(
@@ -207,8 +230,9 @@ class RuntimeConfig:
         vector; "int4" packs K and V two positions a byte with the same
         scales, "int8k_int4v" packs only V); None = ``dtype``.
       seq_bucket: the padded prefill width is rounded up to a multiple of this.
-      tensor_para_size / data_para_size / pipeline_para_size: parallel layout;
-        only 1 is ported.
+      tensor_para_size / data_para_size / pipeline_para_size: the parallel
+        layout the engine's ``mesh`` gives (``parallel/``); pipeline
+        parallelism (> 1) is not ported.
       act_int8: SmoothQuant W8A8 (the reference's int8_mode=2 semantics): with
         int8 per-channel weights, the GEMMs of sequence-wide calls of at least
         16 rows (prefill, chunk ticks, speculative verifies) quantize their

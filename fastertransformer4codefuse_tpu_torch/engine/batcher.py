@@ -43,8 +43,18 @@ first slots and its prompt length into ``pos_offset``, so that its chunks
 and decode steps write and rotate at buffer index + offset. A request with no
 task has offset 0.
 
-Not ported: pools on a pipeline mesh (item 19), and the JAX package's v5e
-flash-decode gates.
+Under tensor parallelism (the engine's ``mesh``) the slabs and pages hold
+the rank's KV heads (``parallel.sharding.cache_heads``) and every chunk and
+decode tick runs the model's collectives: each rank of the tp group must
+drive its pool in lockstep, with the same requests submitted in the same
+order and the same calls to ``step`` / ``run`` (the threaded servers admit
+in arrival order, which differs between processes). The logits are
+all-gathered and so the same bytes on every rank, and each request's
+generator is seeded alike, so every rank emits the same tokens. A dp axis
+plays no part in a pool: each dp group drives a pool of its own.
+
+Not ported: pools on a pipeline mesh (item 19, slice B), and the JAX
+package's v5e flash-decode gates.
 """
 from __future__ import annotations
 
@@ -164,8 +174,6 @@ class ContinuousBatcher:
         pipeline_ticks: bool = False,
         prompt_table: Optional[dict] = None,
     ):
-        if getattr(engine, "mesh", None) is not None or engine.runtime.pipeline_para_size > 1:
-            raise NotImplementedError("pools on a device mesh are ROADMAP queue 1 item 19")
         if max_seq_len % prompt_bucket:
             raise ValueError("max_seq_len must be a multiple of prompt_bucket")
         self.engine = engine
@@ -232,7 +240,8 @@ class ContinuousBatcher:
         if self.paged is not None:
             raise ValueError("prompt learning in paged pools is not supported (block tables "
                              "carry no prefix region): use a dense pool")
-        self.prompt_table = kv_cache.prompt_tables(self.cfg, table, self.device)
+        self.prompt_table = kv_cache.prompt_tables(self.cfg, table, self.device,
+                                                   heads=self.engine.kv_heads)
         longest = max(n for _, n in self.prompt_table.values())
         self.prompt_width = -(-longest // 8) * 8
 
@@ -240,11 +249,12 @@ class ContinuousBatcher:
     def _init_state(self):
         cfg, S, B, dev = self.cfg, self.max_seq_len, self.rows, self.device
         dt = self.engine._cache_dtype()
+        nkv = self.engine.kv_heads[1]
         if self.paged is not None:
             cache = init_paged_cache(cfg, B, S, int(self.paged["num_pages"]), self.page_size,
-                                     dt, dev)
+                                     dt, dev, kv_heads=nkv)
         else:
-            cache = kv_cache.init_cache(cfg, B, S + self.prompt_width, dt, dev)
+            cache = kv_cache.init_cache(cfg, B, S + self.prompt_width, dt, dev, kv_heads=nkv)
 
         def full(shape, value, dtype):
             return torch.full(shape, value, dtype=dtype, device=dev)
@@ -536,7 +546,7 @@ class ContinuousBatcher:
         rt = self.engine.runtime
         model.prefill_chunk(self.cfg, self.engine.params, tok_chunk, buf_pos + st["pos_offset"],
                             st["cache"], prefilling, rotary_tables=self._rotary,
-                            fused=rt.fused_decode, a8=rt.act_int8)
+                            fused=rt.fused_decode, a8=rt.act_int8, mesh=self.engine.mesh)
         st["prefill_pos"] += prefilling.to(torch.int32) * C
         self.chunk_ticks += 1
 
@@ -587,9 +597,10 @@ class ContinuousBatcher:
         hidden, _ = model.decode_step(
             self.cfg, self.engine.params, newest, positions, st["cache"],
             rotary_tables=self._rotary, kv_skip=~ready, kv_skip_mode="sacrifice_last",
-            fused=self.engine.runtime.fused_decode,
+            fused=self.engine.runtime.fused_decode, mesh=self.engine.mesh,
         )
-        logits = self._process_logits(st, model.lm_logits(self.cfg, self.engine.params, hidden))
+        logits = self._process_logits(st, model.lm_logits(self.cfg, self.engine.params, hidden,
+                                                          self.engine.mesh))
         res = sample_top_k_top_p_capped(
             logits, st["top_k"], st["top_p"], self._noise(), cap=self.sampling_cap,
             need_log_probs=self.return_log_probs,

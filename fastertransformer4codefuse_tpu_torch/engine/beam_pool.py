@@ -158,10 +158,11 @@ class BeamPool(ContinuousBatcher):
             self.cfg, self.engine.params, newest, positions, st["cache"],
             rotary_tables=self._rotary, kv_skip=(~ready) | st["finished"],
             kv_skip_mode="sacrifice_last", beam=(bw, st["beam_indir"]),
-            fused=self.engine.runtime.fused_decode,
+            fused=self.engine.runtime.fused_decode, mesh=self.engine.mesh,
         )
         # the sampling pool's processors: a beam row's presence penalty stays 0
-        logits = self._process_logits(st, model.lm_logits(self.cfg, self.engine.params, hidden))
+        logits = self._process_logits(st, model.lm_logits(self.cfg, self.engine.params, hidden,
+                                                          self.engine.mesh))
         src, new_tok, new_cum = merge_candidates(
             torch.log_softmax(logits, dim=-1), st["cum_lp"], st["finished"], st["seq_lens"],
             st["input_lens"], st["diversity"], st["len_penalty"], bw, end_id,

@@ -22,6 +22,16 @@ decodes there. Unlike the JAX static engine, which checks and writes
 
 With ``RuntimeConfig.debug_enabled()`` each ``generate`` first runs
 ``utils.debug.debug_verify``; otherwise nothing of it runs.
+
+Tensor and data parallelism (``mesh=``, ``parallel/``): the engine keeps
+this rank's slice of the params (``parallel.sharding.shard_params``) and
+caches of its KV heads, and every forward runs the model's counted
+collectives over the tp group. All ranks of a tp group run the same host
+loop on the same logits (the vocab slices all-gathered, every reduce
+bit-equal on every rank) with the same generators, so they draw the same
+tokens and stop together. dp splits a batch's rows into contiguous blocks,
+one a dp group, at the batch's padded width, and gathers the outputs: every
+rank returns the whole ``GenerationOutput``.
 """
 from __future__ import annotations
 
@@ -38,6 +48,8 @@ from .paged_kv import PACKED_KINDS
 from ..models import gptneox as model
 from ..models.params import Params
 from ..ops.rotary import make_rotary_tables
+from ..parallel.distributed import Mesh, gather_rows
+from ..parallel.sharding import cache_heads, shard_params
 from ..sampling import processors as proc
 from ..sampling.beam import beam_search_generate
 from ..sampling.sample import (
@@ -111,7 +123,9 @@ class GptNeoXEngine:
     """Host-facing engine over a parameter dict on one device.
 
     ``decode_forwards`` counts the decode-step forwards of the last
-    ``generate`` call (each runs every layer once).
+    ``generate`` call (each runs every layer once). ``mesh``
+    (``parallel.distributed.Mesh``, from ``parallel.sharding.build_mesh``):
+    ``params`` are the full weights, and the engine keeps this rank's slice.
     """
 
     def __init__(
@@ -119,15 +133,19 @@ class GptNeoXEngine:
         config: GptNeoXConfig,
         params: Params,
         runtime: Optional[RuntimeConfig] = None,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
     ):
         self.config = config
         self.runtime = runtime or RuntimeConfig()
         rt = self.runtime
-        if mesh is not None or max(rt.tensor_para_size, rt.data_para_size,
-                                   rt.pipeline_para_size) > 1:
-            raise NotImplementedError("tensor/pipeline parallel serving is ROADMAP item 19")
+        if rt.pipeline_para_size > 1:
+            raise NotImplementedError(
+                "pipeline parallelism is ROADMAP queue 1 item 19, slice B (parallel/pipeline.py)")
+        self.mesh = mesh
+        if mesh is not None:
+            params = shard_params(config, params, mesh)
         self.params = params
+        self.kv_heads = cache_heads(config, mesh)
         self.device = params["final_ln_w"].device
         self.decode_forwards = 0
         # {task id: (kv [L, 2, kv_heads, P, dh] fp32 on the device, length)}
@@ -139,7 +157,8 @@ class GptNeoXEngine:
         ``[L, 2, kv_heads, P, dh]`` (numpy or torch), the saved per-layer K/V
         of a tuned prefix, ``length <= P``. Requests pick a task with
         ``prompt_learning_task_name_ids``."""
-        self._prompt_table = kv_cache.prompt_tables(self.config, table, self.device)
+        self._prompt_table = kv_cache.prompt_tables(self.config, table, self.device,
+                                                    heads=self.kv_heads)
 
     def _prepare_prompt(self, B, task_ids, soft_embedding, soft_lengths):
         """(kind, P, device inputs) of a request's prompts: P the widest
@@ -156,7 +175,7 @@ class GptNeoXEngine:
                 raise ValueError(f"unknown prompt task {unknown[0]}")
             lens = [self._prompt_table[t][1] for t in task_ids]
             P = -(-max(max(lens), 1) // 8) * 8
-            shape = (cfg.layer_num, B, cfg.kv_heads, P, cfg.size_per_head)
+            shape = (cfg.layer_num, B, self.kv_heads[1], P, cfg.size_per_head)
             k_pre = torch.zeros(shape, dtype=torch.float32, device=dev)
             v_pre = torch.zeros_like(k_pre)
             for b, t in enumerate(task_ids):
@@ -279,9 +298,9 @@ class GptNeoXEngine:
             positions = positions + s.pos_offset
         hidden, s.cache = model.decode_step(
             self.config, self.params, newest, positions, s.cache,
-            rotary_tables=rotary_tables, fused=self.runtime.fused_decode, **kw,
+            rotary_tables=rotary_tables, fused=self.runtime.fused_decode, mesh=self.mesh, **kw,
         )
-        s.logits = model.lm_logits(self.config, self.params, hidden)
+        s.logits = model.lm_logits(self.config, self.params, hidden, self.mesh)
         self.decode_forwards += 1
 
     def _prefill_state(self, st: _Statics, inputs) -> DecodeState:
@@ -291,7 +310,7 @@ class GptNeoXEngine:
         input_lengths = inputs["input_lengths"]
         rt = self.runtime
         cache = kv_cache.init_cache(cfg, B, st.total_len + st.prompt_width, self._cache_dtype(),
-                                    self.device)
+                                    self.device, kv_heads=self.kv_heads[1])
         pos_offset = None
         if st.prompt_width:
             # the prompt holds slots [0, p_len) of its row; the input
@@ -305,17 +324,19 @@ class GptNeoXEngine:
                 emb = inputs["prompt_embeds"].to(self.params["final_ln_w"].dtype)
                 dummy = torch.zeros((B, st.prompt_width), dtype=torch.int32, device=self.device)
                 model.prefill_chunk(cfg, self.params, dummy, torch.zeros_like(pos_offset), cache,
-                                    active, fused=rt.fused_decode, a8=rt.act_int8, embeds=emb)
+                                    active, fused=rt.fused_decode, a8=rt.act_int8, embeds=emb,
+                                    mesh=self.mesh)
             hidden, cache = model.prefill_chunk(
                 cfg, self.params, tokens[:, : st.input_width], pos_offset, cache, active,
-                fused=rt.fused_decode, a8=rt.act_int8,
+                fused=rt.fused_decode, a8=rt.act_int8, mesh=self.mesh,
             )
         else:
             hidden, cache = model.prefill(
                 cfg, self.params, tokens[:, : st.input_width], input_lengths, cache,
-                fused=rt.fused_decode, a8=rt.act_int8,
+                fused=rt.fused_decode, a8=rt.act_int8, mesh=self.mesh,
             )
-        logits = model.lm_logits(cfg, self.params, model.last_token_hidden(hidden, input_lengths))
+        logits = model.lm_logits(cfg, self.params, model.last_token_hidden(hidden, input_lengths),
+                                 self.mesh)
         generators = None
         if not st.greedy:
             generators = [
@@ -358,7 +379,11 @@ class GptNeoXEngine:
         request_prompt_lengths=None,
         output_log_probs: bool = False,
         return_cum_log_probs: bool = False,
+        _longest: int = 0,
     ):
+        """(statics, device inputs) of a request; ``_longest``: pad as if the
+        longest prompt had this length (a dp group's rows, at the width of
+        the whole batch)."""
         cfg = self.config
         B = len(input_ids)
         prompt_kind, prompt_width, prompt_inputs = self._prepare_prompt(
@@ -370,7 +395,7 @@ class GptNeoXEngine:
         lengths = np.array([len(x) for x in input_ids], np.int32)
         if not (lengths > 0).all():
             raise ValueError("input len must be larger than zero")
-        max_in = int(lengths.max())
+        max_in = max(int(lengths.max()), _longest)
         bucket = max(self.runtime.seq_bucket, 1)
         input_width = max(min(-(-max_in // bucket) * bucket, max_in + bucket), max_in)
         total_len = input_width + int(output_len)
@@ -481,7 +506,17 @@ class GptNeoXEngine:
         (``sampling/beam.py``): outputs per beam, best first. With
         ``RuntimeConfig.debug_enabled()`` the weights are swept and a checked
         prefill + decode step runs first (``utils.debug.debug_verify``),
-        raising ``DebugCheckError`` at the first non-finite stage."""
+        raising ``DebugCheckError`` at the first non-finite stage. Under dp
+        (``mesh.dp > 1``) each dp group generates its block of rows and every
+        rank returns the whole batch's output (no ``callback`` then)."""
+        if self.mesh is not None and self.mesh.dp > 1:
+            return self._generate_dp(input_ids, output_len, beam_width, callback,
+                                     beam_search_diversity_rate, len_penalty, sampling_kwargs)
+        return self._generate(input_ids, output_len, beam_width, callback,
+                              beam_search_diversity_rate, len_penalty, **sampling_kwargs)
+
+    def _generate(self, input_ids, output_len, beam_width, callback, beam_search_diversity_rate,
+                  len_penalty, **sampling_kwargs) -> GenerationOutput:
         if self.runtime.debug_enabled():
             from ..utils.debug import debug_verify
 
@@ -530,3 +565,32 @@ class GptNeoXEngine:
             cum_log_probs=s.cum_log_probs.cpu().numpy()[:, None],
             output_log_probs=None if step_lp is None else step_lp.cpu().numpy()[:, None, :],
         )
+
+    def _generate_dp(self, input_ids, output_len, beam_width, callback, diversity, len_penalty,
+                     sampling_kwargs) -> GenerationOutput:
+        """This dp group's contiguous block of rows through ``generate`` at
+        the whole batch's padded width, then every group's outputs gathered
+        in row order."""
+        if callback is not None:
+            raise ValueError("streaming callbacks are not served under dp > 1: each dp group "
+                             "generates other rows")
+        B, mesh = len(input_ids), self.mesh
+        rows = np.array_split(np.arange(B), mesh.dp)[mesh.dp_rank]
+        lo, hi = (int(rows[0]), int(rows[-1]) + 1) if len(rows) else (0, 0)
+
+        def rows_of(v):
+            if v is None or np.isscalar(v):
+                return v
+            arr = np.asarray(v)
+            return arr[lo:hi] if arr.ndim >= 1 and arr.shape[0] == B else v
+
+        out = None
+        if hi > lo:
+            kw = {k: rows_of(v) for k, v in sampling_kwargs.items()}
+            out = self._generate([list(x) for x in input_ids[lo:hi]], output_len, beam_width,
+                                 None, rows_of(diversity), rows_of(len_penalty),
+                                 _longest=max(len(x) for x in input_ids), **kw)
+        parts = [p for p in gather_rows(out, mesh) if p is not None]
+        return GenerationOutput(*(
+            None if parts[0][i] is None else np.concatenate([p[i] for p in parts], axis=0)
+            for i in range(len(parts[0]))))

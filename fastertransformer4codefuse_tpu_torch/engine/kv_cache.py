@@ -19,7 +19,7 @@ same call shape.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -49,13 +49,16 @@ Cache = Dict[str, torch.Tensor]
 
 
 def init_cache(
-    config: GptNeoXConfig, batch: int, max_seq_len: int, dtype=torch.bfloat16, device=None
+    config: GptNeoXConfig, batch: int, max_seq_len: int, dtype=torch.bfloat16, device=None,
+    kv_heads: Optional[int] = None,
 ) -> Cache:
     """Zeroed slabs on ``device`` (the CUDA card when None). ``dtype``: a torch
     dtype, or ``"int4"`` (K and V packed) / ``"int8k_int4v"`` (K int8, V
-    packed)."""
+    packed). ``kv_heads``: the heads a slab holds (a tensor-parallel rank's,
+    ``parallel.sharding.cache_heads``); default all of the config's."""
     device = resolve_device(device)
-    shape = (config.layer_num, batch, config.kv_heads, max_seq_len, config.size_per_head)
+    shape = (config.layer_num, batch, kv_heads or config.kv_heads, max_seq_len,
+             config.size_per_head)
     if isinstance(dtype, str):
         if dtype not in PACKED_KINDS:
             raise ValueError(f"unknown KV cache kind {dtype!r}: a torch dtype, 'int4' or "
@@ -123,10 +126,12 @@ def write_prefill(cache: Cache, layer: int, k: torch.Tensor, v: torch.Tensor) ->
     return cache
 
 
-def prompt_tables(config: GptNeoXConfig, table: dict, device) -> dict:
+def prompt_tables(config: GptNeoXConfig, table: dict, device, heads=None) -> dict:
     """Checked prefix tables: ``{task: (kv, length)}`` with kv ``[L, 2,
     kv_heads, P, dh]`` (numpy or torch) and ``length <= P``, as fp32 on
-    ``device``. Raises ValueError on another shape."""
+    ``device``; with ``heads`` = (first, count) only those KV heads (a
+    tensor-parallel rank's cache heads). Raises ValueError on another
+    shape."""
     out = {}
     for tid, (kv, length) in table.items():
         kv = kv if torch.is_tensor(kv) else torch.from_numpy(np.asarray(kv, np.float32))
@@ -136,6 +141,8 @@ def prompt_tables(config: GptNeoXConfig, table: dict, device) -> dict:
                 f"prompt task {tid}: table of shape {tuple(kv.shape)}, expected "
                 f"[{config.layer_num}, 2, {config.kv_heads}, P >= {int(length)}, "
                 f"{config.size_per_head}]")
+        if heads is not None:
+            kv = kv[:, :, heads[0]:heads[0] + heads[1]]
         out[tid] = (kv.to(device=device, dtype=torch.float32), int(length))
     return out
 

@@ -26,7 +26,7 @@ K9, chunk attention K10 (``ops/flash_decode.py``).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -81,10 +81,13 @@ def init_paged_cache(
     page_size: int = 256,
     dtype=torch.bfloat16,
     device=None,
+    kv_heads: Optional[int] = None,
 ) -> Cache:
     """Zeroed pages on ``device`` (the CUDA card when None): bf16, fp32, int8
     with bf16 per-vector scales, or the packed kinds ``"int4"`` /
-    ``"int8k_int4v"`` (even page size); block tables all pointing at page 0."""
+    ``"int8k_int4v"`` (even page size); block tables all pointing at page 0.
+    ``kv_heads``: the heads a page holds (a tensor-parallel rank's); default
+    all of the config's."""
     if isinstance(dtype, str) and dtype not in PACKED_KINDS:
         raise ValueError(f"unknown paged-cache dtype string {dtype!r}")
     if dtype in PACKED_KINDS and page_size % 2:
@@ -94,7 +97,8 @@ def init_paged_cache(
     if n_pages < 2:
         raise ValueError("need at least the garbage page and one real page")
     device = resolve_device(device)
-    shape = (config.layer_num, n_pages, config.kv_heads, page_size, config.size_per_head)
+    shape = (config.layer_num, n_pages, kv_heads or config.kv_heads, page_size,
+             config.size_per_head)
     if dtype in PACKED_KINDS:
         pshape = shape[:3] + (page_size // 2, shape[4])
         c = {

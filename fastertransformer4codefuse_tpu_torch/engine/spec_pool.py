@@ -83,7 +83,7 @@ class SpecPool(ContinuousBatcher):
         l = torch.clamp(st["seq_lens"], min=1)  # the committed buffer length
         v = verify_step(self.cfg, self.engine.params, st["tokens"], l, st["cache"], ready,
                         self.k, self.ngram, self._rotary, self.engine.runtime.fused_decode,
-                        self.engine.runtime.act_int8)
+                        self.engine.runtime.act_int8, self.engine.mesh)
         n = torch.minimum(torch.minimum(v.m, v.first_end) + 1, st["stop_at"] - l)
         n = torch.where(ready, torch.clamp(n, min=0), 0)
         commit(st["tokens"], l, v.cand, n)

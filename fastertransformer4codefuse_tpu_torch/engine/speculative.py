@@ -112,11 +112,12 @@ class Verify:
 
 
 def verify_step(cfg, params, tokens, l, cache, active, k: int, ngram: int, rotary_tables,
-                fused: bool = True, a8: bool = False) -> Verify:
+                fused: bool = True, a8: bool = False, mesh=None) -> Verify:
     """Propose from ``tokens``, run [last committed, draft] through
     ``prefill_chunk`` at position l - 1 (rows with ``active`` False keep
     their cache bytes), and score the draft against the greedy argmaxes.
-    Nothing here waits for the device."""
+    Nothing here waits for the device. ``mesh``: the engine's, under tensor
+    parallelism (``params`` the rank's slice)."""
     S = tokens.shape[1]
     C = k + 1
     dev = tokens.device
@@ -125,8 +126,8 @@ def verify_step(cfg, params, tokens, l, cache, active, k: int, ngram: int, rotar
     last = tokens.gather(1, pos.long()[:, None])
     chunk = torch.cat([last, draft], dim=1)  # [B, C]
     hidden, _ = model.prefill_chunk(cfg, params, chunk, pos, cache, active,
-                                    rotary_tables=rotary_tables, fused=fused, a8=a8)
-    logits = model.lm_logits(cfg, params, hidden)  # [B, C, V] fp32
+                                    rotary_tables=rotary_tables, fused=fused, a8=a8, mesh=mesh)
+    logits = model.lm_logits(cfg, params, hidden, mesh)  # [B, C, V] fp32
     g = torch.argmax(logits, dim=-1).to(torch.int32)  # [B, C]
     # the leading run of matches
     m = torch.cumprod((draft == g[:, :k]).to(torch.int32), dim=1).sum(dim=1, dtype=torch.int32)
@@ -162,8 +163,8 @@ def _prefill(engine, ids: torch.Tensor, n: torch.Tensor, cache):
     """The prompts' forward: (first greedy token [B], its log-prob [B])."""
     cfg, params = engine.config, engine.params
     hidden, _ = model.prefill(cfg, params, ids, n, cache, fused=engine.runtime.fused_decode,
-                              a8=engine.runtime.act_int8)
-    logits = model.lm_logits(cfg, params, model.last_token_hidden(hidden, n))  # [B, V]
+                              a8=engine.runtime.act_int8, mesh=engine.mesh)
+    logits = model.lm_logits(cfg, params, model.last_token_hidden(hidden, n), engine.mesh)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     lp = logits.gather(1, tok.long()[:, None])[:, 0] - torch.logsumexp(logits, dim=-1)
     return tok, lp
@@ -179,7 +180,8 @@ def _setup(engine, prompts: List[List[int]], output_len: int, k: int):
     B = len(prompts)
     in_lens = [len(p) for p in prompts]
     S = _buffer_len(engine, max(in_lens), output_len, k + 1)
-    cache = kv_cache.init_cache(cfg, B, S, engine._cache_dtype(), dev)
+    cache = kv_cache.init_cache(cfg, B, S, engine._cache_dtype(), dev,
+                                kv_heads=engine.kv_heads[1])
     ids = np.full((B, S), cfg.end_id, np.int32)
     for b, p in enumerate(prompts):
         ids[b, : len(p)] = p
@@ -229,7 +231,7 @@ def speculative_generate_batched(
     iota = torch.arange(C, device=tokens.device)[None, :]
     while not bool(done.all()):  # the iteration's one sync
         v = verify_step(cfg, engine.params, tokens, l, cache, ~done, k, ngram, rot,
-                        engine.runtime.fused_decode, engine.runtime.act_int8)
+                        engine.runtime.fused_decode, engine.runtime.act_int8, engine.mesh)
         n_commit = torch.minimum(torch.minimum(v.m, v.first_end) + 1, stop_at - l)
         n_commit = torch.where(done, 0, n_commit)
         commit(tokens, l, v.cand, n_commit)

@@ -21,7 +21,10 @@ as ``engine/engine.py`` is for the decoder families:
   - int8: ``models.t5.quantize_t5_params`` weights, through the same model
     functions.
 
-Tensor parallelism (the JAX ``mesh=``) is ROADMAP item 19.
+Tensor parallelism (``mesh=``, the JAX engine's): the engine keeps its
+rank's slice (``models.t5.shard_t5_params``) and every rank of the tp group
+runs the same loop on the same, replicated-head logits, so all draw the
+same tokens.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import torch
 
 from ..models import t5 as t5m
 from ..models.t5 import T5Config
-from ..sampling.sample import gumbel_noise, sample_top_k_top_p
+from ..sampling.sample import gumbel_noise, sample_top_k_top_p, top_k_stable
 
 NEG = -1.0e9
 
@@ -55,14 +58,6 @@ class _Statics:
     early_stopping: bool
 
 
-def top_k_stable(x: torch.Tensor, k: int):
-    """(values, indices) of the ``k`` largest entries of each row of ``x``,
-    descending, equal values in ascending index order (``jax.lax.top_k``'s
-    order; ``torch.topk`` leaves the order of ties unspecified)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
-
-
 def _gather_beams(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [B, n, ...], idx [B, m] -> [B, m, ...]."""
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
@@ -72,10 +67,9 @@ class T5Engine:
     """Host-facing T5 engine on the params' device."""
 
     def __init__(self, config: T5Config, params, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel T5 serving is ROADMAP item 19")
         self.config = config
-        self.params = params
+        self.mesh = mesh
+        self.params = params if mesh is None else t5m.shard_t5_params(config, params, mesh)
         self.device = params["embed"].device
         self.decode_forwards = 0  # decoder steps of the last generate call
 
@@ -128,15 +122,16 @@ class T5Engine:
     def _sample(self, st: _Statics, inputs) -> np.ndarray:
         cfg, params, dev = self.config, self.params, self.device
         B = st.batch
-        enc = t5m.encode(cfg, params, inputs["ids"], inputs["lens"])
-        state = t5m.init_decoder_state(cfg, params, enc, inputs["lens"], st.out_len + 1)
+        enc = t5m.encode(cfg, params, inputs["ids"], inputs["lens"], self.mesh)
+        state = t5m.init_decoder_state(cfg, params, enc, inputs["lens"], st.out_len + 1,
+                                       self.mesh)
         gens = None if st.greedy else [
             torch.Generator(device=dev).manual_seed(s) for s in inputs["seeds"]]
         out = torch.full((B, st.out_len), cfg.end_id, dtype=torch.int32, device=dev)
         tok = torch.full((B,), cfg.start_id, dtype=torch.int32, device=dev)
         finished = torch.zeros((B,), dtype=torch.bool, device=dev)
         for i in range(st.out_len):
-            logits, state = t5m.decode_step(cfg, params, state, tok, i)
+            logits, state = t5m.decode_step(cfg, params, state, tok, i, self.mesh)
             self.decode_forwards += 1
             if st.greedy:
                 nxt = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -161,11 +156,11 @@ class T5Engine:
         lp_pow = st.length_penalty
         f32 = dict(dtype=torch.float32, device=dev)
 
-        enc = t5m.encode(cfg, params, inputs["ids"], inputs["lens"])
+        enc = t5m.encode(cfg, params, inputs["ids"], inputs["lens"], self.mesh)
         # encoder rows tiled beam-minor: row b*k + j
         enc_t = enc.repeat_interleave(k, dim=0)
         lens_t = inputs["lens"].repeat_interleave(k, dim=0)
-        state = t5m.init_decoder_state(cfg, params, enc_t, lens_t, Lmax + 1)
+        state = t5m.init_decoder_state(cfg, params, enc_t, lens_t, Lmax + 1, self.mesh)
 
         running_seq = torch.full((B, k, Lmax), cfg.end_id, dtype=torch.long, device=dev)
         running_scores = torch.zeros((B, k), **f32)
@@ -187,7 +182,7 @@ class T5Engine:
                 go = go & ~finished.all()
             if not bool(go):
                 break
-            logits, state = t5m.decode_step(cfg, params, state, tok, cur)
+            logits, state = t5m.decode_step(cfg, params, state, tok, cur, self.mesh)
             self.decode_forwards += 1
             log_probs = torch.log_softmax(logits.float(), dim=-1).reshape(B, k, V)
             acc = (log_probs + running_scores[:, :, None]).reshape(B, k * V)

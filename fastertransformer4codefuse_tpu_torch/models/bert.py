@@ -9,6 +9,11 @@
 The four GEMMs of a layer go through ``ops.linear``: with
 ``quantize_bert_params`` (int8 per output channel) they run K1 on the card.
 The attention stays plain PyTorch, as the JAX package leaves it to XLA.
+
+Tensor parallelism (``mesh``; ``shard_bert_params``, the JAX
+``bert_param_shardings``): QKV and FFN-up split by columns, proj and
+FFN-down by rows; a rank attends over its heads and its two partial sums a
+layer are all-reduced (counted), the biases added after the reduce.
 """
 from __future__ import annotations
 
@@ -21,7 +26,9 @@ import torch
 from ..core.device import resolve_device
 from ..ops.layernorm import layernorm
 from ..ops.linear import linear
-from .params import layer_slice
+from ..parallel.distributed import all_reduce
+from ..parallel.sharding import shard_tensor
+from .params import QuantizedTensor, layer_slice
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -129,21 +136,30 @@ def params_from_hf_bert_state_dict(
     return out
 
 
-def _block(config: BertConfig, lp, x, mask):
+def _row_split(x, w, b, mesh):
+    """``x @ w + b`` for a row-split ``w``: the tp group's partials reduced,
+    then the bias."""
+    if mesh is None or mesh.tp == 1:
+        return linear(x, w, b)
+    return all_reduce(linear(x, w), mesh) + b.to(x.dtype)
+
+
+def _block(config: BertConfig, lp, x, mask, mesh=None):
     """One post-LN encoder block. x [B, S, H]; mask [B, 1, 1, S] additive."""
     B, S, H = x.shape
-    nH, dh = config.head_num, config.size_per_head
-    qkv = linear(x, lp["qkv_w"], lp["qkv_b"])  # [B, S, 3H]
-    q = qkv[..., :H].reshape(B, S, nH, dh)
-    k = qkv[..., H: 2 * H].reshape(B, S, nH, dh)
-    v = qkv[..., 2 * H:].reshape(B, S, nH, dh)
+    dh = config.size_per_head
+    qkv = linear(x, lp["qkv_w"], lp["qkv_b"])  # [B, S, 3 * the rank's heads * dh]
+    Hl = qkv.shape[-1] // 3
+    q = qkv[..., :Hl].reshape(B, S, -1, dh)
+    k = qkv[..., Hl: 2 * Hl].reshape(B, S, -1, dh)
+    v = qkv[..., 2 * Hl:].reshape(B, S, -1, dh)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / (dh ** 0.5)
     probs = torch.softmax(scores + mask, dim=-1).to(x.dtype)
     attn = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(x.dtype)
-    attn = linear(attn.reshape(B, S, H), lp["proj_w"], lp["proj_b"])
+    attn = _row_split(attn.reshape(B, S, Hl), lp["proj_w"], lp["proj_b"], mesh)
     h = layernorm(x + attn, lp["attn_ln_w"], lp["attn_ln_b"], config.layernorm_eps)
     ffn = linear(h, lp["up_w"], lp["up_b"], act=config.activation)
-    ffn = linear(ffn, lp["down_w"], lp["down_b"])
+    ffn = _row_split(ffn, lp["down_w"], lp["down_b"], mesh)
     return layernorm(h + ffn, lp["out_ln_w"], lp["out_ln_b"], config.layernorm_eps)
 
 
@@ -153,10 +169,12 @@ def encode(
     input_ids: torch.Tensor,  # [B, S] integer
     lengths: torch.Tensor,  # [B]: the padding mask
     token_type_ids: Optional[torch.Tensor] = None,  # [B, S]
+    mesh=None,
 ):
     """Full encoder pass -> (last_hidden [B, S, H], pooled [B, H] or None).
     Bidirectional: every real token attends every real token. Runs on the
-    device of ``params``."""
+    device of ``params``; ``mesh``: this rank's place under tp, ``params``
+    its slice."""
     dev = params["embed"].device
     input_ids = torch.as_tensor(input_ids, device=dev).long()
     lengths = torch.as_tensor(lengths, device=dev)
@@ -171,7 +189,7 @@ def encode(
     mask = torch.where(pad, 0.0, MASK_VALUE)[:, None, None, :]  # keys masked, fp32
 
     for l in range(config.layer_num):
-        x = _block(config, layer_slice(params["layers"], l), x, mask)
+        x = _block(config, layer_slice(params["layers"], l), x, mask, mesh)
 
     pooled = None
     if "pooler_w" in params:
@@ -196,17 +214,53 @@ def quantize_bert_params(params):
     return out
 
 
+def _qkv_heads(value, mesh):
+    """This rank's heads of each segment of the [.., K, q | k | v] fused QKV
+    (or its bias [.., q | k | v]): [q_r | k_r | v_r]. The JAX package splits
+    the flat columns and lets GSPMD move the heads; explicit ranks need their
+    own heads of all three."""
+    def take(t):
+        parts = torch.chunk(t, 3, dim=-1)
+        return torch.cat([shard_tensor(p, p.ndim - 1, mesh) for p in parts], dim=-1)
+
+    if isinstance(value, QuantizedTensor):
+        return dataclasses.replace(value, q=take(value.q), scale=take(value.scale))
+    return take(value)
+
+
+# Split axes of the stacked [L, K, N] layer weights (the JAX
+# bert_param_shardings' specs); the fused QKV is split a segment at a time
+_BERT_SPLITS = {"up_w": 2, "up_b": 1, "proj_w": 1, "down_w": 1}
+
+
+def shard_bert_params(config: BertConfig, params, mesh):
+    """This rank's slice of the params (the JAX ``shard_bert_params``);
+    embeddings, norms, the pooler and the row-split layers' biases are
+    replicated."""
+    if mesh.tp == 1:
+        return params
+    if config.head_num % mesh.tp:
+        raise ValueError(f"{config.head_num} heads do not split over tp {mesh.tp}")
+    layers = {}
+    for n, v in params["layers"].items():
+        if n in ("qkv_w", "qkv_b"):
+            layers[n] = _qkv_heads(v, mesh)
+        else:
+            layers[n] = shard_tensor(v, _BERT_SPLITS.get(n), mesh, n)
+    return {**params, "layers": layers}
+
+
 class BertEngine:
     """Served-encoder seam (the registry's ``make_engine``): holds the
-    params, float or int8, and encodes on their device."""
+    params, float or int8 (this rank's slice under ``mesh``), and encodes on
+    their device."""
 
     def __init__(self, config: BertConfig, params, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("tensor-parallel BERT is ROADMAP queue 1 item 19")
         self.config = config
-        self.params = params
+        self.mesh = mesh
+        self.params = params if mesh is None else shard_bert_params(config, params, mesh)
 
     def encode(self, input_ids, lengths, token_type_ids=None):
         """(hidden [B, S, H], pooled [B, H] or None) on the params' device;
         the inputs may be numpy arrays or tensors."""
-        return encode(self.config, self.params, input_ids, lengths, token_type_ids)
+        return encode(self.config, self.params, input_ids, lengths, token_type_ids, self.mesh)

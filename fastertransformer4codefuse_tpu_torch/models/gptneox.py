@@ -21,6 +21,20 @@ inactive chunk rows hold no expert capacity) and learned absolute positions
 added after the embedding at each token's absolute position (a chunk's
 start and a prompt-learning offset included).
 
+Tensor parallelism (``mesh``, ``parallel/``): every function takes this
+rank's slice of the weights (``parallel.sharding.shard_params``) and runs
+the kernels at the rank's widths: its heads, its FFN columns, its experts and
+its vocab rows. The row-split products are partial sums, reduced by one
+counted ``all_reduce`` a layer under the parallel residual (attention and
+FFN partials together, as GptNeoXDecoder.cc:342-360) and by two in a serial
+layer, after proj and after down (TensorParallelDecoderSelfAttentionLayer
+.cc:214-222); the bias and the residual are added once, after the reduce, or
+by rank 0 alone inside K3. ``lm_logits`` all-gathers the vocab slices
+(GptNeoX.cc:888-925). A ``"concat"`` QKV is replicated: the rank computes
+every head, keeps its own KV heads and their query heads where the KV heads
+split over tp, and otherwise attends over all heads and keeps its own
+query heads' outputs for its proj rows.
+
 Routing (``fused=True``, ``RuntimeConfig.fused_decode``): a
 parallel-residual layer whose four big kernels are quantized alike (one bit
 width, one group size: int8, int4, or int4 with group scales) and which has
@@ -56,9 +70,15 @@ from ..ops.linear import a8_takes, linear, quantized_matmul_transposed_head
 from ..ops.quant_matmul_fused import fused_proj_down, fused_qkv_up
 from ..ops.rotary import apply_rotary, make_rotary_tables
 from ..ops.moe import moe_ffn
+from ..parallel.distributed import all_gather, all_reduce
+from ..parallel.sharding import cache_heads, local_heads
 from .params import Params, QuantizedTensor, layer_slice
 
 KVCache = dict
+
+def _tp(mesh) -> bool:
+    return mesh is not None and mesh.tp > 1
+
 
 def _norm(config: GptNeoXConfig, x, w, b):
     if config.norm == "rmsnorm":
@@ -89,16 +109,23 @@ def _fused_ok(config: GptNeoXConfig, lp: Dict[str, Any]) -> bool:
     )
 
 
-def _heads(config: GptNeoXConfig, qkv, cos, sin):
-    """Fused QKV output [B, S, cols] -> q, k, v heads with rotary applied."""
+def _heads(config: GptNeoXConfig, qkv, cos, sin, mesh=None):
+    """Fused QKV output [B, S, cols] -> q, k, v heads with rotary applied:
+    the rank's heads (its column slice; of a replicated ``"concat"`` QKV, the
+    KV heads its cache holds and their query heads)."""
     B, S, _ = qkv.shape
-    nH, dh = config.head_num, config.size_per_head
+    dh = config.size_per_head
     if config.qkv_layout == "concat":
-        nKV = config.kv_heads
+        nH, nKV = config.head_num, config.kv_heads
         q = qkv[..., : nH * dh].reshape(B, S, nH, dh)
         k = qkv[..., nH * dh : (nH + nKV) * dh].reshape(B, S, nKV, dh)
         v = qkv[..., (nH + nKV) * dh :].reshape(B, S, nKV, dh)
+        lo, n = cache_heads(config, mesh)
+        if n < nKV:
+            g = nH // nKV
+            q, k, v = q[:, :, lo * g:(lo + n) * g], k[:, :, lo:lo + n], v[:, :, lo:lo + n]
     else:
+        nH = qkv.shape[-1] // (3 * dh)
         qkv = qkv.reshape(B, S, nH, 3, dh)
         q, k, v = qkv[:, :, :, 0], qkv[:, :, :, 1], qkv[:, :, :, 2]
     rot = config.rotary_embedding_dim
@@ -107,12 +134,23 @@ def _heads(config: GptNeoXConfig, qkv, cos, sin):
     return q, k, v
 
 
-def _qkv(config: GptNeoXConfig, lp, x, cos, sin, a8=False):
+def _own_heads(config: GptNeoXConfig, mesh, attn):
+    """Attention output [..., heads * dh] -> the rows of this rank's proj
+    slice: a no-op unless the rank attended over every head (a replicated
+    ``"concat"`` QKV whose KV heads do not split over tp)."""
+    if not _tp(mesh) or attn.shape[-1] != config.hidden_size:
+        return attn
+    lo, n = local_heads(config, mesh)
+    dh = config.size_per_head
+    return attn[..., lo * dh:(lo + n) * dh].contiguous()
+
+
+def _qkv(config: GptNeoXConfig, lp, x, cos, sin, a8=False, mesh=None):
     """ln1 output -> fused QKV -> heads -> rotary. x: [B, S, H]."""
-    return _heads(config, linear(x, lp["qkv_w"], lp.get("qkv_b"), act_int8=a8), cos, sin)
+    return _heads(config, linear(x, lp["qkv_w"], lp.get("qkv_b"), act_int8=a8), cos, sin, mesh)
 
 
-def _attention_inputs(config: GptNeoXConfig, lp, x, cos, sin, fused, a8=False):
+def _attention_inputs(config: GptNeoXConfig, lp, x, cos, sin, fused, a8=False, mesh=None):
     """x [B, S, H] -> (q, k, v with rotary, h). On the fused route (``fused``
     and ``_fused_ok``, and no W8A8 call under ``a8``) K13 computes QKV from
     ln1(x) and the activated up projection h [B*S, F] from ln2(x) in one
@@ -120,29 +158,32 @@ def _attention_inputs(config: GptNeoXConfig, lp, x, cos, sin, fused, a8=False):
     B, S, H = x.shape
     ln1 = _norm(config, x, lp["ln1_w"], lp.get("ln1_b"))
     if not (fused and _fused_ok(config, lp)) or a8_takes(x, lp["qkv_w"], a8):
-        return (*_qkv(config, lp, ln1, cos, sin, a8), None)
+        return (*_qkv(config, lp, ln1, cos, sin, a8, mesh), None)
     ln2 = _norm(config, x, lp["ln2_w"], lp.get("ln2_b"))
     qkv_w, up_w = lp["qkv_w"], lp["up_w"]
     qkv, h = fused_qkv_up(ln1.reshape(B * S, H), ln2.reshape(B * S, H), qkv_w.q, up_w.q,
                           qkv_w.scale, up_w.scale, lp.get("qkv_b"), lp.get("up_b"),
                           act2=config.activation, bits=qkv_w.bits,
                           group_size=qkv_w.group_size)
-    return (*_heads(config, qkv.reshape(B, S, -1), cos, sin), h)
+    return (*_heads(config, qkv.reshape(B, S, -1), cos, sin, mesh), h)
 
 
-def _ffn(config: GptNeoXConfig, lp, x, a8=False, token_valid=None):
+def _ffn(config: GptNeoXConfig, lp, x, a8=False, token_valid=None, mesh=None):
     """The FFN of ln2's output x [B, S, H]; the down bias is added by the
     caller's residual. Dense: up with bias and activation, then down; gated
     (SwiGLU): act(x @ gate + gate_b) * (x @ up + up_b), then down, the
     activation in the gate's epilogue; MoE: ``ops.moe.moe_ffn`` over the
     B * S rows, ``token_valid`` [B, S] keeping padding and idle rows out of
-    the experts' capacity."""
+    the experts' capacity. Under tp the result is the rank's partial sum (its
+    FFN columns, or its experts)."""
     if config.moe_experts:
         B, S, H = x.shape
+        n_local = lp["eup_w"].shape[0]
         y = moe_ffn(x.reshape(-1, H), lp["router_w"], lp.get("egate_w"), lp["eup_w"],
                     lp["edown_w"], config.moe_top_k, config.moe_capacity_factor,
                     act=config.activation,
-                    valid=None if token_valid is None else token_valid.reshape(-1))
+                    valid=None if token_valid is None else token_valid.reshape(-1),
+                    expert_offset=0 if mesh is None else mesh.tp_rank * n_local)
         return y.reshape(B, S, H)
     if config.gated_ffn:
         g = linear(x, lp["gate_w"], lp.get("gate_b"), act=config.activation, act_int8=a8)
@@ -152,23 +193,29 @@ def _ffn(config: GptNeoXConfig, lp, x, a8=False, token_valid=None):
     return linear(h, lp["down_w"], act_int8=a8)
 
 
-def _residual(config, lp, x, attn_out, h=None, a8=False, token_valid=None):
+def _residual(config, lp, x, attn_out, h=None, a8=False, token_valid=None, mesh=None):
     """The block output from its input x and the projected attention; ``h``:
     the activated up projection the fused route already computed;
-    ``token_valid``: the rows an MoE FFN routes."""
+    ``token_valid``: the rows an MoE FFN routes. Under tp, one all-reduce of
+    the attention and FFN partials (parallel residual) or one after each
+    (serial), the biases added after it."""
     if config.use_gptj_residual:
         if h is None:
             ffn = _ffn(config, lp, _norm(config, x, lp["ln2_w"], lp.get("ln2_b")), a8,
-                       token_valid)
+                       token_valid, mesh)
         else:
             ffn = linear(h.reshape(x.shape[:-1] + h.shape[-1:]), lp["down_w"], act_int8=a8)
+        if _tp(mesh):
+            return _addb(x + all_reduce(attn_out + ffn, mesh), lp.get("down_b"))
         return _addb(x + attn_out + ffn, lp.get("down_b"))
-    h = _addb(x + attn_out, lp.get("proj_b"))
+    h = _addb(x + all_reduce(attn_out, mesh), lp.get("proj_b"))
     ln2 = _norm(config, h, lp["ln2_w"], lp.get("ln2_b"))
-    return _addb(h + _ffn(config, lp, ln2, a8, token_valid), lp.get("down_b"))
+    return _addb(h + all_reduce(_ffn(config, lp, ln2, a8, token_valid, mesh), mesh),
+                 lp.get("down_b"))
 
 
-def block_prefill(config, lp, x, cache, layer, cos, sin, input_lengths, fused=True, a8=False):
+def block_prefill(config, lp, x, cache, layer, cos, sin, input_lengths, fused=True, a8=False,
+                  mesh=None):
     """x [B, S, H]; cos/sin [S, rot/2]; input_lengths [B] int32. Fills cache
     [0, S). Attention is K5 on CUDA (no [B, S, S] mask is built there), the
     plain causal, length-masked math on the CPU. ``fused``: QKV and up by
@@ -176,43 +223,49 @@ def block_prefill(config, lp, x, cache, layer, cos, sin, input_lengths, fused=Tr
     ``a8``: W8A8 GEMMs where ``a8_takes``."""
     B, S, H = x.shape
     sm_scale = 1.0 / (config.size_per_head ** 0.5)
-    q, k, v, h = _attention_inputs(config, lp, x, cos, sin, fused, a8)
+    q, k, v, h = _attention_inputs(config, lp, x, cos, sin, fused, a8, mesh)
     kvc.write_prefill(cache, layer, k, v)
     attn = prefill_attention(q, k, v, None, sm_scale, input_lengths)
-    attn_out = linear(attn.reshape(B, S, H), lp["proj_w"], act_int8=a8)
+    attn = _own_heads(config, mesh, attn.reshape(B, S, -1))
+    attn_out = linear(attn, lp["proj_w"], act_int8=a8)
     tv = None
     if config.moe_experts:  # padding stays out of the experts' capacity
         tv = torch.arange(S, device=x.device)[None, :] < input_lengths[:, None]
-    return _residual(config, lp, x, attn_out, h, a8, tv), cache
+    return _residual(config, lp, x, attn_out, h, a8, tv, mesh), cache
 
 
 def block_decode(config, lp, x, cache, layer, cos, sin, positions, kv_skip=None,
-                 kv_skip_mode="preserve", beam=None, fused=True):
+                 kv_skip_mode="preserve", beam=None, fused=True, mesh=None):
     """x [B, 1, H], the newest token per row; cos/sin [B, 1, rot/2];
     positions [B] int32, the slot of each row's new token; ``kv_skip`` [B]
     bool rows whose cache write must not disturb readable state
     (``kv_cache.write_decode``); ``beam`` (bw, indir) reads the cache
     through the beam indirection (K11); ``fused`` allows the K13 + K3
-    route."""
-    B, _, H = x.shape
+    route. Under tp, K3 takes the bias and the residual on rank 0 only and
+    its output is all-reduced."""
+    B = x.shape[0]
     sm_scale = 1.0 / (config.size_per_head ** 0.5)
-    q, k, v, h = _attention_inputs(config, lp, x, cos, sin, fused)
+    q, k, v, h = _attention_inputs(config, lp, x, cos, sin, fused, mesh=mesh)
     kvc.write_decode(cache, layer, k, v, positions, skip=kv_skip, skip_mode=kv_skip_mode)
     attn = kvc.attend_decode(cache, layer, q[:, 0].contiguous(), sm_scale, positions, beam=beam)
+    attn = _own_heads(config, mesh, attn.reshape(B, -1))
     if h is not None:
         proj, down = lp["proj_w"], lp["down_w"]
-        out = fused_proj_down(attn.reshape(B, H), h, proj.q, down.q, proj.scale, down.scale,
-                              lp["down_b"], x[:, 0], bits=proj.bits, group_size=proj.group_size)
-        return out[:, None, :], cache
-    attn_out = linear(attn.reshape(B, 1, H), lp["proj_w"])
+        bias, res = lp["down_b"], x[:, 0]
+        if _tp(mesh) and mesh.tp_rank:
+            bias, res = torch.zeros_like(bias), torch.zeros_like(res)
+        out = fused_proj_down(attn, h, proj.q, down.q, proj.scale, down.scale, bias, res,
+                              bits=proj.bits, group_size=proj.group_size)
+        return all_reduce(out, mesh)[:, None, :], cache
+    attn_out = linear(attn[:, None, :], lp["proj_w"])
     tv = None
     if config.moe_experts and kv_skip is not None:  # idle pool rows route nowhere
         tv = (~kv_skip)[:, None]
-    return _residual(config, lp, x, attn_out, token_valid=tv), cache
+    return _residual(config, lp, x, attn_out, token_valid=tv, mesh=mesh), cache
 
 
 def block_prefill_chunk(config, lp, x, cache, layer, cos, sin, pos, valid, active, fused=True,
-                        a8=False):
+                        a8=False, mesh=None):
     """Chunked prefill block. x [B, C, H], C consecutive prompt tokens per
     row; cos/sin [B, C, rot/2]; pos [B] int32 chunk start slots; valid
     [B, C, S] keys visible to each query (the dense cache's mask); active [B]
@@ -222,12 +275,13 @@ def block_prefill_chunk(config, lp, x, cache, layer, cos, sin, pos, valid, activ
     where ``a8`` and ``a8_takes``)."""
     B, C, H = x.shape
     sm_scale = 1.0 / (config.size_per_head ** 0.5)
-    q, k, v, h = _attention_inputs(config, lp, x, cos, sin, fused, a8)
+    q, k, v, h = _attention_inputs(config, lp, x, cos, sin, fused, a8, mesh)
     kvc.write_chunk(cache, layer, k, v, pos, active)
     attn = kvc.attend_chunk(cache, layer, q, valid, sm_scale, positions=pos)
-    attn_out = linear(attn.reshape(B, C, H), lp["proj_w"], act_int8=a8)
+    attn = _own_heads(config, mesh, attn.reshape(B, C, -1))
+    attn_out = linear(attn, lp["proj_w"], act_int8=a8)
     tv = active[:, None].expand(B, C) if config.moe_experts else None
-    return _residual(config, lp, x, attn_out, h, a8, tv), cache
+    return _residual(config, lp, x, attn_out, h, a8, tv, mesh), cache
 
 
 def _embed_lookup(params: Params, ids: torch.Tensor) -> torch.Tensor:
@@ -267,10 +321,12 @@ def prefill(
     cache: KVCache,
     fused: bool = True,
     a8: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Full-prompt forward: (hidden [B, S, H], cache with [0, S) filled).
     ``fused``: QKV and up through K13 (``RuntimeConfig.fused_decode``);
-    ``a8``: W8A8 GEMMs (``RuntimeConfig.act_int8``)."""
+    ``a8``: W8A8 GEMMs (``RuntimeConfig.act_int8``); ``mesh``: this rank's
+    place under tensor parallelism, ``params`` its slice."""
     B, S = input_ids.shape
     dev = input_ids.device
     x = _embed_lookup(params, input_ids)
@@ -279,7 +335,7 @@ def prefill(
     layers = params["layers"]
     for l in range(config.layer_num):
         x, cache = block_prefill(config, layer_slice(layers, l), x, cache, l, cos, sin,
-                                 input_lengths, fused, a8)
+                                 input_lengths, fused, a8, mesh)
     return x, cache
 
 
@@ -294,6 +350,7 @@ def decode_step(
     kv_skip_mode: str = "preserve",
     beam=None,
     fused: bool = True,
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One incremental decode step: (hidden [B, H], cache). ``kv_skip`` rows
     write their (discarded) token where readable state stays intact
@@ -313,7 +370,7 @@ def decode_step(
     layers = params["layers"]
     for l in range(config.layer_num):
         x, cache = block_decode(config, layer_slice(layers, l), x, cache, l, cos, sin, positions,
-                                kv_skip, kv_skip_mode, beam, fused)
+                                kv_skip, kv_skip_mode, beam, fused, mesh)
     return x[:, 0], cache
 
 
@@ -328,6 +385,7 @@ def prefill_chunk(
     fused: bool = True,
     a8: bool = False,
     embeds: torch.Tensor = None,  # [B, C, H] pre-embedded rows (soft prompts)
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One chunked-prefill step over the layer stack: fills cache positions
     [pos, pos + C) of active rows and keeps the other rows' bytes. Returns
@@ -349,7 +407,7 @@ def prefill_chunk(
     layers = params["layers"]
     for l in range(config.layer_num):
         x, cache = block_prefill_chunk(config, layer_slice(layers, l), x, cache, l, cos, sin,
-                                       pos, valid, active, fused, a8)
+                                       pos, valid, active, fused, a8, mesh)
     return x, cache
 
 
@@ -357,11 +415,14 @@ def final_norm(config: GptNeoXConfig, params: Params, hidden):
     return _norm(config, hidden, params["final_ln_w"], params.get("final_ln_b"))
 
 
-def lm_logits(config: GptNeoXConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
+def lm_logits(config: GptNeoXConfig, params: Params, hidden: torch.Tensor,
+              mesh=None) -> torch.Tensor:
     """fp32 logits, padded vocab ids sliced off, plus ``lm_head_b`` where the
     family has one (GPT-J). The transposed int4 head [H/2, V_pad] (k_axis 0)
     goes to K8; the int8 [V, H] head with per-row scales, or a dense head, is
-    a plain fp32 matmul, as the JAX package leaves it to XLA."""
+    a plain fp32 matmul, as the JAX package leaves it to XLA. Under tp each
+    rank computes its vocab slice (with its slice of ``lm_head_b``) and one
+    ``all_gather`` joins them, so every rank holds the same logits."""
     h = final_norm(config, params, hidden)
     h2 = h.reshape(-1, h.shape[-1])
     w = params["lm_head"]
@@ -373,9 +434,12 @@ def lm_logits(config: GptNeoXConfig, params: Params, hidden: torch.Tensor) -> to
         logits = (h2.float() @ w.q.t().float()) * w.scale.float()[None, :]
     else:
         logits = h2.float() @ w.t().float()
-    logits = logits[:, : config.vocab_size]
     if "lm_head_b" in params:  # GPT-J's head carries a bias
-        logits = logits + params["lm_head_b"].float()[None, :]
+        b = params["lm_head_b"].float()  # [V], or this rank's slice of the padded vocab
+        logits = logits[:, : b.shape[0]] + b[None, :]
+    if _tp(mesh):
+        logits = all_gather(logits, mesh)
+    logits = logits[:, : config.vocab_size]
     return logits.reshape(h.shape[:-1] + (config.vocab_size,))
 
 

@@ -15,6 +15,14 @@ per-output-channel weight (``quantize_t5_params``) is converted to that
 dtype inside the call and its scale applied after the product (``_dot2``).
 Scores, biases and softmax are fp32. ``decode_step`` runs one incremental
 step on self-attention cache slabs; the engines drive it from a host loop.
+
+Tensor parallelism (``mesh``; ``shard_t5_params``, the JAX
+``t5_param_shardings``): q/k/v, the cross q/k/v and the FFN's wi are split
+by columns (heads), o, the cross o and wo by rows, and the relative-bias
+tables by heads; a rank attends over its heads and its partial sums are
+all-reduced after each attention and after the FFN (two counted all-reduces
+an encoder layer, three a decoder layer). The head is replicated, so every
+rank computes the whole logits.
 """
 from __future__ import annotations
 
@@ -28,6 +36,8 @@ import torch
 from ..core.device import resolve_device
 from ..ops.layernorm import rmsnorm
 from ..ops.linear import apply_act
+from ..parallel.distributed import all_reduce
+from ..parallel.sharding import shard_tensor
 from .params import QuantizedTensor, layer_slice
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -206,28 +216,35 @@ def _mh(x, w, nH, dh):
     return _dot2(x, w).reshape(x.shape[0], x.shape[1], nH, dh)
 
 
-def _attn(q, k, v, bias, o_w):
+def _heads(config: T5Config, mesh) -> int:
+    """The heads of this rank."""
+    return config.head_num // (1 if mesh is None else mesh.tp)
+
+
+def _attn(q, k, v, bias, o_w, mesh=None):
     """Unscaled T5 attention. q [B, Q, nH, dh], k/v [B, K, nH, dh], bias
-    [B or 1, nH, Q, K] additive fp32 (padding mask included)."""
+    [B or 1, nH, Q, K] additive fp32 (padding mask included); the heads of
+    this rank under tp, the output reduced over the tp group."""
     scores = torch.matmul(q.float().transpose(1, 2), k.float().permute(0, 2, 3, 1)) + bias
     p = torch.softmax(scores, dim=-1).to(q.dtype)
     ctx = torch.matmul(p.float(), v.float().transpose(1, 2)).transpose(1, 2).to(q.dtype)
     B, Q = ctx.shape[0], ctx.shape[1]
-    return _dot2(ctx.reshape(B, Q, -1), o_w)
+    return all_reduce(_dot2(ctx.reshape(B, Q, -1), o_w), mesh)
 
 
-def _ffn(config: T5Config, lp, h):
-    return _dot2(apply_act(_dot2(h, lp["wi"]), config.activation), lp["wo"])
+def _ffn(config: T5Config, lp, h, mesh=None):
+    return all_reduce(_dot2(apply_act(_dot2(h, lp["wi"]), config.activation), lp["wo"]), mesh)
 
 
-def encode(config: T5Config, params, input_ids, lengths) -> torch.Tensor:
+def encode(config: T5Config, params, input_ids, lengths, mesh=None) -> torch.Tensor:
     """Encoder pass -> [B, S, d_model] (final RMSNorm applied), on the
-    params' device; the inputs may be numpy arrays or tensors."""
+    params' device; the inputs may be numpy arrays or tensors. ``mesh``:
+    this rank's place under tp, ``params`` its slice."""
     dev = params["embed"].device
     input_ids = torch.as_tensor(input_ids, device=dev).long()
     lengths = torch.as_tensor(lengths, device=dev)
     B, S = input_ids.shape
-    nH, dh = config.head_num, config.size_per_head
+    nH, dh = _heads(config, mesh), config.size_per_head
     x = params["embed"][input_ids]
     pad = torch.arange(S, device=dev)[None, :] < lengths[:, None]
     pos = torch.arange(S)
@@ -237,19 +254,21 @@ def encode(config: T5Config, params, input_ids, lengths) -> torch.Tensor:
         lp = layer_slice(params["enc"], l)
         h = rmsnorm(x, lp["ln1_w"], config.layernorm_eps)
         a = _attn(_mh(h, lp["q_w"], nH, dh), _mh(h, lp["k_w"], nH, dh),
-                  _mh(h, lp["v_w"], nH, dh), bias, lp["o_w"])
+                  _mh(h, lp["v_w"], nH, dh), bias, lp["o_w"], mesh)
         x = x + a
-        x = x + _ffn(config, lp, rmsnorm(x, lp["ln2_w"], config.layernorm_eps))
+        x = x + _ffn(config, lp, rmsnorm(x, lp["ln2_w"], config.layernorm_eps), mesh)
     return rmsnorm(x, params["enc_final_ln_w"], config.layernorm_eps)
 
 
-def init_decoder_state(config: T5Config, params, enc_hidden, enc_lengths, S_out: int):
+def init_decoder_state(config: T5Config, params, enc_hidden, enc_lengths, S_out: int,
+                       mesh=None):
     """Self-attention cache slabs [Ld, B, S_out, nH, dh] and the cross K/V of
     every decoder layer, each projected from the encoder output in ONE batched
     product over the layers; ``enc_mask`` [B, S_enc] the additive key mask;
-    ``self_bias`` the decoder's relative-position bias."""
+    ``self_bias`` the decoder's relative-position bias. Under tp, the rank's
+    heads."""
     B, S_enc, D = enc_hidden.shape
-    nH, dh = config.head_num, config.size_per_head
+    nH, dh = _heads(config, mesh), config.size_per_head
     Ld = config.dec_layer_num
     dev, dt = enc_hidden.device, enc_hidden.dtype
     dec = params["dec"]
@@ -278,14 +297,14 @@ def init_decoder_state(config: T5Config, params, enc_hidden, enc_lengths, S_out:
     }
 
 
-def decode_step(config: T5Config, params, state, tokens, pos: int):
+def decode_step(config: T5Config, params, state, tokens, pos: int, mesh=None):
     """One incremental decoder step at position ``pos`` (a host int): the
     step's K/V written into the self-attention slabs, attention over
     positions 0..pos (the JAX package attends the whole slab under a causal
     mask, which weighs the later positions zero). tokens [B]. Returns
     (logits [B, V] fp32, state), the state updated in place."""
     pos = int(pos)
-    nH, dh = config.head_num, config.size_per_head
+    nH, dh = _heads(config, mesh), config.size_per_head
     dec = params["dec"]
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev).long()
@@ -299,11 +318,11 @@ def decode_step(config: T5Config, params, state, tokens, pos: int):
         state["self_k"][l, :, pos] = _mh(h, lp["k_w"], nH, dh)[:, 0]
         state["self_v"][l, :, pos] = _mh(h, lp["v_w"], nH, dh)[:, 0]
         x = x + _attn(q, state["self_k"][l, :, : pos + 1], state["self_v"][l, :, : pos + 1],
-                      self_bias, lp["o_w"])
+                      self_bias, lp["o_w"], mesh)
         hx = rmsnorm(x, lp["ln_x_w"], config.layernorm_eps)
         x = x + _attn(_mh(hx, lp["xq_w"], nH, dh), state["cross_k"][l], state["cross_v"][l],
-                      cross_bias, lp["xo_w"])
-        x = x + _ffn(config, lp, rmsnorm(x, lp["ln2_w"], config.layernorm_eps))
+                      cross_bias, lp["xo_w"], mesh)
+        x = x + _ffn(config, lp, rmsnorm(x, lp["ln2_w"], config.layernorm_eps), mesh)
     h = rmsnorm(x[:, 0], params["dec_final_ln_w"], config.layernorm_eps)
     if config.tie_head:
         h = h * (config.d_model ** -0.5)  # HF's tied-embedding rescale
@@ -353,4 +372,32 @@ def quantize_t5_params(params):
             k: (quantize_array(v, k_axis=-2) if k in _GEMM_NAMES else v)
             for k, v in params[stack].items()
         }
+    return out
+
+
+# ------------------------------------------------------------ TP sharding --
+
+# Split axes of the stacked [L, K, N] weights (the JAX t5_param_shardings'
+# COL and ROW); every other weight is replicated.
+_T5_SPLITS = {"q_w": 2, "k_w": 2, "v_w": 2, "xq_w": 2, "xk_w": 2, "xv_w": 2, "wi": 2,
+              "o_w": 1, "xo_w": 1, "wo": 1}
+
+
+def shard_t5_params(config: T5Config, params, mesh):
+    """This rank's slice of the params (the JAX ``shard_t5_params``): heads
+    and FFN columns split, the relative-bias tables [buckets, nH] split by
+    head, embeddings, norms and the head replicated."""
+    if mesh.tp == 1:
+        return params
+    if config.head_num % mesh.tp:
+        raise ValueError(f"{config.head_num} heads do not split over tp {mesh.tp}")
+    out = {}
+    for k, v in params.items():
+        if k in ("enc", "dec"):
+            out[k] = {n: shard_tensor(val, _T5_SPLITS.get(n), mesh, n)
+                      for n, val in v.items()}
+        elif k in ("enc_rel_bias", "dec_rel_bias"):
+            out[k] = shard_tensor(v, 1, mesh, k)
+        else:
+            out[k] = v
     return out

@@ -22,6 +22,14 @@ bits, change from run to run, which would break greedy determinism. Every
 token owns exactly k (token, choice) slots, so the port gathers each slot's
 expert output into [T, k, H] and sums over k in a fixed order.
 
+Expert parallelism (``expert_offset``): the weights hold experts [offset,
+offset + E_local) of the router's E. Routing, capacity (from the global T
+and E) and the combine's weights are computed over all E on every rank; the
+rank runs only its experts' buckets and returns its partial sum, the tokens'
+outputs from its experts weighted as in the full sum, which the layer's FFN
+all-reduce completes (the JAX package shards the E axis of the same
+einsums over tp, sharding.py:58-60).
+
 The products run in the activations' dtype (bf16 on the card) with fp32
 sums, as the JAX einsums do (``preferred_element_type=float32``).
 """
@@ -45,10 +53,13 @@ def moe_ffn(
     capacity_factor: float,
     act: str = "silu",
     valid: Optional[torch.Tensor] = None,  # [T] bool: False rows route nowhere (output 0)
+    expert_offset: int = 0,  # the router's id of eup_w's first expert
 ) -> torch.Tensor:
-    """The MoE FFN of ``x2d``: [T, H] in x's dtype."""
+    """The MoE FFN of ``x2d``: [T, H] in x's dtype (this rank's partial sum
+    when the weights hold a slice of the experts)."""
     T, H = x2d.shape
     E = router_w.shape[-1]
+    El, lo = eup_w.shape[0], expert_offset
     k = top_k
     dev = x2d.device
 
@@ -67,11 +78,11 @@ def moe_ffn(
     counts = torch.bincount(e_of, minlength=E + 1)[:E]  # the null id E counts nowhere
     starts = torch.cumsum(counts, 0) - counts
     slot_c = torch.arange(C, device=dev)[None, :]
-    take = torch.clamp(starts[:, None] + slot_c, 0, T * k - 1)  # [E, C]
-    flat_slot = order[take]  # [E, C] index into (token, choice) space
-    kept = slot_c < counts[:, None]  # [E, C]
+    take = torch.clamp(starts[lo:lo + El, None] + slot_c, 0, T * k - 1)  # [El, C]
+    flat_slot = order[take]  # [El, C] index into (token, choice) space
+    kept = slot_c < counts[lo:lo + El, None]  # [El, C]
     tok_of_slot = flat_slot // k
-    xe = x2d[tok_of_slot.reshape(-1)].reshape(E, C, H)
+    xe = x2d[tok_of_slot.reshape(-1)].reshape(El, C, H)
     xe = torch.where(kept[..., None], xe, torch.zeros_like(xe))
 
     # ---- batched expert FFN
@@ -82,7 +93,7 @@ def moe_ffn(
         h = apply_act(g, act).to(dt) * up.to(dt)
     else:
         h = apply_act(up, act).to(dt)
-    ye = torch.bmm(h, edown_w.to(dt)).float()  # [E, C, H]
+    ye = torch.bmm(h, edown_w.to(dt)).float()  # [El, C, H]
 
     # ---- combine in token order: slot (t, j) sits at bucket row rank[t, j]
     # of its expert, kept if that expert's bucket reached it
@@ -91,9 +102,10 @@ def moe_ffn(
     e_safe = torch.clamp(e_of, max=E - 1)
     rank = pos_in_order - starts[e_safe]
     slot_kept = (e_of < E) & (rank < C)
-    row = torch.where(slot_kept, e_safe * C + rank, torch.zeros_like(rank))
-    out = ye.reshape(E * C, H)[row].reshape(T, k, H)
-    out = torch.where(slot_kept.reshape(T, k, 1), out, torch.zeros_like(out))
+    here = slot_kept & (e_of >= lo) & (e_of < lo + El)  # kept by this rank's experts
+    row = torch.where(here, (e_safe - lo) * C + rank, torch.zeros_like(rank))
+    out = ye.reshape(El * C, H)[row].reshape(T, k, H)
+    out = torch.where(here.reshape(T, k, 1), out, torch.zeros_like(out))
     kept_w = torch.where(slot_kept, w.reshape(T * k), torch.zeros_like(w.reshape(T * k)))
     kept_w = kept_w.reshape(T, k)
     y = (out * kept_w[..., None]).sum(dim=1)

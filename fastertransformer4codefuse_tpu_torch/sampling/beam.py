@@ -24,6 +24,7 @@ import torch
 
 from ..ops.rotary import make_rotary_tables
 from . import processors as proc
+from .sample import top_k_stable
 
 NEG_INF = proc.NEG_INF
 
@@ -32,13 +33,6 @@ def _length_penalty_factor(lengths: torch.Tensor, len_penalty: torch.Tensor) -> 
     """GNMT length normalisation ((5 + len) / 6) ** alpha."""
     base = (5.0 + lengths.float()) / 6.0
     return torch.pow(base, len_penalty.float())
-
-
-def top_k_stable(x: torch.Tensor, k: int):
-    """(values, indices) of the k largest entries of each row, equal values
-    in index order (``jax.lax.top_k``'s ties)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def merge_candidates(log_probs, cum, finished, seq_lens, input_lens, diversity, len_penalty,

@@ -17,6 +17,13 @@ import torch
 from .processors import NEG_INF
 
 
+def top_k_stable(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of each row, equal values
+    in index order (``jax.lax.top_k``'s ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 class SampleResult(NamedTuple):
     tokens: torch.Tensor  # [BB] int32
     log_probs: torch.Tensor  # [BB] fp32, under the full processed distribution
@@ -43,7 +50,10 @@ def top_k_top_p_filter(logits: torch.Tensor, top_k: torch.Tensor, top_p: torch.T
     k = top_k.long()
     p = top_p.float()
     k = torch.where((k <= 0) & (p <= 0.0), torch.ones_like(k), k).clamp(max=V)
-    sorted_logits, order = torch.sort(logits, dim=-1, descending=True, stable=True)
+    # the JAX package's rank order: a stable ascending argsort reversed, so
+    # among equal logits the higher id ranks first
+    order = torch.argsort(logits, dim=-1, stable=True).flip(-1)
+    sorted_logits = logits.gather(1, order)
     ranks = torch.empty_like(order).scatter_(
         1, order, torch.arange(V, device=logits.device).expand(BB, V)
     )
@@ -69,9 +79,11 @@ def sample_top_k_top_p(logits, top_k, top_p, gumbel, need_log_probs: bool = True
 
 def top_k_top_p_filter_capped(logits, top_k, top_p, cap: int):
     """(masked top-``cap`` logits [BB, cap], their ids) for rows with
-    0 < top_k <= cap: one top-k over the vocab instead of a full sort."""
+    0 < top_k <= cap. Equal logits keep the lower id first, the order of the
+    JAX path's ``lax.top_k`` (``torch.topk`` leaves the order of ties
+    unspecified)."""
     cap = min(cap, logits.shape[1])
-    vals, idxs = torch.topk(logits, cap, dim=-1)
+    vals, idxs = top_k_stable(logits, cap)
     ranks = torch.arange(cap, device=logits.device)[None, :]
     kept = torch.where(ranks < top_k.long()[:, None], vals, torch.full_like(vals, NEG_INF))
     probs = torch.softmax(kept, dim=-1)

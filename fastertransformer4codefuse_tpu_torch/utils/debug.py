@@ -29,6 +29,7 @@ from ..engine import kv_cache
 from ..models import gptneox as model
 from ..models.params import Params, QuantizedTensor, layer_slice
 from ..ops.rotary import make_rotary_tables
+from ..parallel.sharding import cache_heads
 
 
 class DebugCheckError(RuntimeError):
@@ -93,13 +94,15 @@ def checked_forward(
     cache_dtype=torch.bfloat16,
     fused: bool = True,
     act_int8: bool = False,
+    mesh=None,
 ) -> None:
     """Prefill and one greedy decode step with a finiteness check after the
     embeddings, every layer, the final layernorm and the logits; raises
     ``DebugCheckError`` naming the first non-finite stage (the JAX
     function's messages: "non-finite activation after layer 1 (prefill)").
     ``cache_dtype`` is what the engine's cache takes; ``fused`` and
-    ``act_int8`` choose the routes as the engine's runtime does."""
+    ``act_int8`` choose the routes as the engine's runtime does; ``mesh``
+    the engine's under tensor parallelism (``params`` the rank's slice)."""
     dev = params["final_ln_w"].device
     ids = torch.as_tensor(np.asarray(input_ids, np.int32), device=dev)
     lens = torch.as_tensor(np.asarray(input_lengths, np.int32), device=dev)
@@ -107,7 +110,8 @@ def checked_forward(
     W = S + 1
     if isinstance(cache_dtype, str):  # packed int4: an even width
         W += W % 2
-    cache = kv_cache.init_cache(config, B, W, cache_dtype, dev)
+    cache = kv_cache.init_cache(config, B, W, cache_dtype, dev,
+                                kv_heads=cache_heads(config, mesh)[1])
     cos_t, sin_t = make_rotary_tables(W, config.rotary_embedding_dim, config.rotary_base, dev)
     layers = params["layers"]
     f = _Flags()
@@ -116,11 +120,11 @@ def checked_forward(
     f.check("non-finite embeddings", x)
     for l in range(config.layer_num):
         x, cache = model.block_prefill(config, layer_slice(layers, l), x, cache, l, cos_t[:S],
-                                       sin_t[:S], lens, fused, act_int8)
+                                       sin_t[:S], lens, fused, act_int8, mesh)
         f.check(f"non-finite activation after layer {l} (prefill)", x)
     last = model.last_token_hidden(x, lens)
     f.check("non-finite final layernorm (prefill)", model.final_norm(config, params, last))
-    logits = model.lm_logits(config, params, last)
+    logits = model.lm_logits(config, params, last, mesh)
     f.check("non-finite logits (prefill)", logits)
     f.raise_first()
 
@@ -130,9 +134,9 @@ def checked_forward(
     xd = model._embed_lookup(params, tok)[:, None, :]
     for l in range(config.layer_num):
         xd, cache = model.block_decode(config, layer_slice(layers, l), xd, cache, l, cos, sin,
-                                       positions, fused=fused)
+                                       positions, fused=fused, mesh=mesh)
         f.check(f"non-finite activation after layer {l} (decode)", xd)
-    f.check("non-finite logits (decode)", model.lm_logits(config, params, xd[:, 0]))
+    f.check("non-finite logits (decode)", model.lm_logits(config, params, xd[:, 0], mesh))
     f.raise_first()
 
 
@@ -146,4 +150,4 @@ def debug_verify(engine, input_ids, input_lengths) -> None:
     rt = engine.runtime
     checked_forward(engine.config, engine.params, np.asarray(input_ids, np.int32),
                     np.asarray(input_lengths, np.int32), cache_dtype=engine._cache_dtype(),
-                    fused=rt.fused_decode, act_int8=rt.act_int8)
+                    fused=rt.fused_decode, act_int8=rt.act_int8, mesh=engine.mesh)

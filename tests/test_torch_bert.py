@@ -93,8 +93,12 @@ def test_engine_takes_numpy_and_tensors_and_refuses_a_mesh():
     b_h, b_p = eng.encode(torch.from_numpy(ids), torch.from_numpy(ln))
     ref_h, ref_p = bert.encode(cfg, params, torch.from_numpy(ids), torch.from_numpy(ln))
     assert torch.equal(a_h, ref_h) and torch.equal(b_h, ref_h) and torch.equal(b_p, ref_p)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        bert.BertEngine(cfg, params, mesh=object())
+    # a mesh is served (tests/test_torch_parallel_families.py); one whose tp
+    # does not split the heads is refused
+    from fastertransformer4codefuse_tpu_torch.parallel.distributed import Mesh
+
+    with pytest.raises(ValueError, match="do not split"):
+        bert.BertEngine(cfg, params, mesh=Mesh(tp=3))
 
 
 def test_params_default_to_the_card():

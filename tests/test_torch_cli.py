@@ -126,10 +126,14 @@ def test_cli_refuses_what_is_not_ported(ckpt, tokenizers):
     # a speculative pool is dense: with pages it is refused, as the JAX CLI refuses it
     with pytest.raises(ValueError, match="dense"):
         cli.main(base + ["--serve", "--speculative_pool", "--paged_pages", "17"])
-    with pytest.raises(NotImplementedError, match="item 19"):
+    # tensor parallelism runs under torchrun: without a process group it is
+    # refused, and the threaded --serve loop is refused under it
+    with pytest.raises(ValueError, match="torchrun"):
         cli.main(base + ["--input_file", "x", "--tensor_parallel", "2"])
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(ValueError, match="torchrun"):
         generate.init_engine_and_tokenizer(ckpt, "tok", tensor_parallel=2, device="cpu")
+    with pytest.raises(SystemExit):
+        cli.main(base + ["--serve", "--tensor_parallel", "2"])
     with pytest.raises(SystemExit):
         cli.main(base)  # neither --input_file nor --serve
 

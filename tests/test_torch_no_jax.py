@@ -13,6 +13,8 @@ import fastertransformer4codefuse_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+assert {"parallel", "parallel.distributed", "parallel.sharding"} <= {
+    n.split(".", 1)[1] for n in names}
 import chip_smoke
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 assert not any(m.startswith("fastertransformer4codefuse_tpu.") for m in sys.modules)
@@ -34,5 +36,6 @@ def test_port_imports_no_jax():
     # decoder families (ops/moe and the seven ckpt/convert_* converters); 72
     # with the encoder-decoder, vision and audio families (models/t5,
     # engine/t5_engine, models/bart, models/vit, models/swin, models/deberta,
-    # models/xlnet, models/conformer)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 72
+    # models/xlnet, models/conformer); 75 with parallel/ (the package,
+    # distributed, sharding)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 75

@@ -8,7 +8,8 @@ early_stopping=True), beam scores within the JAX test's rtol 1e-4; sampling
 on the JAX engine's Gumbel noise gives its tokens, and at each
 teacher-forced step the processed logits and the filtered distribution
 equal JAX's within 1e-5; int8 weights give the tokens of the dequantized
-float weights. (The JAX tests' tensor-parallel cases are ROADMAP item 19.)"""
+float weights. (The JAX tests' tensor-parallel cases run in
+tests/test_torch_parallel_families.py.)"""
 import numpy as np
 import pytest
 import torch
@@ -179,6 +180,10 @@ def test_int8_gives_the_tokens_of_the_dequantized_weights():
 
 def test_engine_refuses_a_mesh_and_defaults_to_the_params_device():
     _, cfg, params, _ = mk(seed=3)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        T5Engine(cfg, params, mesh=object())
+    # a mesh is served (tests/test_torch_parallel_families.py); one whose tp
+    # does not split the heads is refused
+    from fastertransformer4codefuse_tpu_torch.parallel.distributed import Mesh
+
+    with pytest.raises(ValueError, match="do not split"):
+        T5Engine(cfg, params, mesh=Mesh(tp=3))
     assert T5Engine(cfg, params).device == torch.device("cpu")

@@ -1,0 +1,358 @@
+"""Runs tensor- and data-parallel cases of the port in a group of gloo ranks.
+
+A test module builds its inputs (configs, weights as numpy, prompts) in its
+own process, where the JAX package gives the references, and calls
+``run_group(world, cases, data)`` once: it starts ``world`` processes of this
+file (each imports torch and the port, never jax, and loads no conftest),
+which join one gloo group over localhost, run every case in order and write
+their results; the call returns ``{case name: [result of rank 0, rank 1,
+...]}``. A case that raises on a rank gives ``{"error": traceback}`` there.
+Cases are functions of this module named in ``CASES``.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import tempfile
+import traceback
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PROMPTS = [[3, 4, 5, 17], [9, 8, 7, 6, 5, 4]]
+POOL_PROMPTS = [[3, 4, 5], [9, 8, 7, 6, 5], [11, 12], [20, 21, 22, 23], [30, 31, 32]]
+POOL_OUT_LENS = [5, 4, 6, 3, 5]
+
+
+class NpQuant:
+    """A quantized weight as numpy (the attributes ``from_jax_params`` reads)."""
+
+    def __init__(self, q, scale, k_axis, bits, group_size):
+        self.q, self.scale = q, scale
+        self.k_axis, self.bits, self.group_size = k_axis, bits, group_size
+
+
+def np_tree(tree):
+    """A parameter tree (JAX or port) as numpy arrays and ``NpQuant``s."""
+    if isinstance(tree, dict):
+        return {k: np_tree(v) for k, v in tree.items()}
+    if all(hasattr(tree, a) for a in ("q", "scale", "k_axis", "bits", "group_size")):
+        return NpQuant(np_tree(tree.q), np_tree(tree.scale), int(tree.k_axis), int(tree.bits),
+                       int(tree.group_size))
+    if hasattr(tree, "detach"):  # a torch tensor
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_group(world: int, cases, data, timeout: float = 600.0) -> dict:
+    """Run ``cases`` ([(name, case function name, kwargs)]) on ``world``
+    gloo ranks; returns {name: [each rank's result]}."""
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "in.pkl"), "wb") as f:
+            pickle.dump((cases, data), f)
+        port = str(_free_port())
+        env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+        env.pop("PYTHONPATH", None)
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), d, str(r),
+                                   str(world), port], env=env, cwd=REPO,
+                                  stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+                 for r in range(world)]
+        errs = []
+        for p in procs:
+            try:
+                _, err = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+            errs.append(err.decode(errors="replace")[-4000:])
+        if any(p.returncode for p in procs):
+            raise RuntimeError("a rank failed:\n" + "\n".join(
+                f"rank {r} (rc {p.returncode}): {e}" for r, (p, e) in enumerate(zip(procs, errs))))
+        outs = []
+        for r in range(world):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+                outs.append(pickle.load(f))
+    return {name: [o[name] for o in outs] for name, _, _ in cases}
+
+
+# ------------------------------------------------------------- the ranks --
+
+_MESHES = {}
+
+
+def _mesh(tp, dp=1):
+    from fastertransformer4codefuse_tpu_torch.parallel.sharding import build_mesh
+
+    if (tp, dp) not in _MESHES:
+        _MESHES[tp, dp] = build_mesh(tp=tp, dp=dp)
+    return _MESHES[tp, dp]
+
+
+def _counters():
+    from fastertransformer4codefuse_tpu_torch.parallel import distributed
+
+    return distributed.all_reduce, distributed.all_gather
+
+
+def _params(tree):
+    from fastertransformer4codefuse_tpu_torch.models.params import from_jax_params
+
+    return from_jax_params(tree, device="cpu")
+
+
+def _runtime(**kw):
+    from fastertransformer4codefuse_tpu_torch import RuntimeConfig
+
+    return RuntimeConfig(dtype="fp32", **kw)
+
+
+def _gen(out):
+    return {"ids": out.output_ids, "lens": out.sequence_lengths, "cum": out.cum_log_probs}
+
+
+def engine_case(data, model, tp, dp=1, runtime=None, gen=None, prompts=PROMPTS, out_len=6,
+                first_logits=False):
+    """``generate`` on an engine of this mesh and on a tp = 1 engine over
+    the same weights; the collectives counted over the mesh's call."""
+    from fastertransformer4codefuse_tpu_torch import GptNeoXEngine
+
+    cfg, tree = data[model]
+    params = _params(tree)
+    rt = _runtime(seq_bucket=4, **(runtime or {}))
+    gen = gen or {}
+    ref = GptNeoXEngine(cfg, params, rt).generate(prompts, out_len, **gen)
+    eng = GptNeoXEngine(cfg, params, rt, mesh=_mesh(tp, dp))
+    ar, ag = _counters()
+    ar.calls = ag.calls = 0
+    out = eng.generate(prompts, out_len, **gen)
+    res = {"tp": _gen(out), "tp1": _gen(ref), "all_reduce": ar.calls, "all_gather": ag.calls,
+           "forwards": eng.decode_forwards, "head_rows": eng.params["lm_head"].shape[0]}
+    if first_logits:  # the prefill's logits of the whole batch, under the mesh
+        st, inputs = eng._prepare(prompts, out_len, **gen)
+        res["logits"] = eng._prefill_state(st, inputs).logits.numpy()
+    return res
+
+
+def step_counts_case(data, model, tp):
+    """The counted collectives of one prefill and of one decode step through
+    the model functions."""
+    import torch
+
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model_fns
+    from fastertransformer4codefuse_tpu_torch.parallel.sharding import cache_heads, shard_params
+
+    cfg, tree = data[model]
+    mesh = _mesh(tp)
+    params = shard_params(cfg, _params(tree), mesh)
+    B, T = 2, 16
+    cache = kv_cache.init_cache(cfg, B, T, torch.float32, "cpu",
+                                kv_heads=cache_heads(cfg, mesh)[1])
+    ar, ag = _counters()
+    ids = torch.tensor([[3, 4, 5], [6, 7, 8]], dtype=torch.int32)
+    ar.calls = ag.calls = 0
+    hidden, cache = model_fns.prefill(cfg, params, ids, torch.tensor([3, 3], dtype=torch.int32),
+                                      cache, mesh=mesh)
+    model_fns.lm_logits(cfg, params, hidden[:, -1], mesh)
+    prefill = (ar.calls, ag.calls)
+    ar.calls = ag.calls = 0
+    hidden, cache = model_fns.decode_step(cfg, params, torch.zeros(B, dtype=torch.int32),
+                                          torch.full((B,), 3, dtype=torch.int32), cache,
+                                          mesh=mesh)
+    logits = model_fns.lm_logits(cfg, params, hidden, mesh)
+    return {"prefill": prefill, "decode": (ar.calls, ag.calls), "logits": logits.numpy()}
+
+
+def pool_case(data, model, tp, kind="dense", pool=None, sampling=None, runtime=None,
+              compare_tp1=False):
+    """The pool of ``kind`` ("dense", "paged", "spec", "beam") on an engine
+    of this mesh, every request submitted and run to the end; with
+    ``compare_tp1`` also the same pool on a tp = 1 engine. Returns the
+    outputs, the slabs' kv-head count and the collectives of each tick."""
+    from fastertransformer4codefuse_tpu_torch import GptNeoXEngine
+    from fastertransformer4codefuse_tpu_torch.engine.batcher import ContinuousBatcher
+    from fastertransformer4codefuse_tpu_torch.engine.beam_pool import BeamPool
+    from fastertransformer4codefuse_tpu_torch.engine.spec_pool import SpecPool
+
+    cfg, tree = data[model]
+    params = _params(tree)
+    rt = _runtime(seq_bucket=8, **(runtime or {}))
+    kw = {**dict(max_slots=2, max_seq_len=32, prompt_bucket=8), **(pool or {})}
+
+    def build(eng):
+        if kind == "spec":
+            return SpecPool(eng, k=4, ngram=2, **kw)
+        if kind == "beam":
+            return BeamPool(eng, beam_width=2, **kw)
+        return ContinuousBatcher(eng, **kw)
+
+    def run(eng, counted=False):
+        cb = build(eng)
+        ar, ag = _counters()
+        uids = []
+        for i, (p, ol) in enumerate(zip(POOL_PROMPTS, POOL_OUT_LENS)):
+            kw_i = {} if kind == "beam" else dict(top_k=1)
+            uids.append(cb.submit(p, ol, **(kw_i if sampling is None else sampling[i])))
+        ticks = []  # (chunk steps, decode steps, all-reduces, all-gathers) of each tick
+        while cb.pending or cb.running:
+            ar.calls = ag.calls = 0
+            c0, d0 = cb.chunk_ticks, cb.decode_ticks
+            cb.step()
+            ticks.append((cb.chunk_ticks - c0, cb.decode_ticks - d0, ar.calls, ag.calls))
+            assert len(ticks) < 300, "the pool did not drain"
+        done = cb.requests
+        slab = cb._state["cache"]["pk" if "pk" in cb._state["cache"] else "k"]
+        return {"outs": [done[u].output_ids for u in uids],
+                "beams": [done[u].beam_output_ids for u in uids],
+                "kv_heads": int(slab.shape[2]), "ticks": ticks if counted else None}
+
+    res = {"tp": run(GptNeoXEngine(cfg, params, rt, mesh=_mesh(tp)), counted=True)}
+    eng1 = GptNeoXEngine(cfg, params, rt)
+    if compare_tp1:
+        res["tp1"] = run(eng1)
+    if kind == "beam":  # each request's static beams, best first, on the tp = 1 engine
+        res["static"] = []
+        for p, ol in zip(POOL_PROMPTS, POOL_OUT_LENS):
+            o = eng1.generate([p], output_len=ol, beam_width=2)
+            res["static"].append([[int(x) for x in o.output_ids[0, j, : o.sequence_lengths[0, j]]]
+                                  for j in range(2)])
+    return res
+
+
+def bert_case(data, model, tp):
+    """BERT's encode on an engine of this mesh, its all-reduces counted."""
+    from fastertransformer4codefuse_tpu_torch.models import registry
+    from fastertransformer4codefuse_tpu_torch.models.bert import (
+        params_from_hf_bert_state_dict, quantize_bert_params,
+    )
+
+    cfg, sd, ids, lens, int8 = data[model]
+    params = params_from_hf_bert_state_dict(cfg, sd, device="cpu")
+    if int8:
+        params = quantize_bert_params(params)
+    eng = registry.get("bert").make_engine(cfg, params, mesh=_mesh(tp))
+    ar, _ = _counters()
+    ar.calls = 0
+    h, p = eng.encode(ids, lens)
+    return {"hidden": h.numpy(), "pooled": None if p is None else p.numpy(),
+            "all_reduce": ar.calls, "qkv_cols": int(eng.params["layers"]["qkv_w"].shape[-1])}
+
+
+def t5_case(data, model, tp, beam_width=1, out_len=8):
+    """T5's generate on an engine of this mesh and on a tp = 1 engine."""
+    from fastertransformer4codefuse_tpu_torch.engine.t5_engine import T5Engine
+    from fastertransformer4codefuse_tpu_torch.models.t5 import (
+        params_from_hf_t5_state_dict, quantize_t5_params,
+    )
+
+    cfg, sd, ids, int8 = data[model]
+    params = params_from_hf_t5_state_dict(cfg, sd, device="cpu")
+    if int8:
+        params = quantize_t5_params(params)
+    rows = [list(r) for r in ids]
+    eng = T5Engine(cfg, params, mesh=_mesh(tp))
+    ar, _ = _counters()
+    ar.calls = 0
+    out = eng.generate(rows, out_len, beam_width=beam_width)
+    ref = T5Engine(cfg, params).generate(rows, out_len, beam_width=beam_width)
+    q = eng.params["enc"]["q_w"]
+    return {"ids": out.output_ids, "ref": ref.output_ids, "all_reduce": ar.calls,
+            "forwards": eng.decode_forwards,
+            "q_cols": int((q.q if hasattr(q, "q") else q).shape[-1])}
+
+
+def pod_mesh_case(data):
+    """This rank's coordinates in ``build_pod_mesh``'s meshes: tp over the
+    whole group by default, and tp = 2 with dp the rest."""
+    from fastertransformer4codefuse_tpu_torch.parallel.distributed import build_pod_mesh
+
+    out = {}
+    for name, kw in (("default", {}), ("tp2", dict(tp=2))):
+        m = build_pod_mesh(**kw)
+        out[name] = (m.tp, m.dp, m.tp_rank, m.dp_rank)
+    return out
+
+
+class VocabTokenizer:
+    """A tokenizer over a fixed vocab of single characters and a few longer
+    entries (the tests' char-level tokenizer, rebuilt from its vocab)."""
+
+    def __init__(self, vocab):
+        self.vocab = dict(vocab)
+        self.inv = {v: k for k, v in self.vocab.items()}
+
+    def encode(self, text):
+        return [self.vocab[c] for c in text if c in self.vocab]
+
+    def decode(self, ids):
+        return "".join(self.inv.get(int(i), "") for i in ids if int(i) > 1)
+
+    def get_vocab(self):
+        return dict(self.vocab)
+
+
+def cli_case(data, model, tp, argv):
+    """``api.cli.main(argv + ["--tensor_parallel", tp])`` as a torchrun rank
+    runs it (RANK set), the tokenizer patched in; returns what the rank
+    printed."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from fastertransformer4codefuse_tpu_torch.api import cli, generate
+
+    ckpt, vocab = data[model]
+    os.environ["RANK"] = str(dist.get_rank())
+    tok = VocabTokenizer(vocab)
+    real = generate.load_tokenizer
+    generate.load_tokenizer = lambda path: tok
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(["--ckpt_path", ckpt, *argv, "--tensor_parallel", str(tp)])
+    finally:
+        generate.load_tokenizer = real
+    return {"stdout": buf.getvalue()}
+
+
+CASES = {f.__name__: f for f in (engine_case, step_counts_case, pool_case, bert_case, t5_case,
+                                 cli_case, pod_mesh_case)}
+
+
+def main(argv) -> int:
+    d, rank, world, port = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    sys.path.insert(0, REPO)
+    import torch
+
+    from fastertransformer4codefuse_tpu_torch.parallel.distributed import init_distributed
+
+    torch.set_num_threads(1)
+    init_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo", timeout_s=120)
+    with open(os.path.join(d, "in.pkl"), "rb") as f:
+        cases, data = pickle.load(f)
+    out = {}
+    with torch.inference_mode():
+        for name, fn, kw in cases:
+            try:
+                out[name] = CASES[fn](data, **kw)
+            except Exception:  # noqa: BLE001 - reported to the test as the case's result
+                out[name] = {"error": traceback.format_exc()}
+    with open(os.path.join(d, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
