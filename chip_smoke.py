@@ -52,12 +52,12 @@ Phases (any failure exits non-zero):
   3. models of CodeFuse-13B width, int8 at 2 layers and int4 at 1
      (``REF_LAYERS``; int8 and int4 g128, each with
      ``fused_decode`` True (K13 + K3) and False (unfused GEMMs), the two
-     routes' card logits also against each other; int4 per-channel; int8 on
-     an int4 dense cache; int8 on int8 and int4 KV pools through chunked
-     prefill; int8 beam decode through a beam history; int4 g128 with fp32
-     group scales on both routes, its launches counted) built on the CPU and
-     copied to the card: prefill and teacher-forced decode logits on the
-     card (kernels) against the CPU (plain versions);
+     routes' card logits also against each other; int4 per-channel; int8 at
+     its first layer on an int4 dense cache, on int8 and int4 KV pools
+     through chunked prefill, and in beam decode through a beam history;
+     int4 g128 with fp32 group scales on both routes, its launches counted)
+     built on the card and copied to the CPU: prefill and teacher-forced
+     decode logits on the card (kernels) against the CPU (plain versions);
      and 2-layer Longformer-base (K12; with a global token, the dense path)
      and int8 BERT-base (K1) from random weights under HF's names: hidden
      states and pooled outputs, card (bf16) against CPU (fp32); no plain
@@ -159,8 +159,19 @@ Phases (any failure exits non-zero):
      paged pool of 4 requests (each token held to the tp = 1 static
      program's argmax), one counted all-reduce a layer a forward and one
      all-gather of the logits a forward, each rank's launches exact, and
-     the two ranks' times beside tp = 1's.
-For each path of phases 4 to 10 the kernel launch counters are zeroed just
+     the two ranks' times beside tp = 1's;
+  11. pipeline parallelism (``phase_pp``): the same model at 4 layers on four
+     ranks of one gloo group on the card, as pp = 2 (two copies of the mesh,
+     2 layers a stage) and as tp 2 x pp 2, beside a pp = 1 engine on rank 0:
+     the static greedy batch at 1 and 2 microbatches (teacher-forced logits
+     against pp = 1's, greedy tokens equal past near-ties, every rank the
+     same bytes), a dense pool of 4 requests (each token held to the pp = 1
+     static program's argmax), the counted hops, broadcasts, all-reduces and
+     all-gathers exact, each rank's launches exact at its stage's layers, and
+     the times beside pp = 1's.
+Phase 2 also holds the group-wise forms no served model makes: K1 and K13 on
+int8 weights with group scales (M = 1, 4, 1024) and K7 as the group-wise
+transposed head. For each path of phases 4 to 11 the kernel launch counters are zeroed just
 before it is driven and checked just after against the counts its route must
 give, with the attention dispatchers' ``plain_routes`` at 0 (on GPT-2 XL's
 paged pool, one a layer a chunk tick; every path of phase 9 launches 0). The line before the last holds the kernels' JSON record; the last line
@@ -729,6 +740,48 @@ def phase_kernels(torch, records):
                peers=[("its bf16-scale instance", t16)])
     del p_q, p_u, p_p, p_d
 
+    # Item 11's group-wise forms, which no served model makes (hand-built
+    # weights at CodeFuse-13B's widths, G = 128): K1 and K13 on int8 weights
+    # with fp32 group scales (W_I8G: the GEMV at M = 1 and 4, the TMA +
+    # wgmma GEMM at 1024), and K7 with fp32 out as the group-wise transposed
+    # int4 head [H/2, V_pad]
+    def dequant8g(w, g):  # an int8 weight with group scales dequantized to bf16
+        return QuantizedTensor(q=w, scale=g, k_axis=-2, group_size=G,
+                               bits=8).dequantize().to(torch.bfloat16)
+
+    V_pad = 102400  # CodeFuse-13B's 100831 padded to a multiple of 2560
+    q8, u8 = i8(H, 3 * H), i8(H, F_)
+    gq8, gu8 = gscale(H, 3 * H, 127, torch.float32), gscale(H, F_, 127, torch.float32)
+    p_h, g_h = i8(H // 2, V_pad), gscale(H, V_pad, 7, torch.bfloat16)
+    wq8b, wu8b, wh_b = dequant8g(q8, gq8), dequant8g(u8, gu8), dequant4(p_h, g_h, G)
+    for M in (1, 4, 1024):
+        x, x2 = bf(M, H), bf(M, H)
+        big = M > 32
+        report("quant_matmul_g8", f"qkv {H}->{3 * H} int8 g128 M={M}",
+               lambda: quant_matmul(x, q8, gq8, b_q, group_size=G),
+               lambda: quant_matmul_plain(x, q8, gq8, b_q, group_size=G), tol_mm,
+               f"qkv {H}->{3 * H} int8 g128 M=1",
+               work=(nbytes(x, q8, gq8, b_q), 2 * M * H * 3 * H),
+               fn_lib=(lambda: torch.matmul(x, wq8b)) if big else None,
+               lib_label=lib_bf16 if big else none, note=tiles(M, 3 * H) if big else "")
+        args = (x, x2, q8, u8, gq8, gu8, b_q, b_u, None, "gelu-tanh", 8, G)
+        report("fused_qkv_up_g8", f"int8 g128 {H}->{3 * H}|{F_} M={M}",
+               lambda: fused_qkv_up(*args), lambda: fused_qkv_up_plain(*args), tol_mm,
+               f"int8 g128 {H}->{3 * H}|{F_} M=1024",
+               work=(nbytes(x, x2, q8, gq8, u8, gu8, b_q, b_u), 2 * M * H * (3 * H + F_)),
+               fn_lib=(lambda: (torch.matmul(x, wq8b), torch.matmul(x2, wu8b))) if big else None,
+               lib_label=("two torch.matmul, x1 @ Wqkv + x2 @ Wup, bf16 weights dequantized "
+                          "beforehand") if big else none,
+               note=tiles(M, 3 * H, F_) if big else "")
+        report("quant_matmul_w4_group_head", f"head {H}->{V_pad} int4 g128 M={M}",
+               lambda: quant_matmul_w4_group(x, p_h, g_h, G, out_dtype=torch.float32),
+               lambda: quant_matmul_w4_group_plain(x.float(), p_h, g_h, G), tol_mm,
+               f"head {H}->{V_pad} int4 g128 M=1", work=(nbytes(x, p_h, g_h), 2 * M * H * V_pad),
+               fn_lib=(lambda: torch.matmul(x, wh_b)) if big else None,
+               lib_label=lib_bf16 if big else none, note=tiles(M, V_pad) if big else "")
+        del x, x2
+    del q8, u8, gq8, gu8, p_h, g_h, wq8b, wu8b, wh_b
+
     # Row independence of the GEMV's tensor-core body at CodeFuse-13B shapes:
     # row r of K6, K7 and K13 int8 is bit for bit the same at M = 2, 4, 8
     # and 32 (the first M of the same 32 x rows)
@@ -1292,8 +1345,20 @@ def reference_model(torch, pkg, layers=2, **quant):
     return cfg, params_to(p_gpu, "cpu"), p_gpu
 
 
+def first_layer(pkg, ref):
+    """``ref``'s 2-layer model cut to its first layer: the stage-0 block of a
+    pp = 2 mesh (the layer copied out of the stack, the other weights
+    shared)."""
+    from fastertransformer4codefuse_tpu_torch.parallel.distributed import Mesh
+    from fastertransformer4codefuse_tpu_torch.parallel.sharding import shard_params
+
+    cfg, p_cpu, p_gpu = ref
+    one = pkg.GptNeoXConfig(**{**cfg.__dict__, "layer_num": 1})
+    return one, shard_params(cfg, p_cpu, Mesh(pp=2)), shard_params(cfg, p_gpu, Mesh(pp=2))
+
+
 def phase_reference(torch, ref, kv=None, fused=True, card_logits=None):
-    """The 2-layer reference model ``ref`` (``reference_model``): card
+    """The reference model ``ref`` (``reference_model``): card
     (kernels) vs CPU (plain); ``kv`` the dense cache's kind (int8 when
     None); ``fused`` the route (K13 + K3, or the unfused GEMMs). Returns max
     |dlogits| / max |logits| after the prefill and after each decode step;
@@ -1330,7 +1395,7 @@ def phase_reference(torch, ref, kv=None, fused=True, card_logits=None):
 
 
 def phase_reference_paged(torch, ref, kv):
-    """The 2-layer int8 reference model ``ref`` on a paged ``kv`` pool:
+    """The int8 reference model ``ref`` on a paged ``kv`` pool:
     chunked prefill of ragged prompts through ``prefill_chunk`` (K10 on the
     card), then 3 teacher-forced ``decode_step``s (K9), card against CPU.
     Returns max |dlogits| / max |logits| after the prefill and each step."""
@@ -1372,7 +1437,7 @@ def phase_reference_paged(torch, ref, kv):
 
 
 def phase_reference_beam(torch, ref):
-    """The 2-layer int8 reference model ``ref`` on B = 2 prompts tiled
+    """The int8 reference model ``ref`` on B = 2 prompts tiled
     over bw = 4 beams: one prefill of the 8 rows (K5 on the card), then 3
     teacher-forced beam decode steps (K11 on the card) over a real beam
     history: each step every row takes a random parent in its group,
@@ -2121,6 +2186,16 @@ def kernel_table():
         "fused_up_proj_down_f32": (fused_up_proj_down, "launches_f32",
                                    src + "quant_matmul_fused.cu",
                                    tpu + "quant_matmul_fused.py:571"),
+        # the group-wise forms no served model makes (ROADMAP item 11): K1 and
+        # K13 on int8 weights with group scales, K7 as the group-wise
+        # transposed head; counted apart and within their wrappers' launches
+        "quant_matmul_g8": (quant_matmul, "launches_g8", src + "quant_matmul.cu",
+                            tpu + "quant_matmul.py:221"),
+        "fused_qkv_up_g8": (fused_qkv_up, "launches_g8", src + "quant_matmul_fused.cu",
+                            tpu + "quant_matmul_fused.py:226"),
+        "quant_matmul_w4_group_head": (quant_matmul_w4_group, "launches_head",
+                                       src + "quant_matmul_w4.cu",
+                                       tpu + "quant_matmul_w4.py:376"),
     }
 
 
@@ -2249,6 +2324,7 @@ def main() -> int:
     err = phase_f32_scales(torch, pkg, kernels, launched, tol_ref)
     if err:
         return fail(err)
+    int8_ref = first_layer(pkg, int8_ref)
     rels = phase_reference(torch, int8_ref, kv="int4")
     log(f"  int8 on an int4 dense cache (packed K4): {', '.join(f'{r:.2e}' for r in rels)} "
         f"(tol {tol_ref:g})")
@@ -2312,10 +2388,16 @@ def main() -> int:
     err = phase_tp(torch, pkg, kernels, launched)
     if err:
         return fail(f"tensor parallelism: {err}")
+    err = phase_pp(torch, pkg, kernels, launched)
+    if err:
+        return fail(f"pipeline parallelism: {err}")
     for n in records:
         records[n]["launches"] = launched[n]
-    # K2 is off the served routes: K13 + K3 replace it (phase 2 holds it)
-    off_path = ("fused_up_proj_down", "fused_up_proj_down_f32")
+    # K2 is off the served routes: K13 + K3 replace it (phase 2 holds it);
+    # no served model makes the group-wise int8 weights or head (phase 2
+    # holds those instances too)
+    off_path = ("fused_up_proj_down", "fused_up_proj_down_f32", "quant_matmul_g8",
+                "fused_qkv_up_g8", "quant_matmul_w4_group_head")
     for n in off_path:
         records[n]["on_main_path"] = False
     if not all(c for n, c in launched.items() if n not in off_path):
@@ -2336,7 +2418,9 @@ CONFIGS = [
 # phase 3's card-vs-CPU depth of each: the CPU's plain products (each int8
 # or int4 weight dequantized to fp32 a call) take most of phase 3, so the
 # int4 models, whose graph is the int8 model's, check 1 layer; the int8
-# model (and the int4-cache, paged and beam checks on it) keeps 2
+# model keeps 2 (a layer fed by another, the cache and the stacked weights
+# indexed past layer 0), and its int4-cache, paged and beam checks run its
+# first layer (``first_layer``)
 REF_LAYERS = {"int8": 2, "int4 per-channel": 1, "int4 g128": 1}
 # phase 4's depth of each (the int8 model serves phases 4 and 5): 10 of the
 # 40 layers, to keep the run within its time limit with phases 8 and 9 (the
@@ -6138,6 +6222,310 @@ def phase_tp(torch, pkg, kernels, launched):
         f"these are no two-card times): tp = 2 prefill {p2:.1f} ms, decode {d2:.2f} ms/step; "
         f"tp = 1 prefill {p1:.1f} ms, decode {d1:.2f} ms/step")
     log(f"  phase 10: {time.time() - t0:.1f} s")
+    return None
+
+
+
+# Phase 11: pipeline parallelism. CodeFuse-13B int8 at full width, PP_LAYERS
+# deep, on four ranks of one gloo group on the one card: pp = 2 as two copies
+# of the mesh (two layers a stage) and tp 2 x pp 2 on all four ranks, each at
+# 1 and 2 microbatches; a pp = 1 engine on rank 0 is the yardstick. Prompts,
+# tokens and the pool's requests are phase 10's.
+PP_LAYERS = 4
+PP_MESHES = (("pp 2", dict(tp=1, pp=2)), ("tp 2 x pp 2", dict(tp=2, pp=2)))
+PP_MICROBATCHES = (1, 2)
+PP_POOL = dict(max_slots=4, max_seq_len=1024, prompt_bucket=128)  # dense: pp refuses pages
+# seconds for the whole phase and for any one hop or collective: the phase
+# takes ~60-90 s (four ranks share the card and the host), starting ~650 s
+# into the script's 1200 s
+PP_TIMEOUT = 240
+
+
+def pp_launches(L, m_pre, m_dec, forwards):
+    """Launches each rank must count for a static run of one prefill in
+    ``m_pre`` microbatches and ``forwards`` decode forwards in ``m_dec``,
+    on a stage of L layers: a whole-prompt prefill (m_pre = 1) runs K13's
+    GEMM, the proj and down GEMMs and K5; a microbatched one each chunk as a
+    chunk tick (K13 and the two GEMMs, the dense plain chunk attention); a
+    decode microbatch K13's GEMV, K4 and K3; the int8 [V, H] head is a
+    plain matmul."""
+    pre = (expected_launches(L, 1, 0, 8, 0) if m_pre == 1 else
+           {"fused_qkv_up": L * m_pre, "quant_matmul": L * 2 * m_pre})
+    return add_counts(pre, expected_launches(L, 0, forwards * m_dec, 8, 0))
+
+
+def pp_rank(rank, port, results):
+    """A rank of phase 11 (a spawned process): its results, or the
+    traceback, on ``results``."""
+    try:
+        res = _pp_rank(rank, port)
+    except BaseException:  # noqa: BLE001 - the parent reports it
+        import traceback
+
+        res = {"error": traceback.format_exc()}
+    results.put((rank, res))
+
+
+def _pp_rank(rank, port):
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    import fastertransformer4codefuse_tpu_torch as pkg
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.engine.batcher import ContinuousBatcher
+    from fastertransformer4codefuse_tpu_torch.ops import _cuda
+    from fastertransformer4codefuse_tpu_torch.ops.attention import prefill_attention
+    from fastertransformer4codefuse_tpu_torch.parallel import distributed as pd
+    from fastertransformer4codefuse_tpu_torch.parallel.sharding import build_mesh
+
+    global ROUTERS
+    ROUTERS = (prefill_attention, kv_cache.attend_chunk, kv_cache.attend_decode)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _cuda.lib()  # built by the parent
+    pd.init_distributed(f"127.0.0.1:{port}", 4, rank, backend="gloo", timeout_s=PP_TIMEOUT)
+    meshes = {label: build_mesh(**kw) for label, kw in PP_MESHES}  # every rank, in one order
+    kernels = kernel_table()
+    counters = (pd.send_next, pd.recv_prev, pd.broadcast_last, pd.all_reduce, pd.all_gather)
+    cfg = pkg.GptNeoXConfig(**{**pkg.GptNeoXConfig.codefuse_13b().__dict__,
+                               "layer_num": PP_LAYERS})
+    V = cfg.vocab_size
+    params = pkg.init_params(cfg, seed=0, dtype="bf16", int8_mode=1, quantize_embeddings=True,
+                             device="cuda")
+    rt = pkg.RuntimeConfig(dtype="bf16", int8_mode=1, kv_cache_dtype="int8")
+    eng1 = pkg.GptNeoXEngine(cfg, params, rt) if rank == 0 else None
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, V, n).tolist() for n in TP_PROMPTS]
+    pool_prompts = [rng.integers(0, V, n).tolist() for n in TP_POOL_PROMPTS]
+    out = {"backend": dist.get_backend(), "runs": {}}
+
+    def read():
+        return tuple(c.calls for c in counters)
+
+    def counted(fn):
+        """fn's result, its kernel launches and its (sends, receives,
+        broadcasts, all-reduces, all-gathers)."""
+        zero_counts(kernels)
+        for c in counters:
+            c.calls = 0
+        res = fn()
+        torch.cuda.synchronize()
+        return res, read_counts(kernels), read()
+
+    def timed(engine, n):
+        if engine is not eng1:
+            dist.barrier()
+        torch.cuda.synchronize()
+        t = time.time()
+        g = engine.generate(prompts, n, top_k=1)
+        torch.cuda.synchronize()
+        return g, time.time() - t, engine.decode_forwards
+
+    def ms(engine):
+        """(prefill ms, decode ms/step): a prefill alone, then the whole call."""
+        _, t_pre, _ = timed(engine, 1)
+        _, t_all, f = timed(engine, TP_TOKENS)
+        return t_pre * 1e3, (t_all - t_pre) / max(f, 1) * 1e3
+
+    # the pp = 1 yardstick on rank 0, while the others wait for its tokens
+    forced = lg1 = None
+    if rank == 0:
+        out["width"] = eng1._prepare(prompts, 1)[0].input_width
+        out["width"] = eng1._prepare(prompts, 1)[0].input_width
+        g1, _, _ = timed(eng1, TP_TOKENS)
+        out["pp1_ids"], out["pp1_ms"] = g1.output_ids, ms(eng1)
+        forced = np.stack([g1.output_ids[b, 0, n:n + TP_TOKENS]
+                           for b, n in enumerate(TP_PROMPTS)])
+        lg1 = tp_forced_logits(torch, eng1, prompts, forced)
+    box = [forced]
+    dist.broadcast_object_list(box, src=0)
+    forced = box[0]
+
+    for label, mesh in meshes.items():
+        for M in PP_MICROBATCHES:
+            eng = pkg.GptNeoXEngine(cfg, params, dataclasses.replace(rt, pp_microbatches=M),
+                                    mesh=mesh)
+            run = {"stage": mesh.pp_rank, "layers": eng.stage}
+            (g, _, f), run["static_counts"], run["static_coll"] = counted(
+                lambda: timed(eng, TP_TOKENS))
+            run["static_ids"], run["static_forwards"] = g.output_ids, f
+            lg, run["forced_counts"], run["forced_coll"] = counted(
+                lambda: tp_forced_logits(torch, eng, prompts, forced))
+            if rank == 0:
+                run["forced_rel"] = [((lg[:, j] - lg1[:, j]).abs().max()
+                                      / lg1[:, j].abs().max()).item() for j in range(TP_TOKENS)]
+                run["parting"] = []  # the first parting of each row, on pp = 1's logits
+                for b, n in enumerate(TP_PROMPTS):
+                    a, c = g.output_ids[b, 0, n:n + TP_TOKENS], forced[b]
+                    i = next((i for i in range(TP_TOKENS) if a[i] != c[i]), None)
+                    if i is not None:
+                        gap = (lg1[b, i, int(c[i])] - lg1[b, i, int(a[i])]) / lg1[b, i].abs().max()
+                        run["parting"].append((b, i, int(a[i]), int(c[i]), gap.item()))
+            del lg
+            if M == 1:
+                run["ms"] = ms(eng)
+
+                def drive():
+                    cb = ContinuousBatcher(eng, **PP_POOL)
+                    uids = [cb.submit(p, n, top_k=1) for p, n in zip(pool_prompts, TP_POOL_OUTS)]
+                    ticks = []  # (chunk steps, decode steps, the tick's counted calls)
+                    while cb.pending or cb.running:
+                        for c in counters:
+                            c.calls = 0
+                        c0, d0 = cb.chunk_ticks, cb.decode_ticks
+                        cb.step()
+                        ticks.append((cb.chunk_ticks - c0, cb.decode_ticks - d0, read()))
+                    return cb, [cb.requests[u].output_ids[len(p):]
+                                for u, p in zip(uids, pool_prompts)], ticks
+
+                dist.barrier()
+                t = time.time()
+                (cb, pool_out, ticks), run["pool_counts"], _ = counted(drive)
+                run["pool_s"] = time.time() - t
+                run["pool_expect"] = pool_launches(eng.stage[1], cb)
+                run["pool_out"], run["pool_ticks"] = pool_out, ticks
+                run["pool_layers"] = int(cb._state["cache"]["k"].shape[0])
+                if rank == 0:
+                    run["pool_gaps"] = [float(static_gaps(torch, eng1, p, g).max())
+                                        for p, g in zip(pool_prompts, pool_out)]
+                del cb
+            out["runs"][label, M] = run
+            del eng
+            torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def phase_pp(torch, pkg, kernels, launched):
+    """Phase 11: four ranks on the one card, spawned after the parent built
+    the kernels, serve CodeFuse-13B int8 at full width and PP_LAYERS deep as
+    pp = 2 (two copies of the mesh) and as tp 2 x pp 2, each at 1 and 2
+    microbatches; a pp = 1 engine on rank 0 is the yardstick. Checks every
+    rank's tokens the same bytes, the teacher-forced logits within 5e-2 of
+    max |logits| of pp = 1's, greedy partings only below NEAR_TIE, each
+    stage's layers, the counted hops, broadcasts, all-reduces and
+    all-gathers of every static run and pool tick, each rank's launches,
+    and a dense pool of 4 requests (each token within POOL_GAP of the pp = 1
+    static program's argmax). Returns an error or None."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    log(f"phase 11: pipeline parallelism, CodeFuse-13B int8 at full width, {PP_LAYERS} layers: "
+        "pp = 2 (two copies) and tp 2 x pp 2, four ranks of a gloo group on the one card")
+    t0 = time.time()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=pp_rank, args=(r, port, q)) for r in range(4)]
+    for p in procs:
+        p.start()
+    res, deadline = {}, time.time() + PP_TIMEOUT
+    try:
+        while len(res) < 4:
+            try:
+                rank, r = q.get(timeout=5)
+                res[rank] = r
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if not p.is_alive()]
+                if len(dead) > len(res) or time.time() > deadline:
+                    return f"a rank ended without a result (exit codes {dead}) or timed out"
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for rank in range(4):
+        if "error" in res[rank]:
+            return f"rank {rank}: {res[rank]['error']}"
+    r0 = res[0]
+    if {r["backend"] for r in res.values()} != {"gloo"}:
+        return "phase 11 runs on gloo"
+    width, B = r0["width"], len(TP_PROMPTS)
+    for (label, M), run0 in r0["runs"].items():
+        tp, pp = dict(PP_MESHES)[label]["tp"], dict(PP_MESHES)[label]["pp"]
+        L = PP_LAYERS // pp
+        m_pre = M if width % M == 0 else 1
+        m_dec = M if B % M == 0 else 1
+        name = f"{label}, M = {M}"
+        runs = {rank: r["runs"][label, M] for rank, r in res.items()}
+        if any(not np.array_equal(r["static_ids"], run0["static_ids"]) for r in runs.values()) \
+                or any(r.get("pool_out") != run0.get("pool_out") for r in runs.values()):
+            return f"{name}: the ranks returned different tokens"
+        for rank, r in runs.items():
+            stage = r["stage"]
+            if r["layers"] != (stage * L, L):
+                return f"{name}, rank {rank}: stage {stage} holds layers {r['layers']}"
+            for what, fwd, coll, counts in (
+                    ("static generate", 1 + r["static_forwards"], r["static_coll"],
+                     r["static_counts"]),
+                    ("teacher-forced run", TP_TOKENS, r["forced_coll"], r["forced_counts"])):
+                hops = m_pre + (fwd - 1) * m_dec
+                want = (hops if stage < pp - 1 else 0, hops if stage > 0 else 0, fwd,
+                        L * hops if tp > 1 else 0, fwd if tp > 1 else 0)
+                if tuple(coll) != want:
+                    return f"{name}, rank {rank}, {what}: (sends, receives, broadcasts, " \
+                           f"all-reduces, all-gathers) {coll}, expected {want}"
+                expect = {n: 0 for n in counts}
+                expect.update(pp_launches(L, m_pre, m_dec, fwd - 1))
+                if counts != expect:
+                    return f"{name}, rank {rank}, {what}: launches {counts}, expected {expect}"
+                for n in kernels:
+                    launched[n] += counts[n]
+            if M != 1:
+                continue
+            if r["pool_layers"] != L:
+                return f"{name}, rank {rank}: the pool's slabs hold {r['pool_layers']} layers"
+            for c, d, coll in r["pool_ticks"]:
+                n = c + d
+                want = (n if stage < pp - 1 else 0, n if stage > 0 else 0, n,
+                        L * n if tp > 1 else 0, d if tp > 1 else 0)
+                if tuple(coll) != want:
+                    return f"{name}, rank {rank}: a pool tick of {c} chunk and {d} decode " \
+                           f"steps counted {coll}, expected {want}"
+            expect = {n: 0 for n in r["pool_counts"]}
+            expect.update(r["pool_expect"])
+            if r["pool_counts"] != expect:
+                return f"{name}, rank {rank}, dense pool: launches {r['pool_counts']}, " \
+                       f"expected {expect}"
+            for n in kernels:
+                launched[n] += r["pool_counts"][n]
+        nonzero = {n: c for n, c in run0["static_counts"].items() if c}
+        log(f"  {name}: every rank's hops, broadcasts, collectives and launches as expected "
+            f"(rank 0, static: {nonzero}; {run0['static_coll']})")
+        rel = run0["forced_rel"]
+        log(f"  {name}: teacher-forced logits against pp = 1, max |d| / max |ref| after the "
+            f"prefill and each step: {', '.join(f'{x:.2e}' for x in rel)} (tol 5e-2)")
+        if max(rel) >= 5e-2:
+            return f"{name}: logits disagree with pp = 1"
+        same = [np.array_equal(run0["static_ids"][b, 0, n:n + TP_TOKENS],
+                               r0["pp1_ids"][b, 0, n:n + TP_TOKENS])
+                for b, n in enumerate(TP_PROMPTS)]
+        log(f"  {name}: greedy tokens against pp = 1 equal {same}; partings (row, step, pp, "
+            f"pp = 1, gap on the pp = 1 logits): {run0['parting']}")
+        far = [x for x in run0["parting"] if x[4] >= NEAR_TIE]
+        if far:
+            return f"{name}: greedy parts from pp = 1 past NEAR_TIE: {far}"
+        if M == 1:
+            gaps = run0["pool_gaps"]
+            log(f"  {name}: dense pool (4 requests of {list(TP_POOL_PROMPTS)} tokens): tokens' "
+                f"largest gap to the pp = 1 static argmax "
+                f"{', '.join(f'{g:.2e}' for g in gaps)} (tol POOL_GAP {POOL_GAP:g}); "
+                f"{run0['pool_s']:.1f} s, {len(run0['pool_ticks'])} ticks")
+            if max(gaps) >= POOL_GAP:
+                return f"{name}: pool tokens part from the pp = 1 static program"
+    (p1, d1) = r0["pp1_ms"]
+    times = "; ".join(f"{label} prefill {r0['runs'][label, 1]['ms'][0]:.1f} ms, decode "
+                      f"{r0['runs'][label, 1]['ms'][1]:.2f} ms/step" for label, _ in PP_MESHES)
+    log(f"  B = 2 prompts of {list(TP_PROMPTS)} tokens, 1 microbatch ({CARD}; four ranks share "
+        f"the card, so these are no multi-card times): {times}; pp = 1 prefill {p1:.1f} ms, "
+        f"decode {d1:.2f} ms/step")
+    log(f"  phase 11: {time.time() - t0:.1f} s")
     return None
 
 

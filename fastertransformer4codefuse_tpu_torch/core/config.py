@@ -230,9 +230,18 @@ class RuntimeConfig:
         vector; "int4" packs K and V two positions a byte with the same
         scales, "int8k_int4v" packs only V); None = ``dtype``.
       seq_bucket: the padded prefill width is rounded up to a multiple of this.
-      tensor_para_size / data_para_size / pipeline_para_size: the parallel
-        layout the engine's ``mesh`` gives (``parallel/``); pipeline
-        parallelism (> 1) is not ported.
+      tensor_para_size / data_para_size: the parallel layout the engine's
+        ``mesh`` gives (``parallel/``).
+      pipeline_para_size: the pp stage count; where it is above 1 the engine
+        checks that its ``mesh`` has that many stages (layers and KV cache
+        split into contiguous blocks a stage, ``parallel/pipeline.py``, the
+        reference's pipeline_para_size_).
+      pp_microbatches: M, the microbatches a forward under pp pipelines
+        (GptNeoX.cc:780-788 getLocalBatchSize): prefill splits the sequence
+        into M chunks, decode the batch rows into M groups, so that stage s
+        runs microbatch m while stage s - 1 runs m + 1. M falls back to 1
+        where it does not divide the padded width (prefill) or the batch
+        (decode). 1 is the serial schedule.
       act_int8: SmoothQuant W8A8 (the reference's int8_mode=2 semantics): with
         int8 per-channel weights, the GEMMs of sequence-wide calls of at least
         16 rows (prefill, chunk ticks, speculative verifies) quantize their
@@ -258,6 +267,7 @@ class RuntimeConfig:
     tensor_para_size: int = 1
     data_para_size: int = 1
     pipeline_para_size: int = 1
+    pp_microbatches: int = 1
     debug_level: str = ""
     fused_decode: bool = True
     act_int8: bool = False

@@ -15,16 +15,17 @@
 //    of A and B outran the SM's shared-memory bandwidth (PERF.md);
 //  - three warpgroups: a producer, whose one thread keeps the 64-deep k
 //    tiles of x, of the raw weight (int8 [64][128], packed int4 [32][128],
-//    in the 128-byte swizzle) and, with group scales, of the scale rows they
-//    touch in flight by TMA into a ring of up to eight stages (full and
-//    empty mbarriers), and two consumers of 64 channels each;
+//    in the 128-byte swizzle) and, with group scales (int4 with bf16 or fp32
+//    scales, int8 with fp32 ones), of the scale rows they touch in flight by
+//    TMA into a ring of up to eight stages (full and empty mbarriers), and
+//    two consumers of 64 channels each;
 //  - a warp's 16 channels of a k tile reach its registers by ldmatrix.trans
 //    (a thread: channels 2g and 2g + 1 at k rows 2t and 2t + 1, or for int4
 //    the pair rows t and t + 4 of a k16 step): they convert to the bf16 A
 //    fragments exactly, with ftcf_gemv.cuh's conversions, A's rows g and
 //    g + 8 standing for channels 2g and 2g + 1; group scales multiply the
-//    bf16 weight, q * scale rounded once, as quant_matmul_w4.cu and the
-//    plain version define it;
+//    bf16 weight, q * scale rounded once to bf16 (an int8 or int4 value is
+//    exact in bf16), the same for both payloads;
 //  - wgmma m64n128k16, A from registers, B = x K-major; the next k tile is
 //    converted and issued before the previous one is waited for, so one k
 //    tile's products always wait behind another's (the fragments alternate
@@ -65,7 +66,7 @@ struct GemmSeg {
   const __nv_bfloat16* x;       // [M, K]
   const int8_t* w;              // [K, N] int8 or [K/2, N] packed int4
   const float* scale;           // [N] per-channel, or nullptr with group scales
-  const void* gscale;           // [K/G, N] group scales: bf16 (W_I4G) or fp32 (W_I4GF)
+  const void* gscale;           // [K/G, N] group scales: bf16 (W_I4G) or fp32 (W_I4GF, W_I8G)
   const void* bias;
   int bias_bf16;
   int act;
@@ -75,11 +76,12 @@ struct GemmSeg {
 
 template <int FMT>
 struct GemmTile {
+  static constexpr bool I8 = FMT == W_I8 || FMT == W_I8G;     // one K row a byte row
   static constexpr int X_BYTES = GM_BM * GM_BK * 2;          // 16 KB, swizzled
-  static constexpr int W_ROWS = FMT == W_I8 ? GM_BK : GM_BK / 2;
+  static constexpr int W_ROWS = I8 ? GM_BK : GM_BK / 2;
   static constexpr int W_BYTES = W_ROWS * GM_BN;             // raw, swizzled
-  // bytes of one group scale: int4 with bf16 or fp32 group scales, else none
-  static constexpr int S_BYTES = FMT == W_I4G ? 2 : FMT == W_I4GF ? 4 : 0;
+  // bytes of one group scale: bf16 (W_I4G) or fp32 (W_I4GF, W_I8G), else none
+  static constexpr int S_BYTES = FMT == W_I4G ? 2 : FMT == W_I4GF || FMT == W_I8G ? 4 : 0;
 };
 
 // bf16x2 a (two exact int4 values) times the fp32 scale s, each product
@@ -99,7 +101,7 @@ __device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t s) {
 // Block b of a 1-D grid: the output tiles in groups of GM_GROUP_M row tiles
 // (s1's column tiles, then s2's; none when s2.N is 0), a group's blocks row
 // tile fastest, so that the blocks in flight share their x and weight panels
-// in L2. ``gr`` group-scale rows a stage holds (W_I4G, W_I4GF); ``stage_bytes`` one
+// in L2. ``gr`` group-scale rows a stage holds (W_I4G, W_I4GF, W_I8G); ``stage_bytes`` one
 // stage of x, raw weight and scales, 1024-aligned; ``stages`` the ring's
 // depth.
 template <int FMT>
@@ -182,7 +184,7 @@ qmm_gemm_kernel(const __grid_constant__ CUtensorMap tx1, const __grid_constant__
     const unsigned char* w = sm + st * stage_bytes + T::X_BYTES;
     // the 16-byte chunk of the warp's channels in raw row r (swizzled)
     auto row = [&](int r) { return w + r * 128 + ((wc ^ (r & 7)) << 4); };
-    if constexpr (FMT == W_I8) {
+    if constexpr (T::I8) {
       // matrix q of half h: k rows 32 h + 8 q .. + 7 (lane l gives row 32 h + l);
       // step 2 h + q / 2, its k rows 0-7 (q even: a0, a1) or 8-15 (a2, a3)
 #pragma unroll
@@ -211,43 +213,44 @@ qmm_gemm_kernel(const __grid_constant__ CUtensorMap tx1, const __grid_constant__
         f[s][2] = i4_pair_bf16x2<2>(r[s]);
         f[s][3] = i4_pair_bf16x2<3>(r[s]);
       }
-      if constexpr (T::S_BYTES > 0) {
-        // each pair of k rows shares a group (G even): the scales of
-        // channels 2g, 2g + 1 at k rows 16 s + 2t and 16 s + 2t + 8 of the
-        // tile, from the stage's scale rows (the first is group k0 / G)
-        const unsigned char* scl = w + T::W_BYTES + (wc * 16 + 2 * g) * T::S_BYTES;
-        using SW = std::conditional_t<T::S_BYTES == 2, uint32_t, float2>;
-        auto scale = [&](int s, int hh, SW sw) {
-          if constexpr (T::S_BYTES == 2) {
-            f[s][2 * hh] = mul_bf16x2(f[s][2 * hh], __byte_perm(sw, 0, 0x1010));
-            f[s][2 * hh + 1] = mul_bf16x2(f[s][2 * hh + 1], __byte_perm(sw, 0, 0x3232));
-          } else {
-            f[s][2 * hh] = mul_bf16x2_f32(f[s][2 * hh], sw.x);
-            f[s][2 * hh + 1] = mul_bf16x2_f32(f[s][2 * hh + 1], sw.y);
-          }
-        };
-        if (G % GM_BK == 0) {
-          // one group holds the whole k tile
-          const SW sw = *reinterpret_cast<const SW*>(scl);
-#pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            scale(s, 0, sw);
-            scale(s, 1, sw);
-          }
+    }
+    if constexpr (T::S_BYTES > 0) {
+      // each pair of k rows shares a group (G even; the fragments hold k
+      // row pairs of one channel, int8 and int4 alike): the scales of
+      // channels 2g, 2g + 1 at k rows 16 s + 2t and 16 s + 2t + 8 of the
+      // tile, from the stage's scale rows (the first is group k0 / G)
+      const unsigned char* scl = w + T::W_BYTES + (wc * 16 + 2 * g) * T::S_BYTES;
+      using SW = std::conditional_t<T::S_BYTES == 2, uint32_t, float2>;
+      auto scale = [&](int s, int hh, SW sw) {
+        if constexpr (T::S_BYTES == 2) {
+          f[s][2 * hh] = mul_bf16x2(f[s][2 * hh], __byte_perm(sw, 0, 0x1010));
+          f[s][2 * hh + 1] = mul_bf16x2(f[s][2 * hh + 1], __byte_perm(sw, 0, 0x3232));
         } else {
-          // the group of k row k0 + kk: floor((k0 + kk + 1/2) / G) by an
-          // fp32 reciprocal, exact below 2^22 rows (the error stays under
-          // the 1/(2G) to the nearest integer), no integer division
-          const int k0 = kt * GM_BK, g0 = k0 / G;
-#pragma unroll
-          for (int s = 0; s < 4; ++s)
-#pragma unroll
-            for (int hh = 0; hh < 2; ++hh) {
-              const float kr = (float)(k0 + 16 * s + 2 * t + 8 * hh) + 0.5f;
-              const int gi = __float2int_rd(kr * ginv) - g0;
-              scale(s, hh, *reinterpret_cast<const SW*>(scl + gi * BN * T::S_BYTES));
-            }
+          f[s][2 * hh] = mul_bf16x2_f32(f[s][2 * hh], sw.x);
+          f[s][2 * hh + 1] = mul_bf16x2_f32(f[s][2 * hh + 1], sw.y);
         }
+      };
+      if (G % GM_BK == 0) {
+        // one group holds the whole k tile
+        const SW sw = *reinterpret_cast<const SW*>(scl);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          scale(s, 0, sw);
+          scale(s, 1, sw);
+        }
+      } else {
+        // the group of k row k0 + kk: floor((k0 + kk + 1/2) / G) by an
+        // fp32 reciprocal, exact below 2^22 rows (the error stays under
+        // the 1/(2G) to the nearest integer), no integer division
+        const int k0 = kt * GM_BK, g0 = k0 / G;
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const float kr = (float)(k0 + 16 * s + 2 * t + 8 * hh) + 0.5f;
+            const int gi = __float2int_rd(kr * ginv) - g0;
+            scale(s, hh, *reinterpret_cast<const SW*>(scl + gi * BN * T::S_BYTES));
+          }
       }
     }
   };
@@ -356,7 +359,7 @@ template <int FMT>
 static bool gemm_maps(const GemmSeg& sg, int M, int K, int G, int gr, CUtensorMap* mx,
                       CUtensorMap* mw, CUtensorMap* ms) {
   using T = GemmTile<FMT>;
-  const uint64_t N = sg.N, rows = FMT == W_I8 ? K : K / 2;
+  const uint64_t N = sg.N, rows = T::I8 ? K : K / 2;
   if (!tensor_map<2>(mx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sg.x, {(uint64_t)K, (uint64_t)M},
                      {(uint64_t)K * 2}, {GM_BK, GM_BM}, CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tensor_map<2>(mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, sg.w, {N, rows}, {N},

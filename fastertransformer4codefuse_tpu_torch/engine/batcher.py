@@ -53,8 +53,12 @@ all-gathered and so the same bytes on every rank, and each request's
 generator is seeded alike, so every rank emits the same tokens. A dp axis
 plays no part in a pool: each dp group drives a pool of its own.
 
-Not ported: pools on a pipeline mesh (item 19, slice B), and the JAX
-package's v5e flash-decode gates.
+On a pipeline mesh (``pp > 1``, ``parallel/pipeline.py``) a dense pool's
+slabs hold the rank's stage of the layers, and its chunk and decode ticks
+run the model's ``prefill_chunk`` / ``decode_step`` through the stages (one
+microbatch, as the JAX pool's ticks), driven in lockstep on every rank of
+the mesh as under tp; paged pools refuse pp, as in the JAX package. Not ported: the JAX package's v5e
+flash-decode gates.
 """
 from __future__ import annotations
 
@@ -191,6 +195,9 @@ class ContinuousBatcher:
         self.pipeline_ticks = pipeline_ticks
         self.paged = dict(paged) if paged else None
         self.lazy = False
+        if engine.pp > 1 and self.paged is not None:
+            raise ValueError("paged pools under pipeline parallelism are not supported — use a "
+                             "dense pool")
         if engine.packed_kv():
             if self.paged is None:
                 raise ValueError(
@@ -241,7 +248,8 @@ class ContinuousBatcher:
             raise ValueError("prompt learning in paged pools is not supported (block tables "
                              "carry no prefix region): use a dense pool")
         self.prompt_table = kv_cache.prompt_tables(self.cfg, table, self.device,
-                                                   heads=self.engine.kv_heads)
+                                                   heads=self.engine.kv_heads,
+                                                   layers=self.engine.stage)
         longest = max(n for _, n in self.prompt_table.values())
         self.prompt_width = -(-longest // 8) * 8
 
@@ -254,7 +262,8 @@ class ContinuousBatcher:
             cache = init_paged_cache(cfg, B, S, int(self.paged["num_pages"]), self.page_size,
                                      dt, dev, kv_heads=nkv)
         else:
-            cache = kv_cache.init_cache(cfg, B, S + self.prompt_width, dt, dev, kv_heads=nkv)
+            cache = kv_cache.init_cache(cfg, B, S + self.prompt_width, dt, dev, kv_heads=nkv,
+                                        layers=self.engine.stage[1])
 
         def full(shape, value, dtype):
             return torch.full(shape, value, dtype=dtype, device=dev)
@@ -543,10 +552,10 @@ class ContinuousBatcher:
         cols = buf_pos.long()[:, None] + torch.arange(C, device=self.device)[None, :]
         tok_chunk = st["tokens"].gather(1, cols)  # [B, C]
         # cache slot / rotary position = buffer index + the prompt's offset
-        rt = self.engine.runtime
-        model.prefill_chunk(self.cfg, self.engine.params, tok_chunk, buf_pos + st["pos_offset"],
-                            st["cache"], prefilling, rotary_tables=self._rotary,
-                            fused=rt.fused_decode, a8=rt.act_int8, mesh=self.engine.mesh)
+        rt, eng = self.engine.runtime, self.engine
+        args = (tok_chunk, buf_pos + st["pos_offset"], st["cache"], prefilling)
+        kw = dict(rotary_tables=self._rotary, fused=rt.fused_decode, a8=rt.act_int8)
+        model.prefill_chunk(self.cfg, eng.params, *args, mesh=eng.mesh, **kw)
         st["prefill_pos"] += prefilling.to(torch.int32) * C
         self.chunk_ticks += 1
 
@@ -594,11 +603,11 @@ class ContinuousBatcher:
         buf_idx = torch.clamp(st["seq_lens"] - 1, 0, S - 1)
         newest = st["tokens"].gather(1, buf_idx.long()[:, None])[:, 0]
         positions = torch.where(ready, buf_idx + st["pos_offset"], torch.zeros_like(buf_idx))
-        hidden, _ = model.decode_step(
-            self.cfg, self.engine.params, newest, positions, st["cache"],
-            rotary_tables=self._rotary, kv_skip=~ready, kv_skip_mode="sacrifice_last",
-            fused=self.engine.runtime.fused_decode, mesh=self.engine.mesh,
-        )
+        eng = self.engine
+        args = (newest, positions, st["cache"])
+        kw = dict(rotary_tables=self._rotary, kv_skip=~ready, kv_skip_mode="sacrifice_last",
+                  fused=eng.runtime.fused_decode)
+        hidden, _ = model.decode_step(self.cfg, eng.params, *args, mesh=eng.mesh, **kw)
         logits = self._process_logits(st, model.lm_logits(self.cfg, self.engine.params, hidden,
                                                           self.engine.mesh))
         res = sample_top_k_top_p_capped(

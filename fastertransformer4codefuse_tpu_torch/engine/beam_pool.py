@@ -52,6 +52,8 @@ class BeamPool(ContinuousBatcher):
     ):
         if int(beam_width) < 2:
             raise ValueError("beam_width 1 is the sampling pool (ContinuousBatcher)")
+        if engine.pp > 1:
+            raise ValueError("beam pools under pipeline parallelism: use the static path")
         self.beam_width = int(beam_width)
         self._row_mult = self.beam_width
         super().__init__(

@@ -32,6 +32,15 @@ bit-equal on every rank) with the same generators, so they draw the same
 tokens and stop together. dp splits a batch's rows into contiguous blocks,
 one a dp group, at the batch's padded width, and gathers the outputs: every
 rank returns the whole ``GenerationOutput``.
+
+Pipeline parallelism (a mesh with ``pp > 1``, ``parallel/pipeline.py``):
+the engine keeps its stage's block of the layers (then its tp slice) and a
+cache of that many layers; the prefill, the prompt chunks and every decode
+forward run the model's functions at the stage's layers
+(``RuntimeConfig.pp_microbatches`` microbatches where they divide the width
+or the rows, ``pipeline.microbatches``), which hand the last stage's hidden
+to every stage, and each rank then computes the head
+and samples as above. The DEBUG sweep is not served under pp.
 """
 from __future__ import annotations
 
@@ -48,8 +57,9 @@ from .paged_kv import PACKED_KINDS
 from ..models import gptneox as model
 from ..models.params import Params
 from ..ops.rotary import make_rotary_tables
+from ..parallel import pipeline
 from ..parallel.distributed import Mesh, gather_rows
-from ..parallel.sharding import cache_heads, shard_params
+from ..parallel.sharding import cache_heads, shard_params, stage_layers
 from ..sampling import processors as proc
 from ..sampling.beam import beam_search_generate
 from ..sampling.sample import (
@@ -138,14 +148,17 @@ class GptNeoXEngine:
         self.config = config
         self.runtime = runtime or RuntimeConfig()
         rt = self.runtime
-        if rt.pipeline_para_size > 1:
-            raise NotImplementedError(
-                "pipeline parallelism is ROADMAP queue 1 item 19, slice B (parallel/pipeline.py)")
+        self.pp = 1 if mesh is None else mesh.pp
+        if rt.pipeline_para_size > 1 and rt.pipeline_para_size != self.pp:
+            raise ValueError(f"pipeline_para_size {rt.pipeline_para_size} needs a mesh of as many "
+                             f"pp stages (parallel.sharding.build_mesh(pp=...)), got {self.pp}")
         self.mesh = mesh
         if mesh is not None:
             params = shard_params(config, params, mesh)
         self.params = params
         self.kv_heads = cache_heads(config, mesh)
+        # (first, count) of the layers this rank's stage holds (all without pp)
+        self.stage = stage_layers(config, mesh)
         self.device = params["final_ln_w"].device
         self.decode_forwards = 0
         # {task id: (kv [L, 2, kv_heads, P, dh] fp32 on the device, length)}
@@ -158,7 +171,7 @@ class GptNeoXEngine:
         of a tuned prefix, ``length <= P``. Requests pick a task with
         ``prompt_learning_task_name_ids``."""
         self._prompt_table = kv_cache.prompt_tables(self.config, table, self.device,
-                                                    heads=self.kv_heads)
+                                                    heads=self.kv_heads, layers=self.stage)
 
     def _prepare_prompt(self, B, task_ids, soft_embedding, soft_lengths):
         """(kind, P, device inputs) of a request's prompts: P the widest
@@ -175,7 +188,7 @@ class GptNeoXEngine:
                 raise ValueError(f"unknown prompt task {unknown[0]}")
             lens = [self._prompt_table[t][1] for t in task_ids]
             P = -(-max(max(lens), 1) // 8) * 8
-            shape = (cfg.layer_num, B, self.kv_heads[1], P, cfg.size_per_head)
+            shape = (self.stage[1], B, self.kv_heads[1], P, cfg.size_per_head)
             k_pre = torch.zeros(shape, dtype=torch.float32, device=dev)
             v_pre = torch.zeros_like(k_pre)
             for b, t in enumerate(task_ids):
@@ -298,7 +311,10 @@ class GptNeoXEngine:
             positions = positions + s.pos_offset
         hidden, s.cache = model.decode_step(
             self.config, self.params, newest, positions, s.cache,
-            rotary_tables=rotary_tables, fused=self.runtime.fused_decode, mesh=self.mesh, **kw,
+            rotary_tables=rotary_tables, fused=self.runtime.fused_decode, mesh=self.mesh,
+            microbatches=pipeline.microbatches(self.mesh, self.runtime.pp_microbatches, B,
+                                               beam_width),
+            **kw,
         )
         s.logits = model.lm_logits(self.config, self.params, hidden, self.mesh)
         self.decode_forwards += 1
@@ -310,8 +326,15 @@ class GptNeoXEngine:
         input_lengths = inputs["input_lengths"]
         rt = self.runtime
         cache = kv_cache.init_cache(cfg, B, st.total_len + st.prompt_width, self._cache_dtype(),
-                                    self.device, kv_heads=self.kv_heads[1])
+                                    self.device, kv_heads=self.kv_heads[1],
+                                    layers=self.stage[1])
         pos_offset = None
+
+        def chunk_fn(toks, pos, cache, active, embeds=None):
+            return model.prefill_chunk(cfg, self.params, toks, pos, cache, active,
+                                       fused=rt.fused_decode, a8=rt.act_int8, embeds=embeds,
+                                       mesh=self.mesh)
+
         if st.prompt_width:
             # the prompt holds slots [0, p_len) of its row; the input
             # prefills as one chunk at p_len (the chunk program's dense
@@ -323,17 +346,13 @@ class GptNeoXEngine:
             else:
                 emb = inputs["prompt_embeds"].to(self.params["final_ln_w"].dtype)
                 dummy = torch.zeros((B, st.prompt_width), dtype=torch.int32, device=self.device)
-                model.prefill_chunk(cfg, self.params, dummy, torch.zeros_like(pos_offset), cache,
-                                    active, fused=rt.fused_decode, a8=rt.act_int8, embeds=emb,
-                                    mesh=self.mesh)
-            hidden, cache = model.prefill_chunk(
-                cfg, self.params, tokens[:, : st.input_width], pos_offset, cache, active,
-                fused=rt.fused_decode, a8=rt.act_int8, mesh=self.mesh,
-            )
+                chunk_fn(dummy, torch.zeros_like(pos_offset), cache, active, embeds=emb)
+            hidden, cache = chunk_fn(tokens[:, : st.input_width], pos_offset, cache, active)
         else:
             hidden, cache = model.prefill(
                 cfg, self.params, tokens[:, : st.input_width], input_lengths, cache,
                 fused=rt.fused_decode, a8=rt.act_int8, mesh=self.mesh,
+                microbatches=pipeline.microbatches(self.mesh, rt.pp_microbatches, st.input_width),
             )
         logits = model.lm_logits(cfg, self.params, model.last_token_hidden(hidden, input_lengths),
                                  self.mesh)
@@ -519,6 +538,10 @@ class GptNeoXEngine:
                   len_penalty, **sampling_kwargs) -> GenerationOutput:
         if self.runtime.debug_enabled():
             from ..utils.debug import debug_verify
+
+            if self.pp > 1:
+                raise NotImplementedError("the DEBUG sweep checks the whole layer stack on one "
+                                          "rank; it is not served under pipeline parallelism")
 
             lens = np.array([len(x) for x in input_ids], np.int32)
             padded = np.full((len(input_ids), int(lens.max())), self.config.end_id, np.int32)

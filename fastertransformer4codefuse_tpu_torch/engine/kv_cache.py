@@ -50,14 +50,16 @@ Cache = Dict[str, torch.Tensor]
 
 def init_cache(
     config: GptNeoXConfig, batch: int, max_seq_len: int, dtype=torch.bfloat16, device=None,
-    kv_heads: Optional[int] = None,
+    kv_heads: Optional[int] = None, layers: Optional[int] = None,
 ) -> Cache:
     """Zeroed slabs on ``device`` (the CUDA card when None). ``dtype``: a torch
     dtype, or ``"int4"`` (K and V packed) / ``"int8k_int4v"`` (K int8, V
     packed). ``kv_heads``: the heads a slab holds (a tensor-parallel rank's,
-    ``parallel.sharding.cache_heads``); default all of the config's."""
+    ``parallel.sharding.cache_heads``); default all of the config's.
+    ``layers``: the layers it holds (a pipeline stage's,
+    ``parallel.sharding.stage_layers``); default all."""
     device = resolve_device(device)
-    shape = (config.layer_num, batch, kv_heads or config.kv_heads, max_seq_len,
+    shape = (layers or config.layer_num, batch, kv_heads or config.kv_heads, max_seq_len,
              config.size_per_head)
     if isinstance(dtype, str):
         if dtype not in PACKED_KINDS:
@@ -126,11 +128,12 @@ def write_prefill(cache: Cache, layer: int, k: torch.Tensor, v: torch.Tensor) ->
     return cache
 
 
-def prompt_tables(config: GptNeoXConfig, table: dict, device, heads=None) -> dict:
+def prompt_tables(config: GptNeoXConfig, table: dict, device, heads=None, layers=None) -> dict:
     """Checked prefix tables: ``{task: (kv, length)}`` with kv ``[L, 2,
     kv_heads, P, dh]`` (numpy or torch) and ``length <= P``, as fp32 on
     ``device``; with ``heads`` = (first, count) only those KV heads (a
-    tensor-parallel rank's cache heads). Raises ValueError on another
+    tensor-parallel rank's cache heads), with ``layers`` = (first, count)
+    only those layers (a pipeline stage's). Raises ValueError on another
     shape."""
     out = {}
     for tid, (kv, length) in table.items():
@@ -143,6 +146,8 @@ def prompt_tables(config: GptNeoXConfig, table: dict, device, heads=None) -> dic
                 f"{config.size_per_head}]")
         if heads is not None:
             kv = kv[:, :, heads[0]:heads[0] + heads[1]]
+        if layers is not None:
+            kv = kv[layers[0]:layers[0] + layers[1]]
         out[tid] = (kv.to(device=device, dtype=torch.float32), int(length))
     return out
 

@@ -36,11 +36,11 @@ class BatchingServer:
 
     def __init__(self, engine, **pool_kwargs):
         mesh = getattr(engine, "mesh", None)
-        if mesh is not None and mesh.tp > 1:
+        if mesh is not None and (mesh.tp > 1 or mesh.pp > 1):
             raise ValueError(
                 "the server's thread admits requests in arrival order, which differs between "
-                "the ranks of a tensor-parallel group: drive a ContinuousBatcher (or BeamPool, "
-                "SpecPool) in lockstep on every rank instead")
+                "the ranks of a tensor- or pipeline-parallel group: drive a ContinuousBatcher "
+                "(or BeamPool, SpecPool) in lockstep on every rank instead")
         bw = int(pool_kwargs.pop("beam_width", 1) or 1)
         if pool_kwargs.pop("speculative", False):
             if bw > 1:

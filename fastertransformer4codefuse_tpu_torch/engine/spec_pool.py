@@ -44,6 +44,8 @@ class SpecPool(ContinuousBatcher):
             raise ValueError("speculative pools are dense-KV; drop paged= or speculative=")
         if kw.get("prompt_table"):
             raise ValueError("speculative pool does not serve prompt learning")
+        if engine.pp > 1:
+            raise ValueError("speculative pool under pp>1: use the static path")
         self.k = int(k)
         self.ngram = int(ngram)
         super().__init__(engine, **kw)

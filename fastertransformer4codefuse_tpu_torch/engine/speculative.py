@@ -171,6 +171,9 @@ def _prefill(engine, ids: torch.Tensor, n: torch.Tensor, cache):
 
 
 def _setup(engine, prompts: List[List[int]], output_len: int, k: int):
+    if engine.pp > 1:
+        raise ValueError("speculative decoding runs the whole layer stack on one rank: it is "
+                         "not served under pipeline parallelism")
     if engine.packed_kv():
         raise ValueError(
             "speculative decoding writes (k + 1)-token chunks at any position: it needs an "

@@ -35,6 +35,12 @@ every head, keeps its own KV heads and their query heads where the KV heads
 split over tp, and otherwise attends over all heads and keeps its own
 query heads' outputs for its proj rows.
 
+Pipeline parallelism (a mesh with ``pp > 1``): the params and the cache hold
+this stage's L/pp layers; ``prefill``, ``decode_step`` and ``prefill_chunk``
+run the embedding on the first stage, their stage's layers, and hand the
+last stage's hidden to every stage through ``parallel.pipeline.pipe_loop``
+(``microbatches`` of the sequence in prefill, of the rows in decode).
+
 Routing (``fused=True``, ``RuntimeConfig.fused_decode``): a
 parallel-residual layer whose four big kernels are quantized alike (one bit
 width, one group size: int8, int4, or int4 with group scales) and which has
@@ -71,7 +77,8 @@ from ..ops.quant_matmul_fused import fused_proj_down, fused_qkv_up
 from ..ops.rotary import apply_rotary, make_rotary_tables
 from ..ops.moe import moe_ffn
 from ..parallel.distributed import all_gather, all_reduce
-from ..parallel.sharding import cache_heads, local_heads
+from ..parallel.pipeline import pipe_loop
+from ..parallel.sharding import cache_heads, local_heads, stage_layers
 from .params import Params, QuantizedTensor, layer_slice
 
 KVCache = dict
@@ -313,6 +320,36 @@ def _add_pos_embed(config: GptNeoXConfig, params: Params, x, positions, bound: i
     return x + pe.to(x.dtype)
 
 
+def _stage_layer_count(config: GptNeoXConfig, mesh) -> int:
+    """The layers this rank runs: its pipeline stage's block (all of them
+    without a pp axis); the params and the cache hold just these."""
+    return stage_layers(config, mesh)[1]
+
+
+def _act_dtype(params: Params):
+    return params["final_ln_w"].dtype
+
+
+def _chunk_positions(pos: torch.Tensor, C: int, S: int) -> torch.Tensor:
+    """[B, C] slots of a chunk starting at ``pos`` [B], clamped to the cache."""
+    return torch.clamp(pos.long()[:, None] + torch.arange(C, device=pos.device)[None, :], 0,
+                       S - 1)
+
+
+def _chunk_layers(config, params, x, cache, pos, posc, rotary_tables, active, fused, a8, mesh):
+    """This stage's layers over one chunk (x [B, C, H]) at per-row offsets
+    ``pos``, its slots ``posc``: the query at slot p sees keys at slots <= p."""
+    cos_t, sin_t = rotary_tables
+    cos, sin = cos_t[posc], sin_t[posc]  # [B, C, rot/2]
+    S = kvc.seq_len_of(cache)
+    valid = torch.arange(S, device=x.device)[None, None, :] <= posc[:, :, None]  # [B, C, S]
+    layers = params["layers"]
+    for l in range(_stage_layer_count(config, mesh)):
+        x, cache = block_prefill_chunk(config, layer_slice(layers, l), x, cache, l, cos, sin,
+                                       pos, valid, active, fused, a8, mesh)
+    return x
+
+
 def prefill(
     config: GptNeoXConfig,
     params: Params,
@@ -322,21 +359,63 @@ def prefill(
     fused: bool = True,
     a8: bool = False,
     mesh=None,
+    microbatches: int = 1,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Full-prompt forward: (hidden [B, S, H], cache with [0, S) filled).
     ``fused``: QKV and up through K13 (``RuntimeConfig.fused_decode``);
     ``a8``: W8A8 GEMMs (``RuntimeConfig.act_int8``); ``mesh``: this rank's
-    place under tensor parallelism, ``params`` its slice."""
+    place under tensor and pipeline parallelism, ``params`` and ``cache``
+    its slice (a pp stage holds its L/pp layers and every stage returns the
+    last stage's hidden, ``parallel.pipeline``). ``microbatches`` M > 1
+    pipelines the sequence as M chunks through ``block_prefill_chunk``:
+    every query at a real position sees what the whole-prompt mask shows it
+    (padding follows the real tokens) and the padded queries' outputs are
+    never read. M = 1 runs the whole prompt through ``block_prefill`` (K5)."""
     B, S = input_ids.shape
     dev = input_ids.device
-    x = _embed_lookup(params, input_ids)
-    x = _add_pos_embed(config, params, x, torch.arange(S, device=dev), bound=S)
-    cos, sin = make_rotary_tables(S, config.rotary_embedding_dim, config.rotary_base, dev)
-    layers = params["layers"]
-    for l in range(config.layer_num):
-        x, cache = block_prefill(config, layer_slice(layers, l), x, cache, l, cos, sin,
-                                 input_lengths, fused, a8, mesh)
-    return x, cache
+    M = int(microbatches)
+    if S % M:
+        raise ValueError(f"prefill width {S} does not split into {M} microbatches")
+    C = S // M
+    if M == 1:
+        cos, sin = make_rotary_tables(S, config.rotary_embedding_dim, config.rotary_base, dev)
+        layers = params["layers"]
+
+        def embed(m):
+            x = _embed_lookup(params, input_ids)
+            return _add_pos_embed(config, params, x, torch.arange(S, device=dev), bound=S)
+
+        def stack(x, m):
+            for l in range(_stage_layer_count(config, mesh)):
+                x, _ = block_prefill(config, layer_slice(layers, l), x, cache, l, cos, sin,
+                                     input_lengths, fused, a8, mesh)
+            return x
+    else:
+        S_cache = kvc.seq_len_of(cache)
+        rotary = make_rotary_tables(S_cache, config.rotary_embedding_dim, config.rotary_base,
+                                    dev)
+        active = torch.ones(B, dtype=torch.bool, device=dev)
+
+        def start(m):
+            return torch.full((B,), m * C, dtype=torch.int32, device=dev)
+
+        def embed(m):
+            x = _embed_lookup(params, input_ids[:, m * C:(m + 1) * C])
+            return _add_pos_embed(config, params, x, _chunk_positions(start(m), C, S_cache),
+                                  bound=S_cache)
+
+        def stack(x, m):
+            pos = start(m)
+            return _chunk_layers(config, params, x, cache, pos, _chunk_positions(pos, C, S_cache),
+                                 rotary, active, fused, a8, mesh)
+    out = pipe_loop(mesh, M, embed, stack, (B, C, config.hidden_size), _act_dtype(params), dev)
+    return (out[0] if M == 1 else out.permute(1, 0, 2, 3).reshape(B, S, -1)), cache
+
+
+def _rows(cache: KVCache, r0: int, n: int) -> KVCache:
+    """Rows [r0, r0 + n) of every slab of a dense cache, as views (the
+    blocks' in-place writes land in the whole cache)."""
+    return {k: v.narrow(1, r0, n) for k, v in cache.items()}
 
 
 def decode_step(
@@ -351,27 +430,52 @@ def decode_step(
     beam=None,
     fused: bool = True,
     mesh=None,
+    microbatches: int = 1,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One incremental decode step: (hidden [B, H], cache). ``kv_skip`` rows
     write their (discarded) token where readable state stays intact
     (``kv_cache.write_decode``). ``beam`` = (bw, indir [B, S] int32): the
     rows are beam-minor hypotheses whose attention resolves the cache
     indirection (the beam search's fixed cache). ``fused`` allows the K13 +
-    K3 route (``RuntimeConfig.fused_decode``)."""
+    K3 route (``RuntimeConfig.fused_decode``). Under pp (``mesh``),
+    ``microbatches`` M splits the rows of a dense cache into M groups
+    pipelined across the stages; with ``beam`` a group holds whole beam
+    groups."""
+    B = tokens.shape[0]
+    M = int(microbatches)
+    if B % M:
+        raise ValueError(f"batch {B} does not split into {M} microbatches")
+    mb = B // M
+    if beam is not None and mb % beam[0]:
+        raise ValueError(f"a microbatch of {mb} rows splits beam groups of {beam[0]}")
     cache_len = kvc.seq_len_of(cache)
-    x = _embed_lookup(params, tokens)[:, None, :]
-    x = _add_pos_embed(config, params, x, positions.long()[:, None], bound=cache_len)
     if rotary_tables is None:
         rotary_tables = make_rotary_tables(
             cache_len, config.rotary_embedding_dim, config.rotary_base, tokens.device
         )
     cos_t, sin_t = rotary_tables
-    cos, sin = cos_t[positions][:, None, :], sin_t[positions][:, None, :]
     layers = params["layers"]
-    for l in range(config.layer_num):
-        x, cache = block_decode(config, layer_slice(layers, l), x, cache, l, cos, sin, positions,
-                                kv_skip, kv_skip_mode, beam, fused, mesh)
-    return x[:, 0], cache
+
+    def embed(m):
+        r = slice(m * mb, (m + 1) * mb)
+        x = _embed_lookup(params, tokens[r])[:, None, :]
+        return _add_pos_embed(config, params, x, positions[r].long()[:, None], bound=cache_len)
+
+    def stack(x, m):
+        r0 = m * mb
+        pos = positions[r0:r0 + mb]
+        cos, sin = cos_t[pos][:, None, :], sin_t[pos][:, None, :]
+        beam_m = None if beam is None else (beam[0], beam[1][r0:r0 + mb])
+        skip = None if kv_skip is None else kv_skip[r0:r0 + mb]
+        c = cache if M == 1 else _rows(cache, r0, mb)
+        for l in range(_stage_layer_count(config, mesh)):
+            x, c = block_decode(config, layer_slice(layers, l), x, c, l, cos, sin, pos, skip,
+                                kv_skip_mode, beam_m, fused, mesh)
+        return x
+
+    out = pipe_loop(mesh, M, embed, stack, (mb, 1, config.hidden_size), _act_dtype(params),
+                    tokens.device)
+    return out.reshape(B, -1), cache
 
 
 def prefill_chunk(
@@ -391,24 +495,25 @@ def prefill_chunk(
     [pos, pos + C) of active rows and keeps the other rows' bytes. Returns
     (hidden [B, C, H], cache). ``fused``: QKV and up through K13; ``a8``:
     W8A8 GEMMs; ``embeds``: the chunk's embeddings, in place of the token
-    lookup (``tokens_chunk`` then only gives C)."""
+    lookup (``tokens_chunk`` then only gives C). Under pp the one chunk runs
+    through the stages serially."""
     B, C = tokens_chunk.shape
     S = kvc.seq_len_of(cache)
     dev = tokens_chunk.device
-    x = _embed_lookup(params, tokens_chunk) if embeds is None else embeds
     if rotary_tables is None:
         rotary_tables = make_rotary_tables(S, config.rotary_embedding_dim, config.rotary_base, dev)
-    cos_t, sin_t = rotary_tables
-    posc = torch.clamp(pos.long()[:, None] + torch.arange(C, device=dev)[None, :], 0, S - 1)
-    x = _add_pos_embed(config, params, x, posc, bound=S)
-    cos, sin = cos_t[posc], sin_t[posc]  # [B, C, rot/2]
-    # query at position pos + c sees keys at positions <= pos + c
-    valid = torch.arange(S, device=dev)[None, None, :] <= posc[:, :, None]  # [B, C, S]
-    layers = params["layers"]
-    for l in range(config.layer_num):
-        x, cache = block_prefill_chunk(config, layer_slice(layers, l), x, cache, l, cos, sin,
-                                       pos, valid, active, fused, a8, mesh)
-    return x, cache
+    posc = _chunk_positions(pos, C, S)
+
+    def embed(m):
+        x = _embed_lookup(params, tokens_chunk) if embeds is None else embeds
+        return _add_pos_embed(config, params, x, posc, bound=S)
+
+    def stack(x, m):
+        return _chunk_layers(config, params, x, cache, pos, posc, rotary_tables, active, fused,
+                             a8, mesh)
+
+    out = pipe_loop(mesh, 1, embed, stack, (B, C, config.hidden_size), _act_dtype(params), dev)
+    return out[0], cache
 
 
 def final_norm(config: GptNeoXConfig, params: Params, hidden):
@@ -420,7 +525,9 @@ def lm_logits(config: GptNeoXConfig, params: Params, hidden: torch.Tensor,
     """fp32 logits, padded vocab ids sliced off, plus ``lm_head_b`` where the
     family has one (GPT-J). The transposed int4 head [H/2, V_pad] (k_axis 0)
     goes to K8; the int8 [V, H] head with per-row scales, or a dense head, is
-    a plain fp32 matmul, as the JAX package leaves it to XLA. Under tp each
+    a plain fp32 matmul, as the JAX package leaves it to XLA; a group-wise
+    [V, H] head (scales [V, H/G]) multiplies the dequantized weight, its
+    group scales folded in. Under tp each
     rank computes its vocab slice (with its slice of ``lm_head_b``) and one
     ``all_gather`` joins them, so every rank holds the same logits."""
     h = final_norm(config, params, hidden)
@@ -429,9 +536,12 @@ def lm_logits(config: GptNeoXConfig, params: Params, hidden: torch.Tensor,
     if isinstance(w, QuantizedTensor) and w.k_axis % w.q.ndim == 0:
         logits = quantized_matmul_transposed_head(h2, w)
     elif isinstance(w, QuantizedTensor):
-        if w.bits != 8 or w.group_size:
-            raise NotImplementedError("a [V, H] head is served as per-row int8 only")
-        logits = (h2.float() @ w.q.t().float()) * w.scale.float()[None, :]
+        if w.bits != 8:
+            raise NotImplementedError("a [V, H] head is served in int8 only")
+        if w.group_size:  # the group scales sit inside the contraction
+            logits = h2.float() @ w.dequantize().t()
+        else:
+            logits = (h2.float() @ w.q.t().float()) * w.scale.float()[None, :]
     else:
         logits = h2.float() @ w.t().float()
     if "lm_head_b" in params:  # GPT-J's head carries a bias

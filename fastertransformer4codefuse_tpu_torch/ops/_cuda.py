@@ -35,8 +35,8 @@ F = ctypes.c_float
 
 # C entry -> argument types (see each .cu file's extern "C" block)
 _SIGNATURES = {
-    "ftcf_quant_matmul_gemv": [P, P, P, I, I, I, I, I, P, I, I, P, P, P],
-    "ftcf_quant_matmul_gemm": [P, P, P, I, I, I, P, I, I, P, P],
+    "ftcf_quant_matmul_gemv": [P, P, P, P, I, I, I, I, I, I, P, I, I, P, P, P],
+    "ftcf_quant_matmul_gemm": [P, P, P, P, I, I, I, I, P, I, I, P, P],
     "ftcf_quant_matmul_w4_gemv": [P, P, P, P, I, I, I, I, I, I, I, P, I, I, P, I, P, P],
     "ftcf_quant_matmul_w4_gemm": [P, P, P, P, I, I, I, I, I, P, I, I, P, I, P],
     "ftcf_fused_proj_down": [I, I, P, P, P, I, I, I, P, P, P, I, I, I, I, I, P, I, P, P, P,

@@ -109,11 +109,13 @@ def _kv_formats(name, k, ks, v, vs):
     """(K format, V format) of a ``[L, X, nKV, n, dh]`` K/V slab pair, raising
     on anything the kernels do not take: bf16 without scales; int8 with bf16
     ``[L, X, nKV, n]`` scales, each payload unpacked (n positions) or packed
-    int4 (n / 2 pair rows, n even)."""
+    int4 (n / 2 pair rows, n even). The kernels read one layer's slab from
+    its own pointer, so each layer's slab must be contiguous and the stack
+    need not be (a pipeline microbatch's rows, ``parallel.pipeline``)."""
     req = _cuda.require
     req(k.ndim == 5 and v.ndim == 5 and k.shape[:3] == v.shape[:3] and k.shape[4] == v.shape[4],
         f"{name}: k/v slabs [L, X, nKV, n(/2), dh]")
-    req(k.is_contiguous() and v.is_contiguous(), f"{name}: cache must be contiguous")
+    req(k[0].is_contiguous() and v[0].is_contiguous(), f"{name}: cache must be contiguous")
     req((ks is None) == (vs is None), f"{name}: both or neither scale slab")
     if ks is None:
         req(k.dtype == torch.bfloat16 and v.dtype == torch.bfloat16 and k.shape == v.shape,
@@ -121,7 +123,7 @@ def _kv_formats(name, k, ks, v, vs):
         return KV_BF16, KV_BF16
     n = ks.shape[-1] if ks.ndim == 4 else -1
     req(ks.dtype == torch.bfloat16 and vs.dtype == torch.bfloat16 and ks.shape == vs.shape
-        and ks.shape == k.shape[:3] + (n,) and ks.is_contiguous() and vs.is_contiguous(),
+        and ks.shape == k.shape[:3] + (n,) and ks[0].is_contiguous() and vs[0].is_contiguous(),
         f"{name}: scales must be contiguous bf16 [L, X, nKV, n]")
     fmts = []
     for t in (k, v):

@@ -1,13 +1,14 @@
 """Linear layers with weight-only int8/int4 dispatch (port of ops/linear.py).
 
 A QuantizedTensor weight goes, with the bias and activation applied in the
-kernel's epilogue, to K1 (int8, ``ops.quant_matmul``), K6 (int4 with
-per-channel scales) or K7 (int4 with group scales, ``ops.quant_matmul_w4``):
+kernel's epilogue, to K1 (int8, per-channel or with fp32 group scales,
+``ops.quant_matmul``), K6 (int4 with per-channel scales) or K7 (int4 with
+group scales, ``ops.quant_matmul_w4``):
 the kernel for a CUDA tensor, its plain version for a CPU tensor. A stacked
 weight's layer view ``w[l]`` is a free view, so the JAX package's stacked and
-2-D variants are one entry here. The transposed int4 LM head goes to K8
-(``quantized_matmul_transposed_head``). Dense weights are a plain matmul, as
-the JAX package left them to XLA.
+2-D variants are one entry here. The transposed int4 LM head goes to K8, or
+with group scales to K7 (``quantized_matmul_transposed_head``). Dense weights
+are a plain matmul, as the JAX package left them to XLA.
 
 SmoothQuant W8A8 (``RuntimeConfig.act_int8``, the reference's int8_mode=2):
 ``linear(..., act_int8=True)`` sends a sequence-wide call of at least
@@ -127,20 +128,21 @@ def quantized_matmul(
     act: Optional[str] = None,
 ) -> torch.Tensor:
     """``act(x @ w + bias)`` for a per-layer quantized kernel ``w`` [K, ...out]
-    (k_axis 0): int8 per-channel -> K1, int4 per-channel -> K6, int4
-    group-wise -> K7."""
+    (k_axis 0): int8 (per-channel or group-wise) -> K1, int4 per-channel ->
+    K6, int4 group-wise -> K7."""
     from .quant_matmul import quant_matmul
     from .quant_matmul_w4 import quant_matmul_w4, quant_matmul_w4_group
 
     if w.k_axis % w.q.ndim != 0:
         raise ValueError("expected a per-layer kernel [K, ...] with k_axis 0")
-    if w.bits == 8 and w.group_size:
-        raise NotImplementedError("group-wise int8 weights are not on a served path")
     K = w.shape[0]
     x2d = x.reshape(-1, K).contiguous()
     q2d = w.q.reshape(w.q.shape[0], -1)
     b = None if bias is None else bias.reshape(-1)
-    if w.bits == 8:
+    if w.bits == 8 and w.group_size:
+        y = quant_matmul(x2d, q2d, w.scale.reshape(w.scale.shape[0], -1), bias=b, act=act,
+                         group_size=w.group_size)
+    elif w.bits == 8:
         y = quant_matmul(x2d, q2d, w.scale.reshape(-1), bias=b, act=act)
     elif w.group_size:
         y = quant_matmul_w4_group(x2d, q2d, w.scale.reshape(w.scale.shape[0], -1),
@@ -151,17 +153,19 @@ def quantized_matmul(
 
 
 def quantized_matmul_transposed_head(x: torch.Tensor, w: QuantizedTensor) -> torch.Tensor:
-    """fp32 logits ``x @ w`` [M, V_pad] against the transposed per-channel
-    int4 LM head ``w`` [H/2, V_pad] (k_axis 0): K8."""
-    from .quant_matmul_w4 import quant_matmul_w4_head
+    """fp32 logits ``x @ w`` [M, V_pad] against the transposed int4 LM head
+    ``w`` [H/2, V_pad] (k_axis 0): K8 with per-channel scales, K7 with fp32
+    out with group scales [H/G, V_pad] (as the JAX package runs it on the
+    TPU, JAX ``ops/linear.py:267-286``)."""
+    from .quant_matmul_w4 import quant_matmul_w4_group, quant_matmul_w4_head
 
     if w.k_axis % w.q.ndim != 0 or w.q.ndim != 2:
         raise ValueError("expected a transposed head [K, V_pad] with k_axis 0")
-    if w.bits != 4 or w.group_size:
-        raise NotImplementedError(
-            "only the per-channel int4 transposed head is served; the group-wise head "
-            "(JAX linear.py:267-275) is ROADMAP queue 1 item 11"
-        )
+    if w.bits != 4:
+        raise NotImplementedError("the transposed LM head is served in int4 only")
+    if w.group_size:
+        return quant_matmul_w4_group(x.contiguous(), w.q, w.scale, w.group_size,
+                                     out_dtype=torch.float32)
     return quant_matmul_w4_head(x.contiguous(), w.q, w.scale)
 
 

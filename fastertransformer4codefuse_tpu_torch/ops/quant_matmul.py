@@ -4,8 +4,12 @@ Port of ops/quant_matmul.py (``quant_matmul_pallas_stacked``, and through a
 layer's view of the stacked weight the 2-D ``quant_matmul_pallas``). The CUDA
 kernel is ``csrc/quant_matmul.cu``: a weight-streaming GEMV at decode widths
 (M <= 32) and, above, a TMA + wgmma GEMM whose warps convert each raw int8
-weight tile to bf16 A fragments in registers (``csrc/ftcf_gemm.cuh``). ``quant_matmul_plain`` is the same function in plain PyTorch:
-the CPU path and the kernel's oracle.
+weight tile to bf16 A fragments in registers (``csrc/ftcf_gemm.cuh``). With
+``group_size`` G the weight carries fp32 group scales [K/G, N] inside the
+contraction (the JAX package's group-wise int8 weights, which it computes in
+XLA, ``ops/linear.py:65``): the W_I8G instances of both bodies, counted also
+in ``launches_g8``. ``quant_matmul_plain`` is the same function in plain
+PyTorch: the CPU path and the kernel's oracle.
 """
 from __future__ import annotations
 
@@ -26,13 +30,20 @@ GEMM_BM, GEMM_BN, GEMM_BK = 128, 128, 64
 def quant_matmul_plain(
     x: torch.Tensor,  # [M, K]
     w: torch.Tensor,  # [K, N] int8
-    scale: torch.Tensor,  # [N] fp32
+    scale: torch.Tensor,  # [N] fp32, or [K/G, N] with group_size G
     bias: Optional[torch.Tensor] = None,  # [N]
     act: Optional[str] = None,
+    group_size: int = 0,
 ) -> torch.Tensor:
     """fp32 contraction; scale, bias and activation on the fp32 result; one
-    rounding to x's dtype at the end."""
-    y = (x.float() @ w.float()) * scale.float()
+    rounding to x's dtype at the end. Group scales multiply the weight
+    (``w * scale[k // G]`` in fp32) before the contraction."""
+    if group_size:
+        K, N = w.shape
+        wd = w.float().reshape(K // group_size, group_size, N) * scale.float()[:, None, :]
+        y = x.float() @ wd.reshape(K, N)
+    else:
+        y = (x.float() @ w.float()) * scale.float()
     if bias is not None:
         y = y + bias.float()
     if act is not None:
@@ -128,17 +139,29 @@ def check_operands(x, w, scale, bias, name, bits=8, group_size=0):
         req(t is None or t.device == dev, f"{name}: operands on different devices")
 
 
-def launch_gemv(x, w, scale, bias, act, out):
+def _scale_args(scale, group_size):
+    """(scale, gscale, G) of K1's C entries: per-channel scales with G = 0,
+    else the [K/G, N] group scales."""
+    if group_size:
+        return None, scale.data_ptr(), group_size
+    return scale.data_ptr(), None, 0
+
+
+def _bias_args(bias, act):
+    return _cuda.ptr(bias), int(bias is not None and bias.dtype == torch.bfloat16), ACT_CODES[act]
+
+
+def launch_gemv(x, w, scale, bias, act, out, group_size=0):
     """One int8 weight-streaming GEMV launch (partials + epilogue) into
-    ``out``. No launch count: the public wrappers count their own launches."""
+    ``out``; ``group_size`` G: ``scale`` the [K/G, N] group scales. No launch
+    count: the public wrappers count their own launches."""
     M, K = x.shape
     N = w.shape[1]
-    splits, chunk = gemv_ranges(K, N, x.device)
+    splits, chunk = gemv_ranges(K, N, x.device, group_size=group_size)
     ws = torch.empty(splits * M * N, dtype=torch.float32, device=x.device)
     err = _cuda.lib().ftcf_quant_matmul_gemv(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), M, K, N, splits, chunk,
-        _cuda.ptr(bias), int(bias is not None and bias.dtype == torch.bfloat16),
-        ACT_CODES[act], out.data_ptr(), ws.data_ptr(), _cuda.stream_of(x),
+        x.data_ptr(), w.data_ptr(), *_scale_args(scale, group_size), M, K, N, splits, chunk,
+        *_bias_args(bias, act), out.data_ptr(), ws.data_ptr(), _cuda.stream_of(x),
     )
     _cuda.check(err, "quant_matmul (gemv)")
     return out
@@ -147,30 +170,34 @@ def launch_gemv(x, w, scale, bias, act, out):
 def quant_matmul(
     x: torch.Tensor,  # [M, K] bf16
     w: torch.Tensor,  # [K, N] int8 (a layer's view of the stacked weight)
-    scale: torch.Tensor,  # [N] fp32
+    scale: torch.Tensor,  # [N] fp32, or [K/G, N] fp32 with group_size G
     bias: Optional[torch.Tensor] = None,  # [N] bf16 or fp32
     act: Optional[str] = None,
+    group_size: int = 0,
 ) -> torch.Tensor:
-    """K1: ``act(x @ w * scale + bias)``, [M, N] in x's dtype. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel or raises."""
+    """K1: ``act(x @ w * scale + bias)``, [M, N] in x's dtype; with
+    ``group_size`` G each K group's scale row multiplies its part of the
+    sum. A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises."""
     if not x.is_cuda:
-        return quant_matmul_plain(x, w, scale, bias, act)
-    check_operands(x, w, scale, bias, "quant_matmul")
+        return quant_matmul_plain(x, w, scale, bias, act, group_size)
+    check_operands(x, w, scale, bias, "quant_matmul", group_size=group_size)
     _cuda.require(act in ACT_CODES, f"quant_matmul: unknown activation {act!r}")
     M, K = x.shape
     N = w.shape[1]
     y = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
     if M <= GEMV_MAX_M:
-        launch_gemv(x, w, scale, bias, act, y)
+        launch_gemv(x, w, scale, bias, act, y, group_size)
     else:
         err = _cuda.lib().ftcf_quant_matmul_gemm(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), M, K, N,
-            _cuda.ptr(bias), int(bias is not None and bias.dtype == torch.bfloat16),
-            ACT_CODES[act], y.data_ptr(), _cuda.stream_of(x),
+            x.data_ptr(), w.data_ptr(), *_scale_args(scale, group_size), M, K, N,
+            *_bias_args(bias, act), y.data_ptr(), _cuda.stream_of(x),
         )
         _cuda.check(err, "quant_matmul (gemm)")
     quant_matmul.launches += 1
+    quant_matmul.launches_g8 += bool(group_size)
     return y
 
 
 quant_matmul.launches = 0
+quant_matmul.launches_g8 = 0  # of them, on int8 weights with group scales

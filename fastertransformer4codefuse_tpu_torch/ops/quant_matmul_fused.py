@@ -163,8 +163,6 @@ def _launch_ncat(segs, bits, G, name):
             a.append(ws.data_ptr())
         err = _cuda.lib().ftcf_gemv_ncat(fmt, G, M, K, *args[0], *args[1], _cuda.stream_of(x))
     else:
-        _cuda.require(fmt != WEIGHT_FORMATS[8, True, True],
-                      f"{name}: int8 weights with group scales run at decode widths only")
         err = _cuda.lib().ftcf_gemm_ncat(fmt, G, M, K, *args[0], *args[1], _cuda.stream_of(x))
     _cuda.check(err, name)
     return outs
@@ -199,11 +197,13 @@ def fused_qkv_up(
                           "fused_qkv_up")
     fused_qkv_up.launches += 1
     fused_qkv_up.launches_f32 += bits == 4 and _f32_groups(group_size, s1)
+    fused_qkv_up.launches_g8 += bits == 8 and bool(group_size)
     return y1, y2
 
 
 fused_qkv_up.launches = 0
 fused_qkv_up.launches_f32 = 0
+fused_qkv_up.launches_g8 = 0  # on int8 weights with group scales (GEMV and GEMM forms)
 
 
 def fused_up_proj_down_plain(

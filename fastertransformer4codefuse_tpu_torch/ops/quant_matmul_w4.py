@@ -10,7 +10,11 @@ weight is free, so the JAX package's stacked and 2-D forms are one entry here:
 - K7 ``quant_matmul_w4_group`` (``quant_matmul_w4_group_stacked``): group
   scales [K/G, N] inside the contraction, ``act(x @ (W * scale) + bias)``,
   bf16 out; the scales are bf16, or fp32 as the JAX package stores them
-  under ``FTCF_GSCALE_BF16=0`` (a kernel instance of each, no conversion);
+  under ``FTCF_GSCALE_BF16=0`` (a kernel instance of each, no conversion).
+  With ``out_dtype=torch.float32`` it is the group-wise transposed int4 LM
+  head [H/2, V_pad] (JAX ``ops/linear.py:267-286``: on the TPU that head
+  rides the stacked group kernel as a one-layer stack), counted also in
+  ``launches_head``;
 - K8 ``quant_matmul_w4_head`` (``quant_matmul_w4_pallas`` as the int4 LM head
   uses it): K6 with fp32 out and no bias.
 
@@ -116,16 +120,22 @@ def quant_matmul_w4_group(
     G: int,
     bias: Optional[torch.Tensor] = None,  # [N] bf16 or fp32
     act: Optional[str] = None,
+    out_dtype=None,
 ) -> torch.Tensor:
     """K7: ``act(x @ (unpack(packed) * scale[k // G]) + bias)``, [M, N] in
-    x's dtype; each group's scale applies inside the contraction. fp32
-    scales take their own instance (counted also in ``launches_f32``)."""
+    ``out_dtype`` (x's dtype by default; fp32 for the LM head); each
+    group's scale applies inside the contraction. fp32 scales take their
+    own instance (counted also in ``launches_f32``)."""
     if not x.is_cuda:
-        return quant_matmul_w4_group_plain(x, packed, scale, G, bias, act)
+        return _plain(x, packed, scale, G, bias, act, out_dtype or x.dtype)
     _cuda.require(G > 0, "quant_matmul_w4_group: needs a group size G > 0")
-    y = _run(x, packed, scale, G, bias, act, torch.bfloat16, "quant_matmul_w4_group")
+    _cuda.require(out_dtype in (None, torch.bfloat16, torch.float32),
+                  f"quant_matmul_w4_group: out_dtype bf16 or fp32, got {out_dtype}")
+    y = _run(x, packed, scale, G, bias, act, out_dtype or torch.bfloat16,
+             "quant_matmul_w4_group")
     quant_matmul_w4_group.launches += 1
     quant_matmul_w4_group.launches_f32 += scale.dtype == torch.float32
+    quant_matmul_w4_group.launches_head += y.dtype == torch.float32
     return y
 
 
@@ -145,4 +155,5 @@ def quant_matmul_w4_head(
 quant_matmul_w4.launches = 0
 quant_matmul_w4_group.launches = 0
 quant_matmul_w4_group.launches_f32 = 0  # of them, with fp32 group scales
+quant_matmul_w4_group.launches_head = 0  # of them, fp32 out: the group-wise transposed head
 quant_matmul_w4_head.launches = 0

@@ -1,7 +1,9 @@
-"""Tensor and data parallelism over ``torch.distributed`` (port of parallel/).
+"""Tensor, pipeline and data parallelism over ``torch.distributed`` (port of
+parallel/).
 
 ``distributed``: the process group, the port's ``Mesh`` and the counted
-collectives; ``sharding``: the split rules and each rank's slices.
-Pipeline parallelism (the JAX ``pipeline.py``) is ROADMAP queue 1 item 19,
-slice B.
+collectives and stage hops; ``sharding``: the split rules, each rank's
+slices and the mesh over the group; ``pipeline``: the schedule that the
+model's forwards run a stage's layers through (the layer stack split over
+the ranks of a pp group).
 """

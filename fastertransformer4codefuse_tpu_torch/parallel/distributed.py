@@ -7,20 +7,25 @@ and lets GSPMD place every collective. Here each rank is a process of
 or communicators taken from PyTorch's c10d process group:
 ``th_op/gptneox/utils/nccl_inherit_utils.cc:8-68``), and the model writes its
 collectives out: ``all_reduce`` over the tp group after the row-split
-projections, ``all_gather`` of the vocab-split logits. Each call adds one to
-its wrapper's ``calls``, so a test or ``chip_smoke.py`` can count them as the
-JAX tests count the psums of a compiled program.
+projections, ``all_gather`` of the vocab-split logits, and under pipeline
+parallelism ``send_next`` / ``recv_prev`` at the stage edges and one
+``broadcast_last`` of the last stage's hidden a forward
+(``parallel/pipeline.py``). Each call adds one to its wrapper's ``calls``,
+so a test or ``chip_smoke.py`` can count them as the JAX tests count the
+psums and collective-permutes of a compiled program.
 
 Backends: NCCL where each rank has a card of its own, gloo on the CPU and
 for several ranks on one card (NCCL refuses two ranks on one device; gloo
-reduces CUDA tensors through host copies).
+reduces CUDA tensors through host copies). gloo's point-to-point transport
+reads host memory only, so under gloo a CUDA tensor's hop and broadcast go
+through a host copy (``_wire``).
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
 import os
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -28,13 +33,15 @@ import torch.distributed as dist
 
 @dataclasses.dataclass
 class Mesh:
-    """This rank's place in a (dp, tp) layout: the tp group splits every
-    layer's heads, FFN columns and vocab over ``tp`` ranks; the dp groups
-    split a batch's rows. ``tp_group`` / ``dp_group`` are the
-    ``torch.distributed`` groups of the ranks sharing this rank's dp / tp
-    coordinate (None where the axis has one rank). A Mesh without groups
-    still shards parameters (``sharding.shard_params``). The device is the
-    params': the engines serve where their weights lie."""
+    """This rank's place in a (dp, pp, tp) layout: the tp group splits every
+    layer's heads, FFN columns and vocab over ``tp`` ranks; the pp group
+    splits the layer stack into ``pp`` contiguous blocks, one a stage; the dp
+    groups split a batch's rows. ``tp_group`` / ``pp_group`` / ``dp_group``
+    are the ``torch.distributed`` groups of the ranks that differ from this
+    one in that coordinate only (None where the axis has one rank);
+    ``pp_ranks`` the global ranks of the pp group, stage by stage. A Mesh
+    without groups still shards parameters (``sharding.shard_params``). The
+    device is the params': the engines serve where their weights lie."""
 
     tp: int = 1
     dp: int = 1
@@ -42,6 +49,10 @@ class Mesh:
     dp_rank: int = 0
     tp_group: Any = None
     dp_group: Any = None
+    pp: int = 1
+    pp_rank: int = 0
+    pp_group: Any = None
+    pp_ranks: Tuple[int, ...] = ()
 
 
 def default_backend(device, num_processes: int) -> str:
@@ -125,8 +136,56 @@ def all_gather(x: torch.Tensor, mesh: Mesh, dim: int = -1) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
+def _gloo(group) -> bool:
+    return dist.get_backend(group) == "gloo"
+
+
+def _wire(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` as the group's backend moves it: a host copy of a CUDA tensor
+    under gloo, whose point-to-point transport reads host memory only."""
+    t = t.contiguous()
+    return t.cpu() if t.is_cuda and _gloo(group) else t
+
+
+def _landing(shape, dtype, device, group) -> torch.Tensor:
+    """A receive buffer where the group's backend writes: on the host under
+    gloo, on ``device`` otherwise."""
+    return torch.empty(shape, dtype=dtype, device="cpu" if _gloo(group) else device)
+
+
+def send_next(x: torch.Tensor, mesh: Mesh) -> None:
+    """Send ``x`` to the next stage of the pp group (the same tp and dp
+    coordinates); one counted hop. Blocks until the next stage takes it."""
+    dist.send(_wire(x, mesh.pp_group), dst=mesh.pp_ranks[mesh.pp_rank + 1],
+              group=mesh.pp_group)
+    send_next.calls += 1
+
+
+def recv_prev(shape, dtype, mesh: Mesh, device) -> torch.Tensor:
+    """The tensor the previous stage sends (``send_next``), on ``device``;
+    one counted hop."""
+    buf = _landing(shape, dtype, device, mesh.pp_group)
+    dist.recv(buf, src=mesh.pp_ranks[mesh.pp_rank - 1], group=mesh.pp_group)
+    recv_prev.calls += 1
+    return buf.to(device)
+
+
+def broadcast_last(x: Optional[torch.Tensor], shape, dtype, mesh: Mesh, device) -> torch.Tensor:
+    """The last stage's ``x`` on every stage of the pp group (the other
+    stages pass None and get a tensor of ``shape`` and ``dtype`` on
+    ``device``); one counted call."""
+    last = mesh.pp_rank == mesh.pp - 1
+    buf = _wire(x, mesh.pp_group) if last else _landing(shape, dtype, device, mesh.pp_group)
+    dist.broadcast(buf, src=mesh.pp_ranks[-1], group=mesh.pp_group)
+    broadcast_last.calls += 1
+    return x if last else buf.to(device)
+
+
 all_reduce.calls = 0
 all_gather.calls = 0
+send_next.calls = 0
+recv_prev.calls = 0
+broadcast_last.calls = 0
 
 
 def gather_rows(obj, mesh: Mesh) -> list:

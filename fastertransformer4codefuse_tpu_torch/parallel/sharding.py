@@ -31,40 +31,58 @@ from .distributed import Mesh
 
 
 def build_mesh(tp: int = 1, dp: int = 1, pp: int = 1) -> Mesh:
-    """This rank's mesh over the process group: ranks in (dp, tp) order with
-    tp innermost, so a tp group is consecutive ranks (one host's cards). A
-    group of more than ``tp * dp`` ranks holds several copies of the mesh,
-    each serving the same requests. Every rank of the group must call this,
-    with the same arguments: it creates the tp and dp subgroups. Without a
-    process group only ``tp = dp = 1`` is possible."""
+    """This rank's mesh over the process group: ranks in (dp, pp, tp) order
+    with tp innermost, as the JAX ``build_mesh`` lays its devices out, so a
+    tp group is consecutive ranks (one host's cards) and a stage's tp group
+    sits beside the next stage's. A group of more than ``tp * pp * dp``
+    ranks holds several copies of the mesh, each serving the same requests.
+    Every rank of the group must call this, with the same arguments: it
+    creates the tp, pp and dp subgroups. Without a process group only
+    ``tp = pp = dp = 1`` is possible."""
     import torch.distributed as dist
 
-    if pp != 1:
-        raise NotImplementedError(
-            "pipeline parallelism is ROADMAP queue 1 item 19, slice B (parallel/pipeline.py)")
-    n = tp * dp
+    n = tp * pp * dp
     if not dist.is_initialized():
         if n != 1:
             raise ValueError(f"a mesh of {n} ranks needs a process group (init_distributed)")
         return Mesh()
     world, rank = dist.get_world_size(), dist.get_rank()
     if world % n:
-        raise ValueError(f"tp {tp} x dp {dp} does not divide the {world} ranks")
+        raise ValueError(f"tp {tp} x pp {pp} x dp {dp} does not divide the {world} ranks")
     base, local = rank - rank % n, rank % n
-    tp_group = dp_group = None
+
+    def coords(loc):
+        return {"dp": loc // (pp * tp), "pp": loc // tp % pp, "tp": loc % tp}
+
+    groups = {}
     for b in range(0, world, n):  # every rank creates every group, in one order
-        for d in range(dp if tp > 1 else 0):
-            ranks = [b + d * tp + t for t in range(tp)]
-            g = dist.group.WORLD if n == world and dp == 1 else dist.new_group(ranks)
-            if b == base and d == local // tp:
-                tp_group = g
-        for t in range(tp if dp > 1 else 0):
-            ranks = [b + d * tp + t for d in range(dp)]
-            g = dist.group.WORLD if n == world and tp == 1 else dist.new_group(ranks)
-            if b == base and t == local % tp:
-                dp_group = g
-    return Mesh(tp=tp, dp=dp, tp_rank=local % tp, dp_rank=local // tp,
-                tp_group=tp_group, dp_group=dp_group)
+        for axis, size in (("tp", tp), ("pp", pp), ("dp", dp)):
+            if size == 1:
+                continue
+            members = {}  # the other two coordinates -> the group's ranks, in axis order
+            for loc in range(n):
+                key = tuple(v for k, v in coords(loc).items() if k != axis)
+                members.setdefault(key, []).append(b + loc)
+            for ranks in members.values():
+                g = dist.group.WORLD if len(ranks) == world else dist.new_group(ranks)
+                if rank in ranks:
+                    groups[axis] = (g, tuple(ranks))
+    c = coords(local)
+    return Mesh(tp=tp, dp=dp, pp=pp, tp_rank=c["tp"], dp_rank=c["dp"], pp_rank=c["pp"],
+                tp_group=groups.get("tp", (None,))[0], dp_group=groups.get("dp", (None,))[0],
+                pp_group=groups.get("pp", (None,))[0], pp_ranks=groups.get("pp", (None, ()))[1])
+
+
+def stage_layers(config: GptNeoXConfig, mesh: Optional[Mesh]) -> Tuple[int, int]:
+    """(first, count) of the layers this rank's pipeline stage holds: the
+    contiguous block ``[pp_rank * L/pp, (pp_rank + 1) * L/pp)`` (the
+    reference's GptNeoXDecoder.cc:94-120 layout). Raises where pp does not
+    divide the layers, as the JAX engine asserts."""
+    pp = 1 if mesh is None else mesh.pp
+    L = config.layer_num
+    if L % pp:
+        raise ValueError(f"layer_num {L} does not split over pp {pp}")
+    return (0 if mesh is None else mesh.pp_rank) * (L // pp), L // pp
 
 
 # Split axes of the stacked layer weights [L, ...] (the JAX LAYER_SPECS'
@@ -159,9 +177,10 @@ def pad_vocab_for_tp(config: GptNeoXConfig, params: Params, mesh: Mesh) -> Param
     if pad == 0:
         return params
     out = dict(params)
-    if isinstance(w, QuantizedTensor):
-        out["lm_head"] = dataclasses.replace(w, q=F.pad(w.q, (0, 0, 0, pad)),
-                                             scale=F.pad(w.scale, (0, pad)))
+    if isinstance(w, QuantizedTensor):  # per-row scales [V], or group scales [V, H/G]
+        out["lm_head"] = dataclasses.replace(
+            w, q=F.pad(w.q, (0, 0, 0, pad)),
+            scale=F.pad(w.scale, (0, 0) * (w.scale.ndim - 1) + (0, pad)))
     else:
         out["lm_head"] = F.pad(w, (0, 0, 0, pad))
     if "lm_head_b" in out:
@@ -169,13 +188,26 @@ def pad_vocab_for_tp(config: GptNeoXConfig, params: Params, mesh: Mesh) -> Param
     return out
 
 
+def _stage_block(value, first: int, count: int):
+    """Layers [first, first + count) of a stacked [L, ...] weight (a
+    quantized weight's scales too), copied out of the full stack."""
+    if isinstance(value, QuantizedTensor):
+        return dataclasses.replace(value, q=value.q[first:first + count].clone(),
+                                   scale=value.scale[first:first + count].clone())
+    return value[first:first + count].clone()
+
+
 def shard_params(config: GptNeoXConfig, params: Params, mesh: Mesh) -> Params:
     """This rank's slice of every weight of the full ``params`` (the JAX
     ``shard_params``: what ``jax.device_put`` places on the device at this
-    rank's tp coordinate). Checks the splits the kernels need: whole heads
-    a rank, an int4 K slice of whole bytes, group scales on whole groups."""
-    if mesh.tp == 1:
+    rank's pp and tp coordinates): its stage's block of the stacked layers
+    (``stage_layers``), then its tp slice; the embeddings, the final norm
+    and the head are replicated over pp. Checks the splits the kernels
+    need: whole layers a stage, whole heads a rank, an int4 K slice of
+    whole bytes, group scales on whole groups."""
+    if mesh.tp == 1 and mesh.pp == 1:
         return params
+    first, count = stage_layers(config, mesh)
     tp = mesh.tp
     if config.head_num % tp:
         raise ValueError(f"{config.head_num} heads do not split over tp {tp}")
@@ -187,6 +219,8 @@ def shard_params(config: GptNeoXConfig, params: Params, mesh: Mesh) -> Params:
         if k == "layers":
             layers = {}
             for n, val in v.items():
+                if mesh.pp > 1:
+                    val = _stage_block(val, first, count)
                 ax = split_axis(config, n, val)
                 if isinstance(val, QuantizedTensor) and ax is not None:
                     k_ax = val.k_axis % val.q.ndim

@@ -8,6 +8,7 @@ failing batch fails its own requests only.
 Tolerance: rtol 2e-5 / atol 2e-6 in fp32, the JAX test's own (a batched row
 differs from a solo one only in summation order)."""
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -27,6 +28,33 @@ from test_longformer import make_hf
 
 torch.set_num_threads(2)
 TOL = dict(rtol=2e-5, atol=2e-6)
+
+
+class _HeldEngine:
+    """An engine whose first ``method`` call (the server's first batch)
+    waits until the test's other requests are all in the server's mailbox,
+    so that they coalesce for certain rather than as the threads happen to
+    arrive. ``srv``, the server driving it, is set after the server is
+    built. Every other attribute is the engine's."""
+
+    def __init__(self, engine, method, total):
+        self.engine, self.total, self.srv = engine, total, None
+        self.queued = threading.Event()  # set once the rest are queued
+        real = getattr(engine, method)
+
+        def held(ids, *args, **kw):
+            if not self.queued.is_set():
+                deadline = time.monotonic() + 60
+                while (len(self.srv._mailbox) + len(ids) < self.total
+                       and time.monotonic() < deadline):
+                    time.sleep(0.005)
+                self.queued.set()
+            return real(ids, *args, **kw)
+
+        setattr(self, method, held)
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
 
 
 def _serve_all(srv, reqs):
@@ -63,7 +91,8 @@ def test_bert_batches_and_matches_solo_and_jax():
     rng = np.random.RandomState(1)
     reqs = [list(rng.randint(0, cfg.vocab_size, size=(n,)))
             for n in (5, 9, 3, 12, 7, 9, 4, 11, 6, 8)]
-    srv = EncoderBatchingServer(eng, max_batch=8, seq_bucket=8, max_seq_len=32)
+    held = _HeldEngine(eng, "encode", len(reqs))
+    srv = held.srv = EncoderBatchingServer(held, max_batch=8, seq_bucket=8, max_seq_len=32)
     try:
         results = _serve_all(srv, reqs)
         assert srv.batches_run < len(reqs), srv.batches_run  # batching happened
@@ -92,7 +121,8 @@ def test_longformer_batches_and_matches_solo():
     eng = registry.get("longformer").make_engine(cfg, params)
     rng = np.random.RandomState(2)
     reqs = [list(rng.randint(2, 96, size=(n,))) for n in (21, 5, 13, 30, 8, 17)]
-    srv = EncoderBatchingServer(eng, max_batch=4, seq_bucket=8, max_seq_len=32)
+    held = _HeldEngine(eng, "encode", len(reqs))
+    srv = held.srv = EncoderBatchingServer(held, max_batch=4, seq_bucket=8, max_seq_len=32)
     try:
         results = _serve_all(srv, reqs)
         assert srv.batches_run < len(reqs) and srv.requests_served == len(reqs)
@@ -193,7 +223,8 @@ def test_t5_server_batches_and_matches_solo():
     reqs = [(list(ids[i][: 4 + i % 4]), dict(top_k=1) if i != 3 else
              dict(top_k=5, top_p=0.9, temperature=0.8, random_seed=77)) for i in range(6)]
     solo = [eng.generate([r], 6, **kw) for r, kw in reqs]
-    srv = T5BatchingServer(eng, max_batch=8, seq_bucket=8, max_seq_len=32)
+    held = _HeldEngine(eng, "generate", len(reqs))
+    srv = held.srv = T5BatchingServer(held, max_batch=8, seq_bucket=8, max_seq_len=32)
     try:
         results = [None] * 6
 

@@ -1,5 +1,6 @@
 """The CUDA kernels K1-K13 against their plain versions on the card, at small
-and ragged shapes (K2/K3 also with group scales, int8 and int4, and K3, K7
+and ragged shapes (K1, K2/K3 and K13 also with group scales, int8 and int4;
+K7 also as the group-wise transposed head, fp32 out; K3, K7
 and K13 with groups of 32 and 64 whose splits do not divide K; K13's
 segments also bit for bit against K1/K6/K7 run alone; the fp32
 group-scale instances of K7, K2, K3 and K13 (int4, the JAX package's
@@ -117,6 +118,43 @@ def test_k1_matches_plain(gen, M, K, N, act, bias_dtype):
     assert _rel(got, quant_matmul_plain(x, w, s, b, act)) < 1e-2
 
 
+@pytest.mark.parametrize("M", [1, 3, 5, 32, 33, 130])
+@pytest.mark.parametrize("K,N,G", [(256, 384, 128), (256, 144, 32), (2048, 160, 128),
+                                   (1152, 128, 64)])
+@pytest.mark.parametrize("act", [None, "gelu-tanh"])
+def test_k1_group_int8_matches_plain(gen, M, K, N, G, act):
+    """K1's W_I8G instances (fp32 group scales [K/G, N]): the GEMV at
+    M <= 32 (splits of whole groups; 1152 = 18 groups of 64 that the splits
+    do not divide evenly), the TMA + wgmma GEMM above, each counted in
+    ``launches_g8``."""
+    x, w = _bf(gen, M, K), _i8(gen, K, N)
+    s = torch.rand(K // G, N, device="cuda", generator=gen) * 0.004 + 0.0005
+    b = (torch.randn(N, device="cuda", generator=gen) * 0.1).bfloat16()
+    before, before_g = quant_matmul.launches, quant_matmul.launches_g8
+    got = quant_matmul(x, w, s, b, act, group_size=G)
+    assert (quant_matmul.launches, quant_matmul.launches_g8) == (before + 1, before_g + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert _rel(got, quant_matmul_plain(x, w, s, b, act, group_size=G)) < 1e-2
+
+
+@pytest.mark.parametrize("M", [1, 4, 7, 40])
+@pytest.mark.parametrize("G,scale_dtype", [(128, torch.bfloat16), (128, torch.float32),
+                                           (32, torch.bfloat16)])
+def test_k7_group_head_matches_plain(gen, M, G, scale_dtype):
+    """K7 with fp32 out: the group-wise transposed int4 LM head [H/2, V_pad]
+    with scales [H/G, V_pad], as ``quantized_matmul_transposed_head`` runs
+    it."""
+    H, Vp = 512, 2560
+    x, packed = _bf(gen, M, H), _i8(gen, H // 2, Vp)
+    s = ((torch.rand(H // G, Vp, device="cuda", generator=gen) * 0.06 + 0.01)).to(scale_dtype)
+    before = quant_matmul_w4_group.launches_head
+    got = quant_matmul_w4_group(x, packed, s, G, out_dtype=torch.float32)
+    assert quant_matmul_w4_group.launches_head == before + 1
+    assert got.dtype == torch.float32 and got.shape == (M, Vp)
+    ref = quant_matmul_w4_group_plain(x.float(), packed, s, G)  # fp32 out
+    assert _rel(got, ref) < 1e-2
+
+
 def test_k1_layer_view_of_stacked_weight(gen):
     w_all, s_all = _i8(gen, 3, 256, 384), torch.rand(3, 384, device="cuda", generator=gen) * 1e-3
     x = _bf(gen, 4, 256)
@@ -170,6 +208,41 @@ def test_k4_matches_plain(gen, B, nH, nKV, dh, S, quant):
     sm = dh ** -0.5
     got = flash_decode_stacked(q, k, ks, v, vs, 1, pos, sm)
     assert _rel(got, flash_decode_stacked_plain(q, k, ks, v, vs, 1, pos, sm)) < 2e-2
+
+
+@pytest.mark.parametrize("quant", [True, False])
+def test_k4_k11_read_a_row_range_view_of_the_cache(gen, quant):
+    """A pipeline decode microbatch hands K4 and K11 rows [r0, r0 + mb) of
+    the stacked cache as a view (each layer's slab contiguous, the stack
+    not): the same bytes as on a contiguous copy of those rows, and a
+    cache whose layer slabs are not contiguous is still refused."""
+    L, B, nH, nKV, dh, S, r0, mb = 2, 6, 8, 4, 128, 300, 2, 4
+    if quant:
+        k, v = _i8(gen, L, B, nKV, S, dh), _i8(gen, L, B, nKV, S, dh)
+        ks = (torch.rand(L, B, nKV, S, device="cuda", generator=gen) * 0.02).bfloat16()
+        vs = (torch.rand(L, B, nKV, S, device="cuda", generator=gen) * 0.02).bfloat16()
+    else:
+        k, v, ks, vs = _bf(gen, L, B, nKV, S, dh), _bf(gen, L, B, nKV, S, dh), None, None
+    view = [None if t is None else t.narrow(1, r0, mb) for t in (k, ks, v, vs)]
+    copy = [None if t is None else t.contiguous() for t in view]
+    assert not view[0].is_contiguous()
+    q = _bf(gen, mb, nH, dh)
+    pos = torch.tensor([5, S - 1, 63, 200], dtype=torch.int32, device="cuda")
+    got = flash_decode_stacked(q, view[0], view[1], view[2], view[3], 1, pos, 0.088)
+    want = flash_decode_stacked(q, copy[0], copy[1], copy[2], copy[3], 1, pos, 0.088)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    indir = torch.randint(0, 2, (mb, S), dtype=torch.int32, device="cuda", generator=gen)
+    got = flash_decode_beam_stacked(q, view[0], view[1], view[2], view[3], 1, pos, indir, 2,
+                                    0.088)
+    want = flash_decode_beam_stacked(q, copy[0], copy[1], copy[2], copy[3], 1, pos, indir, 2,
+                                     0.088)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_decode_stacked(q, k[:, r0:r0 + mb, :, ::2], None if ks is None else ks[:, r0:r0 + mb],
+                             v[:, r0:r0 + mb, :, ::2], None if vs is None else vs[:, r0:r0 + mb],
+                             1, pos, 0.088)
 
 
 def test_k4_reads_stop_at_position(gen):
@@ -833,9 +906,9 @@ def _fmt_weight(gen, K, N, bits, G):
 FUSED_FORMATS = [(8, 0), (4, 0), (4, 32), (8, 32)]
 
 
-# int8 weights with group scales run at decode widths only (M <= 32)
-K13_CASES = [(M, bits, G) for M in (1, 3, 5, 32, 33, 130) for bits, G in FUSED_FORMATS
-             if not (bits == 8 and G and M > 32)]
+# every format at decode (M <= 32) and prefill widths: int8 with group scales
+# has a GEMM instance (W_I8G) too
+K13_CASES = [(M, bits, G) for M in (1, 3, 5, 32, 33, 130) for bits, G in FUSED_FORMATS]
 
 
 @pytest.mark.parametrize("M,bits,G", K13_CASES)
@@ -856,7 +929,7 @@ def test_k13_matches_plain(gen, M, bits, G, act2):
 
 
 @pytest.mark.parametrize("M", [1, 2, 4, 8, 32, 130])
-@pytest.mark.parametrize("bits,G", FUSED_FORMATS[:3])
+@pytest.mark.parametrize("bits,G", FUSED_FORMATS)
 def test_k13_segments_equal_the_gemm_alone(gen, M, bits, G):
     """Each K13 segment runs K1's (K6's, K7's) arithmetic on its own: the
     same splits and tiles, so the same bits."""
@@ -867,7 +940,8 @@ def test_k13_segments_equal_the_gemm_alone(gen, M, bits, G):
     b1, b2 = _bf(gen, N1, std=0.1), _bf(gen, N2, std=0.1)
     y1, y2 = fused_qkv_up(x1, x2, w1, w2, s1, s2, b1, b2, None, "gelu-tanh", bits, G)
     if bits == 8:
-        a1, a2 = quant_matmul(x1, w1, s1, b1), quant_matmul(x2, w2, s2, b2, "gelu-tanh")
+        a1 = quant_matmul(x1, w1, s1, b1, group_size=G)
+        a2 = quant_matmul(x2, w2, s2, b2, "gelu-tanh", group_size=G)
     elif G:
         a1 = quant_matmul_w4_group(x1, w1, s1, G, b1)
         a2 = quant_matmul_w4_group(x2, w2, s2, G, b2, "gelu-tanh")
@@ -902,8 +976,8 @@ def test_fused_kernels_raise_on_what_they_do_not_take(gen):
         lambda: fused_qkv_up(x, _bf(gen, 3, 64), p8, p8, s8, s8),  # x1 and x2 differ
         lambda: fused_qkv_up(x.float(), x.float(), p8, p8, s8, s8),  # fp32 activations
         lambda: fused_qkv_up(x, x, p8, p8, s8, s8, act2="tanh"),  # unknown activation
-        lambda: fused_qkv_up(_bf(gen, 40, 64), _bf(gen, 40, 64), p8, p8, g8, g8,
-                             group_size=32),  # int8 group scales above decode widths
+        lambda: fused_qkv_up(_bf(gen, 40, 64), _bf(gen, 40, 64), p8, p8, g8.bfloat16(),
+                             g8.bfloat16(), group_size=32),  # bf16 group scales with int8
         lambda: fused_qkv_up(x, x, p4, p4, g4, g4.float(), bits=4,
                              group_size=32),  # the two segments' scales differ in dtype
         lambda: fused_proj_down(x, x, p8, p8, g8.bfloat16(), g8.bfloat16(), s8,

@@ -13,7 +13,7 @@ import fastertransformer4codefuse_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert {"parallel", "parallel.distributed", "parallel.sharding"} <= {
+assert {"parallel", "parallel.distributed", "parallel.pipeline", "parallel.sharding"} <= {
     n.split(".", 1)[1] for n in names}
 import chip_smoke
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
@@ -37,5 +37,5 @@ def test_port_imports_no_jax():
     # with the encoder-decoder, vision and audio families (models/t5,
     # engine/t5_engine, models/bart, models/vit, models/swin, models/deberta,
     # models/xlnet, models/conformer); 75 with parallel/ (the package,
-    # distributed, sharding)
-    assert int(out.stdout.strip().splitlines()[-1]) >= 75
+    # distributed, sharding); 76 with parallel/pipeline
+    assert int(out.stdout.strip().splitlines()[-1]) >= 76

@@ -280,8 +280,9 @@ def test_shard_params_are_the_jax_addressable_shards(model, tp):
 
 def test_mesh_and_shard_refusals():
     """What the kernels cannot take is refused at sharding time, and a mesh
-    of several ranks needs a process group; pipeline parallelism is the next
-    slice."""
+    of several ranks (a pp mesh too) needs a process group; an engine whose
+    ``pipeline_para_size`` asks for stages its mesh does not have is
+    refused."""
     cfg = port_cfg(tiny())
     full = from_jax_params(np_tree(jax_init_params(tiny(), dtype="fp32")), device="cpu")
     with pytest.raises(ValueError, match="heads do not split"):
@@ -292,9 +293,9 @@ def test_mesh_and_shard_refusals():
         sharding.shard_params(cfg, g16, Mesh(tp=8))
     with pytest.raises(ValueError, match="process group"):
         sharding.build_mesh(tp=2)
-    with pytest.raises(NotImplementedError, match="slice B"):
+    with pytest.raises(ValueError, match="process group"):
         sharding.build_mesh(pp=2)
-    with pytest.raises(NotImplementedError, match="slice B"):
+    with pytest.raises(ValueError, match="pipeline_para_size 2 needs a mesh"):
         GptNeoXEngine(cfg, full, RuntimeConfig(dtype="fp32", pipeline_para_size=2))
     assert sharding.cache_heads(port_cfg(tiny(**QWEN2)), Mesh(tp=2, tp_rank=1)) == (2, 2)
     mqa = port_cfg(tiny(kv_head_num=1, qkv_layout="concat"))

@@ -111,11 +111,26 @@ def test_plain_k6_identity_is_exact_dequant():
 
 
 def test_unserved_int4_forms_raise():
+    """The group-wise transposed int4 head, refused until ROADMAP item 11
+    was done, is served now: K7 with fp32 out (its plain version here;
+    tests/test_torch_group_int8.py holds it to the JAX function). An int4
+    [V, H] head (k_axis 1) is still no served form: the JAX package's
+    quantizer makes the transposed head only."""
+    from fastertransformer4codefuse_tpu_torch import GptNeoXConfig
+    from fastertransformer4codefuse_tpu_torch.models.gptneox import lm_logits
+
     rng = np.random.default_rng(1)
-    _, p, _, ts, _ = _operands(rng, 1, 64, 32, G=16)
+    x, p, _, ts, _ = _operands(rng, 2, 64, 32, G=16)
     head = QuantizedTensor(q=torch.from_numpy(p), scale=ts, k_axis=-2, bits=4, group_size=16)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        quantized_matmul_transposed_head(torch.zeros(1, 64), head)
+    got = quantized_matmul_transposed_head(torch.from_numpy(x), head)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, torch.from_numpy(x) @ head.dequantize(), rtol=1e-5,
+                               atol=1e-5)
+    cfg = GptNeoXConfig.tiny(head_num=4, size_per_head=16, vocab_size=32)
+    vh = QuantizedTensor(q=torch.from_numpy(p.T.copy()), scale=torch.ones(32), k_axis=1, bits=4)
+    params = {"final_ln_w": torch.ones(64), "final_ln_b": torch.zeros(64), "lm_head": vh}
+    with pytest.raises(NotImplementedError, match="int8 only"):
+        lm_logits(cfg, params, torch.zeros(1, 64))
 
 
 def test_cpu_tensors_take_the_plain_versions_without_a_launch():

@@ -228,11 +228,9 @@ def test_int4_and_groupwise_stay_weight_only_under_act_int8(smoothed, monkeypatc
     calls = _spy(monkeypatch)
     eng = GptNeoXEngine(cfg, q, RuntimeConfig(dtype="fp32", int8_mode=1, act_int8=True,
                                               seq_bucket=8))
-    if bits == 8:  # group-wise int8 is on no served path (item 11)
-        with pytest.raises(NotImplementedError):
-            eng.generate([list(range(3, 20))], output_len=3, top_k=1)
-    else:
-        eng.generate([list(range(3, 20))], output_len=3, top_k=1)
+    # group-wise int8 (served since item 11: K1 / K13 with group scales)
+    # stays weight-only too
+    eng.generate([list(range(3, 20))], output_len=3, top_k=1)
     assert not calls
 
 

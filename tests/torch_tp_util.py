@@ -1,4 +1,5 @@
-"""Runs tensor- and data-parallel cases of the port in a group of gloo ranks.
+"""Runs tensor-, pipeline- and data-parallel cases of the port in a group of
+gloo ranks.
 
 A test module builds its inputs (configs, weights as numpy, prompts) in its
 own process, where the JAX package gives the references, and calls
@@ -11,6 +12,7 @@ Cases are functions of this module named in ``CASES``.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import socket
@@ -90,18 +92,35 @@ def run_group(world: int, cases, data, timeout: float = 600.0) -> dict:
 _MESHES = {}
 
 
-def _mesh(tp, dp=1):
+def _mesh(tp, dp=1, pp=1):
     from fastertransformer4codefuse_tpu_torch.parallel.sharding import build_mesh
 
-    if (tp, dp) not in _MESHES:
-        _MESHES[tp, dp] = build_mesh(tp=tp, dp=dp)
-    return _MESHES[tp, dp]
+    if (tp, dp, pp) not in _MESHES:
+        _MESHES[tp, dp, pp] = build_mesh(tp=tp, dp=dp, pp=pp)
+    return _MESHES[tp, dp, pp]
 
 
 def _counters():
     from fastertransformer4codefuse_tpu_torch.parallel import distributed
 
     return distributed.all_reduce, distributed.all_gather
+
+
+def _hop_counters():
+    """The pipeline's counted calls: sends, receives, broadcasts."""
+    from fastertransformer4codefuse_tpu_torch.parallel import distributed
+
+    return distributed.send_next, distributed.recv_prev, distributed.broadcast_last
+
+
+def _zero_all():
+    for f in (*_counters(), *_hop_counters()):
+        f.calls = 0
+
+
+def _read_all():
+    """(sends, receives, broadcasts, all-reduces, all-gathers) so far."""
+    return tuple(f.calls for f in (*_hop_counters(), *_counters()))
 
 
 def _params(tree):
@@ -121,22 +140,25 @@ def _gen(out):
 
 
 def engine_case(data, model, tp, dp=1, runtime=None, gen=None, prompts=PROMPTS, out_len=6,
-                first_logits=False):
+                first_logits=False, pp=1):
     """``generate`` on an engine of this mesh and on a tp = 1 engine over
-    the same weights; the collectives counted over the mesh's call."""
+    the same weights; the collectives (and, under pp, the hops and
+    broadcasts) counted over the mesh's call."""
     from fastertransformer4codefuse_tpu_torch import GptNeoXEngine
 
     cfg, tree = data[model]
     params = _params(tree)
     rt = _runtime(seq_bucket=4, **(runtime or {}))
     gen = gen or {}
-    ref = GptNeoXEngine(cfg, params, rt).generate(prompts, out_len, **gen)
-    eng = GptNeoXEngine(cfg, params, rt, mesh=_mesh(tp, dp))
-    ar, ag = _counters()
-    ar.calls = ag.calls = 0
+    ref = GptNeoXEngine(cfg, params, dataclasses.replace(rt, pp_microbatches=1)).generate(
+        prompts, out_len, **gen)
+    eng = GptNeoXEngine(cfg, params, rt, mesh=_mesh(tp, dp, pp))
+    _zero_all()
     out = eng.generate(prompts, out_len, **gen)
+    ar, ag = _counters()
     res = {"tp": _gen(out), "tp1": _gen(ref), "all_reduce": ar.calls, "all_gather": ag.calls,
-           "forwards": eng.decode_forwards, "head_rows": eng.params["lm_head"].shape[0]}
+           "forwards": eng.decode_forwards, "head_rows": eng.params["lm_head"].shape[0],
+           "hops": _read_all()[:3], "layers": int(eng.params["layers"]["ln1_w"].shape[0])}
     if first_logits:  # the prefill's logits of the whole batch, under the mesh
         st, inputs = eng._prepare(prompts, out_len, **gen)
         res["logits"] = eng._prefill_state(st, inputs).logits.numpy()
@@ -174,7 +196,7 @@ def step_counts_case(data, model, tp):
 
 
 def pool_case(data, model, tp, kind="dense", pool=None, sampling=None, runtime=None,
-              compare_tp1=False):
+              compare_tp1=False, pp=1):
     """The pool of ``kind`` ("dense", "paged", "spec", "beam") on an engine
     of this mesh, every request submitted and run to the end; with
     ``compare_tp1`` also the same pool on a tp = 1 engine. Returns the
@@ -204,19 +226,22 @@ def pool_case(data, model, tp, kind="dense", pool=None, sampling=None, runtime=N
             kw_i = {} if kind == "beam" else dict(top_k=1)
             uids.append(cb.submit(p, ol, **(kw_i if sampling is None else sampling[i])))
         ticks = []  # (chunk steps, decode steps, all-reduces, all-gathers) of each tick
+        hops = []  # (sends, receives, broadcasts) of each tick
         while cb.pending or cb.running:
-            ar.calls = ag.calls = 0
+            _zero_all()
             c0, d0 = cb.chunk_ticks, cb.decode_ticks
             cb.step()
             ticks.append((cb.chunk_ticks - c0, cb.decode_ticks - d0, ar.calls, ag.calls))
+            hops.append(_read_all()[:3])
             assert len(ticks) < 300, "the pool did not drain"
         done = cb.requests
         slab = cb._state["cache"]["pk" if "pk" in cb._state["cache"] else "k"]
         return {"outs": [done[u].output_ids for u in uids],
                 "beams": [done[u].beam_output_ids for u in uids],
-                "kv_heads": int(slab.shape[2]), "ticks": ticks if counted else None}
+                "kv_heads": int(slab.shape[2]), "layers": int(slab.shape[0]),
+                "ticks": ticks if counted else None, "hops": hops if counted else None}
 
-    res = {"tp": run(GptNeoXEngine(cfg, params, rt, mesh=_mesh(tp)), counted=True)}
+    res = {"tp": run(GptNeoXEngine(cfg, params, rt, mesh=_mesh(tp, pp=pp)), counted=True)}
     eng1 = GptNeoXEngine(cfg, params, rt)
     if compare_tp1:
         res["tp1"] = run(eng1)
@@ -227,6 +252,65 @@ def pool_case(data, model, tp, kind="dense", pool=None, sampling=None, runtime=N
             res["static"].append([[int(x) for x in o.output_ids[0, j, : o.sequence_lengths[0, j]]]
                                   for j in range(2)])
     return res
+
+
+def pp_counts_case(data, model, tp, pp, microbatches):
+    """The counted calls of one prefill and of one decode step of the model
+    on a pp mesh at ``microbatches`` (each followed by the head),
+    and the logits of both: (sends, receives, broadcasts, all-reduces,
+    all-gathers) a forward."""
+    import torch
+
+    from fastertransformer4codefuse_tpu_torch.engine import kv_cache
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model_fns
+    from fastertransformer4codefuse_tpu_torch.parallel.sharding import (
+        cache_heads, shard_params, stage_layers,
+    )
+
+    cfg, tree = data[model]
+    mesh = _mesh(tp, pp=pp)
+    params = shard_params(cfg, _params(tree), mesh)
+    B, T, M = 2, 16, microbatches
+    cache = kv_cache.init_cache(cfg, B, T, torch.float32, "cpu",
+                                kv_heads=cache_heads(cfg, mesh)[1],
+                                layers=stage_layers(cfg, mesh)[1])
+    ids = torch.tensor([[3, 4, 5, 9], [6, 7, 8, 2]], dtype=torch.int32)
+    _zero_all()
+    hidden, cache = model_fns.prefill(cfg, params, ids, torch.tensor([4, 3], dtype=torch.int32),
+                                      cache, mesh=mesh, microbatches=M)
+    lp = model_fns.lm_logits(cfg, params, hidden[:, 2], mesh)
+    prefill = _read_all()
+    _zero_all()
+    hidden, cache = model_fns.decode_step(cfg, params, torch.tensor([1, 2], dtype=torch.int32),
+                                          torch.tensor([4, 3], dtype=torch.int32), cache,
+                                          mesh=mesh, microbatches=M)
+    ld = model_fns.lm_logits(cfg, params, hidden, mesh)
+    return {"prefill": prefill, "decode": _read_all(), "logits": (lp.numpy(), ld.numpy())}
+
+
+def prompt_case(data, model, pp, kind, prompt, tail, out_len=5):
+    """Prefix (``kind`` "prefix": the table in ``data``) or soft prompts on
+    an engine of a pp mesh and on a pp = 1 engine, greedy."""
+    from fastertransformer4codefuse_tpu_torch import GptNeoXEngine
+
+    cfg, tree = data[model]
+    params = _params(tree)
+    table, emb = data[model + "_prompts"]
+    rt = _runtime(seq_bucket=8)
+    if kind == "prefix":
+        kw = dict(prompt_learning_task_name_ids=[1])
+    else:
+        kw = dict(request_prompt_embedding=emb, request_prompt_lengths=[len(prompt)])
+    outs = {}
+    for name, eng in (("pp", GptNeoXEngine(cfg, params, rt, mesh=_mesh(1, pp=pp))),
+                      ("pp1", GptNeoXEngine(cfg, params, rt))):
+        if kind == "prefix":
+            eng.set_prompt_learning_table({1: (table, len(prompt))})
+        _zero_all()
+        outs[name] = _gen(eng.generate([tail], out_len, top_k=1, return_cum_log_probs=True, **kw))
+        outs[name + "_hops"] = _read_all()[:3]
+        outs[name + "_forwards"] = eng.decode_forwards
+    return outs
 
 
 def bert_case(data, model, tp):
@@ -327,7 +411,7 @@ def cli_case(data, model, tp, argv):
 
 
 CASES = {f.__name__: f for f in (engine_case, step_counts_case, pool_case, bert_case, t5_case,
-                                 cli_case, pod_mesh_case)}
+                                 cli_case, pod_mesh_case, pp_counts_case, prompt_case)}
 
 
 def main(argv) -> int:
