@@ -2110,14 +2110,20 @@ def phase_encoders(torch, kernels, launched):
                                                          max_seq_len=512), "int8 bert", tol)
     if err:
         return err
-    err = check_encoder_counts(torch, kernels, launched,
-                               {"quant_matmul": 4 * cfg.layer_num * forwards},
+    err = check_encoder_counts(torch, kernels, launched, bert_launches(cfg.layer_num, forwards),
                                f"int8 bert, {forwards} forwards")
     if err:
         return err
     encoder_profile(torch, eng, np.array([reqs[1]] * 8, np.int32), np.array([512] * 8, np.int32),
                     "int8 bert encode of 8 x 512 tokens")
     return None
+
+
+def bert_launches(L, forwards):
+    """Launches an int8 BERT must count for ``forwards`` encodes of L layers:
+    K1's GEMM for QKV, the attention output, the intermediate and the output
+    products."""
+    return {"quant_matmul": 4 * L * forwards}
 
 
 def kernel_table():
@@ -5951,10 +5957,21 @@ TP_POOL_PROMPTS = (900, 130, 500, 300)
 TP_POOL_OUTS = (16, 24, 16, 32)
 TP_POOL = dict(max_slots=4, max_seq_len=1024, prompt_bucket=128,
                paged=dict(num_pages=17, page_size=256))
-# seconds for the whole phase and for any one collective: the phase takes
-# ~15-25 s, and starts ~600 s into the script's 1200 s, so a hung rank
-# fails here with a message rather than at the script's limit
-TP_TIMEOUT = 120
+# seconds for the whole phase and for any one collective: the phase took
+# ~15-25 s before its served runs, and starts ~600 s into the script's
+# 1200 s, so a hung rank fails here with a message rather than at the
+# script's limit
+TP_TIMEOUT = 180
+# the served run of phase 10: a pooled handler on rank 0 (rank 1 follows)
+# with TP_POOL's paged class and a beam class of width 2; its clients send
+# TP_POOL_PROMPTS, a streamed request, a sampled one with neither seed nor
+# top_k, one too long for either class (the static route) and a beam
+# request, TP_STAGGER s apart
+TP_BEAM_POOL = dict(max_slots=1, max_seq_len=512, prompt_bucket=128, beam_width=2)
+TP_SERVED = (("streamed", 200, 16), ("sampled", 100, 16), ("static", 1000, 40),
+             ("beam", 300, 16))
+TP_STAGGER = 0.05
+TP_BERT_LENS = (32, 512, 130, 300, 77, 200)  # the served int8 BERT-base requests
 
 
 def tp_forced_logits(torch, engine, prompts, forced):
@@ -6108,9 +6125,228 @@ def _tp_rank(rank, port):
     if rank == 0:  # each pool token held to the tp = 1 static program's argmax
         out["pool_gaps"] = [float(static_gaps(torch, eng1, p, g).max())
                             for p, g in zip(pool_prompts, pool_out)]
+    del cb
+    out["served"] = tp_served(torch, eng2, eng1, pool_prompts, kernels, rng)
+    out["bert"] = tp_served_bert(torch, mesh, kernels)
     dist.barrier()
     dist.destroy_process_group()
     return out
+
+
+class IdListTokenizer(IdTokenizer):
+    """Token ids written out in decimal, space-separated; every id spelled
+    out on the way back (``<id>``): the served runs' prompts are random ids
+    of the whole vocabulary."""
+
+    def encode(self, text):
+        return [int(t) for t in text.split()]
+
+
+def spelled_ids(text):
+    """The ids of an ``IdListTokenizer`` decode."""
+    return [int(t) for t in re.findall(r"<(\d+)>", text)]
+
+
+def staggered(calls, gap):
+    """Run each of ``calls`` on a thread of its own, the i-th ``gap`` * i s
+    after the first; (results, errors as strings, wall s to the last)."""
+    out, errors = [None] * len(calls), []
+
+    def run(i):
+        time.sleep(i * gap)
+        try:
+            out[i] = calls[i]()
+        except Exception as e:  # noqa: BLE001 -- reported by the caller
+            errors.append(f"request {i}: {e!r}")
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(calls))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out, errors, time.perf_counter() - t0
+
+
+def served_counts(torch, kernels, ls, since, counters):
+    """What a lockstep front end's run counted on this rank: each kernel's
+    launches, the counted collectives, its rounds and the rounds published
+    since ``since``, and what it served, sorted by uid (latency dropped)."""
+    from fastertransformer4codefuse_tpu_torch.parallel import lockstep
+
+    torch.cuda.synchronize()
+    served = sorted(((u, {k: v for k, v in r.items() if k != "latency"}
+                      if isinstance(r, dict) else r) for u, r in ls.served),
+                    key=lambda x: x[0])
+    return {"counts": read_counts(kernels), "coll": tuple(c.calls for c in counters),
+            "rounds": ls.rounds.rounds, "publishes": lockstep.publish.calls - since,
+            "served": served}
+
+
+def count_ticks(ls, counters):
+    """Record, from its next round on, each tick of the lockstep front end
+    ``ls`` (a ``LockstepPools``): its chunk and decode steps over the pool
+    classes and what ``counters`` counted in it, and each round's seconds
+    in publishing and agreeing (``Rounds.control_s``) beside its tick's.
+    Returns the lists it fills: (chunk steps, decode steps, (counts...))
+    for each tick that stepped, and (control s, tick s) for each round that
+    ticked."""
+    ticks, times, tick = [], [], ls.rounds._tick
+
+    def steps():
+        return (sum(b.chunk_ticks for b in ls.batchers), sum(b.decode_ticks for b in ls.batchers))
+
+    def counted():
+        (c0, d0), n0 = steps(), [c.calls for c in counters]
+        t0 = time.perf_counter()
+        tick()
+        times.append((ls.rounds.control_s, time.perf_counter() - t0))
+        (c1, d1), n1 = steps(), [c.calls for c in counters]
+        if (c1, d1) != (c0, d0):
+            ticks.append((c1 - c0, d1 - d0, tuple(b - a for a, b in zip(n0, n1))))
+
+    ls.rounds._tick = counted
+    return ticks, times
+
+
+def control_line(times):
+    """The rounds' publish + agree seconds beside their ticks', as a log
+    phrase: median and total of each."""
+    ctl, tick = [c for c, _ in times], [t for _, t in times]
+    return (f"publish + agree a round median {statistics.median(ctl) * 1e3:.3f} ms, total "
+            f"{sum(ctl):.3f} s over {len(ctl)} rounds; the rounds' ticks median "
+            f"{statistics.median(tick) * 1e3:.2f} ms, total {sum(tick):.2f} s")
+
+
+def tp_served(torch, eng2, eng1, pool_prompts, kernels, rng):
+    """Phase 10's served run, on each rank: ``CodeFuseHandler(pool=[TP_POOL,
+    TP_BEAM_POOL])`` over the tp = 2 engine; rank 0's client threads send
+    the requests, rank 1 follows. Returns what the rank served and counted,
+    and on rank 0 the responses, what was streamed, the pooled and static
+    greedy tokens' gaps to the tp = 1 static program's argmax, and the
+    wall."""
+    import torch.distributed as dist
+
+    from fastertransformer4codefuse_tpu_torch.api.handler import CodeFuseHandler
+    from fastertransformer4codefuse_tpu_torch.parallel import distributed as pd
+    from fastertransformer4codefuse_tpu_torch.parallel import lockstep
+
+    cfg, L = eng2.config, eng2.config.layer_num
+    tok = IdListTokenizer()
+    extra = {name: rng.integers(0, cfg.vocab_size, n).tolist() for name, n, _ in TP_SERVED}
+    streamed = []
+    counters = (pd.all_reduce, pd.all_gather)
+    zero_counts(kernels)
+    for c in counters:
+        c.calls = 0
+    since = lockstep.publish.calls
+    h = CodeFuseHandler(engine=eng2, tokenizer=tok, warmup=False,
+                        pool=[dict(TP_POOL), dict(TP_BEAM_POOL)],
+                        on_stream_text=lambda b, j, text: streamed.append(text))
+    ls = h.lockstep
+    ls.served = []
+    ticks, times = count_ticks(ls, counters)
+
+    def text(ids):
+        return " ".join(map(str, ids))
+
+    reqs = [{"prompts": [{"prompt": text(p), "top_k": 1}], "out_seq_length": n}
+            for p, n in zip(pool_prompts, TP_POOL_OUTS)]
+    outs = {name: n for name, _, n in TP_SERVED}
+    reqs += [
+        {"prompts": [{"prompt": text(extra["streamed"]), "top_k": 1}],
+         "out_seq_length": outs["streamed"], "stream": True},
+        {"prompts": [{"prompt": text(extra["sampled"])}], "out_seq_length": outs["sampled"]},
+        {"prompts": [{"prompt": text(extra["static"]), "top_k": 1}],
+         "out_seq_length": outs["static"]},
+        {"prompts": [{"prompt": text(extra["beam"]), "top_k": 1}],
+         "out_seq_length": outs["beam"], "beam_width": 2},
+    ]
+
+    def predict(i):
+        code, err, res = h.predict(reqs[i], f"served-{i}")
+        if code:
+            raise RuntimeError(err)
+        return json.loads(res["res"])
+
+    res = {}
+    if ls.leader:
+        got, errors, wall = staggered([lambda i=i: predict(i) for i in range(len(reqs))],
+                                      TP_STAGGER)
+        h.close()
+        res.update(responses=got, errors=errors, wall=wall)
+    else:
+        h.follow()
+    pools = ls.batchers
+    res.update(served_counts(torch, kernels, ls, since, counters),
+               ticks=[(b.chunk_ticks, b.decode_ticks) for b in pools], tick_counts=ticks,
+               times=times, static_forwards=eng2.decode_forwards, streamed="".join(streamed),
+               expect=add_counts(*(pool_launches(L, b) for b in pools),
+                                 expected_launches(L, 1, eng2.decode_forwards, 8, 0)))
+    if ls.leader and not res["errors"]:
+        greedy = {**{i: p for i, p in enumerate(pool_prompts)}, 4: extra["streamed"]}
+        records = [r for _, r in res["served"] if isinstance(r, dict) and "ids" in r]
+        gaps = []
+        for i, p in greedy.items():
+            ids = next(r["ids"] for r in records if r["ids"][:len(p)] == p)
+            gaps.append(float(static_gaps(torch, eng1, p, ids[len(p):]).max()))
+        static = spelled_ids(res["responses"][6]["generated_code"][0][0])
+        gaps.append(float(static_gaps(torch, eng1, extra["static"], static).max()))
+        res["gaps"] = gaps
+    del h, pools
+    dist.barrier()
+    return res
+
+
+def tp_served_bert(torch, mesh, kernels):
+    """Phase 10's served int8 BERT-base (12 layers, its published widths) at
+    tp = 2 behind ``EncoderBatchingServer``: rank 0's client threads send
+    TP_BERT_LENS requests, rank 1 follows. Returns the batches the rank ran
+    and its launches, and on rank 0 each answer's max |d| / max |ref|
+    against the tp = 1 encode of the same ids (padded alike)."""
+    import torch.distributed as dist
+
+    from fastertransformer4codefuse_tpu_torch.engine.encoder_server import EncoderBatchingServer
+    from fastertransformer4codefuse_tpu_torch.models import registry
+
+    cfg, _, params = encoder_params(torch, "bert", None, 42, int8=True)
+    fam = registry.get("bert")
+    eng = fam.make_engine(cfg, params, mesh=mesh)
+    rng = np.random.default_rng(14)
+    reqs = [rng.integers(0, cfg.vocab_size, n).tolist() for n in TP_BERT_LENS]
+    batches, encode = [], eng.encode
+
+    def logged(ids, lens):
+        batches.append(np.asarray(lens).tolist())
+        return encode(ids, lens)
+
+    eng.encode = logged
+    zero_counts(kernels)
+    srv = EncoderBatchingServer(eng, max_batch=4, seq_bucket=32, max_seq_len=512)
+    res = {}
+    if srv.lockstep.leader:
+        got, errors, wall = staggered([lambda r=r: srv.encode(r, timeout=300)[0] for r in reqs],
+                                      0.0)
+        srv.close()
+        res.update(errors=errors, wall=wall)
+    else:
+        srv.follow()
+    torch.cuda.synchronize()
+    res.update(batches=batches, counts=read_counts(kernels), layers=cfg.layer_num,
+               expect=bert_launches(cfg.layer_num, len(batches)))
+    if srv.lockstep.leader and not errors:
+        eng1 = fam.make_engine(cfg, params)
+        rels = []
+        for ids, h in zip(reqs, got):
+            W = -(-len(ids) // 32) * 32
+            padded = np.zeros((1, W), np.int32)
+            padded[0, :len(ids)] = ids
+            ref, _ = eng1.encode(padded, np.array([len(ids)], np.int32))
+            rels.append(rel_err(torch, torch.from_numpy(h), ref[0, :len(ids)].float().cpu())[1])
+        res["rels"] = rels
+    del eng, params
+    dist.barrier()
+    return res
 
 
 def phase_tp(torch, pkg, kernels, launched):
@@ -6217,6 +6453,9 @@ def phase_tp(torch, pkg, kernels, launched):
         f"(tol POOL_GAP {POOL_GAP:g}); {r0['pool_s']:.1f} s")
     if max(gaps) >= POOL_GAP:
         return "tp = 2 pool tokens part from the tp = 1 static program"
+    err = check_tp_served(res, kernels, launched)
+    if err:
+        return err
     (p2, d2), (p1, d1) = r0["tp2_ms"], r0["tp1_ms"]
     log(f"  B = 2 prompts of {list(TP_PROMPTS)} tokens ({CARD}; two ranks share the card, so "
         f"these are no two-card times): tp = 2 prefill {p2:.1f} ms, decode {d2:.2f} ms/step; "
@@ -6224,6 +6463,89 @@ def phase_tp(torch, pkg, kernels, launched):
     log(f"  phase 10: {time.time() - t0:.1f} s")
     return None
 
+
+
+def check_tp_served(res, kernels, launched):
+    """Phase 10's served runs, from both ranks' results: the handler's
+    (every rank served the same tokens and seeds and published as many
+    rounds as it ran; the counted collectives one all-reduce a layer and
+    one all-gather a decode step or static forward; each rank's launches
+    those of the pools' ticks and the static request; the greedy tokens
+    within POOL_GAP of the tp = 1 static program's argmax; the stream is
+    the streamed answer) and the int8 BERT-base server's (every rank ran
+    rank 0's batches, four K1 GEMMs a layer a batch, each answer within 5e-2
+    of the tp = 1 encode). Returns an error or None."""
+    r0, r1 = res[0]["served"], res[1]["served"]
+    if r0["errors"]:
+        return f"served run: requests failed: {r0['errors']}"
+    if r0["served"] != r1["served"] or r0["ticks"] != r1["ticks"]:
+        return "served run: the two ranks served different tokens, seeds or ticks"
+    L = TP_LAYERS
+    for rank, r in res.items():
+        s = r["served"]
+        if s["publishes"] != s["rounds"]:
+            return f"served run, rank {rank}: {s['publishes']} publishes for {s['rounds']} rounds"
+        for c, d, coll in s["tick_counts"]:  # phase 10's formula, tick by tick
+            if coll != (L * (c + d), d):
+                return f"served run, rank {rank}: a tick of {c} chunk and {d} decode steps " \
+                       f"ran {coll} collectives"
+        steps = sum(c + d for c, d in s["ticks"]) + 1 + s["static_forwards"]
+        want = (L * steps, sum(d for _, d in s["ticks"]) + 1 + s["static_forwards"])
+        if s["coll"] != want or sum(c + d for c, d, _ in s["tick_counts"]) != steps - 1 - \
+                s["static_forwards"]:
+            return f"served run, rank {rank}: collectives {s['coll']}, expected {want}"
+        expect = {n: 0 for n in s["counts"]}
+        expect.update(s["expect"])
+        if s["counts"] != expect:
+            return f"served run, rank {rank}: launches {s['counts']}, expected {expect}"
+        for n in kernels:
+            launched[n] += s["counts"][n]
+    resp = r0["responses"]
+    sampled = resp[len(TP_POOL_PROMPTS) + 1]
+    seeds = [rec["seed"] for _, rec in r1["served"] if isinstance(rec, dict) and "seed" in rec]
+    if sampled["random_seed"][0] not in seeds:
+        return "served run: rank 1 did not serve the sampled request with rank 0's seed"
+    streamed = resp[len(TP_POOL_PROMPTS)]["generated_code"][0][0]
+    if r0["streamed"] != streamed or r1["streamed"]:
+        return "served run: the stream is not the streamed answer, or rank 1 streamed"
+    n_req = len(resp)
+    log(f"  served (rank 0 the clients, rank 1 following; {CARD}): CodeFuseHandler over a paged "
+        f"class and a beam class of width 2, {n_req} requests {TP_STAGGER} s apart (the 4 pool "
+        f"prompts, streamed, sampled without seed or top_k, a static-route one of "
+        f"{TP_SERVED[2][1]} + {TP_SERVED[2][2]} tokens, a beam): {r0['wall']:.2f} s, "
+        f"{n_req / r0['wall']:.2f} requests/s (two ranks share the card: no two-card time); "
+        f"{r0['rounds']} rounds, ticks (chunk, decode) {r0['ticks']}, the static request's "
+        f"{r0['static_forwards']} decode forwards; sampled seed {sampled['random_seed'][0]} on "
+        f"both ranks")
+    for rank, r in res.items():
+        log(f"  served, rank {rank}: {control_line(r['served']['times'])} ({CARD})")
+    log(f"  served: greedy tokens' largest gap to the tp = 1 static argmax (pool x4, streamed, "
+        f"static): {', '.join(f'{g:.2e}' for g in r0['gaps'])} (tol POOL_GAP {POOL_GAP:g}); "
+        f"each rank's launches {({n: c for n, c in r0['counts'].items() if c})} as expected")
+    if max(r0["gaps"]) >= POOL_GAP:
+        return "served tokens part from the tp = 1 static program"
+    b0, b1 = res[0]["bert"], res[1]["bert"]
+    if b0["errors"]:
+        return f"served int8 BERT-base: requests failed: {b0['errors']}"
+    if b0["batches"] != b1["batches"]:
+        return "served int8 BERT-base: the ranks ran different batches"
+    for rank, r in res.items():
+        expect = {n: 0 for n in r["bert"]["counts"]}
+        expect.update(r["bert"]["expect"])
+        if r["bert"]["counts"] != expect:
+            return f"served int8 BERT-base, rank {rank}: launches {r['bert']['counts']}, " \
+                   f"expected {expect}"
+        for n in kernels:
+            launched[n] += r["bert"]["counts"][n]
+    log(f"  served int8 BERT-base ({b0["layers"]} layers) at tp = 2 behind EncoderBatchingServer: "
+        f"{len(TP_BERT_LENS)} requests of {min(TP_BERT_LENS)}-{max(TP_BERT_LENS)} tokens in "
+        f"batches of lengths {b0['batches']} on both ranks, {b0['wall']:.2f} s, "
+        f"{len(TP_BERT_LENS) / b0['wall']:.2f} requests/s ({CARD}; two ranks share the card); "
+        f"against the tp = 1 encode max |d| / max |ref| "
+        f"{', '.join(f'{x:.2e}' for x in b0['rels'])} (tol 5e-2)")
+    if max(b0["rels"]) >= 5e-2:
+        return "served int8 BERT-base at tp = 2 disagrees with tp = 1"
+    return None
 
 
 # Phase 11: pipeline parallelism. CodeFuse-13B int8 at full width, PP_LAYERS
@@ -6239,6 +6561,48 @@ PP_POOL = dict(max_slots=4, max_seq_len=1024, prompt_bucket=128)  # dense: pp re
 # takes ~60-90 s (four ranks share the card and the host), starting ~650 s
 # into the script's 1200 s
 PP_TIMEOUT = 240
+PP_SERVED = "tp 2 x pp 2"  # the mesh whose dense pool also serves behind a BatchingServer
+
+
+def pp_served(torch, eng, eng1, pool_prompts, kernels, counters):
+    """Phase 11's served run, on each rank: a ``BatchingServer`` on PP_POOL's
+    dense pool over the engine of the mesh; rank 0's client threads send
+    TP_POOL_PROMPTS TP_STAGGER s apart, the other ranks follow. Returns what
+    the rank served and counted, the launches its ticks must give, and on
+    rank 0 the tokens' gaps to the pp = 1 static program's argmax and the
+    wall."""
+    import torch.distributed as dist
+
+    from fastertransformer4codefuse_tpu_torch.engine.server import BatchingServer
+    from fastertransformer4codefuse_tpu_torch.parallel import lockstep
+
+    zero_counts(kernels)
+    for c in counters:
+        c.calls = 0
+    since = lockstep.publish.calls
+    srv = BatchingServer(eng, **PP_POOL)
+    ls = srv.lockstep
+    ls.served = []
+    ticks, times = count_ticks(ls, counters)
+    res = {}
+    if ls.leader:
+        got, errors, wall = staggered(
+            [lambda p=p, n=n: srv.generate(p, n, top_k=1).output_ids
+             for p, n in zip(pool_prompts, TP_POOL_OUTS)], TP_STAGGER)
+        srv.close()
+        res.update(errors=errors, wall=wall)
+    else:
+        srv.follow()
+    b = srv.batcher
+    res.update(served_counts(torch, kernels, ls, since, counters),
+               ticks=(b.chunk_ticks, b.decode_ticks), tick_counts=ticks, times=times,
+               expect=pool_launches(eng.stage[1], b))
+    if ls.leader and not errors:
+        res["gaps"] = [float(static_gaps(torch, eng1, p, ids[len(p):]).max())
+                       for p, ids in zip(pool_prompts, got)]
+    del srv, b
+    dist.barrier()
+    return res
 
 
 def pp_launches(L, m_pre, m_dec, forwards):
@@ -6391,12 +6755,59 @@ def _pp_rank(rank, port):
                     run["pool_gaps"] = [float(static_gaps(torch, eng1, p, g).max())
                                         for p, g in zip(pool_prompts, pool_out)]
                 del cb
+                if label == PP_SERVED:
+                    run["served"] = pp_served(torch, eng, eng1, pool_prompts, kernels, counters)
             out["runs"][label, M] = run
             del eng
             torch.cuda.empty_cache()
     dist.barrier()
     dist.destroy_process_group()
     return out
+
+
+def check_pp_served(name, runs, tp, pp, L, kernels, launched):
+    """Phase 11's served run from every rank's results: the same tokens and
+    rounds on all four ranks, publishes = rounds, each stage's hops, one
+    broadcast a step, L all-reduces a step and one all-gather a decode step,
+    each rank's launches those of its ticks, and every token within
+    POOL_GAP of the pp = 1 static program's argmax. Returns an error or
+    None."""
+    s0 = runs[0]["served"]
+    if s0["errors"]:
+        return f"{name}, served: requests failed: {s0['errors']}"
+    for rank, r in runs.items():
+        s, stage = r["served"], r["stage"]
+        if s["served"] != s0["served"] or s["rounds"] != s0["rounds"]:
+            return f"{name}, served: rank {rank} served other tokens or rounds than rank 0"
+        if s["publishes"] != s["rounds"]:
+            return f"{name}, served, rank {rank}: {s['publishes']} publishes, {s['rounds']} rounds"
+        if sum(c + d for c, d, _ in s["tick_counts"]) != sum(s["ticks"]):
+            return f"{name}, served, rank {rank}: ticks not all counted"
+        for c, d, coll in [*s["tick_counts"], (*s["ticks"], s["coll"])]:  # each tick; all
+            n = c + d
+            want = (n if stage < pp - 1 else 0, n if stage > 0 else 0, n,
+                    L * n if tp > 1 else 0, d if tp > 1 else 0)
+            if tuple(coll) != want:
+                return f"{name}, served, rank {rank}: {c} chunk and {d} decode steps counted " \
+                       f"{coll}, expected {want}"
+        expect = {k: 0 for k in s["counts"]}
+        expect.update(s["expect"])
+        if s["counts"] != expect:
+            return f"{name}, served, rank {rank}: launches {s['counts']}, expected {expect}"
+        for k in kernels:
+            launched[k] += s["counts"][k]
+    log(f"  {name}: served behind a BatchingServer (rank 0 the clients, 3 ranks following; "
+        f"{CARD}): {len(TP_POOL_PROMPTS)} requests {TP_STAGGER} s apart in {s0['wall']:.2f} s, "
+        f"{len(TP_POOL_PROMPTS) / s0['wall']:.2f} requests/s (four ranks share the card: no "
+        f"multi-card time); {s0['rounds']} rounds, ticks (chunk, decode) {s0['ticks']}, the "
+        f"same tokens on all four ranks; largest gap to the pp = 1 static argmax "
+        f"{', '.join(f'{g:.2e}' for g in s0['gaps'])} (tol POOL_GAP {POOL_GAP:g})")
+    for rank in sorted(runs):
+        log(f"  {name}, served, rank {rank}: {control_line(runs[rank]['served']['times'])} "
+            f"({CARD})")
+    if max(s0["gaps"]) >= POOL_GAP:
+        return f"{name}: served tokens part from the pp = 1 static program"
+    return None
 
 
 def phase_pp(torch, pkg, kernels, launched):
@@ -6519,6 +6930,10 @@ def phase_pp(torch, pkg, kernels, launched):
                 f"{run0['pool_s']:.1f} s, {len(run0['pool_ticks'])} ticks")
             if max(gaps) >= POOL_GAP:
                 return f"{name}: pool tokens part from the pp = 1 static program"
+        if M == 1 and label == PP_SERVED:
+            err = check_pp_served(name, runs, tp, pp, L, kernels, launched)
+            if err:
+                return err
     (p1, d1) = r0["pp1_ms"]
     times = "; ".join(f"{label} prefill {r0['runs'][label, 1]['ms'][0]:.1f} ms, decode "
                       f"{r0['runs'][label, 1]['ms'][1]:.2f} ms/step" for label, _ in PP_MESHES)

@@ -15,13 +15,18 @@ completes; without ``--input_file`` it reads requests from stdin until EOF.
 ride it, every other request the static path.
 ``--serve --http PORT`` serves POST /predict instead (``api/http_server.py``).
 The model runs on the card unless ``--device`` names another.
+
+``--tensor_parallel N`` runs under ``torchrun --nproc_per_node N``: the ranks
+serve in lockstep (``parallel/lockstep.py``). Rank 0 alone reads
+``--input_file`` or stdin, or binds ``--http``, and prints; the other ranks
+serve its requests with it until it closes (at the end of its input, or
+when its HTTP server shuts down).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import logging
-import os
 import sys
 import threading
 
@@ -85,14 +90,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not args.serve and args.input_file is None:
         parser.error("--input_file is required (or use --serve with stdin)")
-    if args.tensor_parallel > 1 and args.serve:
-        parser.error("--serve admits requests in arrival order, which differs between the "
-                     "ranks of a tensor-parallel group: serve --input_file under "
-                     "--tensor_parallel")
-    if args.tensor_parallel > 1 and int(os.environ.get("RANK", "0")):
-        # torchrun --nproc_per_node N: every rank reads the same requests and
-        # serves them in step; rank 0 alone writes the output
-        sys.stdout = open(os.devnull, "w")
 
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING,
@@ -123,24 +120,32 @@ def main(argv=None):
         device=args.device,
     )
 
+    if not handler.lockstep.leader:
+        handler.follow()  # rank 0 reads the requests; this rank serves them with it
+        return
     if args.serve:
         if args.http:
             from .http_server import serve_forever
 
-            serve_forever(handler, args.http_host, args.http)
+            try:
+                serve_forever(handler, args.http_host, args.http)
+            finally:
+                handler.close()
         else:
             serve(handler, args)
         return
 
-    with open(args.input_file) as f:
-        requests = [json.loads(line.strip()) for line in f if line.strip()]
-
-    for i, request_dict in enumerate(requests):
-        code, err, result_map = handler.predict(request_dict, "cli")
-        if code != 0:
-            print(err)
-            raise RuntimeError(err)
-        print_response(i, request_dict, json.loads(result_map["res"]))
+    try:
+        with open(args.input_file) as f:
+            requests = [json.loads(line.strip()) for line in f if line.strip()]
+        for i, request_dict in enumerate(requests):
+            code, err, result_map = handler.predict(request_dict, "cli")
+            if code != 0:
+                print(err)
+                raise RuntimeError(err)
+            print_response(i, request_dict, json.loads(result_map["res"]))
+    finally:
+        handler.close()
 
 
 def print_response(req_idx, request_dict, res):
@@ -186,8 +191,7 @@ def serve(handler, args):
     finally:
         if args.input_file:
             source.close()
-        if handler.server is not None:
-            handler.server.close()
+        handler.close()
 
 
 if __name__ == "__main__":

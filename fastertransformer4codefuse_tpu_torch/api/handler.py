@@ -25,17 +25,31 @@ log-probs; several prompts share the batched loop), whose response also
 carries ``"speculative"`` statistics; any other speculative request takes
 the ordinary routes. A speculative pool class serves speculative requests
 only.
+
+Static-route requests (not pool-routable, the static speculative loop, or a
+handler without ``pool=``) run one at a time as jobs on a driver thread
+(``engine.server.LockstepPools``, as ``lockstep``): at one rank a driver
+of their own, beside the pools'. On an engine whose mesh has several ranks
+on any axis (``torchrun``; the JAX handler's ``pool=`` on a mesh) the
+handler serves in lockstep over the process group: every rank builds it
+alike, rank 0 takes the requests, and every other rank calls ``follow()``.
+Rank 0 resolves each request, its drawn default seed included, and what it
+resolved is what every rank serves: pooled requests ride the pools'
+published admissions, and static-route jobs run on the pools' one driver
+between rounds on every rank. A dp-only mesh leads from rank 0 too, since
+the static route splits a batch's rows over dp: every dp group then serves
+rank 0's requests.
 """
 from __future__ import annotations
 
 import json
 import logging
 import random
-import threading
 import time
 import traceback
 from typing import Callable, List, Optional
 
+from ..parallel.lockstep import serves_in_lockstep
 from .detok import TokenStreamDecoder, trim_garbage
 from .generate import generate, init_engine_and_tokenizer
 from .trie import optional_last_token_ids
@@ -132,9 +146,10 @@ class CodeFuseHandler:
         self.trie = trie
         self.on_stream_text = on_stream_text
         self.server = None
-        if pool is not None:
-            from ..engine.server import BatchingServer, MultiPoolServer
+        from ..engine.server import BatchingServer, LockstepPools, MultiPoolServer
 
+        over = serves_in_lockstep(getattr(engine, "mesh", None), dp=True)
+        if pool is not None:
             def with_defaults(kw):
                 kw = dict(kw)
                 # the response always carries cum_log_prob: the pool tracks
@@ -150,13 +165,19 @@ class CodeFuseHandler:
                 return kw
 
             if isinstance(pool, (list, tuple)):
-                self.server = MultiPoolServer(engine, [with_defaults(kw) for kw in pool])
+                self.server = MultiPoolServer(engine, [with_defaults(kw) for kw in pool],
+                                              lockstep_dp=True)
             else:
-                self.server = BatchingServer(engine, **with_defaults(pool))
-        # one engine, not reentrant: concurrent static-path calls serialize
-        self._static_lock = threading.Lock()
-        if warmup:
-            generate(self.engine, self.tokenizer, ["demo"], 2, 1)
+                self.server = BatchingServer(engine, lockstep_dp=True, **with_defaults(pool))
+        # the static route's driver: under a mesh the pools' one driver, so
+        # that one thread a rank issues every collective; at one rank its
+        # own, beside the pools'
+        self.lockstep = (self.server.lockstep if over and self.server is not None else
+                         LockstepPools([], over, "ftcf-static-driver"))
+        self.lockstep.jobs.update(generate=self._job_generate, speculative=self._job_speculative)
+        if warmup and self.lockstep.leader:
+            # a follower runs rank 0's warmup once it follows
+            self._static("generate", dict(texts=["demo"], output_len=2, beam_width=1))
             if self.server is not None:
                 # warm every pool class: routing by length would only reach
                 # the smallest with a short request
@@ -164,9 +185,41 @@ class CodeFuseHandler:
                     srv.generate(self.tokenizer.encode("demo"), 2)
 
     def close(self):
-        """Stop the pool's driver threads (a pooled handler only)."""
+        """Stop the driver threads (under a mesh, on rank 0: every rank's
+        ``follow`` then returns)."""
         if self.server is not None:
             self.server.close()
+        self.lockstep.close()
+
+    def follow(self):
+        """Under a mesh, every rank but 0: serve rank 0's requests with it
+        until rank 0 closes."""
+        self.lockstep.follow()
+
+    def _static(self, key: str, payload, local=None):
+        """A static-route job on its driver (under a mesh on every rank
+        between the rounds); rank 0's result."""
+        return self.lockstep.run(key, payload, local)
+
+    def _job_generate(self, dp: dict, callback=None) -> dict:
+        """``generate`` of one resolved request, and its response. A
+        follower streams nowhere, but runs a streamed request as rank 0
+        does."""
+        dp = dict(dp)
+        if dp.pop("stream", False) and callback is None:
+            def callback(_message):
+                pass
+        res = generate(self.engine, self.tokenizer, trie=self.trie, callback=callback, **dp)
+        response = {
+            "latency": res[3],
+            "random_seed": dp.get("random_seed"),
+            "generated_code": res[0],
+            "length": res[1],
+            "cum_log_prob": res[2],
+        }
+        if dp.get("output_log_probs"):
+            response["output_log_probs"] = res[4]
+        return response
 
     def _default_stream_sink(self, batch_idx: int, beam_idx: int, text: str):
         if batch_idx == 0 and beam_idx == 0:
@@ -215,20 +268,20 @@ class CodeFuseHandler:
             return False
         return self._plain_greedy(dp, prompts)
 
-    def _predict_speculative(self, dp: dict, prompts: List[List[int]]) -> dict:
+    def _job_speculative(self, job: dict, _local=None) -> dict:
         """The static speculative loop (``speculative_generate``, or its
-        batched form for several prompts); the response adds the loop's
-        iterations, its mean tokens a step and the drafts accepted."""
+        batched form for several prompts) over ``job``'s prompts; the
+        response adds the loop's iterations, its mean tokens a step and the
+        drafts accepted."""
         from ..engine.speculative import speculative_generate, speculative_generate_batched
 
         start = time.time()
-        with self._static_lock:  # the engine's one-shot resources
-            if len(prompts) == 1:
-                toks, stats = speculative_generate(self.engine, prompts[0], dp["output_len"])
-                all_toks, all_stats = [toks], [stats]
-            else:
-                all_toks, all_stats = speculative_generate_batched(self.engine, prompts,
-                                                                   dp["output_len"])
+        prompts, out_len = job["prompts"], job["output_len"]
+        if len(prompts) == 1:
+            toks, stats = speculative_generate(self.engine, prompts[0], out_len)
+            all_toks, all_stats = [toks], [stats]
+        else:
+            all_toks, all_stats = speculative_generate_batched(self.engine, prompts, out_len)
         end_id = self.engine.config.end_id
         codes, lengths = [], []
         for prompt, toks in zip(prompts, all_toks):
@@ -241,7 +294,7 @@ class CodeFuseHandler:
             lengths.append([len(gen)])
         return {
             "latency": time.time() - start,
-            "random_seed": dp["random_seed"],
+            "random_seed": job["random_seed"],
             "generated_code": codes,
             "length": lengths,
             "cum_log_prob": [[s.cum_log_prob] for s in all_stats],
@@ -385,7 +438,6 @@ class CodeFuseHandler:
             data_package = get_data_package(request_dict, default_random_seed)
             batch_size = len(data_package["texts"])
             beam_width = data_package["beam_width"]
-            random_seed = data_package["random_seed"]
 
             speculative = bool(request_dict.get("speculative"))
             if speculative or self.server is not None:
@@ -398,7 +450,9 @@ class CodeFuseHandler:
                 logger.info("%s response (pooled speculative): %s", trace_id, response_str)
                 return (0, "ok", {"res": response_str})
             if speculative and self._spec_eligible(data_package, prompts, use_callback):
-                response = self._predict_speculative(data_package, prompts)
+                response = self._static("speculative", dict(
+                    prompts=prompts, output_len=data_package["output_len"],
+                    random_seed=data_package["random_seed"]))
                 response_str = json.dumps(response, ensure_ascii=False)
                 logger.info("%s response (speculative): %s", trace_id, response_str)
                 return (0, "ok", {"res": response_str})
@@ -437,28 +491,14 @@ class CodeFuseHandler:
                     except Exception as err:  # noqa: BLE001 -- streaming must not kill the request
                         logger.error("callback error: %s", err)
 
-            want_step_lp = data_package["output_log_probs"]
-            with self._static_lock:
-                res = generate(
-                    self.engine, self.tokenizer, trie=self.trie, callback=callback,
-                    **data_package,
-                )
-            result, lengths, cum_log_probs, latency = res[:4]
+            response = self._static("generate", dict(data_package, stream=use_callback),
+                                    callback)
 
             if use_callback:
                 for b in range(batch_size):
                     for j in range(beam_width):
                         decoders[b][j].append_token(self.engine.config.end_id)
 
-            response = {
-                "latency": latency,
-                "random_seed": random_seed,
-                "generated_code": result,
-                "length": lengths,
-                "cum_log_prob": cum_log_probs,
-            }
-            if want_step_lp:
-                response["output_log_probs"] = res[4]
             response_str = json.dumps(response, ensure_ascii=False)
             logger.info("%s response: %s", trace_id, response_str)
             return (0, "ok", {"res": response_str})

@@ -47,11 +47,14 @@ Under tensor parallelism (the engine's ``mesh``) the slabs and pages hold
 the rank's KV heads (``parallel.sharding.cache_heads``) and every chunk and
 decode tick runs the model's collectives: each rank of the tp group must
 drive its pool in lockstep, with the same requests submitted in the same
-order and the same calls to ``step`` / ``run`` (the threaded servers admit
-in arrival order, which differs between processes). The logits are
+order and the same calls to ``step`` / ``run``: the threaded servers do so
+under a mesh by serving in lockstep (``parallel/lockstep.py``), rank 0
+publishing each round's admissions under its uids. The logits are
 all-gathered and so the same bytes on every rank, and each request's
 generator is seeded alike, so every rank emits the same tokens. A dp axis
-plays no part in a pool: each dp group drives a pool of its own.
+plays no part in a pool: each dp group drives a pool of its own (under tp
+or pp in lockstep, the same requests; on a dp-only mesh each rank serves
+its own clients).
 
 On a pipeline mesh (``pp > 1``, ``parallel/pipeline.py``) a dense pool's
 slabs hold the rank's stage of the layers, and its chunk and decode ticks
@@ -301,10 +304,14 @@ class ContinuousBatcher:
         return t.to(self.device)
 
     # -------------------------------------------------------- admission ----
-    def make_request(self, prompt: Sequence[int], output_len: int, **kw) -> Request:
+    def make_request(self, prompt: Sequence[int], output_len: int, uid: Optional[int] = None,
+                     **kw) -> Request:
         """Validate and build a Request without enqueueing it (uid assignment
-        is atomic under the GIL, so this is safe from any thread)."""
-        r = Request(uid=next(self._uid), prompt=list(prompt), output_len=output_len, **kw)
+        is atomic under the GIL, so this is safe from any thread). ``uid``:
+        the leader's, where a follower of a lockstep front end builds the
+        request it published (``engine/server.py``)."""
+        r = Request(uid=next(self._uid) if uid is None else uid, prompt=list(prompt),
+                    output_len=output_len, **kw)
         if not 1 <= r.top_k <= self.sampling_cap:
             raise ValueError(f"pool supports top_k in [1, {self.sampling_cap}]")
         if len(r.prompt) + r.output_len > self.max_seq_len:

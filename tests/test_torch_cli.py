@@ -127,12 +127,12 @@ def test_cli_refuses_what_is_not_ported(ckpt, tokenizers):
     with pytest.raises(ValueError, match="dense"):
         cli.main(base + ["--serve", "--speculative_pool", "--paged_pages", "17"])
     # tensor parallelism runs under torchrun: without a process group it is
-    # refused, and the threaded --serve loop is refused under it
+    # refused, the --serve loop as the JSONL loop
     with pytest.raises(ValueError, match="torchrun"):
         cli.main(base + ["--input_file", "x", "--tensor_parallel", "2"])
     with pytest.raises(ValueError, match="torchrun"):
         generate.init_engine_and_tokenizer(ckpt, "tok", tensor_parallel=2, device="cpu")
-    with pytest.raises(SystemExit):
+    with pytest.raises(ValueError, match="torchrun"):
         cli.main(base + ["--serve", "--tensor_parallel", "2"])
     with pytest.raises(SystemExit):
         cli.main(base)  # neither --input_file nor --serve

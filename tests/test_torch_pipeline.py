@@ -364,9 +364,9 @@ def test_pp_refusals():
     it has them: layers that do not split over the stages (JAX
     engine.py:189-191), paged pools (batcher.py:189-193), beam pools
     (beam_pool.py:81) and speculative pools (spec_pool.py:55); and what
-    runs the whole stack on one rank (the threaded server, static
-    speculative decoding, the DEBUG sweep) or a ``pipeline_para_size``
-    that is not the mesh's."""
+    runs the whole stack on one rank (static speculative decoding, the
+    DEBUG sweep), a server on a mesh without its process group, or a
+    ``pipeline_para_size`` that is not the mesh's."""
     jcfg = pp_cfg(layer_num=6)
     full = from_jax_params(np_tree(jax_init_params(jcfg, dtype="fp32")), device="cpu")
     with pytest.raises(ValueError, match="layer_num 6 does not split over pp 4"):
@@ -380,7 +380,8 @@ def test_pp_refusals():
         BeamPool(eng, beam_width=2, **pool)
     with pytest.raises(ValueError, match="speculative pool under pp>1"):
         SpecPool(eng, k=4, ngram=2, **pool)
-    with pytest.raises(ValueError, match="pipeline-parallel group"):
+    with pytest.raises(ValueError, match="serves over its process group: run every rank under "
+                                         "torchrun"):
         BatchingServer(eng, **pool)
     with pytest.raises(ValueError, match="not served under pipeline parallelism"):
         speculative_generate(eng, [3, 4, 5], 4)

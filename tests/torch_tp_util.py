@@ -385,10 +385,10 @@ class VocabTokenizer:
         return dict(self.vocab)
 
 
-def cli_case(data, model, tp, argv):
+def cli_case(data, model, tp, argv, stdin=None):
     """``api.cli.main(argv + ["--tensor_parallel", tp])`` as a torchrun rank
-    runs it (RANK set), the tokenizer patched in; returns what the rank
-    printed."""
+    runs it (RANK set), the tokenizer patched in and ``stdin`` (text) the
+    standard input; returns what the rank printed."""
     import contextlib
     import io
 
@@ -399,19 +399,357 @@ def cli_case(data, model, tp, argv):
     ckpt, vocab = data[model]
     os.environ["RANK"] = str(dist.get_rank())
     tok = VocabTokenizer(vocab)
-    real = generate.load_tokenizer
+    real, real_stdin = generate.load_tokenizer, sys.stdin
     generate.load_tokenizer = lambda path: tok
+    if stdin is not None:
+        sys.stdin = io.StringIO(stdin)
     buf = io.StringIO()
     try:
         with contextlib.redirect_stdout(buf):
             cli.main(["--ckpt_path", ckpt, *argv, "--tensor_parallel", str(tp)])
     finally:
-        generate.load_tokenizer = real
+        generate.load_tokenizer, sys.stdin = real, real_stdin
     return {"stdout": buf.getvalue()}
 
 
+def _leads(front) -> bool:
+    """Whether this rank takes the clients of a serving front end: rank 0
+    of a front end that serves over the process group (the others follow
+    it), every rank of one that does not."""
+    ls = getattr(front, "lockstep", None)
+    return ls is None or ls.leader
+
+
+def _served(front):
+    """Turn on the lockstep front end's record of what this rank served."""
+    ls = getattr(front, "lockstep", None)
+    if ls is not None:
+        ls.served = []
+    return ls
+
+
+def _no_latency(record):
+    """A served record or response without its latency (each rank times
+    its own)."""
+    if isinstance(record, dict):
+        record = {k: v for k, v in record.items() if k != "latency"}
+    return record
+
+
+def _clients(calls, stagger=0.02):
+    """Run each of ``calls`` on its own thread, the i-th starting i *
+    ``stagger`` s after the first; their results (or their errors, as
+    ``{"error": traceback}``) in order."""
+    import threading
+    import time
+
+    out = [None] * len(calls)
+
+    def run(i):
+        time.sleep(i * stagger)
+        try:
+            out[i] = calls[i]()
+        except Exception:  # noqa: BLE001 - reported to the test
+            out[i] = {"error": traceback.format_exc()}
+
+    ts = [threading.Thread(target=run, args=(i,)) for i in range(len(calls))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    return out
+
+
+def _front_counts(ls, since):
+    """What a lockstep front end counted on this rank: rounds, publishes
+    since ``since``, and the served records sorted by uid."""
+    from fastertransformer4codefuse_tpu_torch.parallel import lockstep
+
+    return {"rounds": ls.rounds.rounds, "publishes": lockstep.publish.calls - since,
+            "served": sorted(((u, _no_latency(r)) for u, r in ls.served), key=lambda x: x[0])}
+
+
+def serve_case(data, model, tp, kind="dense", pool=None, sampling=None, runtime=None,
+               compare_tp1=False, pp=1, dp=1, classes=None):
+    """A ``BatchingServer`` (a ``MultiPoolServer`` over ``classes``) with a
+    pool of ``kind`` on an engine of this mesh: rank 0's client threads
+    submit POOL_PROMPTS with staggered arrivals, the other ranks follow (on
+    a dp-only mesh every rank's clients submit them to its own pool).
+    Returns rank 0's outputs, what each rank served and counted (rounds,
+    publishes, collectives and hops, each class's chunk and decode ticks),
+    and with ``compare_tp1`` the same requests through a tp = 1 pool."""
+    import torch.distributed as dist
+
+    from fastertransformer4codefuse_tpu_torch import GptNeoXEngine
+    from fastertransformer4codefuse_tpu_torch.engine.batcher import ContinuousBatcher
+    from fastertransformer4codefuse_tpu_torch.engine.server import BatchingServer, MultiPoolServer
+    from fastertransformer4codefuse_tpu_torch.parallel import lockstep
+
+    cfg, tree = data[model][:2]
+    params = _params(tree)
+    rt = _runtime(seq_bucket=8, **(runtime or {}))
+    kw = {**dict(max_slots=2, max_seq_len=32, prompt_bucket=8), **(pool or {})}
+    if kind == "beam":
+        kw["beam_width"] = 2
+    elif kind == "spec":
+        kw.update(speculative=True, spec_k=4, spec_ngram=2)
+    eng = GptNeoXEngine(cfg, params, rt, mesh=_mesh(tp, dp, pp))
+    srv = MultiPoolServer(eng, classes) if classes else BatchingServer(eng, **kw)
+    ls = _served(srv)
+    _zero_all()
+    since = lockstep.publish.calls
+
+    def request(i):
+        kw_i = ({} if kind == "beam" else dict(top_k=1)) if sampling is None else sampling[i]
+        r = srv.generate(POOL_PROMPTS[i], POOL_OUT_LENS[i], **kw_i)
+        return {"ids": r.output_ids, "beams": r.beam_output_ids, "seed": r.random_seed}
+
+    outs = None
+    if _leads(srv):
+        outs = _clients([lambda i=i: request(i) for i in range(len(POOL_PROMPTS))])
+        srv.close()
+    else:
+        srv.follow()
+    res = {"outs": outs, "coll": _read_all(), "layers": eng.stage[1],
+           "ticks": [(b.chunk_ticks, b.decode_ticks) for b in ls.batchers],
+           **_front_counts(ls, since)}
+    if compare_tp1 and dist.get_rank() == 0:
+        cb = ContinuousBatcher(GptNeoXEngine(cfg, params, rt), **kw)
+        uids = [cb.submit(p, n, **s) for p, n, s in zip(POOL_PROMPTS, POOL_OUT_LENS, sampling)]
+        done = cb.run()
+        res["tp1"] = [done[u].output_ids for u in uids]
+    return res
+
+
+def handler_case(data, model, tp, requests, pool=None, warmup=False, dp=1):
+    """A ``CodeFuseHandler`` on an engine of a tp x dp mesh (``pool``: its
+    pool classes): rank 0's client threads predict ``requests`` with staggered
+    arrivals, the other ranks follow where the handler serves in lockstep
+    (without it, every rank predicts them itself, as every torchrun rank
+    once did). Returns each rank's responses without their latency (on a
+    follower the jobs' it served), what it served and counted, and the text
+    rank 0 streamed."""
+    import json
+
+    from fastertransformer4codefuse_tpu_torch import GptNeoXEngine
+    from fastertransformer4codefuse_tpu_torch.api.handler import CodeFuseHandler
+    from fastertransformer4codefuse_tpu_torch.api.trie import VocabTrie
+
+    try:
+        from fastertransformer4codefuse_tpu_torch.parallel import lockstep
+        since = lockstep.publish.calls  # rank 0 publishes its warmup while it builds
+    except ImportError:  # a tree that does not serve in lockstep
+        since = None
+    cfg, tree, vocab = data[model]
+    eng = GptNeoXEngine(cfg, _params(tree), _runtime(seq_bucket=8), mesh=_mesh(tp, dp))
+    streamed = []
+    h = CodeFuseHandler(engine=eng, tokenizer=VocabTokenizer(vocab), trie=VocabTrie(vocab),
+                        warmup=warmup, pool=pool,
+                        on_stream_text=lambda b, j, text: streamed.append(text))
+    ls = _served(h)
+
+    def predict(i):
+        code, err, res = h.predict(requests[i], f"r{i}")
+        if code:
+            raise RuntimeError(err)
+        return _no_latency(json.loads(res["res"]))
+
+    out = {"streamed": streamed}
+    if _leads(h):
+        out["responses"] = _clients([lambda i=i: predict(i) for i in range(len(requests))])
+        h.close()
+    else:
+        h.follow()
+        out["responses"] = [_no_latency(r) for _, r in ls.served if isinstance(r, dict)
+                            and "generated_code" in r][-len(requests):]
+    if ls is not None:
+        out.update(_front_counts(ls, since))
+    return out
+
+
+def http_case(data, model, tp, pool):
+    """JAX tests/test_api.py::test_http_server_end_to_end on a pooled
+    handler of a tp mesh, rank 0 bound to a free localhost port and the
+    other ranks following: two concurrent POSTs, a bad request, /healthz.
+    Returns (status, body) of each on rank 0."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import json
+
+    from fastertransformer4codefuse_tpu_torch import GptNeoXEngine
+    from fastertransformer4codefuse_tpu_torch.api.handler import CodeFuseHandler
+    from fastertransformer4codefuse_tpu_torch.api.http_server import make_server
+    from fastertransformer4codefuse_tpu_torch.api.trie import VocabTrie
+
+    cfg, tree, vocab = data[model]
+    eng = GptNeoXEngine(cfg, _params(tree), _runtime(seq_bucket=8), mesh=_mesh(tp))
+    h = CodeFuseHandler(engine=eng, tokenizer=VocabTokenizer(vocab), trie=VocabTrie(vocab),
+                        warmup=False, pool=pool)
+    ls = _served(h)
+    if not ls.leader:
+        h.follow()
+        return {"served": len(ls.served)}
+    srv = make_server(h, "127.0.0.1", 0)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+
+    def post(body):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                     data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as r:
+            health = r.status
+        posts = _clients([
+            lambda: post({"prompts": [{"prompt": "abcdef", "top_k": 1, "min_length": 30}],
+                          "out_seq_length": 30}),
+            lambda: post({"prompts": [{"prompt": "xy", "top_k": 1, "min_length": 2}],
+                          "out_seq_length": 2}),
+        ])
+        bad = post({"prompts": [{}]})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        h.close()
+    return {"health": health, "posts": posts, "bad": bad, "served": len(ls.served)}
+
+
+def encoder_serve_case(data, model, tp, requests, max_batch=1, out_len=None, hold=False):
+    """An ``EncoderBatchingServer`` over BERT (with ``out_len``, a
+    ``T5BatchingServer`` over T5) on a tp mesh. Each rank's clients submit
+    ``requests`` rotated by its rank, each from its own thread with
+    staggered arrivals; where the server serves in lockstep only rank 0's,
+    the others following. With ``hold`` rank 0's first batch waits until
+    the other requests are queued, so that they coalesce for certain.
+    Returns every batch the rank ran and rank 0's results by request."""
+    import time
+
+    import torch.distributed as dist
+
+    from fastertransformer4codefuse_tpu_torch.engine.encoder_server import (
+        EncoderBatchingServer, T5BatchingServer,
+    )
+
+    if out_len is None:
+        from fastertransformer4codefuse_tpu_torch.models import registry
+        from fastertransformer4codefuse_tpu_torch.models.bert import (
+            params_from_hf_bert_state_dict, quantize_bert_params,
+        )
+
+        cfg, sd, int8 = data[model]
+        params = params_from_hf_bert_state_dict(cfg, sd, device="cpu")
+        eng = registry.get("bert").make_engine(
+            cfg, quantize_bert_params(params) if int8 else params, mesh=_mesh(tp))
+        method = "encode"
+    else:
+        from fastertransformer4codefuse_tpu_torch.engine.t5_engine import T5Engine
+        from fastertransformer4codefuse_tpu_torch.models.t5 import (
+            params_from_hf_t5_state_dict, quantize_t5_params,
+        )
+
+        cfg, sd, int8 = data[model]
+        params = params_from_hf_t5_state_dict(cfg, sd, device="cpu")
+        eng = T5Engine(cfg, quantize_t5_params(params) if int8 else params, mesh=_mesh(tp))
+        method = "generate"
+    batches, real = [], getattr(eng, method)
+
+    def logged(ids, *args, **kw):
+        if hold and not batches and dist.get_rank() == 0:
+            deadline = time.monotonic() + 60
+            while len(srv._mailbox) + len(ids) < len(requests) and time.monotonic() < deadline:
+                time.sleep(0.005)
+        batches.append([np.asarray(r).tolist() for r in ids])
+        return real(ids, *args, **kw)
+
+    setattr(eng, method, logged)
+    if out_len is None:
+        srv = EncoderBatchingServer(eng, max_batch=max_batch, seq_bucket=8)
+        call = lambda ids: srv.encode(ids, timeout=120)[0]  # noqa: E731
+    else:
+        srv = T5BatchingServer(eng, max_batch=max_batch, seq_bucket=8)
+        call = lambda ids: srv.generate(ids, out_len, timeout=120).output_ids  # noqa: E731
+    out = None
+    if _leads(srv):
+        r = dist.get_rank()
+        order = [*range(r, len(requests)), *range(r)]
+        got = _clients([lambda i=i: call(requests[i]) for i in order])
+        out = dict(zip(order, got))
+        srv.close()
+    else:
+        srv.follow()
+    return {"batches": batches, "results": out, "batches_run": srv.batches_run,
+            "served": srv.requests_served}
+
+
+def lockstep_faults_case(data, model, tp):
+    """The two hazards of lockstep serving on a tp mesh: a server idle for
+    1.5 times a 2 s control timeout, then serving a request; and a
+    follower that fails to apply a round, whose error reaches rank 0's
+    waiter. Returns what each rank saw."""
+    import time
+
+    import torch.distributed as dist
+
+    from fastertransformer4codefuse_tpu_torch import GptNeoXEngine
+    from fastertransformer4codefuse_tpu_torch.engine.server import BatchingServer
+    from fastertransformer4codefuse_tpu_torch.parallel import lockstep
+
+    cfg, tree = data[model][:2]
+    eng = GptNeoXEngine(cfg, _params(tree), _runtime(seq_bucket=8), mesh=_mesh(tp))
+    pool = dict(max_slots=2, max_seq_len=32, prompt_bucket=8)
+    leader = dist.get_rank() == 0
+    out = {}
+    real_timeout = lockstep.CONTROL_TIMEOUT_S
+    lockstep.CONTROL_TIMEOUT_S = 2.0
+    try:
+        srv = BatchingServer(eng, **pool)
+    finally:
+        lockstep.CONTROL_TIMEOUT_S = real_timeout
+    if leader:
+        time.sleep(3.0)
+        out["idle_ids"] = srv.generate(POOL_PROMPTS[0], POOL_OUT_LENS[0], top_k=1).output_ids
+        srv.close()
+    else:
+        srv.follow()
+    out["idle_rounds"] = srv.lockstep.rounds.rounds
+
+    srv = BatchingServer(eng, **pool)
+    if not leader:
+        real = srv.batcher.make_request
+
+        def broken(prompt, output_len, uid=None, **kw):
+            if uid is not None:  # a request rank 0 published
+                raise RuntimeError("injected fault: this follower cannot build the request")
+            return real(prompt, output_len, **kw)
+
+        srv.batcher.make_request = broken
+    t = time.time()
+    try:
+        if leader:
+            srv.generate(POOL_PROMPTS[1], POOL_OUT_LENS[1], top_k=1)
+        else:
+            srv.follow()
+        out["fault"] = None
+    except RuntimeError as e:
+        out["fault"] = (str(e), repr(e.__cause__))
+    out["fault_s"] = time.time() - t
+    srv.close()
+    return out
+
+
 CASES = {f.__name__: f for f in (engine_case, step_counts_case, pool_case, bert_case, t5_case,
-                                 cli_case, pod_mesh_case, pp_counts_case, prompt_case)}
+                                 cli_case, pod_mesh_case, pp_counts_case, prompt_case,
+                                 serve_case, handler_case, http_case, encoder_serve_case,
+                                 lockstep_faults_case)}
 
 
 def main(argv) -> int:
