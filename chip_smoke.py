@@ -48,7 +48,17 @@ Phases (any failure exits non-zero):
      1, 4, 8, 512 and 1024, K3 at 1, 4 and 8, K2 at 1 and 4) beside their
      bf16-scale instances; K11 also bit for bit against K4 over a gathered
      copy; K13 (M = 1, 4, 1024), K3 (M = 1, 4), K1 proj and down (M = 1024),
-     K4 and K5 at CodeFuse-13B's tp = 2 shard shapes (20 heads a rank);
+     K4 and K5 at CodeFuse-13B's tp = 2 shard shapes (20 heads a rank); the
+     GEMMs under their plans from the tile cache (``ops/tile_tuning.py``),
+     each case's tiles logged; then (``phase_tile_cache``) K13 at M = 1024
+     on each of the GEMM's four block tiles in every weight format against
+     its plain version and bit for bit against the default tile, and every
+     entry of the shipped cache served to its kernel at its M against the
+     plain version, its recorded default and tuned times logged (and timed
+     again where it leaves the default); phases 4 and 5 count the cache's
+     hits on the served CodeFuse-13B routes (> 0) and time the 3000-token
+     prefill's GEMM and the int8 ticks' GEMM, K13 and K3 with the default
+     plans (``FTCF_TILE_TUNE=0``) beside the cache's;
   3. models of CodeFuse-13B width, int8 at 2 layers and int4 at 1
      (``REF_LAYERS``; int8 and int4 g128, each with
      ``fused_decode`` True (K13 + K3) and False (unfused GEMMs), the two
@@ -320,7 +330,7 @@ def phase_kernels(torch, records):
     )
     from fastertransformer4codefuse_tpu_torch.models.params import QuantizedTensor
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import (
-        gemm_tiles, quant_matmul, quant_matmul_plain,
+        DEFAULT_GEMM, gemm_plan, gemm_tiles, quant_matmul, quant_matmul_plain,
     )
     from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_fused import (
         fused_proj_down, fused_proj_down_plain, fused_qkv_up, fused_qkv_up_plain,
@@ -432,12 +442,15 @@ def phase_kernels(torch, records):
         "Longformer-base shapes)")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    # The prefill-width GEMM (M > 32): its tiles and waves on this card, and
-    # its yardstick, one torch.matmul on a bf16 weight dequantized
-    # beforehand (the port never calls it)
-    def tiles(M, N1, N2=0):
-        n = gemm_tiles(M, N1, N2)
-        return f"  GEMM {n} tiles of 128x128, {n / sms:.2f} waves on {sms} SMs"
+    # The prefill-width GEMM (M > 32): its plan from the tile cache (kernel
+    # ``kernel`` over K x (N1 + N2), group size G), its tiles and waves on
+    # this card, and its yardstick, one torch.matmul on a bf16 weight
+    # dequantized beforehand (the port never calls it)
+    def tiles(M, N1, N2=0, kernel="", K=H, G=0):
+        plan = gemm_plan(kernel, M, K, N1 + N2, G, dev) if kernel else DEFAULT_GEMM
+        n = gemm_tiles(M, N1, N2, plan)
+        return (f"  GEMM {n} tiles of {plan.rows}x{plan.cols} (group_m {plan.group_m}, "
+                f"stages {plan.stages}), {n / sms:.2f} waves on {sms} SMs")
 
     lib_bf16 = "torch.matmul, bf16 weight dequantized beforehand"
 
@@ -468,7 +481,7 @@ def phase_kernels(torch, records):
                    lambda: quant_matmul(x, w, s, b, act),
                    lambda: quant_matmul_plain(x, w, s, b, act), tol_mm, "qkv 5120->15360 M=1",
                    work=(nbytes(x, w, s, b), 2 * M * K * N), fn_lib=lib[0], lib_label=lib[1],
-                   note=tiles(M, N) if M > 32 else "")
+                   note=tiles(M, N, kernel="gemm_i8", K=K) if M > 32 else "")
         del wb
     # K1 at StarCoder's widths (6144 wide, MQA QKV 6144 + 2 x 128 = 6400,
     # FFN 24576, biases everywhere): a decode step (M = 1), a pool tick (8)
@@ -486,7 +499,7 @@ def phase_kernels(torch, records):
                    lambda: quant_matmul(x, w, s, b, act),
                    lambda: quant_matmul_plain(x, w, s, b, act), tol_mm, "qkv 5120->15360 M=1",
                    work=(nbytes(x, w, s, b), 2 * M * K * N), fn_lib=lib[0], lib_label=lib[1],
-                   note=tiles(M, N) if M > 32 else "")
+                   note=tiles(M, N, kernel="gemm_i8", K=K) if M > 32 else "")
         del w, wb
     w_up, w_proj, w_down = i8(H, F_), i8(H, H), i8(F_, H)
     s_up, s_proj, s_down = scale(F_), scale(H), scale(H)
@@ -537,7 +550,8 @@ def phase_kernels(torch, records):
                    lambda: quant_matmul_w4(x, p4, s4, b, act),
                    lambda: quant_matmul_w4_plain(x, p4, s4, b, act), tol_mm,
                    "qkv 5120->15360 M=1", work=(nbytes(x, p4, s4, b), 2 * M * K * N),
-                   fn_lib=lib[0], lib_label=lib[1], note=tiles(M, N) if M > 32 else "")
+                   fn_lib=lib[0], lib_label=lib[1],
+                   note=tiles(M, N, kernel="gemm_i4", K=K) if M > 32 else "")
             if M == 32:
                 continue  # K7 at 32 rows: the row-independence check below
             lib = gemm_lib(M, x, wbg, (lambda: library_mm(4, M, K, N, G)) if first
@@ -547,7 +561,7 @@ def phase_kernels(torch, records):
                    lambda: quant_matmul_w4_group_plain(x, p4, gs, G, b, act), tol_mm,
                    "qkv 5120->15360 g128 M=1", work=(nbytes(x, p4, gs, b), 2 * M * K * N),
                    fn_lib=lib[0], lib_label=lib[1], peers=[("K6", t6)],
-                   note=tiles(M, N) if M > 32 else "")
+                   note=tiles(M, N, kernel="gemm_i4g", K=K, G=G) if M > 32 else "")
         del wb4, wbg
     # K8: fp32 logits; only the summation order differs
     Vp = 102400
@@ -560,7 +574,8 @@ def phase_kernels(torch, records):
                lambda: quant_matmul_w4_head(x, p_head, s_head),
                lambda: quant_matmul_w4_head_plain(x, p_head, s_head), 1e-4,
                f"head {H}->{Vp} M=1", work=(nbytes(x, p_head, s_head), 2 * M * H * Vp),
-               fn_lib=lib[0], lib_label=lib[1], note=tiles(M, Vp) if M > 32 else "")
+               fn_lib=lib[0], lib_label=lib[1],
+               note=tiles(M, Vp, kernel="gemm_i4") if M > 32 else "")
     del p_head, wb_head
     # K2/K3 on per-channel int4 weights (their records keep the int8 times)
     w_up, w_proj, w_down = i8(H // 2, F_), i8(H // 2, H), i8(F_ // 2, H)
@@ -629,7 +644,8 @@ def phase_kernels(torch, records):
     # K7 + K7) timed the same way
     b_q, b_u = bf(3 * H, std=0.02), bf(F_, std=0.02)
     k13_int4_ms = {}  # M -> K13 int4 per-channel, beside K13 g128
-    for bits, G13, lab in ((8, 0, "int8"), (4, 0, "int4"), (4, G, "int4 g128")):
+    for bits, G13, lab, fmt13 in ((8, 0, "int8", "i8"), (4, 0, "int4", "i4"),
+                                  (4, G, "int4 g128", "i4g")):
         if bits == 8:
             wq, sq, wu, su = i8(H, 3 * H), scale(3 * H), i8(H, F_), scale(F_)
             single = lambda x, w, s, b, act=None: quant_matmul(x, w, s, b, act)  # noqa: E731
@@ -667,7 +683,8 @@ def phase_kernels(torch, records):
                    work=(nbytes(x1, x2, wq, sq, wu, su, b_q, b_u), 2 * M * H * (3 * H + F_)),
                    fn_pair=lambda: (single(x1, wq, sq, b_q), single(x2, wu, su, b_u, "gelu-tanh")),
                    pair_label=pair_label, fn_lib=lib[0], lib_label=lib[1], peers=peers,
-                   note=tiles(M, 3 * H, F_) if M > 32 else "")
+                   note=tiles(M, 3 * H, F_, kernel=f"ncat_gemm_{fmt13}", G=G13) if M > 32
+                   else "")
             if lab == "int4":
                 k13_int4_ms[M] = t13
             del x1, x2
@@ -697,7 +714,7 @@ def phase_kernels(torch, records):
                f"qkv {H}->{3 * H} g128 fp32 M=1",
                work=(nbytes(x, p_q, g_q, b_q), 2 * M * H * 3 * H), fn_lib=lib[0],
                lib_label=lib[1], peers=[("its bf16-scale instance", t16)],
-               note=tiles(M, 3 * H) if M > 32 else "")
+               note=tiles(M, 3 * H, kernel="gemm_i4gf", G=G) if M > 32 else "")
         del lib
         args = (x, x2, p_q, p_u, g_q, g_u, b_q, b_u, None, "gelu-tanh", 4, G)
         args16 = (x, x2, p_q, p_u, g_q16, g_u16, b_q, b_u, None, "gelu-tanh", 4, G)
@@ -712,7 +729,7 @@ def phase_kernels(torch, records):
                f"int4 g128 fp32 {H}->{3 * H}|{F_} M=1",
                work=(nbytes(x, x2, p_q, g_q, p_u, g_u, b_q, b_u), 2 * M * H * (3 * H + F_)),
                fn_lib=lib[0], lib_label=lib[1], peers=[("its bf16-scale instance", t16)],
-               note=tiles(M, 3 * H, F_) if M > 32 else "")
+               note=tiles(M, 3 * H, F_, kernel="ncat_gemm_i4gf", G=G) if M > 32 else "")
         del lib
         if M > 8:
             continue
@@ -763,7 +780,8 @@ def phase_kernels(torch, records):
                f"qkv {H}->{3 * H} int8 g128 M=1",
                work=(nbytes(x, q8, gq8, b_q), 2 * M * H * 3 * H),
                fn_lib=(lambda: torch.matmul(x, wq8b)) if big else None,
-               lib_label=lib_bf16 if big else none, note=tiles(M, 3 * H) if big else "")
+               lib_label=lib_bf16 if big else none,
+               note=tiles(M, 3 * H, kernel="gemm_i8g", G=G) if big else "")
         args = (x, x2, q8, u8, gq8, gu8, b_q, b_u, None, "gelu-tanh", 8, G)
         report("fused_qkv_up_g8", f"int8 g128 {H}->{3 * H}|{F_} M={M}",
                lambda: fused_qkv_up(*args), lambda: fused_qkv_up_plain(*args), tol_mm,
@@ -772,13 +790,14 @@ def phase_kernels(torch, records):
                fn_lib=(lambda: (torch.matmul(x, wq8b), torch.matmul(x2, wu8b))) if big else None,
                lib_label=("two torch.matmul, x1 @ Wqkv + x2 @ Wup, bf16 weights dequantized "
                           "beforehand") if big else none,
-               note=tiles(M, 3 * H, F_) if big else "")
+               note=tiles(M, 3 * H, F_, kernel="ncat_gemm_i8g", G=G) if big else "")
         report("quant_matmul_w4_group_head", f"head {H}->{V_pad} int4 g128 M={M}",
                lambda: quant_matmul_w4_group(x, p_h, g_h, G, out_dtype=torch.float32),
                lambda: quant_matmul_w4_group_plain(x.float(), p_h, g_h, G), tol_mm,
                f"head {H}->{V_pad} int4 g128 M=1", work=(nbytes(x, p_h, g_h), 2 * M * H * V_pad),
                fn_lib=(lambda: torch.matmul(x, wh_b)) if big else None,
-               lib_label=lib_bf16 if big else none, note=tiles(M, V_pad) if big else "")
+               lib_label=lib_bf16 if big else none,
+               note=tiles(M, V_pad, kernel="gemm_i4g", G=G) if big else "")
         del x, x2
     del q8, u8, gq8, gu8, p_h, g_h, wq8b, wu8b, wh_b
 
@@ -1278,7 +1297,8 @@ def phase_kernels(torch, records):
         report("fused_qkv_up", f"tp=2 int8 {H}->{3 * Ht}|{Ft} M={M}",
                lambda: fused_qkv_up(*args), lambda: fused_qkv_up_plain(*args), tol_mm, "",
                work=(nbytes(x1, x2, wq, sq, wu, su, bq, bu), 2 * M * H * (3 * Ht + Ft)),
-               fn_lib=lib[0], lib_label=lib[1], note=tiles(M, 3 * Ht, Ft) if M > 32 else "")
+               fn_lib=lib[0], lib_label=lib[1],
+               note=tiles(M, 3 * Ht, Ft, kernel="ncat_gemm_i8") if M > 32 else "")
     del wq, wu, wqb, wub
     wp, wd, sp, sd, bd = i8(Ht, H), i8(Ft, H), scale(H), scale(H), bf(H, std=0.02)
     for M in (1, 4):
@@ -1293,7 +1313,7 @@ def phase_kernels(torch, records):
                lambda: quant_matmul(x, w, s_, None, None),
                lambda: quant_matmul_plain(x, w, s_, None, None), tol_mm, "",
                work=(nbytes(x, w, s_), 2 * 1024 * K * H), fn_lib=lambda: torch.matmul(x, wb),
-               lib_label=lib_bf16, note=tiles(1024, H))
+               lib_label=lib_bf16, note=tiles(1024, H, kernel="gemm_i8", K=K))
         del wb
     del wp, wd
     # K4 over a rank's 20 heads: B = 2 (phase 10's batch) and 4, int8 cache
@@ -1329,6 +1349,143 @@ def phase_kernels(torch, records):
            lib_label="sdpa is_causal, equal lengths")
     del q, k, v
     return ok
+
+
+class tile_cache_off:
+    """``FTCF_TILE_TUNE=0`` inside the ``with``: every launch takes its
+    default plan."""
+
+    def __enter__(self):
+        self.was = os.environ.get("FTCF_TILE_TUNE")
+        os.environ["FTCF_TILE_TUNE"] = "0"
+
+    def __exit__(self, *exc):
+        if self.was is None:
+            os.environ.pop("FTCF_TILE_TUNE", None)
+        else:
+            os.environ["FTCF_TILE_TUNE"] = self.was
+
+
+def phase_tile_cache(torch):
+    """Phase 2, the tile cache (ops/tile_tuning.py): K13 at CodeFuse-13B's
+    widths (M = 1024) on each of the GEMM's block tiles, in every weight
+    format (20 instances), held against the plain version within 1e-2 and
+    bit for bit against the default tile, and timed; then every entry of
+    the shipped cache: its case (ops/tile_autotune.py ``cases``) at the
+    entry's M through the kernel's wrapper, the entry served (a hit), held
+    against the plain version within 1e-2; each entry's recorded default
+    and tuned times logged, and where its plan is not the default both
+    timed again here as the sweep times them (weights cycled past the L2).
+    Returns an error message, or None."""
+    from fastertransformer4codefuse_tpu_torch.ops import tile_autotune as ta
+    from fastertransformer4codefuse_tpu_torch.ops import tile_tuning
+    from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import GEMM_TILES
+    from fastertransformer4codefuse_tpu_torch.ops.quant_matmul_fused import (
+        fused_qkv_up, fused_qkv_up_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(77)
+    H, F_, M, tol = 5120, 20480, 1024, 1e-2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    scratch = os.path.join(REPO, "build", "tile_check.json")  # build/ is git-ignored
+    os.makedirs(os.path.dirname(scratch), exist_ok=True)
+    log(f"phase 2: the tile cache: the GEMM's block tiles {list(GEMM_TILES)} in every weight "
+        f"format, then the shipped entries ({tile_tuning.cache_path()})")
+
+    def i8(*shape):
+        return torch.empty(shape, dtype=torch.int8, device=dev).random_(-128, 128, generator=gen)
+
+    x1 = (torch.randn(M, H, device=dev, generator=gen)).to(torch.bfloat16)
+    x2 = (torch.randn(M, H, device=dev, generator=gen)).to(torch.bfloat16)
+    b1 = (torch.randn(3 * H, device=dev, generator=gen) * 0.02).to(torch.bfloat16)
+    for fmt, bits, G, sdt in (("i8", 8, 0, None), ("i4", 4, 0, None),
+                              ("i4g", 4, 128, torch.bfloat16), ("i8g", 8, 128, torch.float32),
+                              ("i4gf", 4, 128, torch.float32)):
+        pk = H // 2 if bits == 4 else H
+        wq, wu = i8(pk, 3 * H), i8(pk, F_)
+        qmax = 7 if bits == 4 else 127
+
+        def sc(n):
+            if G:
+                return (torch.empty(H // G, n, device=dev).uniform_(0.5, 1.5, generator=gen)
+                        * (0.02 / qmax)).to(sdt)
+            return torch.empty(n, device=dev).uniform_(0.5, 1.5, generator=gen) * (0.02 / qmax)
+
+        args = (x1, x2, wq, wu, sc(3 * H), sc(F_), b1, None, None, "gelu-tanh", bits, G)
+        ref = torch.cat(fused_qkv_up_plain(*args), 1)
+        outs, line = [], []
+        for rows, cols in GEMM_TILES:
+            plan = dict(bn=cols, bk=64, rows=rows, group_m=8, stages=8)
+            with ta.served(scratch, {(f"ncat_gemm_{fmt}", M, H, 3 * H + F_, G): plan}, sms):
+                hits = tile_tuning.hits[f"ncat_gemm_{fmt}"]
+                got = torch.cat(fused_qkv_up(*args), 1)
+                if tile_tuning.hits[f"ncat_gemm_{fmt}"] != hits + 1:
+                    return f"the tile {rows}x{cols} was not served to K13 {fmt}"
+                e = rel_err(torch, got, ref)[1]
+                t = device_time_ms(torch, lambda: fused_qkv_up(*args))
+            outs.append(got)
+            line.append(f"{rows}x{cols} {t:.4f} ms (err {e:.2e})")
+            if not (e < tol and bool(torch.isfinite(got.float()).all())):
+                return f"the GEMM's {rows}x{cols} tile, K13 {fmt}: {e:.3e} from plain (tol {tol})"
+        same = all(torch.equal(o, outs[0]) for o in outs[1:])
+        log(f"  K13 {fmt} {H}->{3 * H}|{F_} M={M}: " + ", ".join(line)
+            + f"; the tiles' outputs {'bit for bit equal' if same else 'DIFFER'}")
+        if not same:
+            return f"K13 {fmt}: the GEMM's block tiles give different bytes"
+        del wq, wu, ref, outs
+
+    with open(tile_tuning._DEFAULT_PATH) as f:
+        shipped = json.load(f)
+    jobs = {}  # key -> (case, gemv, bucket)
+    for c in ta.cases(list(ta.MODELS)):
+        K, N = c.key_kn()
+        for gemv, buckets in ((True, (1, *ta.GEMV_JOINT)), (False, (
+                (64,) if c.op == "k8" else (128, 256, 512, 1024, 2048, 4096) if c.gemm()
+                else ()))):
+            for b in buckets:
+                jobs[tile_tuning._key(c.kernel(gemv), b, K, N, c.G)] = (c, gemv, b)
+    strays = sorted(set(shipped) - set(jobs))
+    if strays:
+        return f"shipped tile cache entries no served case makes: {strays[:5]}"
+    if {e["sms"] for e in shipped.values()} != {sms}:
+        return f"the shipped tile cache was recorded on another SM count than this card's {sms}"
+    tile_tuning.invalidate()
+    n_tuned, worst, t0 = 0, 0.0, time.time()
+    by_case = {}
+    for key in sorted(shipped, key=lambda k: (jobs[k][0].note, k)):
+        by_case.setdefault(jobs[key][0], []).append(key)
+    for c, keys in by_case.items():
+        ops = ta.Operands(c, dev, gen)
+        for key in keys:
+            _, gemv, b = jobs[key]
+            e = shipped[key]
+            Mb = ta.bucket_m(b)
+            call, plain, _, _ = ops.calls(Mb)
+            kernel = key.split("|")[0]
+            hits = tile_tuning.hits[kernel]
+            got = call(0)
+            if tile_tuning.hits[kernel] != hits + 1:
+                return f"{key}: the shipped entry was not served"
+            err = ta.rel(got, plain())
+            worst = max(worst, err)
+            if not err < tol:
+                return f"{key} ({c.note}, M={Mb}): {err:.3e} from plain (tol {tol})"
+            plan = {k: e[k] for k in ("splits", "rows", "bn", "group_m", "stages") if k in e}
+            line = (f"  {key:44s} {c.note:32s} M={Mb:4d} {plan}: recorded {e['us']:.2f} us, "
+                    f"default {e['default_us']:.2f} us ({e['card']}, {e['power_limit']})")
+            if e["us"] < e["default_us"]:
+                n_tuned += 1
+                t_tuned = ta.time_us(call)[0]
+                with tile_cache_off():
+                    t_def = ta.time_us(call)[0]
+                line += f"; here tuned {t_tuned:.2f} us, default {t_def:.2f} us"
+            log(line)
+        del ops
+        torch.cuda.empty_cache()
+    log(f"  {len(shipped)} shipped entries held against plain (worst {worst:.2e}, tol {tol}); "
+        f"{n_tuned} leave the default plan; {time.time() - t0:.1f} s")
+    return None
 
 
 def reference_model(torch, pkg, layers=2, **quant):
@@ -1606,7 +1763,7 @@ def routing_differs(torch, cfg, p_card, p_cpu, ids, kv):
 
 
 def hold_to_cpu(torch, cfg, p_cpu, kv, prompts, got, want, n, card_more, cpu_more,
-                routes=None):
+                routes=None, program_gap=None):
     """Hold the card's greedy tokens ``got`` (``n`` a prompt) to the CPU's
     ``want``. Where a card token parts from the CPU's at a near-tie of the
     CPU's logits (a CPU prefill of the context on a ``kv`` cache), both go
@@ -1620,8 +1777,12 @@ def hold_to_cpu(torch, cfg, p_cpu, kv, prompts, got, want, n, card_more, cpu_mor
     where the card,
     given the context alone (``card_more(context, 1)``), picks the CPU's
     token: the parting then comes from the routing or from the batch's
-    roundings, not from the context's program. Returns (error or None, the
-    near-ties)."""
+    roundings, not from the context's program. An MoE pool's own program
+    (``program_gap(context, card token, CPU token)``: the gap in the logits
+    of the CPU's pool alone on the context) routes the same tokens through
+    other expert capacities than a prefill of the context does (C follows
+    the chunk's rows), so a parting within NEAR_TIE there is a near-tie too.
+    Returns (error or None, the near-ties)."""
     from fastertransformer4codefuse_tpu_torch.engine import kv_cache
     from fastertransformer4codefuse_tpu_torch.models import gptneox as model
 
@@ -1647,7 +1808,12 @@ def hold_to_cpu(torch, cfg, p_cpu, kv, prompts, got, want, n, card_more, cpu_mor
                 alone = card_more(ids, 1)[0]
                 ties[-1] += (f", experts {'differ at ' + moved if moved else 'the same'}, the "
                              f"card alone on this context picks {alone}")
-                if moved or alone == b[i]:
+                near = False
+                if program_gap is not None and not moved and alone != b[i]:
+                    own = program_gap(ids, a[i], b[i])
+                    ties[-1] += f", gap {own:.2e} in the CPU pool's own logits"
+                    near = own < NEAR_TIE
+                if moved or alone == b[i] or near:
                     gap = 0.0
             if gap >= NEAR_TIE:
                 return (f"card tokens part from the CPU's at step {step} of {prompt} "
@@ -2247,11 +2413,12 @@ def main() -> int:
                 f"{ld} B spill loads")
     # The TMA + wgmma instances (the prefill attention body <dh, policy>: K5
     # CausalPrefix from prefill_flash.cu, K12 Band from sliding_window.cu;
-    # K10 <dh, K format, V format>, the GEMM <format, block width>; ptxas
-    # reports the launch bound's 168, and setmaxnreg gives the consumers
-    # 232-240) and every GEMV partial instance <NB, format>: NB 0 is the M =
-    # 1 loop, NB 1/2/4 the tensor-core body's 8-row B tiles; formats W_I8 =
-    # 0, W_I4 = 1, W_I4G = 2, W_I8G = 3
+    # K10 <dh, K format, V format>, the GEMM <format, rows, columns> (its
+    # four block tiles, each from gemm_<rows>x<columns>.cu); ptxas reports
+    # the launch bound's 168, and setmaxnreg gives the consumers 232-240) and
+    # every GEMV partial instance <NB, format>: NB 0 is the M = 1 loop, NB
+    # 1/2/4 the tensor-core body's 8-row B tiles; formats W_I8 = 0, W_I4 = 1,
+    # W_I4G = 2, W_I8G = 3, W_I4GF = 4
     wgmma_kernels = ("prefill_flash_kernel", "flash_chunk_kernel", "qmm_gemm_kernel")
 
     def instance(src_name, kern, args):
@@ -2267,6 +2434,12 @@ def main() -> int:
                   if kern == "prefill_flash_kernel" and src_name.startswith("sliding"))
     if band != ["128", "64"]:
         return fail(f"K12's Band instances of the prefill body (dh 64, 128) not built: {band}")
+    from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import FORMAT_NAMES, GEMM_TILES
+
+    gemm = sorted(args for _, kern, args, *_ in entries if kern == "qmm_gemm_kernel")
+    want = sorted(f"{f},{r},{c}" for f in FORMAT_NAMES for r, c in GEMM_TILES)
+    if gemm != want:
+        return fail(f"the GEMM's instances <format, rows, columns> built: {gemm}, not {want}")
     gemv_over = [f"{kern}<{args}>" for _, kern, args, regs, st, ld in entries
                  if "partial_kernel" in kern and (regs > 128 or st or ld)]
     if gemv_over:
@@ -2296,6 +2469,9 @@ def main() -> int:
     }
     if not phase_kernels(torch, records):
         return fail("a kernel disagrees with its plain version")
+    err = phase_tile_cache(torch)
+    if err:
+        return fail(f"tile cache: {err}")
 
     log("phase 3: CodeFuse-13B-width (int8 2 layers, int4 1), Longformer-base and BERT-base "
         "models, card (kernels) vs CPU (plain); tiny configs of 64-wide heads, g = 16, bf16 "
@@ -2510,6 +2686,7 @@ def phase_serve(torch, pkg, quant, kernels, launched, then=None):
                               warmup=False, on_stream_text=lambda b, j, s: streamed_text.append(s))
 
     zero_counts(kernels)
+    clear_tile_counts()
     forwards = 0
     prefills = 0
 
@@ -2603,6 +2780,8 @@ def phase_serve(torch, pkg, quant, kernels, launched, then=None):
     err = check_static_counts(torch, kernels, launched, cfg.layer_num, prefills, forwards, quant)
     if err:
         return err
+    if not tile_hits(f"{label} engine and handler"):
+        return "no launch of the served routes took its plan from the tile cache"
     err = fused_ab(torch, engine, prompt, kernels, launched, quant)
     if err:
         return err
@@ -2682,7 +2861,7 @@ def prefill_profile(torch, engine, prompt, label):
     for name, ms, n in rows[:6]:
         log(f"    {ms:9.3f} ms {n:5d}x  {name[:90]}")
     log_named(rows, dev)
-    return min(walls), dev
+    return min(walls), dev, rows
 
 
 # the kernels the profiles name: (label, a piece of the kernel's symbol)
@@ -2691,7 +2870,11 @@ PROFILED = (("K5 (prefill_flash_kernel, CausalPrefix)", "ftcf::CausalPrefix>"),
             ("K10 (flash_chunk_kernel)", "flash_chunk_kernel"),
             ("K4/K9/K11 splits (flash_decode_kernel)", "flash_decode_kernel"),
             ("K4/K9/K11 combine (flash_decode_combine_kernel)", "flash_decode_combine_kernel"),
-            ("the GEMM (qmm_gemm_kernel: K1/K6/K7/K8/K13 at M > 32)", "qmm_gemm_kernel"))
+            ("the GEMM (qmm_gemm_kernel: K1/K6/K7/K8/K13 at M > 32)", "qmm_gemm_kernel"),
+            ("K13's GEMV partials (gemv_ncat_partial_kernel)", "gemv_ncat_partial_kernel"),
+            ("K13's GEMV epilogue (gemv_ncat_epilogue_kernel)", "gemv_ncat_epilogue_kernel"),
+            ("K3's / K1's GEMV partials (gemv_partial_kernel)", "gemv_partial_kernel"),
+            ("K3's / K1's GEMV epilogue (gemv_epilogue_kernel)", "gemv_epilogue_kernel"))
 
 
 def log_named(rows, dev, unit="ms"):
@@ -2703,6 +2886,29 @@ def log_named(rows, dev, unit="ms"):
             ms = sum(m for m, _ in hit)
             log(f"    {label}: {ms:.3f} {unit} in {sum(n for _, n in hit):.0f} launches, "
                 f"{ms / dev:.1%} of the device time")
+
+
+def named_ms(rows, key):
+    """The device ms of a profile's ``rows`` whose kernel names hold ``key``."""
+    return sum(ms for name, ms, _ in rows if key in name)
+
+
+def clear_tile_counts():
+    from fastertransformer4codefuse_tpu_torch.ops import tile_tuning
+
+    tile_tuning.hits.clear()
+    tile_tuning.misses.clear()
+
+
+def tile_hits(label):
+    """Log the tile cache's hits and misses since ``clear_tile_counts``;
+    returns the hits (launches whose plan came from a shipped entry)."""
+    from fastertransformer4codefuse_tpu_torch.ops import tile_tuning
+
+    h, m = sum(tile_tuning.hits.values()), sum(tile_tuning.misses.values())
+    log(f"  tile cache, {label}: {h} launches took a shipped entry's plan, {m} the default "
+        f"({', '.join(f'{k} {n}' for k, n in sorted(tile_tuning.hits.items()))})")
+    return h
 
 
 def phase_long(torch, engine, kernels, launched):
@@ -2760,8 +2966,22 @@ def phase_long(torch, engine, kernels, launched):
         return f"int4 KV: {err}"
 
     # the first prefill breakdown: K5, then the plain prefill attention
-    # forced in at the model's call site (K5 is not launched there)
-    prefill_profile(torch, eng, prompt, "attention by K5")
+    # forced in at the model's call site (K5 is not launched there); the
+    # first one in turns with the GEMMs' and GEMVs' default plans (the tile
+    # cache off, FTCF_TILE_TUNE=0): off, on, off
+    gemm = []
+    for label, off in (("attention by K5, default plans", True), ("attention by K5", False),
+                       ("attention by K5, default plans again", True)):
+        if off:
+            with tile_cache_off():
+                rows = prefill_profile(torch, eng, prompt, label)[2]
+        else:
+            rows = prefill_profile(torch, eng, prompt, label)[2]
+        gemm.append(named_ms(rows, "qmm_gemm_kernel"))
+    base = (gemm[0] + gemm[2]) / 2
+    log(f"  the GEMM in the 3000-token prefill ({L} layers): default plans {gemm[0]:.3f} / "
+        f"{gemm[2]:.3f} ms, the tile cache's {gemm[1]:.3f} ms ({gemm[1] / base - 1:+.1%}) "
+        f"({CARD})")
     orig = gptneox.prefill_attention
     gptneox.prefill_attention = (
         lambda q, k, v, mask, sm, lens=None: prefill_attention_flash_plain(q, k, v, lens, sm))
@@ -4084,6 +4304,7 @@ def phase_pool(torch, engine, kernels, launched):
     log("phase 5: pooled serving of CodeFuse-13B int8 (8 slots, 2048 positions, paged: "
         "65 pages of 256; int8 KV, then int4 KV)")
     fresh()
+    clear_tile_counts()
     err = pool_mix(torch, engine, reqs, kernels, launched, "int8 pages", alone=True)
     if err:
         return err
@@ -4092,11 +4313,22 @@ def phase_pool(torch, engine, kernels, launched):
     if err:
         return err
 
+    if not tile_hits("the paged pools' mixes"):
+        return "no launch of the pools took its plan from the tile cache"
     # the host and device split of the ticks on int8 and on int4 pages: the
-    # int4 pair-byte writes add small ops to every layer of a tick
-    for label, eng in (("int8 pages", engine), ("int4 pages", with_kv(engine, "int4"))):
+    # int4 pair-byte writes add small ops to every layer of a tick; on int8
+    # pages first with the default plans (FTCF_TILE_TUNE=0), then the tile
+    # cache's
+    profs = {}
+    for label, eng in (("int8 pages, default plans", engine), ("int8 pages", engine),
+                       ("int4 pages", with_kv(engine, "int4"))):
         fresh()
-        prof = tick_profile(torch, eng, ContinuousBatcher)
+        if label.endswith("default plans"):
+            with tile_cache_off():
+                prof = tick_profile(torch, eng, ContinuousBatcher)
+        else:
+            prof = tick_profile(torch, eng, ContinuousBatcher)
+        profs[label] = prof
         if label == "int8 pages":
             sampling_tick_ms = prof["decode"][0]
         for kind, (wall, dev, rows) in prof.items():
@@ -4106,6 +4338,14 @@ def phase_pool(torch, engine, kernels, launched):
             for name, ms, n in rows[:8]:
                 log(f"    {ms:8.3f} ms {n:7.1f}x  {name[:90]}")
             log_named(rows, dev, "ms a tick")
+    off, on = profs["int8 pages, default plans"], profs["int8 pages"]
+    parts = [("chunk", "the GEMM", ("qmm_gemm_kernel",)),
+             ("decode", "K13's GEMV", ("gemv_ncat_",)),
+             ("decode", "K3's GEMV", ("gemv_partial_kernel", "gemv_epilogue_kernel"))]
+    log("  int8 pages, default plans -> the tile cache's, ms a tick: " + "; ".join(
+        f"{what} in a {kind} tick {sum(named_ms(off[kind][2], k) for k in keys):.3f} -> "
+        f"{sum(named_ms(on[kind][2], k) for k in keys):.3f}" for kind, what, keys in parts)
+        + f" ({CARD})")
 
     fresh()
     tok = ByteTokenizer()
@@ -4673,7 +4913,10 @@ FAMILY_TOKENS = 8
 # the CPU). Mixtral keeps its 2: at 1 layer (seed 11) its batched card greedy
 # parted from the CPU's past NEAR_TIE on the same experts (gap 1.14e-1, the
 # card alone picking a third token), which expert capacity cut by the batch's
-# shape may explain; not investigated yet
+# shape may explain. At 2 layers a pool parting of the same kind was traced:
+# the CPU pool's own logits held the two tokens 4.67e-3 apart while a
+# prefill of the context (other capacities) held them 1.33e-1 apart
+# (``pool_gap``)
 FAMILY_LAYERS = {"Mixtral-8x7B": 2}
 # a pool on pages of 256 takes prompts of these lengths (random ids, seed 5):
 # the longest chunked across a page boundary
@@ -4797,6 +5040,28 @@ def family_tokens(pkg, cfg, params, prompts, n, pool=None, runs=None):
     return [list(map(int, done[u].output_ids[len(p):])) for u, p in zip(uids, prompts)]
 
 
+def pool_gap(pkg, cfg, params, ids, pool, a, b):
+    """(logit of ``b`` - logit of ``a``) / max |logits| in the first token
+    a pool (``pool`` keywords) alone on ``ids`` picks: the logits of the
+    decode tick that picked it, row 0 (the one request's slot)."""
+    from fastertransformer4codefuse_tpu_torch.models import gptneox as model
+
+    real, last = model.lm_logits, []
+
+    def recording(*args, **kw):
+        out = real(*args, **kw)
+        last[:] = [out]
+        return out
+
+    model.lm_logits = recording
+    try:
+        family_tokens(pkg, cfg, params, [ids], 1, pool)
+    finally:
+        model.lm_logits = real
+    lg = last[0][0].float()
+    return ((lg[b] - lg[a]) / lg.abs().max()).item()
+
+
 def family_check(torch, pkg, kernels, launched, label, family, hf, quant, pool):
     """One decoder family at its published widths and 1 layer (FAMILY_LAYERS), built on
     the card and copied to the CPU: prefill (B = 2, 64 tokens) and 3
@@ -4833,7 +5098,9 @@ def family_check(torch, pkg, kernels, launched, label, family, hf, quant, pool):
             torch, cfg, p_cpu, kv, prompts, got[side], want, FAMILY_TOKENS,
             lambda p, n, kw=kw: family_tokens(pkg, cfg, p_card, [p], n, kw, runs)[0],
             lambda p, n, kw=kw: family_tokens(pkg, cfg, p_cpu, [p], n, kw)[0],
-            routes if cfg.moe_experts else None)
+            routes if cfg.moe_experts else None,
+            (lambda ids, a, b, kw=kw: pool_gap(pkg, cfg, p_cpu, ids, kw, a, b))
+            if cfg.moe_experts and kw is not None else None)
         if err:
             return f"{label}: {side} greedy: {err}"
         log_ties += [f"{side} {t}" for t in ties]

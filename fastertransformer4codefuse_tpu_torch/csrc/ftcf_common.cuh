@@ -14,7 +14,7 @@ enum Act { ACT_NONE = 0, ACT_GELU = 1, ACT_GELU_TANH = 2, ACT_RELU = 3, ACT_SILU
 // fp32 per-channel scales; the same int4 payload with bf16 [K/G, N] group
 // scales; int8 with fp32 [K/G, N] group scales (GEMV only); int4 with fp32
 // group scales (the JAX package's FTCF_GSCALE_BF16=0).
-// ops/quant_matmul_fused.py WEIGHT_FORMATS holds the same values.
+// ops/quant_matmul.py WEIGHT_FORMATS holds the same values.
 enum WFmt { W_I8 = 0, W_I4 = 1, W_I4G = 2, W_I8G = 3, W_I4GF = 4 };
 
 // K rows held by one byte row of the weight.

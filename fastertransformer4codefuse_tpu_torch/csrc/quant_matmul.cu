@@ -17,7 +17,7 @@
 //    ftcf_gemm.cuh, whose consumer warps convert their channels of each raw
 //    int8 weight tile into the products' A fragments, in registers, while
 //    the previous tile's products run.
-#include "ftcf_gemm.cuh"
+#include "ftcf_gemm_plan.cuh"
 #include "ftcf_gemv.cuh"
 
 extern "C" {
@@ -40,16 +40,15 @@ int ftcf_quant_matmul_gemv(const void* x, const void* w, const float* scale, con
                                             st);
 }
 
-// Prefill regime; G as above (G even).
+// Prefill regime; G as above (G even). The plan (rows, cols, group_m,
+// stages): ftcf_gemm_plan.cuh GemmPlan.
 int ftcf_quant_matmul_gemm(const void* x, const void* w, const float* scale, const void* gscale,
                            int G, int M, int K, int N, const void* bias, int bias_bf16, int act,
-                           void* y, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (G)
-    return (int)ftcf::launch_gemm<ftcf::W_I8G>(x, w, nullptr, gscale, G, M, K, N, bias,
-                                               bias_bf16, act, y, 0, st);
-  return (int)ftcf::launch_gemm<ftcf::W_I8>(x, w, scale, nullptr, 0, M, K, N, bias, bias_bf16,
-                                            act, y, 0, st);
+                           void* y, int rows, int cols, int group_m, int stages, void* stream) {
+  const ftcf::GemmPlan plan{rows, cols, group_m, stages};
+  return (int)ftcf::launch_gemm(G ? ftcf::W_I8G : ftcf::W_I8, x, w, G ? nullptr : scale,
+                                G ? gscale : nullptr, G, M, K, N, bias, bias_bf16, act, y, 0,
+                                plan, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

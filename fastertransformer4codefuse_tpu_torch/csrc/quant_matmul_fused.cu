@@ -34,7 +34,7 @@
 // Weight formats (fmt, ftcf_common.cuh WFmt): int8 and int4 with fp32
 // per-channel scales, int4 with bf16 or fp32 group scales, and int8 with fp32
 // group scales (the JAX package's int8 group-wise cases).
-#include "ftcf_gemm.cuh"
+#include "ftcf_gemm_plan.cuh"
 #include "ftcf_gemv.cuh"
 
 namespace {
@@ -124,11 +124,12 @@ int ftcf_gemv_ncat(int fmt, int G, int M, int K, const void* x1, const void* w1,
 }
 
 // K13 at prefill widths: the same two outputs from one GEMM launch
-// (int8 or int4, per-channel or group scales).
+// (int8 or int4, per-channel or group scales), under the plan (rows, cols,
+// group_m, stages): ftcf_gemm_plan.cuh GemmPlan.
 int ftcf_gemm_ncat(int fmt, int G, int M, int K, const void* x1, const void* w1, const void* s1,
                    int N1, const void* b1, int b1_bf16, int act1, void* y1, const void* x2,
                    const void* w2, const void* s2, int N2, const void* b2, int b2_bf16, int act2,
-                   void* y2, void* stream) {
+                   void* y2, int rows, int cols, int group_m, int stages, void* stream) {
   const bool g = grouped(fmt);
   const ftcf::GemmSeg g1{static_cast<const __nv_bfloat16*>(x1), static_cast<const int8_t*>(w1),
                          g ? nullptr : static_cast<const float*>(s1), g ? s1 : nullptr,
@@ -136,20 +137,9 @@ int ftcf_gemm_ncat(int fmt, int G, int M, int K, const void* x1, const void* w1,
   const ftcf::GemmSeg g2{static_cast<const __nv_bfloat16*>(x2), static_cast<const int8_t*>(w2),
                          g ? nullptr : static_cast<const float*>(s2), g ? s2 : nullptr,
                          b2, b2_bf16, act2, y2, N2};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (fmt) {
-    case ftcf::W_I8:
-      return (int)ftcf::launch_gemm_ncat<ftcf::W_I8>(g1, g2, G, 0, M, K, st);
-    case ftcf::W_I4:
-      return (int)ftcf::launch_gemm_ncat<ftcf::W_I4>(g1, g2, G, 0, M, K, st);
-    case ftcf::W_I4G:
-      return (int)ftcf::launch_gemm_ncat<ftcf::W_I4G>(g1, g2, G, 0, M, K, st);
-    case ftcf::W_I4GF:
-      return (int)ftcf::launch_gemm_ncat<ftcf::W_I4GF>(g1, g2, G, 0, M, K, st);
-    case ftcf::W_I8G:
-      return (int)ftcf::launch_gemm_ncat<ftcf::W_I8G>(g1, g2, G, 0, M, K, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const ftcf::GemmPlan plan{rows, cols, group_m, stages};
+  return (int)ftcf::launch_gemm_ncat(fmt, g1, g2, G, 0, M, K, plan,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -25,7 +25,7 @@
 // packed tile into the products' A fragments, in registers (group scales,
 // which arrive by TMA beside it, folded into the bf16 weight), while the
 // previous tile's products run.
-#include "ftcf_gemm.cuh"
+#include "ftcf_gemm_plan.cuh"
 #include "ftcf_gemv.cuh"
 
 extern "C" {
@@ -52,20 +52,17 @@ int ftcf_quant_matmul_w4_gemv(const void* x, const void* w, const float* scale,
                                             out_f32, ws, st);
 }
 
-// Prefill regime; the same operands.
+// Prefill regime; the same operands, and the plan (rows, cols, group_m,
+// stages): ftcf_gemm_plan.cuh GemmPlan.
 int ftcf_quant_matmul_w4_gemm(const void* x, const void* w, const float* scale,
                               const void* gscale, int gscale_f32, int G, int M, int K, int N,
                               const void* bias, int bias_bf16, int act, void* y, int out_f32,
-                              void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (gscale != nullptr && gscale_f32)
-    return (int)ftcf::launch_gemm<ftcf::W_I4GF>(x, w, nullptr, gscale, G, M, K, N, bias,
-                                                bias_bf16, act, y, out_f32, st);
-  if (gscale != nullptr)
-    return (int)ftcf::launch_gemm<ftcf::W_I4G>(x, w, nullptr, gscale, G, M, K, N, bias,
-                                               bias_bf16, act, y, out_f32, st);
-  return (int)ftcf::launch_gemm<ftcf::W_I4>(x, w, scale, nullptr, 0, M, K, N, bias, bias_bf16,
-                                            act, y, out_f32, st);
+                              int rows, int cols, int group_m, int stages, void* stream) {
+  const ftcf::GemmPlan plan{rows, cols, group_m, stages};
+  const int fmt = gscale == nullptr ? ftcf::W_I4 : gscale_f32 ? ftcf::W_I4GF : ftcf::W_I4G;
+  return (int)ftcf::launch_gemm(fmt, x, w, gscale == nullptr ? scale : nullptr, gscale, G, M, K,
+                                N, bias, bias_bf16, act, y, out_f32, plan,
+                                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

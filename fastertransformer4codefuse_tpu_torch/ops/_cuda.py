@@ -36,14 +36,15 @@ F = ctypes.c_float
 # C entry -> argument types (see each .cu file's extern "C" block)
 _SIGNATURES = {
     "ftcf_quant_matmul_gemv": [P, P, P, P, I, I, I, I, I, I, P, I, I, P, P, P],
-    "ftcf_quant_matmul_gemm": [P, P, P, P, I, I, I, I, P, I, I, P, P],
+    "ftcf_quant_matmul_gemm": [P, P, P, P, I, I, I, I, P, I, I, P, I, I, I, I, P],
     "ftcf_quant_matmul_w4_gemv": [P, P, P, P, I, I, I, I, I, I, I, P, I, I, P, I, P, P],
-    "ftcf_quant_matmul_w4_gemm": [P, P, P, P, I, I, I, I, I, P, I, I, P, I, P],
+    "ftcf_quant_matmul_w4_gemm": [P, P, P, P, I, I, I, I, I, P, I, I, P, I, I, I, I, I, P],
     "ftcf_fused_proj_down": [I, I, P, P, P, I, I, I, P, P, P, I, I, I, I, I, P, I, P, P, P,
                              P],
     "ftcf_gemv_ncat": [I, I, I, I, P, P, P, I, I, I, P, I, I, P, P,
                        P, P, P, I, I, I, P, I, I, P, P, P],
-    "ftcf_gemm_ncat": [I, I, I, I, P, P, P, I, P, I, I, P, P, P, P, I, P, I, I, P, P],
+    "ftcf_gemm_ncat": [I, I, I, I, P, P, P, I, P, I, I, P, P, P, P, I, P, I, I, P, I, I, I, I,
+                       P],
     "ftcf_flash_decode": [P, P, P, P, P, P, P, P, LL, I, I, I, I, I, I, I, I, F, P],
     "ftcf_flash_decode_paged": [P, P, P, P, P, P, P, P, P, LL, I, I, I, I, I, I, I, I, I, F, P],
     "ftcf_flash_decode_beam": [P, P, P, P, P, P, P, P, P, LL, I, I, I, I, I, I, I, I, I, F, P],

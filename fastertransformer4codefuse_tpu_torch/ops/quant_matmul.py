@@ -10,21 +10,67 @@ contraction (the JAX package's group-wise int8 weights, which it computes in
 XLA, ``ops/linear.py:65``): the W_I8G instances of both bodies, counted also
 in ``launches_g8``. ``quant_matmul_plain`` is the same function in plain
 PyTorch: the CPU path and the kernel's oracle.
+
+Launch plans: the GEMV's K ranges (``split_ranges``) and the GEMM's block
+tile, group-M raster and ring depth (``GemmPlan``) come from the tile cache
+(``ops/tile_tuning.py``) where it holds this shape on this card, else from
+the defaults below (``gemv_splits``, ``gemm_plan``). Every wrapper of K1,
+K3, K6-K8 and K13 resolves its plan through them; an entry the kernels cannot
+serve raises.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Sequence
 
 import torch
 
-from . import _cuda
+from . import _cuda, tile_tuning
 from .linear import ACT_CODES, apply_act
 
 GEMV_MAX_M = 32  # widest x the weight-streaming path takes
-# the prefill-width GEMM's block (rows x columns) and k tile (csrc/ftcf_gemm.cuh)
+GEMV_MAX_CHUNK = 3072  # K rows of a range the GEMV's x staging takes (csrc/ftcf_gemv.cuh)
+# the prefill-width GEMM's default block (rows x columns) and its k tile, 64 in
+# every instance (csrc/ftcf_gemm.cuh)
 GEMM_BM, GEMM_BN, GEMM_BK = 128, 128, 64
+# the block tiles (rows, columns) the GEMM has instances of (csrc/gemm_*.cu)
+GEMM_TILES = ((128, 128), (64, 128), (128, 256), (256, 128))
+GEMM_MAX_STAGES = 8
+
+# (bits, group scales?, fp32 group scales?) -> csrc/ftcf_common.cuh WFmt, and
+# each format's name in tile cache keys
+WEIGHT_FORMATS = {(8, False, False): 0, (4, False, False): 1, (4, True, False): 2,
+                  (8, True, True): 3, (4, True, True): 4}
+FORMAT_NAMES = {0: "i8", 1: "i4", 2: "i4g", 3: "i8g", 4: "i4gf"}
+
+
+def weight_format(bits, group_size, scale) -> int:
+    """The kernels' format code of a weight with these scales."""
+    grouped = bool(group_size)
+    return WEIGHT_FORMATS[bits, grouped, grouped and scale.dtype == torch.float32]
+
+
+def kernel_name(body: str, bits: int, group_size: int, scale) -> str:
+    """A launch's kernel name in tile cache keys: body (``gemv``, ``gemm``,
+    ``ncat_gemv``, ``ncat_gemm``, ``pd_gemv``) and weight format."""
+    return f"{body}_{FORMAT_NAMES[weight_format(bits, group_size, scale)]}"
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """The prefill-width GEMM's launch plan (csrc/ftcf_gemm_plan.cuh)."""
+    rows: int = GEMM_BM  # rows of x a block
+    cols: int = GEMM_BN  # output channels a block
+    group_m: int = 8  # row tiles a group of blocks sweeps
+    stages: int = GEMM_MAX_STAGES  # cap on the ring's stages
+
+    def args(self) -> tuple:
+        return self.rows, self.cols, self.group_m, self.stages
+
+
+DEFAULT_GEMM = GemmPlan()
 
 
 def quant_matmul_plain(
@@ -58,21 +104,26 @@ def _sm_count(device_index: int) -> int:
 
 def split_ranges(K: int, N: int, sms: int, share: float = 1.0, bits: int = 8,
                  group_size: int = 0) -> tuple[int, int]:
-    """The K ranges of the weight-streaming GEMV (csrc/ftcf_gemv.cuh) for one
-    segment on a card of ``sms`` SMs: ``(splits, chunk)``, ``chunk`` K rows a
-    range (the last one may be shorter); the kernel takes both as given.
-    About four blocks per SM over the whole grid (``share`` is this segment's
-    part of it) of 128-column tiles, at most 1024 K rows per range (the
-    shared-memory x staging), at least 32 weight byte rows (one per k lane;
-    an int4 byte row holds two K rows). A range is a whole number of units:
-    8 K rows (the x staging's 16-byte loads), and with group scales (G =
-    ``group_size``) whole groups. The count then drops to the ranges that
-    hold any, so no range is empty."""
+    """The default K ranges of the weight-streaming GEMV (csrc/ftcf_gemv.cuh)
+    for one segment on a card of ``sms`` SMs: ``(splits, chunk)``, ``chunk``
+    K rows a range (the last one may be shorter); the kernel takes both as
+    given. About four blocks per SM over the whole grid (``share`` is this
+    segment's part of it) of 128-column tiles, at most 1024 K rows per range,
+    at least 32 weight byte rows (one per k lane; an int4 byte row holds two
+    K rows); then ``split_chunk``."""
     rows = K // 2 if bits == 4 else K
     max_rows = 512 if bits == 4 else 1024
     tiles = -(-N // 128)
     splits = max(-(-rows // max_rows), math.ceil(4 * sms * share / tiles))
     splits = max(1, min(splits, -(-rows // 32)))
+    return split_chunk(K, splits, group_size)
+
+
+def split_chunk(K: int, splits: int, group_size: int = 0) -> tuple[int, int]:
+    """K in about ``splits`` ranges: ``(splits, chunk)``. A range is a whole
+    number of units: 8 K rows (the x staging's 16-byte loads), and with group
+    scales (G = ``group_size``) whole groups. The count then drops to the
+    ranges that hold any, so no range is empty."""
     unit = math.lcm(8, group_size) if group_size else 8
     units = K // unit
     per = -(-units // min(splits, units))  # units a range
@@ -85,16 +136,64 @@ def gemv_ranges(K: int, N: int, device: torch.device, share: float = 1.0, bits: 
     return split_ranges(K, N, _sm_count(device.index or 0), share, bits, group_size)
 
 
-def gemm_tiles(M: int, N1: int, N2: int = 0) -> int:
+def gemv_splits(kernel: str, M: int, segs: Sequence[tuple], device: torch.device, bits: int,
+                group_size: int = 0) -> list:
+    """Each segment's ``(splits, chunk)`` for a GEMV launch of ``kernel`` at M
+    rows over ``segs`` = [(K, N, share), ...] (one segment, or K13's two
+    joined over N, or K3's two joined over K). The tile cache's entry keys
+    the launch by K and N summed over the segments' joined axis; its
+    ``splits`` name each segment's count. On a miss, ``split_ranges``."""
+    sms = _sm_count(device.index or 0)
+    Ks, Ns = [sg[0] for sg in segs], [sg[1] for sg in segs]
+    joined_k = kernel.startswith("pd_")
+    key, e = tile_tuning.resolve(kernel, M, sum(Ks) if joined_k else Ks[0],
+                                 Ns[0] if joined_k else sum(Ns), group_size, sms)
+    if e is None:
+        return [split_ranges(K, N, sms, share, bits, group_size) for K, N, share in segs]
+    splits = e.get("splits")
+    _cuda.require(isinstance(splits, list) and len(splits) == len(segs),
+                  f"tile cache entry {key!r}: 'splits' must list one count a segment "
+                  f"({len(segs)}), got {splits!r}")
+    out = []
+    for (K, _, _), n in zip(segs, splits):
+        ranges = split_chunk(K, n, group_size) if isinstance(n, int) and n >= 1 else None
+        _cuda.require(ranges is not None and ranges[0] == n and ranges[1] <= GEMV_MAX_CHUNK,
+                      f"tile cache entry {key!r}: {n!r} splits of K={K} is not a split the "
+                      f"GEMV has: ranges of whole units of at most {GEMV_MAX_CHUNK} rows, "
+                      f"none empty")
+        out.append(ranges)
+    return out
+
+
+def gemm_plan(kernel: str, M: int, K: int, N: int, group_size: int,
+              device: torch.device) -> GemmPlan:
+    """The GEMM's plan for a launch of ``kernel`` at M rows (K13: ``N`` = N1 +
+    N2): the tile cache's entry, else ``DEFAULT_GEMM``."""
+    key, e = tile_tuning.resolve(kernel, M, K, N, group_size, _sm_count(device.index or 0))
+    if e is None:
+        return DEFAULT_GEMM
+    plan = GemmPlan(e.get("rows"), e.get("bn"), e.get("group_m"), e.get("stages"))
+    _cuda.require(
+        (plan.rows, plan.cols) in GEMM_TILES and e.get("bk") == GEMM_BK
+        and isinstance(plan.group_m, int) and plan.group_m >= 1
+        and isinstance(plan.stages, int) and 2 <= plan.stages <= GEMM_MAX_STAGES,
+        f"tile cache entry {key!r} names a GEMM plan the kernel has no instance for: rows "
+        f"{plan.rows} x bn {plan.cols} (instances {GEMM_TILES}), bk {e.get('bk')} (only "
+        f"{GEMM_BK}), group_m {plan.group_m}, stages {plan.stages} (2-{GEMM_MAX_STAGES})")
+    return plan
+
+
+def gemm_tiles(M: int, N1: int, N2: int = 0, plan: GemmPlan = DEFAULT_GEMM) -> int:
     """Blocks of one prefill-width GEMM launch over segments of N1 and N2
-    columns (K13 joins two): 128 x 128 output tiles, each segment's own."""
-    return -(-M // GEMM_BM) * (-(-N1 // GEMM_BN) + -(-N2 // GEMM_BN))
+    columns (K13 joins two) under ``plan``: its rows x cols output tiles,
+    each segment's own."""
+    return -(-M // plan.rows) * (-(-N1 // plan.cols) + -(-N2 // plan.cols))
 
 
 def gemm_group_rows(K: int, G: int) -> int:
-    """Group-scale rows the GEMM's TMA brings with each 64-deep k tile: the
-    most groups of G rows any k tile of K touches (csrc/ftcf_gemm.cuh
-    ``gemm_group_rows``, the same rule)."""
+    """Group-scale rows the GEMM's TMA brings with each 64-deep k tile (the
+    k tile of every block tile): the most groups of G rows any k tile of K
+    touches (csrc/ftcf_gemm.cuh ``gemm_group_rows``, the same rule)."""
     return max((min(k0 + GEMM_BK, K) - 1) // G - k0 // G + 1 for k0 in range(0, K, GEMM_BK))
 
 
@@ -153,11 +252,13 @@ def _bias_args(bias, act):
 
 def launch_gemv(x, w, scale, bias, act, out, group_size=0):
     """One int8 weight-streaming GEMV launch (partials + epilogue) into
-    ``out``; ``group_size`` G: ``scale`` the [K/G, N] group scales. No launch
-    count: the public wrappers count their own launches."""
+    ``out``, its K ranges from ``gemv_splits``; ``group_size`` G: ``scale``
+    the [K/G, N] group scales. No launch count: the public wrappers count
+    their own launches."""
     M, K = x.shape
     N = w.shape[1]
-    splits, chunk = gemv_ranges(K, N, x.device, group_size=group_size)
+    [(splits, chunk)] = gemv_splits(kernel_name("gemv", 8, group_size, scale), M,
+                                    [(K, N, 1.0)], x.device, 8, group_size)
     ws = torch.empty(splits * M * N, dtype=torch.float32, device=x.device)
     err = _cuda.lib().ftcf_quant_matmul_gemv(
         x.data_ptr(), w.data_ptr(), *_scale_args(scale, group_size), M, K, N, splits, chunk,
@@ -189,9 +290,11 @@ def quant_matmul(
     if M <= GEMV_MAX_M:
         launch_gemv(x, w, scale, bias, act, y, group_size)
     else:
+        plan = gemm_plan(kernel_name("gemm", 8, group_size, scale), M, K, N, group_size,
+                         x.device)
         err = _cuda.lib().ftcf_quant_matmul_gemm(
             x.data_ptr(), w.data_ptr(), *_scale_args(scale, group_size), M, K, N,
-            *_bias_args(bias, act), y.data_ptr(), _cuda.stream_of(x),
+            *_bias_args(bias, act), y.data_ptr(), *plan.args(), _cuda.stream_of(x),
         )
         _cuda.check(err, "quant_matmul (gemm)")
     quant_matmul.launches += 1

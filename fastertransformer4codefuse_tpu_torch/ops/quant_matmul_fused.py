@@ -35,17 +35,9 @@ import torch
 from . import _cuda
 from ..models.params import QuantizedTensor, unpack_int4
 from .linear import ACT_CODES, apply_act
-from .quant_matmul import GEMV_MAX_M, check_operands, gemv_ranges
-
-# (bits, group scales?, fp32 group scales?) -> csrc/ftcf_common.cuh WFmt
-WEIGHT_FORMATS = {(8, False, False): 0, (4, False, False): 1, (4, True, False): 2,
-                  (8, True, True): 3, (4, True, True): 4}
-
-
-def weight_format(bits, group_size, scale) -> int:
-    """The kernels' format code of a weight with these scales."""
-    grouped = bool(group_size)
-    return WEIGHT_FORMATS[bits, grouped, grouped and scale.dtype == torch.float32]
+from .quant_matmul import (
+    GEMV_MAX_M, check_operands, gemm_plan, gemv_splits, kernel_name, weight_format,
+)
 
 
 def _contract(x, w, s, bits, G=0):
@@ -94,8 +86,9 @@ def fused_proj_down(
                   and residual.is_contiguous() and residual.device == x1.device,
                   "fused_proj_down: residual must be a contiguous bf16 [M, N]")
     share1 = K1 / (K1 + K2)
-    n1, c1 = gemv_ranges(K1, N, x1.device, share1, bits, group_size)
-    n2, c2 = gemv_ranges(K2, N, x1.device, 1.0 - share1, bits, group_size)
+    (n1, c1), (n2, c2) = gemv_splits(kernel_name("pd_gemv", bits, group_size, s1), M,
+                                     [(K1, N, share1), (K2, N, 1.0 - share1)], x1.device, bits,
+                                     group_size)
     ws = torch.empty((n1 + n2) * M * N, dtype=torch.float32, device=x1.device)
     out = torch.empty(M, N, dtype=torch.bfloat16, device=x1.device)
     err = _cuda.lib().ftcf_fused_proj_down(
@@ -139,8 +132,10 @@ def fused_qkv_up_plain(x1, x2, w1, w2, s1, s2, b1=None, b2=None, act1=None, act2
 
 def _launch_ncat(segs, bits, G, name):
     """One launch of the N-joined GEMV (M <= 32) or GEMM over one or two
-    segments (x, w, s, b, act), each into a new bf16 [M, N_i]; operands
-    already checked. No launch count."""
+    segments (x, w, s, b, act), each into a new bf16 [M, N_i], under its plan
+    from the tile cache (kernel ``ncat_gemv`` / ``ncat_gemm`` for two
+    segments, ``gemv`` / ``gemm`` for one); operands already checked. No
+    launch count."""
     x = segs[0][0]
     M, K = x.shape
     outs = [torch.empty(M, sg[1].shape[1], dtype=torch.bfloat16, device=x.device)
@@ -149,21 +144,27 @@ def _launch_ncat(segs, bits, G, name):
     for (xs, w, s, b, act), y in zip(segs, outs):
         args.append([xs.data_ptr(), w.data_ptr(), s.data_ptr(), w.shape[1], *_bias_ptr(b),
                      ACT_CODES[act], y.data_ptr()])
+    Ns = [a[3] for a in args]
     if len(segs) == 1:  # an empty second segment
         args.append([None, None, None, 0, None, 0, 0, None])
     fmt = weight_format(bits, G, segs[0][2])
+    body = "ncat_" if len(segs) == 2 else ""
     if M <= GEMV_MAX_M:
+        ranges = gemv_splits(kernel_name(body + "gemv", bits, G, segs[0][2]), M,
+                             [(K, N, 1.0) for N in Ns], x.device, bits, G) + [(0, 0)]
         wss = []  # each segment's split workspace, held until the launch
-        for a in args:
+        for a, (splits, chunk) in zip(args, ranges):
             N = a[3]
-            splits, chunk = gemv_ranges(K, N, x.device, bits=bits, group_size=G) if N else (0, 0)
             ws = torch.empty(max(splits * M * N, 1), dtype=torch.float32, device=x.device)
             wss.append(ws)
             a[4:4] = [splits, chunk]  # (x, w, s, N, splits, chunk, b, bf16, act, y)
             a.append(ws.data_ptr())
         err = _cuda.lib().ftcf_gemv_ncat(fmt, G, M, K, *args[0], *args[1], _cuda.stream_of(x))
     else:
-        err = _cuda.lib().ftcf_gemm_ncat(fmt, G, M, K, *args[0], *args[1], _cuda.stream_of(x))
+        plan = gemm_plan(kernel_name(body + "gemm", bits, G, segs[0][2]), M, K, sum(Ns), G,
+                         x.device)
+        err = _cuda.lib().ftcf_gemm_ncat(fmt, G, M, K, *args[0], *args[1], *plan.args(),
+                                         _cuda.stream_of(x))
     _cuda.check(err, name)
     return outs
 

@@ -19,7 +19,8 @@ weight is free, so the JAX package's stacked and 2-D forms are one entry here:
   uses it): K6 with fp32 out and no bias.
 
 The CUDA is ``csrc/quant_matmul_w4.cu``: a weight-streaming GEMV at decode
-widths (M <= 32) and the TMA + wgmma GEMM of ``csrc/ftcf_gemm.cuh`` above. Each ``*_plain`` function is the
+widths (M <= 32) and the TMA + wgmma GEMM of ``csrc/ftcf_gemm.cuh`` above, each
+under its launch plan from the tile cache (``ops/tile_tuning.py``). Each ``*_plain`` function is the
 same math in plain PyTorch (unpack to int8, dequantize in fp32, contract in
 fp32, bias and activation in fp32, one rounding to the output dtype): the CPU
 path and the kernel's oracle.
@@ -33,7 +34,7 @@ import torch
 from ..models.params import QuantizedTensor
 from . import _cuda
 from .linear import ACT_CODES, apply_act
-from .quant_matmul import GEMV_MAX_M, check_operands, gemv_ranges
+from .quant_matmul import GEMV_MAX_M, check_operands, gemm_plan, gemv_splits, kernel_name
 
 
 def _plain(x, packed, scale, G, bias, act, out_dtype):
@@ -60,8 +61,9 @@ def quant_matmul_w4_head_plain(x, packed, scale):
 
 def launch_w4(x, packed, scale, G, bias, act, out, name):
     """One K6/K7/K8 launch into ``out`` (bf16 or fp32): the weight-streaming
-    GEMV for M <= 32, the GEMM above. Operands already checked; no launch
-    count (the public wrappers count their own)."""
+    GEMV for M <= 32, the GEMM above, each under its plan from the tile
+    cache (``gemv_splits``, ``gemm_plan``). Operands already checked; no
+    launch count (the public wrappers count their own)."""
     M, K = x.shape
     N = packed.shape[1]
     lib = _cuda.lib()
@@ -72,7 +74,8 @@ def launch_w4(x, packed, scale, G, bias, act, out, name):
                  ACT_CODES[act])
     out_f32 = int(out.dtype == torch.float32)
     if M <= GEMV_MAX_M:
-        splits, chunk = gemv_ranges(K, N, x.device, bits=4, group_size=G)
+        [(splits, chunk)] = gemv_splits(kernel_name("gemv", 4, G, scale), M, [(K, N, 1.0)],
+                                        x.device, 4, G)
         ws = torch.empty(splits * M * N, dtype=torch.float32, device=x.device)
         err = lib.ftcf_quant_matmul_w4_gemv(
             x.data_ptr(), packed.data_ptr(), pscale, gscale, gscale_f32, G, M, K, N, splits,
@@ -81,9 +84,10 @@ def launch_w4(x, packed, scale, G, bias, act, out, name):
             out.data_ptr(), out_f32, ws.data_ptr(), _cuda.stream_of(x),
         )
     else:
+        plan = gemm_plan(kernel_name("gemm", 4, G, scale), M, K, N, G, x.device)
         err = lib.ftcf_quant_matmul_w4_gemm(
             x.data_ptr(), packed.data_ptr(), pscale, gscale, gscale_f32, G, M, K, N, *bias_args,
-            out.data_ptr(), out_f32, _cuda.stream_of(x),
+            out.data_ptr(), out_f32, *plan.args(), _cuda.stream_of(x),
         )
     _cuda.check(err, name)
     return out

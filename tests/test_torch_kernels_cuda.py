@@ -22,7 +22,13 @@ batch of 8 and two calls equal; the configurations of chip_smoke.py
 ROUTE_CONFIGS served on the card give the CPU's greedy tokens. K12 at the
 band's edges (w = 0, 130, S and wider than S; lengths off the 128-key tiles;
 empty rows; both band modes) held per (query, head) row, and two calls
-equal. Marked ``cuda``: skipped where there is no
+equal. Launch plans from the tile cache (``ops/tile_tuning.py``): every GEMM
+block tile, group-M width and stage cap (ragged M and N, int8 / int4 / g128
+/ fp32 and int8 group scales, K13's joined segments) within 1e-2 of the
+plain version and bit for bit the default plan's output; GEMV split counts
+of K1 / K6 / K7, K13 and K3; rows the same at every M under one split count;
+another card's entry a miss, an entry the kernels have no instance for a
+ValueError. Marked ``cuda``: skipped where there is no
 GPU. On a GPU machine without jax:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -31,6 +37,8 @@ Tolerance: max |kernel - plain| / max |plain| below 1e-2 for the GEMMs (bf16
 output rounding plus fp32 summation order) and 2e-2 where a bf16
 intermediate (K2's hidden, K4/K5/K9-K12's probabilities) may round
 differently."""
+import json
+
 import pytest
 import torch
 
@@ -1402,3 +1410,169 @@ def test_k13_without_a_qkv_bias_at_gptj_widths(gen, M):
         a, h, res, b_d = _bf(gen, M, H), (r2 * 0.5).contiguous(), _bf(gen, M, H), _bf(gen, H)
         k3 = fused_proj_down(a, h, w_p, w_d, s_p, s_d, b_d, res)
         assert _rel(k3, fused_proj_down_plain(a, h, w_p, w_d, s_p, s_d, b_d, res)) < 1e-2
+
+
+# --- launch plans from the tile cache (ops/tile_tuning.py): every GEMM block
+# tile, group-M width and stage cap, and GEMV split counts, served to the
+# wrappers through a cache file of their own, against the plain versions;
+# every GEMM plan gives the default's bytes (one k order whatever the tile).
+@pytest.fixture
+def tile_cache(tmp_path, monkeypatch):
+    """serve(kernel, M, K, N, G, **fields): a cache entry for this card."""
+    from fastertransformer4codefuse_tpu_torch.ops import tile_tuning
+
+    path = tmp_path / "tile_cache.json"
+    monkeypatch.setenv("FTCF_TILE_CACHE", str(path))
+    monkeypatch.delenv("FTCF_TILE_TUNE", raising=False)
+    tile_tuning.invalidate()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count if \
+        torch.cuda.is_available() else 0
+
+    def serve(kernel, M, K, N, G=0, **fields):
+        entries = json.loads(path.read_text()) if path.exists() else {}
+        entries[tile_tuning._key(kernel, tile_tuning.bucket(M), K, N, G)] = {
+            "bn": 0, "bk": 0, "us": 1.0, "note": "test", "sms": sms, **fields}
+        path.write_text(json.dumps(entries))
+        tile_tuning.invalidate()
+
+    yield serve
+    tile_tuning.invalidate()
+
+
+GEMM_PLANS = [(128, 128, 8, 8), (64, 128, 8, 8), (128, 256, 8, 8), (256, 128, 8, 8), (64, 128, 4, 4),
+              (128, 256, 16, 4), (128, 128, 1, 2)]
+
+
+def _gemm_fields(rows, cols, group_m, stages):
+    return dict(bn=cols, bk=64, rows=rows, group_m=group_m, stages=stages)
+
+
+@pytest.mark.parametrize("plan", GEMM_PLANS)
+@pytest.mark.parametrize("M", [33, 130, 257])
+@pytest.mark.parametrize("bits,G,sdt", [(8, 0, None), (4, 0, None), (4, 128, torch.bfloat16),
+                                        (4, 32, torch.float32), (8, 64, torch.float32)])
+def test_gemm_plans_match_plain_and_the_default(gen, tile_cache, plan, M, bits, G, sdt):
+    """K1 / K6 / K7 (ragged N = 400; K off the 64-deep k tiles where the
+    groups allow) and K13 (segments of 400 and 272) under each GEMM plan:
+    within 1e-2 of the plain version, and bit for bit the default plan's
+    output."""
+    from fastertransformer4codefuse_tpu_torch.ops import tile_tuning
+
+    K, N, N2 = {0: 1160, 32: 1120, 64: 1088, 128: 1152}[G], 400, 272
+    x, x2 = _bf(gen, M, K), _bf(gen, M, K)
+    w, s = _fmt_weight(gen, K, N, bits, G)
+    w2, s2 = _fmt_weight(gen, K, N2, bits, G)
+    if G:
+        s, s2 = s.to(sdt), s2.to(sdt)
+    b = _bf(gen, N, std=0.1)
+    if bits == 8:
+        one = lambda: quant_matmul(x, w, s, b, "gelu", group_size=G)  # noqa: E731
+        one_p = lambda: quant_matmul_plain(x, w, s, b, "gelu", group_size=G)  # noqa: E731
+    elif G:
+        one = lambda: quant_matmul_w4_group(x, w, s, G, b, "gelu")  # noqa: E731
+        one_p = lambda: quant_matmul_w4_group_plain(x, w, s, G, b, "gelu")  # noqa: E731
+    else:
+        one = lambda: quant_matmul_w4(x, w, s, b, "gelu")  # noqa: E731
+        one_p = lambda: quant_matmul_w4_plain(x, w, s, b, "gelu")  # noqa: E731
+    args13 = (x, x2, w, w2, s, s2, b, None, None, "gelu-tanh", bits, G)
+    k13 = lambda: torch.cat(fused_qkv_up(*args13), 1)  # noqa: E731
+    defaults = one(), k13()
+    fmt = {(8, 0): "i8", (4, 0): "i4", (4, 128): "i4g", (4, 32): "i4gf", (8, 64): "i8g"}[bits, G]
+    tile_cache(f"gemm_{fmt}", M, K, N, G, **_gemm_fields(*plan))
+    tile_cache(f"ncat_gemm_{fmt}", M, K, N + N2, G, **_gemm_fields(*plan))
+    hits = sum(tile_tuning.hits.values())
+    got, got13 = one(), k13()
+    assert sum(tile_tuning.hits.values()) == hits + 2
+    assert _rel(got, one_p()) < 1e-2
+    assert _rel(got13, torch.cat(fused_qkv_up_plain(*args13), 1)) < 1e-2
+    assert torch.equal(got, defaults[0]) and torch.equal(got13, defaults[1])
+
+
+@pytest.mark.parametrize("plan", GEMM_PLANS[1:3])
+@pytest.mark.parametrize("M", [64, 1000])
+def test_gemm_plans_at_codefuse_widths(gen, tile_cache, plan, M):
+    """The 64 x 128 and 128 x 256 tiles at CodeFuse-13B's proj and K13 int8
+    widths and K8's head (fp32 out): within 1e-2, the default's bytes."""
+    H, F, V = 5120, 20480, 102400
+    x, x2 = _bf(gen, M, H), _bf(gen, M, H)
+    w, s, b = _i8(gen, H, H), _scale(gen, H), _bf(gen, H, std=0.1)
+    wq, sq, wu, su = _i8(gen, H, 3 * H), _scale(gen, 3 * H), _i8(gen, H, F), _scale(gen, F)
+    ph, sh = _i8(gen, H // 2, V), _scale(gen, V) * 16
+    calls = [("gemm_i8", H, H, lambda: quant_matmul(x, w, s, b),
+              lambda: quant_matmul_plain(x, w, s, b)),
+             ("ncat_gemm_i8", H, 3 * H + F,
+              lambda: torch.cat(fused_qkv_up(x, x2, wq, wu, sq, su, None, None, None, "gelu"), 1),
+              lambda: torch.cat(fused_qkv_up_plain(x, x2, wq, wu, sq, su, None, None, None,
+                                                   "gelu"), 1)),
+             ("gemm_i4", H, V, lambda: quant_matmul_w4_head(x, ph, sh),
+              lambda: quant_matmul_w4_head_plain(x, ph, sh))]
+    for kernel, K, N, fn, plain in calls:
+        default = fn()
+        tile_cache(kernel, M, K, N, **_gemm_fields(*plan))
+        got = fn()
+        assert _rel(got, plain()) < 1e-2, kernel
+        assert torch.equal(got, default), kernel
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 16])
+@pytest.mark.parametrize("M", [1, 4, 9, 32])
+@pytest.mark.parametrize("bits,G", ALL_FORMATS)
+def test_gemv_split_counts_match_plain(gen, tile_cache, splits, M, bits, G):
+    """K1 / K6 / K7, K13 (two segments over N) and K3 (two over K) under
+    split counts the cache names (each segment's count of ranges of whole
+    units nearest to ``splits``): within 1e-2 of the plain versions."""
+    from fastertransformer4codefuse_tpu_torch.ops.quant_matmul import split_chunk
+
+    K, K2 = (1152, 2560) if G else (1160, 2568)
+    N1, N2, N = 144, 384, 272
+    n, n2 = split_chunk(K, splits, G)[0], split_chunk(K2, splits, G)[0]
+    fmt = {(8, 0): "i8", (4, 0): "i4", (4, 32): "i4g", (8, 32): "i8g"}[bits, G]
+    tile_cache(f"gemv_{fmt}", M, K, N1, G, splits=[n])
+    tile_cache(f"ncat_gemv_{fmt}", M, K, N1 + N2, G, splits=[n, n])
+    tile_cache(f"pd_gemv_{fmt}", M, K + K2, N, G, splits=[n, n2])
+    for name, (kernel, plain) in _gemv_calls(gen, M, bits, G).items():
+        assert _rel(_cat(kernel()), _cat(plain())) < 1e-2, (name, splits)
+
+
+@pytest.mark.parametrize("splits", [2, 9])
+def test_gemv_rows_are_the_same_under_a_split_count(gen, tile_cache, splits):
+    """Under one split count served at every bucket 2-32, row r of K13 is
+    bit for bit the same at M = 2 .. 32 (the tile cache records one count
+    for those buckets)."""
+    K, N1, N2 = 5120, 384, 640
+    x1, x2 = _bf(gen, 32, K), _bf(gen, 32, K)
+    w1, s1 = _fmt_weight(gen, K, N1, 8, 0)
+    w2, s2 = _fmt_weight(gen, K, N2, 8, 0)
+    for M in (2, 4, 8, 16, 32):
+        tile_cache("ncat_gemv_i8", M, K, N1 + N2, splits=[splits, splits])
+    fn = lambda M: torch.cat(fused_qkv_up(x1[:M], x2[:M], w1, w2, s1, s2), 1)  # noqa: E731
+    full = fn(32)
+    for M in (2, 3, 5, 8, 9, 16, 17, 31):
+        assert torch.equal(fn(M), full[:M]), M
+
+
+def test_tile_cache_misses_and_refusals_on_the_card(gen, tile_cache):
+    """An entry of another card's SM count is a miss (the default launches,
+    counted in ``misses``); an entry naming a tile or a split the kernels
+    have no instance for raises, naming the entry."""
+    from fastertransformer4codefuse_tpu_torch.ops import tile_tuning
+
+    K, N = 1024, 256
+    w, s = _i8(gen, K, N), _scale(gen, N)
+    x, x1 = _bf(gen, 64, K), _bf(gen, 1, K)
+    ref, ref1 = quant_matmul(x, w, s), quant_matmul(x1, w, s)
+    tile_cache("gemm_i8", 64, K, N, sms=7, **_gemm_fields(64, 128, 4, 4))
+    misses = tile_tuning.misses["gemm_i8"]
+    assert torch.equal(quant_matmul(x, w, s), ref)
+    assert tile_tuning.misses["gemm_i8"] == misses + 1
+    for bad in (_gemm_fields(96, 128, 8, 8), _gemm_fields(128, 512, 8, 8),
+                _gemm_fields(128, 128, 8, 9), {**_gemm_fields(128, 128, 8, 8), "bk": 128}):
+        tile_cache("gemm_i8", 64, K, N, **bad)
+        with pytest.raises(ValueError, match=r"gemm_i8\|bm64\|k1024\|n256\|g0"):
+            quant_matmul(x, w, s)
+    for bad in ([0], [1000], [3, 3], "4"):
+        tile_cache("gemv_i8", 1, K, N, splits=bad)
+        with pytest.raises(ValueError, match=r"gemv_i8\|bm1\|k1024\|n256\|g0"):
+            quant_matmul(x1, w, s)
+    tile_cache("gemv_i8", 1, K, N, splits=[4])
+    assert _rel(quant_matmul(x1, w, s), ref1) < 1e-2
