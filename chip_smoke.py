@@ -148,8 +148,8 @@ Phases (any failure exits non-zero):
      card against CPU: logits, greedy tokens (teacher-forced past near-ties;
      for Mixtral also past router near-ties) and exact launches;
   9. the encoder-decoder, vision and audio families (``phase_seq2seq``),
-     none of which reaches a JAX kernel: T5-3B (google-t5/t5-3b, 24 + 24
-     layers, int8, random weights at HF's init scales drawn and quantized
+     none of which reaches a JAX kernel: T5-3B (google-t5/t5-3b, 12 + 12
+     of its 24 + 24 layers, int8, random weights at HF's init scales drawn and quantized
      on the card) behind a ``T5BatchingServer(max_batch=8)``: 8 greedy, 2
      sampled and 4 beam requests from threads, twice, the batches the
      coalescing rule's, greedy tokens held to a solo teacher-forced pass,
@@ -179,6 +179,21 @@ Phases (any failure exits non-zero):
      static program's argmax), the counted hops, broadcasts, all-reduces and
      all-gathers exact, each rank's launches exact at its stage's layers, and
      the times beside pp = 1's.
+  12. training (``phase_train``): K5's fp32 forward (with each row's
+     log-sum-exp) and its backward, the dK/dV and dQ kernels, against their
+     plain versions (the gradient of sum(out * ct) by autograd of the plain
+     forward; within 1e-4 of max |plain|) at CodeFuse-13B's 40 x 128 (B = 1,
+     S = 2048), proxy85m's B = 8, S = 2048, 8 x 256 with a length below S
+     and GQA g = 4, the autograd route the kernels' bytes, timed beside the
+     fp32 bound and SDPA's fp32 causal forward (+ backward); proxy85m (12 x
+     64 heads, 12 layers) trained in fp32 on the repository's text through
+     ``tools.train_proxy`` (100 steps at S = 256, then 3 at S = 2048; the
+     loss must fall below 0.8 x its first; K5 and each backward kernel
+     exactly L a step), ms per step, one more step at each width profiled
+     (device time, busy share, K5's share); the checkpoint saved and loaded the
+     same bytes; a short bf16 quality table of the trained model
+     (``tools.quality_table``: float, int8, int8 + int8 KV, int4 g128; K13,
+     K1, K3, K4 and K7 launched; int8's dNLL under 0.02).
 Phase 2 also holds the group-wise forms no served model makes: K1 and K13 on
 int8 weights with group scales (M = 1, 4, 1024) and K7 as the group-wise
 transposed head. For each path of phases 4 to 11 the kernel launch counters are zeroed just
@@ -2295,7 +2310,9 @@ def bert_launches(L, forwards):
 def kernel_table():
     """The kernel wrappers: name -> (wrapper, its counter, source, the TPU
     kernel it replaces)."""
-    from fastertransformer4codefuse_tpu_torch.ops.attention import prefill_attention_flash
+    from fastertransformer4codefuse_tpu_torch.ops.attention import (
+        prefill_attention_flash, prefill_flash_bwd_dkv, prefill_flash_bwd_dq,
+    )
     from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
         flash_chunk_paged, flash_decode_beam_stacked, flash_decode_paged, flash_decode_stacked,
     )
@@ -2310,6 +2327,7 @@ def kernel_table():
 
     src = "fastertransformer4codefuse_tpu_torch/csrc/"
     tpu = "fastertransformer4codefuse_tpu/ops/"
+    lib = "jax/experimental/pallas/ops/tpu/"
     # name -> (wrapper, its counter, source, the TPU kernel it replaces: the
     # line of its pl.pallas_call, or of the library flash_attention call for
     # K5). A packed-int4 form counts its launches apart (``launches_packed``)
@@ -2368,6 +2386,15 @@ def kernel_table():
         "quant_matmul_w4_group_head": (quant_matmul_w4_group, "launches_head",
                                        src + "quant_matmul_w4.cu",
                                        tpu + "quant_matmul_w4.py:376"),
+        # training (phase 12): K5's fp32 instance, counted apart and within
+        # its wrapper's launches, and the library kernel's backward (its
+        # custom_vjp's dK/dV and dQ pallas_calls, in the installed JAX)
+        "prefill_attention_flash_f32": (prefill_attention_flash, "launches_f32",
+                                        src + "prefill_flash_f32.cu", tpu + "attention.py:61"),
+        "prefill_flash_bwd_dkv": (prefill_flash_bwd_dkv, "launches", src + "prefill_flash_bwd.cu",
+                                  lib + "flash_attention.py:1121"),
+        "prefill_flash_bwd_dq": (prefill_flash_bwd_dq, "launches", src + "prefill_flash_bwd.cu",
+                                 lib + "flash_attention.py:1456"),
     }
 
 
@@ -2459,6 +2486,16 @@ def main() -> int:
                      if kern in decode_kernels and (st or ld)]
     if decode_spills:
         return fail(f"decode attention instances spilling: {decode_spills}")
+    # K5's fp32 instances and its backward (prefill_flash_f32.cu,
+    # prefill_flash_bwd.cu): <dh> of each of the three kernels
+    f32 = sorted((kern.split("prefill_f32_")[-1], args, regs, st, ld)
+                 for _, kern, args, regs, st, ld in entries if "prefill_f32_" in kern)
+    log("  K5 fp32 and backward registers (spill stores/loads, bytes): " + ", ".join(
+        f"{kern}<{args}> {regs} ({st}/{ld})" for kern, args, regs, st, ld in f32))
+    want = sorted((k, d) for k in ("bwd_dkv_kernel", "bwd_dq_kernel", "fwd_kernel")
+                  for d in ("128", "256", "64"))
+    if sorted((k, a) for k, a, *_ in f32) != want:
+        return fail(f"K5's fp32 and backward instances built: {f32}")
 
     kernels = kernel_table()
     records = {
@@ -2573,6 +2610,9 @@ def main() -> int:
     err = phase_pp(torch, pkg, kernels, launched)
     if err:
         return fail(f"pipeline parallelism: {err}")
+    err = phase_train(torch, pkg, kernels, launched, records)
+    if err:
+        return fail(f"training: {err}")
     for n in records:
         records[n]["launches"] = launched[n]
     # K2 is off the served routes: K13 + K3 replace it (phase 2 holds it);
@@ -2605,9 +2645,10 @@ CONFIGS = [
 # first layer (``first_layer``)
 REF_LAYERS = {"int8": 2, "int4 per-channel": 1, "int4 g128": 1}
 # phase 4's depth of each (the int8 model serves phases 4 and 5): 10 of the
-# 40 layers, to keep the run within its time limit with phases 8 and 9 (the
-# decode paths are host-bound, their time in proportion to the depth)
-SERVE_LAYERS = {"int8": 10, "int4 per-channel": 10, "int4 g128": 10}
+# 40 layers, the int4 models 6, to keep the run within its time limit with
+# phases 8, 9 and 12 (the decode paths are host-bound, their time in
+# proportion to the depth)
+SERVE_LAYERS = {"int8": 10, "int4 per-channel": 6, "int4 g128": 6}
 
 
 def gemm_of(weight_bits, group_size):
@@ -5393,7 +5434,11 @@ def phase_starcoder(torch, pkg, kernels, launched):
 
 # ---------------------------------------------------------------- phase 9 --
 # Published configurations, as HF's config classes name their attributes.
-# T5-3B: google-t5/t5-3b (relu FFN, tied head, no gating).
+# T5-3B: google-t5/t5-3b (relu FFN, tied head, no gating). Phase 9 serves
+# T5_LAYERS of its 24 + 24 layers at full width (its decode is host-bound,
+# its time in proportion to the depth), to keep the run within its time
+# limit with phase 12.
+T5_LAYERS = 12
 T5_3B = dict(d_model=1024, d_kv=128, num_heads=32, d_ff=16384, num_layers=24,
              num_decoder_layers=24, vocab_size=32128, relative_attention_num_buckets=32,
              relative_attention_max_distance=128, feed_forward_proj="relu",
@@ -5691,7 +5736,8 @@ def t5_step_profile(torch, engine, ids, lens, steps=8):
 
 
 def phase_t5_3b(torch, pkg, kernels, launched):
-    """T5-3B (google-t5/t5-3b: 24 + 24 layers, 1024 wide, 32 x 128 heads, FFN
+    """T5-3B (google-t5/t5-3b: T5_LAYERS + T5_LAYERS of its 24 + 24 layers, 1024
+    wide, 32 x 128 heads, FFN
     16384, vocab 32128) at full size on the card, int8 weights at HF's init
     scales, bf16 activations, served by a T5BatchingServer(max_batch=8): 8
     greedy requests (inputs 64-512 tokens, 64 out), 2 sampled (top_k 40,
@@ -5709,12 +5755,14 @@ def phase_t5_3b(torch, pkg, kernels, launched):
     from fastertransformer4codefuse_tpu_torch.models import registry, t5
     from fastertransformer4codefuse_tpu_torch.models.params import param_bytes
 
-    log("phase 9: T5-3B (google-t5/t5-3b, 24 + 24 layers, full width, int8 weights) behind a "
+    log(f"phase 9: T5-3B (google-t5/t5-3b, {T5_LAYERS} + {T5_LAYERS} of 24 + 24 layers, full "
+        "width, int8 weights) behind a "
         "T5BatchingServer on the card")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = registry.get("t5").config_from_hf(hf_ns(T5_3B))
+    cfg = registry.get("t5").config_from_hf(hf_ns(T5_3B, num_layers=T5_LAYERS,
+                                                   num_decoder_layers=T5_LAYERS))
     t0 = time.time()
     params = t5_random_params(torch, cfg, 0, "cuda", int8=True)
     torch.cuda.synchronize()
@@ -7208,6 +7256,268 @@ def phase_pp(torch, pkg, kernels, launched):
         f"the card, so these are no multi-card times): {times}; pp = 1 prefill {p1:.1f} ms, "
         f"decode {d1:.2f} ms/step")
     log(f"  phase 11: {time.time() - t0:.1f} s")
+    return None
+
+
+# Phase 12: training. proxy85m, the largest proxy QUALITY.md documents (12
+# heads x 64, 12 layers, FFN 3072, byte vocab), trained in fp32 at B = 8 on
+# the repository's text: TRAIN_STEPS at S = 256 (the trainer's default), then
+# TRAIN_LONG_STEPS at S = 2048, the width at which the JAX trainer reaches
+# the library kernels.
+TRAIN_PROXY = dict(heads=12, dh=64, layers=12, inter=3072)
+TRAIN_DEVICE = "cuda"
+TRAIN_BATCH = 8
+TRAIN_STEPS = 100
+TRAIN_LONG_STEPS = 3
+TRAIN_DROP = 0.8  # the loss of the last 5 steps at S = 256 below this x the first step's
+# K5's fp32 instances and its backward: max |kernel - plain| / max |plain|
+# (fp32 sums in another order over up to 2048 keys)
+TRAIN_TOL = 1e-4
+# the card's peak fp32 rate outside the tensor cores (NVIDIA's data sheet,
+# H100 SXM at 700 W): the fp32 kernels' bound
+F32_FLOPS = 67e12
+# the quality table's short form: its rows, the held-out bytes of its NLL and
+# of its decode-path NLL, the greedy prompts and tokens
+QT_ROWS = ("bf16", "int8", "int8 + int8 KV", "int4 g128")
+QT_BYTES, QT_DECODE_BYTES, QT_PROMPTS, QT_GEN = 8192, 512, 2, 16
+QT_INT8_DNLL = 0.02  # int8 against the float row, nats a byte
+TRAIN_CASES = (("B=1 S=2048 40x128", 1, 2048, [2048], 40, 40, 128),
+               ("B=8 S=2048 12x64 (proxy85m)", 8, 2048, [2048] * 8, 12, 12, 64),
+               ("B=2 S=1024 lengths [1024, 700] 8x256", 2, 1024, [1024, 700], 8, 8, 256),
+               ("B=1 S=2048 32x128 g=4", 1, 2048, [2048], 32, 8, 128))
+
+
+def phase_train(torch, pkg, kernels, launched, records):
+    """Training on the card: (a) K5's fp32 forward (with its log-sum-exp)
+    and the two backward kernels against their plain versions (the gradient
+    of sum(out * ct), ct seeded, by autograd of the plain forward) at
+    CodeFuse-13B's 40 x 128 (B = 1, S = 2048), proxy85m's training shape,
+    a dh-256 case with lengths below S and a GQA case (g = 4), timed with
+    SDPA's fp32 causal forward (+ backward) as the library yardstick;
+    (b) proxy85m trained through ``tools.train_proxy`` (autograd through the
+    model's prefill: K5 fp32 forward, dK/dV and dQ kernels; exact launch
+    counts; then one profiled step at each width); (c) ``save_params`` /
+    ``load_params`` round trip; (d) a short
+    bf16 quality table of the trained model (``tools.quality_table``:
+    float, int8, int8 + int8 KV, int4 g128; K13, K1, K3, K4 and K7 counted).
+    Returns an error or None."""
+    import gc
+
+    import torch.nn.functional as F
+
+    from fastertransformer4codefuse_tpu_torch.ops.attention import (
+        prefill_attention_flash, prefill_attention_flash_plain, prefill_flash_bwd_dkv,
+        prefill_flash_bwd_dq, prefill_flash_bwd_plain, prefill_flash_forward,
+        prefill_flash_lse_plain,
+    )
+    from fastertransformer4codefuse_tpu_torch.tools import quality_table as qt
+    from fastertransformer4codefuse_tpu_torch.tools import train_proxy as tp
+
+    log("phase 12: training on the card: K5 fp32 and its backward (dK/dV, dQ) against their "
+        "plain versions, proxy85m trained on the repository's text, a checkpoint round trip, a "
+        "short bf16 quality table")
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device(TRAIN_DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+
+    # (a) the kernels at the main path's widths; the first case fills the
+    # records. Work: the (query, key) pairs the causal and length bounds
+    # admit, 2 operations a pair and head dim a product: the forward takes
+    # QK^T and PV, dK/dV recomputes QK^T and takes dO V^T, P^T dO and dS^T Q,
+    # dQ recomputes QK^T and dO V^T and takes dS K.
+    names = ("prefill_attention_flash_f32", "prefill_flash_bwd_dkv", "prefill_flash_bwd_dq")
+    for ci, (label, B, S, lens, nH, nKV, dh) in enumerate(TRAIN_CASES):
+        def randn(*shape):
+            return torch.randn(shape, device=dev, generator=gen)
+
+        q, k, v, ct = randn(B, S, nH, dh), randn(B, S, nKV, dh), randn(B, S, nKV, dh), \
+            randn(B, S, nH, dh)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        sm = dh ** -0.5
+        n_pairs = sum(n * (n + 1) // 2 + (S - n) * n for n in lens) * nH
+        out, lse = prefill_flash_forward(q, k, v, ln, sm)
+        delta = (ct * out).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = prefill_flash_bwd_dkv(q, k, v, ct, lse, delta, ln, sm)
+        dq = prefill_flash_bwd_dq(q, k, v, ct, lse, delta, ln, sm)
+        ref = prefill_attention_flash_plain(q, k, v, ln, sm)
+        ref_lse = prefill_flash_lse_plain(q, k, ln, sm)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = prefill_attention_flash_plain(*leaves, ln, sm)
+        gq, gk, gv = torch.autograd.grad((o * ct).sum(), leaves)
+        del o, leaves
+        # the autograd route (PrefillFlash) gives the kernels' bytes
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        (prefill_attention_flash(*leaves, ln, sm) * ct).sum().backward()
+        same = all(torch.equal(a.grad, b) for a, b in zip(leaves, (dq, dk, dv)))
+        del leaves
+        torch.cuda.synchronize()
+        errs = {"out": rel_err(torch, out, ref), "lse": rel_err(torch, lse, ref_lse),
+                "dq": rel_err(torch, dq, gq), "dk": rel_err(torch, dk, gk),
+                "dv": rel_err(torch, dv, gv)}
+        finite = all(bool(torch.isfinite(t).all()) for t in (out, lse, dq, dk, dv))
+        log(f"  {label}: max |kernel - plain| / max |plain| "
+            + ", ".join(f"{n} {e[1]:.2e}" for n, e in errs.items())
+            + f" (tol {TRAIN_TOL:g}); through PrefillFlash's autograd the same bytes: {same}")
+        if not finite or not same or max(e[1] for e in errs.values()) > TRAIN_TOL:
+            return f"K5 fp32 / backward {label}: disagrees with the plain version"
+        for n, keys in zip(names, (("out", "lse"), ("dk", "dv"), ("dq",))):
+            records[n]["max_abs_err"] = max(records[n]["max_abs_err"],
+                                            *(errs[x][0] for x in keys))
+        if ci < 2:  # timed at 13B's heads and at the training shape
+            plain_all = lambda: prefill_flash_bwd_plain(q, k, v, ct, lse, delta, ln, sm)  # noqa
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True, scale=sm,
+                                                      enable_gqa=nKV != nH)
+
+            lh = [t.clone().requires_grad_() for t in (qh, kh, vh)]
+            cth = ct.transpose(1, 2)
+
+            def sdpa_fwd_bwd():
+                y = F.scaled_dot_product_attention(*lh, is_causal=True, scale=sm,
+                                                   enable_gqa=nKV != nH)
+                return torch.autograd.grad((y * cth).sum(), lh)
+
+            rw = nbytes(q, k, v, ln)
+            fb = rw + nbytes(ct, lse, delta)
+            timing = (
+                (names[0], lambda: prefill_flash_forward(q, k, v, ln, sm),
+                 lambda: (prefill_attention_flash_plain(q, k, v, ln, sm),
+                          prefill_flash_lse_plain(q, k, ln, sm)),
+                 sdpa, "sdpa fp32 is_causal forward", rw + nbytes(out, lse), 4 * n_pairs * dh),
+                (names[1], lambda: prefill_flash_bwd_dkv(q, k, v, ct, lse, delta, ln, sm),
+                 plain_all, sdpa_fwd_bwd, "sdpa fp32 is_causal forward + backward",
+                 fb + nbytes(dk, dv), 8 * n_pairs * dh),
+                (names[2], lambda: prefill_flash_bwd_dq(q, k, v, ct, lse, delta, ln, sm),
+                 plain_all, sdpa_fwd_bwd, "sdpa fp32 is_causal forward + backward",
+                 fb + nbytes(dq), 6 * n_pairs * dh))
+            for n, fn_k, fn_p, fn_lib, lib_label, n_bytes, flops in timing:
+                t_k = device_time_ms(torch, fn_k, reps=3, calls=3)
+                t_p = device_time_ms(torch, fn_p, reps=3, calls=2)
+                t_lib = device_time_ms(torch, fn_lib, reps=3, calls=3)
+                t_b, t_f = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+                b_ms, b_by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+                log(f"    {n:28s} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  bound {b_ms:.4f} ms "
+                    f"({b_by}, fp32 67 TFLOP/s; {b_ms / t_k:.1%} of it)  library {t_lib:.4f} ms "
+                    f"({lib_label}; kernel {t_k / t_lib:.2f}x)")
+                if ci == 0:
+                    records[n].update(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                                      library_ms=t_lib, library=lib_label)
+            del lh
+        del q, k, v, ct, out, lse, delta, dk, dv, dq, ref, ref_lse, gq, gk, gv
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_kernels = time.time() - t_phase
+
+    # (b) proxy85m trained through the tool's step (a fresh fp32 cache and
+    # the model's prefill each step, autograd, AdamW)
+    cfg = tp.sized_config(**TRAIN_PROXY)
+    train, held = tp.split_corpus(tp.load_corpus(REPO))
+    params = pkg.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    n_params = sum(t.numel() for _, t in tp.flatten(params))
+    opt = tp.make_optimizer(params)
+    n_steps = TRAIN_STEPS + TRAIN_LONG_STEPS
+    lr_at = tp.schedule_of(n_steps, 3e-4)
+    rng = np.random.default_rng(0)
+    L = cfg.layer_num
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    losses, step_ms = [], []
+    for i in range(n_steps):
+        S = 256 if i < TRAIN_STEPS else 2048
+        ids = torch.from_numpy(tp.draw_batch(rng, train, TRAIN_BATCH, S)).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(tp.train_step(cfg, params, opt, lr_at(i), ids))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    losses = [float(x) for x in losses]
+    expect = {"prefill_attention_flash": L * n_steps, "prefill_attention_flash_f32": L * n_steps,
+              "prefill_flash_bwd_dkv": L * n_steps, "prefill_flash_bwd_dq": L * n_steps}
+    err = check_run_counts(torch, kernels, launched, expect,
+                           f"proxy85m, {n_steps} training steps (K5 fp32 forward, dK/dV and dQ: "
+                           f"{L} a step each)")
+    if err:
+        return err
+    first, last = losses[0], statistics.mean(losses[TRAIN_STEPS - 5: TRAIN_STEPS])
+    long_losses = losses[TRAIN_STEPS:]
+    log(f"  proxy85m ({n_params / 1e6:.1f}M params, fp32; corpus {len(train)} train / "
+        f"{len(held)} held-out bytes): loss {first:.4f} at step 0 -> {last:.4f} (mean of steps "
+        f"{TRAIN_STEPS - 5}-{TRAIN_STEPS - 1}; must be below {TRAIN_DROP} x the first), then at "
+        f"S = 2048 {', '.join(f'{x:.4f}' for x in long_losses)}")
+    log(f"  training ms/step at B = {TRAIN_BATCH}: S = 256 median "
+        f"{statistics.median(step_ms[5:TRAIN_STEPS]):.1f} ms (steps 5-{TRAIN_STEPS - 1}; step 0 "
+        f"{step_ms[0]:.1f} ms), S = 2048 {', '.join(f'{x:.1f}' for x in step_ms[TRAIN_STEPS:])} "
+        f"ms; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({CARD})")
+    if not (np.isfinite(losses).all() and last < TRAIN_DROP * first and max(long_losses) < first):
+        return "proxy85m: the training loss did not fall"
+    # where a step goes: one more step at each width under torch.profiler
+    # (kernel activity only), its device time against the median step's wall
+    from fastertransformer4codefuse_tpu_torch.utils.profiling import summarize_trace, trace
+
+    for S, wall in ((256, statistics.median(step_ms[5:TRAIN_STEPS])),
+                    (2048, statistics.median(step_ms[TRAIN_STEPS:]))):
+        ids = torch.from_numpy(tp.draw_batch(rng, train, TRAIN_BATCH, S)).to(dev)
+        with trace(cpu=False) as prof:
+            tp.train_step(cfg, params, opt, lr_at(n_steps - 1), ids)
+        rows = [r[:3] for r in summarize_trace(prof, top=0)]
+        dev_ms = sum(r[1] for r in rows)
+        if not dev_ms:
+            return "the profiled training step shows no device time"
+        k5 = sum(ms for name, ms, _ in rows if "prefill_f32_" in name)
+        log(f"  a profiled step at S = {S}: device {dev_ms:.1f} ms against the median wall "
+            f"{wall:.1f} ms ({dev_ms / wall:.0%} busy); K5 fp32 + backward {k5:.1f} ms "
+            f"({k5 / dev_ms:.1%} of the device time); by kernel:")
+        for name, ms, n in rows[:6]:
+            log(f"    {ms:9.3f} ms {n:5d}x  {name[:90]}")
+    del opt
+
+    # (c) the checkpoint round trip (of the params after the profiled steps)
+    trained = tp.detached(params)
+    del params
+    path = os.path.join(REPO, "build", "phase12_proxy.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    try:
+        tp.save_params(path, trained)
+        back = tp.load_params(path, device=dev)
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    want, got = tp.flatten(trained), tp.flatten(back)
+    same = [k for k, _ in got] == [k for k, _ in want] and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(got, want))
+    log(f"  save_params -> load_params: {len(want)} leaves, the same bytes: {same}")
+    if not same:
+        return "the checkpoint round trip changed the params"
+    del back, got, want
+
+    # (d) the short quality table of the trained model, bf16 activations
+    zero_counts(kernels)
+    t0 = time.time()
+    rows = qt.quality_rows(cfg, trained, held[:QT_BYTES], "bf16", names=QT_ROWS,
+                           prompts=QT_PROMPTS, gen_len=QT_GEN, decode_bytes=QT_DECODE_BYTES)
+    torch.cuda.synchronize()
+    counts = read_counts(kernels)
+    for line in qt.table_lines(rows, "bf16"):
+        log("    " + line)
+    ran = {n: counts[n] for n in ("fused_qkv_up", "quant_matmul", "fused_proj_down",
+                                   "flash_decode", "quant_matmul_w4_group")}
+    log(f"  quality table ({len(rows)} rows over {QT_BYTES} held-out bytes, {time.time() - t0:.1f}"
+        f" s): launches {({n: c for n, c in counts.items() if c})}; K13, K1, K3, K4, K7: {ran}")
+    for n in kernels:
+        launched[n] += counts[n]
+    if counts["plain_routes"] or not all(ran.values()):
+        return "quality table: a kernel of its routes was not launched, or a plain route taken"
+    d8 = abs(rows[1][3])
+    if not all(np.isfinite(r[1]) for r in rows) or d8 >= QT_INT8_DNLL:
+        return f"quality table: int8 dNLL {d8:.4f} (limit {QT_INT8_DNLL})"
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  phase 12: {time.time() - t_phase:.1f} s (the kernels {t_kernels:.1f} s)")
     return None
 
 

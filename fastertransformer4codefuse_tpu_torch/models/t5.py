@@ -302,7 +302,9 @@ def decode_step(config: T5Config, params, state, tokens, pos: int, mesh=None):
     step's K/V written into the self-attention slabs, attention over
     positions 0..pos (the JAX package attends the whole slab under a causal
     mask, which weighs the later positions zero). tokens [B]. Returns
-    (logits [B, V] fp32, state), the state updated in place."""
+    (logits [B, V] fp32, state), the state updated in place. Under autograd
+    (a training loss through the served step, ``tools/t5_quality_row.py``)
+    attention reads a copy of the slabs' rows, as the JAX step is pure."""
     pos = int(pos)
     nH, dh = _heads(config, mesh), config.size_per_head
     dec = params["dec"]
@@ -317,8 +319,10 @@ def decode_step(config: T5Config, params, state, tokens, pos: int, mesh=None):
         q = _mh(h, lp["q_w"], nH, dh)
         state["self_k"][l, :, pos] = _mh(h, lp["k_w"], nH, dh)[:, 0]
         state["self_v"][l, :, pos] = _mh(h, lp["v_w"], nH, dh)[:, 0]
-        x = x + _attn(q, state["self_k"][l, :, : pos + 1], state["self_v"][l, :, : pos + 1],
-                      self_bias, lp["o_w"], mesh)
+        k_l, v_l = state["self_k"][l, :, : pos + 1], state["self_v"][l, :, : pos + 1]
+        if torch.is_grad_enabled():  # later slab writes must not reach saved rows
+            k_l, v_l = k_l.clone(), v_l.clone()
+        x = x + _attn(q, k_l, v_l, self_bias, lp["o_w"], mesh)
         hx = rmsnorm(x, lp["ln_x_w"], config.layernorm_eps)
         x = x + _attn(_mh(hx, lp["xq_w"], nH, dh), state["cross_k"][l], state["cross_v"][l],
                       cross_bias, lp["xo_w"], mesh)

@@ -50,6 +50,9 @@ _SIGNATURES = {
     "ftcf_flash_decode_beam": [P, P, P, P, P, P, P, P, P, LL, I, I, I, I, I, I, I, I, I, F, P],
     "ftcf_flash_chunk_paged": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
     "ftcf_prefill_flash": [P, P, P, P, P, I, I, I, I, I, F, P],
+    "ftcf_prefill_flash_f32": [P, P, P, P, P, P, I, I, I, I, I, F, P],
+    "ftcf_prefill_flash_bwd_dkv": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+    "ftcf_prefill_flash_bwd_dq": [P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
     "ftcf_sliding_window": [P, P, P, P, P, I, I, I, I, I, I, P],
 }
 

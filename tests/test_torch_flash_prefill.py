@@ -7,11 +7,22 @@ Tolerances: against the JAX Pallas flash kernel in interpret mode (bf16
 inputs, tests/test_flash_prefill.py's cases) within 5e-2 on the valid rows
 (the kernel's pads attend only pads there, and no caller reads them);
 against the JAX XLA prefill (fp32) within 1e-5 on every row, MHA and GQA
-(summation order only)."""
+(summation order only).
+
+K5's gradient (fp32, the training path): the plain version differentiated by
+autograd against ``jax.grad`` of the JAX package's K5 (the library Pallas
+flash_attention, whose backward is its dK/dV and dQ kernels) in interpret
+mode, full lengths, within 1e-4 of max |grad| (summation order over S
+keys); against ``jax.grad`` of the XLA prefill with lengths below S and GQA
+within 1e-5; the backward kernels' plain version (``prefill_flash_bwd_plain``,
+from lse and delta) against autograd within 1e-5; and ``PrefillFlash``'s
+plumbing (delta, the operands handed to the two backward kernels, the
+gradients' order) with the launches replaced by their plain versions."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
@@ -91,7 +102,7 @@ def test_k5_raises_on_what_it_does_not_take():
     lens = torch.tensor([8], dtype=torch.int32)
     bad = [
         (torch.zeros(1, 8, 2, 96, dtype=torch.bfloat16), lens),  # dh 96 (64 is served)
-        (torch.zeros(1, 8, 2, 128), lens),  # fp32
+        (torch.zeros(1, 8, 2, 128, dtype=torch.float16), lens),  # fp16 (bf16 and fp32 are served)
         (torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16), lens.long()),  # int64 lengths
     ]
     for q, ln in bad:
@@ -100,3 +111,126 @@ def test_k5_raises_on_what_it_does_not_take():
     q = torch.zeros(1, 8, 3, 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="multiple"):
         att.prefill_attention_flash(_on_card(q), q[:, :, :2], q[:, :, :2], lens, 0.1)
+
+
+def _grad_case(rng, B, S, nH, nKV, dh):
+    q = rng.standard_normal((B, S, nH, dh)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, nKV, dh)).astype(np.float32) for _ in range(2))
+    ct = rng.standard_normal((B, S, nH, dh)).astype(np.float32)
+    return q, k, v, ct
+
+
+def _port_grads(q, k, v, ct, lengths, sm):
+    """d sum(out * ct) / d (q, k, v) of the port's K5 on the CPU (autograd of
+    the plain version)."""
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = att.prefill_attention_flash(tq, tk, tv, torch.tensor(lengths, dtype=torch.int32), sm)
+    (out * torch.from_numpy(ct)).sum().backward()
+    return [t.grad.numpy() for t in (tq, tk, tv)]
+
+
+def _close_to_max(got, want, tol):
+    for g, w, name in zip(got, want, "qkv"):
+        err = np.abs(g - np.asarray(w)).max() / np.abs(np.asarray(w)).max()
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("S", [256, 2048])
+def test_k5_gradient_matches_the_jax_flash_backward_interpret(S):
+    """The library kernel's dK/dV and dQ kernels run in interpret mode."""
+    rng = np.random.default_rng(3)
+    q, k, v, ct = _grad_case(rng, 1, S, 2, 2, 64)
+    sm = 1.0 / 8.0
+    lens = jnp.asarray([S], jnp.int32)
+
+    def loss(a, b, c):
+        return jnp.sum(jatt.prefill_attention_flash(a, b, c, lens, sm) * ct)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    _close_to_max(_port_grads(q, k, v, ct, [S], sm), want, 1e-4)
+
+
+@pytest.mark.parametrize("nH,nKV", [(4, 4), (4, 2)])
+def test_k5_gradient_matches_jax_xla_with_lengths_and_gqa(nH, nKV):
+    rng = np.random.default_rng(4)
+    B, S, dh = 3, 128, 16
+    lengths = [128, 70, 1]
+    q, k, v, ct = _grad_case(rng, B, S, nH, nKV, dh)
+    sm = 1.0 / 4.0
+    mask = jatt.make_prefill_mask(jnp.asarray(lengths, jnp.int32), S)
+
+    def loss(a, b, c):
+        return jnp.sum(jatt.prefill_attention(a, b, c, mask, sm) * ct)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    _close_to_max(_port_grads(q, k, v, ct, lengths, sm), want, 1e-5)
+
+
+@pytest.mark.parametrize("nH,nKV,dh", [(2, 2, 64), (4, 1, 16)])
+def test_k5_backward_plain_from_lse_and_delta_equals_autograd(nH, nKV, dh):
+    """What the dK/dV and dQ kernels compute, from the forward's lse and
+    delta = rowsum(dO * O), is the gradient of the plain forward; so are the
+    CPU paths of their wrappers."""
+    rng = np.random.default_rng(5)
+    B, S = 2, 96
+    lengths = torch.tensor([96, 40], dtype=torch.int32)
+    q, k, v, ct = (torch.from_numpy(x) for x in _grad_case(rng, B, S, nH, nKV, dh))
+    sm = dh ** -0.5
+    want = _port_grads(*(x.numpy() for x in (q, k, v, ct)), lengths.tolist(), sm)
+    out = att.prefill_attention_flash_plain(q, k, v, lengths, sm)
+    lse = att.prefill_flash_lse_plain(q, k, lengths, sm)
+    assert lse.shape == (B, nH, S)
+    delta = (ct * out).sum(-1).transpose(1, 2).contiguous()
+    got = att.prefill_flash_bwd_plain(q, k, v, ct, lse, delta, lengths, sm)
+    _close_to_max([g.numpy() for g in got], want, 1e-5)
+    dk, dv = att.prefill_flash_bwd_dkv(q, k, v, ct, lse, delta, lengths, sm)
+    dq = att.prefill_flash_bwd_dq(q, k, v, ct, lse, delta, lengths, sm)
+    for a, b in zip((dq, dk, dv), got):
+        assert torch.equal(a, b)
+
+
+def test_prefill_flash_function_wires_the_backward_kernels(monkeypatch):
+    """``PrefillFlash`` with each launch replaced by its plain version: the
+    forward saves lse, the backward hands (q, k, v, dO, lse, delta) to the
+    dK/dV and dQ kernels, and autograd gets (dq, dk, dv)."""
+    rng = np.random.default_rng(6)
+    B, S, nH, nKV, dh = 2, 64, 4, 2, 64
+    lengths = torch.tensor([64, 33], dtype=torch.int32)
+    q, k, v, ct = (torch.from_numpy(x) for x in _grad_case(rng, B, S, nH, nKV, dh))
+    sm = 0.125
+    seen = []
+
+    def fwd(q, k, v, lens, scale):
+        return (att.prefill_attention_flash_plain(q, k, v, lens, scale),
+                att.prefill_flash_lse_plain(q, k, lens, scale))
+
+    def dkv(*a):
+        seen.append("dkv")
+        return att.prefill_flash_bwd_plain(*a)[1:]
+
+    def dq(*a):
+        seen.append("dq")
+        return att.prefill_flash_bwd_plain(*a)[0]
+
+    monkeypatch.setattr(att, "prefill_flash_forward", fwd)
+    monkeypatch.setattr(att, "prefill_flash_bwd_dkv", dkv)
+    monkeypatch.setattr(att, "prefill_flash_bwd_dq", dq)
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    out = att.PrefillFlash.apply(tq, tk, tv, lengths, sm)
+    (out * ct).sum().backward()
+    assert seen == ["dkv", "dq"]
+    want = _port_grads(*(x.numpy() for x in (q, k, v, ct)), lengths.tolist(), sm)
+    _close_to_max([t.grad.numpy() for t in (tq, tk, tv)], want, 1e-5)
+
+
+def test_k5_refuses_a_gradient_off_fp32():
+    """A bf16 gradient has no backward kernel: the wrapper raises before any
+    launch; without a gradient bf16 is served."""
+    lens = torch.tensor([8], dtype=torch.int32)
+    q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(ValueError, match="fp32 only"):
+        att.prefill_attention_flash(_on_card(q), q, q, lens, 0.1)
+    k32 = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="must be one of"):  # mixed dtypes
+        att.prefill_attention_flash(_on_card(k32), k32, q.detach(), lens, 0.1)

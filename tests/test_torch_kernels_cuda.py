@@ -7,7 +7,9 @@ group-scale instances of K7, K2, K3 and K13 (int4, the JAX package's
 ``FTCF_GSCALE_BF16=0``) against their plain versions and, on scales that
 bf16 holds exactly, bit for bit against the bf16 instances; K5 at key tiles and
 one past them, lengths of 1, GQA up to 8 query heads a KV head, dh 64, 128
-and 256, two calls equal byte for byte), K4/K9/K10/K11 also on packed int4 caches (chip_smoke.py
+and 256, two calls equal byte for byte; its fp32 instance with the
+log-sum-exp and its backward, the dK/dV and dQ kernels, within 1e-4 through
+the kernels' wrappers and autograd, deterministic), K4/K9/K10/K11 also on packed int4 caches (chip_smoke.py
 covers the CodeFuse-13B and Longformer-base shapes); K11 also bit for bit
 against K4 over a physically gathered copy of its cache. The prefill-width
 GEMM (K1/K6/K7/K13 at M > 32) at its tile edges, on a layer's view of a
@@ -46,6 +48,10 @@ import chip_smoke
 from fastertransformer4codefuse_tpu_torch.ops.attention import (
     prefill_attention_flash,
     prefill_attention_flash_plain,
+    prefill_flash_bwd_dkv,
+    prefill_flash_bwd_dq,
+    prefill_flash_forward,
+    prefill_flash_lse_plain,
 )
 from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
     flash_chunk_paged,
@@ -543,6 +549,63 @@ def test_k5_is_deterministic(gen):
     b = prefill_attention_flash(q, k, v, ln, dh ** -0.5)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,S,nH,nKV,dh,lens", [
+    (1, 200, 2, 2, 64, [200]), (2, 300, 4, 2, 128, [300, 77]), (2, 130, 2, 2, 256, [130, 1]),
+    (3, 70, 6, 3, 64, [70, 5, 64]), (1, 129, 8, 1, 128, [129]), (2, 65, 4, 4, 256, [33, 65])])
+def test_k5_f32_and_its_backward_match_plain(gen, B, S, nH, nKV, dh, lens):
+    """K5's fp32 forward (out and lse) and its dK/dV and dQ kernels against
+    the plain versions: the gradient of sum(out * ct) by autograd of the
+    plain forward, at lengths of 1, S off the tiles (64 rows, 32 at dh 256)
+    and GQA up to 8 query heads a KV head; the autograd route gives the
+    kernels' bytes and counts one launch of each. Tolerance 1e-4 of max
+    |plain| (fp32 sums in another order)."""
+    q, k, v = (torch.randn(B, S, n, dh, device="cuda", generator=gen) for n in (nH, nKV, nKV))
+    ct = torch.randn(B, S, nH, dh, device="cuda", generator=gen)
+    ln = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    sm = dh ** -0.5
+    out, lse = prefill_flash_forward(q, k, v, ln, sm)
+    assert _rel(out, prefill_attention_flash_plain(q, k, v, ln, sm)) < 1e-4
+    assert _rel(lse, prefill_flash_lse_plain(q, k, ln, sm)) < 1e-4
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad((prefill_attention_flash_plain(*leaves, ln, sm) * ct).sum(), leaves)
+    delta = (ct * out).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = prefill_flash_bwd_dkv(q, k, v, ct, lse, delta, ln, sm)
+    dq = prefill_flash_bwd_dq(q, k, v, ct, lse, delta, ln, sm)
+    for got, ref in zip((dq, dk, dv), want):
+        assert _rel(got, ref) < 1e-4
+    before = (prefill_attention_flash.launches_f32, prefill_flash_bwd_dkv.launches,
+              prefill_flash_bwd_dq.launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (prefill_attention_flash(*leaves, ln, sm) * ct).sum().backward()
+    torch.cuda.synchronize()
+    assert (prefill_attention_flash.launches_f32, prefill_flash_bwd_dkv.launches,
+            prefill_flash_bwd_dq.launches) == tuple(n + 1 for n in before)
+    for t, ref in zip(leaves, (dq, dk, dv)):
+        assert torch.equal(t.grad, ref)
+
+
+def test_k5_f32_backward_is_deterministic(gen):
+    B, S, nH, nKV, dh = 2, 300, 8, 2, 128
+    q, k, v = (torch.randn(B, S, n, dh, device="cuda", generator=gen) for n in (nH, nKV, nKV))
+    ct = torch.randn(B, S, nH, dh, device="cuda", generator=gen)
+    ln = torch.tensor([300, 151], dtype=torch.int32, device="cuda")
+    runs = []
+    for _ in range(2):
+        out, lse = prefill_flash_forward(q, k, v, ln, 0.09)
+        delta = (ct * out).sum(-1).transpose(1, 2).contiguous()
+        runs.append((out, lse, *prefill_flash_bwd_dkv(q, k, v, ct, lse, delta, ln, 0.09),
+                     prefill_flash_bwd_dq(q, k, v, ct, lse, delta, ln, 0.09)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_k5_refuses_a_bf16_gradient_on_the_card(gen):
+    q = torch.randn(1, 64, 2, 64, device="cuda", generator=gen).bfloat16().requires_grad_()
+    ln = torch.tensor([64], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="fp32 only"):
+        prefill_attention_flash(q, q, q, ln, 0.1)
 
 
 def _packed(gen, shape, kind):

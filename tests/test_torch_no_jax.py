@@ -1,6 +1,7 @@
 """The port imports torch and never jax: every module of
-fastertransformer4codefuse_tpu_torch, and chip_smoke.py, import in a fresh
-interpreter with no jax module loaded."""
+fastertransformer4codefuse_tpu_torch (its quality tools under ``tools/``
+included), and chip_smoke.py, import in a fresh interpreter with no jax or
+optax module loaded."""
 import os
 import subprocess
 import sys
@@ -13,8 +14,10 @@ import fastertransformer4codefuse_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert {"parallel", "parallel.distributed", "parallel.pipeline", "parallel.sharding"} <= {
-    n.split(".", 1)[1] for n in names}
+assert {"parallel", "parallel.distributed", "parallel.pipeline", "parallel.sharding", "tools",
+        "tools.train_proxy", "tools.quality_eval", "tools.quality_table",
+        "tools.t5_quality_row"} <= {n.split(".", 1)[1] for n in names}
+assert "optax" not in sys.modules
 import chip_smoke
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 assert not any(m.startswith("fastertransformer4codefuse_tpu.") for m in sys.modules)
@@ -37,5 +40,6 @@ def test_port_imports_no_jax():
     # with the encoder-decoder, vision and audio families (models/t5,
     # engine/t5_engine, models/bart, models/vit, models/swin, models/deberta,
     # models/xlnet, models/conformer); 75 with parallel/ (the package,
-    # distributed, sharding); 76 with parallel/pipeline
-    assert int(out.stdout.strip().splitlines()[-1]) >= 76
+    # distributed, sharding); 76 with parallel/pipeline; 81 with tools/ (the
+    # package, train_proxy, quality_eval, quality_table, t5_quality_row)
+    assert int(out.stdout.strip().splitlines()[-1]) >= 81

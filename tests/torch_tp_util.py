@@ -13,6 +13,7 @@ Cases are functions of this module named in ``CASES``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import pickle
 import socket
@@ -772,7 +773,19 @@ def main(argv) -> int:
                 out[name] = {"error": traceback.format_exc()}
     with open(os.path.join(d, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+    # Tear the groups down together and while the interpreter is whole: no
+    # rank shuts its gloo pairs while a peer still talks on them, and every
+    # group (the meshes' subgroups, the front ends' control groups, the
+    # default group) is shut down and freed here, not in the interpreter's
+    # teardown, where a gloo thread still joinable aborted the process
+    # ("terminate called without an active exception").
+    try:
+        torch.distributed.barrier()
+    except RuntimeError:  # a group a case broke: shut down all the same
+        pass
     torch.distributed.destroy_process_group()
+    _MESHES.clear()
+    gc.collect()
     return 0
 
 
