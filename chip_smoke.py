@@ -2496,6 +2496,10 @@ def main() -> int:
                   for d in ("128", "256", "64"))
     if sorted((k, a) for k, a, *_ in f32) != want:
         return fail(f"K5's fp32 and backward instances built: {f32}")
+    bwd_spills = [f"{kern}<{args}>" for kern, args, regs, st, ld in f32
+                  if kern.startswith("bwd_") and (st or ld)]
+    if bwd_spills:
+        return fail(f"K5's backward (3xTF32) instances spilling: {bwd_spills}")
 
     kernels = kernel_table()
     records = {
@@ -7273,9 +7277,11 @@ TRAIN_DROP = 0.8  # the loss of the last 5 steps at S = 256 below this x the fir
 # K5's fp32 instances and its backward: max |kernel - plain| / max |plain|
 # (fp32 sums in another order over up to 2048 keys)
 TRAIN_TOL = 1e-4
-# the card's peak fp32 rate outside the tensor cores (NVIDIA's data sheet,
-# H100 SXM at 700 W): the fp32 kernels' bound
-F32_FLOPS = 67e12
+# the fastest route to fp32-accurate products on the card: 3xTF32, three
+# TF32 tensor-core MMAs a product (495 TFLOP/s dense TF32, NVIDIA's data
+# sheet, H100 SXM at 700 W, over 3), against 67 TFLOP/s of fp32 FMA: the
+# fp32 K5 kernels' bound, whichever route each kernel takes
+F32_FLOPS = 495e12 / 3
 # the quality table's short form: its rows, the held-out bytes of its NLL and
 # of its decode-path NLL, the greedy prompts and tokens
 QT_ROWS = ("bf16", "int8", "int8 + int8 KV", "int4 g128")
@@ -7293,7 +7299,8 @@ def phase_train(torch, pkg, kernels, launched, records):
     of sum(out * ct), ct seeded, by autograd of the plain forward) at
     CodeFuse-13B's 40 x 128 (B = 1, S = 2048), proxy85m's training shape,
     a dh-256 case with lengths below S and a GQA case (g = 4), timed with
-    SDPA's fp32 causal forward (+ backward) as the library yardstick;
+    SDPA's fp32 causal forward (the forward's library yardstick) and its
+    backward alone (the backward kernels'), bounds at 3xTF32's rate;
     (b) proxy85m trained through ``tools.train_proxy`` (autograd through the
     model's prefill: K5 fp32 forward, dK/dV and dQ kernels; exact launch
     counts; then one profiled step at each width); (c) ``save_params`` /
@@ -7376,10 +7383,13 @@ def phase_train(torch, pkg, kernels, launched, records):
             lh = [t.clone().requires_grad_() for t in (qh, kh, vh)]
             cth = ct.transpose(1, 2)
 
-            def sdpa_fwd_bwd():
-                y = F.scaled_dot_product_attention(*lh, is_causal=True, scale=sm,
+            # SDPA's backward alone: its forward once, the gradient of y
+            # against ct timed (the graph kept for the next call)
+            y_lib = F.scaled_dot_product_attention(*lh, is_causal=True, scale=sm,
                                                    enable_gqa=nKV != nH)
-                return torch.autograd.grad((y * cth).sum(), lh)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(y_lib, lh, grad_outputs=cth, retain_graph=True)
 
             rw = nbytes(q, k, v, ln)
             fb = rw + nbytes(ct, lse, delta)
@@ -7389,10 +7399,10 @@ def phase_train(torch, pkg, kernels, launched, records):
                           prefill_flash_lse_plain(q, k, ln, sm)),
                  sdpa, "sdpa fp32 is_causal forward", rw + nbytes(out, lse), 4 * n_pairs * dh),
                 (names[1], lambda: prefill_flash_bwd_dkv(q, k, v, ct, lse, delta, ln, sm),
-                 plain_all, sdpa_fwd_bwd, "sdpa fp32 is_causal forward + backward",
+                 plain_all, sdpa_bwd, "sdpa fp32 is_causal backward alone",
                  fb + nbytes(dk, dv), 8 * n_pairs * dh),
                 (names[2], lambda: prefill_flash_bwd_dq(q, k, v, ct, lse, delta, ln, sm),
-                 plain_all, sdpa_fwd_bwd, "sdpa fp32 is_causal forward + backward",
+                 plain_all, sdpa_bwd, "sdpa fp32 is_causal backward alone",
                  fb + nbytes(dq), 6 * n_pairs * dh))
             for n, fn_k, fn_p, fn_lib, lib_label, n_bytes, flops in timing:
                 t_k = device_time_ms(torch, fn_k, reps=3, calls=3)
@@ -7401,12 +7411,12 @@ def phase_train(torch, pkg, kernels, launched, records):
                 t_b, t_f = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
                 b_ms, b_by = (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
                 log(f"    {n:28s} kernel {t_k:.4f} ms  plain {t_p:.4f} ms  bound {b_ms:.4f} ms "
-                    f"({b_by}, fp32 67 TFLOP/s; {b_ms / t_k:.1%} of it)  library {t_lib:.4f} ms "
-                    f"({lib_label}; kernel {t_k / t_lib:.2f}x)")
+                    f"({b_by}, 3xTF32 165 TFLOP/s; {b_ms / t_k:.1%} of it)  library "
+                    f"{t_lib:.4f} ms ({lib_label}; kernel {t_k / t_lib:.2f}x)")
                 if ci == 0:
                     records[n].update(ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                                       library_ms=t_lib, library=lib_label)
-            del lh
+            del lh, y_lib
         del q, k, v, ct, out, lse, delta, dk, dv, dq, ref, ref_lse, gq, gk, gv
         gc.collect()
         torch.cuda.empty_cache()
@@ -7415,7 +7425,7 @@ def phase_train(torch, pkg, kernels, launched, records):
     # (b) proxy85m trained through the tool's step (a fresh fp32 cache and
     # the model's prefill each step, autograd, AdamW)
     cfg = tp.sized_config(**TRAIN_PROXY)
-    train, held = tp.split_corpus(tp.load_corpus(REPO))
+    train, held = tp.split_corpus(tp.load_tracked_corpus(REPO))
     params = pkg.init_params(cfg, seed=0, dtype=torch.float32, device=dev)
     n_params = sum(t.numel() for _, t in tp.flatten(params))
     opt = tp.make_optimizer(params)

@@ -1,109 +1,246 @@
 // K5's backward in fp32: the C entry points of the dK/dV and dQ kernels, the
-// two kernels of the library flash_attention's backward. Both recompute
+// two kernels of the library flash_attention's backward,
+// _flash_attention_bwd_dkv (jax/experimental/pallas/ops/tpu/
+// flash_attention.py:1121) and _flash_attention_bwd_dq (:1456), reached
+// through jax.value_and_grad in tools/train_proxy.py. Both recompute
 // P = exp(scale * Q K^T - lse) under the causal / length mask from the
 // forward's lse (prefill_flash_f32.cu) and take delta = rowsum(dO * O),
-// computed outside; dS = P * (dO V^T - delta). Tiles, bound and design are
-// in prefill_flash_f32.cuh.
+// computed outside as the library computes di; dS = P * (dP - delta) with
+// dP = dO V^T. dK/dV takes a key tile: dV = P^T dO, dK = scale * dS^T Q,
+// summed over the g query heads of its KV head. dQ takes a query tile:
+// dQ = scale * dS K. Operand layouts are in prefill_flash_f32.cuh.
+//
+// Bound: operations. At CodeFuse-13B (40 heads x 128, S = 2048) the causal
+// pairs are 84M; dK/dV does 8 FLOP a pair and head dim (QK^T and dO V^T
+// again, P^T dO, dS^T Q: 86 GFLOP), dQ 6 (QK^T, dO V^T, dS K: 64 GFLOP),
+// against ~250 MB of operands and gradients: over 250 FLOP a byte. An
+// fp32-accurate product has two routes on this card: the FMA units (67
+// TFLOP/s) or the tensor cores by 3xTF32 (ftcf_mma.cuh: three TF32 MMAs over
+// the operands split into a big and a small TF32 part, 495 / 3 = 165
+// TFLOP/s). The bound is the second: 0.52 ms for dK/dV, 0.39 ms for dQ.
+//
+// Design.
+//  - Every product is mma.sync m16n8k8 in 3xTF32 with fp32 accumulators; no
+//    one-term TF32 anywhere (it keeps about three digits). The split is
+//    made in registers as a fragment is loaded.
+//  - A block of 8 warps owns FIX rows (keys in dK/dV, queries in dQ: 128,
+//    64 at dh 256), each warp 16 of them; at dh 256 two warps share 16 rows
+//    and each accumulates half the head dim (both compute the full scores),
+//    so a warp holds at most 16 x 128 fp32 of each gradient. The block's
+//    own rows stay in shared memory; the other side streams in tiles of STR
+//    rows (32, 16 at dh 256) through a double-buffered cp.async ring, the
+//    next tile landing while the current one is multiplied: in dK/dV the Q
+//    and dO tiles with their lse and delta, walked over the g heads; in dQ
+//    the K and V tiles. Tiles are sized so that no instance spills and the
+//    ring fits beside the fixed tiles (203 KB at dh 128).
+//  - The score products contract over the head dim: both operands are
+//    K-major, and ldmatrix (b16, no .trans) gives the TF32 fragment word for
+//    word. The products with P, dS contract over a tile's rows: their A
+//    operand is the score block itself, kept in registers, with the
+//    contraction index permuted in each step of 8 (k = t is element 2t,
+//    k = t + 4 is 2t + 1) so that the accumulator registers are the A
+//    fragment as they stand; B then takes rows 2t and 2t + 1 of the tile by
+//    scalar loads. A row stride of dh + 4 floats keeps rows 16-byte aligned
+//    for cp.async and ldmatrix and leaves both load patterns free of bank
+//    conflicts (8 rows of 16 bytes; 8 t + g over the 32 lanes).
+//  - No atomics: the two-kernel split stays, so two calls give equal bytes.
+//    Key tiles with the most queries and query tiles with the longest rows
+//    are scheduled first.
+//
+// Error: each 3xTF32 product leaves out ~2^-22 of its terms, below fp32's
+// own rounding of the sums over up to 2048 keys; the kernels stay within
+// 1e-4 of max |plain| (tests/test_torch_flash_prefill.py holds a model of
+// the split product to that on the CPU, chip_smoke.py phase 12 the kernels).
+#include "ftcf_mma.cuh"
 #include "prefill_flash_f32.cuh"
 
 namespace ftcf {
 namespace f32attn {
 
-// One score of a (key j, query i) pair, in place: s becomes the probability
-// p = exp2(s * sl2 - lse2_i) where j <= min(i, len - 1) and i < S (else 0),
-// and dp the score gradient ds = p * (dp - delta_i).
-__device__ __forceinline__ void probs(float& s, float& dp, int key, int query, int len, int S,
-                                      float sl2, float lse2, float delta) {
-  const bool ok = query < S && key <= min(query, len - 1);
-  const float p = ok ? exp2f(s * sl2 - lse2) : 0.f;
-  s = p;
-  dp = p * (dp - delta);
+template <int DH>
+struct BwdTile {
+  static constexpr int NSPLIT = DH == 256 ? 2 : 1;  // warps that share 16 rows
+  static constexpr int FIX = DH == 256 ? 64 : 128;  // the block's own rows
+  static constexpr int STR = DH == 256 ? 16 : 32;   // rows of a streamed tile
+  static constexpr int LD = DH + 4;                 // row stride in shared memory
+  static constexpr int DW = DH / NSPLIT;            // gradient columns a warp holds
+  static constexpr int NT = STR / 8;                // n-blocks of a score block
+  static constexpr int NB = DW / 8;                 // n-blocks of a gradient
+  static constexpr int THREADS = FIX / 16 * NSPLIT * 32;
+  static constexpr int STAGE = 2 * STR * LD + 2 * STR;  // floats: two tiles, two vectors
+  static constexpr size_t SMEM = (size_t)(2 * FIX * LD + 2 * STAGE) * sizeof(float);
+};
+
+// Rows [r0, r0 + N) of one head (row r at src + r * stride floats) into
+// shared memory with row stride dh + 4, by cp.async; rows at or past
+// `limit` are zero.
+template <int DH, int N, int NTHREADS>
+__device__ __forceinline__ void copy_rows_async(float* dst, const float* src, long long stride,
+                                                int r0, int limit) {
+  constexpr int V = DH / 4;  // 16 bytes a copy
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < N * V; idx += NTHREADS) {
+    const int r = idx / V, c = (idx % V) * 4;
+    const bool ok = r0 + r < limit;
+    cp_async16(dst + r * (DH + 4) + c, ok ? src + (long long)(r0 + r) * stride + c : src,
+               ok ? 16 : 0);
+  }
+}
+
+// acc[n] += A B^T over the head dim, 3xTF32: A rows ra .. ra + 15 of one
+// tile, B rows 0 .. 8 NT - 1 of another (both stride dh + 4): a 16 x 8 NT
+// score block in the accumulator layout (rows g, g + 8; columns 2t, 2t + 1).
+template <int DH, int NT>
+__device__ __forceinline__ void score_block(float (&acc)[NT][4], const float* A, int ra,
+                                            const float* B) {
+  constexpr int LD = DH + 4;
+#pragma unroll 2
+  for (int c = 0; c < DH; c += 8) {
+    uint32_t x[4], ab[4], as[4];
+    ldmatrix_a_tf32(x, A, LD, ra, c);
+    split_tf32<4>(x, ab, as);
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      uint32_t y[4], bb[4], bs[4];
+      ldmatrix_b2_tf32(y, B, LD, 8 * n, c);
+      split_tf32<4>(y, bb, bs);
+      mma_1688_3xtf32(acc[n], ab, as, bb, bs);
+      mma_1688_3xtf32(acc[n + 1], ab, as, bb + 2, bs + 2);
+    }
+  }
+}
+
+// acc[nb] += W M, 3xTF32: W a 16 x 8 NT score block in the accumulator
+// layout, M rows 0 .. 8 NT - 1 of a tile (stride dh + 4), columns
+// c0 .. c0 + 8 NB - 1. The contraction index is permuted in each step of 8
+// (k = t is row 2t, k = t + 4 is row 2t + 1), so W's registers are the A
+// fragment as they stand and M's B fragment is rows 2t, 2t + 1, column g.
+// The tensor cores align and truncate the terms of each MMA to the largest
+// one, the accumulator included: over the ~1000 MMAs of a long sum the
+// truncations would add up (one way) to ~1e-4 of the sum. So each tile's
+// product is summed from zero (NT x 3 MMAs, NG independent chains) and added
+// to acc in fp32, rounded to nearest.
+template <int DH, int NT, int NB>
+__device__ __forceinline__ void scores_times_rows_tf32(float (&acc)[NB][4],
+                                                       const float (&w)[NT][4], const float* M,
+                                                       int c0) {
+  constexpr int LD = DH + 4, NG = 4;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  uint32_t ab[NT][4], as[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const uint32_t x[4] = {__float_as_uint(w[n][0]), __float_as_uint(w[n][2]),
+                           __float_as_uint(w[n][1]), __float_as_uint(w[n][3])};
+    split_tf32<4>(x, ab[n], as[n]);
+  }
+  const float* m = M + 2 * t * LD + c0 + g;
+#pragma unroll
+  for (int nb0 = 0; nb0 < NB; nb0 += NG) {
+    float part[NG][4] = {};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < NG; ++j) {
+        const float* r = m + 8 * n * LD + 8 * (nb0 + j);
+        const uint32_t y[2] = {__float_as_uint(r[0]), __float_as_uint(r[LD])};
+        uint32_t bb[2], bs[2];
+        split_tf32<2>(y, bb, bs);
+        mma_1688_3xtf32(part[j], ab[n], as[n], bb, bs);
+      }
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nb0 + j][e] += part[j][e];
+  }
 }
 
 // dK/dV: one block a (key tile, KV head, row). It walks the g query heads of
 // the KV head and, for each, the query tiles that can see the key tile (every
 // query at or after its first key); dV += P^T dO, dK += scale * dS^T Q.
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(BwdTile<DH>::THREADS)
     prefill_f32_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                const float* __restrict__ v, const float* __restrict__ dout,
                                const float* __restrict__ lse, const float* __restrict__ delta,
                                const int* __restrict__ lens, float* __restrict__ dk,
                                float* __restrict__ dv, int S, int nH, int gq, float sm_scale) {
-  using TL = Tile<DH>;
-  constexpr int T = TL::T, R = TL::R, C = TL::C, D = TL::D;
-  extern __shared__ float smem[];
+  using BT = BwdTile<DH>;
+  constexpr int LD = BT::LD, FIX = BT::FIX, STR = BT::STR, NT = BT::NT, NB = BT::NB;
+  extern __shared__ __align__(16) float smem[];
   float* sK = smem;
-  float* sV = sK + T * TL::LD;
-  float* sQ = sV + T * TL::LD;
-  float* sO = sQ + T * TL::LD;  // dO
-  float* sP = sO + T * TL::LD;
-  float* sS = sP + T * TL::PLD;  // dS
-  float* sL = sS + T * TL::PLD;  // lse * log2 e of the query tile
-  float* sD = sL + T;            // delta of the query tile
+  float* sV = sK + FIX * LD;
+  float* ring = sV + FIX * LD;  // a stage: Q, dO (STR rows each), lse, delta (STR each)
 
-  const int k0 = blockIdx.x * T;  // the first key tiles see the most queries: first
+  const int k0 = blockIdx.x * FIX;  // the first key tiles see the most queries: first
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int nKV = nH / gq;
   const int len = lens[b];
   const long long qs = (long long)nH * DH, ks = (long long)nKV * DH;
-  const int lane = threadIdx.x % 16, ra = threadIdx.x / 16 * R;  // ra: this thread's keys
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wr = warp / BT::NSPLIT * 16, wc = warp % BT::NSPLIT * BT::DW;  // keys, columns
   const float sl2 = sm_scale * LOG2E;
 
-  float ak[R][D], av[R][D];
-#pragma unroll
-  for (int a = 0; a < R; ++a)
-#pragma unroll
-    for (int e = 0; e < D; ++e) ak[a][e] = av[a][e] = 0.f;
-
+  float ak[NB][4] = {}, av[NB][4] = {};
   if (k0 < len) {  // keys at or past the length are seen by no query
-    load_rows<DH>(sK, k + ((long long)b * S * nKV + kvh) * DH, ks, k0, S);
-    load_rows<DH>(sV, v + ((long long)b * S * nKV + kvh) * DH, ks, k0, S);
-    for (int h = kvh * gq; h < (kvh + 1) * gq; ++h) {
-      const float* qb = q + ((long long)b * S * nH + h) * DH;
-      const float* ob = dout + ((long long)b * S * nH + h) * DH;
-      const float* lb = lse + ((long long)b * nH + h) * S;
-      const float* db = delta + ((long long)b * nH + h) * S;
-      for (int q0 = k0; q0 < S; q0 += T) {
-        __syncthreads();  // the previous tile's reads are done
-        load_rows<DH>(sQ, qb, qs, q0, S);
-        load_rows<DH>(sO, ob, qs, q0, S);
-        for (int r = threadIdx.x; r < T; r += THREADS) {
-          sL[r] = q0 + r < S ? lb[q0 + r] * LOG2E : 0.f;
-          sD[r] = q0 + r < S ? db[q0 + r] : 0.f;
-        }
-        __syncthreads();
-        float s[R][C], dp[R][C];
-#pragma unroll
-        for (int a = 0; a < R; ++a)
-#pragma unroll
-          for (int c = 0; c < C; ++c) s[a][c] = dp[a][c] = 0.f;
-        dot_rows<DH>(s, sK, ra, sQ, lane);   // s[key][query]
-        dot_rows<DH>(dp, sV, ra, sO, lane);  // dp[key][query]
-#pragma unroll
-        for (int a = 0; a < R; ++a)
-#pragma unroll
-          for (int c = 0; c < C; ++c) {
-            const int iq = lane + 16 * c;
-            probs(s[a][c], dp[a][c], k0 + ra + a, q0 + iq, len, S, sl2, sL[iq], sD[iq]);
-            sP[(ra + a) * TL::PLD + iq] = s[a][c];
-            sS[(ra + a) * TL::PLD + iq] = dp[a][c];
-          }
-        __syncthreads();
-        scores_times_rows<DH>(av, sP, ra, sO, lane);
-        scores_times_rows<DH>(ak, sS, ra, sQ, lane);
+    copy_rows_async<DH, FIX, BT::THREADS>(sK, k + ((long long)b * S * nKV + kvh) * DH, ks, k0, S);
+    copy_rows_async<DH, FIX, BT::THREADS>(sV, v + ((long long)b * S * nKV + kvh) * DH, ks, k0, S);
+    const int n_q = (S - k0 + STR - 1) / STR;  // query tiles a head
+    const int n_items = gq * n_q;
+    auto fetch = [&](int it) {
+      float* st = ring + (it & 1) * BT::STAGE;
+      const int h = kvh * gq + it / n_q, q0 = k0 + it % n_q * BT::STR;
+      const long long ro = ((long long)b * S * nH + h) * DH;
+      copy_rows_async<DH, BT::STR, BT::THREADS>(st, q + ro, qs, q0, S);
+      copy_rows_async<DH, BT::STR, BT::THREADS>(st + BT::STR * BT::LD, dout + ro, qs, q0, S);
+      if ((int)threadIdx.x < 2 * BT::STR) {
+        const int r = threadIdx.x % BT::STR;
+        const bool ok = q0 + r < S;
+        const float* src =
+            ((int)threadIdx.x < BT::STR ? lse : delta) + ((long long)b * nH + h) * S;
+        cp_async4(st + 2 * BT::STR * BT::LD + threadIdx.x, ok ? src + q0 + r : src, ok ? 4 : 0);
       }
+    };
+    fetch(0);
+    cp_async_commit();
+    for (int it = 0; it < n_items; ++it) {
+      if (it + 1 < n_items) fetch(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // the item's stage (and the key tile) landed
+      __syncthreads();
+      const float* sQ = ring + (it & 1) * BT::STAGE;
+      const float* sO = sQ + STR * LD;  // dO
+      const float* sL = sO + STR * LD;  // lse
+      const float* sD = sL + STR;       // delta
+      const int q0 = k0 + it % n_q * STR;
+      float s[NT][4] = {}, dp[NT][4] = {};
+      score_block<DH, NT>(s, sK, wr, sQ);   // s[key][query]
+      score_block<DH, NT>(dp, sV, wr, sO);  // dp[key][query]
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = k0 + wr + g + 8 * (e >> 1), iq = 8 * n + 2 * t + (e & 1), i = q0 + iq;
+          const bool ok = i < S && j <= min(i, len - 1);
+          const float p = ok ? exp2f(s[n][e] * sl2 - sL[iq] * LOG2E) : 0.f;
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - sD[iq]);
+        }
+      scores_times_rows_tf32<DH, NT, NB>(av, s, sO, wc);   // dV += P^T dO
+      scores_times_rows_tf32<DH, NT, NB>(ak, dp, sQ, wc);  // dK += dS^T Q
+      __syncthreads();  // the stage is free for item it + 2
     }
+    cp_async_wait<0>();
   }
 #pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int j = k0 + ra + a;
+  for (int r = 0; r < 2; ++r) {
+    const int j = k0 + wr + g + 8 * r;
     if (j >= S) continue;
-    const long long off = (((long long)b * S + j) * nKV + kvh) * DH;
+    const long long off = (((long long)b * S + j) * nKV + kvh) * DH + wc + 2 * t;
 #pragma unroll
-    for (int e = 0; e < D; ++e) {
-      dk[off + lane + 16 * e] = ak[a][e] * sm_scale;
-      dv[off + lane + 16 * e] = av[a][e];
+    for (int nb = 0; nb < NB; ++nb) {
+      *reinterpret_cast<float2*>(dk + off + 8 * nb) =
+          make_float2(ak[nb][2 * r] * sm_scale, ak[nb][2 * r + 1] * sm_scale);
+      *reinterpret_cast<float2*>(dv + off + 8 * nb) = make_float2(av[nb][2 * r], av[nb][2 * r + 1]);
     }
   }
 }
@@ -111,73 +248,82 @@ __global__ void __launch_bounds__(THREADS)
 // dQ: one block a (query tile, head, row), walking the key tiles 0 .. the
 // tile's last visible key; dQ += scale * dS K.
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(BwdTile<DH>::THREADS)
     prefill_f32_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                               const float* __restrict__ v, const float* __restrict__ dout,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               const int* __restrict__ lens, float* __restrict__ dq, int S, int nH,
                               int gq, float sm_scale) {
-  using TL = Tile<DH>;
-  constexpr int T = TL::T, R = TL::R, C = TL::C, D = TL::D;
-  extern __shared__ float smem[];
+  using BT = BwdTile<DH>;
+  constexpr int LD = BT::LD, FIX = BT::FIX, STR = BT::STR, NT = BT::NT, NB = BT::NB;
+  extern __shared__ __align__(16) float smem[];
   float* sQ = smem;
-  float* sO = sQ + T * TL::LD;  // dO
-  float* sK = sO + T * TL::LD;
-  float* sV = sK + T * TL::LD;
-  float* sS = sV + T * TL::LD;  // dS
+  float* sO = sQ + FIX * LD;    // dO
+  float* ring = sO + FIX * LD;  // a stage: K, V (STR rows each)
 
-  const int n_tiles = (S + T - 1) / T;
-  const int q0 = (n_tiles - 1 - blockIdx.x) * T;  // the longest rows first
+  const int n_tiles = (S + FIX - 1) / FIX;
+  const int q0 = (n_tiles - 1 - blockIdx.x) * FIX;  // the longest rows first
   const int h = blockIdx.y, b = blockIdx.z;
   const int nKV = nH / gq;
   const int len = lens[b];
   const long long qs = (long long)nH * DH, ks = (long long)nKV * DH;
   const float* kb = k + ((long long)b * S * nKV + h / gq) * DH;
   const float* vb = v + ((long long)b * S * nKV + h / gq) * DH;
-  const int lane = threadIdx.x % 16, ra = threadIdx.x / 16 * R;  // ra: this thread's queries
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wr = warp / BT::NSPLIT * 16, wc = warp % BT::NSPLIT * BT::DW;  // queries, columns
   const float sl2 = sm_scale * LOG2E;
 
-  load_rows<DH>(sQ, q + ((long long)b * S * nH + h) * DH, qs, q0, S);
-  load_rows<DH>(sO, dout + ((long long)b * S * nH + h) * DH, qs, q0, S);
-  float l2[R], dl[R], acc[R][D];
+  copy_rows_async<DH, FIX, BT::THREADS>(sQ, q + ((long long)b * S * nH + h) * DH, qs, q0, S);
+  copy_rows_async<DH, FIX, BT::THREADS>(sO, dout + ((long long)b * S * nH + h) * DH, qs, q0, S);
+  auto fetch = [&](int kt) {
+    float* st = ring + (kt & 1) * BT::STAGE;
+    copy_rows_async<DH, BT::STR, BT::THREADS>(st, kb, ks, kt * BT::STR, S);
+    copy_rows_async<DH, BT::STR, BT::THREADS>(st + BT::STR * BT::LD, vb, ks, kt * BT::STR, S);
+  };
+  fetch(0);
+  cp_async_commit();
+  float l2[2], dl[2];
 #pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int i = q0 + ra + a;
-    l2[a] = i < S ? lse[((long long)b * nH + h) * S + i] * LOG2E : 0.f;
-    dl[a] = i < S ? delta[((long long)b * nH + h) * S + i] : 0.f;
-#pragma unroll
-    for (int e = 0; e < D; ++e) acc[a][e] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + wr + g + 8 * r;
+    l2[r] = i < S ? lse[((long long)b * nH + h) * S + i] * LOG2E : 0.f;
+    dl[r] = i < S ? delta[((long long)b * nH + h) * S + i] : 0.f;
   }
-  const int last = min(q0 + T - 1, len - 1);
-  for (int k0 = 0; k0 <= last; k0 += T) {
+  float acc[NB][4] = {};
+  const int n_kt = min(q0 + FIX - 1, len - 1) / STR + 1;  // through the last visible key
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) fetch(kt + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // the key tile's stage (and Q, dO) landed
     __syncthreads();
-    load_rows<DH>(sK, kb, ks, k0, S);
-    load_rows<DH>(sV, vb, ks, k0, S);
-    __syncthreads();
-    float s[R][C], dp[R][C];
+    const float* sK = ring + (kt & 1) * BT::STAGE;
+    const float* sV = sK + STR * LD;
+    const int k0 = kt * STR;
+    float s[NT][4] = {}, dp[NT][4] = {};
+    score_block<DH, NT>(s, sQ, wr, sK);   // s[query][key]
+    score_block<DH, NT>(dp, sO, wr, sV);  // dp[query][key]
 #pragma unroll
-    for (int a = 0; a < R; ++a)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int c = 0; c < C; ++c) s[a][c] = dp[a][c] = 0.f;
-    dot_rows<DH>(s, sQ, ra, sK, lane);   // s[query][key]
-    dot_rows<DH>(dp, sO, ra, sV, lane);  // dp[query][key]
-#pragma unroll
-    for (int a = 0; a < R; ++a)
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        probs(s[a][c], dp[a][c], k0 + lane + 16 * c, q0 + ra + a, len, S, sl2, l2[a], dl[a]);
-        sS[(ra + a) * TL::PLD + lane + 16 * c] = dp[a][c];
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, i = q0 + wr + g + 8 * r, j = k0 + 8 * n + 2 * t + (e & 1);
+        const bool ok = i < S && j <= min(i, len - 1);
+        const float p = ok ? exp2f(s[n][e] * sl2 - l2[r]) : 0.f;
+        dp[n][e] = p * (dp[n][e] - dl[r]);
       }
-    __syncthreads();
-    scores_times_rows<DH>(acc, sS, ra, sK, lane);
+    scores_times_rows_tf32<DH, NT, NB>(acc, dp, sK, wc);  // dQ += dS K
+    __syncthreads();  // the stage is free for key tile kt + 2
   }
+  cp_async_wait<0>();
 #pragma unroll
-  for (int a = 0; a < R; ++a) {
-    const int i = q0 + ra + a;
+  for (int r = 0; r < 2; ++r) {
+    const int i = q0 + wr + g + 8 * r;
     if (i >= S) continue;
-    float* out = dq + (((long long)b * S + i) * nH + h) * DH;
+    float* out = dq + (((long long)b * S + i) * nH + h) * DH + wc + 2 * t;
 #pragma unroll
-    for (int e = 0; e < D; ++e) out[lane + 16 * e] = acc[a][e] * sm_scale;
+    for (int nb = 0; nb < NB; ++nb)
+      *reinterpret_cast<float2*>(out + 8 * nb) =
+          make_float2(acc[nb][2 * r] * sm_scale, acc[nb][2 * r + 1] * sm_scale);
   }
 }
 
@@ -186,14 +332,13 @@ static cudaError_t launch_dkv(const float* q, const float* k, const float* v, co
                               const float* lse, const float* delta, const int* lens, float* dk,
                               float* dv, int B, int S, int nKV, int gq, float sm_scale,
                               cudaStream_t st) {
-  using TL = Tile<DH>;
-  const size_t smem = 4 * TL::ROWS + 2 * TL::SCORES + 2 * TL::T * sizeof(float);
+  using BT = BwdTile<DH>;
   auto kern = prefill_f32_bwd_dkv_kernel<DH>;
-  const cudaError_t e = allow_smem(kern, smem);
+  const cudaError_t e = allow_smem(kern, BT::SMEM);
   if (e != cudaSuccess) return e;
-  const dim3 grid((S + TL::T - 1) / TL::T, nKV, B);
-  kern<<<grid, THREADS, smem, st>>>(q, k, v, dout, lse, delta, lens, dk, dv, S, nKV * gq, gq,
-                                    sm_scale);
+  const dim3 grid((S + BT::FIX - 1) / BT::FIX, nKV, B);
+  kern<<<grid, BT::THREADS, BT::SMEM, st>>>(q, k, v, dout, lse, delta, lens, dk, dv, S, nKV * gq,
+                                            gq, sm_scale);
   return cudaGetLastError();
 }
 
@@ -201,14 +346,13 @@ template <int DH>
 static cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
                              const float* lse, const float* delta, const int* lens, float* dq,
                              int B, int S, int nKV, int gq, float sm_scale, cudaStream_t st) {
-  using TL = Tile<DH>;
-  const size_t smem = 4 * TL::ROWS + TL::SCORES;
+  using BT = BwdTile<DH>;
   auto kern = prefill_f32_bwd_dq_kernel<DH>;
-  const cudaError_t e = allow_smem(kern, smem);
+  const cudaError_t e = allow_smem(kern, BT::SMEM);
   if (e != cudaSuccess) return e;
-  const dim3 grid((S + TL::T - 1) / TL::T, nKV * gq, B);
-  kern<<<grid, THREADS, smem, st>>>(q, k, v, dout, lse, delta, lens, dq, S, nKV * gq, gq,
-                                    sm_scale);
+  const dim3 grid((S + BT::FIX - 1) / BT::FIX, nKV * gq, B);
+  kern<<<grid, BT::THREADS, BT::SMEM, st>>>(q, k, v, dout, lse, delta, lens, dq, S, nKV * gq, gq,
+                                            sm_scale);
   return cudaGetLastError();
 }
 

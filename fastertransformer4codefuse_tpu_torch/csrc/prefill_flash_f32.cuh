@@ -1,8 +1,9 @@
 // The fp32 instances of K5 (causal prefill attention over the prompt's own
 // K/V), the forward with its log-sum-exp and the two backward kernels, for
-// training: the tile layout and the loads they share. The entry points are
-// prefill_flash_f32.cu (forward) and prefill_flash_bwd.cu (dK/dV and dQ), one
-// source each, so their instances compile in parallel.
+// training: the operand layout they share, and the forward's tiles and
+// loads. The entry points are prefill_flash_f32.cu (forward) and
+// prefill_flash_bwd.cu (dK/dV and dQ, whose tiles, bound and design are
+// there), one source each, so their instances compile in parallel.
 //
 // Replaces the fp32 use of the library Pallas flash_attention that
 // fastertransformer4codefuse_tpu/ops/attention.py prefill_attention_flash
@@ -16,24 +17,27 @@
 // q/dO/out/dq [B, S, nKV * gq, dh], k/v/dk/dv [B, S, nKV, dh] fp32, lens [B]
 // int32, lse and delta [B, nKV * gq, S] fp32. Query i of row b attends keys
 // 0 .. min(i, lens[b] - 1), as the bf16 K5 (prefill_flash.cuh): rows at or
-// past the length attend the valid prefix. Every product is fp32 FMA, no
-// TF32 (which keeps about three digits): the training path is held to fp32.
+// past the length attend the valid prefix. The training path is held to
+// fp32: no one-term TF32 (which keeps about three digits). The forward's
+// products are fp32 FMA; the backward's are 3xTF32 on the tensor cores
+// (ftcf_mma.cuh).
 //
-// Bound: the fp32 products run on the CUDA cores (67 TFLOP/s), not the
-// tensor cores. At CodeFuse-13B (40 heads x 128, S = 2048) the forward does
-// 4 * S^2 / 2 * dh * heads = 43 GFLOP of causal work against 168 MB of q, k,
-// v and out: ~256 FLOP a byte, far above the fp32 balance of ~20, so the
-// FMA rate bounds it (0.64 ms); the backward does 2.5 times the products.
+// Bound: operations. At CodeFuse-13B (40 heads x 128, S = 2048) the forward
+// does 4 * S^2 / 2 * dh * heads = 43 GFLOP of causal work against 168 MB of
+// q, k, v and out: ~256 FLOP a byte, far above the card's balance, so the
+// rate of fp32-accurate products bounds it. That is 3xTF32 on the tensor
+// cores, 495 / 3 = 165 TFLOP/s (0.26 ms), though this forward still runs on
+// the FMA units (67 TFLOP/s, 0.64 ms): its redesign is the next step.
 //
-// Design (a simple, correct body first): a block of 256 threads takes one
-// tile of T = 64 rows (32 at dh 256) against key tiles of T keys, all held
-// in shared memory, rows padded to dh + 1 floats so that the 16 threads
-// reading 16 different rows at one column hit 16 banks. The 16 x 16 threads
-// each hold a (T / 16) x (T / 16) patch of the score block, its rows owned by
-// the 16 lanes of a half warp (row max and sum by shuffles), and a (T / 16) x
-// (dh / 16) patch of the output, columns d = lane + 16 e. Exponentials are
-// exp2 with log2 e folded into the scale. No atomics, no split over keys:
-// two calls give equal bytes.
+// The forward's design (a simple, correct body first): a block of 256
+// threads takes one tile of T = 64 rows (32 at dh 256) against key tiles of
+// T keys, all held in shared memory, rows padded to dh + 1 floats so that
+// the 16 threads reading 16 different rows at one column hit 16 banks. The
+// 16 x 16 threads each hold a (T / 16) x (T / 16) patch of the score block,
+// its rows owned by the 16 lanes of a half warp (row max and sum by
+// shuffles), and a (T / 16) x (dh / 16) patch of the output, columns d =
+// lane + 16 e. Exponentials are exp2 with log2 e folded into the scale. No
+// atomics, no split over keys: two calls give equal bytes.
 #pragma once
 
 #include "ftcf_common.cuh"

@@ -181,12 +181,12 @@ prefill_attention_flash.launches = 0  # bf16 and fp32
 prefill_attention_flash.launches_f32 = 0  # the fp32 instances alone
 
 
-def _plain_scores(q, k, input_lengths, sm_scale):
+def _plain_scores(q, k, input_lengths, sm_scale, einsum=torch.einsum):
     """Masked fp32 scores [B, nKV, g, S, S] (g query heads a KV head)."""
     B, S, nH, dh = q.shape
     nKV = k.shape[2]
     qg = q.float().reshape(B, S, nKV, nH // nKV, dh)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * sm_scale
+    s = einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * sm_scale
     mask = make_prefill_mask(input_lengths, S)
     return s.masked_fill(~mask[:, None, None], MASK_VALUE)
 
@@ -197,22 +197,25 @@ def prefill_flash_lse_plain(q, k, input_lengths, sm_scale):
     return torch.logsumexp(_plain_scores(q, k, input_lengths, sm_scale), -1).reshape(B, nH, S)
 
 
-def prefill_flash_bwd_plain(q, k, v, dout, lse, delta, input_lengths, sm_scale):
+def prefill_flash_bwd_plain(q, k, v, dout, lse, delta, input_lengths, sm_scale,
+                            einsum=torch.einsum):
     """The backward kernels' plain version, from the same operands: P =
     exp(scores - lse) (0 where masked), dS = P * (dO V^T - delta); returns
-    (dq, dk, dv) in fp32, dk and dv summed over a KV head's query heads."""
+    (dq, dk, dv) in fp32, dk and dv summed over a KV head's query heads.
+    ``einsum`` computes its five products (a model of another product's
+    rounding can stand in for it)."""
     B, S, nH, dh = q.shape
     nKV = k.shape[2]
     g = nH // nKV
     qg = q.float().reshape(B, S, nKV, g, dh)
     dog = dout.float().reshape(B, S, nKV, g, dh)
-    p = torch.exp(_plain_scores(q, k, input_lengths, sm_scale)
+    p = torch.exp(_plain_scores(q, k, input_lengths, sm_scale, einsum)
                   - lse.float().reshape(B, nKV, g, S)[..., None])
-    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    dp = einsum("bqhgd,bkhd->bhgqk", dog, v.float())
     ds = p * (dp - delta.float().reshape(B, nKV, g, S)[..., None])
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
-    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * sm_scale
-    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()).reshape(B, S, nH, dh) * sm_scale
+    dv = einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dk = einsum("bhgqk,bqhgd->bkhd", ds, qg) * sm_scale
+    dq = einsum("bhgqk,bkhd->bqhgd", ds, k.float()).reshape(B, S, nH, dh) * sm_scale
     return dq, dk, dv
 
 

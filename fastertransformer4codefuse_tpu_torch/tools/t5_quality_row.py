@@ -26,7 +26,7 @@ import torch
 from ..engine.t5_engine import T5Engine
 from ..models import t5 as t5m
 from ..models.t5 import T5Config
-from .train_proxy import (REPO_ROOT, detached, flatten, load_corpus, make_optimizer,
+from .train_proxy import (REPO_ROOT, detached, flatten, load_tracked_corpus, make_optimizer,
                           warmup_cosine)
 
 VOCAB = 259  # 0 = pad / decoder start, 1 = eos, bytes at ids 2..257
@@ -155,7 +155,7 @@ def main(argv=None):
         raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
 
     extra = [r for r in args.corpus_extra.split(",") if r]
-    data = load_corpus(str(REPO_ROOT), extra) + 2  # byte -> id
+    data = load_tracked_corpus(str(REPO_ROOT), extra) + 2  # byte -> id
     split = len(data) - 4 * args.eval_bytes
     train, held = data[:split], data[split:]
     print(f"corpus {len(data) / 1e6:.1f}MB (held-out {len(held) / 1e3:.0f}KB)")

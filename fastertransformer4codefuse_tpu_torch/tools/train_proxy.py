@@ -24,10 +24,12 @@ from the JAX tool's.
 from __future__ import annotations
 
 import argparse
+import fnmatch
 import glob
 import json
 import math
 import os
+import subprocess
 import time
 from pathlib import Path
 
@@ -65,6 +67,87 @@ def load_corpus(root: str, extra_roots=()) -> np.ndarray:
             pass
     data = b"\n\n".join(blobs)
     return np.frombuffer(data, dtype=np.uint8).astype(np.int32)
+
+
+def _ignore_patterns(root: str):
+    """The patterns of ``root``'s ``.gitignore`` (no negations, no nesting)."""
+    try:
+        with open(os.path.join(root, ".gitignore")) as f:
+            lines = [x.strip() for x in f]
+    except OSError:
+        return []
+    return [x for x in lines if x and not x.startswith(("#", "!"))]
+
+
+def _ignored(rel: str, is_dir: bool, patterns) -> bool:
+    name = rel.rsplit("/", 1)[-1]
+    for p in patterns:
+        if p.endswith("/") and not is_dir:
+            continue
+        p = p.rstrip("/")
+        if fnmatch.fnmatch(rel, p.lstrip("/")) if "/" in p else fnmatch.fnmatch(name, p):
+            return True
+    return False
+
+
+def _git_tracked(root: str):
+    """Paths under ``root`` (relative to it) that git tracks, where ``root``
+    is the top of a git work tree; else None (no ``.git``, as in a ``git
+    archive`` copy, also one unpacked inside another checkout; or no git)."""
+    def git(*args):
+        return subprocess.run(["git", "-C", root, *args], capture_output=True)
+
+    try:
+        top = git("rev-parse", "--show-toplevel")
+        if top.returncode or os.path.realpath(top.stdout.decode().strip()) != os.path.realpath(
+                root):
+            return None
+        listed = git("ls-files", "-z")
+    except OSError:
+        return None
+    if listed.returncode:
+        return None
+    return [p for p in listed.stdout.decode().split("\0") if p]
+
+
+def tracked_text_paths(root: str, exts) -> list:
+    """The files under ``root`` whose names match ``exts`` that the
+    repository tracks: ``git ls-files`` in a git work tree; where there is
+    no ``.git`` (a ``git archive`` copy), a walk that leaves out what
+    ``root``'s ``.gitignore`` names (``build/``, ``__pycache__/``, ...). As
+    ``glob`` does in ``load_corpus``, no hidden file or directory."""
+    rels = _git_tracked(root)
+    if rels is None:
+        patterns = _ignore_patterns(root)
+        rels = []
+        for d, dirs, files in os.walk(root):
+            at = os.path.relpath(d, root).replace(os.sep, "/")
+            at = "" if at == "." else at + "/"
+            dirs[:] = sorted(x for x in dirs
+                             if not x.startswith(".") and not _ignored(at + x, True, patterns))
+            rels += [at + x for x in files if not _ignored(at + x, False, patterns)]
+    return [os.path.join(root, r) for r in rels
+            if not any(part.startswith(".") for part in r.split("/"))
+            and any(fnmatch.fnmatch(r.rsplit("/", 1)[-1], e) for e in exts)]
+
+
+def load_tracked_corpus(root: str, extra_roots=()) -> np.ndarray:
+    """``load_corpus`` over what the repository tracks (``tracked_text_paths``):
+    ``load_corpus`` globs every file under ``root``, so a stale tree under a
+    git-ignored ``build/`` enters the corpus and may put held-out text into
+    the training split. The same order and joins, so on a clean checkout
+    the same bytes as ``load_corpus``."""
+    paths = sorted(tracked_text_paths(root, ("*.py", "*.md")) + sum(
+        (tracked_text_paths(r, ("*.py", "*.md", "*.cc", "*.cu", "*.h", "*.hpp", "*.cpp"))
+         for r in extra_roots), []))
+    blobs = []
+    for p in paths:
+        try:
+            with open(p, "rb") as f:
+                blobs.append(f.read())
+        except OSError:
+            pass
+    return np.frombuffer(b"\n\n".join(blobs), dtype=np.uint8).astype(np.int32)
 
 
 def proxy_config() -> GptNeoXConfig:
@@ -222,7 +305,8 @@ def main(argv=None):
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to train on the CPU")
     cfg = sized_config(args.heads, args.dh, args.layers, args.inter)
-    corpus = load_corpus(str(REPO_ROOT), [r for r in args.corpus_extra.split(",") if r])
+    corpus = load_tracked_corpus(str(REPO_ROOT),
+                                 [r for r in args.corpus_extra.split(",") if r])
     train, held = split_corpus(corpus)
     print(f"corpus: {len(corpus)} bytes ({len(train)} train / {len(held)} held-out)")
 

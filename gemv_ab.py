@@ -5,7 +5,8 @@ attention body of K5 and K12, on one NVIDIA GPU, for an A/B of two copies
 of the port on one card.
 
     python3 gemv_ab.py [--root DIR] [--label NAME]
-                       [--kernels gemv,gemm,k10,decode,band] [--widths 1,4,8] [--may-refuse]
+                       [--kernels gemv,gemm,k10,decode,band,k5bwd,mma] [--widths 1,4,8]
+                       [--may-refuse]
 
 ``--root`` is the directory that holds the ``fastertransformer4codefuse_tpu_torch``
 package to time (default: the one beside this script), so one call can time
@@ -33,7 +34,18 @@ tree, parent). ``--kernels`` picks the groups of cases:
 - ``band``: K12 at Longformer-base's shape (B = 2, S = 4096, 12 x 64 heads,
   w_half 256, lengths 4096 and 2900), the band and the causal band, and K5
   at ``chip_smoke.py`` phase 2's cases (B = 1, S = 4096, 40 x 128; B = 2,
-  S = 2048, lengths 2048 and 1300; B = 1, S = 4096, 32 x 64).
+  S = 2048, lengths 2048 and 1300; B = 1, S = 4096, 32 x 64);
+- ``k5bwd``: K5's fp32 backward, the dK/dV and dQ kernels, at
+  ``chip_smoke.py`` phase 12's timed shapes (B = 1, S = 2048, 40 x 128;
+  proxy85m's B = 8, S = 2048, 12 x 64) and GQA (32 query heads on 8), from
+  the fp32 forward's lse and delta = rowsum(dO * O), held to their plain
+  version within 1e-4; beside each shape SDPA's fp32 causal backward alone
+  (its forward once, ``torch.autograd.grad`` of the output timed);
+- ``mma``: the card's ``mma.sync`` rate, the ceiling of the kernels built
+  on it: m16n8k8 TF32 (the 3xTF32 products of K5's backward) and m16n8k16
+  bf16, each warp looping over 1, 4 or 8 independent accumulators, 4 to 16
+  warps a block, 8 blocks an SM (a source of its own, built by ``nvcc``
+  into ``build/mma_rate``; no check, TFLOP/s instead of ms).
 
 Each case is checked against its plain version (max |kernel - plain| / max
 |plain| below 1e-2 for the GEMMs, 2e-2 per (query, head) row for the
@@ -64,9 +76,9 @@ def main() -> int:
                     help="a decode case the copy's kernel refuses is logged, not a miss")
     args = ap.parse_args()
     groups = set(args.kernels.split(","))
-    if not groups <= {"gemv", "gemm", "k10", "decode", "band"}:
-        print(f"gemv_ab: --kernels takes gemv, gemm, k10, decode and band, got {args.kernels}",
-              file=sys.stderr)
+    if not groups <= {"gemv", "gemm", "k10", "decode", "band", "k5bwd", "mma"}:
+        print("gemv_ab: --kernels takes gemv, gemm, k10, decode, band, k5bwd and mma, got "
+              f"{args.kernels}", file=sys.stderr)
         return 2
     import torch
 
@@ -76,7 +88,8 @@ def main() -> int:
     sys.path.insert(0, os.path.abspath(args.root))
     from fastertransformer4codefuse_tpu_torch.ops import _cuda
     from fastertransformer4codefuse_tpu_torch.ops.attention import (
-        prefill_attention_flash, prefill_attention_flash_plain,
+        prefill_attention_flash, prefill_attention_flash_plain, prefill_flash_bwd_dkv,
+        prefill_flash_bwd_dq, prefill_flash_bwd_plain, prefill_flash_forward,
     )
     from fastertransformer4codefuse_tpu_torch.ops.flash_decode import (
         flash_chunk_paged, flash_chunk_paged_plain, flash_decode_beam_plain,
@@ -309,7 +322,102 @@ def main() -> int:
                 prefill_attention_flash_plain, (q, k, v, ln, dh ** -0.5), tol=2e-2,
                 rel_of=row_rel)
             del q, k, v
+    if "k5bwd" in groups:
+        import torch.nn.functional as F
+
+        for B, S, nH, nKV, dh in ((1, 2048, 40, 40, 128), (8, 2048, 12, 12, 64),
+                                  (1, 2048, 32, 8, 128)):
+            q, ct = (torch.randn(B, S, nH, dh, device=dev, generator=gen) for _ in range(2))
+            k, v = (torch.randn(B, S, nKV, dh, device=dev, generator=gen) for _ in range(2))
+            ln = torch.full((B,), S, dtype=torch.int32, device=dev)
+            sm = dh ** -0.5
+            out, lse = prefill_flash_forward(q, k, v, ln, sm)
+            a = (q, k, v, ct, lse, (ct * out).sum(-1).transpose(1, 2).contiguous(), ln, sm)
+            shape = f"B={B} S={S} {nH}x{dh} on {nKV} KV heads"
+            run(f"K5 fp32 dK/dV {shape}", B * S, prefill_flash_bwd_dkv,
+                lambda *x: prefill_flash_bwd_plain(*x)[1:], a, tol=1e-4)
+            run(f"K5 fp32 dQ {shape}", B * S, prefill_flash_bwd_dq,
+                lambda *x: prefill_flash_bwd_plain(*x)[0], a, tol=1e-4)
+            leaves = [t.transpose(1, 2).clone().requires_grad_() for t in (q, k, v)]
+            y = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=sm,
+                                               enable_gqa=nKV != nH)
+            cth = ct.transpose(1, 2)
+            print(json.dumps({"label": args.label, "case": f"SDPA fp32 backward alone {shape}",
+                              "M": B * S, "ms": device_time_ms(torch, lambda: torch.autograd.grad(
+                                  y, leaves, grad_outputs=cth, retain_graph=True))}),
+                  flush=True)
+            del q, k, v, ct, out, lse, a, leaves, y
+    if "mma" in groups:
+        mma_rates(torch, _cuda, args.label)
     return 0 if ok else 1
+
+
+MMA_SRC = r'''
+#include <stdint.h>
+template <int BF16, int CH>
+__global__ void rate(float* out, int iters) {
+  const uint32_t one = BF16 ? 0x3f803f80u : 0x3f800000u;
+  uint32_t a[4] = {one + threadIdx.x, one, one, one}, b[2] = {one, one};
+  float d[CH][4] = {};
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+      if (BF16)
+        asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+                     "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                     : "+f"(d[c][0]), "+f"(d[c][1]), "+f"(d[c][2]), "+f"(d[c][3])
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      else
+        asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+                     "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                     : "+f"(d[c][0]), "+f"(d[c][1]), "+f"(d[c][2]), "+f"(d[c][3])
+                     : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+    }
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) s += d[c][0] + d[c][1] + d[c][2] + d[c][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+#define CASE(B, C) if (bf16 == B && chains == C) rate<B, C><<<blocks, threads, 0, st>>>(out, iters);
+extern "C" int mma_rate(int bf16, int chains, float* out, int blocks, int threads, int iters,
+                        cudaStream_t st) {
+  CASE(0, 1) CASE(0, 4) CASE(0, 8) CASE(1, 1) CASE(1, 4) CASE(1, 8)
+  return (int)cudaGetLastError();
+}
+'''
+
+
+def mma_rates(torch, _cuda, label):
+    """The ``mma`` group: TFLOP/s of mma.sync, one JSON line a case."""
+    import ctypes
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "mma_rate")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "mma_rate.cu"), "w") as f:
+        f.write(MMA_SRC)
+    so = os.path.join(d, "libmma_rate.so")
+    subprocess.run([_cuda._nvcc(), *_cuda.GENCODE, "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
+                    so, os.path.join(d, "mma_rate.cu")], check=True)
+    lib = ctypes.CDLL(so)
+    lib.mma_rate.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(sms * 8 * 512, device="cuda")
+    st = torch.cuda.current_stream().cuda_stream
+    iters = 4096
+    for bf16, name, flop in ((0, "tf32 m16n8k8", 2048), (1, "bf16 m16n8k16", 4096)):
+        for chains in (1, 4, 8):
+            for threads in (128, 256, 512):
+                def launch():
+                    err = lib.mma_rate(bf16, chains, out.data_ptr(), sms * 8, threads, iters, st)
+                    if err:
+                        raise RuntimeError(f"mma_rate: CUDA error {err}")
+                ms = device_time_ms(torch, launch)
+                n = sms * 8 * threads // 32 * iters * chains
+                print(json.dumps({"label": label, "case": f"mma.sync {name}, {chains} chains, "
+                                  f"{threads // 32} warps a block", "ms": ms,
+                                  "tflops": n * flop / ms / 1e9}), flush=True)
 
 
 if __name__ == "__main__":

@@ -190,6 +190,57 @@ def test_k5_backward_plain_from_lse_and_delta_equals_autograd(nH, nKV, dh):
         assert torch.equal(a, b)
 
 
+def _tf32_rna(x):
+    """fp32 -> TF32 (10 mantissa bits) rounded to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``: by integer ops on the float's bits, half
+    a unit of the 13 dropped bits added to the magnitude, then cleared."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_einsum(terms):
+    """A plain model of the backward kernels' product (csrc/ftcf_mma.cuh):
+    each operand split into big = rna(x) and small = rna(x - big), and
+    big*big + big*small + small*big summed in fp32 (``terms`` 3), or the
+    one-term TF32 product big*big (``terms`` 1). TF32 products are exact in
+    fp32, so each einsum is the tensor cores' partial sum."""
+    def einsum(eq, a, b):
+        ab, bb = _tf32_rna(a), _tf32_rna(b)
+        out = torch.einsum(eq, ab, bb)
+        if terms == 3:
+            out = (torch.einsum(eq, ab, _tf32_rna(b - bb))
+                   + torch.einsum(eq, _tf32_rna(a - ab), bb)) + out
+        return out
+
+    return einsum
+
+
+@pytest.mark.parametrize("B,S,nH,nKV,dh,lens", [(2, 256, 4, 2, 64, [256, 150]),
+                                                (2, 200, 4, 1, 128, [200, 77]),
+                                                (1, 160, 2, 2, 128, [97])])
+def test_k5_backward_3xtf32_holds_fp32(B, S, nH, nKV, dh, lens):
+    """Why the backward kernels multiply in 3xTF32 and not TF32: the plain
+    backward with every one of its five products made the 3xTF32 way stays
+    within 1e-4 of max |fp32 plain| in dq, dk and dv (lengths below S, GQA,
+    dh 64 and 128); the one-term TF32 product lands farther from fp32."""
+    rng = np.random.default_rng(8)
+    q, k, v, ct = (torch.from_numpy(x) for x in _grad_case(rng, B, S, nH, nKV, dh))
+    lengths = torch.tensor(lens, dtype=torch.int32)
+    sm = dh ** -0.5
+    out = att.prefill_attention_flash_plain(q, k, v, lengths, sm)
+    lse = att.prefill_flash_lse_plain(q, k, lengths, sm)
+    delta = (ct * out).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, ct, lse, delta, lengths, sm)
+    want = att.prefill_flash_bwd_plain(*args)
+    x = torch.tensor([1.0 + 2 ** -12, 1.0 + 2 ** -11, -(1.0 + 3 * 2 ** -12)])
+    assert _tf32_rna(x).tolist() == [1.0, 1.0 + 2 ** -10, -(1.0 + 2 ** -10)]  # a tie: away
+    errs = {}
+    for terms in (3, 1):
+        got = att.prefill_flash_bwd_plain(*args, einsum=_tf32_einsum(terms))
+        errs[terms] = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+    assert max(errs[3]) < 1e-4, errs
+    assert all(e1 > e3 for e1, e3 in zip(errs[1], errs[3])), errs
+
+
 def test_prefill_flash_function_wires_the_backward_kernels(monkeypatch):
     """``PrefillFlash`` with each launch replaced by its plain version: the
     forward saves lse, the backward hands (q, k, v, dO, lse, delta) to the

@@ -553,14 +553,18 @@ def test_k5_is_deterministic(gen):
 
 @pytest.mark.parametrize("B,S,nH,nKV,dh,lens", [
     (1, 200, 2, 2, 64, [200]), (2, 300, 4, 2, 128, [300, 77]), (2, 130, 2, 2, 256, [130, 1]),
-    (3, 70, 6, 3, 64, [70, 5, 64]), (1, 129, 8, 1, 128, [129]), (2, 65, 4, 4, 256, [33, 65])])
+    (3, 70, 6, 3, 64, [70, 5, 64]), (1, 129, 8, 1, 128, [129]), (2, 65, 4, 4, 256, [33, 65]),
+    (2, 333, 16, 4, 64, [333, 150]), (2, 517, 8, 2, 128, [517, 260]),
+    (2, 301, 16, 2, 256, [301, 17]), (3, 1000, 8, 1, 64, [1000, 999, 129])])
 def test_k5_f32_and_its_backward_match_plain(gen, B, S, nH, nKV, dh, lens):
-    """K5's fp32 forward (out and lse) and its dK/dV and dQ kernels against
-    the plain versions: the gradient of sum(out * ct) by autograd of the
-    plain forward, at lengths of 1, S off the tiles (64 rows, 32 at dh 256)
-    and GQA up to 8 query heads a KV head; the autograd route gives the
-    kernels' bytes and counts one launch of each. Tolerance 1e-4 of max
-    |plain| (fp32 sums in another order)."""
+    """K5's fp32 forward (out and lse) and its dK/dV and dQ kernels (3xTF32)
+    against the plain versions: the gradient of sum(out * ct) by autograd of
+    the plain forward, at every dh, lengths of 1 and ragged length batches,
+    S off every tile (the forward's 64 rows, 32 at dh 256; the backward's
+    128 fixed and 32 streamed rows, 64 and 16 at dh 256) and 1, 2, 4 and 8
+    query heads a KV head; the autograd route gives the kernels' bytes and
+    counts one launch of each. Tolerance 1e-4 of max |plain| (fp32 sums in
+    another order; 3xTF32 products)."""
     q, k, v = (torch.randn(B, S, n, dh, device="cuda", generator=gen) for n in (nH, nKV, nKV))
     ct = torch.randn(B, S, nH, dh, device="cuda", generator=gen)
     ln = torch.tensor(lens, dtype=torch.int32, device="cuda")

@@ -10,6 +10,8 @@ gradient; Adam's update divides by sqrt(v), so a gradient's relative error
 passes into the update); the schedule within 1e-7 (optax evaluates it in
 fp32)."""
 import os
+import shutil
+import subprocess
 import sys
 
 import numpy as np
@@ -150,6 +152,37 @@ def test_corpus_and_batches_equal_the_jax_tools():
         starts = r2.integers(0, len(train) - 256 - 1, size=8)
         want = np.stack([train[s: s + 256] for s in starts])
         assert np.array_equal(ttp.draw_batch(r1, train, 8, 256), want)
+
+
+@pytest.mark.parametrize("with_git", [True, False])
+def test_tracked_corpus_leaves_out_ignored_trees(tmp_path, with_git):
+    """The corpus reader of the port's tools reads what the repository
+    tracks: on a clean tree the bytes of ``load_corpus``; a copy planted
+    under a git-ignored ``build/`` grows ``load_corpus`` (and the JAX tool's,
+    the same function: a fault of the JAX package the port does not copy)
+    but not the tracked reader, in a git work tree (``git ls-files``) and in
+    a tree without ``.git`` (a walk that honours ``.gitignore``)."""
+    root = str(tmp_path)
+    files = {"a.py": "x = 1\n", "docs/b.md": "# B\n", "pkg/c.py": "def f():\n    pass\n",
+             "pkg/d.txt": "not text of the corpus\n", ".gitignore": "build/\n__pycache__/\n"}
+    for rel, text in files.items():
+        os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+        with open(os.path.join(root, rel), "w") as f:
+            f.write(text)
+    if with_git:
+        subprocess.run(["git", "init", "-q", root], check=True)
+        subprocess.run(["git", "-C", root, "add", "-A"], check=True)
+    clean = ttp.load_corpus(root)
+    assert len(clean) and np.array_equal(ttp.load_tracked_corpus(root), clean)
+    for rel in ("a.py", "docs/b.md", "pkg/c.py"):
+        for stale in ("build/copy", "pkg/__pycache__"):
+            os.makedirs(os.path.dirname(os.path.join(root, stale, rel)), exist_ok=True)
+            shutil.copy(os.path.join(root, rel), os.path.join(root, stale, rel))
+    grown = ttp.load_corpus(root)
+    assert len(grown) > len(clean) and np.array_equal(jtp.load_corpus(root), grown)
+    assert np.array_equal(ttp.load_tracked_corpus(root), clean)
+    assert all("build" not in p and "__pycache__" not in p
+               for p in ttp.tracked_text_paths(root, ("*.py", "*.md")))
 
 
 def test_main_trains_and_writes_a_checkpoint_on_the_cpu(tmp_path, capsys):
